@@ -1,0 +1,232 @@
+"""The port's retrieval-serving slice against the JAX package, end to end on
+the CPU: the index (dense search and cross-encoder rerank), its .npz format,
+the HTTP server, and the port's independence from JAX."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import threading
+import urllib.request
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from univl_tpu.config import BertConfig, UniVLConfig
+from univl_tpu.data import fixtures
+from univl_tpu.data.tokenization import WordPieceTokenizer
+from univl_tpu.models.univl import UniVL as JaxUniVL
+from univl_tpu.serving import VideoRetrievalIndex as JaxIndex
+from univl_tpu_torch.checkpoint.convert import state_dict_from_jax_params
+from univl_tpu_torch.models.univl import UniVL
+from univl_tpu_torch.serving.index import VideoRetrievalIndex
+
+ATOL = 1e-4  # f32 on both sides
+QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan"]
+REPO = Path(__file__).parents[1]
+
+
+@pytest.fixture(scope="module")
+def vocab(tmp_path_factory):
+    return fixtures.make_vocab(str(tmp_path_factory.mktemp("v") / "vocab.txt"))
+
+
+@pytest.fixture(scope="module")
+def pair(vocab):
+    """A JAX index and the port's, over one set of weights, with one corpus added."""
+    tok = WordPieceTokenizer(vocab)
+    enc = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128)
+    cfg = UniVLConfig.tiny(train_sim_after_cross=True, bert=BertConfig(vocab_size=len(tok), **enc))
+    jm = JaxUniVL(cfg)
+    rng = np.random.RandomState(0)
+    example = {
+        "input_ids": np.ones((2, cfg.max_words), np.int32),
+        "token_type_ids": np.zeros((2, cfg.max_words), np.int32),
+        "attention_mask": np.ones((2, cfg.max_words), np.int32),
+        "video": rng.randn(2, cfg.max_frames, cfg.video_dim).astype(np.float32),
+        "video_mask": np.ones((2, cfg.max_frames), np.int32),
+    }
+    params = jm.init(jax.random.key(0), example, deterministic=True)["params"]
+    model = UniVL(cfg)
+    model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)),
+                          strict=True)
+    model.eval()
+    jidx = JaxIndex(jm, {"params": params}, tok, batch_size=4, store_full=True)
+    tidx = VideoRetrievalIndex(model, tok, "cpu", batch_size=4, store_full=True)
+    vids = [rng.randn(rng.randint(1, 12), cfg.video_dim).astype(np.float32) for _ in range(10)]
+    ids = [f"v{i}" for i in range(10)]
+    jidx.add(vids, ids=ids)
+    tidx.add(vids, ids=ids)
+    return jidx, tidx, model, tok
+
+
+def _assert_same_results(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert [i for i, _ in g] == [i for i, _ in w]
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=0, atol=ATOL)
+
+
+def test_index_embeddings_match(pair):
+    jidx, tidx, _, _ = pair
+    np.testing.assert_allclose(tidx.video_emb, jidx.video_emb, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(tidx.vis_full, jidx.vis_full, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(tidx.vm_full, jidx.vm_full)
+
+
+@pytest.mark.parametrize("rerank", [0, 6])
+def test_search_matches_jax(pair, rerank):
+    jidx, tidx, _, _ = pair
+    got = tidx.search(QUERIES, top_k=4, rerank=rerank)
+    _assert_same_results(got, jidx.search(QUERIES, top_k=4, rerank=rerank))
+    assert all(len(r) == 4 for r in got)
+
+
+@pytest.mark.parametrize("saved_by", ["jax", "torch"])
+def test_npz_loads_in_the_other_package(pair, saved_by, tmp_path):
+    jidx, tidx, model, tok = pair
+    path = str(tmp_path / "index")  # np.savez_compressed appends .npz
+    if saved_by == "jax":
+        jidx.save(path)
+        loaded = VideoRetrievalIndex.load(path, model, tok, "cpu", batch_size=4)
+        want = jidx.search(QUERIES, top_k=3, rerank=5)
+    else:
+        tidx.save(path)
+        loaded = JaxIndex.load(path, jidx.model, jidx.params, tok, batch_size=4)
+        want = tidx.search(QUERIES, top_k=3, rerank=5)
+    assert loaded.ids == tidx.ids
+    _assert_same_results(loaded.search(QUERIES, top_k=3, rerank=5), want)
+
+
+TINY = [
+    "--video_dim", "32", "--max_words", "16", "--max_frames", "12",
+    "--text_num_hidden_layers", "2", "--visual_num_hidden_layers", "1",
+    "--cross_num_hidden_layers", "1", "--hidden_size", "64", "--num_attention_heads", "4",
+    "--intermediate_size", "128", "--seed", "0",
+]
+
+
+def _post(port, path, obj):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_serve_endpoints_on_cpu(tmp_path, vocab):
+    from univl_tpu_torch.cli.serve import main
+
+    server = main(["--device", "cpu", "--mode", "retrieval", "--train_sim_after_cross",
+                   "--rerank_store_full", "--vocab_file", vocab, "--output_dir",
+                   str(tmp_path / "srv"), "--port", "0", "--serve_batch_size", "4"] + TINY,
+                  serve_forever=False)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            assert json.loads(r.read()) == {"status": "ok", "mode": "retrieval", "indexed": 0}
+        rng = np.random.RandomState(0)
+        vids = [rng.randn(rng.randint(3, 10), 32).tolist() for _ in range(5)]
+        code, out = _post(port, "/v1/retrieval/add",
+                          {"videos": vids, "ids": [f"v{i}" for i in range(5)]})
+        assert code == 200 and out["indexed"] == 5
+        for rerank in (0, 4):
+            code, out = _post(port, "/v1/retrieval/search",
+                              {"queries": ["mix the batter", "cut"], "top_k": 3, "rerank": rerank})
+            assert code == 200 and [len(r) for r in out["results"]] == [3, 3]
+            scores = [h["score"] for h in out["results"][0]]
+            assert scores == sorted(scores, reverse=True)
+        code, out = _post(port, "/v1/retrieval/save", {"path": str(tmp_path / "idx.npz")})
+        assert code == 200 and (tmp_path / "idx.npz").exists()
+        code, out = _post(port, "/v1/retrieval/search", {"nope": 1})
+        assert code == 400 and "error" in out
+        code, out = _post(port, "/v1/caption", {"videos": vids[:1]})
+        assert code == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("argv", [["--mode", "caption"], ["--device", "cuda"]])
+def test_serve_refuses_what_it_cannot_run(tmp_path, vocab, argv, monkeypatch):
+    from univl_tpu_torch.cli.serve import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = ["--device", "cpu", "--vocab_file", vocab, "--output_dir", str(tmp_path), "--port", "0"]
+    with pytest.raises((NotImplementedError, RuntimeError)):
+        main(base + TINY + argv, serve_forever=False)
+
+
+BLOCK_JAX = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+                raise ImportError("blocked: " + name)
+
+    sys.meta_path.insert(0, Block())
+""")
+
+
+def test_port_runs_with_jax_blocked(tmp_path, vocab):
+    script = BLOCK_JAX + textwrap.dedent(f"""
+        import numpy as np
+        from univl_tpu.config import BertConfig, UniVLConfig
+        from univl_tpu.data.tokenization import WordPieceTokenizer
+        from univl_tpu_torch.checkpoint.convert import init_state_dict
+        from univl_tpu_torch.models.univl import UniVL
+        from univl_tpu_torch.serving.index import VideoRetrievalIndex
+
+        tok = WordPieceTokenizer({vocab!r})
+        enc = dict(hidden_size=64, num_hidden_layers=1, num_attention_heads=4,
+                   intermediate_size=128)
+        cfg = UniVLConfig.tiny(train_sim_after_cross=True,
+                               bert=BertConfig(vocab_size=len(tok), **enc))
+        model = UniVL(cfg)
+        model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+        idx = VideoRetrievalIndex(model.eval(), tok, "cpu", batch_size=4, store_full=True)
+        rng = np.random.RandomState(0)
+        idx.add([rng.randn(5, cfg.video_dim).astype(np.float32) for _ in range(6)])
+        res = idx.search(["stir the soup"], top_k=2, rerank=4)
+        assert len(res[0]) == 2 and all(np.isfinite(s) for _, s in res[0])
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")]
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py imports the port and nothing of the JAX package; without a
+    CUDA device it prints no result and exits non-zero."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    modules += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    roots = {m.split(".")[0] for m in modules}
+    assert "univl_tpu_torch" in roots
+    assert not roots & {"univl_tpu", "jax", "jaxlib", "flax", "optax"}, sorted(roots)
+
+    script = BLOCK_JAX + textwrap.dedent("""
+        import runpy
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 1, out.stderr
+    assert out.stdout == ""
+    assert "no CUDA device" in out.stderr

@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``univl_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, placed under
+``build/univl_tpu_torch/`` at the root of the checkout and named by a hash of
+the sources, so an edited source builds anew and an unchanged one is reused.
+The compiler writes to a per-process temporary name that is then renamed into
+place, so concurrent first uses never load a half-written library.
+
+Nothing here runs at import: the CPU tests import every module on a machine
+without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "univl_tpu_torch")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libunivl_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless a library for these sources exists; return its path."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.univl_eval_attention.argtypes = (
+        [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, p]
+    )
+    lib.univl_eval_attention.restype = i
+    lib.univl_eval_attention_smem_bytes.argtypes = [i, i]
+    lib.univl_eval_attention_smem_bytes.restype = ll
+    lib.univl_cuda_error_string.argtypes = [i]
+    lib.univl_cuda_error_string.restype = ctypes.c_char_p
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call and cached for the process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.univl_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
