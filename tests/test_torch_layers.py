@@ -15,6 +15,7 @@ from univl_tpu.checkpoint.torch_convert import export_torch_state_dict
 from univl_tpu.config import UniVLConfig
 from univl_tpu.models.univl import UniVL as JaxUniVL
 from univl_tpu.nn import layers as jl
+from univl_tpu_torch import config
 from univl_tpu_torch.checkpoint.convert import init_state_dict, state_dict_from_jax_params
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.nn import layers as tl
@@ -38,7 +39,7 @@ def carried():
     jm = JaxUniVL(cfg)
     params = jm.init(jax.random.key(0), batch, deterministic=True)["params"]
     params = jax.tree.map(np.asarray, params)
-    model = UniVL(cfg)
+    model = UniVL(config.UniVLConfig.tiny(train_sim_after_cross=True))
     model.load_state_dict(state_dict_from_jax_params(params), strict=True)
     return cfg, batch, jm, params, model.eval()
 
@@ -59,10 +60,11 @@ def test_converter_matches_export_and_loads_strict(carried):
     for k, v in want.items():
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
     # the seeded init fills exactly the same names and shapes
-    init = init_state_dict(cfg, seed=0)
+    tcfg = config.UniVLConfig.tiny(train_sim_after_cross=True)
+    init = init_state_dict(tcfg, seed=0)
     assert {k: tuple(v.shape) for k, v in init.items()} == {
         k: tuple(v.shape) for k, v in got.items()}
-    UniVL(cfg).load_state_dict(init, strict=True)
+    UniVL(tcfg).load_state_dict(init, strict=True)
 
 
 def test_layer_norm_tf(carried):

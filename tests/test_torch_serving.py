@@ -1,8 +1,10 @@
 """The port's retrieval-serving slice against the JAX package, end to end on
 the CPU: the index (dense search and cross-encoder rerank), its .npz format,
-the HTTP server, and the port's independence from JAX."""
+the HTTP server, the port's own copies of the JAX package's configuration,
+tokenizer and text encoding, and the port's independence from JAX."""
 
 import ast
+import dataclasses
 import json
 import os
 import subprocess
@@ -17,12 +19,16 @@ import numpy as np
 import pytest
 import torch
 
-from univl_tpu.config import BertConfig, UniVLConfig
+from univl_tpu import config as jax_config
 from univl_tpu.data import fixtures
-from univl_tpu.data.tokenization import WordPieceTokenizer
+from univl_tpu.data import text_encoding as jax_text
+from univl_tpu.data import tokenization as jax_tokenization
 from univl_tpu.models.univl import UniVL as JaxUniVL
 from univl_tpu.serving import VideoRetrievalIndex as JaxIndex
+from univl_tpu_torch import config
 from univl_tpu_torch.checkpoint.convert import state_dict_from_jax_params
+from univl_tpu_torch.data import text_encoding
+from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.serving.index import VideoRetrievalIndex
 
@@ -41,8 +47,11 @@ def pair(vocab):
     """A JAX index and the port's, over one set of weights, with one corpus added."""
     tok = WordPieceTokenizer(vocab)
     enc = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128)
-    cfg = UniVLConfig.tiny(train_sim_after_cross=True, bert=BertConfig(vocab_size=len(tok), **enc))
-    jm = JaxUniVL(cfg)
+    jcfg = jax_config.UniVLConfig.tiny(
+        train_sim_after_cross=True, bert=jax_config.BertConfig(vocab_size=len(tok), **enc))
+    cfg = config.UniVLConfig.tiny(
+        train_sim_after_cross=True, bert=config.BertConfig(vocab_size=len(tok), **enc))
+    jm = JaxUniVL(jcfg)
     rng = np.random.RandomState(0)
     example = {
         "input_ids": np.ones((2, cfg.max_words), np.int32),
@@ -56,7 +65,8 @@ def pair(vocab):
     model.load_state_dict(state_dict_from_jax_params(jax.tree.map(np.asarray, params)),
                           strict=True)
     model.eval()
-    jidx = JaxIndex(jm, {"params": params}, tok, batch_size=4, store_full=True)
+    jidx = JaxIndex(jm, {"params": params}, jax_tokenization.WordPieceTokenizer(vocab),
+                    batch_size=4, store_full=True)
     tidx = VideoRetrievalIndex(model, tok, "cpu", batch_size=4, store_full=True)
     vids = [rng.randn(rng.randint(1, 12), cfg.video_dim).astype(np.float32) for _ in range(10)]
     ids = [f"v{i}" for i in range(10)]
@@ -158,13 +168,16 @@ def test_serve_endpoints_on_cpu(tmp_path, vocab):
     assert not thread.is_alive()
 
 
-@pytest.mark.parametrize("argv", [["--mode", "caption"], ["--device", "cuda"]])
+@pytest.mark.parametrize("argv", [["--mode", "caption", "--train_sim_after_cross"],
+                                  ["--device", "cuda"]])
 def test_serve_refuses_what_it_cannot_run(tmp_path, vocab, argv, monkeypatch):
+    """A caption decoder is not built with --train_sim_after_cross; a CUDA
+    device is refused where there is none."""
     from univl_tpu_torch.cli.serve import main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--device", "cpu", "--vocab_file", vocab, "--output_dir", str(tmp_path), "--port", "0"]
-    with pytest.raises((NotImplementedError, RuntimeError)):
+    with pytest.raises((ValueError, RuntimeError)):
         main(base + TINY + argv, serve_forever=False)
 
 
@@ -183,8 +196,8 @@ BLOCK_JAX = textwrap.dedent("""
 def test_port_runs_with_jax_blocked(tmp_path, vocab):
     script = BLOCK_JAX + textwrap.dedent(f"""
         import numpy as np
-        from univl_tpu.config import BertConfig, UniVLConfig
-        from univl_tpu.data.tokenization import WordPieceTokenizer
+        from univl_tpu_torch.config import BertConfig, UniVLConfig
+        from univl_tpu_torch.data.tokenization import WordPieceTokenizer
         from univl_tpu_torch.checkpoint.convert import init_state_dict
         from univl_tpu_torch.models.univl import UniVL
         from univl_tpu_torch.serving.index import VideoRetrievalIndex
@@ -201,7 +214,8 @@ def test_port_runs_with_jax_blocked(tmp_path, vocab):
         idx.add([rng.randn(5, cfg.video_dim).astype(np.float32) for _ in range(6)])
         res = idx.search(["stir the soup"], top_k=2, rerank=4)
         assert len(res[0]) == 2 and all(np.isfinite(s) for _, s in res[0])
-        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")]
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "optax", "univl_tpu")]
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
@@ -211,14 +225,18 @@ def test_port_runs_with_jax_blocked(tmp_path, vocab):
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py imports the port and nothing of the JAX package; without a
-    CUDA device it prints no result and exits non-zero."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
-    modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
-    modules += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
-    roots = {m.split(".")[0] for m in modules}
-    assert "univl_tpu_torch" in roots
-    assert not roots & {"univl_tpu", "jax", "jaxlib", "flax", "optax"}, sorted(roots)
+    """No module of the port, and not chip_smoke.py, imports the JAX package
+    or JAX itself, at any depth of the file; without a CUDA device
+    chip_smoke.py prints no result and exits non-zero."""
+    files = sorted((REPO / "univl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(path.read_text())
+        modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        modules += [n.module or "" for n in ast.walk(tree)
+                    if isinstance(n, ast.ImportFrom) and n.level == 0]
+        roots = {m.split(".")[0] for m in modules}
+        assert not roots & {"univl_tpu", "jax", "jaxlib", "flax", "optax"}, (path, sorted(roots))
 
     script = BLOCK_JAX + textwrap.dedent("""
         import runpy
@@ -230,3 +248,36 @@ def test_chip_smoke_imports_only_the_port():
     assert out.returncode == 1, out.stderr
     assert out.stdout == ""
     assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("name", ["base", "tiny"])
+def test_config_copy_matches_jax(name):
+    kw = dict(stage_two=True, task_type="caption", max_words=20)
+    got = getattr(config.UniVLConfig, name)(**kw)
+    want = getattr(jax_config.UniVLConfig, name)(**kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.replace(max_frames=12).validate().max_frames == 12
+
+
+TEXTS = ["Stir the soup, then add salt!", "heat oil in a pan", "", "naïve café Ünïcode",
+         "chop the garlic and the onion finely before frying them in butter"]
+
+
+def test_tokenizer_and_text_encoding_copies_match_jax(vocab):
+    tok = WordPieceTokenizer(vocab)
+    jtok = jax_tokenization.WordPieceTokenizer(vocab)
+    assert len(tok) == len(jtok)
+    assert (tok.pad_id, tok.bos_id, tok.eos_id) == (jtok.pad_id, jtok.bos_id, jtok.eos_id)
+    for text in TEXTS:
+        assert tok.tokenize(text) == jtok.tokenize(text)
+        ids = tok.convert_tokens_to_ids(tok.tokenize(text))
+        assert ids == jtok.convert_tokens_to_ids(jtok.tokenize(text))
+        assert tok.convert_ids_to_tokens(ids) == jtok.convert_ids_to_tokens(ids)
+        got = text_encoding.encode_text(text, tok, 8)
+        want = jax_text.encode_text(text, jtok, 8, with_mlm=False)
+        assert got.keys() == want.keys()
+        for k in got:
+            np.testing.assert_array_equal(got[k], want[k])
+    clip = np.random.RandomState(0).randn(5, 4).astype(np.float32)
+    for got, want in zip(text_encoding.pad_video(clip, 8, 4), jax_text.pad_video(clip, 8, 4)):
+        np.testing.assert_array_equal(got, want)

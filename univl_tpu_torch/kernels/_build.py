@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every ``univl_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, placed under
-``build/univl_tpu_torch/`` at the root of the checkout and named by a hash of
-the sources, so an edited source builds anew and an unchanged one is reused.
-The compiler writes to a per-process temporary name that is then renamed into
-place, so concurrent first uses never load a half-written library.
+(``sm_90a``), one compiler process per source, all started together, and the
+objects are linked into one shared library with a plain C interface, placed
+under ``build/univl_tpu_torch/`` at the root of the checkout and named by a
+hash of the sources, so an edited source builds anew and an unchanged one is
+reused. The build writes to per-process temporary names and renames the
+library into place, so concurrent first uses never load a half-written one.
 
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.
@@ -25,8 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "univl_tpu_torch")
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -59,12 +59,33 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{path}.tmp{os.getpid()}"
     cu = [s for s in _sources() if s.endswith(".cu")]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for s, o in zip(cu, objs)]
+    try:
+        failed = []
+        for s, p in zip(cu, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{os.path.basename(s)} ({p.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return path
 
 
@@ -76,6 +97,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_eval_attention.restype = i
     lib.univl_eval_attention_smem_bytes.argtypes = [i, i]
     lib.univl_eval_attention_smem_bytes.restype = ll
+    lib.univl_reorder_groups.argtypes = [p, p, i, p, i, i, p]
+    lib.univl_reorder_groups.restype = i
+    lib.univl_decode_attention.argtypes = (
+        [p, p, p, ll, ll, ll, p, p, p, p, p, p] + [i] * 7 + [ctypes.c_float, p]
+    )
+    lib.univl_decode_attention.restype = i
+    lib.univl_vocab_topk.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.univl_vocab_topk.restype = i
     lib.univl_cuda_error_string.argtypes = [i]
     lib.univl_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,8 +1,8 @@
-"""UniVL's retrieval subset in PyTorch: text, visual and cross towers plus
-the FT-Align similarity head.
+"""UniVL's serving subset in PyTorch: text, visual and cross towers, the
+FT-Align similarity head and the caption decoder.
 
-Ports the retrieval parts of ``univl_tpu/models/univl.py``. The caption
-decoder and the pretraining heads are not ported yet. Parameters are f32;
+Ports the serving parts of ``univl_tpu/models/univl.py``. The pretraining
+heads are not ported yet. Parameters are f32;
 ``cfg.compute_dtype`` ("float32" or "bfloat16") is the dtype the towers
 compute in. The state dict uses the reference checkpoint's names:
 
@@ -12,6 +12,9 @@ compute in. The state dict uses the reference checkpoint's names:
     normalize_video.visual_norm2d.*   raw-feature LayerNorm
     cross.*, similarity_dense.*       cross tower and FT-Align head (with
                                       train_sim_after_cross or stage_two)
+    decoder.*                   caption decoder (with stage_two and without
+                                train_sim_after_cross); its word and position
+                                tables and classifier weight are bert's
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from univl_tpu.config import UniVLConfig
+from univl_tpu_torch.config import UniVLConfig
+from univl_tpu_torch.nn.decoder import CaptionDecoder
 from univl_tpu_torch.nn.layers import LayerNormTF, Linear
 from univl_tpu_torch.nn.towers import CrossEncoder, TextEncoder, VisualEncoder
 
@@ -41,6 +45,7 @@ class UniVL(nn.Module):
         super().__init__()
         self.cfg = cfg
         dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+        self.compute_dtype = dt
         self.bert = TextEncoder(cfg.bert, dt, device)
         self.visual = VisualEncoder(cfg.visual, cfg.video_dim, dt, device)
         self.normalize_video = NormalizeVideo(cfg.video_dim, device)
@@ -48,6 +53,14 @@ class UniVL(nn.Module):
         if self.has_cross:
             self.cross = CrossEncoder(cfg.cross, dt, device)
             self.similarity_dense = Linear(cfg.cross.hidden_size, 1, dt, device)
+        self.has_decoder = cfg.stage_two and not cfg.train_sim_after_cross
+        if self.has_decoder:
+            self.decoder = CaptionDecoder(cfg.decoder, dt, device)
+
+    def encode(self, input_ids, token_type_ids, attention_mask, video, video_mask):
+        """Text and visual towers: (sequence output, visual output)."""
+        return (self.encode_text(input_ids, token_type_ids, attention_mask),
+                self.encode_video(video, video_mask))
 
     def encode_text(self, input_ids, token_type_ids, attention_mask) -> torch.Tensor:
         """Text tower only: the serving path's queries."""
@@ -85,3 +98,18 @@ class UniVL(nn.Module):
         _, pooled, _ = self.get_cross_output(
             sequence_output, visual_output, attention_mask, video_mask)
         return self.similarity_dense(pooled)[:, 0].float()
+
+    def decoder_logits(self, sequence_output, visual_output, attention_mask, video_mask,
+                       input_caption_ids, decoder_mask) -> torch.Tensor:
+        """Cross-encode once, then the full-prefix decoder: f32 logits [B, L, V]."""
+        cross_out, _, concat_mask = self.get_cross_output(
+            sequence_output, visual_output, attention_mask, video_mask)
+        return self.decode_step_logits(cross_out, concat_mask, input_caption_ids, decoder_mask)
+
+    def decode_step_logits(self, cross_out, concat_mask, input_caption_ids,
+                           decoder_mask) -> torch.Tensor:
+        """The decoder on a cross output computed beforehand (the full-prefix
+        beam search's step)."""
+        emb = self.bert.embeddings
+        return self.decoder(input_caption_ids, cross_out, decoder_mask, concat_mask,
+                            emb.word_embeddings.weight, emb.position_embeddings.weight)

@@ -9,12 +9,17 @@ parameter names follow the reference PyTorch checkpoint
 with ``load_state_dict(strict=True)``.
 
 Only the serving path is ported: no dropout, separate q/k/v projections, the
-unfused FFN, and every attention core goes through
+unfused FFN. An attention masked by keys goes through
 ``kernels.attention.fused_attention_masked`` (the CUDA kernel on a CUDA
-tensor, its plain version on a CPU one).
+tensor, its plain version on a CPU one); any other additive bias (the
+caption decoder's causal ``[B, 1, L, L]`` one) takes ``sdpa_bias``, plain
+PyTorch, as the JAX package sends it to its XLA path.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +43,17 @@ def additive_mask_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     and applies the kernel's -1e9, which gives the same softmax on every query
     whose keys are not all masked."""
     return ((1.0 - mask.to(dtype)) * MASK_BIAS)[:, None, None, :]
+
+
+def sdpa_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """Attention with an additive bias broadcastable to [B, H, Lq, Lk], in
+    plain PyTorch (``univl_tpu/nn/layers.py:sdpa_xla``): scores and softmax
+    in f32, probs rounded to q's dtype before PV, PV summed in f32."""
+    scores = (torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+              + bias.float())
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
 class LayerNormTF(nn.Module):
@@ -71,7 +87,9 @@ class Linear(nn.Linear):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with separate q/k/v projections (the reference's ``attention.self``)."""
+    """Attention with separate q/k/v projections (the reference's
+    ``attention.self`` and the decoder's ``att``); ``kv_in`` gives the keys
+    and values another source (the decoder's encoder attention)."""
 
     def __init__(self, hidden_size: int, num_heads: int, compute_dtype: torch.dtype,
                  device=None):
@@ -82,15 +100,24 @@ class MultiHeadAttention(nn.Module):
         self.key = Linear(hidden_size, hidden_size, compute_dtype, device)
         self.value = Linear(hidden_size, hidden_size, compute_dtype, device)
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-        b, l, _ = x.shape
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+                kv_in: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Exactly one of ``key_mask`` ([B, Lk], 1 keep, 0 drop: the eval
+        attention kernel) and ``bias`` (additive: ``sdpa_bias``)."""
+        if (key_mask is None) == (bias is None):
+            raise ValueError("give exactly one of key_mask and bias")
+        kv_in = x if kv_in is None else kv_in
 
         def split(t):  # a strided [B, H, L, D] view of [B, L, H*D]
-            return t.view(b, l, self.num_heads, self.head_dim).transpose(1, 2)
+            return t.view(t.shape[0], t.shape[1], self.num_heads, self.head_dim).transpose(1, 2)
 
-        ctx = fused_attention_masked(
-            split(self.query(x)), split(self.key(x)), split(self.value(x)), key_mask
-        )
+        q, k, v = split(self.query(x)), split(self.key(kv_in)), split(self.value(kv_in))
+        if key_mask is not None:
+            ctx = fused_attention_masked(q, k, v, key_mask)
+        else:
+            ctx = sdpa_bias(q, k, v, bias)
+        b, l = x.shape[:2]
         return ctx.transpose(1, 2).reshape(b, l, self.num_heads * self.head_dim)
 
 
@@ -165,3 +192,15 @@ class Pooler(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.dense(x[:, 0]))
+
+
+class PredictionHeadTransform(nn.Module):
+    """dense -> erf-GELU -> LayerNorm (the tied classifier's ``transform``)."""
+
+    def __init__(self, hidden_size: int, compute_dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dense = Linear(hidden_size, hidden_size, compute_dtype, device)
+        self.LayerNorm = LayerNormTF(hidden_size, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(gelu_erf(self.dense(x)))

@@ -21,8 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from univl_tpu.data.batching import pad_rows
-from univl_tpu.data.text_encoding import encode_text, pad_video
+from univl_tpu_torch.data.text_encoding import encode_text, pad_rows, pad_video
 from univl_tpu_torch.models.univl import UniVL
 
 RERANK_TILE = 8  # queries per cross-encoder call
@@ -152,7 +151,7 @@ class VideoRetrievalIndex:
                 raise ValueError("rerank requires store_full=True at build")
             if rerank < top_k:
                 raise ValueError("rerank shortlist must cover top_k")
-        enc = [encode_text(q, self.tokenizer, self.max_words, with_mlm=False) for q in queries]
+        enc = [encode_text(q, self.tokenizer, self.max_words) for q in queries]
         Q, B = len(queries), self.batch_size
         keys = ("input_ids", "token_type_ids", "attention_mask")
         arrs = {k: np.stack([e[k] for e in enc]).astype(np.int32) for k in keys}
