@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,10 +8,13 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
   2. the build: every CUDA kernel compiled from univl_tpu_torch/csrc, one
      nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving paths give it, in f32 and bf16, with device times
-     from CUDA events, the bound (bytes over the card's memory rate and
-     operations over its peak rate, an estimate against nominal peaks) and,
-     where one PyTorch call computes the same function, that call's time;
+     shapes its path gives it, in f32 and bf16, with device times from CUDA
+     events, the bound (bytes over the card's memory rate and operations over
+     its peak rate, an estimate against nominal peaks) and, where one PyTorch
+     call computes the same function, that call's time. The training
+     attention (#2) runs forward and backward at rates 0 and 0.1, and its
+     forward kernel, backward kernel and plain version must drop the same
+     probabilities, at the configured rate;
   4. the retrieval slice: the port's server (univl_tpu_torch.cli.serve) in
      --mode retrieval at the full width of UniVLConfig.base, with random
      weights from a seed, answers add, search (with cross-encoder rerank) and
@@ -35,7 +38,19 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
   9. agreement with the CPU: a teacher-forced 47-step trajectory through the
      KV-cache decoder on the card in bf16 against the CPU in f32 (max |dlogp|
      under a stated limit), and the top-beam captions of 8 clips on the card
-     in f32 against the CPU.
+     in f32 against the CPU;
+ 10. the FT-Joint training slice: univl_tpu_torch.cli.task_retrieval
+     --do_train at the full width of UniVLConfig.base (text 12, visual 6
+     layers), bf16, batch 32, 40 steps on YouCook2-format fixtures: the loss
+     at each display point, the steady clips/s, peak device memory, #2's
+     launches (18 forward and 18 backward a step) and a pytorch_model.bin.0
+     that loads back;
+ 11. torch.profiler over 3 steady training steps: device busy share, kernel
+     time of #2, the GEMMs, the optimizer and the rest, launches per step;
+ 12. training agreement with the CPU at full width and text 2 + visual 1
+     layers, dropout 0: card f32 (kernels) against CPU f32 (plain versions)
+     for the loss, every gradient and the parameters after 2 BertAdam steps;
+     card bf16 against CPU f32 losses over 10 steps.
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 1.
@@ -59,17 +74,24 @@ import torch
 import torch.nn.functional as F
 
 from univl_tpu_torch import UniVLConfig, WordPieceTokenizer
-from univl_tpu_torch.checkpoint.convert import init_state_dict
+from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_bin
+from univl_tpu_torch.cli import task_retrieval
 from univl_tpu_torch.cli.serve import main as serve_main
+from univl_tpu_torch.data import fixtures
+from univl_tpu_torch.data.batching import Batcher
+from univl_tpu_torch.data.youcook import YoucookRetrievalDataset
 from univl_tpu_torch.evals.fast_decoder import FastDecoder, encoder_bias
 from univl_tpu_torch.kernels import _build
 from univl_tpu_torch.kernels import attention as attn
 from univl_tpu_torch.kernels import decode_attention as dattn
 from univl_tpu_torch.kernels import reorder
+from univl_tpu_torch.kernels import train_attention as ta
 from univl_tpu_torch.kernels import vocab_topk
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.serving.captioning import CaptionService
 from univl_tpu_torch.serving.index import RERANK_TILE, VideoRetrievalIndex
+from univl_tpu_torch.train.optimization import make_univl_optimizer
+from univl_tpu_torch.train.trainer import Trainer
 
 # retrieval traffic
 N_CLIPS, N_QUERIES, TOP_K, RERANK, BATCH = 64, 8, 5, 16, 16
@@ -83,6 +105,24 @@ TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 VOCAB_ATOL = 1e-4  # logp: f32 sums of the same products in another order
 DLOGP_LIMIT = 0.25  # card bf16 vs CPU f32 over the trajectory, stated before the first run
 SAME_CAPTIONS_MIN = 4  # of 8 clips, card f32 vs CPU f32
+# training attention (#2) at the FT-Joint shape: batch, length, heads, head dim
+TA_B, TA_L, TA_HEADS, TA_D, TA_RATE, TA_SEED = 32, 48, 12, 64, 0.1, 1234
+# f32: the same math summed in another order; bf16: a probability, ds or output
+# that lands on the other side of a bf16 rounding moves by one bf16 ulp
+TA_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
+KEEP_RATE_TOL = 0.002  # dropped share over 884,736 draws: ~6 binomial standard deviations
+# FT-Joint training: UniVLConfig.base (text 12, visual 6 layers), batch 32,
+# YouCook2-format fixtures of 160 videos x 8 clips = 1,280 pairs: 40 steps
+TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_DISPLAY = 32, 160, 8, 120, 5
+TRAIN_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1",
+               "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--max_words", "48",
+               "--max_frames", "48", "--n_display", str(TRAIN_DISPLAY), "--seed", "0"]
+PROFILE_WARMUP, PROFILE_STEPS = 3, 3
+# card vs CPU at full width, text 2 and visual 1 layers, dropout 0, stated
+# before the first run: f32 (kernels, TF32 off) within the plain versions'
+# rounding; bf16 loss over 10 steps within LOSS_BF16_RTOL of the CPU's f32
+AGREE_LOSS_RTOL, AGREE_GRAD_RTOL, AGREE_PARAM_RTOL, AGREE_BF16_STEPS = 1e-5, 1e-4, 1e-5, 10
+LOSS_BF16_RTOL = 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -97,11 +137,17 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                                    "univl_tpu/kernels/decode_attention.py:77"),
     "vocab_topk": (vocab_topk.classify_topk, "univl_tpu_torch/csrc/vocab_topk.cu",
                    "univl_tpu/kernels/vocab_topk.py:62"),
+    "train_attention_fwd": (ta.train_attention_fwd, "univl_tpu_torch/csrc/train_attention.cu",
+                            "univl_tpu/kernels/train_attention.py:83"),
+    "train_attention_bwd": (ta.train_attention_bwd, "univl_tpu_torch/csrc/train_attention.cu",
+                            "univl_tpu/kernels/train_attention.py:116"),
 }
 TRACE_NAMES = {"eval_attention": ("eval_attention_kernel",),
                "beam_reorder_groups": ("reorder_groups_kernel",),
                "beam_decode_self_attention": ("decode_attention_kernel",),
-               "vocab_topk": ("vocab_tile_kernel", "vocab_merge_kernel")}
+               "vocab_topk": ("vocab_tile_kernel", "vocab_merge_kernel"),
+               "train_attention_fwd": ("train_attention_fwd_kernel",),
+               "train_attention_bwd": ("train_attention_bwd_kernel",)}
 
 
 def require(ok: bool, what: str) -> None:
@@ -317,12 +363,126 @@ def kernel_vocab_topk() -> dict:
     return {**row, "max_abs_err": worst}
 
 
+def _sdpa_train(q, k, v, keep):
+    """The yardstick for #2: SDPA on [B, H, L, D] views, boolean key mask, prob dropout."""
+    B, L, HD = q.shape
+    heads = [t.view(B, t.shape[1], TA_HEADS, HD // TA_HEADS).transpose(1, 2) for t in (q, k, v)]
+    return F.scaled_dot_product_attention(*heads, attn_mask=keep[:, None, None, :],
+                                          dropout_p=TA_RATE)
+
+
+def _one_hot(B: int, L: int, n: int) -> torch.Tensor:
+    """[B, L, heads*D] with head row j equal to the one-hot vector e_j, so a
+    product with it exposes the other operand's column j."""
+    eye = torch.zeros(L, TA_HEADS, n, device="cuda")
+    eye[:, :, :L] = torch.eye(L, device="cuda")[:, None, :]
+    return eye.reshape(1, L, TA_HEADS * n).expand(B, -1, -1).contiguous()
+
+
+def check_dropout_masks(dtype) -> float:
+    """The forward kernel, the backward kernel and the plain version drop the
+    same probabilities: v one-hot over keys makes out[i, j] the dropped
+    probability (i, j), g one-hot over queries makes dv[j, i] the same; with
+    every key valid no kept probability is 0. Returns the dropped share."""
+    B, L, H, D = TA_B, TA_L, TA_HEADS, TA_D
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype) for _ in range(2))
+    v, grad = _one_hot(B, L, D).to(dtype), _one_hot(B, L, D).to(dtype)
+    mask = torch.ones(B, L, device="cuda")
+    out, m, l = ta.train_attention_fwd(q, k, v, mask, TA_SEED, TA_RATE, H)
+    _, _, dv = ta.train_attention_bwd(q, k, v, mask, TA_SEED, TA_RATE, H, m, l, grad)
+    fwd = out.view(B, L, H, D)[..., :L].permute(0, 2, 1, 3) != 0  # [b, h, i, j]
+    bwd = dv.view(B, L, H, D)[..., :L].permute(0, 2, 3, 1) != 0  # dv[b, j, h, i]
+    plain = ta.dropout_keep(TA_SEED, B, H, L, L, TA_RATE, device="cuda")
+    torch.cuda.synchronize()
+    require(torch.equal(fwd, plain), f"forward kernel's dropout mask differs from the plain "
+                                     f"version's ({dtype})")
+    require(torch.equal(bwd, plain), f"backward kernel's dropout mask differs from the plain "
+                                     f"version's ({dtype})")
+    return 1.0 - float(plain.float().mean())
+
+
+def kernel_train_attention() -> dict:
+    """#2 forward and backward against the plain versions at the FT-Joint shape
+    (ragged key masks, one all-masked row), in f32 and bf16, at rates 0 and
+    0.1; the dropout masks of both kernels against the plain version's; times,
+    bounds and the SDPA yardstick (forward, and backward through autograd)."""
+    B, L, H, D = TA_B, TA_L, TA_HEADS, TA_D
+    rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        drop = check_dropout_masks(dtype)
+        n = B * H * L * L
+        print(f"train_attention dropout masks ({dtype_name(dtype)}): forward kernel, backward "
+              f"kernel and plain version equal over {n} draws; dropped share {drop:.6f} "
+              f"(rate {TA_RATE}, limit +-{KEEP_RATE_TOL})", flush=True)
+        require(abs(drop - TA_RATE) <= KEEP_RATE_TOL, f"dropped share {drop} is not {TA_RATE}")
+        atol, rtol = TA_TOL[dtype_name(dtype)]
+        for rate in (0.0, TA_RATE):
+            g = torch.Generator(device="cuda").manual_seed(6)
+            q, k, v, grad = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype)
+                             for _ in range(4))
+            mask = (torch.rand(B, L, generator=g, device="cuda") > 0.3).float()
+            mask[:, 0] = 1.0
+            mask[1] = 0.0  # no valid key: a uniform softmax in both versions
+            args = (q, k, v, mask, TA_SEED, rate, H)
+            out, m, l = ta.train_attention_fwd(*args)
+            want = ta.train_attention_reference_fwd(*args)
+            grads = ta.train_attention_bwd(*args, m, l, grad)
+            want_grads = ta.train_attention_reference_bwd(*args, want[1], want[2], grad)
+            torch.cuda.synchronize()
+            errs = {}
+            for part, pairs in (("fwd", zip((out, m, l), want)),
+                                ("bwd", zip(grads, want_grads))):
+                err = 0.0
+                for got, ref in pairs:
+                    diff = (got.float() - ref.float()).abs()
+                    excess = float((diff - atol - rtol * ref.float().abs()).max())
+                    require(excess <= 0.0, f"train_attention {part} disagrees with its plain "
+                                           f"version at {dtype_name(dtype)} rate {rate}: max "
+                                           f"abs err {float(diff.max())}")
+                    err = max(err, float(diff.max()))
+                errs[part] = err
+                worst[part] = max(worst[part], err)
+            if rate == 0.0:
+                continue
+            es = q.element_size()
+            io = B * L * H * D * es
+            stats = 2 * B * H * L * 4 + B * L * 4  # m, l, key mask
+            fwd_ms = cuda_time_ms(lambda: ta.train_attention_fwd(*args))
+            bwd_ms = cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))
+            fwd_plain = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args))
+            bwd_plain = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
+            keep = mask.bool()
+            keep[1] = True  # SDPA gives NaN on a row with no valid key
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa_fwd = cuda_time_ms(lambda: _sdpa_train(*leaves, keep))
+            sdpa_out = _sdpa_train(*leaves, keep)
+            g4 = grad.view(B, L, H, D).transpose(1, 2)
+            sdpa_bwd = cuda_time_ms(
+                lambda: torch.autograd.grad(sdpa_out, leaves, g4, retain_graph=True))
+            shape = f"[{B},{L},{H * D}] x {H} heads rate {rate}"
+            lib = "scaled_dot_product_attention, boolean key mask, dropout_p 0.1"
+            rows_dt = {
+                "fwd": report("train_attention_fwd", shape, dtype, errs["fwd"], fwd_ms, fwd_plain,
+                              bound_ms(4 * io + stats, 4.0 * B * H * L * L * D, dtype_name(dtype)),
+                              (sdpa_fwd[0], lib)),
+                "bwd": report("train_attention_bwd", shape, dtype, errs["bwd"], bwd_ms, bwd_plain,
+                              bound_ms(7 * io + stats, 10.0 * B * H * L * L * D,
+                                       dtype_name(dtype)),
+                              (sdpa_bwd[0], lib + ", autograd backward")),
+            }
+            if dtype == torch.bfloat16:
+                rows = rows_dt
+    return {f"train_attention_{p}": {**rows[p], "max_abs_err": worst[p]} for p in rows}
+
+
 def write_vocab(path: str) -> str:
-    """A vocab of BERT's 30,522 entries: the specials, the queries' words,
-    single characters and their ## pieces, then [unusedN]."""
+    """A vocab of BERT's 30,522 entries: the specials, the queries' and the
+    training fixtures' words, single characters and their ## pieces, then
+    [unusedN]."""
     chars = "abcdefghijklmnopqrstuvwxyz0123456789"
     tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
-    tokens += sorted({w for q in QUERIES for w in q.split()})
+    tokens += sorted({w for q in QUERIES for w in q.split()} | set(fixtures.WORDS))
     tokens = list(dict.fromkeys(tokens + list(chars) + ["##" + c for c in chars]))
     tokens += [f"[unused{i}]" for i in range(30522 - len(tokens))]
     with open(path, "w") as f:
@@ -474,6 +634,25 @@ def phase_sustained(port: int, paths, indexed: int, search: dict) -> None:
           flush=True)
 
 
+def device_events(prof, trace: str, name: str):
+    """The profile's kernel, copy and memset events, and the device busy time
+    in us: the union of their intervals."""
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    require(bool(events), f"profile {name}: the trace holds no device activity")
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return events, busy_us
+
+
+def ms(events) -> float:
+    return sum(e["dur"] for e in events) / 1e3
+
+
 def profile_request(port: int, path: str, body: dict, name: str, trace: str) -> None:
     """torch.profiler over one request through the server. Device busy time is
     the union of the trace's kernel, copy and memset intervals."""
@@ -485,21 +664,9 @@ def profile_request(port: int, path: str, body: dict, name: str, trace: str) -> 
         post(port, path, body)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    require(bool(events), f"profile {name}: the trace holds no device activity")
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
+    events, busy_us = device_events(prof, trace, name)
     kernels = [e for e in events if e["cat"] == "kernel"]
     copies = [e for e in events if e["cat"] != "kernel"]
-
-    def ms(es):
-        return sum(e["dur"] for e in es) / 1e3
-
     kernel_ms = ms(kernels)
     ours = []
     for kname, needles in TRACE_NAMES.items():
@@ -569,7 +736,7 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool) -> dict:
         counts, steps, batches = read_launches(), gen.steps, gen.batches
         per_batch = (cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
                      + cfg.cross.num_hidden_layers)
-        expected = {"eval_attention": per_batch * batches,
+        expected = {**{k: 0 for k in KERNELS}, "eval_attention": per_batch * batches,
                     "beam_reorder_groups": 0 if fused else steps,
                     "beam_decode_self_attention": DECODER_LAYERS * steps if fused else 0,
                     "vocab_topk": steps if fused else 0}
@@ -610,6 +777,195 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool) -> dict:
         stop_server(server, thread)
     require(not server.caption_coalescer._worker.is_alive(), "the coalescer did not stop")
     return {"launches": counts, "captions": captions}
+
+
+def make_train_data(tmp: str, vocab: str):
+    """YouCook2-format fixtures (S3D width 1024) and the dataset over them."""
+    files = fixtures.make_youcook(os.path.join(tmp, "youcook"), n_videos=TRAIN_VIDEOS,
+                                  clips_per_video=TRAIN_CLIPS, video_dim=1024,
+                                  seconds_per_video=TRAIN_SECONDS, seed=0)
+    ds = YoucookRetrievalDataset(*files, WordPieceTokenizer(vocab), max_words=48, max_frames=48,
+                                 seed=0)
+    return files, ds
+
+
+def phase_train(tmp: str, vocab: str, files) -> dict:
+    """FT-Joint through the CLI at full width; returns the kernels' launches."""
+    out = os.path.join(tmp, "train_out")
+    csv, data, feats = files
+    argv = ["--do_train", "--device", "cuda", "--datatype", "youcook", "--vocab_file", vocab,
+            "--train_csv", csv, "--data_path", data, "--features_path", feats,
+            "--output_dir", out, *TRAIN_FLAGS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # still held by the earlier phases
+    reset_launches()
+    t0 = time.perf_counter()
+    steps = task_retrieval.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    shown = [r for r in records if r["kind"] == "train"]
+    for r in shown:
+        print(f"train step {r['step']}: loss {r['loss']:.6f}", flush=True)
+    require(all(math.isfinite(r["loss"]) for r in shown) and len(shown) == steps // TRAIN_DISPLAY,
+            f"display points {[(r['step'], r['loss']) for r in shown]}")
+    # display points read the loss, so each is a synchronized host time
+    first, last = shown[0], shown[-1]
+    rate = (last["step"] - first["step"]) * TRAIN_BATCH / (last["ts"] - first["ts"])
+    cfg = UniVLConfig.base(max_words=48, max_frames=48)
+    layers = cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
+    print(f"FT-Joint training (CLI, bf16, batch {TRAIN_BATCH}, text 12 + visual 6 layers): "
+          f"{steps} steps in {wall:.3f} s including set-up; steady {rate:.3f} clips/s over steps "
+          f"{first['step']}-{last['step']} (host clock between synchronized display points); "
+          f"peak device memory {(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} "
+          f"GiB held before the run; launches {counts}", flush=True)
+    want = {**{k: 0 for k in KERNELS}, "train_attention_fwd": layers * steps,
+            "train_attention_bwd": layers * steps}
+    require(counts == want, f"training launches {counts}, {steps} steps imply {want}")
+    model = UniVL(cfg)
+    sd = load_reference_bin(os.path.join(out, "pytorch_model.bin.0"))
+    model.load_state_dict(sd, strict=True)
+    require(all(bool(torch.isfinite(v).all()) for v in sd.values()), "non-finite saved weights")
+    print(f"pytorch_model.bin.0: {len(sd)} tensors, loads with strict=True, all finite",
+          flush=True)
+    return counts
+
+
+def _train_batches(ds, n: int, device) -> list:
+    batcher = Batcher(ds, TRAIN_BATCH, seed=0, num_workers=8)
+    out = []
+    for b in batcher.epoch(0):
+        out.append({k: torch.from_numpy(v[None]).to(device) for k, v in b.items()})
+        if len(out) == n:
+            return out
+    raise RuntimeError(f"fewer than {n} batches")
+
+
+def phase_train_profile(ds, tmp: str) -> None:
+    """torch.profiler over PROFILE_STEPS steady steps of the full FT-Joint
+    step (batches already on the card): device busy share, kernel time by
+    name, launches per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
+                           batch_size_per_device=TRAIN_BATCH)
+    model = UniVL(cfg, device="cuda")
+    model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    opt = make_univl_optimizer(model, lr=3e-5, t_total=40, warmup_proportion=0.1, coef_lr=0.1)
+    trainer = Trainer(model, opt, seed=0)
+    batches = _train_batches(ds, PROFILE_WARMUP + PROFILE_STEPS, "cuda")
+    for i in range(PROFILE_WARMUP):
+        trainer.train_step(batches[i], i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILE_WARMUP, PROFILE_WARMUP + PROFILE_STEPS):
+            trainer.train_step(batches[i], i)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events, busy_us = device_events(prof, os.path.join(tmp, "train_trace.json"), "train")
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    groups = {
+        "#2 forward": ("train_attention_fwd_kernel",),
+        "#2 backward": ("train_attention_bwd_kernel",),
+        "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
+        "optimizer (foreach)": ("multi_tensor_apply", "foreach"),
+    }
+    parts, rest = [], list(kernels)
+    for label, needles in groups.items():
+        hit = [any(n in e["name"] for n in needles) for e in rest]
+        mine = [e for e, h in zip(rest, hit) if h]
+        rest = [e for e, h in zip(rest, hit) if not h]
+        parts.append(f"{label} {ms(mine):.3f} ms in {len(mine)}")
+    parts.append(f"the rest {ms(rest):.3f} ms in {len(rest)}")
+    top = {}
+    for e in rest:
+        top[e["name"][:60]] = top.get(e["name"][:60], 0.0) + e["dur"] / 1e3
+    biggest = sorted(top.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile FT-Joint train step (profiler on, {PROFILE_STEPS} steps, batches on the "
+          f"card): wall {wall_ms / PROFILE_STEPS:.3f} ms a step; device busy "
+          f"{busy_us / 1e3 / PROFILE_STEPS:.3f} ms a step ({busy_us / 1e3 / wall_ms:.4f} of "
+          f"wall); {len(kernels) / PROFILE_STEPS:.1f} kernel launches a step; kernel time over "
+          f"the window: {'; '.join(parts)}; largest of the rest: "
+          f"{', '.join(f'{n} {t:.3f} ms' for n, t in biggest)}", flush=True)
+
+
+def phase_train_agreement(ds) -> None:
+    """Card against CPU at full width, text 2 and visual 1 layers, batch 32,
+    seeded weights, dropout 0: f32 loss, gradients and parameters after 2
+    BertAdam steps (warmup 0, so both steps move them); bf16 losses over
+    AGREE_BF16_STEPS steps."""
+    off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cfg = UniVLConfig.base(text_num_hidden_layers=2, visual_num_hidden_layers=1, max_words=48,
+                           max_frames=48, batch_size_per_device=TRAIN_BATCH)
+    cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off))
+    sd = init_state_dict(cfg, seed=0)
+    host = _train_batches(ds, AGREE_BF16_STEPS, "cpu")
+
+    def run(device: str, dtype: str, steps: int):
+        model = UniVL(cfg.replace(compute_dtype=dtype), device=device)
+        model.load_state_dict(sd, strict=True)
+        batches = [{k: v.to(device) for k, v in b.items()} for b in host[:steps]]
+        out = model.train()({k: v[0] for k, v in batches[0].items()})
+        out["loss"].backward()
+        # copies: on the CPU .float().cpu() would return the live tensors
+        grads = {n: p.grad.to("cpu", torch.float32, copy=True)
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        opt = make_univl_optimizer(model, lr=3e-5, t_total=AGREE_BF16_STEPS,
+                                   warmup_proportion=0.0, coef_lr=0.1)
+        trainer = Trainer(model, opt, seed=0)
+        losses, params = [], None
+        for i, b in enumerate(batches):
+            losses.append(float(trainer.train_step(b, i)["loss"]))
+            if i == 1:
+                params = {n: p.detach().to("cpu", torch.float32, copy=True)
+                          for n, p in model.named_parameters()}
+        return out["loss"].item(), grads, params, losses
+
+    cpu = run("cpu", "float32", AGREE_BF16_STEPS)
+    reset_launches()
+    card = run("cuda", "float32", 2)
+    counts = read_launches()
+    require(counts["train_attention_fwd"] > 0 and counts["train_attention_bwd"] > 0,
+            f"the card's f32 run did not launch the training-attention kernels: {counts}")
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+
+    def worst(a: dict, b: dict, skip=()):
+        return max((float((a[n] - b[n]).norm() / b[n].norm()), n) for n in b
+                   if not n.endswith(skip))
+
+    # the key biases' gradient is zero in exact arithmetic (a per-query
+    # constant added to every score leaves the softmax unchanged), so both
+    # sides hold rounding noise there, and BertAdam's update of a zero-init
+    # bias from noise has no relative scale: they are held to absolute limits
+    key = "attention.self.key.bias"
+    grad_rel = worst(card[1], cpu[1], skip=(key,))
+    key_grad = max(float(card[1][n].norm()) for n in card[1] if n.endswith(key))
+    param_rel = worst(card[2], cpu[2], skip=(key,))
+    key_param = max(float((card[2][n] - cpu[2][n]).abs().max()) for n in cpu[2]
+                    if n.endswith(key))
+    print(f"training agreement, card f32 (kernels, TF32 off) vs CPU f32 (plain versions), "
+          f"full width, text 2 + visual 1 layers, batch {TRAIN_BATCH}, dropout 0: loss rel "
+          f"{loss_rel:.3e} (limit {AGREE_LOSS_RTOL}); worst gradient rel to its norm "
+          f"{grad_rel[0]:.3e} ({grad_rel[1]}; limit {AGREE_GRAD_RTOL}); worst parameter rel "
+          f"after 2 BertAdam steps {param_rel[0]:.3e} ({param_rel[1]}; limit "
+          f"{AGREE_PARAM_RTOL}); key biases: gradient norm at most {key_grad:.3e}, parameter "
+          f"difference at most {key_param:.3e} (limits 1e-6 and 1e-9)", flush=True)
+    require(loss_rel <= AGREE_LOSS_RTOL and grad_rel[0] <= AGREE_GRAD_RTOL
+            and param_rel[0] <= AGREE_PARAM_RTOL and key_grad <= 1e-6 and key_param <= 1e-9,
+            "card f32 training disagrees with the CPU")
+    bf16 = run("cuda", "bfloat16", AGREE_BF16_STEPS)[3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(bf16, cpu[3])]
+    print(f"training agreement, card bf16 vs CPU f32 over {AGREE_BF16_STEPS} steps: losses "
+          f"{[round(x, 6) for x in bf16]} vs {[round(x, 6) for x in cpu[3]]}; worst rel "
+          f"{max(rel):.3e} (limit {LOSS_BF16_RTOL})", flush=True)
+    require(all(math.isfinite(x) for x in bf16) and max(rel) <= LOSS_BF16_RTOL,
+            "card bf16 training loss strays from the CPU's f32")
 
 
 def phase_agreement(vocab: str, clips) -> None:
@@ -689,7 +1045,8 @@ def main() -> int:
     measured = {"eval_attention": kernel_eval_attention(),
                 "beam_reorder_groups": kernel_reorder(),
                 "beam_decode_self_attention": kernel_decode_attention(),
-                "vocab_topk": kernel_vocab_topk()}
+                "vocab_topk": kernel_vocab_topk(),
+                **kernel_train_attention()}
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vocab = write_vocab(os.path.join(tmp, "vocab.txt"))
@@ -708,11 +1065,15 @@ def main() -> int:
         print(f"fused vs unfused captions (bf16, same requests): {same} of "
               f"{len(fused['captions'])} the same", flush=True)
         phase_agreement(vocab, clips)
+        files, ds = make_train_data(tmp, vocab)
+        by_path["train"] = phase_train(tmp, vocab, files)
+        phase_train_profile(ds, tmp)
+        phase_train_agreement(ds)
 
     rows = []
     for name, (wrapper, source, replaces) in KERNELS.items():
         launches = sum(counts[name] for counts in by_path.values())
-        require(launches > 0, f"{name} never launched on the serving paths")
+        require(launches > 0, f"{name} never launched on the main paths")
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches,
                      "launches_by_path": {p: c[name] for p, c in by_path.items()},

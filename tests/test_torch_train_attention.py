@@ -1,0 +1,146 @@
+"""The port's training attention (univl_tpu_torch/kernels/train_attention.py)
+against the Pallas kernels it replaces, run in interpret mode on the CPU, and
+its Philox dropout against an independent pure-Python Philox4x32-10.
+
+On a CPU tensor the port's wrappers take the plain PyTorch versions; the CUDA
+kernels themselves are held against those versions on the card by
+chip_smoke.py, which also checks that the forward kernel, the backward kernel
+and the plain version drop the same probabilities.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from univl_tpu.kernels.train_attention import fused_train_attention as jax_train_attention
+from univl_tpu_torch.kernels import train_attention as ta
+
+B, L, H, D = 3, 16, 4, 16  # B is not a multiple of the JAX batch block (8)
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _inputs(seed=0):
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (rng.randn(B, L, H * D).astype(np.float32) for _ in range(4))
+    lengths = np.array([[16], [7], [1]])
+    mask = (np.arange(L) < lengths).astype(np.float32)  # ragged, one row with a single key
+    return q, k, v, g, mask
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+# f32 on both sides: the same math summed in another order (measured <= 1e-6)
+def test_plain_version_matches_pallas_kernel_at_rate_0():
+    q, k, v, g, mask = _inputs()
+    mask[2] = 0.0  # no valid key: both give the uniform softmax (the -1e9 bias cancels)
+    jargs = [jnp.asarray(x) for x in (q, k, v)]
+    want, vjp = jax.vjp(lambda *a: jax_train_attention(*a, jnp.asarray(mask), 0, 0.0, H),
+                        *jargs)
+    want_grads = vjp(jnp.asarray(g))
+    tq, tk, tv, tg, tm = _t(q, k, v, g, mask)
+    out, m, l = ta.train_attention_fwd(tq, tk, tv, tm, 0, 0.0, H)
+    grads = ta.train_attention_bwd(tq, tk, tv, tm, 0, 0.0, H, m, l, tg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    for got, w in zip(grads, want_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+    # the masked row attends uniformly over all keys
+    np.testing.assert_allclose(out[2].numpy(), np.broadcast_to(v[2].mean(0), (L, H * D)),
+                               rtol=0, atol=1e-5)
+    assert ta.train_attention_fwd.launches == ta.train_attention_bwd.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_runs_the_backward(dtype):
+    """fused_train_attention's backward equals train_attention_bwd on the same
+    saved statistics, and its forward the plain forward, at rate 0.1."""
+    q, k, v, g, mask = (t.to(dtype) if t.dim() == 3 else t for t in _t(*_inputs(1)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ta.fused_train_attention(*leaves, mask, 7, 0.1, H)
+    out.backward(g)
+    want, m, l = ta.train_attention_reference_fwd(q, k, v, mask, 7, 0.1, H)
+    want_grads = ta.train_attention_reference_bwd(q, k, v, mask, 7, 0.1, H, m, l, g)
+    assert out.dtype == dtype
+    assert torch.equal(out.detach(), want)
+    for leaf, w in zip(leaves, want_grads):
+        assert torch.equal(leaf.grad, w)
+
+
+def test_plain_backward_matches_autograd_with_dropout():
+    """The hand-derived backward against autograd through the plain forward,
+    at rate 0.1 with the same mask, in f32."""
+    q, k, v, g, mask = _t(*_inputs(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, m, l = ta.train_attention_reference_fwd(*leaves, mask, 11, 0.1, H)
+    out.backward(g)
+    got = ta.train_attention_reference_bwd(q, k, v, mask, 11, 0.1, H, m.detach(), l.detach(), g)
+    for leaf, w in zip(leaves, got):
+        np.testing.assert_allclose(w.numpy(), leaf.grad.numpy(), rtol=0, atol=1e-6)
+
+
+def _philox_python(ctr, key, rounds=10):
+    """Philox4x32 in Python integers, from the definition (Salmon et al.)."""
+    M = 0xFFFFFFFF
+    c, k = list(ctr), list(key)
+    for r in range(rounds):
+        if r:
+            k = [(k[0] + 0x9E3779B9) & M, (k[1] + 0xBB67AE85) & M]
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & M, (p0 >> 32) ^ c[3] ^ k[1], p0 & M]
+    return c
+
+
+def test_philox_matches_python_and_known_answers():
+    rng = np.random.RandomState(3)
+    ctrs = [(0, 0, 0, 0), (0xFFFFFFFF,) * 4] + [tuple(rng.randint(0, 2**32, 4, dtype=np.uint64))
+                                                  for _ in range(6)]
+    keys = [(0, 0), (0xFFFFFFFF, 0xFFFFFFFF)] + [tuple(rng.randint(0, 2**32, 2, dtype=np.uint64))
+                                                   for _ in range(6)]
+    for ctr, key in zip(ctrs, keys):
+        ctr, key = [int(x) for x in ctr], [int(x) for x in key]
+        got = ta.philox4x32(*(torch.tensor([c]) for c in ctr), key[0] | key[1] << 32)
+        assert [int(w) for w in got] == _philox_python(ctr, key)
+    # Random123's known-answer vectors for philox4x32_10
+    got = ta.philox4x32(*(torch.tensor([0]) for _ in range(4)), 0)
+    assert [int(w) for w in got] == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+
+
+def test_dropout_mask_rate_and_determinism():
+    shape = (8, 12, 48, 48)  # 221,184 draws
+    keep = ta.dropout_keep(5, *shape, 0.1)
+    n = keep.numel()
+    dropped = 1.0 - keep.float().mean().item()
+    assert abs(dropped - 0.1) <= 5 * np.sqrt(0.1 * 0.9 / n)
+    assert torch.equal(keep, ta.dropout_keep(5, *shape, 0.1))
+    assert not torch.equal(keep, ta.dropout_keep(6, *shape, 0.1))
+    # a pure function of (seed, b, h, i, j): a sub-block is the same mask's corner
+    assert torch.equal(ta.dropout_keep(5, 2, 3, 5, 7, 0.1), keep[:2, :3, :5, :7])
+    assert bool(ta.dropout_keep(5, 2, 2, 4, 4, 0.0).all())
+
+
+@pytest.mark.parametrize("case", ["dtype", "rank", "heads", "kv_shape", "mask_shape"])
+def test_rejects_bad_inputs(case):
+    q, k, v = (torch.zeros(2, 8, 32) for _ in range(3))
+    mask, heads, err = torch.ones(2, 8), 4, ValueError
+    if case == "dtype":
+        q, k, v, err = q.half(), k.half(), v.half(), TypeError
+    elif case == "rank":
+        q = q[0]
+    elif case == "heads":
+        heads = 5
+    elif case == "kv_shape":
+        v = torch.zeros(2, 9, 32)
+    elif case == "mask_shape":
+        mask = torch.ones(2, 9)
+    with pytest.raises(err):
+        ta.fused_train_attention(q, k, v, mask, 0, 0.1, heads)

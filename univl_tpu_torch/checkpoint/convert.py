@@ -59,6 +59,10 @@ _INV_TOP = {
 }
 
 _TOWER = {"text": "bert", "visual": "visual", "cross": "cross"}
+_JAX_TOWER = {v: k for k, v in _TOWER.items()}
+# torch suffix -> (flax sub-path, kind): the tables above inverted
+_BLOCK = {suffix: (sub, kind) for sub, (suffix, kind) in _INV_BLOCK.items()}
+_DECODER_BLOCK = {suffix: (sub, kind) for sub, (suffix, kind) in _INV_DECODER_BLOCK.items()}
 
 # what the port does not own: pretraining heads, and the text/visual poolers
 # UniVL never reads
@@ -144,6 +148,45 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         name, v = _torch_name(path, value)
         sd[name] = torch.from_numpy(np.array(v, np.float32, order="C"))  # a copy
     return sd
+
+
+def jax_path(name: str) -> str:
+    """The JAX parameter path (``text/encoder/layer_0/attention/query/kernel``)
+    of a port parameter name (``bert.encoder.layer.0.attention.self.query.weight``):
+    the inverse of the naming in ``state_dict_from_jax_params``, so a port
+    gradient or parameter group lines up with the JAX tree leaf for leaf."""
+    top = {v: k for k, v in _INV_TOP.items()}
+    if name in top:
+        return top[name]
+    module, leaf = name.rsplit(".", 1)
+    lin = {"weight": "kernel", "bias": "bias"}
+    ln = {"weight": "scale", "bias": "bias"}
+    m = re.match(r"^(bert|visual|cross)\.embeddings\.LayerNorm$", module)
+    if m:
+        return f"{_JAX_TOWER[m.group(1)]}/embed_ln/{ln[leaf]}"
+    if module == "visual.embeddings.word_embeddings":
+        return f"feature_proj/{lin[leaf]}"
+    m = re.match(r"^(bert|visual|cross)\.encoder\.layer\.(\d+)\.(.+)$", module)
+    if m and m.group(3) in _BLOCK:
+        sub, kind = _BLOCK[m.group(3)]
+        return (f"{_JAX_TOWER[m.group(1)]}/encoder/layer_{m.group(2)}/{sub}/"
+                f"{(lin if kind == 'linear' else ln)[leaf]}")
+    if module == "decoder.embeddings.LayerNorm":
+        return f"decoder/embed_ln/{ln[leaf]}"
+    m = re.match(r"^decoder\.decoder\.layer\.(\d+)\.(.+)$", module)
+    if m and m.group(2) in _DECODER_BLOCK:
+        sub, kind = _DECODER_BLOCK[m.group(2)]
+        return f"decoder/layer_{m.group(1)}/{sub}/{(lin if kind == 'linear' else ln)[leaf]}"
+    m = re.match(r"^decoder\.classifier\.cls\.predictions\.transform\.(dense|LayerNorm)$",
+                 module)
+    if m:
+        sub, kind = ("dense", lin) if m.group(1) == "dense" else ("ln", ln)
+        return f"decoder/classifier_transform/{sub}/{kind[leaf]}"
+    if module in ("cross.pooler.dense", "similarity_dense"):
+        return f"{module.replace('.', '/')}/{lin[leaf]}"
+    if module == "normalize_video.visual_norm2d":
+        return f"video_norm/{ln[leaf]}"
+    raise ValueError(f"unrecognized port parameter name: {name}")
 
 
 def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:

@@ -1,22 +1,61 @@
-"""Command-line plumbing of the port's server, without JAX.
+"""Command-line plumbing of the port's entry points (the server and the
+retrieval trainer), without JAX.
 
-The port's own copies of ``univl_tpu/cli/common.py``'s ``get_logger`` and
-``base_parser`` (restricted to the flags the serving path reads, under the
-JAX names and defaults), ``build_config``, and the ``.bin`` branch of
-``load_init_params``.
+The port's own copies of ``univl_tpu/cli/common.py``'s ``MetricsWriter``,
+``get_logger``, ``base_parser`` (restricted to the flags the ported paths
+read, under the JAX names and defaults), ``finalize_args``,
+``build_config``, the ``.bin`` branch of ``load_init_params``,
+``make_trainer`` and ``run_train_epochs`` (without eval and resume).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
+import random
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_bin
 from univl_tpu_torch.config import UniVLConfig
+from univl_tpu_torch.train.optimization import make_univl_optimizer
+from univl_tpu_torch.train.trainer import Trainer
+from univl_tpu_torch.utils.profiling import StepTimer
+
+
+class MetricsWriter:
+    """Structured run metrics: one JSON object per line in metrics.jsonl
+    (train display points and epoch summaries)."""
+
+    def __init__(self, output_dir: Optional[str]):
+        self._f = None
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            self._f = open(os.path.join(output_dir, "metrics.jsonl"), "a", buffering=1)
+
+    def write(self, kind: str, **fields):
+        if self._f is None:
+            return
+        rec = {"ts": round(time.time(), 3), "kind": kind}
+        for k, v in fields.items():
+            if isinstance(v, (int, float, str, bool)) or v is None:
+                rec[k] = v
+            else:
+                try:
+                    rec[k] = float(v)
+                except (TypeError, ValueError):
+                    pass
+        self._f.write(json.dumps(rec) + "\n")
+
+    def close(self):
+        if self._f is not None:
+            self._f.close()
+            self._f = None
 
 
 def get_logger(output_dir: Optional[str] = None, name: str = "univl_tpu_torch"):
@@ -38,6 +77,30 @@ def get_logger(output_dir: Optional[str] = None, name: str = "univl_tpu_torch"):
 
 def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
+    p.add_argument("--do_train", action="store_true")
+    p.add_argument("--train_csv", type=str, default="data/youcookii_singlef_train.csv")
+    p.add_argument("--val_csv", type=str, default="data/youcookii_singlef_val.csv")
+    p.add_argument("--data_path", type=str, default="data/youcookii_caption.pickle")
+    p.add_argument("--features_path", type=str, default="data/youcookii_videos_feature.pickle")
+    p.add_argument("--datatype", type=str, default="youcook")
+    p.add_argument("--feature_framerate", type=float, default=1)
+    p.add_argument("--num_thread_reader", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--epochs", type=int, default=20)
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--warmup_proportion", type=float, default=0.1)
+    p.add_argument("--coef_lr", type=float, default=0.1)
+    p.add_argument("--n_display", type=int, default=100)
+    p.add_argument("--adam_state_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="storage dtype for BertAdam moments; bfloat16 halves optimizer "
+                        "memory and traffic (not reference-exact)")
+    p.add_argument("--margin", type=float, default=0.1)
+    p.add_argument("--hard_negative_rate", type=float, default=0.5)
+    p.add_argument("--negative_weighting", type=int, default=1)
+    p.add_argument("--n_pair", type=int, default=1)
+    p.add_argument("--use_mil", action="store_true")
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--vocab_file", type=str, default=None,
                    help="WordPiece vocab.txt (required; no network download)")
@@ -72,11 +135,37 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def resolve_device(name: str) -> torch.device:
+    """The ``--device``; a CUDA device that is not there is an error, never
+    a silent fall back to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
+    return device
+
+
+def finalize_args(args):
+    """The batch divided by gradient accumulation (the reference's global
+    batch over its micro-batches), the resolved flags in ``args.json``, and
+    Python's and numpy's global seeds."""
+    if args.gradient_accumulation_steps < 1:
+        raise ValueError("gradient_accumulation_steps must be >= 1")
+    args.batch_size = int(args.batch_size / args.gradient_accumulation_steps)
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+        json.dump(vars(args), f, indent=1, default=str)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    os.environ["PYTHONHASHSEED"] = str(args.seed)
+    return args
+
+
 def build_config(args, device: torch.device, task_type: str = "retrieval",
                  vocab_size: Optional[int] = None) -> UniVLConfig:
     """Layer counts, widths, lengths, video_dim, vocab size (text tower and
-    decoder alike), the stage switches and the compute dtype (bf16 on a CUDA
-    device, f32 on the CPU, unless --compute_dtype or --fp16 says otherwise)."""
+    decoder alike), the stage switches, the loss fields, the (micro-)batch
+    and the compute dtype (bf16 on a CUDA device, f32 on the CPU, unless
+    --compute_dtype or --fp16 says otherwise)."""
     dtype = args.compute_dtype or (
         "bfloat16" if (device.type == "cuda" or args.fp16) else "float32")
     cfg = UniVLConfig.base(
@@ -87,9 +176,15 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
         max_words=args.max_words,
         max_frames=args.max_frames,
         video_dim=args.video_dim,
+        margin=args.margin,
+        hard_negative_rate=args.hard_negative_rate,
+        negative_weighting=bool(args.negative_weighting),
+        n_pair=args.n_pair,
+        use_mil=args.use_mil,
         stage_two=args.stage_two,
         train_sim_after_cross=args.train_sim_after_cross,
         task_type=task_type,
+        batch_size_per_device=args.batch_size,
         compute_dtype=dtype,
     )
     arch = {}
@@ -112,13 +207,14 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
 def load_init_params(args, model: torch.nn.Module, logger) -> None:
     """Seeded init (``--seed``), overlaid with ``--init_model`` when given.
 
-    Only a reference PyTorch ``.bin`` is read here. The caption decoder's
+    Only a reference PyTorch ``.bin`` (or a ``pytorch_model.bin.<epoch>``
+    the trainer wrote) is read here. The caption decoder's
     keys are dropped when the model builds no decoder; any other key the
     model does not have is an error. Parameters the file lacks stay at the
     seeded init, as in univl_tpu.cli.common.load_init_params."""
     sd = init_state_dict(model.cfg, args.seed)
     if args.init_model:
-        if not args.init_model.endswith(".bin"):
+        if ".bin" not in os.path.basename(args.init_model):
             raise ValueError(f"--init_model: only a reference .bin loads here, got "
                              f"{args.init_model}")
         loaded = load_reference_bin(args.init_model)
@@ -132,3 +228,61 @@ def load_init_params(args, model: torch.nn.Module, logger) -> None:
         logger.info("loaded %d params from %s; %d left at init%s", len(loaded),
                     args.init_model, len(missing), f": {missing[:8]}" if missing else "")
     model.load_state_dict(sd, strict=True)
+
+
+def make_trainer(args, model: torch.nn.Module, n_train_batches: int, logger) -> Trainer:
+    """BertAdam over ``t_total = n_train_batches * epochs`` updates, and the
+    single-device trainer with ``--gradient_accumulation_steps``."""
+    t_total = n_train_batches * args.epochs
+    opt = make_univl_optimizer(
+        model, lr=args.lr, t_total=max(t_total, 1), warmup_proportion=args.warmup_proportion,
+        coef_lr=args.coef_lr, state_dtype=args.adam_state_dtype)
+    logger.info("one device (%s); t_total=%d", next(model.parameters()).device, t_total)
+    return Trainer(model, opt, grad_accum_steps=args.gradient_accumulation_steps,
+                   seed=args.seed)
+
+
+def save_state_dict(model: torch.nn.Module, path: str) -> None:
+    """The model's weights under the reference names, on the CPU, as a
+    torch ``.bin`` that both packages' ``--init_model`` read."""
+    torch.save({k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()}, path)
+
+
+def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.device) -> int:
+    """The epoch loop of ``univl_tpu.cli.common.run_train_epochs`` without
+    eval and resume: each batch to the device, one optimizer step, the loss
+    summed on the device (read at display points and at the epoch's end),
+    and each epoch's weights saved as ``pytorch_model.bin.<epoch>`` (the
+    reference's per-epoch file). Returns the number of steps taken."""
+    timer = StepTimer()
+    mw = MetricsWriter(args.output_dir)
+    accum = args.gradient_accumulation_steps
+    items_per_step = args.batch_size * accum
+    global_step = 0
+    for epoch in range(args.epochs):
+        t0 = time.time()
+        loss_sum, n_steps = None, 0
+        for batch in batcher.epoch(epoch):
+            batch = {k: torch.from_numpy(v if accum > 1 else v[None]).to(device)
+                     for k, v in batch.items()}
+            metrics = trainer.train_step(batch, global_step)
+            global_step += 1
+            n_steps += 1
+            loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
+            timer.tick(items_per_step)
+            if global_step % args.n_display == 0:
+                disp_loss = float(metrics["loss"])
+                logger.info("Epoch %d/%d Step %d Loss %.6f Time/step %.3f (%.0f clips/s)",
+                            epoch + 1, args.epochs, global_step, disp_loss, timer.ema or 0.0,
+                            timer.items_per_sec)
+                mw.write("train", epoch=epoch, step=global_step, loss=disp_loss,
+                         clips_per_sec=timer.items_per_sec)
+        total_loss = float(loss_sum) if loss_sum is not None else 0.0
+        logger.info("Epoch %d done: mean loss %.6f (%.1fs)", epoch + 1,
+                    total_loss / max(n_steps, 1), time.time() - t0)
+        mw.write("epoch", epoch=epoch, mean_loss=total_loss / max(n_steps, 1),
+                 seconds=time.time() - t0, steps=n_steps)
+        save_state_dict(trainer.model, os.path.join(args.output_dir,
+                                                    f"pytorch_model.bin.{epoch}"))
+    mw.close()
+    return global_step

@@ -34,7 +34,6 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
-import torch
 
 from univl_tpu_torch.cli import common
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
@@ -91,17 +90,10 @@ def _decode_transcripts(payload, n_videos: int):
     return list(txts)
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
-    return device
-
-
 def build_services(args):
     """Load the model and its weights; return (index or None, caption service
     or None, cfg)."""
-    device = _device(args.device)
+    device = common.resolve_device(args.device)
     logger = common.get_logger(args.output_dir)
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
     want_caption = args.mode in ("caption", "both")

@@ -1,0 +1,82 @@
+"""Synthetic data in the reference's file formats, the port's copy of
+``univl_tpu/data/fixtures.py``'s ``make_vocab`` and ``make_youcook``: the same
+files, byte for byte, for the same arguments.
+
+``chip_smoke.py`` and the tests make their training data with these.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import pickle
+
+import numpy as np
+
+WORDS = (
+    "add the chopped onions and stir well then pour some olive oil into pan "
+    "heat salt pepper garlic butter mix flour water sugar egg chicken beef "
+    "slice tomato cheese bread cook bake fry boil simmer plate serve bowl "
+    "cut place remove season taste sauce rice pasta potato carrot"
+).split()
+
+
+def make_vocab(path: str) -> str:
+    """Vocab covering the fixture word list plus wordpieces and specials."""
+    tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    tokens += sorted(set(WORDS))
+    tokens += [c for c in "abcdefghijklmnopqrstuvwxyz0123456789"]
+    tokens += ["##" + c for c in "abcdefghijklmnopqrstuvwxyz0123456789"]
+    tokens += ["##ing", "##ed", ",", ".", "!", "?"]
+    # keep the first occurrence of a duplicate: a later one would leave an id
+    # without a reverse mapping
+    seen = set()
+    tokens = [t for t in tokens if not (t in seen or seen.add(t))]
+    with open(path, "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    return path
+
+
+def _sentence(rng: np.random.RandomState, lo=4, hi=12) -> str:
+    n = rng.randint(lo, hi)
+    return " ".join(rng.choice(WORDS, n))
+
+
+def make_youcook(out_dir: str, n_videos: int = 6, clips_per_video: int = 3,
+                 video_dim: int = 32, seconds_per_video: int = 60, seed: int = 0,
+                 with_transcript: bool = True):
+    """Writes csv, data.pickle, features.pickle; returns their paths."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    vids = [f"vid{i:03d}" for i in range(n_videos)]
+
+    csv_path = os.path.join(out_dir, "youcook.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["video_id", "feature_file"])
+        for v in vids:
+            w.writerow([v, v])
+
+    data = {}
+    feats = {}
+    for v in vids:
+        bounds = np.sort(rng.uniform(0, seconds_per_video, 2 * clips_per_video))
+        starts = bounds[0::2]
+        ends = bounds[1::2] + 1.0
+        data[v] = {
+            "start": np.asarray(starts, dtype=object),
+            "end": np.asarray(ends, dtype=object),
+            "text": np.asarray([_sentence(rng) for _ in range(clips_per_video)], dtype=object),
+        }
+        if with_transcript:
+            data[v]["transcript"] = np.asarray(
+                [_sentence(rng) for _ in range(clips_per_video)], dtype=object)
+        feats[v] = rng.randn(seconds_per_video, video_dim).astype(np.float32)
+
+    data_path = os.path.join(out_dir, "youcook_data.pickle")
+    with open(data_path, "wb") as f:
+        pickle.dump(data, f)
+    feat_path = os.path.join(out_dir, "youcook_features.pickle")
+    with open(feat_path, "wb") as f:
+        pickle.dump(feats, f)
+    return csv_path, data_path, feat_path

@@ -1,6 +1,6 @@
-"""Text and video padding for serving, the port's own copy of the parts of
-``univl_tpu/data/text_encoding.py`` and ``univl_tpu/data/batching.py``
-that serving reads (no MLM masking: serving never masks).
+"""Text and video padding, the port's own copy of the parts of
+``univl_tpu/data/text_encoding.py`` that serving and FT-Joint training read
+(no MLM masking yet: neither masks).
 
 All outputs are fixed-shape int32/float32 numpy arrays.
 """
@@ -43,14 +43,6 @@ def pad_video(video_slice: np.ndarray, max_frames: int,
     mask = np.zeros(max_frames, np.int32)
     mask[:length] = 1
     return video, mask, length
-
-
-def pad_rows(x: np.ndarray, size: int) -> np.ndarray:
-    """Zero-pad the leading (row) dim to ``size``: the fixed serving batch."""
-    if x.shape[0] == size:
-        return x
-    pad = np.zeros((size - x.shape[0], *x.shape[1:]), x.dtype)
-    return np.concatenate([x, pad], axis=0)
 
 
 def _pad(xs: Sequence[int], n: int, fill: int) -> np.ndarray:

@@ -105,6 +105,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_decode_attention.restype = i
     lib.univl_vocab_topk.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.univl_vocab_topk.restype = i
+    lib.univl_train_attention_smem_bytes.argtypes = [i, i, i, i]
+    lib.univl_train_attention_smem_bytes.restype = ll
+    shared = [i] * 6 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]
+    lib.univl_train_attention_fwd.argtypes = [p] * 7 + shared
+    lib.univl_train_attention_fwd.restype = i
+    lib.univl_train_attention_bwd.argtypes = [p] * 10 + shared
+    lib.univl_train_attention_bwd.restype = i
     lib.univl_cuda_error_string.argtypes = [i]
     lib.univl_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,276 @@
+"""Training attention: the hand-written CUDA kernels (forward and backward)
+and their plain PyTorch versions.
+
+``fused_train_attention`` replaces the Pallas TPU kernel
+``univl_tpu/kernels/train_attention.py:fused_train_attention`` and keeps its
+signature and layout: q, k, v are the dense ``[B, L, heads*D]`` projections
+(no head-split transposes), ``key_mask`` is ``[B, Lk]`` (1 keep, 0 drop), the
+attention probabilities are dropped inside the kernel, and the forward saves
+only the softmax row max and row sum (``[B, heads, Lq]`` f32). The backward
+recomputes the probabilities and regenerates the same dropout mask, so no
+``[B, H, Lq, Lk]`` tensor exists in device memory.
+
+On a CPU tensor ``train_attention_fwd`` and ``train_attention_bwd`` compute
+the plain versions below; on a CUDA tensor they launch the kernels in
+``univl_tpu_torch/csrc/train_attention.cu`` (built at first use) or raise.
+
+Dropout bits: the TPU kernels draw theirs from the TPU's own generator
+(``pltpu.prng_random_bits`` seeded with seed + program id), which cannot be
+reproduced here. Both the kernels and the plain version use a counter-based
+Philox4x32-10 instead: element (b, h, i, j) is kept where word ``j % 4`` of
+Philox(counter = (j // 4, i, h, b), key = the 64-bit seed) is at least
+``rate * 2**32`` (the TPU kernel's threshold). The mask is a pure function of
+(seed, b, h, i, j), independent of block size and thread layout, so the
+forward kernel, the backward kernel and the plain version see the same mask
+bit for bit. The distribution is the TPU's; the bits are not.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from univl_tpu_torch.kernels import _build
+
+MASK_BIAS = -1e9  # in-kernel key bias (univl_tpu/kernels/train_attention.py:93)
+SMEM_LIMIT = 227 * 1024  # Hopper's opt-in shared memory per block
+MAX_HEAD_DIM = 128
+
+# Philox4x32-10 constants (Salmon et al., SC'11; the Random123 values)
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32-bit words of a * b, for a 32-bit constant a and an
+    int64 tensor b holding 32-bit values. Products of 16-bit halves keep
+    every intermediate below 2**49, so no int64 product overflows."""
+    p_lo = a * (b & 0xFFFF)
+    mid = a * (b >> 16) + (p_lo >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+
+
+def philox4x32(c0, c1, c2, c3, seed: int, rounds: int = 10):
+    """Philox4x32 over int64 counter tensors (32-bit values, broadcast
+    together) with the 64-bit key ``seed``; returns the four output words."""
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    for r in range(rounds):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_threshold(rate: float) -> int:
+    """Keep where the 32-bit word is >= this (univl_tpu/kernels/train_attention.py:61)."""
+    return min(int(rate * 2**32), 2**32 - 1)
+
+
+def dropout_keep(seed: int, B: int, H: int, Lq: int, Lk: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """The kernels' keep mask, bool [B, H, Lq, Lk]."""
+    def axis(n, dim):
+        shape = [1, 1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, dtype=torch.int64, device=device).view(shape)
+
+    quads = -(-Lk // 4)
+    c = torch.broadcast_tensors(axis(quads, 3), axis(Lq, 2), axis(H, 1), axis(B, 0))
+    words = torch.stack(philox4x32(*c, seed), dim=-1)  # [B, H, Lq, quads, 4]
+    return words.reshape(B, H, Lq, 4 * quads)[..., :Lk] >= keep_threshold(rate)
+
+
+def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, L, heads*D] -> f32 [B, heads, L, D]."""
+    B, L, HD = x.shape
+    return x.float().view(B, L, heads, HD // heads).transpose(1, 2)
+
+
+def _merge(x: torch.Tensor, dtype) -> torch.Tensor:
+    """[B, heads, L, D] -> [B, L, heads*D] in ``dtype``."""
+    B, H, L, D = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * D).to(dtype)
+
+
+def _probs(q, k, key_mask, heads, m=None, l=None):
+    """Softmax of the f32 scores with the key bias: (p, m, l). Given the
+    forward's row max and sum, the same ops recompute the same p."""
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    s = torch.matmul(_heads(q, heads), _heads(k, heads).transpose(-1, -2)) * scale
+    s = s + ((1.0 - key_mask.float()) * MASK_BIAS)[:, None, None, :]
+    if m is None:
+        m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    if l is None:
+        l = e.sum(dim=-1)
+    return e / l[..., None], m, l
+
+
+def train_attention_reference_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
+    """The forward kernel's math in torch ops: f32 scores and softmax, the
+    kept probabilities scaled by 1/(1-rate), rounded to the compute dtype
+    before PV, PV summed in f32. Returns (out [B, Lq, heads*D], m, l)."""
+    p, m, l = _probs(q, k, key_mask, heads)
+    if rate > 0.0:
+        keep = dropout_keep(seed, *p.shape, rate, device=p.device)
+        p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+    o = torch.matmul(p.to(v.dtype).float(), _heads(v, heads))
+    return _merge(o, q.dtype), m, l
+
+
+def train_attention_reference_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int,
+                                  m, l, g):
+    """The backward kernel's math in torch ops (the TPU kernel's roundings,
+    univl_tpu/kernels/train_attention.py:140-172): p recomputed from m and l,
+    the same mask, dv from the dropped probs rounded to the compute dtype, ds
+    rounded to it, dq and dk scaled after the f32 sums."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    p, _, _ = _probs(q, k, key_mask, heads, m, l)
+    gh = _heads(g.to(dt), heads)
+    dp = torch.matmul(gh, _heads(v, heads).transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        keep = dropout_keep(seed, *p.shape, rate, device=p.device)
+        inv = 1.0 / (1.0 - rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), gh)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.matmul(ds, _heads(k, heads)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), _heads(q, heads)) * scale
+    return _merge(dq, dt), _merge(dk, dt), _merge(dv, dt)
+
+
+def _check(q, k, v, key_mask, heads: int) -> None:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be [B, L, heads*D]")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype, float32 or bfloat16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, Lq, HD = q.shape
+    Lk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2] != HD:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if heads < 1 or HD % heads:
+        raise ValueError(f"heads={heads} does not divide the width {HD}")
+    if tuple(key_mask.shape) != (B, Lk):
+        raise ValueError(f"key_mask must be [B, Lk] = {(B, Lk)}, got {tuple(key_mask.shape)}")
+    if min(Lq, Lk) < 1:
+        raise ValueError(f"need Lq, Lk >= 1, got Lq={Lq} Lk={Lk}")
+    if len({q.device, k.device, v.device, key_mask.device}) != 1:
+        raise ValueError("q, k, v and key_mask must be on one device")
+
+
+def _cuda_args(q: torch.Tensor, k: torch.Tensor, heads: int, rate: float, backward: bool):
+    """Checks what the kernels take; returns the library and the launch
+    arguments shared by the forward and the backward (types, shapes, scale,
+    dropout threshold, 1/(1-rate), dropout on)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no training-attention kernel for device {q.device}")
+    B, Lq, HD = q.shape
+    Lk, D = k.shape[1], HD // heads
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise ValueError(f"the kernels read 16-byte rows: need a head dim that is a multiple "
+                         f"of 8 and at most {MAX_HEAD_DIM}, got {D}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    lib = _build.load_library()
+    smem = lib.univl_train_attention_smem_bytes(Lq, Lk, D, int(backward))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"Lq={Lq}, Lk={Lk}, D={D} needs {smem} bytes of shared memory per "
+                         f"block in the {'backward' if backward else 'forward'}; the limit "
+                         f"is {SMEM_LIMIT}")
+    return lib, (int(q.dtype == torch.bfloat16), B, heads, Lq, Lk, D, 1.0 / math.sqrt(D),
+                 keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0))
+
+
+def _aligned(*ts):
+    """Data pointers of the tensors the kernels read and write in 16-byte words."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("q, k, v and g must start on 16-byte boundaries")
+    return [t.data_ptr() for t in ts]
+
+
+def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
+    """(out [B, Lq, heads*D] in q's dtype, m, l [B, heads, Lq] f32): the
+    forward kernel on a CUDA tensor, its plain version on a CPU one."""
+    _check(q, k, v, key_mask, heads)
+    if q.device.type == "cpu":
+        return train_attention_reference_fwd(q, k, v, key_mask, seed, rate, heads)
+    lib, args = _cuda_args(q, k, heads, rate, backward=False)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = key_mask.to(torch.float32).contiguous()
+    B, H, Lq = q.shape[0], heads, q.shape[1]
+    out = torch.empty_like(q)
+    m = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.univl_train_attention_fwd(
+            *_aligned(q, k, v), mask.data_ptr(), *_aligned(out), m.data_ptr(), l.data_ptr(),
+            *args, seed & 0xFFFFFFFFFFFFFFFF, stream)
+    _build.check(lib, err, "training attention forward kernel launch")
+    train_attention_fwd.launches += 1
+    return out, m, l
+
+
+def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
+    """(dq, dk, dv), each in q's dtype and layout: the backward kernel on a
+    CUDA tensor, its plain version on a CPU one."""
+    _check(q, k, v, key_mask, heads)
+    if q.device.type == "cpu":
+        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
+    lib, args = _cuda_args(q, k, heads, rate, backward=True)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    g = g.to(q.dtype).contiguous()
+    mask = key_mask.to(torch.float32).contiguous()
+    m, l = m.contiguous(), l.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.univl_train_attention_bwd(
+            *_aligned(q, k, v), mask.data_ptr(), m.data_ptr(), l.data_ptr(),
+            *_aligned(g, dq, dk, dv), *args, seed & 0xFFFFFFFFFFFFFFFF,
+            stream)
+    _build.check(lib, err, "training attention backward kernel launch")
+    train_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+train_attention_fwd.launches = 0  # kernel launches; the CPU path adds nothing
+train_attention_bwd.launches = 0
+
+
+class _FusedTrainAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, seed, rate, heads):
+        key_mask = key_mask.to(torch.float32)
+        o, m, l = train_attention_fwd(q, k, v, key_mask, seed, rate, heads)
+        ctx.save_for_backward(q, k, v, key_mask, m, l)
+        ctx.seed, ctx.rate, ctx.heads = seed, rate, heads
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, m, l = ctx.saved_tensors
+        dq, dk, dv = train_attention_bwd(q, k, v, key_mask, ctx.seed, ctx.rate, ctx.heads,
+                                         m, l, g)
+        return dq, dk, dv, None, None, None, None
+
+
+def fused_train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          key_mask: torch.Tensor, seed: int, rate: float,
+                          heads: int) -> torch.Tensor:
+    """Attention with in-kernel probability dropout, differentiable.
+
+    q: [B, Lq, heads*D], k, v: [B, Lk, heads*D], one dtype (f32 or bf16);
+    key_mask: [B, Lk], 1 keep and 0 drop; seed: a host int (the Philox key);
+    rate: the probability dropout rate. Returns [B, Lq, heads*D]."""
+    return _FusedTrainAttention.apply(q, k, v, key_mask, seed, rate, heads)

@@ -1,7 +1,11 @@
-"""UniVL's serving subset in PyTorch: text, visual and cross towers, the
-FT-Align similarity head and the caption decoder.
+"""UniVL in PyTorch: text, visual and cross towers, the FT-Align similarity
+head, the caption decoder, and the FT-Joint training forward.
 
-Ports the serving parts of ``univl_tpu/models/univl.py``. The pretraining
+Ports ``univl_tpu/models/univl.py``: serving (encoders, similarities, the
+decoder) and, in ``forward``, the training step of stage one without MIL
+(FT-Joint retrieval fine-tuning: mean-pooled joint similarity, max-margin
+ranking loss). The other training routes (``stage_two``,
+``train_sim_after_cross``, ``use_mil``, ``do_pretrain``) and the pretraining
 heads are not ported yet. Parameters are f32;
 ``cfg.compute_dtype`` ("float32" or "bfloat16") is the dtype the towers
 compute in. The state dict uses the reference checkpoint's names:
@@ -19,12 +23,15 @@ compute in. The state dict uses the reference checkpoint's names:
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 from torch import nn
 
 from univl_tpu_torch.config import UniVLConfig
+from univl_tpu_torch.models.losses import max_margin_ranking_loss
 from univl_tpu_torch.nn.decoder import CaptionDecoder
-from univl_tpu_torch.nn.layers import LayerNormTF, Linear
+from univl_tpu_torch.nn.layers import LayerNormTF, Linear, Randomness
 from univl_tpu_torch.nn.towers import CrossEncoder, TextEncoder, VisualEncoder
 
 
@@ -57,18 +64,20 @@ class UniVL(nn.Module):
         if self.has_decoder:
             self.decoder = CaptionDecoder(cfg.decoder, dt, device)
 
-    def encode(self, input_ids, token_type_ids, attention_mask, video, video_mask):
+    def encode(self, input_ids, token_type_ids, attention_mask, video, video_mask,
+               rng: Optional[Randomness] = None):
         """Text and visual towers: (sequence output, visual output)."""
-        return (self.encode_text(input_ids, token_type_ids, attention_mask),
-                self.encode_video(video, video_mask))
+        return (self.encode_text(input_ids, token_type_ids, attention_mask, rng),
+                self.encode_video(video, video_mask, rng))
 
-    def encode_text(self, input_ids, token_type_ids, attention_mask) -> torch.Tensor:
+    def encode_text(self, input_ids, token_type_ids, attention_mask,
+                    rng: Optional[Randomness] = None) -> torch.Tensor:
         """Text tower only: the serving path's queries."""
-        return self.bert(input_ids, token_type_ids, attention_mask)
+        return self.bert(input_ids, token_type_ids, attention_mask, rng)
 
-    def encode_video(self, video, video_mask) -> torch.Tensor:
+    def encode_video(self, video, video_mask, rng: Optional[Randomness] = None) -> torch.Tensor:
         """Raw-feature LayerNorm, then the visual tower: the serving path's index build."""
-        return self.visual(self.normalize_video(video), video_mask)
+        return self.visual(self.normalize_video(video), video_mask, rng)
 
     def get_cross_output(self, sequence_output, visual_output, attention_mask, video_mask):
         """Fusion encoder over [text ; video]; returns (hidden, pooled, concat_mask)."""
@@ -91,6 +100,47 @@ class UniVL(nn.Module):
         vm_sum = torch.where(vm_sum == 0.0, torch.ones_like(vm_sum), vm_sum)
         video_out = (visual_output.float() * vm).sum(dim=1) / vm_sum
         return text_out, video_out
+
+    def joint_similarity(self, sequence_output, visual_output, attention_mask,
+                         video_mask) -> torch.Tensor:
+        """Mean-pooled dot-product similarity [Bt, Bv], L2-normalised without MIL."""
+        text_out, video_out = self.mean_pool(sequence_output, visual_output, attention_mask,
+                                             video_mask)
+        if not self.cfg.use_mil:
+            text_out = text_out / torch.linalg.norm(text_out, dim=-1, keepdim=True)
+            video_out = video_out / torch.linalg.norm(video_out, dim=-1, keepdim=True)
+        return text_out @ video_out.t()
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The training forward of stage one without MIL (FT-Joint): both
+        towers, the joint similarity, the max-margin ranking loss. Returns the
+        JAX dict of losses, ``{"sim_loss", "loss"}``.
+
+        ``batch``: ``input_ids``, ``token_type_ids``, ``attention_mask``
+        [B, Lw]; ``video`` [B, Lv, video_dim]; ``video_mask`` [B, Lv]. In
+        training mode ``generator`` (a CPU ``torch.Generator``, the step's)
+        gives all the dropout; in eval mode nothing is dropped."""
+        c = self.cfg
+        for route in ("stage_two", "train_sim_after_cross", "use_mil", "do_pretrain"):
+            if getattr(c, route):
+                raise NotImplementedError(f"training with {route}: not ported yet")
+        rng = None
+        if self.training and generator is not None:
+            rng = Randomness.derive(generator, batch["video"].device)
+
+        def flat2(x):
+            return x.reshape(-1, x.shape[-1])
+
+        attention_mask, video_mask = flat2(batch["attention_mask"]), flat2(batch["video_mask"])
+        seq_out, vis_out = self.encode(flat2(batch["input_ids"]), flat2(batch["token_type_ids"]),
+                                       attention_mask, batch["video"], video_mask, rng)
+        sim = self.joint_similarity(seq_out, vis_out, attention_mask, video_mask)
+        sim_loss = max_margin_ranking_loss(
+            sim, margin=c.margin, negative_weighting=c.negative_weighting,
+            batch_size=c.batch_size_per_device, n_pair=c.n_pair,
+            hard_negative_rate=c.hard_negative_rate)
+        return {"sim_loss": sim_loss, "loss": sim_loss}
 
     def cross_similarity_pairs(self, sequence_output, visual_output, attention_mask,
                                video_mask) -> torch.Tensor:

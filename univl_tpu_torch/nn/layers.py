@@ -1,4 +1,4 @@
-"""Transformer building blocks of the encoders, in PyTorch (inference only).
+"""Transformer building blocks of the encoders, in PyTorch.
 
 Ports ``univl_tpu/nn/layers.py`` and keeps its numerics: erf-GELU, TF-style
 LayerNorm (eps 1e-12 inside the sqrt, f32 statistics), post-LN residual
@@ -8,24 +8,33 @@ parameter names follow the reference PyTorch checkpoint
 (``bert.encoder.layer.0.attention.self.query.weight`` ...), so weights load
 with ``load_state_dict(strict=True)``.
 
-Only the serving path is ported: no dropout, separate q/k/v projections, the
-unfused FFN. An attention masked by keys goes through
+Separate q/k/v projections and the unfused FFN, as the JAX package runs by
+default. In eval mode an attention masked by keys goes through
 ``kernels.attention.fused_attention_masked`` (the CUDA kernel on a CUDA
-tensor, its plain version on a CPU one); any other additive bias (the
-caption decoder's causal ``[B, 1, L, L]`` one) takes ``sdpa_bias``, plain
-PyTorch, as the JAX package sends it to its XLA path.
+tensor, its plain version on a CPU one); any other additive bias (the caption
+decoder's causal ``[B, 1, L, L]`` one) takes ``sdpa_bias``, plain PyTorch, as
+the JAX package sends it to its XLA path.
+
+Training mode (``module.training``) adds what the JAX package's
+``deterministic=False`` adds: hidden dropout after each residual block's
+dense, and key-masked attention through ``kernels.train_attention``
+(forward and backward kernels, the attention-probability dropout drawn inside
+them). Its randomness comes from a ``Randomness`` passed down explicitly;
+nothing reads PyTorch's global random state. Training through the
+additive-bias attention (the decoder's) is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from univl_tpu_torch.kernels.attention import fused_attention_masked
+from univl_tpu_torch.kernels.train_attention import fused_train_attention
 
 MASK_BIAS = -10000.0
 LN_EPS = 1e-12
@@ -43,6 +52,41 @@ def additive_mask_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     and applies the kernel's -1e9, which gives the same softmax on every query
     whose keys are not all masked."""
     return ((1.0 - mask.to(dtype)) * MASK_BIAS)[:, None, None, :]
+
+
+class Randomness(NamedTuple):
+    """A training step's randomness: ``host``, a CPU generator, gives each
+    training-attention call its Philox seed without a device sync; ``device``,
+    a generator on the activations' device, draws the hidden and embedding
+    dropout masks. The counterpart of flax's ``dropout`` rng stream."""
+
+    host: torch.Generator
+    device: torch.Generator
+
+    @classmethod
+    def derive(cls, generator: torch.Generator, device) -> "Randomness":
+        """From the step's CPU generator: ``generator`` itself, and a
+        generator on ``device`` seeded from its next draw."""
+        device = torch.device(device)
+        seed = int(torch.randint(0, 2**62, (), generator=generator))
+        return cls(generator, torch.Generator(device=device).manual_seed(seed))
+
+    def kernel_seed(self) -> int:
+        """A Philox key for one training-attention call (JAX's
+        ``_kernel_dropout_seed``: one draw per call)."""
+        return int(torch.randint(0, 2**62, (), generator=self.host))
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[Randomness]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
+    divided by it; rate 0 is the identity and draws nothing."""
+    if rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout in training mode needs a Randomness")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng.device, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 def sdpa_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,22 +136,34 @@ class MultiHeadAttention(nn.Module):
     and values another source (the decoder's encoder attention)."""
 
     def __init__(self, hidden_size: int, num_heads: int, compute_dtype: torch.dtype,
-                 device=None):
+                 device=None, dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
+        self.dropout_rate = dropout_rate  # of the attention probabilities, in training
         self.query = Linear(hidden_size, hidden_size, compute_dtype, device)
         self.key = Linear(hidden_size, hidden_size, compute_dtype, device)
         self.value = Linear(hidden_size, hidden_size, compute_dtype, device)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
-                kv_in: Optional[torch.Tensor] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_in: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
         """Exactly one of ``key_mask`` ([B, Lk], 1 keep, 0 drop: the eval
-        attention kernel) and ``bias`` (additive: ``sdpa_bias``)."""
+        attention kernel, or in training the training-attention kernels on
+        the dense projections) and ``bias`` (additive: ``sdpa_bias``)."""
         if (key_mask is None) == (bias is None):
             raise ValueError("give exactly one of key_mask and bias")
         kv_in = x if kv_in is None else kv_in
+        if self.training:
+            if bias is not None:
+                raise NotImplementedError("training through the additive-bias attention (the "
+                                          "caption decoder's) is not ported yet")
+            rate = self.dropout_rate
+            if rate > 0.0 and rng is None:
+                raise ValueError("attention dropout in training mode needs a Randomness")
+            seed = rng.kernel_seed() if rate > 0.0 else 0
+            return fused_train_attention(self.query(x), self.key(kv_in), self.value(kv_in),
+                                         key_mask, seed, rate, self.num_heads)
 
         def split(t):  # a strided [B, H, L, D] view of [B, L, H*D]
             return t.view(t.shape[0], t.shape[1], self.num_heads, self.head_dim).transpose(1, 2)
@@ -122,25 +178,32 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualOutput(nn.Module):
-    """dense -> add residual -> LayerNorm (post-LN)."""
+    """dense -> dropout (in training) -> add residual -> LayerNorm (post-LN)."""
 
     def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype,
-                 device=None):
+                 device=None, dropout_rate: float = 0.0):
         super().__init__()
         self.dense = Linear(in_features, features, compute_dtype, device)
         self.LayerNorm = LayerNormTF(features, device=device)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(x) + residual)
+    def forward(self, x: torch.Tensor, residual: torch.Tensor,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
+        h = self.dense(x)
+        if self.training:
+            h = dropout(h, self.dropout_rate, rng)
+        return self.LayerNorm(h + residual)
 
 
 class _Attention(nn.Module):
     """Holds ``self`` (the attention) and ``output`` under the reference's names."""
 
-    def __init__(self, hidden_size: int, num_heads: int, compute_dtype, device=None):
+    def __init__(self, cfg, compute_dtype, device=None):
         super().__init__()
-        self.self = MultiHeadAttention(hidden_size, num_heads, compute_dtype, device)
-        self.output = ResidualOutput(hidden_size, hidden_size, compute_dtype, device)
+        h = cfg.hidden_size
+        self.self = MultiHeadAttention(h, cfg.num_attention_heads, compute_dtype, device,
+                                       cfg.attention_probs_dropout_prob)
+        self.output = ResidualOutput(h, h, compute_dtype, device, cfg.hidden_dropout_prob)
 
 
 class _Intermediate(nn.Module):
@@ -157,15 +220,17 @@ class TransformerLayer(nn.Module):
         if cfg.hidden_act != "gelu":
             raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}: only gelu is ported")
         h = cfg.hidden_size
-        self.attention = _Attention(h, cfg.num_attention_heads, compute_dtype, device)
+        self.attention = _Attention(cfg, compute_dtype, device)
         self.intermediate = _Intermediate(h, cfg.intermediate_size, compute_dtype, device)
-        self.output = ResidualOutput(cfg.intermediate_size, h, compute_dtype, device)
+        self.output = ResidualOutput(cfg.intermediate_size, h, compute_dtype, device,
+                                     cfg.hidden_dropout_prob)
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-        attn = self.attention.self(x, key_mask)
-        attn_out = self.attention.output(attn, x)
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
+        attn = self.attention.self(x, key_mask, rng=rng)
+        attn_out = self.attention.output(attn, x, rng)
         inter = gelu_erf(self.intermediate.dense(attn_out))
-        return self.output(inter, attn_out)
+        return self.output(inter, attn_out, rng)
 
 
 class TransformerStack(nn.Module):
@@ -177,9 +242,10 @@ class TransformerStack(nn.Module):
             TransformerLayer(cfg, compute_dtype, device) for _ in range(cfg.num_hidden_layers)
         )
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
         for layer in self.layer:
-            x = layer(x, key_mask)
+            x = layer(x, key_mask, rng)
         return x
 
 

@@ -2,22 +2,50 @@
 
 Ports ``univl_tpu/nn/towers.py``. The towers share ``TransformerStack`` and
 differ only in their embeddings; every tower sums its embeddings and takes
-their LayerNorm in f32, then runs its stack in the compute dtype. Module
-names are the reference checkpoint's (``bert.embeddings.word_embeddings``,
-``visual.embeddings.word_embeddings`` for the feature projection, ...).
+their LayerNorm in f32, then (in training mode) their dropout, then runs its
+stack in the compute dtype. Module names are the reference checkpoint's
+(``bert.embeddings.word_embeddings``, ``visual.embeddings.word_embeddings``
+for the feature projection, ...).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from univl_tpu_torch.nn.layers import LayerNormTF, Pooler, TransformerStack
+from univl_tpu_torch.nn.layers import (
+    LayerNormTF,
+    Pooler,
+    Randomness,
+    TransformerStack,
+    dropout,
+)
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[1], device=x.device)[None, :]
+
+
+class _Tower(nn.Module):
+    """The part the towers share: embedding LayerNorm in f32, its dropout in
+    training (on the f32 value, before the cast), then the stack."""
+
+    def __init__(self, cfg, compute_dtype: torch.dtype, embeddings: nn.Module, device=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.dropout_rate = cfg.hidden_dropout_prob
+        self.embeddings = embeddings
+        self.encoder = TransformerStack(cfg, compute_dtype, device)
+
+    def _encode(self, x: torch.Tensor, mask: torch.Tensor,
+                rng: Optional[Randomness]) -> torch.Tensor:
+        x = self.embeddings.LayerNorm(x)
+        if self.training:
+            x = dropout(x, self.dropout_rate, rng)
+        return self.encoder(x.to(self.compute_dtype), mask.to(torch.float32), rng)
 
 
 class _TextEmbeddings(nn.Module):
@@ -31,21 +59,18 @@ class _TextEmbeddings(nn.Module):
         self.LayerNorm = LayerNormTF(cfg.hidden_size, device=device)
 
 
-class TextEncoder(nn.Module):
+class TextEncoder(_Tower):
     """BERT text encoder without its pooler, which UniVL never reads."""
 
     def __init__(self, cfg, compute_dtype: torch.dtype, device=None):
-        super().__init__()
-        self.compute_dtype = compute_dtype
-        self.embeddings = _TextEmbeddings(cfg, device)
-        self.encoder = TransformerStack(cfg, compute_dtype, device)
+        super().__init__(cfg, compute_dtype, _TextEmbeddings(cfg, device), device)
 
-    def forward(self, input_ids, token_type_ids, attention_mask) -> torch.Tensor:
+    def forward(self, input_ids, token_type_ids, attention_mask,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
         e = self.embeddings
         x = (e.word_embeddings(input_ids) + e.position_embeddings(_positions(input_ids))
              + e.token_type_embeddings(token_type_ids))
-        x = e.LayerNorm(x).to(self.compute_dtype)
-        return self.encoder(x, attention_mask.to(torch.float32))
+        return self._encode(x, attention_mask, rng)
 
 
 class FeatureProjection(nn.Linear):
@@ -72,20 +97,18 @@ class _VisualEmbeddings(nn.Module):
         self.LayerNorm = LayerNormTF(cfg.hidden_size, device=device)
 
 
-class VisualEncoder(nn.Module):
+class VisualEncoder(_Tower):
     """Transformer over LayerNorm-normalised S3D features."""
 
     def __init__(self, cfg, video_dim: int, compute_dtype: torch.dtype, device=None):
-        super().__init__()
-        self.compute_dtype = compute_dtype
-        self.embeddings = _VisualEmbeddings(cfg, video_dim, compute_dtype, device)
-        self.encoder = TransformerStack(cfg, compute_dtype, device)
+        super().__init__(cfg, compute_dtype,
+                         _VisualEmbeddings(cfg, video_dim, compute_dtype, device), device)
 
-    def forward(self, video: torch.Tensor, video_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, video_mask: torch.Tensor,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
         e = self.embeddings
         x = e.word_embeddings(video) + e.position_embeddings(_positions(video))
-        x = e.LayerNorm(x).to(self.compute_dtype)
-        return self.encoder(x, video_mask.to(torch.float32))
+        return self._encode(x, video_mask, rng)
 
 
 class _CrossEmbeddings(nn.Module):
@@ -98,21 +121,18 @@ class _CrossEmbeddings(nn.Module):
         self.LayerNorm = LayerNormTF(cfg.hidden_size, device=device)
 
 
-class CrossEncoder(nn.Module):
+class CrossEncoder(_Tower):
     """Fusion transformer over [text ; video] hidden states; returns
     (last hidden states, CLS pooler output)."""
 
     def __init__(self, cfg, compute_dtype: torch.dtype, device=None):
-        super().__init__()
-        self.compute_dtype = compute_dtype
-        self.embeddings = _CrossEmbeddings(cfg, device)
-        self.encoder = TransformerStack(cfg, compute_dtype, device)
+        super().__init__(cfg, compute_dtype, _CrossEmbeddings(cfg, device), device)
         self.pooler = Pooler(cfg.hidden_size, compute_dtype, device)
 
-    def forward(self, concat_features, concat_type, concat_mask):
+    def forward(self, concat_features, concat_type, concat_mask,
+                rng: Optional[Randomness] = None):
         e = self.embeddings
         x = (concat_features + e.position_embeddings(_positions(concat_features))
              + e.token_type_embeddings(concat_type))
-        x = e.LayerNorm(x).to(self.compute_dtype)
-        h = self.encoder(x, concat_mask.to(torch.float32))
+        h = self._encode(x, concat_mask, rng)
         return h, self.pooler(h)

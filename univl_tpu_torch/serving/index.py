@@ -21,7 +21,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from univl_tpu_torch.data.text_encoding import encode_text, pad_rows, pad_video
+from univl_tpu_torch.data.batching import pad_rows
+from univl_tpu_torch.data.text_encoding import encode_text, pad_video
 from univl_tpu_torch.models.univl import UniVL
 
 RERANK_TILE = 8  # queries per cross-encoder call
