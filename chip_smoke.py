@@ -12,9 +12,14 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      events, the bound (bytes over the card's memory rate and operations over
      its peak rate, an estimate against nominal peaks) and, where one PyTorch
      call computes the same function, that call's time. The training
-     attention (#2) runs forward and backward at rates 0 and 0.1, and its
+     attention (#2) runs forward and backward at rates 0 and 0.1 at the
+     FT-Joint towers' [32, 48] and FT-Align's cross [1024, 96], and its
      forward kernel, backward kernel and plain version must drop the same
-     probabilities, at the configured rate;
+     probabilities, at the configured rate. The fused FFN kernels (#3 FFN,
+     #4 FFN block, #5 dense block), forward and backward, run at the cross
+     tower's 98,304 rows and a tower's 1,536, rates 0 and 0.1, beside the
+     model's unfused chain for the same work; #4's and #5's forward kernel,
+     backward kernel and plain version must drop the same entries;
   4. the retrieval slice: the port's server (univl_tpu_torch.cli.serve) in
      --mode retrieval at the full width of UniVLConfig.base, with random
      weights from a seed, answers add, search (with cross-encoder rerank) and
@@ -50,7 +55,17 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  12. training agreement with the CPU at full width and text 2 + visual 1
      layers, dropout 0: card f32 (kernels) against CPU f32 (plain versions)
      for the loss, every gradient and the parameters after 2 BertAdam steps;
-     card bf16 against CPU f32 losses over 10 steps.
+     card bf16 against CPU f32 losses over 10 steps;
+ 13. the FT-Align training slice: the same CLI with --train_sim_after_cross
+     --fused_ffn block (text 12, visual 6, cross 2 layers; 1,024 text-video
+     pairs of 96 tokens through the cross tower a step) on the same fixtures,
+     40 steps: losses, steady clips/s, peak memory, launches (#2, #4 and #5
+     20 forward and 20 backward a step) and a pytorch_model.bin.0 that loads
+     back; then torch.profiler over 3 of its steps;
+ 14. a short --fused_ffn pallas run (5 steps): #3 20 + 20 a step;
+ 15. FT-Align agreement with the CPU at full width, text 2 + visual 1 +
+     cross 1 layers, batch 8 (64 pairs), dropout 0, on the block and pallas
+     routes, with the limits of phase 12.
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 1.
@@ -84,10 +99,13 @@ from univl_tpu_torch.evals.fast_decoder import FastDecoder, encoder_bias
 from univl_tpu_torch.kernels import _build
 from univl_tpu_torch.kernels import attention as attn
 from univl_tpu_torch.kernels import decode_attention as dattn
+from univl_tpu_torch.kernels import ffn as ffn_k
+from univl_tpu_torch.kernels import philox
 from univl_tpu_torch.kernels import reorder
 from univl_tpu_torch.kernels import train_attention as ta
 from univl_tpu_torch.kernels import vocab_topk
 from univl_tpu_torch.models.univl import UniVL
+from univl_tpu_torch.nn.layers import Randomness, TransformerLayer, gelu_erf
 from univl_tpu_torch.serving.captioning import CaptionService
 from univl_tpu_torch.serving.index import RERANK_TILE, VideoRetrievalIndex
 from univl_tpu_torch.train.optimization import make_univl_optimizer
@@ -105,15 +123,33 @@ TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 VOCAB_ATOL = 1e-4  # logp: f32 sums of the same products in another order
 DLOGP_LIMIT = 0.25  # card bf16 vs CPU f32 over the trajectory, stated before the first run
 SAME_CAPTIONS_MIN = 4  # of 8 clips, card f32 vs CPU f32
-# training attention (#2) at the FT-Joint shape: batch, length, heads, head dim
-TA_B, TA_L, TA_HEADS, TA_D, TA_RATE, TA_SEED = 32, 48, 12, 64, 0.1, 1234
+# training attention (#2): heads, head dim; (batch, length) of the FT-Joint
+# towers (32 x 48) and of FT-Align's cross tower (1,024 pairs x 96 tokens).
+# The dropout masks are checked at the first (a one-hot V needs L <= D).
+TA_HEADS, TA_D, TA_RATE, TA_SEED = 12, 64, 0.1, 1234
+TA_SHAPES = [(32, 48), (1024, 96)]
+TA_B, TA_L = TA_SHAPES[0]
 # f32: the same math summed in another order; bf16: a probability, ds or output
 # that lands on the other side of a bf16 rounding moves by one bf16 ulp
 TA_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 KEEP_RATE_TOL = 0.002  # dropped share over 884,736 draws: ~6 binomial standard deviations
+# fused FFN kernels (#3, #4, #5): rows of FT-Align's cross tower (1,024 pairs x
+# 96 tokens) and of a text or visual tower (32 x 48); H 768, F 3072
+FFN_ROWS, FFN_H, FFN_F, FFN_RATE, FFN_SEED = (98304, 1536), 768, 3072, 0.1, 4321
+FFN_RAGGED_ROWS = 300  # checked, not timed: a last block of 12 rows, bounds-checked
+# f32 (CUDA cores): sums of up to 3,072 products in another order, erff
+# against torch.erf: atol + rtol * |ref| element by element. bf16 (tensor
+# cores): the products are summed in another order than the plain version's,
+# so a bf16 rounding of an intermediate (the product, the dropped output)
+# flips by an ulp, and the flip carries through the residual sum and the
+# LayerNorm at the scale of the row's largest terms: atol + rtol * the row's
+# largest |ref|, about two bf16 ulps of it.
+FFN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
+FFN_KEEP_TOL = 2e-4  # dropped share over 75,497,472 draws: ~6 binomial standard deviations
 # FT-Joint training: UniVLConfig.base (text 12, visual 6 layers), batch 32,
 # YouCook2-format fixtures of 160 videos x 8 clips = 1,280 pairs: 40 steps
 TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_DISPLAY = 32, 160, 8, 120, 5
+PALLAS_VIDEOS = 20  # the short --fused_ffn pallas run: 160 pairs, 5 steps
 TRAIN_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1",
                "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--max_words", "48",
                "--max_frames", "48", "--n_display", str(TRAIN_DISPLAY), "--seed", "0"]
@@ -123,6 +159,28 @@ PROFILE_WARMUP, PROFILE_STEPS = 3, 3
 # rounding; bf16 loss over 10 steps within LOSS_BF16_RTOL of the CPU's f32
 AGREE_LOSS_RTOL, AGREE_GRAD_RTOL, AGREE_PARAM_RTOL, AGREE_BF16_STEPS = 1e-5, 1e-4, 1e-5, 10
 LOSS_BF16_RTOL = 0.05
+# Parameters whose gradient is zero in exact arithmetic hold rounding noise on
+# both sides, so they get absolute limits: the key biases (a per-query
+# constant leaves the softmax unchanged; gradient norm, and parameter
+# difference after 2 steps) and, in FT-Align, similarity_dense.bias (the
+# max-margin loss's gradients over the [B, B] scores sum to 0). A BertAdam
+# step moves a parameter by at most lr * (1 - beta1) / eps = 3 per unit of
+# gradient change, so 2 steps apart by at most 6 * AGREE_ZERO_GRAD (FT-Joint
+# holds its key biases to the tighter AGREE_KEY_PARAM).
+AGREE_ZERO_GRAD, AGREE_KEY_PARAM, AGREE_ZERO_PARAM = 1e-6, 1e-9, 6e-6
+# FT-Align at full width, text 2 + visual 1 + cross 1 layers, batch 8 (64
+# pairs), on the block and pallas routes. Every pair's score goes through the
+# cross tower and the loss's gradients over the scores sum to 0, so a cross
+# parameter's gradient is a difference of near-equal f32 sums: gradients
+# under AGREE_GRAD_FLOOR of the largest gradient norm are held to
+# AGREE_GRAD_RTOL of that floor (the CPU tests' rule).
+AGREE_ALIGN_BATCH, AGREE_GRAD_FLOOR = 8, 1e-2
+# BertAdam normalizes each gradient element, so a parameter whose gradient is
+# small and cancelling moves by an amount as uncertain as that gradient: in
+# FT-Align the gradient and parameter limits are the larger of the ones above
+# and AGREE_CONTROL_FACTOR times the disagreement of the model's unfused route
+# (no FFN kernel, the same card-vs-CPU comparison), the control
+AGREE_CONTROL_FACTOR = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -141,13 +199,28 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                             "univl_tpu/kernels/train_attention.py:83"),
     "train_attention_bwd": (ta.train_attention_bwd, "univl_tpu_torch/csrc/train_attention.cu",
                             "univl_tpu/kernels/train_attention.py:116"),
+    "ffn_fwd": (ffn_k.ffn_fwd, "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:100"),
+    "ffn_bwd": (ffn_k.ffn_bwd, "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:111"),
+    "ffn_block_fwd": (ffn_k.ffn_block_fwd, "univl_tpu_torch/csrc/ffn.cu",
+                      "univl_tpu/kernels/ffn.py:309"),
+    "ffn_block_bwd": (ffn_k.ffn_block_bwd, "univl_tpu_torch/csrc/ffn.cu",
+                      "univl_tpu/kernels/ffn.py:329"),
+    "dense_block_fwd": (ffn_k.dense_block_fwd, "univl_tpu_torch/csrc/ffn.cu",
+                        "univl_tpu/kernels/ffn.py:545"),
+    "dense_block_bwd": (ffn_k.dense_block_bwd, "univl_tpu_torch/csrc/ffn.cu",
+                        "univl_tpu/kernels/ffn.py:571"),
 }
 TRACE_NAMES = {"eval_attention": ("eval_attention_kernel",),
                "beam_reorder_groups": ("reorder_groups_kernel",),
                "beam_decode_self_attention": ("decode_attention_kernel",),
                "vocab_topk": ("vocab_tile_kernel", "vocab_merge_kernel"),
                "train_attention_fwd": ("train_attention_fwd_kernel",),
-               "train_attention_bwd": ("train_attention_bwd_kernel",)}
+               "train_attention_bwd": ("train_attention_bwd_kernel",),
+               "ffn_fwd": ("ffn_fwd_kernel",), "ffn_bwd": ("ffn_bwd_kernel",),
+               "ffn_block_fwd": ("ffn_block_fwd_kernel",),
+               "ffn_block_bwd": ("ffn_block_bwd_kernel",),
+               "dense_block_fwd": ("dense_block_fwd_kernel",),
+               "dense_block_bwd": ("dense_block_bwd_kernel",)}
 
 
 def require(ok: bool, what: str) -> None:
@@ -403,77 +476,305 @@ def check_dropout_masks(dtype) -> float:
 
 
 def kernel_train_attention() -> dict:
-    """#2 forward and backward against the plain versions at the FT-Joint shape
-    (ragged key masks, one all-masked row), in f32 and bf16, at rates 0 and
-    0.1; the dropout masks of both kernels against the plain version's; times,
-    bounds and the SDPA yardstick (forward, and backward through autograd)."""
-    B, L, H, D = TA_B, TA_L, TA_HEADS, TA_D
+    """#2 forward and backward against the plain versions at the FT-Joint
+    towers' shape and FT-Align's cross shape (ragged key masks, one all-masked
+    row), in f32 and bf16, at rates 0 and 0.1; the dropout masks of both
+    kernels against the plain version's; times, bounds and the SDPA yardstick
+    (forward, and backward through autograd). The row is the cross shape's."""
+    H, D = TA_HEADS, TA_D
     rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         drop = check_dropout_masks(dtype)
-        n = B * H * L * L
+        n = TA_B * H * TA_L * TA_L
         print(f"train_attention dropout masks ({dtype_name(dtype)}): forward kernel, backward "
               f"kernel and plain version equal over {n} draws; dropped share {drop:.6f} "
               f"(rate {TA_RATE}, limit +-{KEEP_RATE_TOL})", flush=True)
         require(abs(drop - TA_RATE) <= KEEP_RATE_TOL, f"dropped share {drop} is not {TA_RATE}")
-        atol, rtol = TA_TOL[dtype_name(dtype)]
-        for rate in (0.0, TA_RATE):
-            g = torch.Generator(device="cuda").manual_seed(6)
-            q, k, v, grad = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype)
-                             for _ in range(4))
-            mask = (torch.rand(B, L, generator=g, device="cuda") > 0.3).float()
-            mask[:, 0] = 1.0
-            mask[1] = 0.0  # no valid key: a uniform softmax in both versions
-            args = (q, k, v, mask, TA_SEED, rate, H)
-            out, m, l = ta.train_attention_fwd(*args)
-            want = ta.train_attention_reference_fwd(*args)
-            grads = ta.train_attention_bwd(*args, m, l, grad)
-            want_grads = ta.train_attention_reference_bwd(*args, want[1], want[2], grad)
-            torch.cuda.synchronize()
-            errs = {}
-            for part, pairs in (("fwd", zip((out, m, l), want)),
-                                ("bwd", zip(grads, want_grads))):
-                err = 0.0
-                for got, ref in pairs:
-                    diff = (got.float() - ref.float()).abs()
-                    excess = float((diff - atol - rtol * ref.float().abs()).max())
-                    require(excess <= 0.0, f"train_attention {part} disagrees with its plain "
-                                           f"version at {dtype_name(dtype)} rate {rate}: max "
-                                           f"abs err {float(diff.max())}")
-                    err = max(err, float(diff.max()))
-                errs[part] = err
-                worst[part] = max(worst[part], err)
-            if rate == 0.0:
-                continue
-            es = q.element_size()
-            io = B * L * H * D * es
-            stats = 2 * B * H * L * 4 + B * L * 4  # m, l, key mask
-            fwd_ms = cuda_time_ms(lambda: ta.train_attention_fwd(*args))
-            bwd_ms = cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))
-            fwd_plain = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args))
-            bwd_plain = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
-            keep = mask.bool()
-            keep[1] = True  # SDPA gives NaN on a row with no valid key
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            sdpa_fwd = cuda_time_ms(lambda: _sdpa_train(*leaves, keep))
-            sdpa_out = _sdpa_train(*leaves, keep)
-            g4 = grad.view(B, L, H, D).transpose(1, 2)
-            sdpa_bwd = cuda_time_ms(
-                lambda: torch.autograd.grad(sdpa_out, leaves, g4, retain_graph=True))
-            shape = f"[{B},{L},{H * D}] x {H} heads rate {rate}"
-            lib = "scaled_dot_product_attention, boolean key mask, dropout_p 0.1"
-            rows_dt = {
-                "fwd": report("train_attention_fwd", shape, dtype, errs["fwd"], fwd_ms, fwd_plain,
-                              bound_ms(4 * io + stats, 4.0 * B * H * L * L * D, dtype_name(dtype)),
-                              (sdpa_fwd[0], lib)),
-                "bwd": report("train_attention_bwd", shape, dtype, errs["bwd"], bwd_ms, bwd_plain,
-                              bound_ms(7 * io + stats, 10.0 * B * H * L * L * D,
-                                       dtype_name(dtype)),
-                              (sdpa_bwd[0], lib + ", autograd backward")),
-            }
-            if dtype == torch.bfloat16:
-                rows = rows_dt
+    for B, L in TA_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            atol, rtol = TA_TOL[dtype_name(dtype)]
+            for rate in (0.0, TA_RATE):
+                g = torch.Generator(device="cuda").manual_seed(6)
+                q, k, v, grad = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype)
+                                 for _ in range(4))
+                mask = (torch.rand(B, L, generator=g, device="cuda") > 0.3).float()
+                mask[:, 0] = 1.0
+                mask[1] = 0.0  # no valid key: a uniform softmax in both versions
+                args = (q, k, v, mask, TA_SEED, rate, H)
+                out, m, l = ta.train_attention_fwd(*args)
+                want = ta.train_attention_reference_fwd(*args)
+                grads = ta.train_attention_bwd(*args, m, l, grad)
+                want_grads = ta.train_attention_reference_bwd(*args, want[1], want[2], grad)
+                torch.cuda.synchronize()
+                errs = {}
+                for part, pairs in (("fwd", zip((out, m, l), want)),
+                                    ("bwd", zip(grads, want_grads))):
+                    err = 0.0
+                    for got, ref in pairs:
+                        diff = (got.float() - ref.float()).abs()
+                        excess = float((diff - atol - rtol * ref.float().abs()).max())
+                        require(excess <= 0.0, f"train_attention {part} disagrees with its plain "
+                                               f"version at [{B},{L}] {dtype_name(dtype)} rate "
+                                               f"{rate}: max abs err {float(diff.max())}")
+                        err = max(err, float(diff.max()))
+                    errs[part] = err
+                    worst[part] = max(worst[part], err)
+                del want, want_grads
+                if rate == 0.0:
+                    continue
+                es = q.element_size()
+                io = B * L * H * D * es
+                stats = 2 * B * H * L * 4 + B * L * 4  # m, l, key mask
+                fwd_ms = cuda_time_ms(lambda: ta.train_attention_fwd(*args))
+                bwd_ms = cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))
+                fwd_plain = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args))
+                bwd_plain = cuda_time_ms(
+                    lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
+                keep = mask.bool()
+                keep[1] = True  # SDPA gives NaN on a row with no valid key
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                sdpa_fwd = cuda_time_ms(lambda: _sdpa_train(*leaves, keep))
+                sdpa_out = _sdpa_train(*leaves, keep)
+                g4 = grad.view(B, L, H, D).transpose(1, 2)
+                sdpa_bwd = cuda_time_ms(
+                    lambda: torch.autograd.grad(sdpa_out, leaves, g4, retain_graph=True))
+                del sdpa_out
+                shape = f"[{B},{L},{H * D}] x {H} heads rate {rate}"
+                lib = "scaled_dot_product_attention, boolean key mask, dropout_p 0.1"
+                rows_dt = {
+                    "fwd": report("train_attention_fwd", shape, dtype, errs["fwd"], fwd_ms,
+                                  fwd_plain, bound_ms(4 * io + stats, 4.0 * B * H * L * L * D,
+                                                      dtype_name(dtype)),
+                                  (sdpa_fwd[0], lib)),
+                    "bwd": report("train_attention_bwd", shape, dtype, errs["bwd"], bwd_ms,
+                                  bwd_plain, bound_ms(7 * io + stats, 10.0 * B * H * L * L * D,
+                                                      dtype_name(dtype)),
+                                  (sdpa_bwd[0], lib + ", autograd backward")),
+                }
+                if dtype == torch.bfloat16:
+                    rows = rows_dt
     return {f"train_attention_{p}": {**rows[p], "max_abs_err": worst[p]} for p in rows}
+
+
+def _ffn_inputs(N: int, dtype, seed: int) -> dict:
+    """Activations ~ N(0, 1), BERT-scale weights, f32 LayerNorm parameters."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=g, device="cuda")
+
+    H, Fd = FFN_H, FFN_F
+    t = {"x": rn(N, H), "r": rn(N, H), "g": rn(N, H), "w1": rn(H, Fd, s=0.02),
+         "b1": rn(Fd, s=0.1), "w2": rn(Fd, H, s=0.02), "b2": rn(H, s=0.1), "w": rn(H, H, s=0.02),
+         "b": rn(H, s=0.1)}
+    t = {k: v.to(dtype) for k, v in t.items()}
+    t["scale"], t["bias"] = 1.0 + rn(H, s=0.1), rn(H, s=0.1)
+    return t
+
+
+def _agree(name: str, got, want, dtype, what: str) -> float:
+    """Max abs error over the pairs; fails past FFN_TOL."""
+    atol, rtol = FFN_TOL[dtype_name(dtype)]
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                f"{name} output {i}: {a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+        ref = b.float().abs()
+        if dtype == torch.bfloat16:
+            ref = ref.amax(dim=-1, keepdim=True)
+        diff = (a.float() - b.float()).abs()
+        excess = diff - atol - rtol * ref
+        worst = int(excess.argmax())
+        require(float(excess.max()) <= 0.0 and bool(torch.isfinite(a).all()),
+                f"{name} output {i} disagrees with its plain version at {what}: max abs err "
+                f"{float(diff.max())}; worst excess at flat index {worst}: kernel "
+                f"{float(a.flatten()[worst])}, plain {float(b.flatten()[worst])}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def check_ffn_dropout_masks(dtype) -> dict:
+    """#4's and #5's forward kernel, backward kernel and plain version drop
+    the same entries at the cross shape: with x = 0, w2 = 0 and b2 = 1 (#4),
+    or x = 0, b = 1 and r = 0 (#5), the saved LayerNorm input s is the dropped
+    output itself, nonzero exactly where kept; the backward's dropped gradient
+    is nonzero exactly where kept. Returns the dropped shares."""
+    N, H = FFN_ROWS[0], FFN_H
+    t = _ffn_inputs(N, dtype, seed=7)
+    zero, one = torch.zeros_like(t["x"]), torch.ones_like(t["b2"])
+    shares = {}
+    for name, tag in (("ffn_block", philox.FFN_BLOCK_TAG), ("dense_block", philox.DENSE_BLOCK_TAG)):
+        if name == "ffn_block":
+            _, pre, s = ffn_k.ffn_block_fwd(zero, t["w1"], t["b1"], torch.zeros_like(t["w2"]),
+                                            one, t["scale"], t["bias"], FFN_SEED, FFN_RATE,
+                                            save=True)
+            dropped = ffn_k.ffn_block_bwd(s, t["g"], pre, t["w1"], t["w2"], t["scale"],
+                                          FFN_SEED, FFN_RATE)[3]
+        else:
+            pre = None
+            _, s = ffn_k.dense_block_fwd(zero, zero, t["w"], one, t["scale"], t["bias"],
+                                         FFN_SEED, FFN_RATE, save=True)
+            dropped = ffn_k.dense_block_bwd(s, t["g"], t["w"], t["scale"], FFN_SEED,
+                                            FFN_RATE)[1]
+        plain = philox.row_dropout_keep(FFN_SEED, N, H, tag, FFN_RATE, device="cuda")
+        torch.cuda.synchronize()
+        require(torch.equal(s != 0, plain), f"{name} forward kernel's dropout mask differs from "
+                                            f"the plain version's ({dtype_name(dtype)})")
+        require(torch.equal(dropped != 0, plain), f"{name} backward kernel's dropout mask "
+                                                  f"differs from the plain version's "
+                                                  f"({dtype_name(dtype)})")
+        shares[name] = 1.0 - float(plain.float().mean())
+        del pre, s, dropped, plain
+    return shares
+
+
+def _unfused_chains(dtype):
+    """The model's xla route (UniVL's unfused TransformerLayer modules at
+    full width, in training mode) for the work of #3, #4 and #5."""
+    cfg = UniVLConfig.base().cross
+    layer = TransformerLayer(cfg, dtype, device="cuda", use_fused_ffn=False).train()
+    rng = Randomness.derive(torch.Generator().manual_seed(0), "cuda")
+    inter, out, att = layer.intermediate.dense, layer.output, layer.attention.output
+    return {
+        "ffn": lambda x: out.dense(gelu_erf(inter(x))),
+        "ffn_block": lambda x: out(gelu_erf(inter(x)), x, rng),
+        "dense_block": lambda x: att(x, x, rng),
+    }
+
+
+def kernel_ffn() -> dict:
+    """#3, #4 and #5, forward and backward, against their plain versions at
+    the cross and tower row counts and a ragged one, f32 and bf16, rates 0
+    and 0.1 (#3 has no
+    dropout); the three-way dropout-mask check; device times in bf16 beside
+    the bound, the plain version and the model's unfused chain for the same
+    work (forward, and the input gradient through autograd). No single
+    PyTorch call computes these functions. The rows are the cross shape's."""
+    H, Fd = FFN_H, FFN_F
+    names = ("ffn_fwd", "ffn_bwd", "ffn_block_fwd", "ffn_block_bwd", "dense_block_fwd",
+             "dense_block_bwd")
+    worst, rows = {n: 0.0 for n in names}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        shares = check_ffn_dropout_masks(dtype)
+        print(f"fused FFN dropout masks ({dtype_name(dtype)}, {FFN_ROWS[0]} x {H}): forward "
+              f"kernel, backward kernel and plain version equal for #4 and #5; dropped shares "
+              f"{shares} (rate {FFN_RATE}, limit +-{FFN_KEEP_TOL})", flush=True)
+        require(all(abs(v - FFN_RATE) <= FFN_KEEP_TOL for v in shares.values()),
+                f"dropped shares {shares} are not {FFN_RATE}")
+    for N in (*FFN_ROWS, FFN_RAGGED_ROWS):
+        big = N == FFN_ROWS[0]
+        timing = dict(runs=3, repeats=3) if big else {}
+        for dtype in (torch.float32, torch.bfloat16):
+            t = _ffn_inputs(N, dtype, seed=8)
+            x, r, g, w1, b1, w2, b2, w, b, sc, bi = (t[k] for k in (
+                "x", "r", "g", "w1", "b1", "w2", "b2", "w", "b", "scale", "bias"))
+            errs = {}
+            for rate in (0.0, FFN_RATE):
+                what = f"N={N} {dtype_name(dtype)} rate {rate}"
+                ffn_args = (x, w1, b1, w2, b2)
+                blk_args = (*ffn_args, sc, bi, FFN_SEED, rate)
+                den_args = (x, r, w, b, sc, bi, FFN_SEED, rate)
+                if rate == 0.0:
+                    y, pre = ffn_k.ffn_fwd(*ffn_args, save=True)
+                    want = ffn_k.ffn_reference_fwd(*ffn_args)
+                    errs["ffn_fwd"] = _agree("ffn_fwd", (y, pre), want, dtype, what)
+                    errs["ffn_bwd"] = _agree("ffn_bwd", ffn_k.ffn_bwd(want[1], g, w1, w2),
+                                             ffn_k.ffn_reference_bwd(want[1], g, w1, w2),
+                                             dtype, what)
+                    del y, pre, want
+                got = ffn_k.ffn_block_fwd(*blk_args, save=True)
+                want = ffn_k.ffn_block_reference_fwd(*blk_args)
+                errs["ffn_block_fwd"] = _agree("ffn_block_fwd", got, want, dtype, what)
+                _, pre, s = want
+                bwd_args = (s, g, pre, w1, w2, sc, FFN_SEED, rate)
+                errs["ffn_block_bwd"] = _agree("ffn_block_bwd", ffn_k.ffn_block_bwd(*bwd_args),
+                                               ffn_k.ffn_block_reference_bwd(*bwd_args), dtype,
+                                               what)
+                del got, want, pre
+                got = ffn_k.dense_block_fwd(*den_args, save=True)
+                want = ffn_k.dense_block_reference_fwd(*den_args)
+                errs["dense_block_fwd"] = _agree("dense_block_fwd", got, want, dtype, what)
+                s = want[1]
+                den_bwd = (s, g, w, sc, FFN_SEED, rate)
+                errs["dense_block_bwd"] = _agree("dense_block_bwd",
+                                                 ffn_k.dense_block_bwd(*den_bwd),
+                                                 ffn_k.dense_block_reference_bwd(*den_bwd),
+                                                 dtype, what)
+                del got, want, s
+                torch.cuda.synchronize()
+                print(f"fused FFN kernels vs plain versions, {what}: max abs errs "
+                      f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }", flush=True)
+                for k, v in errs.items():
+                    worst[k] = max(worst[k], v)
+            if dtype != torch.bfloat16 or N == FFN_RAGGED_ROWS:
+                continue
+            rows_n = _time_ffn(N, t, timing)
+            if big:
+                rows = rows_n
+            del t
+    return {n: {**rows[n], "max_abs_err": worst[n]} for n in names}
+
+
+def _time_ffn(N: int, t: dict, timing: dict) -> dict:
+    """Device times of the six kernels (bf16, #4 and #5 at rate 0.1), their
+    plain versions and the unfused chains, with their bounds."""
+    H, Fd, es = FFN_H, FFN_F, 2
+    x, r, g, w1, b1, w2, b2, w, b, sc, bi = (t[k] for k in (
+        "x", "r", "g", "w1", "b1", "w2", "b2", "w", "b", "scale", "bias"))
+    rate, seed, dtype = FFN_RATE, FFN_SEED, torch.bfloat16
+    _, pre, s4 = ffn_k.ffn_block_fwd(x, w1, b1, w2, b2, sc, bi, seed, rate, save=True)
+    _, s5 = ffn_k.dense_block_fwd(x, r, w, b, sc, bi, seed, rate, save=True)
+    chains = _unfused_chains(dtype)
+    nh, nf, hf, hh, ln = N * H * es, N * Fd * es, H * Fd * es, H * H * es, 2 * H * 4
+    rows_per_block = _build.load_library().univl_ffn_block_rows()
+    part = 2 * (-(-N // rows_per_block)) * H * 4  # the backward's dscale/dbias partials
+    ffn_ops, dense_ops = 4.0 * N * H * Fd, 2.0 * N * H * H
+    cases = {  # name -> (kernel, plain, chain input, bytes, operations)
+        "ffn_fwd": (lambda: ffn_k.ffn_fwd(x, w1, b1, w2, b2, save=True),
+                    lambda: ffn_k.ffn_reference_fwd(x, w1, b1, w2, b2), "ffn",
+                    2 * nh + 2 * hf + (Fd + H) * es + nf, ffn_ops),
+        "ffn_bwd": (lambda: ffn_k.ffn_bwd(pre, g, w1, w2),
+                    lambda: ffn_k.ffn_reference_bwd(pre, g, w1, w2), "ffn",
+                    2 * nh + 3 * nf + 2 * hf, ffn_ops),
+        "ffn_block_fwd": (lambda: ffn_k.ffn_block_fwd(x, w1, b1, w2, b2, sc, bi, seed, rate,
+                                                      save=True),
+                          lambda: ffn_k.ffn_block_reference_fwd(x, w1, b1, w2, b2, sc, bi, seed,
+                                                                rate),
+                          "ffn_block", 3 * nh + 2 * hf + (Fd + H) * es + ln + nf, ffn_ops),
+        "ffn_block_bwd": (lambda: ffn_k.ffn_block_bwd(s4, g, pre, w1, w2, sc, seed, rate),
+                          lambda: ffn_k.ffn_block_reference_bwd(s4, g, pre, w1, w2, sc, seed,
+                                                                rate),
+                          "ffn_block", 4 * nh + 3 * nf + 2 * hf + ln // 2 + part, ffn_ops),
+        "dense_block_fwd": (lambda: ffn_k.dense_block_fwd(x, r, w, b, sc, bi, seed, rate,
+                                                          save=True),
+                            lambda: ffn_k.dense_block_reference_fwd(x, r, w, b, sc, bi, seed,
+                                                                    rate),
+                            "dense_block", 4 * nh + hh + H * es + ln, dense_ops),
+        "dense_block_bwd": (lambda: ffn_k.dense_block_bwd(s5, g, w, sc, seed, rate),
+                            lambda: ffn_k.dense_block_reference_bwd(s5, g, w, sc, seed, rate),
+                            "dense_block", 5 * nh + hh + ln // 2 + part, dense_ops),
+    }
+    rows = {}
+    for name, (kernel, plain, chain, n_bytes, ops) in cases.items():
+        ms = cuda_time_ms(kernel, **timing)
+        plain_ms = cuda_time_ms(plain, **timing)
+        leaf = x.detach().requires_grad_()
+        if name.endswith("_fwd"):
+            with torch.no_grad():
+                chain_ms = cuda_time_ms(lambda: chains[chain](leaf), **timing)
+        else:
+            y = chains[chain](leaf)
+            chain_ms = cuda_time_ms(
+                lambda: torch.autograd.grad(y, leaf, g, retain_graph=True), **timing)
+            del y
+        print(f"{name} [{N}, {H}] F {Fd}: the model's unfused chain (xla route) for the same "
+              f"work: device ms {chain_ms[0]:.5f}"
+              f"{' (input gradient through autograd)' if name.endswith('_bwd') else ''}",
+              flush=True)
+        rows[name] = report(name, f"[{N}, {H}] F {Fd} rate {rate if 'block' in name else 0.0}",
+                            dtype, 0.0, ms, plain_ms, bound_ms(n_bytes, ops, "bfloat16"))
+        rows[name]["unfused_chain_ms"] = chain_ms[0]
+    return rows
 
 
 def write_vocab(path: str) -> str:
@@ -779,9 +1080,9 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool) -> dict:
     return {"launches": counts, "captions": captions}
 
 
-def make_train_data(tmp: str, vocab: str):
+def make_train_data(tmp: str, vocab: str, n_videos: int = TRAIN_VIDEOS):
     """YouCook2-format fixtures (S3D width 1024) and the dataset over them."""
-    files = fixtures.make_youcook(os.path.join(tmp, "youcook"), n_videos=TRAIN_VIDEOS,
+    files = fixtures.make_youcook(os.path.join(tmp, f"youcook{n_videos}"), n_videos=n_videos,
                                   clips_per_video=TRAIN_CLIPS, video_dim=1024,
                                   seconds_per_video=TRAIN_SECONDS, seed=0)
     ds = YoucookRetrievalDataset(*files, WordPieceTokenizer(vocab), max_words=48, max_frames=48,
@@ -789,13 +1090,43 @@ def make_train_data(tmp: str, vocab: str):
     return files, ds
 
 
-def phase_train(tmp: str, vocab: str, files) -> dict:
-    """FT-Joint through the CLI at full width; returns the kernels' launches."""
-    out = os.path.join(tmp, "train_out")
+def _launches_per_step(route: str) -> dict:
+    """What one training step launches on a route: #2 in every layer's
+    attention, forward and backward; on FT-Align's block route #4 and #5, on
+    its pallas route #3, in every layer of the three towers."""
+    cfg = UniVLConfig.base(max_words=48, max_frames=48)
+    layers = cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
+    if route != "ft_joint":
+        layers += cfg.cross.num_hidden_layers
+    want = {"train_attention_fwd": layers, "train_attention_bwd": layers}
+    ffn_kernels = {"ft_joint": (), "ft_align_xla": (), "ft_align": ("ffn_block", "dense_block"),
+                   "ft_align_pallas": ("ffn",)}[route]
+    for name in ffn_kernels:
+        want[f"{name}_fwd"] = want[f"{name}_bwd"] = layers
+    return want
+
+
+TRAIN_ROUTES = {  # route -> (label, extra flags)
+    "ft_joint": ("FT-Joint", []),
+    "ft_align_xla": ("FT-Align (--fused_ffn xla)", ["--train_sim_after_cross"]),
+    "ft_align": ("FT-Align (--fused_ffn block)",
+                 ["--train_sim_after_cross", "--fused_ffn", "block"]),
+    "ft_align_pallas": ("FT-Align (--fused_ffn pallas)",
+                        ["--train_sim_after_cross", "--fused_ffn", "pallas", "--n_display", "1"]),
+}
+
+
+def phase_train(tmp: str, vocab: str, files, route: str = "ft_joint") -> dict:
+    """Retrieval training through the CLI at full width on a route; returns
+    the kernels' launches."""
+    label, extra = TRAIN_ROUTES[route]
+    out = os.path.join(tmp, f"train_out_{route}")
     csv, data, feats = files
     argv = ["--do_train", "--device", "cuda", "--datatype", "youcook", "--vocab_file", vocab,
             "--train_csv", csv, "--data_path", data, "--features_path", feats,
-            "--output_dir", out, *TRAIN_FLAGS]
+            "--output_dir", out, *TRAIN_FLAGS, *extra]
+    display = int(extra[extra.index("--n_display") + 1]) if "--n_display" in extra \
+        else TRAIN_DISPLAY
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # still held by the earlier phases
@@ -810,33 +1141,34 @@ def phase_train(tmp: str, vocab: str, files) -> dict:
         records = [json.loads(line) for line in f]
     shown = [r for r in records if r["kind"] == "train"]
     for r in shown:
-        print(f"train step {r['step']}: loss {r['loss']:.6f}", flush=True)
-    require(all(math.isfinite(r["loss"]) for r in shown) and len(shown) == steps // TRAIN_DISPLAY,
-            f"display points {[(r['step'], r['loss']) for r in shown]}")
+        print(f"{label} train step {r['step']}: loss {r['loss']:.6f}", flush=True)
+    require(all(math.isfinite(r["loss"]) for r in shown) and len(shown) == steps // display
+            and len(shown) >= 2, f"display points {[(r['step'], r['loss']) for r in shown]}")
     # display points read the loss, so each is a synchronized host time
     first, last = shown[0], shown[-1]
     rate = (last["step"] - first["step"]) * TRAIN_BATCH / (last["ts"] - first["ts"])
-    cfg = UniVLConfig.base(max_words=48, max_frames=48)
-    layers = cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
-    print(f"FT-Joint training (CLI, bf16, batch {TRAIN_BATCH}, text 12 + visual 6 layers): "
-          f"{steps} steps in {wall:.3f} s including set-up; steady {rate:.3f} clips/s over steps "
+    cfg = UniVLConfig.base(max_words=48, max_frames=48, train_sim_after_cross=route != "ft_joint")
+    towers = (f"text {cfg.bert.num_hidden_layers} + visual {cfg.visual.num_hidden_layers}"
+              + (f" + cross {cfg.cross.num_hidden_layers}" if route != "ft_joint" else ""))
+    per_step = _launches_per_step(route)
+    print(f"{label} training (CLI, bf16, batch {TRAIN_BATCH}, {towers} layers): {steps} steps "
+          f"in {wall:.3f} s including set-up; steady {rate:.3f} clips/s over steps "
           f"{first['step']}-{last['step']} (host clock between synchronized display points); "
           f"peak device memory {(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} "
-          f"GiB held before the run; launches {counts}", flush=True)
-    want = {**{k: 0 for k in KERNELS}, "train_attention_fwd": layers * steps,
-            "train_attention_bwd": layers * steps}
-    require(counts == want, f"training launches {counts}, {steps} steps imply {want}")
+          f"GiB held before the run; launches {counts}, per step {per_step}", flush=True)
+    want = {**{k: 0 for k in KERNELS}, **{k: n * steps for k, n in per_step.items()}}
+    require(counts == want, f"{label} launches {counts}, {steps} steps imply {want}")
     model = UniVL(cfg)
     sd = load_reference_bin(os.path.join(out, "pytorch_model.bin.0"))
     model.load_state_dict(sd, strict=True)
     require(all(bool(torch.isfinite(v).all()) for v in sd.values()), "non-finite saved weights")
-    print(f"pytorch_model.bin.0: {len(sd)} tensors, loads with strict=True, all finite",
+    print(f"{label} pytorch_model.bin.0: {len(sd)} tensors, loads with strict=True, all finite",
           flush=True)
     return counts
 
 
-def _train_batches(ds, n: int, device) -> list:
-    batcher = Batcher(ds, TRAIN_BATCH, seed=0, num_workers=8)
+def _train_batches(ds, n: int, device, batch: int = TRAIN_BATCH) -> list:
+    batcher = Batcher(ds, batch, seed=0, num_workers=8)
     out = []
     for b in batcher.epoch(0):
         out.append({k: torch.from_numpy(v[None]).to(device) for k, v in b.items()})
@@ -845,14 +1177,30 @@ def _train_batches(ds, n: int, device) -> list:
     raise RuntimeError(f"fewer than {n} batches")
 
 
-def phase_train_profile(ds, tmp: str) -> None:
-    """torch.profiler over PROFILE_STEPS steady steps of the full FT-Joint
-    step (batches already on the card): device busy share, kernel time by
-    name, launches per step."""
+PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
+    "#2 forward": ("train_attention_fwd_kernel",),
+    "#2 backward": ("train_attention_bwd_kernel",),
+    "#3 forward": ("ffn_fwd_kernel",),
+    "#3 backward": ("ffn_bwd_kernel",),
+    "#4 forward": ("ffn_block_fwd_kernel",),
+    "#4 backward": ("ffn_block_bwd_kernel",),
+    "#5 forward": ("dense_block_fwd_kernel",),
+    "#5 backward": ("dense_block_bwd_kernel",),
+    "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
+    "optimizer (foreach)": ("multi_tensor_apply", "foreach"),
+}
+
+
+def phase_train_profile(ds, tmp: str, route: str = "ft_joint") -> None:
+    """torch.profiler over PROFILE_STEPS steady steps of the full training
+    step on a route (batches already on the card): device busy share, kernel
+    time by name, launches per step."""
     from torch.profiler import ProfilerActivity, profile
 
+    align = route != "ft_joint"
     cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
-                           batch_size_per_device=TRAIN_BATCH)
+                           batch_size_per_device=TRAIN_BATCH, train_sim_after_cross=align,
+                           use_fused_ffn="block" if align else False)
     model = UniVL(cfg, device="cuda")
     model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
     opt = make_univl_optimizer(model, lr=3e-5, t_total=40, warmup_proportion=0.1, coef_lr=0.1)
@@ -867,44 +1215,49 @@ def phase_train_profile(ds, tmp: str) -> None:
             trainer.train_step(batches[i], i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events, busy_us = device_events(prof, os.path.join(tmp, "train_trace.json"), "train")
+    events, busy_us = device_events(prof, os.path.join(tmp, f"train_trace_{route}.json"),
+                                    "train")
     kernels = [e for e in events if e["cat"] == "kernel"]
-    groups = {
-        "#2 forward": ("train_attention_fwd_kernel",),
-        "#2 backward": ("train_attention_bwd_kernel",),
-        "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
-        "optimizer (foreach)": ("multi_tensor_apply", "foreach"),
-    }
     parts, rest = [], list(kernels)
-    for label, needles in groups.items():
+    for label, needles in PROFILE_GROUPS.items():
         hit = [any(n in e["name"] for n in needles) for e in rest]
         mine = [e for e, h in zip(rest, hit) if h]
         rest = [e for e, h in zip(rest, hit) if not h]
-        parts.append(f"{label} {ms(mine):.3f} ms in {len(mine)}")
+        if mine:
+            parts.append(f"{label} {ms(mine):.3f} ms in {len(mine)}")
     parts.append(f"the rest {ms(rest):.3f} ms in {len(rest)}")
     top = {}
     for e in rest:
         top[e["name"][:60]] = top.get(e["name"][:60], 0.0) + e["dur"] / 1e3
     biggest = sorted(top.items(), key=lambda kv: -kv[1])[:5]
-    print(f"profile FT-Joint train step (profiler on, {PROFILE_STEPS} steps, batches on the "
-          f"card): wall {wall_ms / PROFILE_STEPS:.3f} ms a step; device busy "
+    print(f"profile {TRAIN_ROUTES[route][0]} train step (profiler on, {PROFILE_STEPS} steps, "
+          f"batches on the card): wall {wall_ms / PROFILE_STEPS:.3f} ms a step; device busy "
           f"{busy_us / 1e3 / PROFILE_STEPS:.3f} ms a step ({busy_us / 1e3 / wall_ms:.4f} of "
           f"wall); {len(kernels) / PROFILE_STEPS:.1f} kernel launches a step; kernel time over "
           f"the window: {'; '.join(parts)}; largest of the rest: "
           f"{', '.join(f'{n} {t:.3f} ms' for n, t in biggest)}", flush=True)
 
 
-def phase_train_agreement(ds) -> None:
-    """Card against CPU at full width, text 2 and visual 1 layers, batch 32,
-    seeded weights, dropout 0: f32 loss, gradients and parameters after 2
-    BertAdam steps (warmup 0, so both steps move them); bf16 losses over
-    AGREE_BF16_STEPS steps."""
+def phase_train_agreement(ds, route: str = "ft_joint", control=None):
+    """Card against CPU at full width, seeded weights, dropout 0: FT-Joint
+    with text 2 + visual 1 layers at batch 32, or FT-Align with text 2 +
+    visual 1 + cross 1 layers at batch 8 on the route's FFN kernels. f32
+    loss, gradients and parameters after 2 BertAdam steps (warmup 0, so both
+    steps move them); bf16 losses over AGREE_BF16_STEPS steps. The FT-Align
+    xla route is the control: its worst gradient and parameter disagreement
+    are returned, and ``control`` gives them to the kernel routes."""
+    align, is_control = route != "ft_joint", route == "ft_align_xla"
     off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
-    cfg = UniVLConfig.base(text_num_hidden_layers=2, visual_num_hidden_layers=1, max_words=48,
-                           max_frames=48, batch_size_per_device=TRAIN_BATCH)
-    cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off))
+    batch = AGREE_ALIGN_BATCH if align else TRAIN_BATCH
+    cfg = UniVLConfig.base(text_num_hidden_layers=2, visual_num_hidden_layers=1,
+                           cross_num_hidden_layers=1, max_words=48, max_frames=48,
+                           batch_size_per_device=batch, train_sim_after_cross=align,
+                           use_fused_ffn={"ft_joint": False, "ft_align_xla": False,
+                                          "ft_align": "block", "ft_align_pallas": True}[route])
+    cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off),
+                      cross=cfg.cross.replace(**off))
     sd = init_state_dict(cfg, seed=0)
-    host = _train_batches(ds, AGREE_BF16_STEPS, "cpu")
+    host = _train_batches(ds, AGREE_BF16_STEPS, "cpu", batch)
 
     def run(device: str, dtype: str, steps: int):
         model = UniVL(cfg.replace(compute_dtype=dtype), device=device)
@@ -927,45 +1280,59 @@ def phase_train_agreement(ds) -> None:
                           for n, p in model.named_parameters()}
         return out["loss"].item(), grads, params, losses
 
-    cpu = run("cpu", "float32", AGREE_BF16_STEPS)
+    cpu = run("cpu", "float32", 2 if is_control else AGREE_BF16_STEPS)
     reset_launches()
     card = run("cuda", "float32", 2)
     counts = read_launches()
-    require(counts["train_attention_fwd"] > 0 and counts["train_attention_bwd"] > 0,
-            f"the card's f32 run did not launch the training-attention kernels: {counts}")
+    ran = [k for k, n in _launches_per_step(route).items() if n]
+    require(all(counts[k] > 0 for k in ran),
+            f"the card's f32 run did not launch the route's kernels {ran}: {counts}")
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    key, sim_bias = "attention.self.key.bias", "similarity_dense.bias"
+    zero = (key, sim_bias) if align else (key,)
+    floor = AGREE_GRAD_FLOOR * max(float(g.norm()) for g in cpu[1].values()) if align else 0.0
 
-    def worst(a: dict, b: dict, skip=()):
-        return max((float((a[n] - b[n]).norm() / b[n].norm()), n) for n in b
-                   if not n.endswith(skip))
+    def worst(a: dict, b: dict, floor: float = 0.0):
+        return max((float((a[n] - b[n]).norm()) / max(float(b[n].norm()), floor), n) for n in b
+                   if not n.endswith(zero))
 
-    # the key biases' gradient is zero in exact arithmetic (a per-query
-    # constant added to every score leaves the softmax unchanged), so both
-    # sides hold rounding noise there, and BertAdam's update of a zero-init
-    # bias from noise has no relative scale: they are held to absolute limits
-    key = "attention.self.key.bias"
-    grad_rel = worst(card[1], cpu[1], skip=(key,))
-    key_grad = max(float(card[1][n].norm()) for n in card[1] if n.endswith(key))
-    param_rel = worst(card[2], cpu[2], skip=(key,))
-    key_param = max(float((card[2][n] - cpu[2][n]).abs().max()) for n in cpu[2]
-                    if n.endswith(key))
-    print(f"training agreement, card f32 (kernels, TF32 off) vs CPU f32 (plain versions), "
-          f"full width, text 2 + visual 1 layers, batch {TRAIN_BATCH}, dropout 0: loss rel "
-          f"{loss_rel:.3e} (limit {AGREE_LOSS_RTOL}); worst gradient rel to its norm "
-          f"{grad_rel[0]:.3e} ({grad_rel[1]}; limit {AGREE_GRAD_RTOL}); worst parameter rel "
-          f"after 2 BertAdam steps {param_rel[0]:.3e} ({param_rel[1]}; limit "
-          f"{AGREE_PARAM_RTOL}); key biases: gradient norm at most {key_grad:.3e}, parameter "
-          f"difference at most {key_param:.3e} (limits 1e-6 and 1e-9)", flush=True)
-    require(loss_rel <= AGREE_LOSS_RTOL and grad_rel[0] <= AGREE_GRAD_RTOL
-            and param_rel[0] <= AGREE_PARAM_RTOL and key_grad <= 1e-6 and key_param <= 1e-9,
-            "card f32 training disagrees with the CPU")
+    grad_rel = worst(card[1], cpu[1], floor)
+    param_rel = worst(card[2], cpu[2])
+    zero_grad = max(float(card[1][n].norm()) for n in card[1] if n.endswith(zero))
+    zero_param = max(float((card[2][n] - cpu[2][n]).abs().max()) for n in cpu[2]
+                     if n.endswith(zero))
+    zero_limit = AGREE_ZERO_PARAM if align else AGREE_KEY_PARAM
+    grad_limit, param_limit = AGREE_GRAD_RTOL, AGREE_PARAM_RTOL
+    if control is not None:
+        grad_limit = max(grad_limit, AGREE_CONTROL_FACTOR * control[0])
+        param_limit = max(param_limit, AGREE_CONTROL_FACTOR * control[1])
+    label = TRAIN_ROUTES[route][0]
+    shape = (f"text 2 + visual 1 + cross 1 layers, batch {batch} ({batch * batch} pairs)"
+             if align else f"text 2 + visual 1 layers, batch {batch}")
+    limits = ("measured as the control" if is_control
+              else f"limits {grad_limit:.3e} and {param_limit:.3e}")
+    print(f"training agreement {label}, card f32 (kernels, TF32 off) vs CPU f32 (plain "
+          f"versions), full width, {shape}, dropout 0: loss rel {loss_rel:.3e} (limit "
+          f"{AGREE_LOSS_RTOL}); worst gradient rel to its norm{' or the floor' if align else ''} "
+          f"{grad_rel[0]:.3e} ({grad_rel[1]}{f'; floor {floor:.3e}' if align else ''}); worst "
+          f"parameter rel after 2 BertAdam steps {param_rel[0]:.3e} ({param_rel[1]}); {limits}; "
+          f"zero-gradient parameters {zero}: gradient norm at most {zero_grad:.3e} (limit "
+          f"{AGREE_ZERO_GRAD}), parameter difference at most {zero_param:.3e} (limit "
+          f"{zero_limit}); card launches {counts}", flush=True)
+    require(loss_rel <= AGREE_LOSS_RTOL and zero_grad <= AGREE_ZERO_GRAD
+            and zero_param <= zero_limit, f"card f32 {label} training disagrees with the CPU")
+    if is_control:
+        return grad_rel[0], param_rel[0]
+    require(grad_rel[0] <= grad_limit and param_rel[0] <= param_limit,
+            f"card f32 {label} gradients or parameters disagree with the CPU")
     bf16 = run("cuda", "bfloat16", AGREE_BF16_STEPS)[3]
     rel = [abs(a - b) / abs(b) for a, b in zip(bf16, cpu[3])]
-    print(f"training agreement, card bf16 vs CPU f32 over {AGREE_BF16_STEPS} steps: losses "
-          f"{[round(x, 6) for x in bf16]} vs {[round(x, 6) for x in cpu[3]]}; worst rel "
+    print(f"training agreement {label}, card bf16 vs CPU f32 over {AGREE_BF16_STEPS} steps: "
+          f"losses {[round(x, 6) for x in bf16]} vs {[round(x, 6) for x in cpu[3]]}; worst rel "
           f"{max(rel):.3e} (limit {LOSS_BF16_RTOL})", flush=True)
     require(all(math.isfinite(x) for x in bf16) and max(rel) <= LOSS_BF16_RTOL,
-            "card bf16 training loss strays from the CPU's f32")
+            f"card bf16 {label} training loss strays from the CPU's f32")
+    return grad_rel[0], param_rel[0]
 
 
 def phase_agreement(vocab: str, clips) -> None:
@@ -1046,7 +1413,8 @@ def main() -> int:
                 "beam_reorder_groups": kernel_reorder(),
                 "beam_decode_self_attention": kernel_decode_attention(),
                 "vocab_topk": kernel_vocab_topk(),
-                **kernel_train_attention()}
+                **kernel_train_attention(),
+                **kernel_ffn()}
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vocab = write_vocab(os.path.join(tmp, "vocab.txt"))
@@ -1069,6 +1437,13 @@ def main() -> int:
         by_path["train"] = phase_train(tmp, vocab, files)
         phase_train_profile(ds, tmp)
         phase_train_agreement(ds)
+        by_path["train_ft_align"] = phase_train(tmp, vocab, files, "ft_align")
+        phase_train_profile(ds, tmp, "ft_align")
+        small, _ = make_train_data(tmp, vocab, n_videos=PALLAS_VIDEOS)
+        by_path["train_ft_align_pallas"] = phase_train(tmp, vocab, small, "ft_align_pallas")
+        control = phase_train_agreement(ds, "ft_align_xla")
+        phase_train_agreement(ds, "ft_align", control)
+        phase_train_agreement(ds, "ft_align_pallas", control)
 
     rows = []
     for name, (wrapper, source, replaces) in KERNELS.items():

@@ -141,8 +141,7 @@ def test_max_margin_ranking_loss_with_negative_weighting():
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("route", ["stage_two", "train_sim_after_cross", "use_mil",
-                                   "do_pretrain"])
+@pytest.mark.parametrize("route", ["stage_two", "use_mil", "do_pretrain"])
 def test_training_routes_not_ported_raise(carried, route):
     cfg = config.UniVLConfig.tiny(**{route: True}, task_type="retrieval")
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -383,10 +382,39 @@ def test_cli_trains_and_writes_a_bin_jax_reads(youcook_files, tmp_path):
         assert torch.equal(back[k], v), k
 
 
+@pytest.mark.parametrize("fused_ffn", ["block", "pallas"])
+def test_cli_trains_ft_align_and_writes_a_bin_jax_reads(youcook_files, tmp_path, fused_ffn):
+    """--train_sim_after_cross on each fused FFN route (hidden 128 and FFN 256,
+    which the gate fuses): every step's loss finite, and the cross tower and
+    FT-Align head in a .bin that JAX's converter reads with no unknown key."""
+    out = str(tmp_path / "out")
+    argv = _cli_argv(youcook_files, out, "--train_sim_after_cross", "--fused_ffn", fused_ffn,
+                     "--cross_num_hidden_layers", "1")
+    argv[argv.index("--hidden_size") + 1] = "128"
+    argv[argv.index("--intermediate_size") + 1] = "256"
+    assert task_retrieval.main(argv) == 3  # 15 pairs in batches of 4, the last one wrapped
+    train = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert [r["step"] for r in train if r["kind"] == "train"] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in train if r["kind"] == "train")
+    with open(os.path.join(out, "args.json")) as f:
+        assert json.load(f)["fused_ffn"] == fused_ffn
+    path = os.path.join(out, "pytorch_model.bin.0")
+    tree, report = convert_torch_state_dict(load_torch_bin(path))
+    assert report["unknown"] == [] and report["skipped"] == []
+    assert "cross" in tree and "similarity_dense" in tree
+    saved = load_reference_bin(path)
+    assert any(k.startswith("cross.encoder.layer.0.output.LayerNorm") for k in saved)
+    back = state_dict_from_jax_params(tree)
+    assert sorted(back) == sorted(saved)
+    for k, v in saved.items():
+        assert torch.equal(back[k], v), k
+
+
 @pytest.mark.parametrize("extra", [
     ["--do_eval"], ["--do_pretrain"], ["--load_checkpoint"], ["--zero1"], ["--remat"],
-    ["--use_mil"], ["--sampled_use_mil"], ["--train_sim_after_cross"], ["--stage_two"],
+    ["--use_mil"], ["--sampled_use_mil"], ["--stage_two"],
     ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "msrvtt"],
+    ["--fused_ffn", "auto"], ["--fused_ffn", "auto_block"],  # TPU-measured row thresholds
     ["--train_attention", "pallas"],  # a TPU-only knob: not a flag of the port
 ])
 def test_cli_refuses_what_it_does_not_run(youcook_files, tmp_path, extra, capsys):

@@ -3,7 +3,8 @@ retrieval trainer), without JAX.
 
 The port's own copies of ``univl_tpu/cli/common.py``'s ``MetricsWriter``,
 ``get_logger``, ``base_parser`` (restricted to the flags the ported paths
-read, under the JAX names and defaults), ``finalize_args``,
+read, under the JAX names and defaults), ``add_fused_ffn_arg`` (the
+trainer's ``--fused_ffn``), ``finalize_args``,
 ``build_config``, the ``.bin`` branch of ``load_init_params``,
 ``make_trainer`` and ``run_train_epochs`` (without eval and resume).
 """
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_bin
-from univl_tpu_torch.config import UniVLConfig
+from univl_tpu_torch.config import TPU_THRESHOLD, UniVLConfig
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
 from univl_tpu_torch.utils.profiling import StepTimer
@@ -135,6 +136,27 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+FUSED_FFN = {"xla": False, "pallas": True, "block": "block"}  # --fused_ffn -> use_fused_ffn
+
+
+def _fused_ffn_route(value: str) -> str:
+    """JAX's auto and auto_block are refused here, with the reason."""
+    if value in ("auto", "auto_block"):
+        raise argparse.ArgumentTypeError(f"{value}: {TPU_THRESHOLD}; choose xla, pallas or block")
+    return value
+
+
+def add_fused_ffn_arg(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--fused_ffn`` with the JAX package's meaning
+    (``univl_tpu/cli/common.py:189-195``): xla = the unfused FFN; pallas =
+    the fused FFN kernel (#3); block = the FFN-block and dense-block kernels
+    (#4, #5), dropout, residual and LayerNorm folded in."""
+    p.add_argument("--fused_ffn", type=_fused_ffn_route, default="xla", choices=list(FUSED_FFN),
+                   help="FFN route: xla (unfused), pallas (the fused FFN kernel), block (the "
+                        "FFN-block and dense-block kernels); auto and auto_block are refused")
+    return p
+
+
 def resolve_device(name: str) -> torch.device:
     """The ``--device``; a CUDA device that is not there is an error, never
     a silent fall back to the CPU."""
@@ -163,8 +185,9 @@ def finalize_args(args):
 def build_config(args, device: torch.device, task_type: str = "retrieval",
                  vocab_size: Optional[int] = None) -> UniVLConfig:
     """Layer counts, widths, lengths, video_dim, vocab size (text tower and
-    decoder alike), the stage switches, the loss fields, the (micro-)batch
-    and the compute dtype (bf16 on a CUDA device, f32 on the CPU, unless
+    decoder alike), the stage switches, the loss fields, the (micro-)batch,
+    the FFN route (``--fused_ffn``, where the parser has it) and the compute
+    dtype (bf16 on a CUDA device, f32 on the CPU, unless
     --compute_dtype or --fp16 says otherwise)."""
     dtype = args.compute_dtype or (
         "bfloat16" if (device.type == "cuda" or args.fp16) else "float32")
@@ -186,6 +209,7 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
         task_type=task_type,
         batch_size_per_device=args.batch_size,
         compute_dtype=dtype,
+        use_fused_ffn=FUSED_FFN[getattr(args, "fused_ffn", "xla")],
     )
     arch = {}
     if args.hidden_size != 768:

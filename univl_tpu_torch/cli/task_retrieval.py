@@ -1,15 +1,20 @@
-"""Retrieval fine-tuning entry point of the PyTorch port: FT-Joint on YouCook2.
+"""Retrieval fine-tuning entry point of the PyTorch port: FT-Joint and
+FT-Align on YouCook2.
 
 Ports the ``--do_train --datatype youcook`` path of
 ``univl_tpu/cli/task_retrieval.py`` (the reference's main_task_retrieval.py):
-the text and visual towers, the mean-pooled joint similarity and the
-max-margin ranking loss, BertAdam, one CUDA device.
+the text and visual towers, the mean-pooled joint similarity (FT-Joint) or,
+with ``--train_sim_after_cross``, the cross encoder over all text-video
+pairs of the batch (FT-Align), the max-margin ranking loss, BertAdam, one
+CUDA device. ``--fused_ffn`` picks the FFN route: xla (unfused, the
+default), pallas (kernel #3) or block (kernels #4 and #5).
 
     python -m univl_tpu_torch.cli.task_retrieval --do_train --device cuda \\
         --datatype youcook --vocab_file vocab.txt \\
         --train_csv train.csv --data_path data.pickle --features_path features.pickle \\
         [--init_model univl.pretrained.bin] --output_dir ckpt \\
-        --lr 3e-5 --epochs 5 --batch_size 32 --max_words 48 --max_frames 48
+        --lr 3e-5 --epochs 5 --batch_size 32 --max_words 48 --max_frames 48 \\
+        [--train_sim_after_cross --fused_ffn block]
 
 Each epoch's weights go to ``<output_dir>/pytorch_model.bin.<epoch>``. The
 flags of paths not ported yet are refused with an error that names the
@@ -30,16 +35,17 @@ NOT_PORTED = {
     "do_pretrain": "pretraining",
     "load_checkpoint": "checkpointing",
     "zero1": "multi-device",
-    "remat": "FT-Align training",
+    # torch.utils.checkpoint re-runs the forward, which would draw new Philox
+    # seeds from the step's generator: the recomputed dropout would differ
+    "remat": "activation checkpointing (dropout seeds replayed in the recomputed forward)",
     "use_mil": "pretraining",
     "sampled_use_mil": "pretraining",
-    "train_sim_after_cross": "FT-Align training",
     "stage_two": "caption training",
 }
 
 
 def parse_args(argv=None):
-    parser = common.base_parser("UniVL Retrieval (PyTorch)")
+    parser = common.add_fused_ffn_arg(common.base_parser("UniVL Retrieval (PyTorch)"))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu (their "
                              "plain PyTorch versions)")

@@ -4,12 +4,29 @@ The same fields, defaults and constructors (``base()``, ``tiny()``,
 ``replace()``, ``validate()``), so ``dataclasses.asdict`` of a port config
 equals the JAX package's for the same arguments. Knobs that only the TPU
 package reads (``use_pallas``, ``scan_layers``, ...) are kept so the two
-stay comparable field for field; the port ignores them.
+stay comparable field for field; the port ignores them. The port reads
+``use_fused_ffn`` (False, True or "block": the FFN kernels #3, or #4 and #5)
+and refuses JAX's "auto" and "auto_block", whose row thresholds were
+measured on the TPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+
+FUSED_FFN_ROUTES = (False, True, "block")  # the unfused FFN, kernel #3, kernels #4 and #5
+# JAX's "auto" and "auto_block" pick a route by a row count
+TPU_THRESHOLD = "its 16,384-row threshold was measured on the TPU and is not carried over"
+
+
+def check_fused_ffn(route) -> None:
+    """Refuse a ``use_fused_ffn`` the port does not run."""
+    if route in ("auto", "auto_block"):
+        raise ValueError(f"use_fused_ffn={route!r}: {TPU_THRESHOLD}; choose False, True or "
+                         f"'block'")
+    if route not in FUSED_FFN_ROUTES:
+        raise ValueError(f"use_fused_ffn must be False, True or 'block', got {route!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +105,8 @@ class UniVLConfig:
     batch_size_per_device: int = 32
 
     compute_dtype: str = "float32"  # or "bfloat16"
-    # read only by the JAX package (its Pallas and XLA switches)
+    # read only by the JAX package (its Pallas and XLA switches), but for
+    # use_fused_ffn: False | True | "block", the port's FFN route
     use_pallas: object = False
     use_train_pallas: object = False
     use_fused_ffn: object = False
@@ -104,6 +122,7 @@ class UniVLConfig:
                 and self.max_words + self.max_frames <= self.cross.max_position_embeddings):
             raise ValueError(f"max_words {self.max_words} / max_frames {self.max_frames} "
                              f"exceed the position tables")
+        check_fused_ffn(self.use_fused_ffn)
         return self
 
     def replace(self, **kw):

@@ -1,0 +1,1165 @@
+// The fused FFN kernels of the PyTorch port, hand-written for Hopper (sm_90a):
+// #3 (FFN), #4 (FFN block) and #5 (dense block), each a forward and a backward.
+//
+// Replaces the Pallas TPU kernels of univl_tpu/kernels/ffn.py:
+//   #3 fused_ffn:          _ffn_fwd_kernel / _ffn_fwd_save_kernel, _ffn_bwd_kernel
+//   #4 fused_ffn_block:    _ffn_block_fwd_kernel, _ffn_block_bwd_kernel
+//   #5 fused_dense_block:  _dense_block_fwd_kernel, _dense_block_bwd_kernel
+// and computes what they compute at their rounding points (round: to the
+// input type T; every product summed in f32):
+//   #3 fwd  pre = round(round(x W1) + b1), h = round(gelu(pre)),
+//           y = round(round(h W2) + b2); the save variant also writes pre
+//   #3 bwd  h = round(gelu(pre)), dpre = round((g W2^T) * gelu'(pre)),
+//           dx = round(dpre W1^T)
+//   #4 fwd  #3's y, y = keep ? round(y / (1 - rate)) : 0, s = round(y + x),
+//           out = round(LN(s)) with TF LayerNorm (f32 stats, eps inside the
+//           rsqrt); saves pre and s
+//   #4 bwd  ds = LN backward (f32), dffn = round(keep ? ds / (1 - rate) : 0),
+//           #3's backward on dffn, dx = round(ds + dpre W1^T), and each
+//           block's column sums of g and g * xhat (the dbias, dscale partials)
+//   #5 fwd  y = round(round(x W) + b), dropped, s = round(y + r), out = round(LN(s))
+//   #5 bwd  ds, dy = round(keep ? ds / (1 - rate) : 0), dr = round(ds),
+//           dx = round(dy W^T), and the partials
+// The weight and bias gradients and the partials' final sums are left to
+// plain PyTorch, as the TPU kernels leave them to XLA (ffn.py:238-250,
+// 486-498, 705-712). erff stands in for the TPU kernels' A&S 7.1.26 erf
+// polynomial (|err| <= 1.5e-7). The forwards take their weights as
+// nn.Linear stores them ([out, in]: W1^T, W2^T, W^T), the backwards in the
+// JAX layout ([in, out]): either way a product's B operand is read along its
+// depth, in 16-byte rows.
+//
+// Dropout bits: counter-based Philox4x32-10 (philox.cuh). Element (row, col)
+// is kept where word col % 4 of Philox(counter = (col / 4, row, tag, 0), key =
+// seed) is at least rate * 2^32, tag 4 for #4 and 5 for #5. The mask is a pure
+// function of the element, so the forward, the backward and the plain version
+// (univl_tpu_torch/kernels/ffn.py) drop the same entries. The TPU kernels'
+// bits cannot be reproduced; the distribution is the same.
+//
+// What bounds it: at FT-Align's cross tower (98,304 rows, H 768, F 3072) #3
+// and #4 do 4 N H F = 0.93 TFLOP a call over ~0.9 GB: far above the H100's
+// ridge, so operations bound them (0.94 ms at the bf16 tensor-core peak).
+//
+// What the design does about it, in this first version: the [rows, F]
+// intermediate never leaves the SM (only pre, h and dpre, where the TPU
+// kernels write them). One block owns 32 whole rows, so the LayerNorm
+// epilogue reduces a row inside one warp and the backward's dscale/dbias
+// partials are summed per block in a fixed order (no atomics: a step is
+// reproducible). The block walks F in chunks of 256: the chunk's [32, 256]
+// activation goes to shared memory and is immediately multiplied into the
+// [32, 768] output held in registers. In bf16 the products run on the tensor
+// cores (mma.sync m16n8k16, f32 accumulators; each warp owns an eighth of the
+// columns for both 16-row halves), over weight tiles 32 deep copied with
+// cp.async into two shared-memory buffers, so the copy of the next tile
+// overlaps the products of this one; the output goes through shared memory
+// to the row-wise LayerNorm epilogue. In f32 (the agreement runs) they run
+// on CUDA cores, 4 rows x 24 columns a thread over staged f32 tiles. wgmma,
+// TMA and deeper pipelines are left for later work. The kernels take H = 768
+// and F a multiple of 256.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
+
+#include "philox.cuh"
+
+namespace {
+
+using univl::Dropout;
+using univl::philox4x32_10;
+using univl::philox_word;
+using bf16 = __nv_bfloat16;
+
+constexpr int kH = 768;                       // the hidden width the kernels take
+constexpr int kRows = 32;                     // rows a block owns
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = kRows / kWarps;  // 4
+constexpr int kFc = 256;                      // F chunk
+constexpr int kQH = kH / 128;                 // column quads a lane holds across H
+constexpr int kQF = kFc / 128;                // ... across an F chunk
+constexpr unsigned kFfnBlockTag = 4, kDenseBlockTag = 5;
+constexpr float kInvSqrt2 = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
+
+// bf16 runs on the tensor cores, f32 on CUDA cores
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// x rounded to T and back: the TPU kernels' astype(compute dtype) points
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+
+__device__ __forceinline__ float& at(float4& v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float at(const float4& v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[0]);
+  const float2 b = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(v.x, v.y);
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T>
+__device__ __forceinline__ float4 round4(float4 v) {
+  return make_float4(round_to<T>(v.x), round_to<T>(v.y), round_to<T>(v.z), round_to<T>(v.w));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// erf-GELU and its derivative in f32 (univl_tpu/kernels/ffn.py:70-78)
+__device__ __forceinline__ float gelu(float x) { return x * 0.5f * (1.0f + erff(x * kInvSqrt2)); }
+__device__ __forceinline__ float gelu_grad(float x) {
+  const float cdf = 0.5f * (1.0f + erff(x * kInvSqrt2));
+  return cdf + x * (expf(-0.5f * x * x) * kInvSqrt2Pi);
+}
+
+// The lane's first column of quad q of a row: lanes hold 4 adjacent columns,
+// a warp 128 adjacent columns per quad.
+__device__ __forceinline__ int quad_col(int q) { return q * 128 + 4 * (threadIdx.x & 31); }
+
+// The dropout factors of the 4 columns from col (a multiple of 4) of a row:
+// 1/(1-rate) where kept, 0 where dropped. One Philox call per quad.
+__device__ __forceinline__ float4 keep4(const Dropout& drop, int row, int col, unsigned tag) {
+  const uint4 w = philox4x32_10(make_uint4(col >> 2, row, tag, 0), drop.seed);
+  float4 k;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) at(k, t) = philox_word(w, t) >= drop.threshold ? drop.inv_keep : 0.0f;
+  return k;
+}
+
+// ---------------------------------------------------------------- f32: CUDA cores
+
+constexpr int kKc = 16;            // depth of a staged weight tile
+constexpr int kBStride = kH + 4;   // staged tile row, 16-byte aligned
+
+// Rows [row0, row0 + kRows) of a [N, width] matrix into f32 shared memory,
+// zeros past N.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int N, int row0,
+                                           int width) {
+  for (int e = threadIdx.x; e < kRows * width; e += kThreads) {
+    const int r = e / width, c = e % width;
+    dst[e] = row0 + r < N ? to_float(src[static_cast<long long>(row0 + r) * width + c]) : 0.0f;
+  }
+}
+
+// Rows [k0, k0 + kKc) and columns [n0, n0 + NC) of B(k, n) = M[n * ld + k]
+// into bs[kk * kBStride + n].
+template <int NC, typename W>
+__device__ __forceinline__ void stage_b(float* bs, const W* __restrict__ M, int ld, int k0,
+                                        int n0) {
+  for (int e = threadIdx.x; e < kKc * NC; e += kThreads) {
+    const int kk = e % kKc, n = e / kKc;
+    bs[kk * kBStride + n] = to_float(M[static_cast<long long>(n0 + n) * ld + k0 + kk]);
+  }
+}
+
+// acc[r][q] += sum over k < K of A[warp's row r][k] * B(k, n0 + quad_col(q) + 0..3),
+// A in shared memory (row stride lda), B as in stage_b, staged kKc rows at a time.
+template <int NQ, typename W>
+__device__ __forceinline__ void gemm_tile(float4 (&acc)[kRowsPerWarp][NQ], const float* as,
+                                          int lda, int K, const W* __restrict__ M, int ld,
+                                          int n0, float* bs) {
+  const float* arow = as + (threadIdx.x >> 5) * kRowsPerWarp * lda;
+  for (int k0 = 0; k0 < K; k0 += kKc) {
+    __syncthreads();  // every warp is done with bs (and with the rows of `as` it reads)
+    stage_b<NQ * 128>(bs, M, ld, k0, n0);
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < kKc; ++kk) {
+      float a[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) a[r] = arow[r * lda + k0 + kk];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float4 b = load4(bs + kk * kBStride + quad_col(q));
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          acc[r][q].x = fmaf(a[r], b.x, acc[r][q].x);
+          acc[r][q].y = fmaf(a[r], b.y, acc[r][q].y);
+          acc[r][q].z = fmaf(a[r], b.z, acc[r][q].z);
+          acc[r][q].w = fmaf(a[r], b.w, acc[r][q].w);
+        }
+      }
+    }
+  }
+}
+
+template <int NQ>
+__device__ __forceinline__ void zero(float4 (&acc)[kRowsPerWarp][NQ]) {
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) acc[r][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// ---------------------------------------------------------------- bf16: tensor cores
+
+constexpr int kKt = 32;             // depth of a staged weight tile
+constexpr int kBRow = kKt + 8;      // its rows in shared memory: 80 bytes, conflict-free fragments
+constexpr int kARow = kH + 8;       // a staged activation row
+constexpr int kHRow = kFc + 8;      // a staged chunk row
+constexpr int kYRow = kH + 4;       // an f32 output row, laid out for the row epilogue
+constexpr int kStage = kH * kBRow;  // bf16 elements of one weight-tile buffer (up to kH columns)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += A B for one 16 x 8 tile, 16 deep, bf16 in, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [row0, row0 + kRows) of a [N, kH] matrix into rows of kARow, zeros past N.
+__device__ __forceinline__ void stage_rows_tc(bf16* dst, const bf16* __restrict__ src, int N,
+                                              int row0) {
+  constexpr int kVec = kH / 8;
+  for (int e = threadIdx.x; e < kRows * kVec; e += kThreads) {
+    const int r = e / kVec, c = (e % kVec) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < N) {
+      v = *reinterpret_cast<const uint4*>(src + static_cast<long long>(row0 + r) * kH + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * kARow + c) = v;
+  }
+}
+
+// Start copying B(k, n) = M[(n0 + n) * ld + k], n < NC, k in [k0, k0 + kKt),
+// to bs[n * kBRow + k - k0]: 16-byte rows along the depth.
+template <int NC>
+__device__ __forceinline__ void stage_bt(bf16* bs, const bf16* __restrict__ M, int ld, int k0,
+                                         int n0) {
+  constexpr int kVec = kKt / 8;
+  for (int e = threadIdx.x; e < NC * kVec; e += kThreads) {
+    const int n = e / kVec, k = (e % kVec) * 8;
+    cp_async16(bs + n * kBRow + k, M + static_cast<long long>(n0 + n) * ld + k0 + k);
+  }
+  cp_async_commit();
+}
+
+// c[m][j] += A[rows 16m..16m+15] B(:, the warp's n-tile j), over depth K.
+// The warp's NT tiles of 8 columns start at column warp * NT * 8; A: the
+// block's kRows rows in shared memory (row stride lda); B as in stage_bt,
+// kKt deep in two buffers, the next tile's copy overlapping this one's products.
+// Fragments (PTX m16n8k16, g = lane / 4, t = lane % 4): A rows g and g + 8,
+// columns 2t, 2t + 1 and 2t + 8, 2t + 9; B depth 2t, 2t + 1 and 2t + 8, 2t + 9
+// of column g; c[0..1] row g, c[2..3] row g + 8, columns 2t, 2t + 1.
+template <int NT>
+__device__ __forceinline__ void mma_gemm(float (&c)[2][NT][4], const bf16* as, int lda, int K,
+                                         const bf16* __restrict__ M, int ld, int n0, bf16* bs) {
+  constexpr int NC = NT * 8 * kWarps;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int b_lane = ((threadIdx.x >> 5) * NT * 8 + g) * kBRow + 2 * t;
+  const bf16* a_lane = as + g * lda + 2 * t;
+  const int steps = K / kKt;
+  __syncthreads();  // every warp is done with both buffers and sees the A rows
+  stage_bt<NC>(bs, M, ld, 0, n0);
+  for (int s = 0; s < steps; ++s) {
+    const bf16* cur = bs + (s & 1) * kStage + b_lane;
+    if (s + 1 < steps) {
+      stage_bt<NC>(bs + ((s + 1) & 1) * kStage, M, ld, (s + 1) * kKt, n0);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kKt; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const bf16* p = a_lane + m * 16 * lda + s * kKt + kk;
+        a[m][0] = ld_pair(p);
+        a[m][1] = ld_pair(p + 8 * lda);
+        a[m][2] = ld_pair(p + 8);
+        a[m][3] = ld_pair(p + 8 * lda + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const bf16* q = cur + j * 8 * kBRow + kk;
+        const uint32_t b0 = ld_pair(q), b1 = ld_pair(q + 8);
+        mma16816(c[0][j], a[0], b0, b1);
+        mma16816(c[1][j], a[1], b0, b1);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before the copy after next
+  }
+}
+
+// The accumulator element (m, j, e) of mma_gemm<NT>: its row in the block and its column.
+__device__ __forceinline__ int mma_row(int m, int e) {
+  return m * 16 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+template <int NT>
+__device__ __forceinline__ int mma_col(int j, int e) {
+  return (threadIdx.x >> 5) * NT * 8 + j * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// ---------------------------------------------------------------- epilogues
+
+// The block epilogue of one row held by a warp: y (already + bias, rounded)
+// dropped, s = round(y + res), s saved, out = round(LN(s)) (ffn.py:290-326).
+template <typename T>
+__device__ __forceinline__ void residual_layer_norm(float4 (&y)[kQH], const float4 (&res)[kQH],
+                                                    int row, bool valid, const float* ln_scale,
+                                                    const float* ln_bias, float eps,
+                                                    const Dropout& drop, unsigned tag, T* out,
+                                                    T* s_out) {
+  float sum = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kQH; ++q) {
+    const float4 k = drop.on ? keep4(drop, row, quad_col(q), tag) : make_float4(1, 1, 1, 1);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float v = at(y[q], t);
+      if (drop.on) v = at(k, t) != 0.0f ? round_to<T>(v * at(k, t)) : 0.0f;
+      v = round_to<T>(v + at(res[q], t));
+      at(y[q], t) = v;
+      sum += v;
+    }
+  }
+  const float u = warp_sum(sum) / kH;
+  float sq = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kQH; ++q)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float d = at(y[q], t) - u;
+      sq += d * d;
+    }
+  const float rstd = rsqrtf(warp_sum(sq) / kH + eps);
+  if (!valid) return;
+  const long long base = static_cast<long long>(row) * kH;
+#pragma unroll
+  for (int q = 0; q < kQH; ++q) {
+    const int col = quad_col(q);
+    if (s_out) store4(s_out + base + col, y[q]);
+    const float4 sc = load4(ln_scale + col), bi = load4(ln_bias + col);
+    float4 o;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) at(o, t) = ((at(y[q], t) - u) * rstd) * at(sc, t) + at(bi, t);
+    store4(out + base + col, o);
+  }
+}
+
+// The rows' epilogue of a forward whose output went to shared memory (ys,
+// f32 rows of kYRow): each warp takes its 4 rows, adds the residual (rows of
+// res with stride res_ld, in shared or global memory), drops, normalizes.
+template <typename T, bool kBlock, typename R>
+__device__ __forceinline__ void row_epilogue(const float* ys, const R* res, long long res_ld,
+                                             int N, int row0, const float* ln_scale,
+                                             const float* ln_bias, float eps, const Dropout& drop,
+                                             unsigned tag, T* out, T* s_out) {
+  const int rb = (threadIdx.x >> 5) * kRowsPerWarp;
+#pragma unroll 1
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = row0 + rb + r;
+    const bool valid = row < N;
+    float4 y[kQH], rv[kQH];
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) {
+      y[q] = load4(ys + (rb + r) * kYRow + quad_col(q));
+      rv[q] = kBlock && valid ? load4(res + (rb + r) * res_ld + quad_col(q))
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    if (kBlock) {
+      residual_layer_norm<T>(y, rv, row, valid, ln_scale, ln_bias, eps, drop, tag, out, s_out);
+    } else if (valid) {
+#pragma unroll
+      for (int q = 0; q < kQH; ++q) store4(out + static_cast<long long>(row) * kH + quad_col(q), y[q]);
+    }
+  }
+}
+
+// LayerNormTF's backward for the block's rows (ffn.py:335-362): with
+// xhat = (s - u) * rstd and gs = g * scale,
+//   ds = rstd * (gs - mean(gs) - xhat * mean(gs * xhat))   (f32),
+// the dropped gradient round(keep ? ds / (1 - rate) : 0) to `as` (the next
+// product's A, rows of lda) and to dropped_out, round(ds) to ds_out (if
+// given), each row's (u, rstd, mean(gs), mean(gs * xhat)) to stats, and the
+// block's column sums of g and g * xhat, summed in a fixed order, to the partials.
+template <typename T, typename A>
+__device__ void layer_norm_backward(const T* __restrict__ s, const T* __restrict__ g,
+                                    const float* __restrict__ ln_scale, int N, int row0,
+                                    float eps, const Dropout& drop, unsigned tag, A* as, int lda,
+                                    T* dropped_out, T* ds_out, float* stats, float* red,
+                                    float* dscale_p, float* dbias_p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4 pg[kQH], pgx[kQH];
+#pragma unroll
+  for (int q = 0; q < kQH; ++q) pg[q] = pgx[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int lr = warp * kRowsPerWarp + r, row = row0 + lr;
+    const bool valid = row < N;
+    const long long base = static_cast<long long>(row) * kH;
+    float4 sv[kQH], gv[kQH];
+    float sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) {
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      sv[q] = valid ? load4(s + base + quad_col(q)) : z;
+      gv[q] = valid ? load4(g + base + quad_col(q)) : z;
+      sum += sv[q].x + sv[q].y + sv[q].z + sv[q].w;
+    }
+    const float u = warp_sum(sum) / kH;
+    float sq = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kQH; ++q)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float d = at(sv[q], t) - u;
+        sq += d * d;
+      }
+    const float rstd = rsqrtf(warp_sum(sq) / kH + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) {
+      const float4 sc = load4(ln_scale + quad_col(q));
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float xh = (at(sv[q], t) - u) * rstd, gval = at(gv[q], t);
+        at(sv[q], t) = xh;  // sv holds xhat from here on
+        at(pg[q], t) += gval;
+        at(pgx[q], t) += gval * xh;
+        const float gs = gval * at(sc, t);
+        at(gv[q], t) = gs;  // gv holds gs from here on
+        s1 += gs;
+        s2 += gs * xh;
+      }
+    }
+    const float m1 = warp_sum(s1) / kH, m2 = warp_sum(s2) / kH;
+    if (lane == 0) {
+      stats[4 * lr] = u;
+      stats[4 * lr + 1] = rstd;
+      stats[4 * lr + 2] = m1;
+      stats[4 * lr + 3] = m2;
+    }
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) {
+      const int col = quad_col(q);
+      const float4 k = drop.on ? keep4(drop, row, col, tag) : make_float4(1, 1, 1, 1);
+      float4 ds, dd;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        at(ds, t) = rstd * (at(gv[q], t) - m1 - at(sv[q], t) * m2);
+        at(dd, t) = round_to<T>(drop.on ? at(ds, t) * at(k, t) : at(ds, t));
+      }
+      store4(as + lr * lda + col, dd);
+      if (valid) {
+        store4(dropped_out + base + col, dd);
+        if (ds_out) store4(ds_out + base + col, round4<T>(ds));
+      }
+    }
+  }
+  __syncthreads();  // red is the weight-tile buffer: no warp still reads it
+#pragma unroll
+  for (int q = 0; q < kQH; ++q) {
+    store4(red + warp * kH + quad_col(q), pg[q]);
+    store4(red + (kWarps + warp) * kH + quad_col(q), pgx[q]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < kH; c += kThreads) {
+    float a = 0.0f, b = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += red[w * kH + c];
+      b += red[(kWarps + w) * kH + c];
+    }
+    dbias_p[static_cast<long long>(blockIdx.x) * kH + c] = a;
+    dscale_p[static_cast<long long>(blockIdx.x) * kH + c] = b;
+  }
+}
+
+// ds of one element from its row's statistics (dx = ds + the FFN's dx in #4)
+__device__ __forceinline__ float ds_of(const float* st, float s, float g, float scale) {
+  return st[1] * (g * scale - st[2] - (s - st[0]) * st[1] * st[3]);
+}
+
+// ---------------------------------------------------------------- #3, #4 forward
+
+template <typename T, bool kBlock>
+__device__ __forceinline__ void ffn_fwd_cc(
+    const T* __restrict__ x, const T* __restrict__ w1t, const T* __restrict__ b1,
+    const T* __restrict__ w2t, const T* __restrict__ b2, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, T* __restrict__ out, T* __restrict__ pre_out,
+    T* __restrict__ s_out, int N, int F, float eps, const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;              // [kRows][kH] the block's rows of x
+  float* hs = xs + kRows * kH;   // [kRows][kFc] the chunk's activation
+  float* bs = hs + kRows * kFc;  // [kKc][kBStride] a weight tile
+  const int rb = (threadIdx.x >> 5) * kRowsPerWarp;
+  const int row0 = blockIdx.x * kRows;
+  stage_rows(xs, x, N, row0, kH);
+  float4 acc[kRowsPerWarp][kQH];
+  zero(acc);
+  for (int f0 = 0; f0 < F; f0 += kFc) {
+    float4 c1[kRowsPerWarp][kQF];
+    zero(c1);
+    gemm_tile<kQF>(c1, xs, kH, kH, w1t, kH, f0, bs);  // x W1[:, f0:f0+kFc]
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = row0 + rb + r;
+#pragma unroll
+      for (int q = 0; q < kQF; ++q) {
+        const int col = quad_col(q);
+        const float4 bias = load4(b1 + f0 + col);
+        float4 p, h;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          at(p, t) = round_to<T>(round_to<T>(at(c1[r][q], t)) + at(bias, t));
+          at(h, t) = round_to<T>(gelu(at(p, t)));
+        }
+        if (pre_out && row < N) store4(pre_out + static_cast<long long>(row) * F + f0 + col, p);
+        store4(hs + (rb + r) * kFc + col, h);
+      }
+    }
+    gemm_tile<kQH>(acc, hs, kFc, kFc, w2t + f0, F, 0, bs);  // h W2[f0:f0+kFc, :]
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = row0 + rb + r;
+    const bool valid = row < N;
+    float4 y[kQH], res[kQH];
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) {
+      const int col = quad_col(q);
+      const float4 bias = load4(b2 + col);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) at(y[q], t) = round_to<T>(round_to<T>(at(acc[r][q], t)) + at(bias, t));
+      res[q] = load4(xs + (rb + r) * kH + col);
+    }
+    if (kBlock) {
+      residual_layer_norm<T>(y, res, row, valid, ln_scale, ln_bias, eps, drop, kFfnBlockTag, out,
+                             s_out);
+    } else if (valid) {
+#pragma unroll
+      for (int q = 0; q < kQH; ++q) store4(out + static_cast<long long>(row) * kH + quad_col(q), y[q]);
+    }
+  }
+}
+
+template <bool kBlock>
+__device__ __forceinline__ void ffn_fwd_tc(
+    const bf16* __restrict__ x, const bf16* __restrict__ w1t, const bf16* __restrict__ b1,
+    const bf16* __restrict__ w2t, const bf16* __restrict__ b2, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, bf16* __restrict__ out, bf16* __restrict__ pre_out,
+    bf16* __restrict__ s_out, int N, int F, float eps, const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kRows][kARow] the block's rows of x
+  bf16* hs = xs + kRows * kARow;             // [kRows][kHRow] the chunk's activation
+  bf16* bs = hs + kRows * kHRow;             // 2 x kStage weight tiles
+  float* ys = reinterpret_cast<float*>(bs);  // [kRows][kYRow] the output, after the products
+  const int row0 = blockIdx.x * kRows;
+  stage_rows_tc(xs, x, N, row0);
+  float acc[2][12][4] = {};
+  for (int f0 = 0; f0 < F; f0 += kFc) {
+    float c1[2][4][4] = {};
+    mma_gemm<4>(c1, xs, kARow, kH, w1t, kH, f0, bs);  // x W1[:, f0:f0+kFc]
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int lr = mma_row(m, e), col = mma_col<4>(j, e);
+          const float2 bias = load2(b1 + f0 + col);
+          const float p0 = round_to<bf16>(round_to<bf16>(c1[m][j][e]) + bias.x);
+          const float p1 = round_to<bf16>(round_to<bf16>(c1[m][j][e + 1]) + bias.y);
+          if (pre_out && row0 + lr < N) {
+            store2(pre_out + static_cast<long long>(row0 + lr) * F + f0 + col, p0, p1);
+          }
+          store2(hs + lr * kHRow + col, gelu(p0), gelu(p1));
+        }
+    mma_gemm<12>(acc, hs, kHRow, kFc, w2t + f0, F, 0, bs);  // h W2[f0:f0+kFc, :]
+  }
+  __syncthreads();  // every warp is done with the weight tiles, which ys overwrites
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int lr = mma_row(m, e), col = mma_col<12>(j, e);
+        const float2 bias = load2(b2 + col);
+        *reinterpret_cast<float2*>(ys + lr * kYRow + col) =
+            make_float2(round_to<bf16>(round_to<bf16>(acc[m][j][e]) + bias.x),
+                        round_to<bf16>(round_to<bf16>(acc[m][j][e + 1]) + bias.y));
+      }
+  __syncthreads();
+  row_epilogue<bf16, kBlock>(ys, xs, kARow, N, row0, ln_scale, ln_bias, eps, drop, kFfnBlockTag,
+                             out, s_out);
+}
+
+// ---------------------------------------------------------------- #3, #4 backward
+
+template <typename T, bool kBlock>
+__device__ __forceinline__ void ffn_bwd_cc(
+    const T* __restrict__ pre, const T* __restrict__ g, const T* __restrict__ w1,
+    const T* __restrict__ w2, const T* __restrict__ s, const float* __restrict__ ln_scale,
+    T* __restrict__ dx, T* __restrict__ dpre, T* __restrict__ h, T* __restrict__ dffn,
+    float* __restrict__ dscale_p, float* __restrict__ dbias_p, int N, int F, float eps,
+    const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                        // [kRows][kH] the gradient entering the FFN
+  float* hs = as + kRows * kH;             // [kRows][kFc] the chunk's dpre
+  float* bs = hs + kRows * kFc;            // [kKc][kBStride] a weight tile
+  float* stats = bs + kKc * kBStride;      // [kRows][4] LayerNorm row statistics
+  const int rb = (threadIdx.x >> 5) * kRowsPerWarp;
+  const int row0 = blockIdx.x * kRows;
+  if (kBlock) {
+    layer_norm_backward<T>(s, g, ln_scale, N, row0, eps, drop, kFfnBlockTag, as, kH, dffn,
+                           static_cast<T*>(nullptr), stats, bs, dscale_p, dbias_p);
+  } else {
+    stage_rows(as, g, N, row0, kH);
+  }
+  float4 acc[kRowsPerWarp][kQH];
+  zero(acc);
+  for (int f0 = 0; f0 < F; f0 += kFc) {
+    float4 c1[kRowsPerWarp][kQF];
+    zero(c1);
+    gemm_tile<kQF>(c1, as, kH, kH, w2, kH, f0, bs);  // g W2[f0:f0+kFc, :]^T
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = row0 + rb + r;
+      const bool valid = row < N;
+      const long long base = static_cast<long long>(row) * F + f0;
+#pragma unroll
+      for (int q = 0; q < kQF; ++q) {
+        const int col = quad_col(q);
+        const float4 p = valid ? load4(pre + base + col) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float4 hv, dp;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          at(hv, t) = gelu(at(p, t));
+          at(dp, t) = round_to<T>(at(c1[r][q], t) * gelu_grad(at(p, t)));
+        }
+        if (valid) {
+          store4(h + base + col, hv);
+          store4(dpre + base + col, dp);
+        }
+        store4(hs + (rb + r) * kFc + col, dp);
+      }
+    }
+    gemm_tile<kQH>(acc, hs, kFc, kFc, w1 + f0, F, 0, bs);  // dpre W1[:, f0:f0+kFc]^T
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int lr = rb + r, row = row0 + lr;
+    if (row >= N) continue;
+    const long long base = static_cast<long long>(row) * kH;
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) {
+      const int col = quad_col(q);
+      float4 o = acc[r][q];
+      if (kBlock) {  // dx = ds + dx_ffn, ds recomputed from the row statistics
+        const float4 sv = load4(s + base + col), gv = load4(g + base + col);
+        const float4 sc = load4(ln_scale + col);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) at(o, t) += ds_of(stats + 4 * lr, at(sv, t), at(gv, t), at(sc, t));
+      }
+      store4(dx + base + col, o);
+    }
+  }
+}
+
+template <bool kBlock>
+__device__ __forceinline__ void ffn_bwd_tc(
+    const bf16* __restrict__ pre, const bf16* __restrict__ g, const bf16* __restrict__ w1,
+    const bf16* __restrict__ w2, const bf16* __restrict__ s, const float* __restrict__ ln_scale,
+    bf16* __restrict__ dx, bf16* __restrict__ dpre, bf16* __restrict__ h, bf16* __restrict__ dffn,
+    float* __restrict__ dscale_p, float* __restrict__ dbias_p, int N, int F, float eps,
+    const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  bf16* as = reinterpret_cast<bf16*>(smem);                // [kRows][kARow] the FFN's gradient
+  bf16* hs = as + kRows * kARow;                           // [kRows][kHRow] the chunk's dpre
+  bf16* bs = hs + kRows * kHRow;                           // 2 x kStage weight tiles
+  float* stats = reinterpret_cast<float*>(bs + 2 * kStage);  // [kRows][4]
+  const int row0 = blockIdx.x * kRows;
+  if (kBlock) {
+    layer_norm_backward<bf16>(s, g, ln_scale, N, row0, eps, drop, kFfnBlockTag, as, kARow, dffn,
+                              static_cast<bf16*>(nullptr), stats, reinterpret_cast<float*>(bs),
+                              dscale_p, dbias_p);
+  } else {
+    stage_rows_tc(as, g, N, row0);
+  }
+  float acc[2][12][4] = {};
+  for (int f0 = 0; f0 < F; f0 += kFc) {
+    float c1[2][4][4] = {};
+    mma_gemm<4>(c1, as, kARow, kH, w2, kH, f0, bs);  // g W2[f0:f0+kFc, :]^T
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int lr = mma_row(m, e), col = mma_col<4>(j, e), row = row0 + lr;
+          const bool valid = row < N;
+          const long long base = static_cast<long long>(row) * F + f0 + col;
+          const float2 p = valid ? load2(pre + base) : make_float2(0.0f, 0.0f);
+          const float dp0 = round_to<bf16>(c1[m][j][e] * gelu_grad(p.x));
+          const float dp1 = round_to<bf16>(c1[m][j][e + 1] * gelu_grad(p.y));
+          if (valid) {
+            store2(h + base, gelu(p.x), gelu(p.y));
+            store2(dpre + base, dp0, dp1);
+          }
+          store2(hs + lr * kHRow + col, dp0, dp1);
+        }
+    mma_gemm<12>(acc, hs, kHRow, kFc, w1 + f0, F, 0, bs);  // dpre W1[:, f0:f0+kFc]^T
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int lr = mma_row(m, e), col = mma_col<12>(j, e), row = row0 + lr;
+        if (row >= N) continue;
+        const long long base = static_cast<long long>(row) * kH + col;
+        float o0 = acc[m][j][e], o1 = acc[m][j][e + 1];
+        if (kBlock) {  // dx = ds + dx_ffn, ds recomputed from the row statistics
+          const float2 sv = load2(s + base), gv = load2(g + base);
+          const float2 sc = *reinterpret_cast<const float2*>(ln_scale + col);
+          o0 += ds_of(stats + 4 * lr, sv.x, gv.x, sc.x);
+          o1 += ds_of(stats + 4 * lr, sv.y, gv.y, sc.y);
+        }
+        store2(dx + base, o0, o1);
+      }
+}
+
+// ---------------------------------------------------------------- #5
+
+template <typename T>
+__device__ __forceinline__ void dense_fwd_cc(
+    const T* __restrict__ x, const T* __restrict__ res_in, const T* __restrict__ wt,
+    const T* __restrict__ b, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, T* __restrict__ out, T* __restrict__ s_out, int N,
+    float eps, const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;             // [kRows][kH]
+  float* bs = xs + kRows * kH;  // [kKc][kBStride]
+  const int rb = (threadIdx.x >> 5) * kRowsPerWarp;
+  const int row0 = blockIdx.x * kRows;
+  stage_rows(xs, x, N, row0, kH);
+  float4 acc[kRowsPerWarp][kQH];
+  zero(acc);
+  gemm_tile<kQH>(acc, xs, kH, kH, wt, kH, 0, bs);  // x W
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = row0 + rb + r;
+    const bool valid = row < N;
+    float4 y[kQH], res[kQH];
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) {
+      const int col = quad_col(q);
+      const float4 bias = load4(b + col);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) at(y[q], t) = round_to<T>(round_to<T>(at(acc[r][q], t)) + at(bias, t));
+      res[q] = valid ? load4(res_in + static_cast<long long>(row) * kH + col)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    residual_layer_norm<T>(y, res, row, valid, ln_scale, ln_bias, eps, drop, kDenseBlockTag, out,
+                           s_out);
+  }
+}
+
+__device__ __forceinline__ void dense_fwd_tc(
+    const bf16* __restrict__ x, const bf16* __restrict__ res_in, const bf16* __restrict__ wt,
+    const bf16* __restrict__ b, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, bf16* __restrict__ out, bf16* __restrict__ s_out, int N,
+    float eps, const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kRows][kARow]
+  bf16* bs = xs + kRows * kARow;             // 2 x kStage weight tiles
+  float* ys = reinterpret_cast<float*>(bs);  // [kRows][kYRow] the output, after the product
+  const int row0 = blockIdx.x * kRows;
+  stage_rows_tc(xs, x, N, row0);
+  float acc[2][12][4] = {};
+  mma_gemm<12>(acc, xs, kARow, kH, wt, kH, 0, bs);  // x W
+  __syncthreads();  // every warp is done with the weight tiles, which ys overwrites
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int lr = mma_row(m, e), col = mma_col<12>(j, e);
+        const float2 bias = load2(b + col);
+        *reinterpret_cast<float2*>(ys + lr * kYRow + col) =
+            make_float2(round_to<bf16>(round_to<bf16>(acc[m][j][e]) + bias.x),
+                        round_to<bf16>(round_to<bf16>(acc[m][j][e + 1]) + bias.y));
+      }
+  __syncthreads();
+  row_epilogue<bf16, true>(ys, res_in + static_cast<long long>(row0) * kH, kH, N, row0, ln_scale,
+                           ln_bias, eps, drop, kDenseBlockTag, out, s_out);
+}
+
+template <typename T>
+__device__ __forceinline__ void dense_bwd_cc(
+    const T* __restrict__ s, const T* __restrict__ g, const T* __restrict__ w,
+    const float* __restrict__ ln_scale, T* __restrict__ dx, T* __restrict__ dy,
+    T* __restrict__ dr, float* __restrict__ dscale_p, float* __restrict__ dbias_p, int N,
+    float eps, const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                    // [kRows][kH] dy
+  float* bs = as + kRows * kH;         // [kKc][kBStride]
+  float* stats = bs + kKc * kBStride;  // [kRows][4]
+  const int rb = (threadIdx.x >> 5) * kRowsPerWarp;
+  const int row0 = blockIdx.x * kRows;
+  layer_norm_backward<T>(s, g, ln_scale, N, row0, eps, drop, kDenseBlockTag, as, kH, dy, dr,
+                         stats, bs, dscale_p, dbias_p);
+  float4 acc[kRowsPerWarp][kQH];
+  zero(acc);
+  gemm_tile<kQH>(acc, as, kH, kH, w, kH, 0, bs);  // dy W^T
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = row0 + rb + r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) store4(dx + static_cast<long long>(row) * kH + quad_col(q), acc[r][q]);
+  }
+}
+
+__device__ __forceinline__ void dense_bwd_tc(
+    const bf16* __restrict__ s, const bf16* __restrict__ g, const bf16* __restrict__ w,
+    const float* __restrict__ ln_scale, bf16* __restrict__ dx, bf16* __restrict__ dy,
+    bf16* __restrict__ dr, float* __restrict__ dscale_p, float* __restrict__ dbias_p, int N,
+    float eps, const Dropout& drop) {
+  extern __shared__ __align__(16) float smem[];
+  bf16* as = reinterpret_cast<bf16*>(smem);                  // [kRows][kARow] dy
+  bf16* bs = as + kRows * kARow;                             // 2 x kStage weight tiles
+  float* stats = reinterpret_cast<float*>(bs + 2 * kStage);  // [kRows][4]
+  const int row0 = blockIdx.x * kRows;
+  layer_norm_backward<bf16>(s, g, ln_scale, N, row0, eps, drop, kDenseBlockTag, as, kARow, dy, dr,
+                            stats, reinterpret_cast<float*>(bs), dscale_p, dbias_p);
+  float acc[2][12][4] = {};
+  mma_gemm<12>(acc, as, kARow, kH, w, kH, 0, bs);  // dy W^T
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int lr = mma_row(m, e), col = mma_col<12>(j, e), row = row0 + lr;
+        if (row < N) store2(dx + static_cast<long long>(row) * kH + col, acc[m][j][e], acc[m][j][e + 1]);
+      }
+}
+
+// ---------------------------------------------------------------- the kernels
+
+// #3 and #4 under names of their own, so a profile tells them apart
+#define UNIVL_FFN_FWD_PARAMS                                                                  \
+  const T *__restrict__ x, const T *__restrict__ w1t, const T *__restrict__ b1,               \
+      const T *__restrict__ w2t, const T *__restrict__ b2,                                    \
+      const float *__restrict__ ln_scale, const float *__restrict__ ln_bias,                  \
+      T *__restrict__ out, T *__restrict__ pre_out, T *__restrict__ s_out, int N, int F,      \
+      float eps, Dropout drop
+#define UNIVL_FFN_FWD_ARGS \
+  x, w1t, b1, w2t, b2, ln_scale, ln_bias, out, pre_out, s_out, N, F, eps, drop
+#define UNIVL_FFN_BWD_PARAMS                                                                  \
+  const T *__restrict__ pre, const T *__restrict__ g, const T *__restrict__ w1,               \
+      const T *__restrict__ w2, const T *__restrict__ s, const float *__restrict__ ln_scale,  \
+      T *__restrict__ dx, T *__restrict__ dpre, T *__restrict__ h, T *__restrict__ dffn,      \
+      float *__restrict__ dscale_p, float *__restrict__ dbias_p, int N, int F, float eps,     \
+      Dropout drop
+#define UNIVL_FFN_BWD_ARGS \
+  pre, g, w1, w2, s, ln_scale, dx, dpre, h, dffn, dscale_p, dbias_p, N, F, eps, drop
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ffn_fwd_kernel(UNIVL_FFN_FWD_PARAMS) {
+  if constexpr (kTensorCores<T>) ffn_fwd_tc<false>(UNIVL_FFN_FWD_ARGS);
+  else ffn_fwd_cc<T, false>(UNIVL_FFN_FWD_ARGS);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ffn_block_fwd_kernel(UNIVL_FFN_FWD_PARAMS) {
+  if constexpr (kTensorCores<T>) ffn_fwd_tc<true>(UNIVL_FFN_FWD_ARGS);
+  else ffn_fwd_cc<T, true>(UNIVL_FFN_FWD_ARGS);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ffn_bwd_kernel(UNIVL_FFN_BWD_PARAMS) {
+  if constexpr (kTensorCores<T>) ffn_bwd_tc<false>(UNIVL_FFN_BWD_ARGS);
+  else ffn_bwd_cc<T, false>(UNIVL_FFN_BWD_ARGS);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ffn_block_bwd_kernel(UNIVL_FFN_BWD_PARAMS) {
+  if constexpr (kTensorCores<T>) ffn_bwd_tc<true>(UNIVL_FFN_BWD_ARGS);
+  else ffn_bwd_cc<T, true>(UNIVL_FFN_BWD_ARGS);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+dense_block_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res_in,
+                       const T* __restrict__ wt, const T* __restrict__ b,
+                       const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                       T* __restrict__ out, T* __restrict__ s_out, int N, float eps,
+                       Dropout drop) {
+  if constexpr (kTensorCores<T>) dense_fwd_tc(x, res_in, wt, b, ln_scale, ln_bias, out, s_out, N, eps, drop);
+  else dense_fwd_cc<T>(x, res_in, wt, b, ln_scale, ln_bias, out, s_out, N, eps, drop);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+dense_block_bwd_kernel(const T* __restrict__ s, const T* __restrict__ g, const T* __restrict__ w,
+                       const float* __restrict__ ln_scale, T* __restrict__ dx,
+                       T* __restrict__ dy, T* __restrict__ dr, float* __restrict__ dscale_p,
+                       float* __restrict__ dbias_p, int N, float eps, Dropout drop) {
+  if constexpr (kTensorCores<T>) dense_bwd_tc(s, g, w, ln_scale, dx, dy, dr, dscale_p, dbias_p, N, eps, drop);
+  else dense_bwd_cc<T>(s, g, w, ln_scale, dx, dy, dr, dscale_p, dbias_p, N, eps, drop);
+}
+
+// ---------------------------------------------------------------- launch
+
+// Dynamic shared memory: f32 (CUDA cores) and bf16 (tensor cores), with the
+// row statistics of the backwards. The bf16 forwards' f32 output rows and the
+// backwards' dscale/dbias partials reuse the weight-tile buffers.
+constexpr size_t kFfnSmemCc = (kRows * kH + kRows * kFc + kKc * kBStride + 4 * kRows) * sizeof(float);
+constexpr size_t kDenseSmemCc = (kRows * kH + kKc * kBStride + 4 * kRows) * sizeof(float);
+constexpr size_t kFfnSmemTc =
+    (kRows * kARow + kRows * kHRow + 2 * kStage) * sizeof(bf16) + 4 * kRows * sizeof(float);
+constexpr size_t kDenseSmemTc = (kRows * kARow + 2 * kStage) * sizeof(bf16) + 4 * kRows * sizeof(float);
+static_assert(2 * kWarps * kH <= kKc * kBStride, "the partials' buffer must fit in the tile's");
+static_assert(2 * kWarps * kH * sizeof(float) <= 2 * kStage * sizeof(bf16) &&
+                  kRows * kYRow * sizeof(float) <= 2 * kStage * sizeof(bf16),
+              "the partials and the output rows must fit in the weight tiles' buffers");
+static_assert(kFfnSmemTc <= 232448 && kFfnSmemCc <= 232448, "over Hopper's shared memory");
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+constexpr size_t ffn_smem() { return kTensorCores<T> ? kFfnSmemTc : kFfnSmemCc; }
+template <typename T>
+constexpr size_t dense_smem() { return kTensorCores<T> ? kDenseSmemTc : kDenseSmemCc; }
+
+// Above 48 KB of dynamic shared memory a block needs the per-kernel opt-in,
+// set once per device and kernel (as in train_attention.cu).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+int blocks(int N) { return (N + kRows - 1) / kRows; }
+
+bool bad_shape(int N, int H, int F) { return N < 1 || H != kH || F < kFc || F % kFc; }
+
+template <typename T, bool kBlock>
+cudaError_t launch_ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2t,
+                           const void* b2, const float* sc, const float* bi, void* out,
+                           void* pre, void* s, int N, int F, float eps, Dropout drop,
+                           cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const auto kernel = kBlock ? ffn_block_fwd_kernel<T> : ffn_fwd_kernel<T>;
+  const cudaError_t err = opt_in(kernel, ffn_smem<T>(), done);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks(N), kThreads, ffn_smem<T>(), stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1t), static_cast<const T*>(b1),
+      static_cast<const T*>(w2t), static_cast<const T*>(b2), sc, bi, static_cast<T*>(out),
+      static_cast<T*>(pre), static_cast<T*>(s), N, F, eps, drop);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kBlock>
+cudaError_t launch_ffn_bwd(const void* pre, const void* g, const void* w1, const void* w2,
+                           const void* s, const float* sc, void* dx, void* dpre, void* h,
+                           void* dffn, float* dsc, float* dbi, int N, int F, float eps,
+                           Dropout drop, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const auto kernel = kBlock ? ffn_block_bwd_kernel<T> : ffn_bwd_kernel<T>;
+  const cudaError_t err = opt_in(kernel, ffn_smem<T>(), done);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks(N), kThreads, ffn_smem<T>(), stream>>>(
+      static_cast<const T*>(pre), static_cast<const T*>(g), static_cast<const T*>(w1),
+      static_cast<const T*>(w2), static_cast<const T*>(s), sc, static_cast<T*>(dx),
+      static_cast<T*>(dpre), static_cast<T*>(h), static_cast<T*>(dffn), dsc, dbi, N, F, eps,
+      drop);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dense_fwd(const void* x, const void* r, const void* wt, const void* b,
+                             const float* sc, const float* bi, void* out, void* s, int N,
+                             float eps, Dropout drop, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t err = opt_in(dense_block_fwd_kernel<T>, dense_smem<T>(), done);
+  if (err != cudaSuccess) return err;
+  dense_block_fwd_kernel<T><<<blocks(N), kThreads, dense_smem<T>(), stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(wt),
+      static_cast<const T*>(b), sc, bi, static_cast<T*>(out), static_cast<T*>(s), N, eps, drop);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dense_bwd(const void* s, const void* g, const void* w, const float* sc,
+                             void* dx, void* dy, void* dr, float* dsc, float* dbi, int N,
+                             float eps, Dropout drop, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t err = opt_in(dense_block_bwd_kernel<T>, dense_smem<T>(), done);
+  if (err != cudaSuccess) return err;
+  dense_block_bwd_kernel<T><<<blocks(N), kThreads, dense_smem<T>(), stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<const T*>(w), sc,
+      static_cast<T*>(dx), static_cast<T*>(dy), static_cast<T*>(dr), dsc, dbi, N, eps, drop);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows a block owns: the partials of a backward are [ceil(N / rows), H] f32.
+int univl_ffn_block_rows() { return kRows; }
+
+// #3 (block = 0) or #4 (block = 1) forward. x: [N, H]; w1t: [F, H] (W1
+// transposed, as nn.Linear stores it); b1: [F]; w2t: [H, F]; b2: [H]; all
+// contiguous, 16-byte aligned, one type, float32 or bfloat16 (is_bf16).
+// ln_scale, ln_bias: f32 [H] (#4). out like x; pre [N, F] and s like x:
+// written when not null (pre: #3's save variant and #4; s: #4). H must be 768
+// and F a multiple of 256. Launches on `stream`, returns cudaGetLastError().
+int univl_ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
+                  const void* ln_scale, const void* ln_bias, void* out, void* pre, void* s,
+                  int is_bf16, int block, int N, int H, int F, float eps, unsigned int threshold,
+                  float inv_keep, int dropout_on, unsigned long long seed, void* stream) {
+  if (bad_shape(N, H, F)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const float* sc = static_cast<const float*>(ln_scale);
+  const float* bi = static_cast<const float*>(ln_bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_bf16) {
+    err = block ? launch_ffn_fwd<bf16, true>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F, eps,
+                                             drop, st)
+                : launch_ffn_fwd<bf16, false>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F,
+                                              eps, drop, st);
+  } else {
+    err = block ? launch_ffn_fwd<float, true>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F,
+                                              eps, drop, st)
+                : launch_ffn_fwd<float, false>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F,
+                                               eps, drop, st);
+  }
+  return static_cast<int>(err);
+}
+
+// #3 (block = 0) or #4 (block = 1) backward. pre: [N, F] from the forward;
+// g: the output gradient like x; w1: [H, F], w2: [F, H] (the JAX layout);
+// s and ln_scale (#4): the forward's LayerNorm input and scale. Writes dx like
+// x, dpre and h [N, F], and for #4 dffn like x and the partials dscale_p,
+// dbias_p (f32 [ceil(N / 32), H]).
+int univl_ffn_bwd(const void* pre, const void* g, const void* w1, const void* w2, const void* s,
+                  const void* ln_scale, void* dx, void* dpre, void* h, void* dffn,
+                  void* dscale_p, void* dbias_p, int is_bf16, int block, int N, int H, int F,
+                  float eps, unsigned int threshold, float inv_keep, int dropout_on,
+                  unsigned long long seed, void* stream) {
+  if (bad_shape(N, H, F)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const float* sc = static_cast<const float*>(ln_scale);
+  float* dsc = static_cast<float*>(dscale_p);
+  float* dbi = static_cast<float*>(dbias_p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_bf16) {
+    err = block ? launch_ffn_bwd<bf16, true>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc, dbi,
+                                             N, F, eps, drop, st)
+                : launch_ffn_bwd<bf16, false>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc, dbi,
+                                              N, F, eps, drop, st);
+  } else {
+    err = block ? launch_ffn_bwd<float, true>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc,
+                                              dbi, N, F, eps, drop, st)
+                : launch_ffn_bwd<float, false>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc,
+                                               dbi, N, F, eps, drop, st);
+  }
+  return static_cast<int>(err);
+}
+
+// #5 forward. x (the product's input), r (the residual): [N, H]; wt: [H, H]
+// (W transposed, as nn.Linear stores it); b: [H]; one type as above;
+// ln_scale, ln_bias f32 [H]. out like x; s like x when not null.
+int univl_dense_block_fwd(const void* x, const void* r, const void* wt, const void* b,
+                          const void* ln_scale, const void* ln_bias, void* out, void* s,
+                          int is_bf16, int N, int H, float eps, unsigned int threshold,
+                          float inv_keep, int dropout_on, unsigned long long seed, void* stream) {
+  if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const float* sc = static_cast<const float*>(ln_scale);
+  const float* bi = static_cast<const float*>(ln_bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_dense_fwd<bf16>(x, r, wt, b, sc, bi, out, s, N, eps, drop, st)
+              : launch_dense_fwd<float>(x, r, wt, b, sc, bi, out, s, N, eps, drop, st);
+  return static_cast<int>(err);
+}
+
+// #5 backward. s: the forward's LayerNorm input; g: the output gradient; w:
+// [H, H] (the JAX layout); ln_scale as in the forward. Writes dx, dy (the
+// dense output's gradient), dr (the residual's) like x, and the partials
+// dscale_p, dbias_p.
+int univl_dense_block_bwd(const void* s, const void* g, const void* w, const void* ln_scale,
+                          void* dx, void* dy, void* dr, void* dscale_p, void* dbias_p,
+                          int is_bf16, int N, int H, float eps, unsigned int threshold,
+                          float inv_keep, int dropout_on, unsigned long long seed, void* stream) {
+  if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const float* sc = static_cast<const float*>(ln_scale);
+  float* dsc = static_cast<float*>(dscale_p);
+  float* dbi = static_cast<float*>(dbias_p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_dense_bwd<bf16>(s, g, w, sc, dx, dy, dr, dsc, dbi, N, eps, drop, st)
+              : launch_dense_bwd<float>(s, g, w, sc, dx, dy, dr, dsc, dbi, N, eps, drop, st);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

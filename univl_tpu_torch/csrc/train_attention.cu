@@ -17,7 +17,7 @@
 //   ds = round(p * (dp - rowsum(dp * p))),  dq = (ds k) * scale, dk = (ds^T q) * scale
 // with the TPU kernels' rounding points (train_attention.py:140-172).
 //
-// Dropout bits: counter-based Philox4x32-10. Element (b, h, i, j) is kept
+// Dropout bits: counter-based Philox4x32-10 (philox.cuh). Element (b, h, i, j) is kept
 // where word j % 4 of Philox(counter = (j / 4, i, h, b), key = seed) is at
 // least rate * 2^32. The mask is a pure function of (seed, b, h, i, j), so the
 // forward, the backward and the plain PyTorch version
@@ -50,18 +50,16 @@
 
 #include <atomic>
 
+#include "philox.cuh"
+
 namespace {
+
+using univl::Dropout;
+using univl::philox4x32_10;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr float kMaskBias = -1e9f;  // univl_tpu/kernels/train_attention.py:93
-
-struct Dropout {
-  unsigned long long seed;  // the Philox key
-  uint32_t threshold;       // keep where the word is >= threshold
-  float inv_keep;           // 1 / (1 - rate)
-  int on;                   // rate > 0
-};
 
 struct Shape {
   int H, Lq, Lk, D;
@@ -83,21 +81,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 // x rounded to T and back: the TPU kernels' astype(compute dtype) points
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned long long seed) {
-  uint32_t k0 = static_cast<uint32_t>(seed), k1 = static_cast<uint32_t>(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
 
 // The warp's keep factors for query row i of (b, h): kw[j] = 1/(1-rate) where
 // key j is kept, 0 where it is dropped. One Philox call per four keys.

@@ -112,6 +112,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_train_attention_fwd.restype = i
     lib.univl_train_attention_bwd.argtypes = [p] * 10 + shared
     lib.univl_train_attention_bwd.restype = i
+    drop = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]
+    lib.univl_ffn_block_rows.argtypes = []
+    lib.univl_ffn_block_rows.restype = i
+    lib.univl_ffn_fwd.argtypes = [p] * 10 + [i] * 5 + drop
+    lib.univl_ffn_fwd.restype = i
+    lib.univl_ffn_bwd.argtypes = [p] * 12 + [i] * 5 + drop
+    lib.univl_ffn_bwd.restype = i
+    lib.univl_dense_block_fwd.argtypes = [p] * 8 + [i] * 3 + drop
+    lib.univl_dense_block_fwd.restype = i
+    lib.univl_dense_block_bwd.argtypes = [p] * 9 + [i] * 3 + drop
+    lib.univl_dense_block_bwd.restype = i
     lib.univl_cuda_error_string.argtypes = [i]
     lib.univl_cuda_error_string.restype = ctypes.c_char_p
 

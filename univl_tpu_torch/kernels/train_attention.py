@@ -16,10 +16,10 @@ the plain versions below; on a CUDA tensor they launch the kernels in
 
 Dropout bits: the TPU kernels draw theirs from the TPU's own generator
 (``pltpu.prng_random_bits`` seeded with seed + program id), which cannot be
-reproduced here. Both the kernels and the plain version use a counter-based
-Philox4x32-10 instead: element (b, h, i, j) is kept where word ``j % 4`` of
-Philox(counter = (j // 4, i, h, b), key = the 64-bit seed) is at least
-``rate * 2**32`` (the TPU kernel's threshold). The mask is a pure function of
+reproduced here. Both the kernels and the plain version use the counter-based
+Philox4x32-10 of ``kernels/philox.py`` instead: element (b, h, i, j) is kept
+where word ``j % 4`` of Philox(counter = (j // 4, i, h, b), key = the 64-bit
+seed) is at least ``rate * 2**32`` (the TPU kernel's threshold). The mask is a pure function of
 (seed, b, h, i, j), independent of block size and thread layout, so the
 forward kernel, the backward kernel and the plain version see the same mask
 bit for bit. The distribution is the TPU's; the bits are not.
@@ -28,47 +28,15 @@ bit for bit. The distribution is the TPU's; the bits are not.
 from __future__ import annotations
 
 import math
-from typing import Tuple
 
 import torch
 
 from univl_tpu_torch.kernels import _build
+from univl_tpu_torch.kernels.philox import keep_threshold, philox4x32
 
 MASK_BIAS = -1e9  # in-kernel key bias (univl_tpu/kernels/train_attention.py:93)
 SMEM_LIMIT = 227 * 1024  # Hopper's opt-in shared memory per block
 MAX_HEAD_DIM = 128
-
-# Philox4x32-10 constants (Salmon et al., SC'11; the Random123 values)
-_M0, _M1 = 0xD2511F53, 0xCD9E8D57
-_W0, _W1 = 0x9E3779B9, 0xBB67AE85
-_MASK32 = 0xFFFFFFFF
-
-
-def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """High and low 32-bit words of a * b, for a 32-bit constant a and an
-    int64 tensor b holding 32-bit values. Products of 16-bit halves keep
-    every intermediate below 2**49, so no int64 product overflows."""
-    p_lo = a * (b & 0xFFFF)
-    mid = a * (b >> 16) + (p_lo >> 16)
-    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
-
-
-def philox4x32(c0, c1, c2, c3, seed: int, rounds: int = 10):
-    """Philox4x32 over int64 counter tensors (32-bit values, broadcast
-    together) with the 64-bit key ``seed``; returns the four output words."""
-    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
-    for r in range(rounds):
-        if r:
-            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
-        hi0, lo0 = _mulhilo(_M0, c0)
-        hi1, lo1 = _mulhilo(_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
-
-def keep_threshold(rate: float) -> int:
-    """Keep where the 32-bit word is >= this (univl_tpu/kernels/train_attention.py:61)."""
-    return min(int(rate * 2**32), 2**32 - 1)
 
 
 def dropout_keep(seed: int, B: int, H: int, Lq: int, Lk: int, rate: float,

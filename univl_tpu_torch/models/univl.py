@@ -1,14 +1,17 @@
 """UniVL in PyTorch: text, visual and cross towers, the FT-Align similarity
-head, the caption decoder, and the FT-Joint training forward.
+head, the caption decoder, and the retrieval training forward.
 
 Ports ``univl_tpu/models/univl.py``: serving (encoders, similarities, the
 decoder) and, in ``forward``, the training step of stage one without MIL
-(FT-Joint retrieval fine-tuning: mean-pooled joint similarity, max-margin
-ranking loss). The other training routes (``stage_two``,
-``train_sim_after_cross``, ``use_mil``, ``do_pretrain``) and the pretraining
-heads are not ported yet. Parameters are f32;
+(retrieval fine-tuning with the max-margin ranking loss): FT-Joint, on the
+mean-pooled joint similarity, and FT-Align (``train_sim_after_cross``), on
+the cross encoder's similarity over all text-video pairs of the batch. The
+other training routes (``stage_two``, ``use_mil``, ``do_pretrain``) and the
+pretraining heads are not ported yet. Parameters are f32;
 ``cfg.compute_dtype`` ("float32" or "bfloat16") is the dtype the towers
-compute in. The state dict uses the reference checkpoint's names:
+compute in, and ``cfg.use_fused_ffn`` (False, True or "block") the FFN
+route of every tower layer (``nn/layers.py``). The state dict uses the
+reference checkpoint's names:
 
     bert.*                      text tower (with the shared word/position tables)
     visual.*                    visual tower; visual.embeddings.word_embeddings is
@@ -53,12 +56,13 @@ class UniVL(nn.Module):
         self.cfg = cfg
         dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
         self.compute_dtype = dt
-        self.bert = TextEncoder(cfg.bert, dt, device)
-        self.visual = VisualEncoder(cfg.visual, cfg.video_dim, dt, device)
+        ffn = cfg.use_fused_ffn
+        self.bert = TextEncoder(cfg.bert, dt, device, ffn)
+        self.visual = VisualEncoder(cfg.visual, cfg.video_dim, dt, device, ffn)
         self.normalize_video = NormalizeVideo(cfg.video_dim, device)
         self.has_cross = cfg.stage_two or cfg.train_sim_after_cross
         if self.has_cross:
-            self.cross = CrossEncoder(cfg.cross, dt, device)
+            self.cross = CrossEncoder(cfg.cross, dt, device, ffn)
             self.similarity_dense = Linear(cfg.cross.hidden_size, 1, dt, device)
         self.has_decoder = cfg.stage_two and not cfg.train_sim_after_cross
         if self.has_decoder:
@@ -79,14 +83,15 @@ class UniVL(nn.Module):
         """Raw-feature LayerNorm, then the visual tower: the serving path's index build."""
         return self.visual(self.normalize_video(video), video_mask, rng)
 
-    def get_cross_output(self, sequence_output, visual_output, attention_mask, video_mask):
+    def get_cross_output(self, sequence_output, visual_output, attention_mask, video_mask,
+                         rng: Optional[Randomness] = None):
         """Fusion encoder over [text ; video]; returns (hidden, pooled, concat_mask)."""
         concat_features = torch.cat([sequence_output, visual_output], dim=1)
         concat_mask = torch.cat([attention_mask, video_mask], dim=1)
         concat_type = torch.cat(
             [torch.zeros_like(attention_mask), torch.ones_like(video_mask)], dim=1
         ).long()
-        cross_out, pooled = self.cross(concat_features, concat_type, concat_mask)
+        cross_out, pooled = self.cross(concat_features, concat_type, concat_mask, rng)
         return cross_out, pooled, concat_mask
 
     @staticmethod
@@ -111,18 +116,40 @@ class UniVL(nn.Module):
             video_out = video_out / torch.linalg.norm(video_out, dim=-1, keepdim=True)
         return text_out @ video_out.t()
 
+    def cross_similarity(self, sequence_output, visual_output, attention_mask, video_mask,
+                         rng: Optional[Randomness] = None) -> torch.Tensor:
+        """All-pairs cross-encoder similarity, f32 [Bt, Bv]: text row i
+        against every video, as ``jnp.repeat``/``jnp.tile`` lay the pairs out
+        (``univl_tpu/models/univl.py:301-328``)."""
+        b_text, b_visual = sequence_output.shape[0], visual_output.shape[0]
+        return self.cross_similarity_pairs(
+            sequence_output.repeat_interleave(b_visual, dim=0),
+            visual_output.repeat(b_text, 1, 1),
+            attention_mask.repeat_interleave(b_visual, dim=0),
+            video_mask.repeat(b_text, 1), rng).reshape(b_text, b_visual)
+
+    def similarity_logits(self, sequence_output, visual_output, attention_mask, video_mask,
+                          rng: Optional[Randomness] = None) -> torch.Tensor:
+        """The cross similarity with ``train_sim_after_cross`` (or ``stage_two``),
+        else the joint one (``univl_tpu/models/univl.py:347-364``)."""
+        if self.cfg.stage_two or self.cfg.train_sim_after_cross:
+            return self.cross_similarity(sequence_output, visual_output, attention_mask,
+                                         video_mask, rng)
+        return self.joint_similarity(sequence_output, visual_output, attention_mask, video_mask)
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """The training forward of stage one without MIL (FT-Joint): both
-        towers, the joint similarity, the max-margin ranking loss. Returns the
-        JAX dict of losses, ``{"sim_loss", "loss"}``.
+        """The training forward of stage one without MIL: both towers, the
+        joint similarity (FT-Joint) or with ``train_sim_after_cross`` the cross
+        similarity (FT-Align), the max-margin ranking loss. Returns the JAX
+        dict of losses, ``{"sim_loss", "loss"}``.
 
         ``batch``: ``input_ids``, ``token_type_ids``, ``attention_mask``
         [B, Lw]; ``video`` [B, Lv, video_dim]; ``video_mask`` [B, Lv]. In
         training mode ``generator`` (a CPU ``torch.Generator``, the step's)
         gives all the dropout; in eval mode nothing is dropped."""
         c = self.cfg
-        for route in ("stage_two", "train_sim_after_cross", "use_mil", "do_pretrain"):
+        for route in ("stage_two", "use_mil", "do_pretrain"):
             if getattr(c, route):
                 raise NotImplementedError(f"training with {route}: not ported yet")
         rng = None
@@ -135,7 +162,7 @@ class UniVL(nn.Module):
         attention_mask, video_mask = flat2(batch["attention_mask"]), flat2(batch["video_mask"])
         seq_out, vis_out = self.encode(flat2(batch["input_ids"]), flat2(batch["token_type_ids"]),
                                        attention_mask, batch["video"], video_mask, rng)
-        sim = self.joint_similarity(seq_out, vis_out, attention_mask, video_mask)
+        sim = self.similarity_logits(seq_out, vis_out, attention_mask, video_mask, rng)
         sim_loss = max_margin_ranking_loss(
             sim, margin=c.margin, negative_weighting=c.negative_weighting,
             batch_size=c.batch_size_per_device, n_pair=c.n_pair,
@@ -143,10 +170,10 @@ class UniVL(nn.Module):
         return {"sim_loss": sim_loss, "loss": sim_loss}
 
     def cross_similarity_pairs(self, sequence_output, visual_output, attention_mask,
-                               video_mask) -> torch.Tensor:
-        """Row-aligned cross-encoder similarity [N] (the rerank path)."""
+                               video_mask, rng: Optional[Randomness] = None) -> torch.Tensor:
+        """Row-aligned cross-encoder similarity [N], f32 (the rerank path)."""
         _, pooled, _ = self.get_cross_output(
-            sequence_output, visual_output, attention_mask, video_mask)
+            sequence_output, visual_output, attention_mask, video_mask, rng)
         return self.similarity_dense(pooled)[:, 0].float()
 
     def decoder_logits(self, sequence_output, visual_output, attention_mask, video_mask,

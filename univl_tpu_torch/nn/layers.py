@@ -8,8 +8,14 @@ parameter names follow the reference PyTorch checkpoint
 (``bert.encoder.layer.0.attention.self.query.weight`` ...), so weights load
 with ``load_state_dict(strict=True)``.
 
-Separate q/k/v projections and the unfused FFN, as the JAX package runs by
-default. In eval mode an attention masked by keys goes through
+Separate q/k/v projections, as the JAX package runs by default. The FFN is
+unfused by default; ``use_fused_ffn`` (``TransformerLayer``, from
+``cfg.use_fused_ffn``) routes it through ``kernels.ffn``: ``True`` runs the
+fused FFN kernel (#3) with the dropout, residual and LayerNorm after it in
+plain PyTorch, ``"block"`` folds those into the kernel (#4) and folds the
+attention output's dense, dropout, residual and LayerNorm into the dense-block
+kernel (#5). The parameters keep their names either way. In eval mode an
+attention masked by keys goes through
 ``kernels.attention.fused_attention_masked`` (the CUDA kernel on a CUDA
 tensor, its plain version on a CPU one); any other additive bias (the caption
 decoder's causal ``[B, 1, L, L]`` one) takes ``sdpa_bias``, plain PyTorch, as
@@ -33,7 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from univl_tpu_torch.config import check_fused_ffn
 from univl_tpu_torch.kernels.attention import fused_attention_masked
+from univl_tpu_torch.kernels.ffn import fused_dense_block, fused_ffn, fused_ffn_block
 from univl_tpu_torch.kernels.train_attention import fused_train_attention
 
 MASK_BIAS = -10000.0
@@ -72,9 +80,18 @@ class Randomness(NamedTuple):
         return cls(generator, torch.Generator(device=device).manual_seed(seed))
 
     def kernel_seed(self) -> int:
-        """A Philox key for one training-attention call (JAX's
+        """A Philox key for one training-attention or fused-FFN call (JAX's
         ``_kernel_dropout_seed``: one draw per call)."""
         return int(torch.randint(0, 2**62, (), generator=self.host))
+
+
+def kernel_dropout(training: bool, rate: float, rng: Optional[Randomness]):
+    """(rate, Philox seed) of a kernel with in-kernel dropout: rate 0 outside
+    training, and a rate of 0 draws no seed (``univl_tpu/nn/layers.py:270-282``)."""
+    rate = rate if training else 0.0
+    if rate > 0.0 and rng is None:
+        raise ValueError("dropout in training mode needs a Randomness")
+    return rate, (rng.kernel_seed() if rate > 0.0 else 0)
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[Randomness]) -> torch.Tensor:
@@ -158,10 +175,7 @@ class MultiHeadAttention(nn.Module):
             if bias is not None:
                 raise NotImplementedError("training through the additive-bias attention (the "
                                           "caption decoder's) is not ported yet")
-            rate = self.dropout_rate
-            if rate > 0.0 and rng is None:
-                raise ValueError("attention dropout in training mode needs a Randomness")
-            seed = rng.kernel_seed() if rate > 0.0 else 0
+            rate, seed = kernel_dropout(True, self.dropout_rate, rng)
             return fused_train_attention(self.query(x), self.key(kv_in), self.value(kv_in),
                                          key_mask, seed, rate, self.num_heads)
 
@@ -178,32 +192,67 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualOutput(nn.Module):
-    """dense -> dropout (in training) -> add residual -> LayerNorm (post-LN)."""
+    """dense -> dropout (in training) -> add residual -> LayerNorm (post-LN).
+
+    ``fold_epilogue`` runs the four in the dense-block kernel (#5,
+    ``kernels.ffn.fused_dense_block``), the dropout drawn inside it."""
 
     def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype,
-                 device=None, dropout_rate: float = 0.0):
+                 device=None, dropout_rate: float = 0.0, fold_epilogue: bool = False):
         super().__init__()
         self.dense = Linear(in_features, features, compute_dtype, device)
         self.LayerNorm = LayerNormTF(features, device=device)
         self.dropout_rate = dropout_rate
+        self.fold_epilogue = fold_epilogue
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
+        if self.fold_epilogue:
+            dt, ln = self.dense.compute_dtype, self.LayerNorm
+            rate, seed = kernel_dropout(self.training, self.dropout_rate, rng)
+            out = fused_dense_block(
+                x.reshape(-1, x.shape[-1]).to(dt), residual.reshape(-1, residual.shape[-1]).to(dt),
+                self.dense.weight.to(dt).t(), self.dense.bias.to(dt), ln.weight, ln.bias, seed,
+                rate, ln.eps)
+            return out.view(residual.shape)
         h = self.dense(x)
         if self.training:
             h = dropout(h, self.dropout_rate, rng)
         return self.LayerNorm(h + residual)
 
 
+class FusedFFNOutput(ResidualOutput):
+    """The (intermediate dense -> GELU -> ``output``) pair through the fused
+    FFN kernel (#3, ``kernels.ffn.fused_ffn``), then dropout, residual and
+    LayerNorm; with ``fold_epilogue`` all of it in the FFN-block kernel (#4).
+    The parameters are ``ResidualOutput``'s (``dense``, ``LayerNorm``); the
+    intermediate dense is passed in, so the names stay the reference's."""
+
+    def forward(self, x: torch.Tensor, intermediate: Linear,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
+        dt, ln = self.dense.compute_dtype, self.LayerNorm
+        x2 = x.reshape(-1, x.shape[-1]).to(dt)
+        w = (intermediate.weight.to(dt).t(), intermediate.bias.to(dt),
+             self.dense.weight.to(dt).t(), self.dense.bias.to(dt))
+        if self.fold_epilogue:
+            rate, seed = kernel_dropout(self.training, self.dropout_rate, rng)
+            return fused_ffn_block(x2, *w, ln.weight, ln.bias, seed, rate, ln.eps).view(x.shape)
+        y = fused_ffn(x2, *w).view(x.shape)
+        if self.training:
+            y = dropout(y, self.dropout_rate, rng)
+        return ln(y + x.to(dt))
+
+
 class _Attention(nn.Module):
     """Holds ``self`` (the attention) and ``output`` under the reference's names."""
 
-    def __init__(self, cfg, compute_dtype, device=None):
+    def __init__(self, cfg, compute_dtype, device=None, fold_epilogue: bool = False):
         super().__init__()
         h = cfg.hidden_size
         self.self = MultiHeadAttention(h, cfg.num_attention_heads, compute_dtype, device,
                                        cfg.attention_probs_dropout_prob)
-        self.output = ResidualOutput(h, h, compute_dtype, device, cfg.hidden_dropout_prob)
+        self.output = ResidualOutput(h, h, compute_dtype, device, cfg.hidden_dropout_prob,
+                                     fold_epilogue)
 
 
 class _Intermediate(nn.Module):
@@ -212,23 +261,41 @@ class _Intermediate(nn.Module):
         self.dense = Linear(hidden_size, intermediate_size, compute_dtype, device)
 
 
-class TransformerLayer(nn.Module):
-    """Post-LN encoder block: self-attention, then the FFN."""
+def fused_ffn_active(cfg, use_fused_ffn) -> bool:
+    """JAX's structural gate (``univl_tpu/nn/layers.py:450-460``): a fused
+    FFN route only for GELU and widths that are multiples of 128, so a config
+    takes the same route in both packages; JAX's row-count routes are refused
+    (``config.check_fused_ffn``)."""
+    check_fused_ffn(use_fused_ffn)
+    return (bool(use_fused_ffn) and cfg.hidden_act == "gelu" and cfg.hidden_size % 128 == 0
+            and cfg.intermediate_size % 128 == 0)
 
-    def __init__(self, cfg, compute_dtype: torch.dtype, device=None):
+
+class TransformerLayer(nn.Module):
+    """Post-LN encoder block: self-attention, then the FFN.
+
+    ``use_fused_ffn``: False (the unfused FFN), True (#3) or "block" (#4 and
+    #5), behind ``fused_ffn_active``'s gate."""
+
+    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False):
         super().__init__()
         if cfg.hidden_act != "gelu":
             raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}: only gelu is ported")
         h = cfg.hidden_size
-        self.attention = _Attention(cfg, compute_dtype, device)
+        self.fused_ffn = fused_ffn_active(cfg, use_fused_ffn)
+        block = self.fused_ffn and use_fused_ffn == "block"
+        self.attention = _Attention(cfg, compute_dtype, device, fold_epilogue=block)
         self.intermediate = _Intermediate(h, cfg.intermediate_size, compute_dtype, device)
-        self.output = ResidualOutput(cfg.intermediate_size, h, compute_dtype, device,
-                                     cfg.hidden_dropout_prob)
+        output = FusedFFNOutput if self.fused_ffn else ResidualOutput
+        self.output = output(cfg.intermediate_size, h, compute_dtype, device,
+                             cfg.hidden_dropout_prob, fold_epilogue=block)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
         attn = self.attention.self(x, key_mask, rng=rng)
         attn_out = self.attention.output(attn, x, rng)
+        if self.fused_ffn:
+            return self.output(attn_out, self.intermediate.dense, rng)
         inter = gelu_erf(self.intermediate.dense(attn_out))
         return self.output(inter, attn_out, rng)
 
@@ -236,10 +303,11 @@ class TransformerLayer(nn.Module):
 class TransformerStack(nn.Module):
     """``cfg.num_hidden_layers`` identical post-LN blocks."""
 
-    def __init__(self, cfg, compute_dtype: torch.dtype, device=None):
+    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False):
         super().__init__()
         self.layer = nn.ModuleList(
-            TransformerLayer(cfg, compute_dtype, device) for _ in range(cfg.num_hidden_layers)
+            TransformerLayer(cfg, compute_dtype, device, use_fused_ffn)
+            for _ in range(cfg.num_hidden_layers)
         )
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
