@@ -15,11 +15,15 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      attention (#2) runs forward and backward at rates 0 and 0.1 at the
      FT-Joint towers' [32, 48] and FT-Align's cross [1024, 96], and its
      forward kernel, backward kernel and plain version must drop the same
-     probabilities, at the configured rate. The fused FFN kernels (#3 FFN,
+     probabilities, at the configured rate; its tiled backward at the
+     caption step's 128, 224 and 128 x 224 positions, and against the
+     whole-head one where both run. The fused FFN kernels (#3 FFN,
      #4 FFN block, #5 dense block), forward and backward, run at the cross
      tower's 98,304 rows and a tower's 1,536, rates 0 and 0.1, beside the
      model's unfused chain for the same work; #4's and #5's forward kernel,
-     backward kernel and plain version must drop the same entries;
+     backward kernel and plain version must drop the same entries. The
+     LayerNorm (#6), forward and backward, at the caption step's rows
+     (2,048 and 3,584 x 768, 1,536 x 1,024 in f32) and a ragged 300;
   4. the retrieval slice: the port's server (univl_tpu_torch.cli.serve) in
      --mode retrieval at the full width of UniVLConfig.base, with random
      weights from a seed, answers add, search (with cross-encoder rerank) and
@@ -65,7 +69,21 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  14. a short --fused_ffn pallas run (5 steps): #3 20 + 20 a step;
  15. FT-Align agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 layers, batch 8 (64 pairs), dropout 0, on the block and pallas
-     routes, with the limits of phase 12.
+     routes, with the limits of phase 12;
+ 16. the caption fine-tuning slice: univl_tpu_torch.cli.task_caption
+     --do_train --fused_ln at the full width of UniVLConfig.base (text 12,
+     visual 6, cross 2, decoder 3 layers), bf16, batch 16, 128 words, 96
+     frames, 40 steps on YouCook2-format fixtures with transcripts: losses,
+     steady clips/s, peak memory, launches (#6 in every LayerNorm, #2 in
+     every attention over keys, its tiled backward at 128 and 224
+     positions) and a pytorch_model.bin.0 that loads back; then --do_eval
+     of that file over 32 val clips (beam 5: captions and BLEU, METEOR,
+     ROUGE-L, CIDEr);
+ 17. torch.profiler over 3 caption steps with --fused_ln and 3 without;
+ 18. caption agreement with the CPU at full width, text 2 + visual 1 +
+     cross 1 + decoder 1 layers, batch 4, dropout 0: card f32 without
+     --fused_ln (the control) and with it, card bf16 over 10 steps, with the
+     limits of phase 12 and the control's.
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 1.
@@ -90,22 +108,29 @@ import torch.nn.functional as F
 
 from univl_tpu_torch import UniVLConfig, WordPieceTokenizer
 from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_bin
-from univl_tpu_torch.cli import task_retrieval
+from univl_tpu_torch.cli import task_caption, task_retrieval
 from univl_tpu_torch.cli.serve import main as serve_main
 from univl_tpu_torch.data import fixtures
 from univl_tpu_torch.data.batching import Batcher
-from univl_tpu_torch.data.youcook import YoucookRetrievalDataset
+from univl_tpu_torch.data.youcook import YoucookCaptionDataset, YoucookRetrievalDataset
 from univl_tpu_torch.evals.fast_decoder import FastDecoder, encoder_bias
 from univl_tpu_torch.kernels import _build
 from univl_tpu_torch.kernels import attention as attn
 from univl_tpu_torch.kernels import decode_attention as dattn
 from univl_tpu_torch.kernels import ffn as ffn_k
+from univl_tpu_torch.kernels import layernorm as ln_k
 from univl_tpu_torch.kernels import philox
 from univl_tpu_torch.kernels import reorder
 from univl_tpu_torch.kernels import train_attention as ta
 from univl_tpu_torch.kernels import vocab_topk
 from univl_tpu_torch.models.univl import UniVL
-from univl_tpu_torch.nn.layers import Randomness, TransformerLayer, gelu_erf
+from univl_tpu_torch.nn.layers import (
+    LayerNormTF,
+    Randomness,
+    TransformerLayer,
+    gelu_erf,
+    set_fused_layer_norm,
+)
 from univl_tpu_torch.serving.captioning import CaptionService
 from univl_tpu_torch.serving.index import RERANK_TILE, VideoRetrievalIndex
 from univl_tpu_torch.train.optimization import make_univl_optimizer
@@ -133,6 +158,28 @@ TA_B, TA_L = TA_SHAPES[0]
 # that lands on the other side of a bf16 rounding moves by one bf16 ulp
 TA_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 KEEP_RATE_TOL = 0.002  # dropped share over 884,736 draws: ~6 binomial standard deviations
+# #2 at the caption step's lengths, past the whole-head backward's shared
+# memory: (batch, Lq, Lk) of the text tower (16 x 128), the cross tower (16 x
+# (128 + 96)) and the decoder's encoder attention (128 queries, 224 keys);
+# the backward takes the tiled kernels there. The tiled kernels' dropout
+# masks are checked at TA_SHAPES[0], where the one-hot check fits.
+TA_LONG_SHAPES = [(16, 128, 128), (16, 224, 224), (16, 128, 224)]
+# LayerNorm (#6): rows x width of the caption step's text and decoder rows
+# (16 x 128), the cross tower's (16 x 224), NormalizeVideo's raw features (16
+# x 96 x 1024, f32 only: the model normalizes them in f32) and a ragged count
+LN_SHAPES = [(2048, 768), (3584, 768), (1536, 1024), (300, 768)]
+LN_EPS = 1e-12
+# Stated before the first run. f32: the same f32 math, the row's sums in
+# another order and rsqrtf: atol + rtol * |ref| element by element. bf16: a
+# value within an f32 rounding of a bf16 rounding boundary lands on the other
+# side, one bf16 ulp of the row's scale: atol + rtol * the row's largest
+# |ref|. dscale/dbias: per-block f32 partials summed in another order than
+# the plain version's one sum over the rows, in both dtypes (the terms are
+# f32 products of the same values): within LN_SUM_RTOL of the column's
+# sum of |terms|.
+LN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}  # (atol, rtol)
+LN_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+LN_SUM_RTOL = 1e-5
 # fused FFN kernels (#3, #4, #5): rows of FT-Align's cross tower (1,024 pairs x
 # 96 tokens) and of a text or visual tower (32 x 48); H 768, F 3072
 FFN_ROWS, FFN_H, FFN_F, FFN_RATE, FFN_SEED = (98304, 1536), 768, 3072, 0.1, 4321
@@ -181,6 +228,33 @@ AGREE_ALIGN_BATCH, AGREE_GRAD_FLOOR = 8, 1e-2
 # and AGREE_CONTROL_FACTOR times the disagreement of the model's unfused route
 # (no FFN kernel, the same card-vs-CPU comparison), the control
 AGREE_CONTROL_FACTOR = 10
+# caption fine-tuning: the reference's YouCook2 caption command
+# (docs/REPRODUCE.md:58-74) at full width, bf16, with --fused_ln: batch 16, 128
+# words, 96 frames, text 12 + visual 6 + cross 2 + decoder 3 layers, on
+# fixtures of 80 videos x 8 clips = 640 clips (40 steps); 4 more videos (32
+# clips) are the val split of a short --do_eval
+CAP_BATCH, CAP_WORDS, CAP_FRAMES, CAP_VIDEOS, CAP_VAL_VIDEOS = 16, 128, 96, 80, 4
+CAP_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1", "--epochs", "1",
+             "--batch_size", str(CAP_BATCH), "--batch_size_val", "32",
+             "--max_words", str(CAP_WORDS), "--max_frames", str(CAP_FRAMES),
+             "--n_display", str(TRAIN_DISPLAY), "--seed", "0"]
+# caption agreement, card against CPU at full width: text 2 + visual 1 + cross
+# 1 + decoder 1 layers, batch 4, dropout 0, with and without --fused_ln; the
+# limits of phase 12 (stated before the first run): loss within 1e-5 rel,
+# every gradient within 1e-4 of its norm, parameters after 2 BertAdam steps
+# within 1e-5 of theirs; the key biases (zero gradient in exact arithmetic)
+# to AGREE_ZERO_GRAD and, after BertAdam's per-element normalization,
+# AGREE_ZERO_PARAM; card bf16 losses over 10 steps within LOSS_BF16_RTOL.
+# Restated after a run on the card: a zero-initialized bias is, after 2
+# steps, two BertAdam updates, and BertAdam divides each gradient element by
+# its own magnitude (plus 1e-6), so an element near 1e-6 passes its own
+# rounding into the update whatever the tensor's norm. The route without
+# --fused_ln (no #6; #2 and cuBLAS) is the control, its parameters held to
+# AGREE_CAP_PARAM_RTOL; the --fused_ln route's gradients and parameters to
+# the larger of the limits above and AGREE_CAP_FUSED_FACTOR times the
+# control's disagreement (the two routes read alike: #6 adds at most its own
+# rounding)
+AGREE_CAP_BATCH, AGREE_CAP_PARAM_RTOL, AGREE_CAP_FUSED_FACTOR = 4, 1e-4, 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -199,6 +273,9 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                             "univl_tpu/kernels/train_attention.py:83"),
     "train_attention_bwd": (ta.train_attention_bwd, "univl_tpu_torch/csrc/train_attention.cu",
                             "univl_tpu/kernels/train_attention.py:116"),
+    "train_attention_bwd_tiled": (ta.train_attention_bwd_tiled,
+                                  "univl_tpu_torch/csrc/train_attention.cu",
+                                  "univl_tpu/kernels/train_attention.py:116"),
     "ffn_fwd": (ffn_k.ffn_fwd, "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:100"),
     "ffn_bwd": (ffn_k.ffn_bwd, "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:111"),
     "ffn_block_fwd": (ffn_k.ffn_block_fwd, "univl_tpu_torch/csrc/ffn.cu",
@@ -209,6 +286,10 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                         "univl_tpu/kernels/ffn.py:545"),
     "dense_block_bwd": (ffn_k.dense_block_bwd, "univl_tpu_torch/csrc/ffn.cu",
                         "univl_tpu/kernels/ffn.py:571"),
+    "layernorm_fwd": (ln_k.layer_norm_fwd, "univl_tpu_torch/csrc/layernorm.cu",
+                      "univl_tpu/kernels/layernorm.py:45"),
+    "layernorm_bwd": (ln_k.layer_norm_bwd, "univl_tpu_torch/csrc/layernorm.cu",
+                      "univl_tpu/kernels/layernorm.py:79"),
 }
 TRACE_NAMES = {"eval_attention": ("eval_attention_kernel",),
                "beam_reorder_groups": ("reorder_groups_kernel",),
@@ -216,11 +297,15 @@ TRACE_NAMES = {"eval_attention": ("eval_attention_kernel",),
                "vocab_topk": ("vocab_tile_kernel", "vocab_merge_kernel"),
                "train_attention_fwd": ("train_attention_fwd_kernel",),
                "train_attention_bwd": ("train_attention_bwd_kernel",),
+               "train_attention_bwd_tiled": ("train_attention_bwd_dq_kernel",
+                                             "train_attention_bwd_dkdv_kernel"),
                "ffn_fwd": ("ffn_fwd_kernel",), "ffn_bwd": ("ffn_bwd_kernel",),
                "ffn_block_fwd": ("ffn_block_fwd_kernel",),
                "ffn_block_bwd": ("ffn_block_bwd_kernel",),
                "dense_block_fwd": ("dense_block_fwd_kernel",),
-               "dense_block_bwd": ("dense_block_bwd_kernel",)}
+               "dense_block_bwd": ("dense_block_bwd_kernel",),
+               "layernorm_fwd": ("layernorm_fwd_kernel",),
+               "layernorm_bwd": ("layernorm_bwd_kernel",)}
 
 
 def require(ok: bool, what: str) -> None:
@@ -554,6 +639,202 @@ def kernel_train_attention() -> dict:
                 if dtype == torch.bfloat16:
                     rows = rows_dt
     return {f"train_attention_{p}": {**rows[p], "max_abs_err": worst[p]} for p in rows}
+
+
+def check_tiled_dropout_masks(dtype) -> None:
+    """The tiled backward drops what the forward kernel and the plain version
+    drop: the one-hot check of ``check_dropout_masks`` through
+    ``train_attention_bwd_tiled`` at TA_SHAPES[0] (32-row tiles: a ragged
+    second tile of 16 rows and keys)."""
+    B, L, H, D = TA_B, TA_L, TA_HEADS, TA_D
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype) for _ in range(2))
+    v, grad = _one_hot(B, L, D).to(dtype), _one_hot(B, L, D).to(dtype)
+    mask = torch.ones(B, L, device="cuda")
+    out, m, l = ta.train_attention_fwd(q, k, v, mask, TA_SEED, TA_RATE, H)
+    _, _, dv = ta.train_attention_bwd_tiled(q, k, v, mask, TA_SEED, TA_RATE, H, m, l, grad)
+    fwd = out.view(B, L, H, D)[..., :L].permute(0, 2, 1, 3) != 0
+    bwd = dv.view(B, L, H, D)[..., :L].permute(0, 2, 3, 1) != 0
+    plain = ta.dropout_keep(TA_SEED, B, H, L, L, TA_RATE, device="cuda")
+    torch.cuda.synchronize()
+    require(torch.equal(fwd, plain) and torch.equal(bwd, plain),
+            f"the tiled backward's dropout mask differs from the plain version's ({dtype})")
+
+
+def _ta_inputs(B: int, Lq: int, Lk: int, dtype):
+    """q, g [B, Lq, 768], k, v [B, Lk, 768], ragged key mask, one all-masked row."""
+    H, D = TA_HEADS, TA_D
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, grad = (torch.randn(B, Lq, H * D, generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, Lk, H * D, generator=g, device="cuda").to(dtype) for _ in range(2))
+    mask = (torch.rand(B, Lk, generator=g, device="cuda") > 0.3).float()
+    mask[:, 0] = 1.0
+    mask[1] = 0.0
+    return q, k, v, grad, mask
+
+
+def kernel_train_attention_tiled() -> dict:
+    """#2 at the caption step's lengths (TA_LONG_SHAPES): forward and the
+    tiled backward against the plain versions, f32 and bf16, rates 0 and 0.1;
+    the tiled kernels' dropout masks; bf16 times beside the bound, the plain
+    version and SDPA's autograd backward; and the tiled backward against the
+    whole-head one at TA_SHAPES, where both run. The row is the cross
+    tower's [16, 224] in bf16."""
+    H, D = TA_HEADS, TA_D
+    for dtype in (torch.float32, torch.bfloat16):
+        check_tiled_dropout_masks(dtype)
+    print(f"train_attention_bwd_tiled dropout masks at [{TA_B},{TA_L}]: forward kernel, tiled "
+          f"backward and plain version equal in f32 and bf16", flush=True)
+    worst, row = {"fwd": 0.0, "bwd": 0.0}, None
+    for B, Lq, Lk in TA_LONG_SHAPES:
+        require(not ta.whole_head_backward_fits(Lq, Lk, D),
+                f"[{B},{Lq},{Lk}] fits the whole-head backward; the tiled one is not exercised")
+        for dtype in (torch.float32, torch.bfloat16):
+            atol, rtol = TA_TOL[dtype_name(dtype)]
+            q, k, v, grad, mask = _ta_inputs(B, Lq, Lk, dtype)
+            for rate in (0.0, TA_RATE):
+                args = (q, k, v, mask, TA_SEED, rate, H)
+                before = ta.train_attention_bwd_tiled.launches
+                out, m, l = ta.train_attention_fwd(*args)
+                grads = ta.train_attention_bwd(*args, m, l, grad)
+                require(ta.train_attention_bwd_tiled.launches == before + 1,
+                        "train_attention_bwd did not take the tiled kernels")
+                want = ta.train_attention_reference_fwd(*args)
+                want_grads = ta.train_attention_reference_bwd(*args, want[1], want[2], grad)
+                torch.cuda.synchronize()
+                for part, pairs in (("fwd", zip((out, m, l), want)),
+                                    ("bwd", zip(grads, want_grads))):
+                    for got, ref in pairs:
+                        diff = (got.float() - ref.float()).abs()
+                        excess = float((diff - atol - rtol * ref.float().abs()).max())
+                        require(excess <= 0.0, f"train_attention {part} disagrees with its plain "
+                                               f"version at [{B},{Lq},{Lk}] {dtype_name(dtype)} "
+                                               f"rate {rate}: max abs err {float(diff.max())}")
+                        worst[part] = max(worst[part], float(diff.max()))
+                del want, want_grads
+            if dtype != torch.bfloat16:
+                continue
+            args = (q, k, v, mask, TA_SEED, TA_RATE, H)
+            _, m, l = ta.train_attention_fwd(*args)
+            ms = cuda_time_ms(lambda: ta.train_attention_bwd_tiled(*args, m, l, grad))
+            plain = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
+            keep = mask.bool()
+            keep[1] = True  # SDPA gives NaN on a row with no valid key
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            heads = [t.view(B, t.shape[1], H, D).transpose(1, 2) for t in leaves]
+            sdpa_out = F.scaled_dot_product_attention(*heads, attn_mask=keep[:, None, None, :],
+                                                      dropout_p=TA_RATE)
+            sdpa = cuda_time_ms(lambda: torch.autograd.grad(
+                sdpa_out, leaves, grad.view(B, Lq, H, D).transpose(1, 2), retain_graph=True))
+            del sdpa_out
+            es = q.element_size()
+            io = (2 * B * Lq + 2 * B * Lk) * H * D * es  # q, g, k, v in
+            out_bytes = (B * Lq + 2 * B * Lk) * H * D * es  # dq, dk, dv out
+            n_bytes = io + out_bytes + 2 * B * H * Lq * 4 + B * Lk * 4  # and m, l, mask in
+            r = report("train_attention_bwd_tiled", f"[{B},{Lq}/{Lk},{H * D}] x {H} heads rate "
+                       f"{TA_RATE}", dtype, 0.0, ms, plain,
+                       bound_ms(n_bytes, 10.0 * B * H * Lq * Lk * D, "bfloat16"),
+                       (sdpa[0], "scaled_dot_product_attention, boolean key mask, dropout_p "
+                                 "0.1, autograd backward"))
+            if (Lq, Lk) == (224, 224):
+                row = r
+    for B, L in TA_SHAPES:  # where both backwards run: is the tiled one slower?
+        q, k, v, grad, mask = _ta_inputs(B, L, L, torch.bfloat16)
+        args = (q, k, v, mask, TA_SEED, TA_RATE, H)
+        _, m, l = ta.train_attention_fwd(*args)
+        whole = ta.train_attention_bwd(*args, m, l, grad)
+        tiled = ta.train_attention_bwd_tiled(*args, m, l, grad)
+        same = all(torch.equal(a, b) for a, b in zip(whole, tiled))
+        t_whole = cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))
+        t_tiled = cuda_time_ms(lambda: ta.train_attention_bwd_tiled(*args, m, l, grad))
+        print(f"train_attention backward at [{B},{L},{H * D}] bf16 rate {TA_RATE}: whole-head "
+              f"{t_whole[0]:.5f} ms, tiled {t_tiled[0]:.5f} ms per call (device); results "
+              f"bitwise equal: {same}", flush=True)
+    return {"train_attention_bwd_tiled": {**row, "max_abs_err": worst["bwd"]}}
+
+
+def _ln_agree(name: str, got, want, dtype, tol, what: str) -> float:
+    """Max abs error; fails past ``tol`` (element by element in f32, at the
+    row's scale in bf16)."""
+    atol, rtol = tol[dtype_name(dtype)]
+    ref = want.float().abs()
+    if dtype == torch.bfloat16:
+        ref = ref.amax(dim=-1, keepdim=True)
+    diff = (got.float() - want.float()).abs()
+    require(got.dtype == want.dtype and got.shape == want.shape
+            and bool(torch.isfinite(got).all())
+            and float((diff - atol - rtol * ref).max()) <= 0.0,
+            f"{name} disagrees with its plain version at {what}: max abs err "
+            f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def kernel_layernorm() -> dict:
+    """#6 forward and backward against the plain versions at LN_SHAPES, f32
+    and bf16 (NormalizeVideo's width in f32 only): y, dx, and dscale/dbias
+    within LN_SUM_RTOL of each column's sum of |terms|; bf16 device times
+    (f32 at the video width) beside the bound, the plain version and
+    torch.nn.functional.layer_norm (forward, and its autograd backward). The
+    rows are the cross tower's [3584, 768] in bf16."""
+    worst, rows = {"fwd": 0.0, "bwd": 0.0}, {}
+    for N, D in LN_SHAPES:
+        dtypes = (torch.float32,) if D == 1024 else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
+            g = torch.Generator(device="cuda").manual_seed(9)
+            x = (0.5 + 2.0 * torch.randn(N, D, generator=g, device="cuda")).to(dtype)
+            dy = torch.randn(N, D, generator=g, device="cuda").to(dtype)
+            scale = 1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+            bias = 0.1 * torch.randn(D, generator=g, device="cuda")
+            what = f"[{N}, {D}] {dtype_name(dtype)}"
+            y = ln_k.layer_norm_fwd(x, scale, bias, LN_EPS)
+            dx, ds, db = ln_k.layer_norm_bwd(x, scale, dy, LN_EPS)
+            y_r = ln_k.layer_norm_reference_fwd(x, scale, bias, LN_EPS)
+            dx_r, ds_r, db_r = ln_k.layer_norm_reference_bwd(x, scale, dy, LN_EPS)
+            torch.cuda.synchronize()
+            err_f = _ln_agree("layernorm_fwd", y, y_r, dtype, LN_TOL, what)
+            err_b = _ln_agree("layernorm_bwd dx", dx, dx_r, dtype, LN_BWD_TOL, what)
+            xf, dyf = x.float(), dy.float()
+            xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
+                (xf - xf.mean(-1, keepdim=True)).square().mean(-1, keepdim=True) + LN_EPS)
+            for name, got, want, terms in (("dscale", ds, ds_r, dyf * xhat),
+                                           ("dbias", db, db_r, dyf)):
+                diff = (got - want).abs()
+                limit = LN_SUM_RTOL * terms.abs().sum(dim=0)
+                require(float((diff - limit).max()) <= 0.0,
+                        f"layernorm_bwd {name} disagrees with its plain version at {what}: max "
+                        f"abs err {float(diff.max())}, largest column scale "
+                        f"{float(limit.max()) / LN_SUM_RTOL}")
+                err_b = max(err_b, float(diff.max()))
+            print(f"layernorm vs plain versions, {what}: max abs errs forward {err_f:.3e}, "
+                  f"backward {err_b:.3e}", flush=True)
+            worst["fwd"], worst["bwd"] = max(worst["fwd"], err_f), max(worst["bwd"], err_b)
+            if N == 300 or (dtype == torch.float32 and D != 1024):
+                continue
+            es, dt = x.element_size(), dtype_name(dtype)
+            xl = x.detach().requires_grad_()
+            sl, bl = (t.to(dtype).requires_grad_() for t in (scale, bias))
+            lib = (cuda_time_ms(lambda: F.layer_norm(xl, (D,), sl, bl, LN_EPS)),
+                   "torch.nn.functional.layer_norm, weight and bias in x's dtype")
+            yl = F.layer_norm(xl, (D,), sl, bl, LN_EPS)
+            lib_b = (cuda_time_ms(lambda: torch.autograd.grad(yl, [xl, sl, bl], dy,
+                                                              retain_graph=True)),
+                     "its autograd backward (dx, dweight, dbias)")
+            del yl
+            fwd = report("layernorm_fwd", f"[{N}, {D}]", dtype, err_f,
+                         cuda_time_ms(lambda: ln_k.layer_norm_fwd(x, scale, bias, LN_EPS)),
+                         cuda_time_ms(lambda: ln_k.layer_norm_reference_fwd(x, scale, bias,
+                                                                            LN_EPS)),
+                         bound_ms(2 * N * D * es + 2 * D * 4, 8.0 * N * D, dt),
+                         (lib[0][0], lib[1]))
+            bwd = report("layernorm_bwd", f"[{N}, {D}]", dtype, err_b,
+                         cuda_time_ms(lambda: ln_k.layer_norm_bwd(x, scale, dy, LN_EPS)),
+                         cuda_time_ms(lambda: ln_k.layer_norm_reference_bwd(x, scale, dy,
+                                                                            LN_EPS)),
+                         bound_ms(3 * N * D * es + 3 * D * 4, 16.0 * N * D, dt),
+                         (lib_b[0][0], lib_b[1]))
+            if (N, dtype) == (3584, torch.bfloat16):
+                rows = {"layernorm_fwd": fwd, "layernorm_bwd": bwd}
+    return {n: {**rows[n], "max_abs_err": worst[n.split("_")[1]]} for n in rows}
 
 
 def _ffn_inputs(N: int, dtype, seed: int) -> dict:
@@ -1180,6 +1461,9 @@ def _train_batches(ds, n: int, device, batch: int = TRAIN_BATCH) -> list:
 PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
     "#2 forward": ("train_attention_fwd_kernel",),
     "#2 backward": ("train_attention_bwd_kernel",),
+    "#2 backward, tiled": ("train_attention_bwd_dq_kernel", "train_attention_bwd_dkdv_kernel"),
+    "#6 forward": ("layernorm_fwd_kernel",),
+    "#6 backward": ("layernorm_bwd_kernel",),
     "#3 forward": ("ffn_fwd_kernel",),
     "#3 backward": ("ffn_bwd_kernel",),
     "#4 forward": ("ffn_block_fwd_kernel",),
@@ -1195,17 +1479,24 @@ def phase_train_profile(ds, tmp: str, route: str = "ft_joint") -> None:
     """torch.profiler over PROFILE_STEPS steady steps of the full training
     step on a route (batches already on the card): device busy share, kernel
     time by name, launches per step."""
-    from torch.profiler import ProfilerActivity, profile
-
     align = route != "ft_joint"
     cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
                            batch_size_per_device=TRAIN_BATCH, train_sim_after_cross=align,
                            use_fused_ffn="block" if align else False)
     model = UniVL(cfg, device="cuda")
     model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    profile_training(model, ds, TRAIN_BATCH, os.path.join(tmp, f"train_trace_{route}.json"),
+                     TRAIN_ROUTES[route][0])
+
+
+def profile_training(model, ds, batch: int, trace: str, label: str) -> dict:
+    """torch.profiler over PROFILE_STEPS steps after PROFILE_WARMUP; prints
+    and returns the wall and busy ms a step and each group's kernel ms."""
+    from torch.profiler import ProfilerActivity, profile
+
     opt = make_univl_optimizer(model, lr=3e-5, t_total=40, warmup_proportion=0.1, coef_lr=0.1)
     trainer = Trainer(model, opt, seed=0)
-    batches = _train_batches(ds, PROFILE_WARMUP + PROFILE_STEPS, "cuda")
+    batches = _train_batches(ds, PROFILE_WARMUP + PROFILE_STEPS, "cuda", batch)
     for i in range(PROFILE_WARMUP):
         trainer.train_step(batches[i], i)
     torch.cuda.synchronize()
@@ -1215,27 +1506,58 @@ def phase_train_profile(ds, tmp: str, route: str = "ft_joint") -> None:
             trainer.train_step(batches[i], i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events, busy_us = device_events(prof, os.path.join(tmp, f"train_trace_{route}.json"),
-                                    "train")
+    events, busy_us = device_events(prof, trace, "train")
     kernels = [e for e in events if e["cat"] == "kernel"]
-    parts, rest = [], list(kernels)
-    for label, needles in PROFILE_GROUPS.items():
+    kernel_ms = ms(kernels)
+    parts, rest, groups = [], list(kernels), {}
+    for group, needles in PROFILE_GROUPS.items():
         hit = [any(n in e["name"] for n in needles) for e in rest]
         mine = [e for e, h in zip(rest, hit) if h]
         rest = [e for e, h in zip(rest, hit) if not h]
         if mine:
-            parts.append(f"{label} {ms(mine):.3f} ms in {len(mine)}")
+            groups[group] = ms(mine) / PROFILE_STEPS
+            parts.append(f"{group} {ms(mine):.3f} ms in {len(mine)} "
+                         f"({ms(mine) / kernel_ms:.4f} of kernel time)")
     parts.append(f"the rest {ms(rest):.3f} ms in {len(rest)}")
     top = {}
     for e in rest:
         top[e["name"][:60]] = top.get(e["name"][:60], 0.0) + e["dur"] / 1e3
     biggest = sorted(top.items(), key=lambda kv: -kv[1])[:5]
-    print(f"profile {TRAIN_ROUTES[route][0]} train step (profiler on, {PROFILE_STEPS} steps, "
+    print(f"profile {label} train step (profiler on, {PROFILE_STEPS} steps, "
           f"batches on the card): wall {wall_ms / PROFILE_STEPS:.3f} ms a step; device busy "
           f"{busy_us / 1e3 / PROFILE_STEPS:.3f} ms a step ({busy_us / 1e3 / wall_ms:.4f} of "
           f"wall); {len(kernels) / PROFILE_STEPS:.1f} kernel launches a step; kernel time over "
           f"the window: {'; '.join(parts)}; largest of the rest: "
           f"{', '.join(f'{n} {t:.3f} ms' for n, t in biggest)}", flush=True)
+    return {"wall_ms": wall_ms / PROFILE_STEPS, "busy_ms": busy_us / 1e3 / PROFILE_STEPS,
+            "groups": groups}
+
+
+def _agreement_run(cfg, sd, host, device: str, dtype: str, steps: int, fused_ln: bool = False):
+    """The seeded weights in ``dtype`` on ``device``: (loss, gradients of the
+    first batch, parameters after 2 BertAdam steps, losses of ``steps``
+    steps), all f32 on the CPU. A parameter off the loss's path gets a zero
+    gradient."""
+    model = UniVL(cfg.replace(compute_dtype=dtype), device=device)
+    model.load_state_dict(sd, strict=True)
+    set_fused_layer_norm(model, fused_ln)
+    batches = [{k: v.to(device) for k, v in b.items()} for b in host[:steps]]
+    out = model.train()({k: v[0] for k, v in batches[0].items()})
+    out["loss"].backward()
+    # copies: on the CPU .float().cpu() would return the live tensors
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).to(
+        "cpu", torch.float32, copy=True) for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    opt = make_univl_optimizer(model, lr=3e-5, t_total=AGREE_BF16_STEPS,
+                               warmup_proportion=0.0, coef_lr=0.1)
+    trainer = Trainer(model, opt, seed=0)
+    losses, params = [], None
+    for i, b in enumerate(batches):
+        losses.append(float(trainer.train_step(b, i)["loss"]))
+        if i == 1:
+            params = {n: p.detach().to("cpu", torch.float32, copy=True)
+                      for n, p in model.named_parameters()}
+    return out["loss"].item(), grads, params, losses
 
 
 def phase_train_agreement(ds, route: str = "ft_joint", control=None):
@@ -1260,25 +1582,7 @@ def phase_train_agreement(ds, route: str = "ft_joint", control=None):
     host = _train_batches(ds, AGREE_BF16_STEPS, "cpu", batch)
 
     def run(device: str, dtype: str, steps: int):
-        model = UniVL(cfg.replace(compute_dtype=dtype), device=device)
-        model.load_state_dict(sd, strict=True)
-        batches = [{k: v.to(device) for k, v in b.items()} for b in host[:steps]]
-        out = model.train()({k: v[0] for k, v in batches[0].items()})
-        out["loss"].backward()
-        # copies: on the CPU .float().cpu() would return the live tensors
-        grads = {n: p.grad.to("cpu", torch.float32, copy=True)
-                 for n, p in model.named_parameters()}
-        model.zero_grad(set_to_none=True)
-        opt = make_univl_optimizer(model, lr=3e-5, t_total=AGREE_BF16_STEPS,
-                                   warmup_proportion=0.0, coef_lr=0.1)
-        trainer = Trainer(model, opt, seed=0)
-        losses, params = [], None
-        for i, b in enumerate(batches):
-            losses.append(float(trainer.train_step(b, i)["loss"]))
-            if i == 1:
-                params = {n: p.detach().to("cpu", torch.float32, copy=True)
-                          for n, p in model.named_parameters()}
-        return out["loss"].item(), grads, params, losses
+        return _agreement_run(cfg, sd, host, device, dtype, steps)
 
     cpu = run("cpu", "float32", 2 if is_control else AGREE_BF16_STEPS)
     reset_launches()
@@ -1333,6 +1637,201 @@ def phase_train_agreement(ds, route: str = "ft_joint", control=None):
     require(all(math.isfinite(x) for x in bf16) and max(rel) <= LOSS_BF16_RTOL,
             f"card bf16 {label} training loss strays from the CPU's f32")
     return grad_rel[0], param_rel[0]
+
+
+def make_caption_data(tmp: str, vocab: str):
+    """YouCook2-format fixtures (S3D width 1024) of CAP_VIDEOS + CAP_VAL_VIDEOS
+    videos with transcripts; the csv of the first CAP_VIDEOS (train), one of
+    the rest (val), and the caption dataset over the train split."""
+    csv, data, feats = fixtures.make_youcook(
+        os.path.join(tmp, "caption"), n_videos=CAP_VIDEOS + CAP_VAL_VIDEOS,
+        clips_per_video=TRAIN_CLIPS, video_dim=1024, seconds_per_video=TRAIN_SECONDS, seed=1)
+    with open(csv) as f:
+        header, *rows = f.read().splitlines()
+    paths = {}
+    for split, part in (("train", rows[:CAP_VIDEOS]), ("val", rows[CAP_VIDEOS:])):
+        paths[split] = os.path.join(tmp, "caption", f"{split}.csv")
+        with open(paths[split], "w") as f:
+            f.write("\n".join([header, *part]) + "\n")
+    ds = YoucookCaptionDataset(paths["train"], data, feats, WordPieceTokenizer(vocab),
+                               max_words=CAP_WORDS, max_frames=CAP_FRAMES, seed=0)
+    return (paths["train"], paths["val"], data, feats), ds
+
+
+def _caption_cfg(**kw) -> UniVLConfig:
+    return UniVLConfig.base(max_words=CAP_WORDS, max_frames=CAP_FRAMES, stage_two=True,
+                            task_type="caption", **kw)
+
+
+def _caption_launches_per_step(model) -> dict:
+    """#2 in every attention over keys (forward; backward whole-head where
+    the head fits, else tiled: text 128, cross 224, the decoder's encoder
+    attention 128 x 224) and #6 in every LayerNorm, forward and backward."""
+    cfg, D = model.cfg, model.cfg.bert.hidden_size // model.cfg.bert.num_attention_heads
+    W, Fr = CAP_WORDS, CAP_FRAMES
+    attn = [(cfg.bert.num_hidden_layers, W, W), (cfg.visual.num_hidden_layers, Fr, Fr),
+            (cfg.cross.num_hidden_layers, W + Fr, W + Fr),
+            (cfg.decoder.num_decoder_layers, W, W + Fr)]
+    whole = sum(n for n, lq, lk in attn if ta.whole_head_backward_fits(lq, lk, D))
+    n_ln = sum(isinstance(m, LayerNormTF) for m in model.modules())
+    return {"train_attention_fwd": sum(n for n, _, _ in attn), "train_attention_bwd": whole,
+            "train_attention_bwd_tiled": sum(n for n, _, _ in attn) - whole,
+            "layernorm_fwd": n_ln, "layernorm_bwd": n_ln}
+
+
+def phase_caption_train(tmp: str, vocab: str, files) -> dict:
+    """Caption fine-tuning through univl_tpu_torch.cli.task_caption --do_train
+    --fused_ln at full width, then --do_eval of its pytorch_model.bin.0 over
+    the val split; returns the two runs' launches."""
+    train_csv, val_csv, data, feats = files
+    out = os.path.join(tmp, "caption_out")
+    common = ["--device", "cuda", "--stage_two", "--datatype", "youcook", "--vocab_file", vocab,
+              "--train_csv", train_csv, "--val_csv", val_csv, "--data_path", data,
+              "--features_path", feats, *CAP_FLAGS, "--fused_ln"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    steps, _ = task_caption.main(["--do_train", "--output_dir", out, *common])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        shown = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    for r in shown:
+        print(f"caption train step {r['step']}: loss {r['loss']:.6f}", flush=True)
+    require(all(math.isfinite(r["loss"]) for r in shown) and len(shown) == steps // TRAIN_DISPLAY
+            and len(shown) >= 2, f"display points {[(r['step'], r['loss']) for r in shown]}")
+    first, last = shown[0], shown[-1]
+    rate = (last["step"] - first["step"]) * CAP_BATCH / (last["ts"] - first["ts"])
+    cfg = _caption_cfg()
+    model = UniVL(cfg)
+    sd = load_reference_bin(os.path.join(out, "pytorch_model.bin.0"))
+    model.load_state_dict(sd, strict=True)
+    require(all(bool(torch.isfinite(v).all()) for v in sd.values()), "non-finite saved weights")
+    per_step = _caption_launches_per_step(model)
+    print(f"caption training (CLI, --fused_ln, bf16, batch {CAP_BATCH}, {CAP_WORDS} words, "
+          f"{CAP_FRAMES} frames, text {cfg.bert.num_hidden_layers} + visual "
+          f"{cfg.visual.num_hidden_layers} + cross {cfg.cross.num_hidden_layers} + decoder "
+          f"{cfg.decoder.num_decoder_layers} layers): {steps} steps in {wall:.3f} s including "
+          f"set-up; steady {rate:.3f} clips/s over steps {first['step']}-{last['step']} (host "
+          f"clock between synchronized display points); peak device memory "
+          f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held before the "
+          f"run; launches {counts}, per step {per_step}", flush=True)
+    want = {**{k: 0 for k in KERNELS}, **{k: n * steps for k, n in per_step.items()}}
+    require(counts == want, f"caption training launches {counts}, {steps} steps imply {want}")
+    print(f"caption pytorch_model.bin.0: {len(sd)} tensors, loads with strict=True, all finite",
+          flush=True)
+    del model, sd
+
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = task_caption.main(["--do_eval", "--output_dir", os.path.join(tmp, "caption_eval"),
+                                    "--init_model", os.path.join(out, "pytorch_model.bin.0"),
+                                    *common])
+    eval_counts = read_launches()
+    with open(os.path.join(tmp, "caption_eval", "hyp.txt")) as f:
+        hyps = f.read().split("\n")
+    n_val = CAP_VAL_VIDEOS * TRAIN_CLIPS
+    print(f"caption eval (CLI --do_eval, --fused_ln, beam 5, {n_val} clips) in "
+          f"{time.perf_counter() - t0:.3f} s: {metrics}; first captions {hyps[:3]}; launches "
+          f"{eval_counts}", flush=True)
+    require(len(hyps) == n_val and all(isinstance(h, str) for h in hyps)
+            and all(math.isfinite(metrics[k]) for k in ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr")),
+            f"caption eval: {len(hyps)} captions, metrics {metrics}")
+    require(eval_counts["layernorm_fwd"] > 0 and eval_counts["eval_attention"] > 0
+            and eval_counts["layernorm_bwd"] == 0,
+            f"caption eval launches {eval_counts}")
+    return {"caption_train": counts, "caption_eval": eval_counts}
+
+
+def phase_caption_profile(ds, tmp: str) -> None:
+    """The caption step under torch.profiler at full width in bf16, with every
+    LayerNorm on #6 and on PyTorch's ops (the same weights and batches)."""
+    cfg = _caption_cfg(compute_dtype="bfloat16", batch_size_per_device=CAP_BATCH)
+    sd = init_state_dict(cfg, seed=0)
+    res = {}
+    for fused in (True, False):
+        model = UniVL(cfg, device="cuda")
+        model.load_state_dict(sd, strict=True)
+        set_fused_layer_norm(model, fused)
+        label = f"caption ({'--fused_ln' if fused else 'PyTorch LayerNorm'})"
+        res[fused] = profile_training(model, ds, CAP_BATCH,
+                                      os.path.join(tmp, "caption_trace.json"), label)
+        del model
+        torch.cuda.empty_cache()
+    ln = sum(res[True]["groups"].get(g, 0.0) for g in ("#6 forward", "#6 backward"))
+    print(f"caption step with --fused_ln vs without: wall {res[True]['wall_ms']:.3f} vs "
+          f"{res[False]['wall_ms']:.3f} ms, device busy {res[True]['busy_ms']:.3f} vs "
+          f"{res[False]['busy_ms']:.3f} ms a step; #6 {ln:.3f} ms a step "
+          f"({ln / res[True]['busy_ms']:.4f} of the busy time)", flush=True)
+
+
+def phase_caption_agreement(ds) -> None:
+    """Caption training, card against CPU at full width (text 2 + visual 1 +
+    cross 1 + decoder 1 layers, batch 4, dropout 0), card f32 with and
+    without --fused_ln, then card bf16 with it over AGREE_BF16_STEPS steps,
+    all against one CPU f32 run (its plain LayerNorm is #6's plain version's
+    math)."""
+    off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cfg = _caption_cfg(text_num_hidden_layers=2, visual_num_hidden_layers=1,
+                       cross_num_hidden_layers=1, decoder_num_hidden_layers=1,
+                       batch_size_per_device=AGREE_CAP_BATCH)
+    cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off),
+                      cross=cfg.cross.replace(**off), decoder=cfg.decoder.replace(**off))
+    sd = init_state_dict(cfg, seed=0)
+    host = _train_batches(ds, AGREE_BF16_STEPS, "cpu", AGREE_CAP_BATCH)
+    cpu = _agreement_run(cfg, sd, host, "cpu", "float32", AGREE_BF16_STEPS)
+    zero = ("attention.self.key.bias", "att.key.bias")
+    live = [n for n, g in cpu[1].items() if float(g.norm()) > 0 and not n.endswith(zero)]
+    limits = (AGREE_GRAD_RTOL, AGREE_CAP_PARAM_RTOL)  # the control's
+    for fused in (False, True):
+        reset_launches()
+        card = _agreement_run(cfg, sd, host, "cuda", "float32", 2, fused)
+        counts = read_launches()
+        ran = ["train_attention_fwd", "train_attention_bwd_tiled"] + (
+            ["layernorm_fwd", "layernorm_bwd"] if fused else [])
+        require(all(counts[k] > 0 for k in ran) and (fused or counts["layernorm_fwd"] == 0),
+                f"the card's f32 caption run launched {counts}")
+        loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        grad_rel = max((float((card[1][n] - cpu[1][n]).norm()) / float(cpu[1][n].norm()), n)
+                       for n in live)
+        param_rel = max((float((card[2][n] - cpu[2][n]).norm())  # zero biases off the path
+                         / max(float(cpu[2][n].norm()), 1e-12), n)
+                        for n in cpu[2] if not n.endswith(zero))
+        idle = max(float(card[1][n].norm()) for n in cpu[1] if n not in live
+                   and not n.endswith(zero))
+        zero_grad = max(float(card[1][n].norm()) for n in card[1] if n.endswith(zero))
+        zero_param = max(float((card[2][n] - cpu[2][n]).abs().max()) for n in cpu[2]
+                         if n.endswith(zero))
+        if fused:
+            limits = (max(AGREE_GRAD_RTOL, AGREE_CAP_FUSED_FACTOR * limits[0]),
+                      max(AGREE_PARAM_RTOL, AGREE_CAP_FUSED_FACTOR * limits[1]))
+        print(f"caption training agreement, card f32 ({'--fused_ln' if fused else 'PyTorch '
+              'LayerNorm, the control'}, TF32 off) vs CPU f32 (plain versions), full width, "
+              f"text 2 + visual 1 + cross 1 + decoder 1 layers, batch {AGREE_CAP_BATCH}, dropout "
+              f"0: loss rel {loss_rel:.3e} (limit {AGREE_LOSS_RTOL}); worst gradient rel to its "
+              f"norm {grad_rel[0]:.3e} ({grad_rel[1]}; limit {limits[0]:.3e}); worst parameter "
+              f"rel after 2 BertAdam steps {param_rel[0]:.3e} ({param_rel[1]}; limit "
+              f"{limits[1]:.3e}); key biases: gradient norm at most {zero_grad:.3e} (limit "
+              f"{AGREE_ZERO_GRAD}), parameter difference at most {zero_param:.3e} (limit "
+              f"{AGREE_ZERO_PARAM}); parameters off the loss's path: gradient norm {idle:.3e}; "
+              f"card launches {counts}", flush=True)
+        require(loss_rel <= AGREE_LOSS_RTOL and grad_rel[0] <= limits[0]
+                and param_rel[0] <= limits[1] and zero_grad <= AGREE_ZERO_GRAD
+                and zero_param <= AGREE_ZERO_PARAM and idle == 0.0,
+                f"card f32 caption training disagrees with the CPU (fused_ln {fused})")
+        limits = (grad_rel[0], param_rel[0])  # the control's disagreement
+    bf16 = _agreement_run(cfg, sd, host, "cuda", "bfloat16", AGREE_BF16_STEPS, True)[3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(bf16, cpu[3])]
+    print(f"caption training agreement, card bf16 (--fused_ln) vs CPU f32 over "
+          f"{AGREE_BF16_STEPS} steps: losses {[round(x, 6) for x in bf16]} vs "
+          f"{[round(x, 6) for x in cpu[3]]}; worst rel {max(rel):.3e} (limit {LOSS_BF16_RTOL})",
+          flush=True)
+    require(all(math.isfinite(x) for x in bf16) and max(rel) <= LOSS_BF16_RTOL,
+            "card bf16 caption training loss strays from the CPU's f32")
 
 
 def phase_agreement(vocab: str, clips) -> None:
@@ -1414,7 +1913,9 @@ def main() -> int:
                 "beam_decode_self_attention": kernel_decode_attention(),
                 "vocab_topk": kernel_vocab_topk(),
                 **kernel_train_attention(),
-                **kernel_ffn()}
+                **kernel_train_attention_tiled(),
+                **kernel_ffn(),
+                **kernel_layernorm()}
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vocab = write_vocab(os.path.join(tmp, "vocab.txt"))
@@ -1444,6 +1945,10 @@ def main() -> int:
         control = phase_train_agreement(ds, "ft_align_xla")
         phase_train_agreement(ds, "ft_align", control)
         phase_train_agreement(ds, "ft_align_pallas", control)
+        cap_files, cap_ds = make_caption_data(tmp, vocab)
+        by_path.update(phase_caption_train(tmp, vocab, cap_files))
+        phase_caption_profile(cap_ds, tmp)
+        phase_caption_agreement(cap_ds)
 
     rows = []
     for name, (wrapper, source, replaces) in KERNELS.items():

@@ -78,7 +78,7 @@ def test_plain_version_matches_pallas_kernel(name, N):
     names, jax_fn, port_fn = KERNELS[name]
     inp = _inputs(N)
     args = [inp[n] for n in names]
-    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in args))
+    want, vjp = jax.vjp(jax.jit(jax_fn), *(jnp.asarray(a) for a in args))
     want_grads = vjp(jnp.asarray(inp["g"]))
     leaves = [torch.from_numpy(a).requires_grad_() for a in args]
     got = port_fn(*leaves)
@@ -250,8 +250,10 @@ def test_transformer_layer_matches_jax(mode, monkeypatch):
     def loss(p, xx):
         return jnp.sum(jlayer.apply({"params": p}, xx, bias, False) * gout)
 
-    want_eval = jlayer.apply({"params": params}, x, bias, True)
-    want_grads, want_dx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    # jitted: interpret-mode kernels run eagerly can deadlock against the next
+    # dispatch (a kernel's io_callback waits while the main thread dispatches)
+    want_eval = jax.jit(lambda p: jlayer.apply({"params": p}, x, bias, True))(params)
+    want_grads, want_dx = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jnp.asarray(x))
 
     enc = _no_dropout(config.BertConfig(hidden_size=128, num_attention_heads=4,
                                         intermediate_size=256))
@@ -329,7 +331,7 @@ def test_ft_align_loss_and_gradients_match_jax(mode, monkeypatch):
     def loss_fn(p):
         return jm.apply({"params": p}, batch, deterministic=False)["loss"]
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     model = UniVL(cfg)
     model.load_state_dict(state_dict_from_jax_params(params), strict=True)
     assert all(layer.fused_ffn == bool(mode) for tower in (model.bert, model.visual, model.cross)

@@ -45,8 +45,8 @@ def test_plain_version_matches_pallas_kernel_at_rate_0():
     q, k, v, g, mask = _inputs()
     mask[2] = 0.0  # no valid key: both give the uniform softmax (the -1e9 bias cancels)
     jargs = [jnp.asarray(x) for x in (q, k, v)]
-    want, vjp = jax.vjp(lambda *a: jax_train_attention(*a, jnp.asarray(mask), 0, 0.0, H),
-                        *jargs)
+    want, vjp = jax.vjp(jax.jit(lambda *a: jax_train_attention(*a, jnp.asarray(mask), 0, 0.0,
+                                                                H)), *jargs)
     want_grads = vjp(jnp.asarray(g))
     tq, tk, tv, tg, tm = _t(q, k, v, g, mask)
     out, m, l = ta.train_attention_fwd(tq, tk, tv, tm, 0, 0.0, H)
@@ -144,3 +144,30 @@ def test_rejects_bad_inputs(case):
         mask = torch.ones(2, 9)
     with pytest.raises(err):
         ta.fused_train_attention(q, k, v, mask, 0, 0.1, heads)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tiled_backward_cpu_route_is_the_gradient(rate):
+    """train_attention_bwd_tiled's CPU route at Lq 12 / Lk 20 (Lq != Lk, the
+    shape class only the tiled kernels take on the card) against autograd
+    through the plain forward with the same mask, in f32; at rate 0 also
+    against the Pallas kernel's vjp."""
+    rng = np.random.RandomState(4)
+    B, H, D, Lq, Lk = 2, 3, 8, 12, 20
+    q, g = (rng.randn(B, Lq, H * D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, Lk, H * D).astype(np.float32) for _ in range(2))
+    mask = (rng.rand(B, Lk) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    tq, tk, tv, tg, tm = _t(q, k, v, g, mask)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out, m, l = ta.train_attention_reference_fwd(*leaves, tm, 11, rate, H)
+    out.backward(tg)
+    got = ta.train_attention_bwd_tiled(tq, tk, tv, tm, 11, rate, H, m.detach(), l.detach(), tg)
+    for leaf, w in zip(leaves, got):
+        np.testing.assert_allclose(w.numpy(), leaf.grad.numpy(), rtol=0, atol=1e-6)
+    assert ta.train_attention_bwd_tiled.launches == 0
+    if rate == 0.0:
+        _, vjp = jax.vjp(jax.jit(lambda *a: jax_train_attention(*a, jnp.asarray(mask), 0, 0.0,
+                                                                 H)), *map(jnp.asarray, (q, k, v)))
+        for w, want in zip(got, vjp(jnp.asarray(g))):
+            np.testing.assert_allclose(w.numpy(), np.asarray(want), rtol=0, atol=1e-5)

@@ -143,7 +143,10 @@ def test_max_margin_ranking_loss_with_negative_weighting():
 
 @pytest.mark.parametrize("route", ["stage_two", "use_mil", "do_pretrain"])
 def test_training_routes_not_ported_raise(carried, route):
-    cfg = config.UniVLConfig.tiny(**{route: True}, task_type="retrieval")
+    """MIL and pretraining stay refused; stage two only with pretraining
+    (stage-two fine-tuning is ported: tests/test_torch_captioning_train.py)."""
+    flags = {"stage_two": dict(stage_two=True, do_pretrain=True)}.get(route, {route: True})
+    cfg = config.UniVLConfig.tiny(**flags, task_type="retrieval")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         UniVL(cfg).train()(_t(carried[4]), torch.Generator().manual_seed(0))
 
@@ -169,19 +172,23 @@ def test_dropout_is_seeded_and_at_its_rate(carried):
 
 def test_training_mode_routes_attention(monkeypatch):
     """Key-masked attention: the training kernels in training mode, the eval
-    kernel in eval mode; the additive-bias path is refused in training."""
+    kernel in eval mode; the additive-bias path (the caption decoder's) takes
+    sdpa_bias in both, with its probability dropout only in training."""
     calls = []
     monkeypatch.setattr(layers, "fused_train_attention",
                         lambda q, k, v, mask, seed, rate, heads: calls.append("train") or q)
     monkeypatch.setattr(layers, "fused_attention_masked",
                         lambda q, k, v, mask: calls.append("eval") or q)
-    att = layers.MultiHeadAttention(16, 4, torch.float32, dropout_rate=0.0)
+    monkeypatch.setattr(layers, "sdpa_bias",
+                        lambda q, k, v, bias, rate, rng: calls.append(("bias", rate)) or q)
+    att = layers.MultiHeadAttention(16, 4, torch.float32, dropout_rate=0.1)
     x, mask = torch.randn(2, 5, 16), torch.ones(2, 5)
-    att.train()(x, mask)
+    rng = layers.Randomness.derive(torch.Generator().manual_seed(0), "cpu")
+    att.train()(x, mask, rng=rng)
     att.eval()(x, mask)
-    assert calls == ["train", "eval"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        att.train()(x, bias=torch.zeros(2, 1, 5, 5))
+    att.train()(x, bias=torch.zeros(2, 1, 5, 5), rng=rng)
+    att.eval()(x, bias=torch.zeros(2, 1, 5, 5))
+    assert calls == ["train", "eval", ("bias", 0.1), ("bias", 0.0)]
 
 
 def test_bf16_gradients_stay_dense_f32(carried):
@@ -412,7 +419,7 @@ def test_cli_trains_ft_align_and_writes_a_bin_jax_reads(youcook_files, tmp_path,
 
 @pytest.mark.parametrize("extra", [
     ["--do_eval"], ["--do_pretrain"], ["--load_checkpoint"], ["--zero1"], ["--remat"],
-    ["--use_mil"], ["--sampled_use_mil"], ["--stage_two"],
+    ["--use_mil"], ["--sampled_use_mil"], ["--do_pretrain", "--stage_two"],
     ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "msrvtt"],
     ["--fused_ffn", "auto"], ["--fused_ffn", "auto_block"],  # TPU-measured row thresholds
     ["--train_attention", "pallas"],  # a TPU-only knob: not a flag of the port

@@ -1,12 +1,14 @@
 """Command-line plumbing of the port's entry points (the server and the
-retrieval trainer), without JAX.
+retrieval and caption trainers), without JAX.
 
 The port's own copies of ``univl_tpu/cli/common.py``'s ``MetricsWriter``,
 ``get_logger``, ``base_parser`` (restricted to the flags the ported paths
-read, under the JAX names and defaults), ``add_fused_ffn_arg`` (the
-trainer's ``--fused_ffn``), ``finalize_args``,
-``build_config``, the ``.bin`` branch of ``load_init_params``,
-``make_trainer`` and ``run_train_epochs`` (without eval and resume).
+read, under the JAX names and defaults, plus ``--fused_ln``, the
+counterpart of JAX's ``UNIVL_TPU_FUSED_LN=1``), ``add_fused_ffn_arg`` (the
+trainers' ``--fused_ffn``), ``finalize_args``, ``build_config``, the
+``.bin`` branch of ``load_init_params`` (in ``make_model``),
+``make_trainer`` and ``run_train_epochs`` (with per-epoch eval and the best
+epoch, without resume).
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ import logging
 import os
 import random
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_bin
 from univl_tpu_torch.config import TPU_THRESHOLD, UniVLConfig
+from univl_tpu_torch.models.univl import UniVL
+from univl_tpu_torch.nn.layers import set_fused_layer_norm
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
 from univl_tpu_torch.utils.profiling import StepTimer
@@ -89,6 +93,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--batch_size_val", type=int, default=64)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--warmup_proportion", type=float, default=0.1)
     p.add_argument("--coef_lr", type=float, default=0.1)
@@ -133,6 +138,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "the per-row top-K in one pass over vocab tiles (the vocab top-k "
                         "kernel); the [B*K, V] logits are never written. Unset: on for a "
                         "CUDA device, off on the CPU")
+    p.add_argument("--fused_ln", action="store_true",
+                   help="every LayerNorm of the model through the LayerNorm kernel, forward "
+                        "and backward (off by default, as JAX's UNIVL_TPU_FUSED_LN)")
     return p
 
 
@@ -228,6 +236,15 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
     return cfg.replace(bert=bert, visual=visual, cross=cross, decoder=decoder).validate()
 
 
+def make_model(args, cfg: UniVLConfig, device: torch.device, logger) -> UniVL:
+    """The model on ``device``, its LayerNorms on the kernel with
+    ``--fused_ln``, its weights from ``load_init_params``."""
+    model = UniVL(cfg, device=device)
+    set_fused_layer_norm(model, args.fused_ln)
+    load_init_params(args, model, logger)
+    return model
+
+
 def load_init_params(args, model: torch.nn.Module, logger) -> None:
     """Seeded init (``--seed``), overlaid with ``--init_model`` when given.
 
@@ -272,12 +289,18 @@ def save_state_dict(model: torch.nn.Module, path: str) -> None:
     torch.save({k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()}, path)
 
 
-def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.device) -> int:
+def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.device,
+                     eval_fn: Optional[Callable[[int], dict]] = None,
+                     select_key: Optional[str] = None):
     """The epoch loop of ``univl_tpu.cli.common.run_train_epochs`` without
-    eval and resume: each batch to the device, one optimizer step, the loss
-    summed on the device (read at display points and at the epoch's end),
-    and each epoch's weights saved as ``pytorch_model.bin.<epoch>`` (the
-    reference's per-epoch file). Returns the number of steps taken."""
+    resume: each batch to the device, one optimizer step, the loss summed on
+    the device (read at display points and at the epoch's end), and each
+    epoch's weights saved as ``pytorch_model.bin.<epoch>`` (the reference's
+    per-epoch file). With ``eval_fn(epoch)`` each epoch is then evaluated
+    and the best epoch is the one with the largest ``select_key`` (logged,
+    and in metrics.jsonl). Returns (steps taken, the best epoch's metrics
+    with its ``epoch``, or None without eval)."""
+    best = None
     timer = StepTimer()
     mw = MetricsWriter(args.output_dir)
     accum = args.gradient_accumulation_steps
@@ -308,5 +331,15 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                  seconds=time.time() - t0, steps=n_steps)
         save_state_dict(trainer.model, os.path.join(args.output_dir,
                                                     f"pytorch_model.bin.{epoch}"))
+        if eval_fn is not None:
+            metrics = eval_fn(epoch)
+            if best is None or metrics[select_key] > best[select_key]:
+                best = dict(metrics, epoch=epoch)
+            logger.info("Eval epoch %d: %s", epoch + 1, metrics)
+            mw.write("eval", epoch=epoch, **metrics)
+    if best is not None:
+        logger.info("Best: epoch %d by %s, pytorch_model.bin.%d: %s", best["epoch"] + 1,
+                    select_key, best["epoch"], best)
+        mw.write("best", **best)
     mw.close()
-    return global_step
+    return global_step, best

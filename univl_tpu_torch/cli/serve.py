@@ -23,7 +23,8 @@ Endpoints:
 
 ``--mode caption`` and ``--mode both`` build the caption decoder (they
 imply ``--stage_two``); concurrent caption requests are merged into shared
-decode batches unless ``--no-coalesce_captions``.
+decode batches unless ``--no-coalesce_captions``. ``--fused_ln`` runs every
+LayerNorm through the LayerNorm kernel (#6).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ import numpy as np
 
 from univl_tpu_torch.cli import common
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
-from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.serving.captioning import CaptionService
 from univl_tpu_torch.serving.coalesce import CoalescingCaptionService
 from univl_tpu_torch.serving.index import VideoRetrievalIndex
@@ -104,9 +104,7 @@ def build_services(args):
         args.stage_two = True
     cfg = common.build_config(args, device, task_type="caption" if want_caption else "retrieval",
                               vocab_size=len(tokenizer))
-    model = UniVL(cfg, device=device)
-    common.load_init_params(args, model, logger)
-    model.eval()
+    model = common.make_model(args, cfg, device, logger).eval()
     index = caption = None
     if args.mode in ("retrieval", "both"):
         kw = dict(batch_size=args.serve_batch_size)

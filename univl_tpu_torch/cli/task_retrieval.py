@@ -7,7 +7,10 @@ the text and visual towers, the mean-pooled joint similarity (FT-Joint) or,
 with ``--train_sim_after_cross``, the cross encoder over all text-video
 pairs of the batch (FT-Align), the max-margin ranking loss, BertAdam, one
 CUDA device. ``--fused_ffn`` picks the FFN route: xla (unfused, the
-default), pallas (kernel #3) or block (kernels #4 and #5).
+default), pallas (kernel #3) or block (kernels #4 and #5); ``--fused_ln``
+runs every LayerNorm through the LayerNorm kernel (#6). With
+``--stage_two`` the similarity is the cross encoder's and the loss CrossEn
+(stage-two retrieval fine-tuning).
 
     python -m univl_tpu_torch.cli.task_retrieval --do_train --device cuda \\
         --datatype youcook --vocab_file vocab.txt \\
@@ -27,7 +30,6 @@ from univl_tpu_torch.cli import common
 from univl_tpu_torch.data.batching import Batcher
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.data.youcook import YoucookRetrievalDataset
-from univl_tpu_torch.models.univl import UniVL
 
 # flag -> the slice of the port that will run it
 NOT_PORTED = {
@@ -40,7 +42,6 @@ NOT_PORTED = {
     "remat": "activation checkpointing (dropout seeds replayed in the recomputed forward)",
     "use_mil": "pretraining",
     "sampled_use_mil": "pretraining",
-    "stage_two": "caption training",
 }
 
 
@@ -78,8 +79,7 @@ def main(argv=None) -> int:
     device = common.resolve_device(args.device)
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
     cfg = common.build_config(args, device, task_type="retrieval", vocab_size=len(tokenizer))
-    model = UniVL(cfg, device=device)
-    common.load_init_params(args, model, logger)
+    model = common.make_model(args, cfg, device, logger)
     train_ds = YoucookRetrievalDataset(
         args.train_csv, args.data_path, args.features_path, tokenizer,
         feature_framerate=args.feature_framerate, max_words=args.max_words,
@@ -88,7 +88,7 @@ def main(argv=None) -> int:
                       grad_accum=args.gradient_accumulation_steps,
                       num_workers=args.num_thread_reader)
     trainer = common.make_trainer(args, model, len(batcher), logger)
-    return common.run_train_epochs(args, trainer, batcher, logger, device)
+    return common.run_train_epochs(args, trainer, batcher, logger, device)[0]
 
 
 if __name__ == "__main__":

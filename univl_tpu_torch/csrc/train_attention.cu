@@ -25,7 +25,7 @@
 // The TPU kernels' bits (pltpu.prng_random_bits) cannot be reproduced; the
 // distribution is the same.
 //
-// What bounds it: at UniVL's lengths (L <= 96, D = 64) one (b, h) does
+// What bounds it: at UniVL's lengths (L <= 224, D = 64) one (b, h) does
 // ~4 L^2 D flops forward and ~10 L^2 D backward over ~4-7 L D * 2 bytes: far
 // below the H100's ~295 flop/byte ridge, so the work is bound by memory
 // traffic and, at FT-Joint's 3-5 us per call, by launch latency and occupancy.
@@ -39,9 +39,12 @@
 // Backward: the warps fill the block's [Lq, Lk] tiles of dropped
 // probabilities and ds, then every thread computes four adjacent columns of
 // dq, dk and dv with fixed-order sums: no atomics, so the result is
-// deterministic. One Philox call gives the keep bits of four keys. Tensor-core
-// products (mma.sync / wgmma), TMA and query tiling for longer sequences are
-// left for later work.
+// deterministic. One Philox call gives the keep bits of four keys. A head
+// that does not fit the block's shared memory (Lq = Lk = 128 needs 283 KB,
+// the caption cross tower's 224 positions 668 KB; the card gives 227 KB)
+// takes the tiled backward below: 32-row tiles of queries and keys, two
+// kernels, the same arithmetic. Tensor-core products (mma.sync / wgmma) and
+// TMA are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,12 +85,13 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
 
-// The warp's keep factors for query row i of (b, h): kw[j] = 1/(1-rate) where
-// key j is kept, 0 where it is dropped. One Philox call per four keys.
+// The warp's keep factors for query row i of (b, h) and keys [j0, j0 + n):
+// kw[j - j0] = 1/(1-rate) where key j is kept, 0 where it is dropped. One
+// Philox call per four keys; j0 is a multiple of 4.
 __device__ __forceinline__ void keep_row(float* kw, const Dropout& drop, int b, int h, int i,
-                                         int Lk, int lane) {
-  for (int c = lane; 4 * c < Lk; c += 32) {
-    const uint4 w = philox4x32_10(make_uint4(c, i, h, b), drop.seed);
+                                         int j0, int n, int lane) {
+  for (int c = lane; 4 * c < n; c += 32) {
+    const uint4 w = philox4x32_10(make_uint4(j0 / 4 + c, i, h, b), drop.seed);
     const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
@@ -193,7 +197,7 @@ train_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = warp; i < Lq; i += kWarps) {
     const T* qrow = q + (b * Lq + i) * row + h * D;
     for (int d = lane; d < D; d += 32) qw[d] = to_float(qrow[d]);
-    if (drop.on) keep_row(kw, drop, b, h, i, Lk, lane);
+    if (drop.on) keep_row(kw, drop, b, h, i, 0, Lk, lane);
     __syncwarp();
 
     float row_max = -INFINITY;
@@ -280,7 +284,7 @@ train_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = warp; i < Lq; i += kWarps) {
     const long long stat = (static_cast<long long>(b) * H + h) * Lq + i;
     const float mi = m_in[stat], li = l_in[stat];
-    if (drop.on) keep_row(kw, drop, b, h, i, Lk, lane);
+    if (drop.on) keep_row(kw, drop, b, h, i, 0, Lk, lane);
     __syncwarp();
     float acc = 0.0f;
     for (int j = lane; j < Lk; j += 32) {
@@ -329,6 +333,225 @@ train_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The tiled backward, for heads the whole-head kernel cannot stage: the
+// FlashAttention-2 split into two kernels over kTile-row tiles. The first,
+// one block per (b, h, query tile), sums rowsum(dp * p) of its rows over all
+// key tiles (written to `delta` for the second), then walks the key tiles
+// again for ds and dq. The second, one block per (b, h, key tile), walks the
+// query tiles for dk and dv. Each recomputes p from the forward's m and l and
+// the keep bits from Philox, as the whole-head kernel does; every sum runs
+// over i or j in ascending order, one accumulator per output element in
+// shared memory, so the results are the whole-head kernel's arithmetic
+// (rowsum's lane j % 32 sums keys j in ascending order there too).
+constexpr int kTile = 32;              // one key a lane
+constexpr int kRows = kTile / kWarps;  // query rows a warp owns in a tile: warp + kWarps t
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+train_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const float* __restrict__ key_mask,
+                              const float* __restrict__ m_in, const float* __restrict__ l_in,
+                              const T* __restrict__ g, T* __restrict__ dq,
+                              float* __restrict__ delta, Shape sh, Dropout drop) {
+  extern __shared__ float smem[];
+  const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk, D = sh.D;
+  const int stride = D + 4;
+  float* qs = smem;                   // [kTile][D + 4] the block's query rows
+  float* gs = qs + kTile * stride;    // [kTile][D + 4] their output gradients
+  float* ks = gs + kTile * stride;    // [kTile][D + 4] a tile of keys
+  float* vs = ks + kTile * stride;    // [kTile][D + 4] and of values
+  float* S = vs + kTile * stride;     // [kTile][kTile] ds, rounded
+  float* acc = S + kTile * kTile;     // [kTile][D] dq sums
+  float* kp = acc + kTile * D;        // [kWarps][kTile] keep factors
+  float* bias = kp + kWarps * kTile;  // [kTile]
+  float* rs = bias + kTile;           // [kTile] rowsum(dp * p)
+
+  const int tiles = (Lq + kTile - 1) / kTile;
+  const int b = blockIdx.x / tiles / H, h = blockIdx.x / tiles % H;
+  const int i0 = (blockIdx.x % tiles) * kTile;
+  const int nq = min(kTile, Lq - i0);
+  const long long row = static_cast<long long>(H) * D;
+  stage(qs, q + (static_cast<long long>(b) * Lq + i0) * row + h * D, nq, D, row, stride);
+  stage(gs, g + (static_cast<long long>(b) * Lq + i0) * row + h * D, nq, D, row, stride);
+  for (int t = threadIdx.x; t < kTile * D; t += kThreads) acc[t] = 0.0f;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* kw = kp + warp * kTile;
+  float part[kRows];
+#pragma unroll
+  for (int t = 0; t < kRows; ++t) part[t] = 0.0f;
+
+  // the key tile j0 into ks, vs and bias; returns its row count
+  auto stage_keys = [&](int j0) {
+    const int nk = min(kTile, Lk - j0);
+    __syncthreads();  // the previous tile's readers are done
+    stage(ks, k + (static_cast<long long>(b) * Lk + j0) * row + h * D, nk, D, row, stride);
+    stage(vs, v + (static_cast<long long>(b) * Lk + j0) * row + h * D, nk, D, row, stride);
+    for (int j = threadIdx.x; j < nk; j += kThreads) {
+      bias[j] = (1.0f - key_mask[static_cast<long long>(b) * Lk + j0 + j]) * kMaskBias;
+    }
+    __syncthreads();
+    return nk;
+  };
+
+  for (int j0 = 0; j0 < Lk; j0 += kTile) {  // pass 1: rowsum(dp * p)
+    const int nk = stage_keys(j0);
+#pragma unroll
+    for (int t = 0; t < kRows; ++t) {
+      const int r = warp + kWarps * t;
+      if (r < nq) {
+        const long long stat = (static_cast<long long>(b) * H + h) * Lq + i0 + r;
+        if (drop.on) keep_row(kw, drop, b, h, i0 + r, j0, nk, lane);
+        __syncwarp();
+        if (lane < nk) {
+          const float s = dot(qs + r * stride, ks + lane * stride, D) * sh.scale + bias[lane];
+          const float p = expf(s - m_in[stat]) / l_in[stat];
+          float dp = dot(gs + r * stride, vs + lane * stride, D);
+          if (drop.on) dp = dp * kw[lane];
+          part[t] += dp * p;
+        }
+        __syncwarp();  // kw is rewritten for the warp's next row
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kRows; ++t) {
+    const int r = warp + kWarps * t;
+    if (r < nq) {
+      const float sum = warp_sum(part[t]);
+      if (lane == 0) {
+        rs[r] = sum;
+        delta[(static_cast<long long>(b) * H + h) * Lq + i0 + r] = sum;
+      }
+    }
+  }
+
+  const int quads = D / 4;
+  for (int j0 = 0; j0 < Lk; j0 += kTile) {  // pass 2: ds, then dq += ds k
+    const int nk = stage_keys(j0);
+#pragma unroll
+    for (int t = 0; t < kRows; ++t) {
+      const int r = warp + kWarps * t;
+      if (r < nq) {
+        const long long stat = (static_cast<long long>(b) * H + h) * Lq + i0 + r;
+        if (drop.on) keep_row(kw, drop, b, h, i0 + r, j0, nk, lane);
+        __syncwarp();
+        if (lane < nk) {
+          const float s = dot(qs + r * stride, ks + lane * stride, D) * sh.scale + bias[lane];
+          const float p = expf(s - m_in[stat]) / l_in[stat];
+          float dp = dot(gs + r * stride, vs + lane * stride, D);
+          if (drop.on) dp = dp * kw[lane];
+          S[r * kTile + lane] = round_to<T>(p * (dp - rs[r]));
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < nq * quads; t += kThreads) {
+      const int r = t / quads;
+      const int d0 = 4 * (t % quads);
+      float4 a = *reinterpret_cast<const float4*>(acc + r * D + d0);
+      for (int j = 0; j < nk; ++j) fma4(a, S[r * kTile + j], ks + j * stride + d0);
+      *reinterpret_cast<float4*>(acc + r * D + d0) = a;
+    }
+  }
+  for (int t = threadIdx.x; t < nq * quads; t += kThreads) {  // each thread its own sums
+    const int r = t / quads;
+    const int d0 = 4 * (t % quads);
+    store4(dq + (static_cast<long long>(b) * Lq + i0 + r) * row + h * D + d0,
+           scaled(*reinterpret_cast<const float4*>(acc + r * D + d0), sh.scale));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+train_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const float* __restrict__ key_mask,
+                                const float* __restrict__ m_in, const float* __restrict__ l_in,
+                                const T* __restrict__ g, const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv, Shape sh, Dropout drop) {
+  extern __shared__ float smem[];
+  const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk, D = sh.D;
+  const int stride = D + 4;
+  float* ks = smem;                   // [kTile][D + 4] the block's keys
+  float* vs = ks + kTile * stride;    // [kTile][D + 4] and values
+  float* qs = vs + kTile * stride;    // [kTile][D + 4] a tile of query rows
+  float* gs = qs + kTile * stride;    // [kTile][D + 4] and of output gradients
+  float* P = gs + kTile * stride;     // [kTile][kTile] dropped probabilities, rounded
+  float* S = P + kTile * kTile;       // [kTile][kTile] ds, rounded
+  float* acck = S + kTile * kTile;    // [kTile][D] dk sums
+  float* accv = acck + kTile * D;     // [kTile][D] dv sums
+  float* kp = accv + kTile * D;       // [kWarps][kTile] keep factors
+  float* bias = kp + kWarps * kTile;  // [kTile]
+
+  const int tiles = (Lk + kTile - 1) / kTile;
+  const int b = blockIdx.x / tiles / H, h = blockIdx.x / tiles % H;
+  const int j0 = (blockIdx.x % tiles) * kTile;
+  const int nk = min(kTile, Lk - j0);
+  const long long row = static_cast<long long>(H) * D;
+  stage(ks, k + (static_cast<long long>(b) * Lk + j0) * row + h * D, nk, D, row, stride);
+  stage(vs, v + (static_cast<long long>(b) * Lk + j0) * row + h * D, nk, D, row, stride);
+  for (int j = threadIdx.x; j < nk; j += kThreads) {
+    bias[j] = (1.0f - key_mask[static_cast<long long>(b) * Lk + j0 + j]) * kMaskBias;
+  }
+  for (int t = threadIdx.x; t < kTile * D; t += kThreads) acck[t] = accv[t] = 0.0f;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* kw = kp + warp * kTile;
+  const int quads = D / 4;
+  for (int i0 = 0; i0 < Lq; i0 += kTile) {
+    const int nq = min(kTile, Lq - i0);
+    __syncthreads();  // the previous tile's readers are done
+    stage(qs, q + (static_cast<long long>(b) * Lq + i0) * row + h * D, nq, D, row, stride);
+    stage(gs, g + (static_cast<long long>(b) * Lq + i0) * row + h * D, nq, D, row, stride);
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kRows; ++t) {
+      const int r = warp + kWarps * t;
+      if (r < nq) {
+        const long long stat = (static_cast<long long>(b) * H + h) * Lq + i0 + r;
+        if (drop.on) keep_row(kw, drop, b, h, i0 + r, j0, nk, lane);
+        __syncwarp();
+        if (lane < nk) {
+          const float s = dot(qs + r * stride, ks + lane * stride, D) * sh.scale + bias[lane];
+          const float p = expf(s - m_in[stat]) / l_in[stat];
+          float dp = dot(gs + r * stride, vs + lane * stride, D);
+          float pd = p;
+          if (drop.on) {
+            pd = p * kw[lane];
+            dp = dp * kw[lane];
+          }
+          P[r * kTile + lane] = round_to<T>(pd);
+          S[r * kTile + lane] = round_to<T>(p * (dp - delta[stat]));
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < nk * quads; t += kThreads) {
+      const int j = t / quads;
+      const int d0 = 4 * (t % quads);
+      float4 ak = *reinterpret_cast<const float4*>(acck + j * D + d0);
+      float4 av = *reinterpret_cast<const float4*>(accv + j * D + d0);
+      for (int r = 0; r < nq; ++r) {
+        fma4(ak, S[r * kTile + j], qs + r * stride + d0);
+        fma4(av, P[r * kTile + j], gs + r * stride + d0);
+      }
+      *reinterpret_cast<float4*>(acck + j * D + d0) = ak;
+      *reinterpret_cast<float4*>(accv + j * D + d0) = av;
+    }
+  }
+  for (int t = threadIdx.x; t < nk * quads; t += kThreads) {  // each thread its own sums
+    const int j = t / quads;
+    const int d0 = 4 * (t % quads);
+    const long long o = (static_cast<long long>(b) * Lk + j0 + j) * row + h * D + d0;
+    store4(dk + o, scaled(*reinterpret_cast<const float4*>(acck + j * D + d0), sh.scale));
+    store4(dv + o, *reinterpret_cast<const float4*>(accv + j * D + d0));
+  }
+}
+
 size_t fwd_smem_bytes(int Lq, int Lk, int D) {
   const size_t lk4 = (Lk + 3) & ~3;
   return (static_cast<size_t>(Lk) * (2 * D + 5) + kWarps * (D + 2 * lk4)) * sizeof(float);
@@ -337,6 +560,21 @@ size_t fwd_smem_bytes(int Lq, int Lk, int D) {
 size_t bwd_smem_bytes(int Lq, int Lk, int D) {
   const size_t lk4 = (Lk + 3) & ~3, stride = D + 4;
   return ((static_cast<size_t>(Lq) + Lk) * 2 * stride + Lq * 2 * lk4 + kWarps * 3 * lk4 + Lk) *
+         sizeof(float);
+}
+
+// The larger of the tiled backward's two kernels (the dk/dv one), whatever Lq and Lk.
+size_t tiled_smem_bytes(int D) {
+  const size_t stride = D + 4;
+  return (4 * kTile * stride + 2 * kTile * kTile + 2 * static_cast<size_t>(kTile) * D +
+          kWarps * kTile + kTile) *
+         sizeof(float);
+}
+
+size_t dq_smem_bytes(int D) {
+  const size_t stride = D + 4;
+  return (4 * kTile * stride + kTile * kTile + static_cast<size_t>(kTile) * D + kWarps * kTile +
+          2 * kTile) *
          sizeof(float);
 }
 
@@ -391,13 +629,43 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_bwd_tiled(const void* q, const void* k, const void* v, const float* mask,
+                             const float* m, const float* l, const void* g, void* dq, void* dk,
+                             void* dv, float* delta, int B, Shape sh, Dropout drop,
+                             cudaStream_t stream) {
+  static std::atomic<bool> done_dq[kMaxDevices], done_dkdv[kMaxDevices];
+  cudaError_t err = opt_in_shared_memory(train_attention_bwd_dq_kernel<T>, done_dq);
+  if (err != cudaSuccess) return err;
+  err = opt_in_shared_memory(train_attention_bwd_dkdv_kernel<T>, done_dkdv);
+  if (err != cudaSuccess) return err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(g);
+  const int q_tiles = (sh.Lq + kTile - 1) / kTile, k_tiles = (sh.Lk + kTile - 1) / kTile;
+  train_attention_bwd_dq_kernel<T><<<B * sh.H * q_tiles, kThreads, dq_smem_bytes(sh.D), stream>>>(
+      qt, kt, vt, mask, m, l, gt, static_cast<T*>(dq), delta, sh, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  train_attention_bwd_dkdv_kernel<T>
+      <<<B * sh.H * k_tiles, kThreads, tiled_smem_bytes(sh.D), stream>>>(
+          qt, kt, vt, mask, m, l, gt, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh, drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs, so the caller can check the budget.
-long long univl_train_attention_smem_bytes(int Lq, int Lk, int D, int backward) {
-  return static_cast<long long>(backward ? bwd_smem_bytes(Lq, Lk, D) : fwd_smem_bytes(Lq, Lk, D));
+// Dynamic shared memory one block needs, so the caller can check the budget
+// and pick the backward: kind 0 the forward, 1 the whole-head backward, 2 the
+// tiled backward.
+long long univl_train_attention_smem_bytes(int Lq, int Lk, int D, int kind) {
+  const size_t bytes = kind == 0   ? fwd_smem_bytes(Lq, Lk, D)
+                       : kind == 1 ? bwd_smem_bytes(Lq, Lk, D)
+                                   : tiled_smem_bytes(D);
+  return static_cast<long long>(bytes);
 }
 
 // q: [B, Lq, H*D], k, v: [B, Lk, H*D], contiguous, 16-byte aligned, float32
@@ -435,6 +703,29 @@ int univl_train_attention_bwd(const void* q, const void* k, const void* v, const
   const cudaError_t err =
       is_bf16 ? launch_bwd<__nv_bfloat16>(q, k, v, mask, mf, lf, g, dq, dk, dv, B, sh, drop, s)
               : launch_bwd<float>(q, k, v, mask, mf, lf, g, dq, dk, dv, B, sh, drop, s);
+  return static_cast<int>(err);
+}
+
+// The tiled backward: the whole-head backward's arguments plus `delta`, f32
+// [B, H, Lq] scratch for rowsum(dp * p), written by its first kernel and read
+// by its second. Launches both on `stream`, returns cudaGetLastError().
+int univl_train_attention_bwd_tiled(const void* q, const void* k, const void* v,
+                                    const void* key_mask, const void* m, const void* l,
+                                    const void* g, void* dq, void* dk, void* dv, void* delta,
+                                    int is_bf16, int B, int H, int Lq, int Lk, int D, float scale,
+                                    unsigned int threshold, float inv_keep, int dropout_on,
+                                    unsigned long long seed, void* stream) {
+  const Shape sh{H, Lq, Lk, D, scale};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const float* mask = static_cast<const float*>(key_mask);
+  const float* mf = static_cast<const float*>(m);
+  const float* lf = static_cast<const float*>(l);
+  float* df = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16
+          ? launch_bwd_tiled<__nv_bfloat16>(q, k, v, mask, mf, lf, g, dq, dk, dv, df, B, sh, drop, s)
+          : launch_bwd_tiled<float>(q, k, v, mask, mf, lf, g, dq, dk, dv, df, B, sh, drop, s);
   return static_cast<int>(err);
 }
 

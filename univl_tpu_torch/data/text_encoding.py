@@ -1,6 +1,7 @@
 """Text and video padding, the port's own copy of the parts of
-``univl_tpu/data/text_encoding.py`` that serving and FT-Joint training read
-(no MLM masking yet: neither masks).
+``univl_tpu/data/text_encoding.py`` that serving and fine-tuning read: the
+encoder's text, the caption decoder's teacher-forcing ids and the video (no
+MLM masking yet: only pretraining masks).
 
 All outputs are fixed-shape int32/float32 numpy arrays.
 """
@@ -29,6 +30,20 @@ def encode_text(text: str, tokenizer, max_words: int) -> Dict[str, np.ndarray]:
         "input_ids": _pad(input_ids, max_words, 0),
         "attention_mask": _pad([1] * len(input_ids), max_words, 0),
         "token_type_ids": np.zeros(max_words, np.int32),
+    }
+
+
+def encode_caption(caption_words: List[str], tokenizer, max_words: int) -> Dict[str, np.ndarray]:
+    """The decoder's teacher-forcing ids: input [CLS] + words, output words
+    + [SEP], cut to ``max_words`` and 0-padded; int32 ``input_caption_ids``,
+    ``output_caption_ids`` and ``decoder_mask``, each [max_words]."""
+    words = list(caption_words)[: max_words - 1]
+    input_ids = tokenizer.convert_tokens_to_ids(["[CLS]"] + words)
+    output_ids = tokenizer.convert_tokens_to_ids(words + ["[SEP]"])
+    return {
+        "input_caption_ids": _pad(input_ids, max_words, 0),
+        "output_caption_ids": _pad(output_ids, max_words, 0),
+        "decoder_mask": _pad([1] * len(input_ids), max_words, 0),
     }
 
 

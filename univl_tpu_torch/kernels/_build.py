@@ -112,6 +112,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_train_attention_fwd.restype = i
     lib.univl_train_attention_bwd.argtypes = [p] * 10 + shared
     lib.univl_train_attention_bwd.restype = i
+    lib.univl_train_attention_bwd_tiled.argtypes = [p] * 11 + shared
+    lib.univl_train_attention_bwd_tiled.restype = i
+    lib.univl_layernorm_bwd_rows.argtypes = []
+    lib.univl_layernorm_bwd_rows.restype = i
+    lib.univl_layernorm_max_width.argtypes = []
+    lib.univl_layernorm_max_width.restype = i
+    lib.univl_layernorm_fwd.argtypes = [p] * 4 + [i, i, i, ctypes.c_float, p]
+    lib.univl_layernorm_fwd.restype = i
+    lib.univl_layernorm_bwd.argtypes = [p] * 6 + [i, i, i, ctypes.c_float, p]
+    lib.univl_layernorm_bwd.restype = i
     drop = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]
     lib.univl_ffn_block_rows.argtypes = []
     lib.univl_ffn_block_rows.restype = i

@@ -13,6 +13,10 @@ recomputes the probabilities and regenerates the same dropout mask, so no
 On a CPU tensor ``train_attention_fwd`` and ``train_attention_bwd`` compute
 the plain versions below; on a CUDA tensor they launch the kernels in
 ``univl_tpu_torch/csrc/train_attention.cu`` (built at first use) or raise.
+The backward has two kernels: the whole-head one stages a head in shared
+memory (Lq, Lk up to ~100 at D = 64); longer heads (the caption step's 128
+and 224 positions) take the tiled one, ``train_attention_bwd_tiled``, two
+launches over 32-row tiles with the same arithmetic.
 
 Dropout bits: the TPU kernels draw theirs from the TPU's own generator
 (``pltpu.prng_random_bits`` seeded with seed + program id), which cannot be
@@ -136,9 +140,12 @@ def _check(q, k, v, key_mask, heads: int) -> None:
         raise ValueError("q, k, v and key_mask must be on one device")
 
 
-def _cuda_args(q: torch.Tensor, k: torch.Tensor, heads: int, rate: float, backward: bool):
-    """Checks what the kernels take; returns the library and the launch
-    arguments shared by the forward and the backward (types, shapes, scale,
+FWD, BWD_WHOLE, BWD_TILED = 0, 1, 2  # the kernels, as univl_train_attention_smem_bytes names them
+
+
+def _cuda_args(q: torch.Tensor, k: torch.Tensor, heads: int, rate: float, kind: int):
+    """Checks what the kernel takes; returns the library and the launch
+    arguments shared by the forward and the backwards (types, shapes, scale,
     dropout threshold, 1/(1-rate), dropout on)."""
     if q.device.type != "cuda":
         raise ValueError(f"no training-attention kernel for device {q.device}")
@@ -150,13 +157,20 @@ def _cuda_args(q: torch.Tensor, k: torch.Tensor, heads: int, rate: float, backwa
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     lib = _build.load_library()
-    smem = lib.univl_train_attention_smem_bytes(Lq, Lk, D, int(backward))
+    smem = lib.univl_train_attention_smem_bytes(Lq, Lk, D, kind)
     if smem > SMEM_LIMIT:
+        what = ("forward", "whole-head backward", "tiled backward")[kind]
         raise ValueError(f"Lq={Lq}, Lk={Lk}, D={D} needs {smem} bytes of shared memory per "
-                         f"block in the {'backward' if backward else 'forward'}; the limit "
-                         f"is {SMEM_LIMIT}")
+                         f"block in the {what}; the limit is {SMEM_LIMIT}")
     return lib, (int(q.dtype == torch.bfloat16), B, heads, Lq, Lk, D, 1.0 / math.sqrt(D),
                  keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0))
+
+
+def whole_head_backward_fits(Lq: int, Lk: int, D: int) -> bool:
+    """Whether the whole-head backward kernel can stage a head of this shape
+    (otherwise ``train_attention_bwd`` takes the tiled one)."""
+    return _build.load_library().univl_train_attention_smem_bytes(Lq, Lk, D, BWD_WHOLE) \
+        <= SMEM_LIMIT
 
 
 def _aligned(*ts):
@@ -172,7 +186,7 @@ def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
         return train_attention_reference_fwd(q, k, v, key_mask, seed, rate, heads)
-    lib, args = _cuda_args(q, k, heads, rate, backward=False)
+    lib, args = _cuda_args(q, k, heads, rate, FWD)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = key_mask.to(torch.float32).contiguous()
     B, H, Lq = q.shape[0], heads, q.shape[1]
@@ -189,31 +203,58 @@ def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
     return out, m, l
 
 
-def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
-    """(dq, dk, dv), each in q's dtype and layout: the backward kernel on a
-    CUDA tensor, its plain version on a CPU one."""
-    _check(q, k, v, key_mask, heads)
-    if q.device.type == "cpu":
-        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
-    lib, args = _cuda_args(q, k, heads, rate, backward=True)
+def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
+    """The whole-head or the tiled backward kernel(s) on CUDA tensors."""
+    lib, args = _cuda_args(q, k, heads, rate, kind)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     g = g.to(q.dtype).contiguous()
     mask = key_mask.to(torch.float32).contiguous()
     m, l = m.contiguous(), l.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = [*_aligned(q, k, v), mask.data_ptr(), m.data_ptr(), l.data_ptr(),
+            *_aligned(g, dq, dk, dv)]
+    fn = lib.univl_train_attention_bwd
+    delta = torch.empty_like(m)  # rowsum(dp * p), between the two tiled kernels
+    if kind == BWD_TILED:
+        ptrs.append(delta.data_ptr())
+        fn = lib.univl_train_attention_bwd_tiled
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.univl_train_attention_bwd(
-            *_aligned(q, k, v), mask.data_ptr(), m.data_ptr(), l.data_ptr(),
-            *_aligned(g, dq, dk, dv), *args, seed & 0xFFFFFFFFFFFFFFFF,
-            stream)
-    _build.check(lib, err, "training attention backward kernel launch")
-    train_attention_bwd.launches += 1
+        err = fn(*ptrs, *args, seed & 0xFFFFFFFFFFFFFFFF,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, f"training attention {('', 'whole-head', 'tiled')[kind]} backward "
+                           f"kernel launch")
     return dq, dk, dv
 
 
+def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
+    """(dq, dk, dv), each in q's dtype and layout: on a CUDA tensor the
+    whole-head backward kernel where it can stage the head, else the tiled
+    one (``train_attention_bwd_tiled``); the plain version on a CPU one."""
+    _check(q, k, v, key_mask, heads)
+    if q.device.type == "cpu":
+        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
+    if not whole_head_backward_fits(q.shape[1], k.shape[1], q.shape[2] // heads):
+        return train_attention_bwd_tiled(q, k, v, key_mask, seed, rate, heads, m, l, g)
+    out = _launch_bwd(BWD_WHOLE, q, k, v, key_mask, seed, rate, heads, m, l, g)
+    train_attention_bwd.launches += 1
+    return out
+
+
+def train_attention_bwd_tiled(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
+    """(dq, dk, dv) through the tiled backward kernels on a CUDA tensor, any
+    Lq and Lk (two launches, counted as one call); the plain version (the
+    same function) on a CPU one."""
+    _check(q, k, v, key_mask, heads)
+    if q.device.type == "cpu":
+        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
+    out = _launch_bwd(BWD_TILED, q, k, v, key_mask, seed, rate, heads, m, l, g)
+    train_attention_bwd_tiled.launches += 1
+    return out
+
+
 train_attention_fwd.launches = 0  # kernel launches; the CPU path adds nothing
-train_attention_bwd.launches = 0
+train_attention_bwd.launches = 0  # the whole-head backward's
+train_attention_bwd_tiled.launches = 0
 
 
 class _FusedTrainAttention(torch.autograd.Function):

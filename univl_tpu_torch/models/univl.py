@@ -2,12 +2,14 @@
 head, the caption decoder, and the retrieval training forward.
 
 Ports ``univl_tpu/models/univl.py``: serving (encoders, similarities, the
-decoder) and, in ``forward``, the training step of stage one without MIL
-(retrieval fine-tuning with the max-margin ranking loss): FT-Joint, on the
+decoder) and, in ``forward``, the fine-tuning steps without pretraining or
+MIL. Stage one (retrieval, the max-margin ranking loss): FT-Joint, on the
 mean-pooled joint similarity, and FT-Align (``train_sim_after_cross``), on
-the cross encoder's similarity over all text-video pairs of the batch. The
-other training routes (``stage_two``, ``use_mil``, ``do_pretrain``) and the
-pretraining heads are not ported yet. Parameters are f32;
+the cross encoder's similarity over all text-video pairs of the batch.
+Stage two (``stage_two``): caption fine-tuning (``task_type="caption"``,
+the decoder's masked cross entropy over the tied classifier's logits) and
+retrieval fine-tuning (CrossEn over the cross similarity). ``use_mil``,
+``do_pretrain`` and the pretraining heads are not ported yet. Parameters are f32;
 ``cfg.compute_dtype`` ("float32" or "bfloat16") is the dtype the towers
 compute in, and ``cfg.use_fused_ffn`` (False, True or "block") the FFN
 route of every tower layer (``nn/layers.py``). The state dict uses the
@@ -32,7 +34,11 @@ import torch
 from torch import nn
 
 from univl_tpu_torch.config import UniVLConfig
-from univl_tpu_torch.models.losses import max_margin_ranking_loss
+from univl_tpu_torch.models.losses import (
+    cross_en_loss,
+    masked_cross_entropy,
+    max_margin_ranking_loss,
+)
 from univl_tpu_torch.nn.decoder import CaptionDecoder
 from univl_tpu_torch.nn.layers import LayerNormTF, Linear, Randomness
 from univl_tpu_torch.nn.towers import CrossEncoder, TextEncoder, VisualEncoder
@@ -139,17 +145,24 @@ class UniVL(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """The training forward of stage one without MIL: both towers, the
-        joint similarity (FT-Joint) or with ``train_sim_after_cross`` the cross
-        similarity (FT-Align), the max-margin ranking loss. Returns the JAX
-        dict of losses, ``{"sim_loss", "loss"}``.
+        """The training forward without pretraining or MIL
+        (``univl_tpu/models/univl.py:471-534``): both towers, then in stage
+        one the joint similarity (FT-Joint) or with ``train_sim_after_cross``
+        the cross similarity (FT-Align) and the max-margin ranking loss; in
+        stage two, for captioning, the cross encoder and the decoder under
+        teacher forcing and ``masked_cross_entropy`` (``decoder_loss``), for
+        retrieval the cross similarity and ``cross_en_loss``
+        (``sim_loss_text_visual``). Returns the JAX dict of losses, with
+        their sum under ``"loss"``.
 
         ``batch``: ``input_ids``, ``token_type_ids``, ``attention_mask``
-        [B, Lw]; ``video`` [B, Lv, video_dim]; ``video_mask`` [B, Lv]. In
-        training mode ``generator`` (a CPU ``torch.Generator``, the step's)
-        gives all the dropout; in eval mode nothing is dropped."""
+        [B, Lw]; ``video`` [B, Lv, video_dim]; ``video_mask`` [B, Lv]; for
+        captioning also ``input_caption_ids``, ``output_caption_ids`` and
+        ``decoder_mask`` [B, Lc]. In training mode ``generator`` (a CPU
+        ``torch.Generator``, the step's) gives all the dropout; in eval mode
+        nothing is dropped."""
         c = self.cfg
-        for route in ("stage_two", "use_mil", "do_pretrain"):
+        for route in ("use_mil", "do_pretrain"):
             if getattr(c, route):
                 raise NotImplementedError(f"training with {route}: not ported yet")
         rng = None
@@ -162,12 +175,22 @@ class UniVL(nn.Module):
         attention_mask, video_mask = flat2(batch["attention_mask"]), flat2(batch["video_mask"])
         seq_out, vis_out = self.encode(flat2(batch["input_ids"]), flat2(batch["token_type_ids"]),
                                        attention_mask, batch["video"], video_mask, rng)
+        if not c.stage_two:
+            sim = self.similarity_logits(seq_out, vis_out, attention_mask, video_mask, rng)
+            sim_loss = max_margin_ranking_loss(
+                sim, margin=c.margin, negative_weighting=c.negative_weighting,
+                batch_size=c.batch_size_per_device, n_pair=c.n_pair,
+                hard_negative_rate=c.hard_negative_rate)
+            return {"sim_loss": sim_loss, "loss": sim_loss}
+        if c.task_type == "caption":
+            logits = self.decoder_logits(seq_out, vis_out, attention_mask, video_mask,
+                                         flat2(batch["input_caption_ids"]),
+                                         flat2(batch["decoder_mask"]), rng)
+            loss = masked_cross_entropy(logits, flat2(batch["output_caption_ids"]))
+            return {"decoder_loss": loss, "loss": loss}
         sim = self.similarity_logits(seq_out, vis_out, attention_mask, video_mask, rng)
-        sim_loss = max_margin_ranking_loss(
-            sim, margin=c.margin, negative_weighting=c.negative_weighting,
-            batch_size=c.batch_size_per_device, n_pair=c.n_pair,
-            hard_negative_rate=c.hard_negative_rate)
-        return {"sim_loss": sim_loss, "loss": sim_loss}
+        loss = cross_en_loss(sim)
+        return {"sim_loss_text_visual": loss, "loss": loss}
 
     def cross_similarity_pairs(self, sequence_output, visual_output, attention_mask,
                                video_mask, rng: Optional[Randomness] = None) -> torch.Tensor:
@@ -177,16 +200,18 @@ class UniVL(nn.Module):
         return self.similarity_dense(pooled)[:, 0].float()
 
     def decoder_logits(self, sequence_output, visual_output, attention_mask, video_mask,
-                       input_caption_ids, decoder_mask) -> torch.Tensor:
+                       input_caption_ids, decoder_mask,
+                       rng: Optional[Randomness] = None) -> torch.Tensor:
         """Cross-encode once, then the full-prefix decoder: f32 logits [B, L, V]."""
         cross_out, _, concat_mask = self.get_cross_output(
-            sequence_output, visual_output, attention_mask, video_mask)
-        return self.decode_step_logits(cross_out, concat_mask, input_caption_ids, decoder_mask)
+            sequence_output, visual_output, attention_mask, video_mask, rng)
+        return self.decode_step_logits(cross_out, concat_mask, input_caption_ids, decoder_mask,
+                                       rng)
 
-    def decode_step_logits(self, cross_out, concat_mask, input_caption_ids,
-                           decoder_mask) -> torch.Tensor:
+    def decode_step_logits(self, cross_out, concat_mask, input_caption_ids, decoder_mask,
+                           rng: Optional[Randomness] = None) -> torch.Tensor:
         """The decoder on a cross output computed beforehand (the full-prefix
-        beam search's step)."""
+        beam search's step, and the caption training step's decoder)."""
         emb = self.bert.embeddings
         return self.decoder(input_caption_ids, cross_out, decoder_mask, concat_mask,
-                            emb.word_embeddings.weight, emb.position_embeddings.weight)
+                            emb.word_embeddings.weight, emb.position_embeddings.weight, rng)

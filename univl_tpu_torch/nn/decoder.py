@@ -1,7 +1,14 @@
-"""The autoregressive caption decoder, in PyTorch (inference only).
+"""The autoregressive caption decoder, in PyTorch.
 
 Ports ``univl_tpu/nn/decoder.py``. Each layer: causal self-attention,
-attention over the cross encoder's output, then the FFN, all post-LN. The
+attention over the cross encoder's output, then the FFN, all post-LN. In
+training mode it drops where the JAX decoder does: the embedding (after its
+LayerNorm), every residual block's dense output, and the attention
+probabilities of both attentions. The causal self-attention keeps its
+additive ``[B, 1, L, L]`` bias (``sdpa_bias``, dropout drawn in PyTorch);
+the encoder attention is masked by keys, so in training it takes the
+training-attention kernels (#2) as every key-masked attention of the port
+does, where the JAX decoder stays on XLA. The
 word and position tables and the classifier weight are BERT's: they are
 passed in at call time, so the decoder owns no copy of them and its state
 dict holds only its own parameters, under the reference names
@@ -15,6 +22,8 @@ over the same weights.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -23,8 +32,10 @@ from univl_tpu_torch.nn.layers import (
     LayerNormTF,
     MultiHeadAttention,
     PredictionHeadTransform,
+    Randomness,
     ResidualOutput,
     _Intermediate,
+    dropout,
     gelu_erf,
 )
 
@@ -41,10 +52,12 @@ def decoder_self_attn_bias(answer_mask: torch.Tensor) -> torch.Tensor:
 class _DecoderAttention(nn.Module):
     """Holds ``att`` (the attention) and ``output`` under the reference's names."""
 
-    def __init__(self, hidden_size: int, num_heads: int, compute_dtype, device=None):
+    def __init__(self, cfg, compute_dtype, device=None):
         super().__init__()
-        self.att = MultiHeadAttention(hidden_size, num_heads, compute_dtype, device)
-        self.output = ResidualOutput(hidden_size, hidden_size, compute_dtype, device)
+        h = cfg.hidden_size
+        self.att = MultiHeadAttention(h, cfg.num_attention_heads, compute_dtype, device,
+                                      cfg.attention_probs_dropout_prob)
+        self.output = ResidualOutput(h, h, compute_dtype, device, cfg.hidden_dropout_prob)
 
 
 class DecoderLayer(nn.Module):
@@ -54,17 +67,20 @@ class DecoderLayer(nn.Module):
         super().__init__()
         if cfg.hidden_act != "gelu":
             raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}: only gelu is ported")
-        h, heads = cfg.hidden_size, cfg.num_attention_heads
-        self.slf_attn = _DecoderAttention(h, heads, compute_dtype, device)
-        self.enc_attn = _DecoderAttention(h, heads, compute_dtype, device)
+        h = cfg.hidden_size
+        self.slf_attn = _DecoderAttention(cfg, compute_dtype, device)
+        self.enc_attn = _DecoderAttention(cfg, compute_dtype, device)
         self.intermediate = _Intermediate(h, cfg.intermediate_size, compute_dtype, device)
-        self.output = ResidualOutput(cfg.intermediate_size, h, compute_dtype, device)
+        self.output = ResidualOutput(cfg.intermediate_size, h, compute_dtype, device,
+                                     cfg.hidden_dropout_prob)
 
-    def forward(self, x, encoder_out, self_bias, encoder_mask) -> torch.Tensor:
-        slf_out = self.slf_attn.output(self.slf_attn.att(x, bias=self_bias), x)
-        enc = self.enc_attn.att(slf_out, key_mask=encoder_mask, kv_in=encoder_out)
-        enc_out = self.enc_attn.output(enc, slf_out)
-        return self.output(gelu_erf(self.intermediate.dense(enc_out)), enc_out)
+    def forward(self, x, encoder_out, self_bias, encoder_mask,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
+        slf = self.slf_attn.att(x, bias=self_bias, rng=rng)
+        slf_out = self.slf_attn.output(slf, x, rng)
+        enc = self.enc_attn.att(slf_out, key_mask=encoder_mask, kv_in=encoder_out, rng=rng)
+        enc_out = self.enc_attn.output(enc, slf_out, rng)
+        return self.output(gelu_erf(self.intermediate.dense(enc_out)), enc_out, rng)
 
 
 class _Stack(nn.Module):
@@ -111,15 +127,20 @@ class CaptionDecoder(nn.Module):
         self.classifier = _Classifier(cfg, compute_dtype, device)
 
     def forward(self, input_caption_ids, encoder_out, answer_mask, encoder_mask,
-                word_table: torch.Tensor, pos_table: torch.Tensor) -> torch.Tensor:
-        """``word_table``/``pos_table``: BERT's word and position embeddings."""
+                word_table: torch.Tensor, pos_table: torch.Tensor,
+                rng: Optional[Randomness] = None) -> torch.Tensor:
+        """``word_table``/``pos_table``: BERT's word and position embeddings;
+        ``rng``: the training step's randomness (training mode only)."""
         L = input_caption_ids.shape[1]
         x = word_table[input_caption_ids] + pos_table[:L][None]
-        x = self.embeddings.LayerNorm(x).to(self.compute_dtype)
+        x = self.embeddings.LayerNorm(x)
+        if self.training:
+            x = dropout(x, self.cfg.hidden_dropout_prob, rng)
+        x = x.to(self.compute_dtype)
         self_bias = decoder_self_attn_bias(answer_mask)
         encoder_mask = encoder_mask.float()
         for layer in self.decoder.layer:
-            x = layer(x, encoder_out, self_bias, encoder_mask)
+            x = layer(x, encoder_out, self_bias, encoder_mask, rng)
         pred = self.classifier.cls.predictions
         h = pred.transform(x)
         table = word_table.to(self.compute_dtype)

@@ -23,11 +23,16 @@ the JAX package sends it to its XLA path.
 
 Training mode (``module.training``) adds what the JAX package's
 ``deterministic=False`` adds: hidden dropout after each residual block's
-dense, and key-masked attention through ``kernels.train_attention``
-(forward and backward kernels, the attention-probability dropout drawn inside
-them). Its randomness comes from a ``Randomness`` passed down explicitly;
-nothing reads PyTorch's global random state. Training through the
-additive-bias attention (the decoder's) is not ported yet.
+dense, key-masked attention through ``kernels.train_attention`` (forward and
+backward kernels, the attention-probability dropout drawn inside them), and
+the additive-bias attention (the decoder's causal self-attention) through
+``sdpa_bias`` with its probability dropout drawn in PyTorch, as the JAX
+package's XLA path draws it. Its randomness comes from a ``Randomness``
+passed down explicitly; nothing reads PyTorch's global random state.
+
+``LayerNormTF`` computes in plain PyTorch unless its ``fused`` flag is set
+(``set_fused_layer_norm``, the counterpart of JAX's ``UNIVL_TPU_FUSED_LN=1``,
+set per model): then ``kernels.layernorm.fused_layer_norm`` (#6).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from torch import nn
 from univl_tpu_torch.config import check_fused_ffn
 from univl_tpu_torch.kernels.attention import fused_attention_masked
 from univl_tpu_torch.kernels.ffn import fused_dense_block, fused_ffn, fused_ffn_block
+from univl_tpu_torch.kernels.layernorm import fused_layer_norm
 from univl_tpu_torch.kernels.train_attention import fused_train_attention
 
 MASK_BIAS = -10000.0
@@ -106,32 +112,49 @@ def dropout(x: torch.Tensor, rate: float, rng: Optional[Randomness]) -> torch.Te
     return torch.where(keep, x / keep_prob, 0.0)
 
 
-def sdpa_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: torch.Tensor) -> torch.Tensor:
+def sdpa_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+              dropout_rate: float = 0.0, rng: Optional[Randomness] = None) -> torch.Tensor:
     """Attention with an additive bias broadcastable to [B, H, Lq, Lk], in
     plain PyTorch (``univl_tpu/nn/layers.py:sdpa_xla``): scores and softmax
-    in f32, probs rounded to q's dtype before PV, PV summed in f32."""
+    in f32, the probabilities dropped at ``dropout_rate`` (drawn from
+    ``rng.device``), rounded to q's dtype before PV, PV summed in f32."""
     scores = (torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
               + bias.float())
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, rng).to(q.dtype)
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
 class LayerNormTF(nn.Module):
-    """TF-style LayerNorm: f32 statistics, eps inside the sqrt, output in the input dtype."""
+    """TF-style LayerNorm: f32 statistics, eps inside the sqrt, output in
+    the input dtype; with ``fused`` the LayerNorm kernel (#6)."""
 
     def __init__(self, dim: int, eps: float = LN_EPS, device=None):
         super().__init__()
         self.eps = eps
+        self.fused = False
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return fused_layer_norm(x, self.weight, self.bias, self.eps)
         xf = x.float()
         u = xf.mean(dim=-1, keepdim=True)
         s = (xf - u).square().mean(dim=-1, keepdim=True)
         y = (xf - u) * torch.rsqrt(s + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def set_fused_layer_norm(model: nn.Module, on: bool = True) -> nn.Module:
+    """Route every ``LayerNormTF`` of ``model`` through the LayerNorm kernel
+    (#6), or back: the towers, ``NormalizeVideo``, the decoder and its
+    classifier transform, and so the KV-cache decoder, which calls the same
+    modules. The LayerNorms folded into the fused-FFN kernels (#4, #5) stay
+    where they are. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, LayerNormTF):
+            m.fused = on
+    return model
 
 
 class Linear(nn.Linear):
@@ -167,14 +190,12 @@ class MultiHeadAttention(nn.Module):
                 rng: Optional[Randomness] = None) -> torch.Tensor:
         """Exactly one of ``key_mask`` ([B, Lk], 1 keep, 0 drop: the eval
         attention kernel, or in training the training-attention kernels on
-        the dense projections) and ``bias`` (additive: ``sdpa_bias``)."""
+        the dense projections) and ``bias`` (additive: ``sdpa_bias``, with
+        probability dropout in training)."""
         if (key_mask is None) == (bias is None):
             raise ValueError("give exactly one of key_mask and bias")
         kv_in = x if kv_in is None else kv_in
-        if self.training:
-            if bias is not None:
-                raise NotImplementedError("training through the additive-bias attention (the "
-                                          "caption decoder's) is not ported yet")
+        if self.training and key_mask is not None:
             rate, seed = kernel_dropout(True, self.dropout_rate, rng)
             return fused_train_attention(self.query(x), self.key(kv_in), self.value(kv_in),
                                          key_mask, seed, rate, self.num_heads)
@@ -186,7 +207,7 @@ class MultiHeadAttention(nn.Module):
         if key_mask is not None:
             ctx = fused_attention_masked(q, k, v, key_mask)
         else:
-            ctx = sdpa_bias(q, k, v, bias)
+            ctx = sdpa_bias(q, k, v, bias, self.dropout_rate if self.training else 0.0, rng)
         b, l = x.shape[:2]
         return ctx.transpose(1, 2).reshape(b, l, self.num_heads * self.head_dim)
 
