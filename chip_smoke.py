@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one CUDA card.
+"""Drive the PyTorch port's serving, training and evaluation paths once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,14 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      model's unfused chain for the same work; #4's and #5's forward kernel,
      backward kernel and plain version must drop the same entries. The
      LayerNorm (#6), forward and backward, at the caption step's rows
-     (2,048 and 3,584 x 768, 1,536 x 1,024 in f32) and a ragged 300;
+     (2,048 and 3,584 x 768, 1,536 x 1,024 in f32) and a ragged 300. The
+     classifier transform inside the vocab top-k kernel (#10t) at the decode
+     step's 80 rows and a ragged 37, beside the unfused chain; the causal
+     branch of the eval attention (#1c) at [16, 12, 48, 64] and [80, 12, 48,
+     64] against SDPA with one combined mask; the row gather (#8) on the six
+     decode caches and an int32 array, bitwise, against index_select. No path
+     of the port runs #1c or #8 (none of the JAX package does): they are held
+     here and launch 0 times on the main paths;
   4. the retrieval slice: the port's server (univl_tpu_torch.cli.serve) in
      --mode retrieval at the full width of UniVLConfig.base, with random
      weights from a seed, answers add, search (with cross-encoder rerank) and
@@ -42,12 +50,17 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      what the decode steps imply; a sequential window of requests (clips/s,
      p50/p99); 16 concurrent one-clip requests through the coalescer; and
      torch.profiler over one request (device busy share, each kernel's share);
-  8. the unfused path: a second server with --no-fused_decode
-     --no-fused_vocab, in which the reorder kernel runs once per step;
+  8. the same server with --fused_cls (the classifier transform inside the
+     vocab kernel, #10t, once a decode step in place of #10): launches,
+     captions, a window, and one profiled request's device time and launches
+     a decode step against phase 7's; then the unfused path: a server with
+     --no-fused_decode --no-fused_vocab, in which the reorder kernel runs once
+     per step;
   9. agreement with the CPU: a teacher-forced 47-step trajectory through the
      KV-cache decoder on the card in bf16 against the CPU in f32 (max |dlogp|
-     under a stated limit), and the top-beam captions of 8 clips on the card
-     in f32 against the CPU;
+     under a stated limit), with and without --fused_cls, and the top-beam
+     captions of 8 clips on the card in f32 against the CPU, with and without
+     --fused_cls;
  10. the FT-Joint training slice: univl_tpu_torch.cli.task_retrieval
      --do_train at the full width of UniVLConfig.base (text 12, visual 6
      layers), bf16, batch 32, 40 steps on YouCook2-format fixtures: the loss
@@ -78,12 +91,26 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      every attention over keys, its tiled backward at 128 and 224
      positions) and a pytorch_model.bin.0 that loads back; then --do_eval
      of that file over 32 val clips (beam 5: captions and BLEU, METEOR,
-     ROUGE-L, CIDEr);
+     ROUGE-L, CIDEr), and once more with --fused_cls;
  17. torch.profiler over 3 caption steps with --fused_ln and 3 without;
  18. caption agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, batch 4, dropout 0: card f32 without
      --fused_ln (the control) and with it, card bf16 over 10 steps, with the
-     limits of phase 12 and the control's.
+     limits of phase 12 and the control's;
+ 19. MSRVTT caption eval: univl_tpu_torch.cli.task_caption --do_eval
+     --fused_cls --datatype msrvtt at full width, seeded weights, over 64
+     fixture clips with 20 references each (the caption test layout):
+     captions, BLEU/METEOR/ROUGE-L/CIDEr, #10t once a decode step;
+ 20. MSRVTT retrieval eval: univl_tpu_torch.cli.task_retrieval --do_eval
+     --datatype msrvtt over 1,000 fixture clips (the JSFusion test size), 48
+     words, 48 frames, batch 64: joint (encode clips/s, R@1/5/10, MedR,
+     MeanR), then --train_sim_after_cross (the device-resident rescoring of
+     all 1,000,000 pairs: pairs/s, #1's launches, peak memory);
+ 21. torch.profiler over the eval's encode of 64 clips and the rescoring of
+     their 4,096 pairs (device busy share, kernel time by group);
+ 22. retrieval eval agreement: card f32 against CPU f32 at full width, text 2
+     + visual 1 + cross 1 layers, 64 clips, both modes: the similarity
+     matrices within stated limits and the metrics equal.
 Then one JSON line describing the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 1.
@@ -111,9 +138,12 @@ from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_b
 from univl_tpu_torch.cli import task_caption, task_retrieval
 from univl_tpu_torch.cli.serve import main as serve_main
 from univl_tpu_torch.data import fixtures
-from univl_tpu_torch.data.batching import Batcher
+from univl_tpu_torch.data.batching import Batcher, collate
+from univl_tpu_torch.data.msrvtt import MsrvttRetrievalEvalDataset
 from univl_tpu_torch.data.youcook import YoucookCaptionDataset, YoucookRetrievalDataset
 from univl_tpu_torch.evals.fast_decoder import FastDecoder, encoder_bias
+from univl_tpu_torch.evals.metrics import compute_retrieval_metrics
+from univl_tpu_torch.evals.retrieval import RetrievalEvaluator
 from univl_tpu_torch.kernels import _build
 from univl_tpu_torch.kernels import attention as attn
 from univl_tpu_torch.kernels import decode_attention as dattn
@@ -148,6 +178,14 @@ TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 VOCAB_ATOL = 1e-4  # logp: f32 sums of the same products in another order
 DLOGP_LIMIT = 0.25  # card bf16 vs CPU f32 over the trajectory, stated before the first run
 SAME_CAPTIONS_MIN = 4  # of 8 clips, card f32 vs CPU f32
+# #10t, stated before the first run. f32: the same f32 math in another order
+# (erff against torch.erf): logp within VOCAB_ATOL. bf16: the transform's one
+# rounding to bf16 lands on the other side of a rounding boundary for a few of
+# a row's 768 values, each moving a logit by |w| x one bf16 ulp: within 5e-3
+VOCAB_T_TOL = {"float32": VOCAB_ATOL, "bfloat16": 5e-3}
+VOCAB_T_ROWS = (BATCH * BEAM, 37)  # the decode step's beam rows, and a ragged count
+# #1c: the tower batch's and the decode batch's [B, H, L, D]; the #1 limits
+CAUSAL_SHAPES = [(16, 12, 48, 64), (BATCH * BEAM, 12, 48, 64)]
 # training attention (#2): heads, head dim; (batch, length) of the FT-Joint
 # towers (32 x 48) and of FT-Align's cross tower (1,024 pairs x 96 tokens).
 # The dropout masks are checked at the first (a one-hot V needs L <= D).
@@ -255,6 +293,19 @@ CAP_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1", "
 # control's disagreement (the two routes read alike: #6 adds at most its own
 # rounding)
 AGREE_CAP_BATCH, AGREE_CAP_PARAM_RTOL, AGREE_CAP_FUSED_FACTOR = 4, 1e-4, 3
+# evaluation on MSRVTT-format fixtures at S3D width 1024: retrieval over the
+# JSFusion test split's 1,000 clips (48 words, 48 frames, batch 64; joint, then
+# the device-resident FT-Align rescoring of all 1,000,000 pairs in blocks of 8
+# texts x 64 videos), captioning of 64 clips with 20 references each in the
+# caption test layout (beam 5, batch 32, --fused_cls). YouCook2's 3,328 val
+# clips would give 11 M pairs: minutes of forward passes, so the cut.
+EVAL_CLIPS, EVAL_CAP_CLIPS, EVAL_REFS, EVAL_BATCH = 1000, 64, 20, 64
+# card f32 against CPU f32 at full width on EVAL_AGREE_CLIPS clips, text 2 +
+# visual 1 + cross 1 layers (stated before the first run): the similarity
+# matrices within the limits below (joint: f32 cosines of the same pooled
+# outputs; cross: f32 scores of the cross tower through #1 against its plain
+# version), and the metrics equal
+EVAL_AGREE_CLIPS, EVAL_AGREE_ATOL = 64, {"joint": 1e-5, "cross": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -262,13 +313,21 @@ QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt an
 KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it replaces)
     "eval_attention": (attn.fused_attention_masked, "univl_tpu_torch/csrc/attention.cu",
                        "univl_tpu/kernels/attention.py:65"),
+    "eval_attention_causal": ((attn.fused_attention_masked, "causal_launches"),
+                              "univl_tpu_torch/csrc/attention.cu",
+                              "univl_tpu/kernels/attention.py:47"),
     "beam_reorder_groups": (reorder.beam_reorder_groups_inplace,
                             "univl_tpu_torch/csrc/reorder.cu", "univl_tpu/kernels/reorder.py:28"),
+    "reorder_rows": (reorder.beam_reorder_rows, "univl_tpu_torch/csrc/reorder.cu",
+                     "univl_tpu/kernels/reorder.py:130"),
     "beam_decode_self_attention": (dattn.beam_decode_self_attention,
                                    "univl_tpu_torch/csrc/decode_attention.cu",
                                    "univl_tpu/kernels/decode_attention.py:77"),
     "vocab_topk": (vocab_topk.classify_topk, "univl_tpu_torch/csrc/vocab_topk.cu",
                    "univl_tpu/kernels/vocab_topk.py:62"),
+    "vocab_topk_transform": ((vocab_topk.classify_topk, "transform_launches"),
+                             "univl_tpu_torch/csrc/vocab_topk.cu",
+                             "univl_tpu/kernels/vocab_topk.py:106"),
     "train_attention_fwd": (ta.train_attention_fwd, "univl_tpu_torch/csrc/train_attention.cu",
                             "univl_tpu/kernels/train_attention.py:83"),
     "train_attention_bwd": (ta.train_attention_bwd, "univl_tpu_torch/csrc/train_attention.cu",
@@ -291,10 +350,15 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
     "layernorm_bwd": (ln_k.layer_norm_bwd, "univl_tpu_torch/csrc/layernorm.cu",
                       "univl_tpu/kernels/layernorm.py:79"),
 }
+# the kernels no path of the port (nor of the JAX package) runs: held against
+# their plain versions here, never launched on the main paths
+NO_ROUTE = ("eval_attention_causal", "reorder_rows")
 TRACE_NAMES = {"eval_attention": ("eval_attention_kernel",),
                "beam_reorder_groups": ("reorder_groups_kernel",),
                "beam_decode_self_attention": ("decode_attention_kernel",),
                "vocab_topk": ("vocab_tile_kernel", "vocab_merge_kernel"),
+               "vocab_topk_transform": ("cls_dense_gelu_kernel", "cls_layernorm_kernel"),
+               "reorder_rows": ("gather_rows_kernel",),
                "train_attention_fwd": ("train_attention_fwd_kernel",),
                "train_attention_bwd": ("train_attention_bwd_kernel",),
                "train_attention_bwd_tiled": ("train_attention_bwd_dq_kernel",
@@ -313,13 +377,18 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+def _counter(entry):
+    """(wrapper, attribute) of a KERNELS entry's launch count."""
+    return entry if isinstance(entry, tuple) else (entry, "launches")
+
+
 def reset_launches() -> None:
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
+    for entry, _, _ in KERNELS.values():
+        setattr(*_counter(entry), 0)
 
 
 def read_launches() -> dict:
-    return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
+    return {name: getattr(*_counter(entry)) for name, (entry, _, _) in KERNELS.items()}
 
 
 def cuda_time_ms(fn, runs: int = 20, repeats: int = 5):
@@ -519,6 +588,141 @@ def kernel_vocab_topk() -> dict:
         if dtype == torch.bfloat16:
             row = r
     return {**row, "max_abs_err": worst}
+
+
+def kernel_vocab_topk_transform() -> dict:
+    """#10t: the raw hidden h [R, 768], the classifier transform (an f32 dense
+    [768, 768], GELU, LayerNorm) and BERT's tied 30,522 x 768 classifier,
+    k = 5, at the decode step's 80 rows and a ragged 37. Beside it the chain
+    the decoder runs without --fused_cls for the same work (F.linear, GELU,
+    F.layer_norm in the compute dtype, then #10); no single PyTorch call
+    computes the function."""
+    Hd, V, k = 768, 30522, BEAM
+    worst, row = 0.0, None
+    for R in VOCAB_T_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(5)
+            h = torch.randn(R, Hd, generator=g, device="cuda").to(dtype)
+            w = (0.02 * torch.randn(V, Hd, generator=g, device="cuda")).to(dtype)
+            b = 0.02 * torch.randn(V, generator=g, device="cuda")
+            wt = 0.03 * torch.randn(Hd, Hd, generator=g, device="cuda")  # nn.Linear's [out, in]
+            bt = 0.02 * torch.randn(Hd, generator=g, device="cuda")
+            ga = 1.0 + 0.1 * torch.randn(Hd, generator=g, device="cuda")
+            be = 0.1 * torch.randn(Hd, generator=g, device="cuda")
+            tr = (wt, bt, ga, be, LN_EPS)
+            wp, bp = vocab_topk.pad_vocab_inputs(w, b)
+            logp, idx = vocab_topk.classify_topk(h, wp, bp, k, transform=tr)
+            ref_v, ref_i = vocab_topk.classify_topk_reference(h, w, b, k + 1, transform=tr)
+            torch.cuda.synchronize()
+            tol = VOCAB_T_TOL[dtype_name(dtype)]
+            err = float((logp - ref_v[:, :k]).abs().max())
+            worst = max(worst, err)
+            require(err <= tol, f"vocab top-k with the transform: logp differs from the plain "
+                                f"version's by {err} at R={R} {dtype} (limit {tol})")
+            gaps = (ref_v[:, :-1] - ref_v[:, 1:]).abs()
+            clear = torch.minimum(torch.cat([gaps[:, :1], gaps[:, :-1]], 1), gaps[:, :k]) > tol
+            require(bool((idx[clear] == ref_i[:, :k][clear]).all()),
+                    f"vocab top-k with the transform: indices differ at R={R} {dtype}")
+            what = (f"h {[R, Hd]} W {[V, Hd]} k={k} ({int(clear.sum())} of {R * k} indices "
+                    f"clear of near-ties)")
+            if R != VOCAB_T_ROWS[0]:
+                print(f"vocab_topk_transform {what} {dtype_name(dtype)}: max_abs_err {err:.3e} "
+                      f"(limit {tol})", flush=True)
+                continue
+            ms = cuda_time_ms(lambda: vocab_topk.classify_topk(h, wp, bp, k, transform=tr))
+            plain = cuda_time_ms(
+                lambda: vocab_topk.classify_topk_reference(h, w, b, k, transform=tr))
+            wt_c, bt_c = wt.to(dtype), bt.to(dtype)
+
+            def chain():
+                t = gelu_erf(F.linear(h, wt_c, bt_c))
+                t = F.layer_norm(t.float(), (Hd,), ga, be, LN_EPS).to(dtype)
+                return vocab_topk.classify_topk(t, wp, bp, k)
+
+            chain_ms = cuda_time_ms(chain)
+            es = h.element_size()
+            n_bytes = R * Hd * es + 4 * Hd * Hd + 12 * Hd + V * Hd * es + 4 * V + 12 * R * k
+            bound = bound_ms(n_bytes, 2.0 * R * Hd * (V + Hd), dtype_name(dtype))
+            print(f"vocab_topk_transform {what} {dtype_name(dtype)}: the unfused chain for the "
+                  f"same work (F.linear, GELU, F.layer_norm, #10): device ms {chain_ms[0]:.5f}",
+                  flush=True)
+            r = report("vocab_topk_transform", what, dtype, err, ms, plain, bound)
+            r["unfused_chain_ms"] = chain_ms[0]
+            if dtype == torch.bfloat16:
+                row = r
+    return {**row, "max_abs_err": worst}
+
+
+def kernel_eval_attention_causal() -> dict:
+    """#1c against its plain version on strided head-split views, with a
+    ragged key mask; the queries with no valid key at or before them are
+    padding rows, left out of the comparison as for #1."""
+    worst, row = 0.0, None
+    for B, H, L, D in CAUSAL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(6)
+            q, k, v = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype)
+                       .view(B, L, H, D).transpose(1, 2) for _ in range(3))
+            mask = (torch.rand(B, L, generator=g, device="cuda") > 0.3).float()
+            mask[0, : L // 2] = 0.0  # the first half of row 0's queries see no valid key
+            mask[1] = 0.0  # no valid key at all
+            got = attn.fused_attention_masked(q, k, v, mask, causal=True)
+            want = attn.attention_reference(q, k, v, mask, causal=True)
+            torch.cuda.synchronize()
+            rows = mask.cumsum(dim=1) > 0  # [B, Lq]: a valid key at or before the query
+            got_r, want_r = (t.float().transpose(1, 2)[rows] for t in (got, want))
+            diff = (got_r - want_r).abs()
+            atol, rtol = TOL[dtype_name(dtype)]
+            excess = float((diff - atol - rtol * want_r.abs()).max())
+            err = float(diff.max())
+            worst = max(worst, err)
+            require(excess <= 0.0, f"eval_attention_causal disagrees with its plain version at "
+                                   f"{[B, H, L, D]} {dtype}: max abs err {err}")
+            ms = cuda_time_ms(lambda: attn.fused_attention_masked(q, k, v, mask, causal=True))
+            plain = cuda_time_ms(lambda: attn.attention_reference(q, k, v, mask, causal=True))
+            causal = torch.ones(L, L, dtype=torch.bool, device="cuda").tril()
+            keep = mask.bool()[:, None, None, :] & causal
+            sdpa = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+            n_bytes = 4 * B * H * L * D * q.element_size() + mask.numel() * 4
+            bound = bound_ms(n_bytes, 4.0 * B * H * D * L * (L + 1) / 2, dtype_name(dtype))
+            r = report("eval_attention_causal", str([B, H, L, D]), dtype, err, ms, plain, bound,
+                       (sdpa[0], "scaled_dot_product_attention, one boolean mask: key mask and "
+                                 "causal"))
+            if (B, dtype) == (BATCH * BEAM, torch.bfloat16):
+                row = r
+    return {**row, "max_abs_err": worst}
+
+
+def kernel_reorder_rows() -> dict:
+    """#8: a gather into new buffers over the six decode caches [80, 12, 48,
+    64] (#7's shape) and an int32 [80, 4, 32], with duplicate indices; a copy,
+    so bitwise. The library time is index_select, one call per array."""
+    N, H, D, L = BATCH * BEAM, 12, 64, MAX_WORDS
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        arrays = [torch.randn(N, H, L, D, generator=g, device="cuda").to(dtype)
+                  for _ in range(2 * DECODER_LAYERS)]
+        arrays.append(torch.randint(-1000, 1000, (N, 4, 32), generator=g, device="cuda",
+                                    dtype=torch.int32))
+        src = torch.randint(0, N, (N,), generator=g, device="cuda")
+        src[:4] = 7  # duplicates
+        got = reorder.beam_reorder_rows(arrays, src)
+        want = reorder.reorder_rows_reference(arrays, src)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"reorder_rows differs from its plain version ({dtype})")
+        del got, want
+        ms = cuda_time_ms(lambda: reorder.beam_reorder_rows(arrays, src))
+        plain = cuda_time_ms(lambda: reorder.reorder_rows_reference(arrays, src))
+        lib = cuda_time_ms(lambda: [torch.index_select(a, 0, src) for a in arrays])
+        n_bytes = 2.0 * sum(a.numel() * a.element_size() for a in arrays) + 8 * N
+        r = report("reorder_rows", f"6 x {[N, H, L, D]} + int32 {[N, 4, 32]}", dtype, 0.0, ms,
+                   plain, bound_ms(n_bytes, 0.0, dtype_name(dtype)),
+                   (lib[0], "index_select, one call per array"))
+        if dtype == torch.bfloat16:
+            row = r
+    return row
 
 
 def _sdpa_train(q, k, v, keep):
@@ -1235,9 +1439,10 @@ def ms(events) -> float:
     return sum(e["dur"] for e in events) / 1e3
 
 
-def profile_request(port: int, path: str, body: dict, name: str, trace: str) -> None:
+def profile_request(port: int, path: str, body: dict, name: str, trace: str) -> dict:
     """torch.profiler over one request through the server. Device busy time is
-    the union of the trace's kernel, copy and memset intervals."""
+    the union of the trace's kernel, copy and memset intervals. Returns the
+    request's device busy ms and kernel launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1260,6 +1465,7 @@ def profile_request(port: int, path: str, body: dict, name: str, trace: str) -> 
           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / wall_ms:.4f} of wall); kernels "
           f"{kernel_ms:.3f} ms in {len(kernels)} launches; copies and memsets "
           f"{ms(copies):.3f} ms in {len(copies)}; {'; '.join(ours)}", flush=True)
+    return {"busy_ms": busy_us / 1e3, "kernels": len(kernels)}
 
 
 def phase_profile(port: int, paths, tmp: str, search: dict) -> None:
@@ -1287,22 +1493,27 @@ def check_captions(out: dict, n: int) -> list:
     return caps
 
 
-def phase_caption(tmp: str, vocab: str, paths, fused: bool) -> dict:
-    """The caption server on its default (fused) path, or with
-    --no-fused_decode --no-fused_vocab; returns its launch counts and captions."""
-    label = "fused" if fused else "unfused"
+def phase_caption(tmp: str, vocab: str, paths, fused: bool, fused_cls: bool = False) -> dict:
+    """The caption server on its default (fused) path, with --fused_cls (the
+    classifier transform inside the vocab kernel, #10t), or with
+    --no-fused_decode --no-fused_vocab; returns its launch counts, captions
+    and, on the fused paths, one profiled request's device ms and launches
+    a decode step."""
+    label = "fused_cls" if fused_cls else "fused" if fused else "unfused"
     t0 = time.perf_counter()
     server, thread = start_server(
         ["--device", "cuda", "--mode", "caption", "--vocab_file", vocab,
          "--output_dir", os.path.join(tmp, f"out_{label}"), "--port", "0",
          "--max_words", str(MAX_WORDS), "--max_frames", "48", "--beam_size", str(BEAM),
          "--decoder_num_hidden_layers", str(DECODER_LAYERS), "--serve_batch_size", str(BATCH),
-         "--seed", "0"] + ([] if fused else ["--no-fused_decode", "--no-fused_vocab"]))
+         "--seed", "0"] + ([] if fused else ["--no-fused_decode", "--no-fused_vocab"])
+        + (["--fused_cls"] if fused_cls else []))
     port = server.server_address[1]
     svc = server.caption_service
     gen = svc.generator
-    require((svc.fused_decode, svc.fused_vocab) == (fused, fused),
-            f"caption service fused_decode {svc.fused_decode}, fused_vocab {svc.fused_vocab}")
+    require((svc.fused_decode, svc.fused_vocab, svc.fused_cls) == (fused, fused, fused_cls),
+            f"caption service fused_decode {svc.fused_decode}, fused_vocab {svc.fused_vocab}, "
+            f"fused_cls {svc.fused_cls}")
     print(f"caption server ({label}) up in {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, stage_two=True)
     try:
@@ -1321,14 +1532,16 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool) -> dict:
         expected = {**{k: 0 for k in KERNELS}, "eval_attention": per_batch * batches,
                     "beam_reorder_groups": 0 if fused else steps,
                     "beam_decode_self_attention": DECODER_LAYERS * steps if fused else 0,
-                    "vocab_topk": steps if fused else 0}
+                    "vocab_topk": steps if fused and not fused_cls else 0,
+                    "vocab_topk_transform": steps if fused_cls else 0}
         print(f"caption ({label}): {batches} batches, {steps} decode steps (of at most "
               f"{batches * (MAX_WORDS - 1)}); launches {counts}, the steps imply {expected}",
               flush=True)
         require(counts == expected, f"caption ({label}) launches {counts}, steps imply {expected}")
         require(steps >= batches, f"{steps} decode steps for {batches} batches")
 
-        window, lat, steps0 = UNFUSED_WINDOW if not fused else CAPTION_WINDOW, [], gen.steps
+        window = CAPTION_WINDOW if label == "fused" else UNFUSED_WINDOW
+        lat, steps0, per_step = [], gen.steps, None
         t_window = time.perf_counter()
         for i in range(window):
             t0 = time.perf_counter()
@@ -1341,7 +1554,7 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool) -> dict:
               f"{window * BATCH / t_window:.3f} clips/s over the window; request p50 "
               f"{percentile_ms(lat, 50):.3f} ms, p99 {percentile_ms(lat, 99):.3f} ms", flush=True)
 
-        if fused:
+        if label == "fused":
             batches0 = gen.batches
             t0 = time.perf_counter()
             with ThreadPoolExecutor(max_workers=CONCURRENT) as ex:
@@ -1353,12 +1566,20 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool) -> dict:
                   f"{1e3 * (time.perf_counter() - t0):.3f} ms, served by "
                   f"{gen.batches - batches0} decode batches", flush=True)
             require(gen.batches - batches0 < CONCURRENT, "the coalescer merged no requests")
-            profile_request(port, "/v1/caption", caption_body(paths, 0, False),
-                            f"caption {BATCH} clips ({label})", os.path.join(tmp, "trace.json"))
+        if fused:
+            steps0 = gen.steps
+            prof = profile_request(port, "/v1/caption", caption_body(paths, 0, False),
+                                   f"caption {BATCH} clips ({label})",
+                                   os.path.join(tmp, "trace.json"))
+            n = gen.steps - steps0
+            per_step = {"busy_ms": prof["busy_ms"] / n, "kernels": prof["kernels"] / n}
+            print(f"profile caption ({label}): {n} decode steps; per decode step device busy "
+                  f"{per_step['busy_ms']:.4f} ms, {per_step['kernels']:.2f} kernel launches "
+                  f"(encoders and cross included, spread over the steps)", flush=True)
     finally:
         stop_server(server, thread)
     require(not server.caption_coalescer._worker.is_alive(), "the coalescer did not stop")
-    return {"launches": counts, "captions": captions}
+    return {"launches": counts, "captions": captions, "per_step": per_step}
 
 
 def make_train_data(tmp: str, vocab: str, n_videos: int = TRAIN_VIDEOS):
@@ -1413,7 +1634,7 @@ def phase_train(tmp: str, vocab: str, files, route: str = "ft_joint") -> dict:
     held = torch.cuda.memory_allocated()  # still held by the earlier phases
     reset_launches()
     t0 = time.perf_counter()
-    steps = task_retrieval.main(argv)
+    steps, _ = task_retrieval.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
@@ -1459,6 +1680,7 @@ def _train_batches(ds, n: int, device, batch: int = TRAIN_BATCH) -> list:
 
 
 PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
+    "#1": ("eval_attention_kernel",),
     "#2 forward": ("train_attention_fwd_kernel",),
     "#2 backward": ("train_attention_bwd_kernel",),
     "#2 backward, tiled": ("train_attention_bwd_dq_kernel", "train_attention_bwd_dkdv_kernel"),
@@ -1508,6 +1730,19 @@ def profile_training(model, ds, batch: int, trace: str, label: str) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events, busy_us = device_events(prof, trace, "train")
     kernels = [e for e in events if e["cat"] == "kernel"]
+    text, groups = kernel_groups(kernels, PROFILE_STEPS)
+    print(f"profile {label} train step (profiler on, {PROFILE_STEPS} steps, "
+          f"batches on the card): wall {wall_ms / PROFILE_STEPS:.3f} ms a step; device busy "
+          f"{busy_us / 1e3 / PROFILE_STEPS:.3f} ms a step ({busy_us / 1e3 / wall_ms:.4f} of "
+          f"wall); {len(kernels) / PROFILE_STEPS:.1f} kernel launches a step; {text}",
+          flush=True)
+    return {"wall_ms": wall_ms / PROFILE_STEPS, "busy_ms": busy_us / 1e3 / PROFILE_STEPS,
+            "groups": groups}
+
+
+def kernel_groups(kernels, n_units: int):
+    """The kernels' time by PROFILE_GROUPS and the five largest of the rest:
+    (text for the log, each group's ms per unit)."""
     kernel_ms = ms(kernels)
     parts, rest, groups = [], list(kernels), {}
     for group, needles in PROFILE_GROUPS.items():
@@ -1515,7 +1750,7 @@ def profile_training(model, ds, batch: int, trace: str, label: str) -> dict:
         mine = [e for e, h in zip(rest, hit) if h]
         rest = [e for e, h in zip(rest, hit) if not h]
         if mine:
-            groups[group] = ms(mine) / PROFILE_STEPS
+            groups[group] = ms(mine) / n_units
             parts.append(f"{group} {ms(mine):.3f} ms in {len(mine)} "
                          f"({ms(mine) / kernel_ms:.4f} of kernel time)")
     parts.append(f"the rest {ms(rest):.3f} ms in {len(rest)}")
@@ -1523,14 +1758,8 @@ def profile_training(model, ds, batch: int, trace: str, label: str) -> dict:
     for e in rest:
         top[e["name"][:60]] = top.get(e["name"][:60], 0.0) + e["dur"] / 1e3
     biggest = sorted(top.items(), key=lambda kv: -kv[1])[:5]
-    print(f"profile {label} train step (profiler on, {PROFILE_STEPS} steps, "
-          f"batches on the card): wall {wall_ms / PROFILE_STEPS:.3f} ms a step; device busy "
-          f"{busy_us / 1e3 / PROFILE_STEPS:.3f} ms a step ({busy_us / 1e3 / wall_ms:.4f} of "
-          f"wall); {len(kernels) / PROFILE_STEPS:.1f} kernel launches a step; kernel time over "
-          f"the window: {'; '.join(parts)}; largest of the rest: "
-          f"{', '.join(f'{n} {t:.3f} ms' for n, t in biggest)}", flush=True)
-    return {"wall_ms": wall_ms / PROFILE_STEPS, "busy_ms": busy_us / 1e3 / PROFILE_STEPS,
-            "groups": groups}
+    return (f"kernel time over the window: {'; '.join(parts)}; largest of the rest: "
+            f"{', '.join(f'{n} {t:.3f} ms' for n, t in biggest)}", groups)
 
 
 def _agreement_run(cfg, sd, host, device: str, dtype: str, steps: int, fused_ln: bool = False):
@@ -1744,7 +1973,203 @@ def phase_caption_train(tmp: str, vocab: str, files) -> dict:
     require(eval_counts["layernorm_fwd"] > 0 and eval_counts["eval_attention"] > 0
             and eval_counts["layernorm_bwd"] == 0,
             f"caption eval launches {eval_counts}")
-    return {"caption_train": counts, "caption_eval": eval_counts}
+
+    # the same eval with the classifier transform inside the vocab kernel
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics_cls = task_caption.main(["--do_eval", "--fused_cls", "--output_dir",
+                                        os.path.join(tmp, "caption_eval_cls"), "--init_model",
+                                        os.path.join(out, "pytorch_model.bin.0"), *common])
+    cls_counts = read_launches()
+    with open(os.path.join(tmp, "caption_eval_cls", "hyp.txt")) as f:
+        hyps_cls = f.read().split("\n")
+    same = sum(a == b for a, b in zip(hyps, hyps_cls))
+    print(f"caption eval with --fused_cls (CLI --do_eval, beam 5, {n_val} clips) in "
+          f"{time.perf_counter() - t0:.3f} s: {metrics_cls}; {same} of {n_val} captions as "
+          f"without it; launches {cls_counts}", flush=True)
+    _require_fused_cls_steps(cls_counts, "caption eval --fused_cls (YouCook2)")
+    require(len(hyps_cls) == n_val, f"{len(hyps_cls)} captions for {n_val} clips")
+    return {"caption_train": counts, "caption_eval": eval_counts,
+            "caption_eval_fused_cls": cls_counts}
+
+
+def _require_fused_cls_steps(counts: dict, what: str) -> None:
+    """A --fused_cls decode: #10t once and #9 three times a decode step, #10 never."""
+    steps = counts["vocab_topk_transform"]
+    require(steps > 0 and counts["vocab_topk"] == 0
+            and counts["beam_decode_self_attention"] == DECODER_LAYERS * steps,
+            f"{what}: launches {counts}, want #10t once and #9 {DECODER_LAYERS} times a step")
+
+
+def make_msrvtt_data(tmp: str):
+    """MSRVTT-format fixtures at S3D width 1024, 48 frames a clip: the
+    retrieval files (EVAL_CLIPS videos) and the caption files (EVAL_CAP_CLIPS
+    videos with EVAL_REFS captions each, in the caption test layout)."""
+    kw = dict(sentences_per_video=EVAL_REFS, video_dim=1024, frames=48)
+    t0 = time.perf_counter()
+    ret = fixtures.make_msrvtt(os.path.join(tmp, "msrvtt_ret"), n_videos=EVAL_CLIPS, seed=2, **kw)
+    cap = fixtures.make_msrvtt(os.path.join(tmp, "msrvtt_cap"), n_videos=EVAL_CAP_CLIPS, seed=3,
+                               caption_test_layout=True, **kw)
+    print(f"MSRVTT fixtures: {EVAL_CLIPS} retrieval clips ({os.path.getsize(ret[3]) / 2**20:.1f} "
+          f"MiB of features) and {EVAL_CAP_CLIPS} caption clips in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ret, cap
+
+
+def _msrvtt_argv(files, vocab: str, out: str) -> list:
+    train_csv, test_csv, json_path, feats = files
+    return ["--do_eval", "--device", "cuda", "--datatype", "msrvtt", "--vocab_file", vocab,
+            "--train_csv", train_csv, "--val_csv", test_csv, "--data_path", json_path,
+            "--features_path", feats, "--output_dir", out, "--max_words", str(MAX_WORDS),
+            "--max_frames", "48", "--seed", "0"]
+
+
+def phase_caption_eval_msrvtt(tmp: str, vocab: str, files) -> dict:
+    """task_caption --do_eval --fused_cls --datatype msrvtt at full width with
+    the seeded weights: captions of the test split, scored against every
+    reference of a clip."""
+    out = os.path.join(tmp, "msrvtt_caption_eval")
+    argv = _msrvtt_argv(files, vocab, out) + ["--fused_cls", "--batch_size_val", "32"]
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = task_caption.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    with open(os.path.join(out, "hyp.txt")) as f:
+        hyps = f.read().split("\n")
+    cfg = UniVLConfig.base(stage_two=True)
+    per_batch = (cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
+                 + cfg.cross.num_hidden_layers)
+    batches = -(-EVAL_CAP_CLIPS // 32)
+    print(f"MSRVTT caption eval (CLI --do_eval --fused_cls, beam {BEAM}, batch 32, "
+          f"{EVAL_CAP_CLIPS} clips x {EVAL_REFS} references, bf16) in {wall:.3f} s including "
+          f"set-up ({EVAL_CAP_CLIPS / wall:.3f} clips/s): {metrics}; first captions {hyps[:2]}; "
+          f"launches {counts}", flush=True)
+    require(len(hyps) == EVAL_CAP_CLIPS and all(isinstance(h, str) for h in hyps)
+            and all(math.isfinite(metrics[k]) for k in ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr")),
+            f"MSRVTT caption eval: {len(hyps)} captions, metrics {metrics}")
+    _require_fused_cls_steps(counts, "MSRVTT caption eval")
+    require(counts["eval_attention"] == per_batch * batches,
+            f"eval_attention {counts['eval_attention']}, want {per_batch} x {batches} batches")
+    return counts
+
+
+def phase_retrieval_eval(tmp: str, vocab: str, files, mode: str) -> dict:
+    """task_retrieval --do_eval --datatype msrvtt at full width with the seeded
+    weights over EVAL_CLIPS clips: joint, or cross (--train_sim_after_cross:
+    the device-resident FT-Align rescoring of every pair)."""
+    out = os.path.join(tmp, f"msrvtt_retrieval_{mode}")
+    argv = _msrvtt_argv(files, vocab, out) + ["--batch_size_val", str(EVAL_BATCH)]
+    if mode == "cross":
+        argv.append("--train_sim_after_cross")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = task_retrieval.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = UniVLConfig.base(train_sim_after_cross=True)
+    tb, vb = 8, 64  # RetrievalEvaluator's blocks
+    encode = -(-EVAL_CLIPS // EVAL_BATCH) * (cfg.bert.num_hidden_layers
+                                             + cfg.visual.num_hidden_layers)
+    cross = (-(-EVAL_CLIPS // tb) * -(-EVAL_CLIPS // vb) * cfg.cross.num_hidden_layers
+             if mode == "cross" else 0)
+    want = {**{k: 0 for k in KERNELS}, "eval_attention": encode + cross}
+    rates = f"encode {EVAL_CLIPS / metrics['encode_s']:.3f} clips/s ({metrics['encode_s']:.3f} s)"
+    if mode == "cross":
+        rates += (f"; FT-Align rescoring {EVAL_CLIPS ** 2 / metrics['similarity_s']:.1f} pairs/s "
+                  f"({EVAL_CLIPS ** 2} pairs in {metrics['similarity_s']:.3f} s, blocks of "
+                  f"{tb} texts x {vb} videos: #1 at {[tb * vb, 12, 96, 64]})")
+    print(f"MSRVTT retrieval eval ({mode}; CLI --do_eval, bf16, {EVAL_CLIPS} clips, 48 words, 48 "
+          f"frames, batch {EVAL_BATCH}) in {wall:.3f} s including set-up: R@1 {metrics['R1']}, "
+          f"R@5 {metrics['R5']}, R@10 {metrics['R10']}, MedR {metrics['MR']}, MeanR "
+          f"{metrics['MeanR']}; {rates}; peak device memory {(peak - held) / 2**30:.3f} GiB "
+          f"above the {held / 2**30:.3f} GiB held before; launches {counts}, the passes imply "
+          f"{want}", flush=True)
+    require(metrics["mode"] == mode and all(math.isfinite(metrics[k]) for k in
+                                            ("R1", "R5", "R10", "MR", "MeanR")),
+            f"retrieval eval ({mode}): {metrics}")
+    require(counts == want, f"retrieval eval ({mode}) launches {counts}, want {want}")
+    return counts
+
+
+def phase_eval_profile(vocab: str, files, tmp: str) -> None:
+    """torch.profiler over the retrieval eval's two device passes at full
+    width in bf16 (seeded weights, FT-Align): the encode of one batch of
+    EVAL_BATCH clips, and the rescoring of those clips against each other
+    (8 stripes of one block of 8 texts x 64 videos): device busy share and
+    the kernels' time by group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, test_csv, _, feats = files
+    cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, train_sim_after_cross=True,
+                           compute_dtype="bfloat16")
+    model = UniVL(cfg, device="cuda")
+    model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    ev = RetrievalEvaluator(model.eval(), batch_size=EVAL_BATCH)
+    ds = MsrvttRetrievalEvalDataset(test_csv, feats, WordPieceTokenizer(vocab),
+                                    max_words=MAX_WORDS, max_frames=48, seed=0)
+    batch = collate([ds[i] for i in range(EVAL_BATCH)])
+    passes = {"encode": lambda: ev.encode_dataset_device([batch]),
+              "rescoring": lambda: ev.cross_sim_matrix_device(enc)}
+    enc = passes["encode"]()
+    for name, fn in passes.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events, busy_us = device_events(prof, os.path.join(tmp, f"eval_{name}.json"), name)
+        kernels = [e for e in events if e["cat"] == "kernel"]
+        what = (f"{EVAL_BATCH} clips" if name == "encode"
+                else f"{EVAL_BATCH ** 2} pairs in {EVAL_BATCH // 8} blocks of 512")
+        text, _ = kernel_groups(kernels, 1)
+        print(f"profile retrieval eval {name} ({what}, profiler on): wall {wall_ms:.3f} ms; "
+              f"device busy {busy_us / 1e3:.3f} ms ({busy_us / 1e3 / wall_ms:.4f} of wall); "
+              f"{len(kernels)} kernel launches; {text}", flush=True)
+
+
+def phase_retrieval_agreement(vocab: str, files) -> None:
+    """RetrievalEvaluator on the card in f32 (#1) against the CPU in f32 (its
+    plain version), the same weights and clips, in both modes."""
+    _, test_csv, _, feats = files
+    cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, train_sim_after_cross=True,
+                           text_num_hidden_layers=2, visual_num_hidden_layers=1,
+                           cross_num_hidden_layers=1)
+    sd = init_state_dict(cfg, seed=0)
+    ds = MsrvttRetrievalEvalDataset(test_csv, feats, WordPieceTokenizer(vocab),
+                                    max_words=MAX_WORDS, max_frames=48, seed=0)
+    batch = collate([ds[i] for i in range(EVAL_AGREE_CLIPS)])
+    sims = {}
+    for dev in ("cpu", "cuda"):
+        model = UniVL(cfg, device=dev)
+        model.load_state_dict(sd, strict=True)
+        ev = RetrievalEvaluator(model.eval(), batch_size=EVAL_AGREE_CLIPS)
+        t0 = time.perf_counter()
+        sims[dev] = {"joint": ev.joint_sim_matrix(ev.encode_dataset([batch], store_full=False)),
+                     "cross": ev.cross_sim_matrix_device(ev.encode_dataset_device([batch]))}
+        print(f"retrieval agreement: {dev} f32 similarity matrices in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del model
+    for mode, limit in EVAL_AGREE_ATOL.items():
+        card, cpu = sims["cuda"][mode], sims["cpu"][mode]
+        err = float(np.abs(card - cpu).max())
+        m_card, m_cpu = compute_retrieval_metrics(card), compute_retrieval_metrics(cpu)
+        print(f"retrieval agreement ({mode}), card f32 vs CPU f32 at full width, text 2 + visual "
+              f"1 + cross 1 layers, {EVAL_AGREE_CLIPS} clips: max |dsim| {err:.3e} (limit "
+              f"{limit}; scores span {float(np.ptp(cpu)):.4f}); metrics card {m_card}, CPU "
+              f"{m_cpu}", flush=True)
+        require(np.isfinite(card).all() and card.shape == (EVAL_AGREE_CLIPS,) * 2,
+                f"card similarity ({mode}) shape {card.shape}")
+        require(err <= limit, f"retrieval agreement ({mode}): max |dsim| {err} > {limit}")
+        require(m_card == m_cpu, f"retrieval agreement ({mode}): metrics differ")
 
 
 def phase_caption_profile(ds, tmp: str) -> None:
@@ -1847,17 +2272,24 @@ def phase_agreement(vocab: str, clips) -> None:
         m.load_state_dict(sd, strict=True)
         models[name] = (m.eval(), torch.device(dev))
 
-    services = {name: CaptionService(models[name][0], tok, models[name][1], beam_size=BEAM,
-                                     batch_size=8) for name in ("cpu", "card_f32")}
+    services = {}
+    for name, (model, dev) in (("cpu", models["cpu"]), ("card_f32", models["card_f32"])):
+        for cls in (False, True):  # on the CPU --fused_cls needs the vocab top-k's plain version
+            services[name + ("_cls" if cls else "")] = CaptionService(
+                model, tok, dev, beam_size=BEAM, batch_size=8, fused_vocab=True if cls else None,
+                fused_cls=cls)
     require(services["card_f32"].fused_decode and services["card_f32"].fused_vocab,
             "the card's f32 caption service is not on the fused path")
+    require(services["card_f32_cls"].fused_cls and services["cpu_cls"].fused_cls,
+            "a --fused_cls caption service does not take the transform into the vocab kernel")
 
-    # teacher-forced trajectory through the KV-cache decoder
+    # teacher-forced trajectory through the KV-cache decoder; with fused_cls the
+    # step returns the raw hidden and #10t gives the top-5 of its logp
     n, steps = 8, MAX_WORDS - 1
     batch = services["cpu"]._build_batch(clips[:n], None)
     tokens = np.random.RandomState(4).randint(5, 30522, (n, steps))
-    logps = {}
-    for name in ("cpu", "card_bf16"):
+
+    def trajectory(name: str, fused_cls: bool = False):
         model, dev = models[name]
         with torch.inference_mode():
             b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -1872,23 +2304,47 @@ def phase_agreement(vocab: str, clips) -> None:
             out = []
             for t in range(steps):
                 tok_t = torch.from_numpy(tokens[:, t]).to(dev)
-                logits, cache = fd.step_fused(tok_t, t, cache, enc_kv, bias, identity, 1)
-                out.append(torch.log_softmax(logits, dim=-1).cpu())
-        logps[name] = torch.stack(out)
-    dlogp = float((logps["card_bf16"] - logps["cpu"]).abs().max())
-    require(bool(torch.isfinite(logps["card_bf16"]).all()), "non-finite logp on the card")
+                h, cache = fd.step_fused(tok_t, t, cache, enc_kv, bias, identity, 1,
+                                         return_hidden="raw" if fused_cls else False)
+                if fused_cls:
+                    logp, idx = vocab_topk.classify_topk(h, *fd.classifier_padded, BEAM,
+                                                         transform=fd.cls_transform)
+                    out.append((logp.cpu(), idx.cpu()))
+                else:
+                    out.append(torch.log_softmax(h, dim=-1).cpu())
+        if fused_cls:
+            return tuple(torch.stack(x) for x in zip(*out))
+        return torch.stack(out)
+
+    cpu = trajectory("cpu")
+    card = trajectory("card_bf16")
+    dlogp = float((card - cpu).abs().max())
+    require(bool(torch.isfinite(card).all()), "non-finite logp on the card")
     print(f"agreement: teacher-forced {steps}-step trajectory of {n} clips through the KV-cache "
           f"decoder (decode-attention kernel, identity permutation), card bf16 vs CPU f32: max "
-          f"|dlogp| {dlogp:.4e} over all {logps['cpu'].numel()} entries (limit {DLOGP_LIMIT})",
+          f"|dlogp| {dlogp:.4e} over all {cpu.numel()} entries (limit {DLOGP_LIMIT})",
           flush=True)
     require(dlogp <= DLOGP_LIMIT, f"card vs CPU |dlogp| {dlogp} > {DLOGP_LIMIT}")
+    logp_cls, idx_cls = trajectory("card_bf16", fused_cls=True)
+    dlogp_cls = float((logp_cls - cpu.gather(2, idx_cls)).abs().max())
+    top1 = float((idx_cls[..., 0] == cpu.argmax(dim=2)).float().mean())
+    print(f"agreement: the same trajectory with --fused_cls (raw hidden, #10t), card bf16 top-"
+          f"{BEAM} logp vs CPU f32 log_softmax at the card's tokens: max |dlogp| "
+          f"{dlogp_cls:.4e} over {logp_cls.numel()} entries (limit {DLOGP_LIMIT}); top-1 the "
+          f"CPU's argmax at {top1:.4f} of the steps", flush=True)
+    require(bool(torch.isfinite(logp_cls).all()) and dlogp_cls <= DLOGP_LIMIT,
+            f"--fused_cls card vs CPU |dlogp| {dlogp_cls} > {DLOGP_LIMIT}")
 
-    # top-beam captions of 8 clips, card f32 (its kernels) vs CPU f32 (plain versions)
+    # top-beam captions of 8 clips, card f32 (its kernels) vs CPU f32 (plain
+    # versions), with the transform outside and inside the vocab kernel
     captions = {name: svc.caption(clips[:8]) for name, svc in services.items()}
-    same = sum(a == b for a, b in zip(captions["cpu"], captions["card_f32"]))
-    print(f"agreement: top-beam captions of 8 clips, card f32 (fused kernels) vs CPU f32 (plain "
-          f"versions): {same} of 8 the same (at least {SAME_CAPTIONS_MIN} required)", flush=True)
-    require(same >= SAME_CAPTIONS_MIN, f"only {same} of 8 captions agree")
+    for suffix, what in (("", "fused kernels"), ("_cls", "--fused_cls, #10t")):
+        same = sum(a == b for a, b in zip(captions["cpu" + suffix],
+                                          captions["card_f32" + suffix]))
+        print(f"agreement: top-beam captions of 8 clips, card f32 ({what}) vs CPU f32 (plain "
+              f"versions): {same} of 8 the same (at least {SAME_CAPTIONS_MIN} required)",
+              flush=True)
+        require(same >= SAME_CAPTIONS_MIN, f"only {same} of 8 captions agree ({what})")
 
 
 def main() -> int:
@@ -1912,6 +2368,9 @@ def main() -> int:
                 "beam_reorder_groups": kernel_reorder(),
                 "beam_decode_self_attention": kernel_decode_attention(),
                 "vocab_topk": kernel_vocab_topk(),
+                "vocab_topk_transform": kernel_vocab_topk_transform(),
+                "eval_attention_causal": kernel_eval_attention_causal(),
+                "reorder_rows": kernel_reorder_rows(),
                 **kernel_train_attention(),
                 **kernel_train_attention_tiled(),
                 **kernel_ffn(),
@@ -1928,11 +2387,19 @@ def main() -> int:
         by_path["retrieval"] = {**{k: 0 for k in KERNELS},
                                 "eval_attention": phase_slice(tmp, vocab, paths, clips)}
         fused = phase_caption(tmp, vocab, paths, fused=True)
+        fused_cls = phase_caption(tmp, vocab, paths, fused=True, fused_cls=True)
         unfused = phase_caption(tmp, vocab, paths, fused=False)
         by_path["caption"], by_path["caption_unfused"] = fused["launches"], unfused["launches"]
-        same = sum(a == b for a, b in zip(fused["captions"], unfused["captions"]))
-        print(f"fused vs unfused captions (bf16, same requests): {same} of "
-              f"{len(fused['captions'])} the same", flush=True)
+        by_path["caption_fused_cls"] = fused_cls["launches"]
+        for name, other in (("unfused", unfused), ("--fused_cls", fused_cls)):
+            same = sum(a == b for a, b in zip(fused["captions"], other["captions"]))
+            print(f"fused vs {name} captions (bf16, same requests): {same} of "
+                  f"{len(fused['captions'])} the same", flush=True)
+        print(f"caption decode step, the transform unfused against --fused_cls (one profiled "
+              f"request each): device busy {fused['per_step']['busy_ms']:.4f} against "
+              f"{fused_cls['per_step']['busy_ms']:.4f} ms, kernel launches "
+              f"{fused['per_step']['kernels']:.2f} against "
+              f"{fused_cls['per_step']['kernels']:.2f}", flush=True)
         phase_agreement(vocab, clips)
         files, ds = make_train_data(tmp, vocab)
         by_path["train"] = phase_train(tmp, vocab, files)
@@ -1949,11 +2416,20 @@ def main() -> int:
         by_path.update(phase_caption_train(tmp, vocab, cap_files))
         phase_caption_profile(cap_ds, tmp)
         phase_caption_agreement(cap_ds)
+        ret_files, msrvtt_cap_files = make_msrvtt_data(tmp)
+        by_path["caption_eval_msrvtt"] = phase_caption_eval_msrvtt(tmp, vocab, msrvtt_cap_files)
+        for mode in ("joint", "cross"):
+            by_path[f"retrieval_eval_{mode}"] = phase_retrieval_eval(tmp, vocab, ret_files, mode)
+        phase_eval_profile(vocab, ret_files, tmp)
+        phase_retrieval_agreement(vocab, ret_files)
 
     rows = []
-    for name, (wrapper, source, replaces) in KERNELS.items():
+    for name, (_, source, replaces) in KERNELS.items():
         launches = sum(counts[name] for counts in by_path.values())
-        require(launches > 0, f"{name} never launched on the main paths")
+        if name in NO_ROUTE:
+            require(launches == 0, f"{name} launched on a main path: {launches}")
+        else:
+            require(launches > 0, f"{name} never launched on the main paths")
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches,
                      "launches_by_path": {p: c[name] for p, c in by_path.items()},

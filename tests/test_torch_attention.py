@@ -1,5 +1,6 @@
 """The port's eval attention (univl_tpu_torch/kernels/attention.py) against
-the Pallas kernel it replaces, run in interpret mode on the CPU.
+the Pallas kernel it replaces, run in interpret mode on the CPU, with its
+key mask and with its causal branch.
 
 On a CPU tensor the port's wrapper takes the plain PyTorch version; the
 CUDA kernel itself is checked against that version on the card by
@@ -49,6 +50,36 @@ def test_matches_pallas_kernel(B, H, L, D):
     np.testing.assert_allclose(got_ref, want, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got, got_ref)  # the CPU wrapper is the plain version
     assert fused_attention_masked.launches == 0  # no kernel launch on the CPU
+
+
+def _causal_rows(mask, Lq):
+    """[B, Lq]: the query keeps a valid key at or before its own position;
+    the other rows are discarded (padding), as for the key mask alone."""
+    return np.cumsum(mask, axis=1)[:, :Lq] > 0
+
+
+# f32: as above, 1e-5. The shapes: square, and Lk != Lq, where row and column
+# are compared directly (no offset), as in the TPU kernel.
+@pytest.mark.parametrize("B,H,Lq,Lk,D", [(2, 3, 10, 10, 8), (2, 12, 48, 48, 64),
+                                         (2, 2, 6, 12, 16)])
+def test_causal_matches_pallas_kernel(B, H, Lq, Lk, D):
+    rng = np.random.RandomState(3)
+    q = rng.randn(B, H, Lq, D).astype(np.float32)
+    k, v = (rng.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
+    mask = (rng.rand(B, Lk) > 0.3).astype(np.float32)
+    mask[0, :3] = 0.0  # the first queries of row 0 see no valid key: discarded
+    mask[1, 0] = 1.0
+    want = np.asarray(jax_attention(*(jnp.asarray(a) for a in (q, k, v, mask)), causal=True))
+    t = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    got = fused_attention_masked(*t, causal=True).numpy()
+    keep = _causal_rows(mask, Lq)
+    assert not keep.all()
+    np.testing.assert_allclose(got.transpose(0, 2, 1, 3)[keep],
+                               want.transpose(0, 2, 1, 3)[keep], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got, attention_reference(*t, causal=True).numpy())
+    # the first query attends to key 0 alone where that key is valid
+    np.testing.assert_array_equal(got[1, :, 0], v[1, :, 0])
+    assert fused_attention_masked.launches == fused_attention_masked.causal_launches == 0
 
 
 def test_strided_head_split_views():

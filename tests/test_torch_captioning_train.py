@@ -159,6 +159,24 @@ def test_stage_two_fused_layernorm_matches_jax_fused_layernorm(stage_two, monkey
         _check_loss_and_grads(stage_two, fused_ln=True)
 
 
+def test_stage_two_without_caption_ids_matches_jax(stage_two):
+    """A stage-two batch without caption ids: JAX adds no decoder loss
+    (univl_tpu/models/univl.py:509), so the caption route's dict is the total
+    alone, 0, and the retrieval route's is unchanged."""
+    task, _, cfg, jm, params, batch = stage_two
+    batch = {k: v for k, v in batch.items() if "caption" not in k and k != "decoder_mask"}
+    jout = jax.jit(lambda p, b: jm.apply({"params": p}, b, deterministic=True))(params, batch)
+    model = UniVL(cfg)
+    model.load_state_dict({**model.state_dict(), **state_dict_from_jax_params(params)},
+                          strict=True)
+    with torch.no_grad():
+        out = model.eval()(_t(batch))
+    assert set(out) == set(jout) == ({"loss"} if task == "caption"
+                                     else {"loss", "sim_loss_text_visual"})
+    for k in out:
+        np.testing.assert_allclose(out[k].item(), float(jout[k]), rtol=1e-5, atol=0, err_msg=k)
+
+
 def test_masked_cross_entropy_with_padded_targets():
     """0-padded targets count (the caption convention), -1 positions do not,
     all ignored gives 0."""
@@ -275,7 +293,7 @@ def test_cli_trains_evaluates_and_writes_a_bin(caption_files, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--do_pretrain"], ["--use_mil"], ["--load_checkpoint"], ["--zero1"], ["--remat"],
-    ["--fused_cls"], ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "msrvtt"],
+    ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--train_sim_after_cross"],
 ])
 def test_cli_refuses_what_it_does_not_run(caption_files, tmp_path, extra, capsys):

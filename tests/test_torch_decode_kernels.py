@@ -1,7 +1,9 @@
 """The plain versions of the port's decode kernels (univl_tpu_torch/kernels/
 reorder.py, decode_attention.py, vocab_topk.py) against the Pallas kernels
-they replace, run in interpret mode on the CPU; and the decoder's weights
-carried across from a JAX tree and a reference .bin.
+they replace, run in interpret mode on the CPU (the grouped reorder and the
+row gather, the decode attention, the vocab top-k with and without its
+classifier transform); and the decoder's weights carried across from a JAX
+tree and a reference .bin.
 
 On a CPU tensor each wrapper computes its plain version; the CUDA kernels
 are held against those versions on the card by chip_smoke.py.
@@ -17,6 +19,7 @@ from univl_tpu.checkpoint.torch_convert import export_torch_state_dict, save_tor
 from univl_tpu.config import UniVLConfig as JaxConfig
 from univl_tpu.kernels.decode_attention import beam_decode_self_attention as jax_decode_attention
 from univl_tpu.kernels.reorder import beam_reorder_groups_inplace as jax_reorder
+from univl_tpu.kernels.reorder import beam_reorder_rows as jax_reorder_rows
 from univl_tpu.kernels.vocab_topk import classify_topk as jax_classify_topk
 from univl_tpu.models.univl import UniVL as JaxUniVL
 from univl_tpu_torch.checkpoint.convert import (
@@ -29,8 +32,13 @@ from univl_tpu_torch.kernels.decode_attention import (
     beam_decode_self_attention,
     decode_attention_reference,
 )
-from univl_tpu_torch.kernels.reorder import beam_reorder_groups_inplace
+from univl_tpu_torch.kernels.reorder import (
+    beam_reorder_groups_inplace,
+    beam_reorder_rows,
+    reorder_rows_reference,
+)
 from univl_tpu_torch.kernels.vocab_topk import (
+    classifier_transform_reference,
     classify_topk,
     classify_topk_reference,
     pad_vocab_inputs,
@@ -65,6 +73,40 @@ def test_reorder_bitwise_equals_pallas():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert beam_reorder_groups_inplace.launches == 0  # no kernel launch on the CPU
+
+
+def test_reorder_rows_bitwise_equals_pallas():
+    """The gather: duplicates, several trailing shapes and dtypes (f32, bf16,
+    int32), new buffers."""
+    rng = np.random.RandomState(5)
+    arrays = [rng.randn(N, H, L, D).astype(np.float32),
+              rng.randn(N, 4, 32).astype(np.float32),
+              rng.randint(-9, 9, (N, 3)).astype(np.int32)]
+    src = np.array([0, 0, 5, 2, 2, 2], np.int32)
+    jax_arrays = [jnp.asarray(arrays[0]), jnp.asarray(arrays[1], jnp.bfloat16),
+                  jnp.asarray(arrays[2])]
+    want = jax.jit(jax_reorder_rows)(jax_arrays, jnp.asarray(src))
+    got_in = [torch.from_numpy(arrays[0]), torch.from_numpy(arrays[1]).bfloat16(),
+              torch.from_numpy(arrays[2])]
+    got = beam_reorder_rows(got_in, torch.from_numpy(src))
+    assert all(g is not a for g, a in zip(got, got_in))  # new buffers
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w, np.float32))
+    assert [g.dtype for g in got] == [torch.float32, torch.bfloat16, torch.int32]
+    assert beam_reorder_rows.launches == 0
+
+
+@pytest.mark.parametrize("case", ["rows", "src_dtype", "empty"])
+def test_reorder_rows_rejects_bad_inputs(case):
+    a, src = torch.zeros(N, 4), torch.arange(N)
+    with pytest.raises(ValueError):
+        if case == "rows":
+            beam_reorder_rows([a[:K]], src)
+        elif case == "src_dtype":
+            beam_reorder_rows([a], src.float())
+        else:
+            beam_reorder_rows([], src)
+    assert [t.tolist() for t in reorder_rows_reference([a], src)] == [a.tolist()]
 
 
 def _decode_inputs(t, seed=0):
@@ -113,6 +155,61 @@ def test_vocab_topk_matches_pallas_with_ties():
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_array_equal(got_i[:, :3].numpy(), [[10, 20, 300]] * h.shape[0])
     assert classify_topk.launches == 0
+
+
+def _transform_inputs(Hd=32, seed=6):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(Hd, Hd).astype(np.float32) * 0.2,  # nn.Linear's [out, in]
+            rng.randn(Hd).astype(np.float32) * 0.1,
+            1.0 + rng.randn(Hd).astype(np.float32) * 0.1,
+            rng.randn(Hd).astype(np.float32) * 0.1)
+
+
+# f32: the same f32 math in another order, and torch.erf against the TPU
+# kernel's A&S 7.1.26 polynomial (|err| <= 1.5e-7): within 1e-5
+def test_vocab_topk_transform_matches_pallas():
+    h, w, b = _vocab_inputs()
+    w[300] = w[10] = w[20] = 0.0  # the tie of _vocab_inputs survives the transform
+    wt, bt, g, lb = _transform_inputs()
+
+    def jax_fn(h, w, b, wt_in_out, bt, g, lb):
+        return jax_classify_topk(h, w, b, 5, block_v=128, interpret=True,
+                                 transform=(wt_in_out, bt, g, lb, 1e-12))
+
+    want_v, want_i = jax.jit(jax_fn)(*(jnp.asarray(a) for a in (h, w, b, wt.T, bt, g, lb)))
+    tr = tuple(torch.from_numpy(a) for a in (wt, bt, g, lb)) + (1e-12,)
+    got_v, got_i = classify_topk(*(torch.from_numpy(a) for a in (h, w, b)), 5, transform=tr)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_i[:, :3].numpy(), [[10, 20, 300]] * h.shape[0])
+    # the transform then the plain top-k, composed by hand
+    ht = classifier_transform_reference(torch.from_numpy(h), *tr)
+    for a, c in zip(classify_topk_reference(ht, *(torch.from_numpy(x) for x in (w, b)), 5),
+                    (got_v, got_i)):
+        np.testing.assert_array_equal(a.numpy(), c.numpy())
+    assert classify_topk.launches == classify_topk.transform_launches == 0
+
+
+def test_vocab_topk_transform_rounds_once():
+    """bf16: the transform runs in f32 and rounds once, at its end."""
+    h = torch.from_numpy(np.random.RandomState(7).randn(4, 32).astype(np.float32))
+    tr = tuple(torch.from_numpy(a) for a in _transform_inputs()) + (1e-12,)
+    got = classifier_transform_reference(h.bfloat16(), *tr)
+    want = classifier_transform_reference(h.bfloat16().float(), *tr).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype"])
+def test_vocab_topk_transform_rejects_bad_parameters(case):
+    h, w, b = (torch.from_numpy(a) for a in _vocab_inputs())
+    wt, bt, g, lb = (torch.from_numpy(a) for a in _transform_inputs())
+    err = ValueError
+    if case == "shape":
+        wt = wt[:, :16]
+    else:
+        g, err = g.double(), TypeError
+    with pytest.raises(err):
+        classify_topk(h, w, b, 5, transform=(wt, bt, g, lb, 1e-12))
 
 
 def test_vocab_padding_changes_nothing():

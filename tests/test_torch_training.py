@@ -372,8 +372,9 @@ def _cli_argv(files, out, *extra):
 
 def test_cli_trains_and_writes_a_bin_jax_reads(youcook_files, tmp_path):
     out = str(tmp_path / "out")
-    steps = task_retrieval.main(_cli_argv(youcook_files, out, "--gradient_accumulation_steps",
-                                          "2"))
+    steps, best = task_retrieval.main(_cli_argv(youcook_files, out,
+                                                "--gradient_accumulation_steps", "2"))
+    assert best is None  # no --do_eval
     assert steps == 3  # 15 pairs in update-batches of 2 micro-batches of 2
     records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     train = [r for r in records if r["kind"] == "train"]
@@ -399,7 +400,7 @@ def test_cli_trains_ft_align_and_writes_a_bin_jax_reads(youcook_files, tmp_path,
                      "--cross_num_hidden_layers", "1")
     argv[argv.index("--hidden_size") + 1] = "128"
     argv[argv.index("--intermediate_size") + 1] = "256"
-    assert task_retrieval.main(argv) == 3  # 15 pairs in batches of 4, the last one wrapped
+    assert task_retrieval.main(argv)[0] == 3  # 15 pairs in batches of 4, the last one wrapped
     train = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     assert [r["step"] for r in train if r["kind"] == "train"] == [1, 2, 3]
     assert all(np.isfinite(r["loss"]) for r in train if r["kind"] == "train")
@@ -418,9 +419,9 @@ def test_cli_trains_ft_align_and_writes_a_bin_jax_reads(youcook_files, tmp_path,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--do_eval"], ["--do_pretrain"], ["--load_checkpoint"], ["--zero1"], ["--remat"],
+    ["--do_pretrain"], ["--load_checkpoint"], ["--zero1"], ["--remat"],
     ["--use_mil"], ["--sampled_use_mil"], ["--do_pretrain", "--stage_two"],
-    ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "msrvtt"],
+    ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--fused_ffn", "auto"], ["--fused_ffn", "auto_block"],  # TPU-measured row thresholds
     ["--train_attention", "pallas"],  # a TPU-only knob: not a flag of the port
 ])
@@ -433,6 +434,41 @@ def test_cli_refuses_what_it_does_not_run(youcook_files, tmp_path, extra, capsys
 
 
 def test_cli_needs_do_train(youcook_files, tmp_path):
+    """Neither --do_train nor --do_eval: nothing to run."""
     argv = [a for a in _cli_argv(youcook_files, str(tmp_path / "out")) if a != "--do_train"]
     with pytest.raises(SystemExit):
         task_retrieval.main(argv)
+
+
+class _StubTrainer:
+    """One step per batch, a fixed loss; the model is saved each epoch."""
+
+    def __init__(self):
+        self.model = torch.nn.Linear(1, 1)
+
+    def train_step(self, batch, global_step):
+        return {"loss": torch.tensor(1.0)}
+
+
+class _StubBatcher:
+    def epoch(self, epoch):
+        yield {"x": np.zeros((1, 1), np.float32)}
+
+
+@pytest.mark.parametrize("select_sign", [1.0, -1.0])
+def test_best_epoch_skips_a_nan_metric(tmp_path, select_sign):
+    """As JAX's run_train_epochs: the best starts at -inf and a NaN metric
+    never beats it, so the first epoch's NaN is not kept as the best; with
+    select_sign -1 the smaller value wins."""
+    from types import SimpleNamespace
+
+    from univl_tpu_torch.cli import common
+
+    scores = iter([float("nan"), 0.25, 0.5])
+    args = SimpleNamespace(epochs=3, gradient_accumulation_steps=1, batch_size=1,
+                           n_display=1, output_dir=str(tmp_path))
+    steps, best = common.run_train_epochs(
+        args, _StubTrainer(), _StubBatcher(), common.get_logger(None), torch.device("cpu"),
+        eval_fn=lambda epoch: {"R1": next(scores)}, select_key="R1", select_sign=select_sign)
+    assert steps == 3
+    assert best == ({"R1": 0.5, "epoch": 2} if select_sign > 0 else {"R1": 0.25, "epoch": 1})

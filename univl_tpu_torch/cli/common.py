@@ -3,8 +3,9 @@ retrieval and caption trainers), without JAX.
 
 The port's own copies of ``univl_tpu/cli/common.py``'s ``MetricsWriter``,
 ``get_logger``, ``base_parser`` (restricted to the flags the ported paths
-read, under the JAX names and defaults, plus ``--fused_ln``, the
-counterpart of JAX's ``UNIVL_TPU_FUSED_LN=1``), ``add_fused_ffn_arg`` (the
+read, under the JAX names and defaults, plus ``--fused_ln`` and
+``--fused_cls``, the counterparts of JAX's ``UNIVL_TPU_FUSED_LN=1`` and
+``UNIVL_TPU_FUSED_CLS=1``), ``add_fused_ffn_arg`` (the
 trainers' ``--fused_ffn``), ``finalize_args``, ``build_config``, the
 ``.bin`` branch of ``load_init_params`` (in ``make_model``),
 ``make_trainer`` and ``run_train_epochs`` (with per-epoch eval and the best
@@ -88,6 +89,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--data_path", type=str, default="data/youcookii_caption.pickle")
     p.add_argument("--features_path", type=str, default="data/youcookii_videos_feature.pickle")
     p.add_argument("--datatype", type=str, default="youcook")
+    p.add_argument("--expand_msrvtt_sentences", action="store_true")
     p.add_argument("--feature_framerate", type=float, default=1)
     p.add_argument("--num_thread_reader", type=int, default=8)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -138,6 +140,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "the per-row top-K in one pass over vocab tiles (the vocab top-k "
                         "kernel); the [B*K, V] logits are never written. Unset: on for a "
                         "CUDA device, off on the CPU")
+    p.add_argument("--fused_cls", action="store_true",
+                   help="beam decode: the classifier transform (dense, erf-GELU, LayerNorm) "
+                        "inside the vocab top-k kernel, in f32 with one rounding; only with "
+                        "the fused vocab kernel, ignored with a warning otherwise (off by "
+                        "default, as JAX's UNIVL_TPU_FUSED_CLS)")
     p.add_argument("--fused_ln", action="store_true",
                    help="every LayerNorm of the model through the LayerNorm kernel, forward "
                         "and backward (off by default, as JAX's UNIVL_TPU_FUSED_LN)")
@@ -291,16 +298,18 @@ def save_state_dict(model: torch.nn.Module, path: str) -> None:
 
 def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.device,
                      eval_fn: Optional[Callable[[int], dict]] = None,
-                     select_key: Optional[str] = None):
+                     select_key: Optional[str] = None, select_sign: float = 1.0):
     """The epoch loop of ``univl_tpu.cli.common.run_train_epochs`` without
     resume: each batch to the device, one optimizer step, the loss summed on
     the device (read at display points and at the epoch's end), and each
     epoch's weights saved as ``pytorch_model.bin.<epoch>`` (the reference's
     per-epoch file). With ``eval_fn(epoch)`` each epoch is then evaluated
-    and the best epoch is the one with the largest ``select_key`` (logged,
-    and in metrics.jsonl). Returns (steps taken, the best epoch's metrics
-    with its ``epoch``, or None without eval)."""
-    best = None
+    and the best epoch is the one with the largest ``select_sign *
+    metrics[select_key]`` (logged, and in metrics.jsonl), against a start of
+    -inf as in JAX, so an epoch whose metric is NaN is never the best.
+    Returns (steps taken, the best epoch's metrics with its ``epoch``, or
+    None without eval or when no epoch scored)."""
+    best, best_score = None, -np.inf
     timer = StepTimer()
     mw = MetricsWriter(args.output_dir)
     accum = args.gradient_accumulation_steps
@@ -333,8 +342,9 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                                                     f"pytorch_model.bin.{epoch}"))
         if eval_fn is not None:
             metrics = eval_fn(epoch)
-            if best is None or metrics[select_key] > best[select_key]:
-                best = dict(metrics, epoch=epoch)
+            score = select_sign * metrics[select_key]
+            if score > best_score:
+                best_score, best = score, dict(metrics, epoch=epoch)
             logger.info("Eval epoch %d: %s", epoch + 1, metrics)
             mw.write("eval", epoch=epoch, **metrics)
     if best is not None:

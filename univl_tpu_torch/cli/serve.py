@@ -10,7 +10,7 @@ shapes, plus ``--device``. Device work is serialised behind one lock.
 
     python -m univl_tpu_torch.cli.serve --device cuda --mode caption \\
         --vocab_file vocab.txt --output_dir out --port 8080 \\
-        [--no-fused_decode] [--no-fused_vocab]
+        [--no-fused_decode] [--no-fused_vocab] [--fused_cls]
 
 Endpoints:
   GET  /healthz                  -> {"status": "ok", "mode", "indexed"}
@@ -24,7 +24,9 @@ Endpoints:
 ``--mode caption`` and ``--mode both`` build the caption decoder (they
 imply ``--stage_two``); concurrent caption requests are merged into shared
 decode batches unless ``--no-coalesce_captions``. ``--fused_ln`` runs every
-LayerNorm through the LayerNorm kernel (#6).
+LayerNorm through the LayerNorm kernel (#6); ``--fused_cls`` runs the
+classifier transform inside the vocab top-k kernel (#10t), with the fused
+vocab kernel only.
 """
 
 from __future__ import annotations
@@ -116,7 +118,8 @@ def build_services(args):
     if want_caption:
         caption = CaptionService(model, tokenizer, device, beam_size=args.beam_size,
                                  batch_size=args.serve_batch_size,
-                                 fused_decode=args.fused_decode, fused_vocab=args.fused_vocab)
+                                 fused_decode=args.fused_decode, fused_vocab=args.fused_vocab,
+                                 fused_cls=args.fused_cls)
     return index, caption, cfg
 
 

@@ -1,16 +1,22 @@
-"""Caption fine-tuning and eval entry point of the PyTorch port, on YouCook2.
+"""Caption fine-tuning and eval entry point of the PyTorch port, on YouCook2
+and MSRVTT.
 
-Ports the ``--datatype youcook`` path of ``univl_tpu/cli/task_caption.py``
-(the reference's main_task_caption.py): stage two with the caption task,
-the text (transcript), visual and cross towers and the decoder under
-teacher forcing, the masked cross entropy over the tied classifier's
-logits, BertAdam, one CUDA device. ``--do_eval`` decodes the val split
+Ports ``univl_tpu/cli/task_caption.py`` (the reference's
+main_task_caption.py): stage two with the caption task, the text
+(transcript), visual and cross towers and the decoder under teacher forcing,
+the masked cross entropy over the tied classifier's logits, BertAdam, one
+CUDA device. ``--do_eval`` decodes the val split
 with beam 5 (the KV-cache beam search of ``evals/beam.py``, on its fused
 kernels on a CUDA device) and scores BLEU-1..4, METEOR, ROUGE-L and CIDEr;
 with ``--do_train`` every epoch is evaluated and the best is the one with
 the highest BLEU-4; ``--do_eval`` alone evaluates the ``--init_model``
 weights. ``--fused_ln`` runs every LayerNorm through the LayerNorm kernel
-(#6), forward and backward.
+(#6), forward and backward; ``--fused_cls`` runs the decoder's classifier
+transform inside the vocab top-k kernel (#10t) when the fused vocab kernel
+runs. ``--datatype msrvtt`` reads the reference's MSRVTT caption files
+(``--data_path`` the json, ``--features_path`` the features pickle; the
+positional train and test splits of the json's videos), video only, and
+scores each clip against all its references.
 
     python -m univl_tpu_torch.cli.task_caption --do_train [--do_eval] --stage_two \\
         --datatype youcook --device cuda --vocab_file vocab.txt \\
@@ -31,6 +37,7 @@ import os
 
 from univl_tpu_torch.cli import common
 from univl_tpu_torch.data.batching import Batcher
+from univl_tpu_torch.data.msrvtt import MsrvttCaptionDataset
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.data.youcook import YoucookCaptionDataset
 from univl_tpu_torch.evals.beam import CaptionGenerator
@@ -46,10 +53,8 @@ NOT_PORTED = {
     # torch.utils.checkpoint re-runs the forward, which would draw new Philox
     # seeds from the step's generator: the recomputed dropout would differ
     "remat": "activation checkpointing (dropout seeds replayed in the recomputed forward)",
-    # JAX's UNIVL_TPU_FUSED_CLS: the classifier transform inside the vocab
-    # top-k kernel (its transform= branch, not ported)
-    "fused_cls": "fused classifier transform",
 }
+DATATYPES = ("youcook", "msrvtt")
 EVAL_KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask")
 BEAM_SIZE = 5
 
@@ -62,7 +67,7 @@ def parse_args(argv=None):
     parser.add_argument("--do_eval", action="store_true",
                         help="beam-5 captions of --val_csv and their metrics; with --do_train "
                              "after every epoch")
-    for flag in ("do_pretrain", "load_checkpoint", "zero1", "remat", "fused_cls"):
+    for flag in ("do_pretrain", "load_checkpoint", "zero1", "remat"):
         parser.add_argument(f"--{flag}", action="store_true", help="not ported yet")
     parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
     parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
@@ -74,9 +79,8 @@ def parse_args(argv=None):
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} {getattr(args, flag)}: one device only (waits for the "
                          f"multi-device slice)")
-    if args.datatype != "youcook":
-        parser.error(f"--datatype {args.datatype} is not ported yet (youcook only; MSRVTT "
-                     f"waits for the retrieval eval slice)")
+    if args.datatype not in DATATYPES:
+        parser.error(f"--datatype {args.datatype}: choose from {DATATYPES}")
     if args.train_sim_after_cross:
         parser.error("--train_sim_after_cross builds no caption decoder")
     if not (args.do_train or args.do_eval):
@@ -85,6 +89,34 @@ def parse_args(argv=None):
         parser.error("--vocab_file required")
     args.stage_two = True  # the caption task is stage two's, as in the JAX driver
     return args
+
+
+def build_datasets(args, tokenizer):
+    """(train set or None without --do_train, eval set or None without --do_eval)."""
+    if args.datatype == "youcook":
+        def mk(csv):
+            return YoucookCaptionDataset(
+                csv, args.data_path, args.features_path, tokenizer,
+                feature_framerate=args.feature_framerate, max_words=args.max_words,
+                max_frames=args.max_frames, seed=args.seed)
+
+        return (mk(args.train_csv) if args.do_train else None,
+                mk(args.val_csv) if args.do_eval else None)
+
+    def mk_msrvtt(split):
+        return MsrvttCaptionDataset(args.train_csv, args.data_path, args.features_path,
+                                    tokenizer, split_type=split, max_words=args.max_words,
+                                    max_frames=args.max_frames, seed=args.seed)
+
+    return (mk_msrvtt("train") if args.do_train else None,
+            mk_msrvtt("test") if args.do_eval else None)
+
+
+def references_for(dataset, idx: int):
+    """Every reference caption of clip ``idx``: MSRVTT's ~20, YouCook2's one."""
+    if hasattr(dataset, "references"):
+        return list(dataset.references(idx))
+    return [dataset.reference_caption(idx)]
 
 
 def make_eval_fn(args, model, tokenizer, device, val_ds, logger):
@@ -100,11 +132,12 @@ def make_eval_fn(args, model, tokenizer, device, val_ds, logger):
         gen = CaptionGenerator(model, tokenizer, device, beam_size=BEAM_SIZE,
                                max_len=args.max_words,
                                fused_decode=resolve_fused(args.fused_decode, device),
-                               fused_vocab=resolve_fused(args.fused_vocab, device))
+                               fused_vocab=resolve_fused(args.fused_vocab, device),
+                               fused_cls=args.fused_cls)
         hyps = []
         for batch in batcher.epoch(0):
             hyps.extend(gen.generate({k: batch[k] for k in EVAL_KEYS}))
-        refs = [[val_ds.reference_caption(i)] for i in range(len(hyps))]
+        refs = [references_for(val_ds, i) for i in range(len(hyps))]
         metrics = compute_caption_metrics(refs, hyps)
         tag = "" if epoch is None else f".{epoch}"
         for name, lines in (("hyp", hyps), ("ref", [r[0] for r in refs])):
@@ -126,19 +159,14 @@ def main(argv=None):
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
     cfg = common.build_config(args, device, task_type="caption", vocab_size=len(tokenizer))
     model = common.make_model(args, cfg, device, logger)
-
-    def dataset(csv):
-        return YoucookCaptionDataset(
-            csv, args.data_path, args.features_path, tokenizer,
-            feature_framerate=args.feature_framerate, max_words=args.max_words,
-            max_frames=args.max_frames, seed=args.seed)
+    train_ds, val_ds = build_datasets(args, tokenizer)
 
     eval_fn = None
     if args.do_eval:
-        eval_fn = make_eval_fn(args, model, tokenizer, device, dataset(args.val_csv), logger)
+        eval_fn = make_eval_fn(args, model, tokenizer, device, val_ds, logger)
     if not args.do_train:
         return 0, eval_fn()
-    batcher = Batcher(dataset(args.train_csv), args.batch_size, shuffle=True, seed=args.seed,
+    batcher = Batcher(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                       grad_accum=args.gradient_accumulation_steps,
                       num_workers=args.num_thread_reader)
     trainer = common.make_trainer(args, model, len(batcher), logger)

@@ -1,12 +1,15 @@
 // Eval attention for the PyTorch port, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel univl_tpu/kernels/attention.py:
-// fused_attention_masked (its body is _attn_kernel, causal=False):
+// fused_attention_masked (its body is _attn_kernel), both branches:
 //
 //   out = softmax(q k^T / sqrt(D) + (1 - key_mask) * -1e9) v
 //
 // with the scores, the softmax and the PV sum in f32, and the probabilities
 // rounded to the input type before the PV product, as the TPU kernel does.
+// With `causal` (attention.py:47-51) every score whose key column is past
+// its query row (j > i, compared directly, with no offset when Lq != Lk) is
+// set to -1e9 after the key bias.
 //
 // What bounds it: UniVL's encoder attention is short (L <= 96) with D = 64,
 // so one (batch row, head) pair does ~4 L^2 D flops over ~4 L D * 2 bytes,
@@ -60,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
 eval_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ key_mask,
                       T* __restrict__ out, int H, int Lq, int Lk, int D,
-                      Strides sq, Strides sk, Strides sv, Strides so, float scale) {
+                      Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal) {
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
   extern __shared__ float smem[];
   const int kstride = D + 4;
@@ -117,6 +120,7 @@ eval_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s = fmaf(a.w, c.w, s);
       }
       s = s * scale + bias[j];
+      if (causal && j > i) s = kMaskBias;
       pw[j] = s;
       row_max = fmaxf(row_max, s);
     }
@@ -198,7 +202,7 @@ cudaError_t opt_in_shared_memory() {
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_mask,
                    void* out, int B, int H, int Lq, int Lk, int D, Strides sq, Strides sk,
-                   Strides sv, Strides so, float scale, cudaStream_t stream) {
+                   Strides sv, Strides so, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(Lk, D);
   if (smem > 48 * 1024) {
     const cudaError_t err = opt_in_shared_memory<T>();
@@ -206,7 +210,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
   }
   eval_attention_kernel<T><<<B * H, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
-      static_cast<T*>(out), H, Lq, Lk, D, sq, sk, sv, so, scale);
+      static_cast<T*>(out), H, Lq, Lk, D, sq, sk, sv, so, scale, causal);
   return cudaGetLastError();
 }
 
@@ -225,19 +229,21 @@ const char* univl_cuda_error_string(int err) {
 
 // q, k, v: [B, H, L, D] with the given element strides (last dim contiguous,
 // 16-byte aligned rows); key_mask: contiguous f32 [B, Lk]; out: [B, H, Lq, D]
-// with its own strides. Launches on `stream` and returns cudaGetLastError().
+// with its own strides; causal: 0 or 1. Launches on `stream` and returns
+// cudaGetLastError().
 int univl_eval_attention(const void* q, const void* k, const void* v, const void* key_mask,
                          void* out, int is_bf16, int B, int H, int Lq, int Lk, int D,
                          long long qb, long long qh, long long ql, long long kb, long long kh,
                          long long kl, long long vb, long long vh, long long vl, long long ob,
-                         long long oh, long long ol, float scale, void* stream) {
+                         long long oh, long long ol, float scale, int causal, void* stream) {
   const Strides sq{qb, qh, ql}, sk{kb, kh, kl}, sv{vb, vh, vl}, so{ob, oh, ol};
   const float* mask = static_cast<const float*>(key_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(q, k, v, mask, out, B, H, Lq, Lk, D, sq, sk, sv, so,
-                                      scale, s)
-              : launch<float>(q, k, v, mask, out, B, H, Lq, Lk, D, sq, sk, sv, so, scale, s);
+                                      scale, causal, s)
+              : launch<float>(q, k, v, mask, out, B, H, Lq, Lk, D, sq, sk, sv, so, scale,
+                              causal, s);
   return static_cast<int>(err);
 }
 

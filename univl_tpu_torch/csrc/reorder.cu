@@ -20,6 +20,18 @@
 // counterpart of the TPU kernel loading every source row of its group
 // before the first store; no two blocks touch the same bytes. Neighbouring
 // threads move neighbouring 16-byte words, so loads and stores coalesce.
+//
+// Also replaces univl_tpu/kernels/reorder.py:beam_reorder_rows, a row gather
+// into new buffers over several arrays that share a leading dim N:
+//
+//   out[a][i] = in[a][src[i]]      for every array a and row i in [0, N).
+//
+// Duplicate indices are allowed. It is a copy as well, bound by device
+// memory: one launch for all arrays, a block per (array, row, column chunk),
+// each thread moving 16-byte words straight from the source row to the
+// destination row (out of place, so nothing is staged). The kernel does not
+// check src on the host, which would synchronize: an index outside [0, N)
+// is not followed, and that output row is written with zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +69,30 @@ reorder_groups_kernel(Arrays arrays, const int* __restrict__ prev_k, int group) 
   }
 }
 
+struct RowArrays {
+  const uint4* src[kMaxArrays];
+  uint4* dst[kMaxArrays];
+  long long row_words[kMaxArrays];  // 16-byte words per row
+};
+
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(RowArrays arrays, const int* __restrict__ src_rows, int n_rows) {
+  const int a = blockIdx.z;
+  const int i = blockIdx.y;
+  const long long row_words = arrays.row_words[a];
+  const long long c0 = static_cast<long long>(blockIdx.x) * kChunk;
+  if (c0 >= row_words) return;  // this array's rows are shorter than the longest
+  const int width = static_cast<int>(min(static_cast<long long>(kChunk), row_words - c0));
+  uint4* dst = arrays.dst[a] + static_cast<long long>(i) * row_words + c0;
+  const int r = src_rows[i];
+  if (r < 0 || r >= n_rows) {
+    for (int c = threadIdx.x; c < width; c += kThreads) dst[c] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  const uint4* src = arrays.src[a] + static_cast<long long>(r) * row_words + c0;
+  for (int c = threadIdx.x; c < width; c += kThreads) dst[c] = src[c];
+}
+
 }  // namespace
 
 extern "C" {
@@ -88,6 +124,32 @@ int univl_reorder_groups(void* const* ptrs, const long long* row_bytes, int n_ar
   }
   reorder_groups_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       arrays, static_cast<const int*>(prev_k), group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src_ptrs, dst_ptrs: n_arrays device pointers each, 16-byte aligned, every
+// array [n_rows, row_bytes] contiguous with row_bytes a multiple of 16 (dst
+// not overlapping src); src_rows: device int32 [n_rows]. Launches on
+// `stream`; returns cudaGetLastError().
+int univl_gather_rows(const void* const* src_ptrs, void* const* dst_ptrs,
+                      const long long* row_bytes, int n_arrays, const void* src_rows,
+                      int n_rows, void* stream) {
+  if (n_arrays < 1 || n_arrays > kMaxArrays || n_rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RowArrays arrays{};
+  long long longest = 0;
+  for (int i = 0; i < n_arrays; ++i) {
+    arrays.src[i] = static_cast<const uint4*>(src_ptrs[i]);
+    arrays.dst[i] = static_cast<uint4*>(dst_ptrs[i]);
+    arrays.row_words[i] = row_bytes[i] / 16;
+    if (arrays.row_words[i] > longest) longest = arrays.row_words[i];
+  }
+  if (longest == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(static_cast<unsigned>((longest + kChunk - 1) / kChunk),
+                  static_cast<unsigned>(n_rows), static_cast<unsigned>(n_arrays));
+  gather_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      arrays, static_cast<const int*>(src_rows), n_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

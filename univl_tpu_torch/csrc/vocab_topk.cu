@@ -27,6 +27,25 @@
 // tiles: logsumexp = M + log(sum_j s_j exp(m_j - M)), then the top-k over
 // the tiles' winners. Tensor cores (mma.sync / wgmma), TMA and
 // double-buffered tiles are left for later work.
+//
+// The classifier transform (univl_tpu_torch/kernels/vocab_topk.py,
+// ``transform=``; the TPU kernel's transform branch, vocab_topk.py:106-133):
+// with it, h is the decoder's raw hidden and the classifier's input is
+//
+//   ht = round(LN(gelu(h Wt^T + bt)) * g + b)      (f32 throughout, one rounding)
+//
+// with the erf GELU (erff stands in for the TPU kernel's A&S 7.1.26 erf,
+// |err| <= 1.5e-7) and the TF LayerNorm (eps inside the rsqrt). Wt is
+// [H_out, H_in], as nn.Linear stores it, in f32 (the parameter itself). On
+// the TPU the grid runs in order and vocab tile 0 writes ht into a scratch
+// that later tiles read; here the vocab tiles run in parallel and no block
+// can wait on another, so two small kernels run first on the same stream: a
+// dense + GELU kernel (a [16, 32] output tile per block, f32 sums on the CUDA
+// cores, the depth in stages of 128, so that few barriers wait on device
+// memory) into an f32 scratch, then a LayerNorm kernel (one block per row)
+// that rounds once into the [R, H] scratch the tile kernel reads. The
+// dense's 2 R H^2 flops (94 MFLOP at R = 80) are computed once, not in each
+// of the 239 vocab tiles. One C entry point launches all four kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,9 +60,24 @@ constexpr int kChunkH = 32;   // hidden elements per shared-memory stage
 constexpr int kThreads = 128;  // 4 warps: warp w owns rows 4w..4w+3, lane l cols 4l..4l+3
 constexpr int kMaxK = 32;
 constexpr int kMergeThreads = 256;
+constexpr int kTfRows = 16;     // transform: rows of h per dense block
+constexpr int kTfCols = 32;     // output columns per dense block
+constexpr int kTfChunk = 128;   // input elements per shared-memory stage
+constexpr int kTfThreads = 128;  // thread t: column t % 32, rows 4 (t / 32) .. + 3
+constexpr int kLnThreads = 256;
+constexpr float kRsqrt2 = 0.70710678118654752f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // (value, index) a is ranked above b: larger value, or equal value and lower index
 __device__ __forceinline__ bool ranks_above(float va, int ia, float vb, int ib) {
@@ -256,6 +290,85 @@ vocab_merge_kernel(const float* __restrict__ part_val, const int* __restrict__ p
   }
 }
 
+// u[r][c] = gelu(sum_k h[r][k] wt[c][k] + bt[c]), all in f32
+template <typename T>
+__global__ void __launch_bounds__(kTfThreads)
+cls_dense_gelu_kernel(const T* __restrict__ h, const float* __restrict__ wt,
+                      const float* __restrict__ bt, int R, int H, float* __restrict__ u) {
+  __shared__ float hs[kTfChunk][kTfRows + 1];
+  __shared__ float ws[kTfChunk][kTfCols + 1];
+  const int row0 = blockIdx.x * kTfRows;
+  const int col0 = blockIdx.y * kTfCols;
+  const int c = threadIdx.x % kTfCols;
+  const int r0 = (threadIdx.x / kTfCols) * 4;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k0 = 0; k0 < H; k0 += kTfChunk) {
+    for (int e = threadIdx.x; e < kTfRows * kTfChunk; e += kTfThreads) {
+      const int r = e / kTfChunk, kk = e % kTfChunk;
+      hs[kk][r] = row0 + r < R ? to_float(h[static_cast<long long>(row0 + r) * H + k0 + kk])
+                               : 0.0f;
+    }
+    for (int e = threadIdx.x; e < kTfCols * kTfChunk / 4; e += kTfThreads) {
+      const int cc = e / (kTfChunk / 4), kk = 4 * (e % (kTfChunk / 4));
+      const float4 v =
+          *reinterpret_cast<const float4*>(wt + static_cast<long long>(col0 + cc) * H + k0 + kk);
+      ws[kk][cc] = v.x;
+      ws[kk + 1][cc] = v.y;
+      ws[kk + 2][cc] = v.z;
+      ws[kk + 3][cc] = v.w;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kTfChunk; ++kk) {
+      const float b = ws[kk][c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(hs[kk][r0 + i], b, acc[i]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + r0 + i;
+    if (row < R) {
+      const float t = acc[i] + bt[col0 + c];
+      u[static_cast<long long>(row) * H + col0 + c] = t * 0.5f * (1.0f + erff(t * kRsqrt2));
+    }
+  }
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  __syncthreads();  // red may still be read from the previous sum
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float total = 0.0f;
+  for (int i = 0; i < kLnThreads / 32; ++i) total += red[i];
+  return total;
+}
+
+// one block per row: ht[r] = round((u[r] - mean) rsqrt(var + eps) g + b)
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+cls_layernorm_kernel(const float* __restrict__ u, const float* __restrict__ g,
+                     const float* __restrict__ b, int H, float eps, T* __restrict__ ht) {
+  __shared__ float red[kLnThreads / 32];
+  const float* x = u + static_cast<long long>(blockIdx.x) * H;
+  float s = 0.0f;
+  for (int c = threadIdx.x; c < H; c += kLnThreads) s += x[c];
+  const float mean = block_sum(s, red) / H;
+  float q = 0.0f;
+  for (int c = threadIdx.x; c < H; c += kLnThreads) {
+    const float d = x[c] - mean;
+    q = fmaf(d, d, q);
+  }
+  const float inv = rsqrtf(block_sum(q, red) / H + eps);
+  T* y = ht + static_cast<long long>(blockIdx.x) * H;
+  for (int c = threadIdx.x; c < H; c += kLnThreads) {
+    y[c] = from_float<T>((x[c] - mean) * inv * g[c] + b[c]);
+  }
+}
+
 template <typename T>
 cudaError_t launch(const void* h, const void* w, const float* bias, int R, int H, int Vp, int k,
                    float* part_val, int* part_idx, float* part_max, float* part_sum,
@@ -269,6 +382,19 @@ cudaError_t launch(const void* h, const void* w, const float* bias, int R, int H
   if (err != cudaSuccess) return err;
   vocab_merge_kernel<<<R, kMergeThreads, 0, stream>>>(part_val, part_idx, part_max, part_sum,
                                                       R, n_tiles, k, out_logp, out_idx);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_transform(const void* h, const float* wt, const float* bt, const float* g,
+                             const float* b, float eps, float* u, void* ht, int R, int H,
+                             cudaStream_t stream) {
+  const dim3 grid((R + kTfRows - 1) / kTfRows, H / kTfCols);
+  cls_dense_gelu_kernel<T><<<grid, kTfThreads, 0, stream>>>(static_cast<const T*>(h), wt, bt,
+                                                            R, H, u);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cls_layernorm_kernel<T><<<R, kLnThreads, 0, stream>>>(u, g, b, H, eps, static_cast<T*>(ht));
   return cudaGetLastError();
 }
 
@@ -299,6 +425,32 @@ int univl_vocab_topk(const void* h, const void* w, const void* bias, int is_bf16
       is_bf16 ? launch<__nv_bfloat16>(h, w, b, R, H, Vp, k, pv, pi, pm, ps, ol, oi, s)
               : launch<float>(h, w, b, R, H, Vp, k, pv, pi, pm, ps, ol, oi, s);
   return static_cast<int>(err);
+}
+
+// univl_vocab_topk with the classifier transform first: h is the raw hidden
+// [R, H]; wt: contiguous f32 [H, H] (nn.Linear's [out, in]); bt, g, b: f32
+// [H]; H a multiple of 128. u: f32 scratch [R, H]; ht: scratch [R, H] of h's
+// type, which the vocab kernels then read in place of h. Launches four
+// kernels on `stream`; returns the first CUDA error.
+int univl_vocab_topk_transform(const void* h, const void* wt, const void* bt, const void* g,
+                               const void* b, float eps, void* u, void* ht, const void* w,
+                               const void* bias, int is_bf16, int R, int H, int Vp, int k,
+                               void* part_val, void* part_idx, void* part_max, void* part_sum,
+                               void* out_logp, void* out_idx, void* stream) {
+  if (R < 1 || k < 1 || k > kMaxK || Vp % kTileV != 0 || H % kTfChunk != 0 ||
+      H % kChunkH != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float *wtf = static_cast<const float*>(wt), *btf = static_cast<const float*>(bt);
+  const float *gf = static_cast<const float*>(g), *bf = static_cast<const float*>(b);
+  float* uf = static_cast<float*>(u);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_transform<__nv_bfloat16>(h, wtf, btf, gf, bf, eps, uf, ht, R, H, s)
+              : launch_transform<float>(h, wtf, btf, gf, bf, eps, uf, ht, R, H, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return univl_vocab_topk(ht, w, bias, is_bf16, R, H, Vp, k, part_val, part_idx, part_max,
+                          part_sum, out_logp, out_idx, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Synthetic data in the reference's file formats, the port's copy of
-``univl_tpu/data/fixtures.py``'s ``make_vocab`` and ``make_youcook``: the same
-files, byte for byte, for the same arguments.
+``univl_tpu/data/fixtures.py``'s ``make_vocab``, ``make_youcook`` and
+``make_msrvtt``: the same files, byte for byte, for the same arguments.
 
 ``chip_smoke.py`` and the tests make their training data with these.
 """
@@ -8,6 +8,7 @@ files, byte for byte, for the same arguments.
 from __future__ import annotations
 
 import csv
+import json
 import os
 import pickle
 
@@ -80,3 +81,51 @@ def make_youcook(out_dir: str, n_videos: int = 6, clips_per_video: int = 3,
     with open(feat_path, "wb") as f:
         pickle.dump(feats, f)
     return csv_path, data_path, feat_path
+
+
+def make_msrvtt(out_dir: str, n_videos: int = 8, sentences_per_video: int = 3,
+                video_dim: int = 32, frames: int = 20, seed: int = 0, id_offset: int = 0,
+                caption_test_layout: bool = False):
+    """Writes the train csv, the JSFusion-style test csv, the json and the
+    features pickle; returns their paths.
+
+    ``caption_test_layout``: the reference's caption splits are positional
+    over the json's video list (train = videos[:6513], test = videos[7010:]);
+    when True, 7,010 caption-less dummy entries come first, so the real
+    videos land in the test split."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    vids = [f"video{i + id_offset}" for i in range(n_videos)]
+
+    train_csv = os.path.join(out_dir, "msrvtt_train.csv")
+    with open(train_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["video_id"])
+        for v in vids:
+            w.writerow([v])
+
+    sentences = []
+    for v in vids:
+        for _ in range(sentences_per_video):
+            sentences.append({"video_id": v, "caption": _sentence(rng)})
+    video_entries = [{"video_id": v, "url": f"https://x.test/watch?v={v}"} for v in vids]
+    if caption_test_layout:
+        dummies = [{"video_id": f"dummy{i}", "url": f"https://x.test/watch?v=dummy{i}"}
+                   for i in range(7010)]
+        video_entries = dummies + video_entries
+    json_path = os.path.join(out_dir, "msrvtt.json")
+    with open(json_path, "w") as f:
+        json.dump({"videos": video_entries, "sentences": sentences}, f)
+
+    test_csv = os.path.join(out_dir, "msrvtt_test.csv")
+    with open(test_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["video_id", "sentence"])
+        for v in vids:
+            w.writerow([v, _sentence(rng)])
+
+    feats = {v: rng.randn(frames, video_dim).astype(np.float32) for v in vids}
+    feat_path = os.path.join(out_dir, "msrvtt_features.pickle")
+    with open(feat_path, "wb") as f:
+        pickle.dump(feats, f)
+    return train_csv, test_csv, json_path, feat_path

@@ -19,13 +19,16 @@ Two decoders:
     deferred into the next step's pass over the cache); otherwise the step
     attends in plain PyTorch and the grouped reorder kernel permutes the
     cache after it. ``fused_vocab`` runs the vocab top-k kernel in place of
-    the [B*K, V] logits, log-softmax and top-k.
+    the [B*K, V] logits, log-softmax and top-k; with it, ``fused_cls`` moves
+    the classifier transform (dense, erf-GELU, LayerNorm) into that kernel
+    too, and the step returns the raw hidden (JAX's ``UNIVL_TPU_FUSED_CLS``).
 Each returns fn(seq, vis, am, vm) -> (tokens [B, max_len - 1] without BOS,
 scores [B], steps run).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List
 
 import numpy as np
@@ -107,11 +110,20 @@ def _cache_buckets(max_len: int, first: int = 32) -> List[int]:
 
 def make_fast_beam_decode_fn(model, beam_size: int, max_len: int, bos_id: int, eos_id: int,
                              pad_id: int = 0, fused_decode: bool = False,
-                             fused_vocab: bool = False):
+                             fused_vocab: bool = False, fused_cls: bool = False):
     """The KV-cache beam search; same hypotheses as ``make_beam_decode_fn``.
-    The decoder's weights are prepared once, here."""
+    The decoder's weights are prepared once, here. ``fused_cls`` without
+    ``fused_vocab`` is ignored, with a warning (as in the JAX package)."""
     K = beam_size
     fd = FastDecoder(model)
+    if fused_cls and not fused_vocab:
+        # the transform runs inside the vocab kernel; without it the flag would
+        # be silently ignored and an A/B would compare identical programs
+        warnings.warn("fused_cls has no effect without the fused vocab kernel (fused_vocab)",
+                      UserWarning, stacklevel=2)
+        fused_cls = False
+    # what the step returns: logits, the transformed hidden, or the raw hidden
+    return_hidden = ("raw" if fused_cls else True) if fused_vocab else False
 
     @torch.inference_mode()
     def decode(sequence_output, visual_output, attention_mask, video_mask):
@@ -127,6 +139,9 @@ def make_fast_beam_decode_fn(model, beam_size: int, max_len: int, bos_id: int, e
         seqs, scores, done = _init_beams(B, K, max_len, bos_id, pad_id, dev)
         local = torch.arange(K, device=dev)
         perm = local.expand(B, K)  # the fused path's pending permutation
+        if fused_vocab:  # the kernel's operands, once, outside the step loop
+            cls_w, cls_b = fd.classifier_padded
+            transform = fd.cls_transform if fused_cls else None
         t, steps = 1, 0
         for i, bound in enumerate(buckets):
             if i > 0:  # grow the cache with zeros
@@ -137,13 +152,14 @@ def make_fast_beam_decode_fn(model, beam_size: int, max_len: int, bos_id: int, e
                 tok = seqs[:, :, t - 1].reshape(B * K)
                 if fused_decode:
                     out, cache = fd.step_fused(tok, t - 1, cache, enc_kv, enc_bias,
-                                               perm.reshape(B * K), K, return_hidden=fused_vocab)
+                                               perm.reshape(B * K), K,
+                                               return_hidden=return_hidden)
                 else:
                     out, cache = fd.step(tok, t - 1, cache, enc_kv, enc_bias,
-                                         return_hidden=fused_vocab)
+                                         return_hidden=return_hidden)
                 if fused_vocab:
                     # each row's top K holds every candidate of the global top K
-                    logp_top, idx_top = classify_topk(out, *fd.classifier_padded, K)
+                    logp_top, idx_top = classify_topk(out, cls_w, cls_b, K, transform)
                     cand = scores[:, :, None] + logp_top.reshape(B, K, K)
                     top_scores, pos = stable_topk(cand.view(B, K * K), K)
                     prev_k, next_y = pos // K, idx_top.reshape(B, K * K).gather(1, pos)
@@ -189,13 +205,15 @@ class CaptionGenerator:
     decoded over all ``generate`` calls."""
 
     def __init__(self, model, tokenizer, device, beam_size: int = 5, max_len: int = 48,
-                 fused_decode: bool = False, fused_vocab: bool = False):
+                 fused_decode: bool = False, fused_vocab: bool = False,
+                 fused_cls: bool = False):
         self.model = model
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self._decode = make_fast_beam_decode_fn(
             model, beam_size, max_len, bos_id=tokenizer.bos_id, eos_id=tokenizer.eos_id,
-            pad_id=tokenizer.pad_id, fused_decode=fused_decode, fused_vocab=fused_vocab)
+            pad_id=tokenizer.pad_id, fused_decode=fused_decode, fused_vocab=fused_vocab,
+            fused_cls=fused_cls)
         self.steps = 0
         self.batches = 0
 

@@ -62,7 +62,7 @@ class FastDecoder:
         self.word_embed = emb.word_embeddings.weight
         self.pos_embed = emb.position_embeddings.weight
         self.embed_ln = dec.embeddings.LayerNorm
-        pred = dec.classifier.cls.predictions
+        pred = self._pred = dec.classifier.cls.predictions
         self.cls_bias = pred.bias
 
         def w(lin):
@@ -88,6 +88,17 @@ class FastDecoder:
         """The tied classifier for the vocab top-k kernel: the word table in
         the compute dtype and the f32 bias, padded to the kernel's vocab tile."""
         return pad_vocab_inputs(self.word_embed.detach().to(self.dtype), self.cls_bias.detach())
+
+    @functools.cached_property
+    def cls_transform(self):
+        """The classifier transform's parameters for the vocab top-k kernel's
+        transform (``classify_topk(..., transform=)``): the dense's f32 weight
+        [H_out, H_in] and bias, the LayerNorm's f32 scale and bias, and its
+        eps. The kernel's LayerNorm is its own, whatever ``--fused_ln`` says."""
+        pred = self._pred
+        dense, ln = pred.transform.dense, pred.transform.LayerNorm
+        return (dense.weight.detach().float(), dense.bias.detach().float(),
+                ln.weight.detach().float(), ln.bias.detach().float(), ln.eps)
 
     @functools.cached_property
     def classifier_f32(self) -> torch.Tensor:
@@ -155,16 +166,22 @@ class FastDecoder:
         h = self._classify_hidden(x)
         return torch.matmul(h.float(), self.classifier_f32.t()) + self.cls_bias
 
-    def _head(self, x: torch.Tensor, return_hidden: bool) -> torch.Tensor:
+    def _head(self, x: torch.Tensor, return_hidden) -> torch.Tensor:
+        """f32 logits; with ``return_hidden`` the transformed hidden [B, H];
+        with ``return_hidden="raw"`` the raw hidden [B, H], for the vocab
+        kernel's own transform."""
+        if return_hidden == "raw":
+            return x[:, 0]
         return self._classify_hidden(x) if return_hidden else self._classify(x)
 
     # ---------------------------------------------------------------- #
     def step(self, tok: torch.Tensor, t: int, cache: DecodeCache, enc_kv: DecodeCache,
-             enc_bias: torch.Tensor, return_hidden: bool = False):
+             enc_bias: torch.Tensor, return_hidden=False):
         """Embed token ``tok`` [B] at position ``t``, write its K/V into the
         cache (in place), attend over positions 0..t in plain PyTorch, and
         return (logits [B, V] f32 for position t + 1, or with
-        ``return_hidden`` the classifier's input [B, H]; the cache)."""
+        ``return_hidden`` the classifier's input [B, H], with
+        ``return_hidden="raw"`` the transform's input; the cache)."""
         x = self._embed(tok, t)
         L = cache[0][0].shape[2]
         masked = torch.arange(L, device=x.device) > t
@@ -180,7 +197,7 @@ class FastDecoder:
 
     def step_fused(self, tok: torch.Tensor, t: int, cache: DecodeCache, enc_kv: DecodeCache,
                    enc_bias: torch.Tensor, perm: torch.Tensor, group: int,
-                   return_hidden: bool = False):
+                   return_hidden=False):
         """``step`` with the pending beam permutation ``perm`` ([B], local to
         each group of ``group`` rows) fused into the self-attention's pass over
         the cache (the decode-attention kernel): the cache arrives one

@@ -92,19 +92,24 @@ def build() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.univl_eval_attention.argtypes = (
-        [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, p]
+        [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
     )
     lib.univl_eval_attention.restype = i
     lib.univl_eval_attention_smem_bytes.argtypes = [i, i]
     lib.univl_eval_attention_smem_bytes.restype = ll
     lib.univl_reorder_groups.argtypes = [p, p, i, p, i, i, p]
     lib.univl_reorder_groups.restype = i
+    lib.univl_gather_rows.argtypes = [p, p, p, i, p, i, p]
+    lib.univl_gather_rows.restype = i
     lib.univl_decode_attention.argtypes = (
         [p, p, p, ll, ll, ll, p, p, p, p, p, p] + [i] * 7 + [ctypes.c_float, p]
     )
     lib.univl_decode_attention.restype = i
     lib.univl_vocab_topk.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.univl_vocab_topk.restype = i
+    lib.univl_vocab_topk_transform.argtypes = (
+        [p] * 5 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p] * 7)
+    lib.univl_vocab_topk_transform.restype = i
     lib.univl_train_attention_smem_bytes.argtypes = [i, i, i, i]
     lib.univl_train_attention_smem_bytes.restype = ll
     shared = [i] * 6 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]

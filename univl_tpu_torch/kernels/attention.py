@@ -6,6 +6,13 @@ signature and ``[B, H, L, D]`` layout. On a CPU tensor it computes
 ``attention_reference``; on a CUDA tensor it launches the kernel in
 ``univl_tpu_torch/csrc/attention.cu`` (built at first use) or raises.
 
+``causal=True`` is the TPU kernel's causal branch (``attention.py:47-51``):
+after the key bias, every score whose key column is past its query row is
+-1e9, with row and column compared directly (no offset when Lq != Lk). No
+path of the port sets it, as none of the JAX package does
+(``fused_attention`` passes ``causal=False``); its launches are counted apart,
+in ``fused_attention_masked.causal_launches``.
+
 The kernel is bound by memory and latency, not by the tensor cores: at
 UniVL's lengths (L <= 96, D = 64) attention does ~24 flop per byte read. The
 kernel reads q, k and v once, keeps the scores on chip, and reads strided
@@ -27,12 +34,16 @@ SMEM_LIMIT = 227 * 1024  # Hopper's opt-in shared memory per block
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        key_mask: torch.Tensor) -> torch.Tensor:
+                        key_mask: torch.Tensor, causal: bool = False) -> torch.Tensor:
     """The kernel's math in torch ops: f32 scores and softmax, probs rounded
     to ``v.dtype`` before PV, PV summed in f32, output in ``q.dtype``."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     scores = scores + ((1.0 - key_mask.float()) * MASK_BIAS)[:, None, None, :]
+    if causal:
+        Lq, Lk = scores.shape[-2:]
+        future = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device).triu(1)
+        scores = scores.masked_fill(future, MASK_BIAS)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float()).to(q.dtype)
@@ -67,12 +78,13 @@ def _check_layout(t: torch.Tensor, name: str) -> None:
 
 
 def fused_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           key_mask: torch.Tensor) -> torch.Tensor:
+                           key_mask: torch.Tensor, causal: bool = False) -> torch.Tensor:
     """q, k, v: [B, H, L, D] (strided views allowed); key_mask: [B, Lk], 1 keep
-    and 0 drop. Returns [B, H, Lq, D] in q's dtype. No dropout (inference)."""
+    and 0 drop; ``causal``: also drop keys past the query's row. Returns
+    [B, H, Lq, D] in q's dtype. No dropout (inference)."""
     _check(q, k, v, key_mask)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_mask)
+        return attention_reference(q, k, v, key_mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"no eval-attention kernel for device {q.device}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -93,11 +105,16 @@ def fused_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), B, H, Lq, Lk, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            1.0 / math.sqrt(D), stream,
+            1.0 / math.sqrt(D), int(causal), stream,
         )
     _build.check(lib, err, "eval attention kernel launch")
-    fused_attention_masked.launches += 1
+    if causal:
+        fused_attention_masked.causal_launches += 1
+    else:
+        fused_attention_masked.launches += 1
     return out
 
 
-fused_attention_masked.launches = 0  # kernel launches; the CPU path adds nothing
+# kernel launches, without and with the causal mask; the CPU path adds nothing
+fused_attention_masked.launches = 0
+fused_attention_masked.causal_launches = 0

@@ -9,6 +9,12 @@ array at once, in place. On CPU tensors it computes ``reorder_reference``;
 on CUDA tensors it launches the kernel in
 ``univl_tpu_torch/csrc/reorder.cu`` (one launch for all arrays) or raises.
 Both are copies, so the two agree bit for bit.
+
+``beam_reorder_rows`` replaces the gather variant,
+``univl_tpu/kernels/reorder.py:beam_reorder_rows``: ``out[j][i] =
+arrays[j][src[i]]`` into new buffers, duplicates allowed; its plain version
+is ``reorder_rows_reference``. The beam decoder keeps the grouped in-place
+kernel, as the JAX package's does; no path of the port calls the gather.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from univl_tpu_torch.kernels import _build
 
 MAX_ARRAYS = 16  # kMaxArrays in csrc/reorder.cu
 MAX_GROUP = 16  # kMaxGroup
+MAX_ROWS = 65535  # the gather's grid.y
 
 
 def source_rows(prev_k: torch.Tensor, group: int) -> torch.Tensor:
@@ -87,3 +94,56 @@ def beam_reorder_groups_inplace(arrays: Sequence[torch.Tensor], prev_k: torch.Te
 
 
 beam_reorder_groups_inplace.launches = 0  # kernel launches; the CPU path adds nothing
+
+
+def reorder_rows_reference(arrays: Sequence[torch.Tensor], src: torch.Tensor) -> List[torch.Tensor]:
+    """The gather in torch ops: one ``index_select`` per array."""
+    idx = src.long()
+    return [a.index_select(0, idx) for a in arrays]
+
+
+def beam_reorder_rows(arrays: Sequence[torch.Tensor], src: torch.Tensor) -> List[torch.Tensor]:
+    """arrays: tensors sharing a leading dim N (any trailing shape and dtype);
+    src: [N] source-row indices, duplicates allowed. Returns new tensors with
+    ``out[j][i] = arrays[j][src[i]]``.
+
+    On the card the kernel reads ``src`` without a synchronizing check: an
+    index outside [0, N) is not followed and its output row is all zeros (the
+    plain version, on the CPU, raises instead)."""
+    if not arrays:
+        raise ValueError("no arrays to gather")
+    n = src.shape[0]
+    if src.dim() != 1 or src.dtype.is_floating_point:
+        raise ValueError(f"src must be [N] integer indices, got {tuple(src.shape)} {src.dtype}")
+    for a in arrays:
+        if a.dim() < 1 or a.shape[0] != n:
+            raise ValueError(f"array rows {a.shape[0] if a.dim() else None} != src rows {n}")
+        if a.device != src.device:
+            raise ValueError("arrays and src must be on one device")
+    if src.device.type == "cpu":
+        return reorder_rows_reference(arrays, src)
+    if src.device.type != "cuda":
+        raise ValueError(f"no reorder kernel for device {src.device}")
+    if len(arrays) > MAX_ARRAYS or n > MAX_ROWS:
+        raise ValueError(f"{len(arrays)} arrays of {n} rows: the kernel takes at most "
+                         f"{MAX_ARRAYS} arrays of {MAX_ROWS} rows")
+    for a in arrays:
+        if not a.is_contiguous() or a.data_ptr() % 16 or (a[0].numel() * a.element_size()) % 16:
+            raise ValueError("the gather kernel moves 16-byte words: each array must be "
+                             "contiguous, 16-byte aligned, with rows a multiple of 16 bytes")
+    lib = _build.load_library()
+    idx = src.to(torch.int32).contiguous()
+    outs = [torch.empty_like(a) for a in arrays]
+    k = len(arrays)
+    src_ptrs = (ctypes.c_void_p * k)(*(a.data_ptr() for a in arrays))
+    dst_ptrs = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
+    row_bytes = (ctypes.c_longlong * k)(*(a[0].numel() * a.element_size() for a in arrays))
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.univl_gather_rows(src_ptrs, dst_ptrs, row_bytes, k, idx.data_ptr(), n, stream)
+    _build.check(lib, err, "row gather kernel launch")
+    beam_reorder_rows.launches += 1
+    return outs
+
+
+beam_reorder_rows.launches = 0  # kernel launches; the CPU path adds nothing

@@ -158,13 +158,18 @@ class UniVL(nn.Module):
         ``batch``: ``input_ids``, ``token_type_ids``, ``attention_mask``
         [B, Lw]; ``video`` [B, Lv, video_dim]; ``video_mask`` [B, Lv]; for
         captioning also ``input_caption_ids``, ``output_caption_ids`` and
-        ``decoder_mask`` [B, Lc]. In training mode ``generator`` (a CPU
+        ``decoder_mask`` [B, Lc] (a caption batch without them has no
+        loss term: ``{"loss": 0}``, as in JAX). In training mode ``generator`` (a CPU
         ``torch.Generator``, the step's) gives all the dropout; in eval mode
         nothing is dropped."""
         c = self.cfg
         for route in ("use_mil", "do_pretrain"):
             if getattr(c, route):
                 raise NotImplementedError(f"training with {route}: not ported yet")
+        if c.stage_two and c.task_type == "caption" and batch.get("input_caption_ids") is None:
+            # JAX adds the decoder loss only for a batch with caption ids
+            # (univl_tpu/models/univl.py:509); without them its total stays 0
+            return {"loss": torch.zeros((), device=batch["video"].device)}
         rng = None
         if self.training and generator is not None:
             rng = Randomness.derive(generator, batch["video"].device)

@@ -31,7 +31,8 @@ class CaptionService:
 
     def __init__(self, model, tokenizer, device, beam_size: int = 5,
                  max_len: Optional[int] = None, batch_size: int = 16,
-                 fused_decode: Optional[bool] = None, fused_vocab: Optional[bool] = None):
+                 fused_decode: Optional[bool] = None, fused_vocab: Optional[bool] = None,
+                 fused_cls: bool = False):
         cfg = model.cfg
         self.device = torch.device(device)
         self.tokenizer = tokenizer
@@ -41,10 +42,12 @@ class CaptionService:
         self.batch_size = batch_size
         self.fused_decode = resolve_fused(fused_decode, self.device)
         self.fused_vocab = resolve_fused(fused_vocab, self.device)
+        # the transform inside the vocab kernel: off by default, as in JAX
+        self.fused_cls = bool(fused_cls) and self.fused_vocab
         self.generator = CaptionGenerator(
             model, tokenizer, self.device, beam_size=beam_size,
             max_len=max_len or cfg.max_words, fused_decode=self.fused_decode,
-            fused_vocab=self.fused_vocab)
+            fused_vocab=self.fused_vocab, fused_cls=fused_cls)
 
     def caption(self, videos: Sequence[np.ndarray],
                 transcripts: Optional[Sequence[str]] = None) -> List[str]:
