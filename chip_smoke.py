@@ -12,13 +12,19 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      shapes its path gives it, in f32 and bf16, with device times from CUDA
      events, the bound (bytes over the card's memory rate and operations over
      its peak rate, an estimate against nominal peaks) and, where one PyTorch
-     call computes the same function, that call's time. The training
-     attention (#2) runs forward and backward at rates 0 and 0.1 at the
-     FT-Joint towers' [32, 48] and FT-Align's cross [1024, 96], and its
-     forward kernel, backward kernel and plain version must drop the same
-     probabilities, at the configured rate; its tiled backward at the
-     caption step's 128, 224 and 128 x 224 positions, and against the
-     whole-head one where both run. The fused FFN kernels (#3 FFN,
+     call computes the same function, that call's time. The eval attention
+     (#1) at a tower's, the cross tower's, the rerank's and the FT-Align
+     eval rescoring's shapes. The training attention (#2) runs forward and
+     backward at rates 0 and 0.1 at the FT-Joint towers' [32, 48], FT-Align's
+     cross [1024, 96] and the caption step's 96, 128, 224 and 128 x 224
+     positions: in bf16 its tensor-core kernels (each call's launches
+     checked by the counters: never the tiled backward) and the CUDA-core
+     kernels on the same inputs, in f32 the CUDA-core kernels (the tiled
+     backward past 96 positions); forward kernel, backward kernel and plain
+     version must drop the same probabilities, at the configured rate, at
+     [32, 48] and a ragged [32, 40]; bf16 times of the tensor-core kernels
+     beside the CUDA-core ones, SDPA and the bound; the tiled backward
+     bitwise the whole-head one where both run. The fused FFN kernels (#3 FFN,
      #4 FFN block, #5 dense block), forward and backward, run at the cross
      tower's 98,304 rows and a tower's 1,536, rates 0 and 0.1, beside the
      model's unfused chain for the same work; #4's and #5's forward kernel,
@@ -65,8 +71,8 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      --do_train at the full width of UniVLConfig.base (text 12, visual 6
      layers), bf16, batch 32, 40 steps on YouCook2-format fixtures: the loss
      at each display point, the steady clips/s, peak device memory, #2's
-     launches (18 forward and 18 backward a step) and a pytorch_model.bin.0
-     that loads back;
+     launches (#2's tensor-core kernels, 18 forward and 18 backward a step)
+     and a pytorch_model.bin.0 that loads back;
  11. torch.profiler over 3 steady training steps: device busy share, kernel
      time of #2, the GEMMs, the optimizer and the rest, launches per step;
  12. training agreement with the CPU at full width and text 2 + visual 1
@@ -87,11 +93,12 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      --do_train --fused_ln at the full width of UniVLConfig.base (text 12,
      visual 6, cross 2, decoder 3 layers), bf16, batch 16, 128 words, 96
      frames, 40 steps on YouCook2-format fixtures with transcripts: losses,
-     steady clips/s, peak memory, launches (#6 in every LayerNorm, #2 in
-     every attention over keys, its tiled backward at 128 and 224
-     positions) and a pytorch_model.bin.0 that loads back; then --do_eval
-     of that file over 32 val clips (beam 5: captions and BLEU, METEOR,
-     ROUGE-L, CIDEr), and once more with --fused_cls;
+     steady clips/s, peak memory, launches (#6 in every LayerNorm, #2's
+     tensor-core kernels in every attention over keys, 23 forward and 23
+     backward a step, the tiled backward never) and a pytorch_model.bin.0
+     that loads back; then --do_eval of that file over 32 val clips (beam
+     5: captions and BLEU, METEOR, ROUGE-L, CIDEr), and once more with
+     --fused_cls;
  17. torch.profiler over 3 caption steps with --fused_ln and 3 without;
  18. caption agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, batch 4, dropout 0: card f32 without
@@ -111,7 +118,9 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  22. retrieval eval agreement: card f32 against CPU f32 at full width, text 2
      + visual 1 + cross 1 layers, 64 clips, both modes: the similarity
      matrices within stated limits and the metrics equal.
-Then one JSON line describing the kernels, and last
+Then one JSON line describing the kernels (#2's CUDA-core kernels with
+their launches from the f32 runs of phases 12, 15 and 18, the only paths
+that take them), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 1.
 """
@@ -173,7 +182,9 @@ SUSTAINED_INDEX, SUSTAINED_SEARCHES = 3328, 200  # YouCook2 val's clip count
 # caption traffic: requests of BATCH clips, beam BEAM, max_len = max_words
 BEAM, MAX_WORDS, DECODER_LAYERS = 5, 48, 3
 CAPTION_WINDOW, UNFUSED_WINDOW, CONCURRENT = 20, 10, 16
-ATTN_SHAPES = [(16, 12, 48, 64), (16, 12, 96, 64), (128, 12, 96, 64)]  # tower; cross; rerank
+# #1: a tower; the cross tower; the server's rerank; FT-Align eval rescoring
+# (8 texts x 64 videos a block)
+ATTN_SHAPES = [(16, 12, 48, 64), (16, 12, 96, 64), (128, 12, 96, 64), (512, 12, 96, 64)]
 TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 VOCAB_ATOL = 1e-4  # logp: f32 sums of the same products in another order
 DLOGP_LIMIT = 0.25  # card bf16 vs CPU f32 over the trajectory, stated before the first run
@@ -188,20 +199,23 @@ VOCAB_T_ROWS = (BATCH * BEAM, 37)  # the decode step's beam rows, and a ragged c
 CAUSAL_SHAPES = [(16, 12, 48, 64), (BATCH * BEAM, 12, 48, 64)]
 # training attention (#2): heads, head dim; (batch, length) of the FT-Joint
 # towers (32 x 48) and of FT-Align's cross tower (1,024 pairs x 96 tokens).
-# The dropout masks are checked at the first (a one-hot V needs L <= D).
+# The dropout masks are checked at the first (a one-hot V needs L <= D) and
+# at a ragged 40 (the tensor-core kernels' 64-row tiles and 16-key chunks cut).
 TA_HEADS, TA_D, TA_RATE, TA_SEED = 12, 64, 0.1, 1234
 TA_SHAPES = [(32, 48), (1024, 96)]
 TA_B, TA_L = TA_SHAPES[0]
+TA_RAGGED_L = 40
 # f32: the same math summed in another order; bf16: a probability, ds or output
 # that lands on the other side of a bf16 rounding moves by one bf16 ulp
 TA_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 KEEP_RATE_TOL = 0.002  # dropped share over 884,736 draws: ~6 binomial standard deviations
-# #2 at the caption step's lengths, past the whole-head backward's shared
-# memory: (batch, Lq, Lk) of the text tower (16 x 128), the cross tower (16 x
-# (128 + 96)) and the decoder's encoder attention (128 queries, 224 keys);
-# the backward takes the tiled kernels there. The tiled kernels' dropout
-# masks are checked at TA_SHAPES[0], where the one-hot check fits.
-TA_LONG_SHAPES = [(16, 128, 128), (16, 224, 224), (16, 128, 224)]
+# #2 at the caption step's lengths: (batch, Lq, Lk) of the visual tower (16 x
+# 96), the text tower (16 x 128), the cross tower (16 x (128 + 96)) and the
+# decoder's encoder attention (128 queries, 224 keys). Past 96 the CUDA-core
+# route's backward is the tiled one (the whole-head kernel's shared memory);
+# the tiled kernels' dropout masks are checked at TA_SHAPES[0], where the
+# one-hot check fits.
+TA_CAPTION_SHAPES = [(16, 96, 96), (16, 128, 128), (16, 224, 224), (16, 128, 224)]
 # LayerNorm (#6): rows x width of the caption step's text and decoder rows
 # (16 x 128), the cross tower's (16 x 224), NormalizeVideo's raw features (16
 # x 96 x 1024, f32 only: the model normalizes them in f32) and a ragged count
@@ -332,6 +346,12 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                             "univl_tpu/kernels/train_attention.py:83"),
     "train_attention_bwd": (ta.train_attention_bwd, "univl_tpu_torch/csrc/train_attention.cu",
                             "univl_tpu/kernels/train_attention.py:116"),
+    "train_attention_fwd_cuda_cores": ((ta.train_attention_fwd, "cuda_core_launches"),
+                                       "univl_tpu_torch/csrc/train_attention.cu",
+                                       "univl_tpu/kernels/train_attention.py:83"),
+    "train_attention_bwd_cuda_cores": ((ta.train_attention_bwd, "cuda_core_launches"),
+                                       "univl_tpu_torch/csrc/train_attention.cu",
+                                       "univl_tpu/kernels/train_attention.py:116"),
     "train_attention_bwd_tiled": (ta.train_attention_bwd_tiled,
                                   "univl_tpu_torch/csrc/train_attention.cu",
                                   "univl_tpu/kernels/train_attention.py:116"),
@@ -353,14 +373,23 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
 # the kernels no path of the port (nor of the JAX package) runs: held against
 # their plain versions here, never launched on the main paths
 NO_ROUTE = ("eval_attention_causal", "reorder_rows")
+# #2's CUDA-core kernels: the f32 route, which only the f32 agreement runs
+# (phases 12, 15 and 18) take: 0 launches on the main paths, which run bf16;
+# their launches in those runs are printed apart from the main paths'
+# (``f32_agreement_launches``)
+F32_ROUTE = ("train_attention_fwd_cuda_cores", "train_attention_bwd_cuda_cores",
+             "train_attention_bwd_tiled")
 TRACE_NAMES = {"eval_attention": ("eval_attention_kernel",),
                "beam_reorder_groups": ("reorder_groups_kernel",),
                "beam_decode_self_attention": ("decode_attention_kernel",),
                "vocab_topk": ("vocab_tile_kernel", "vocab_merge_kernel"),
                "vocab_topk_transform": ("cls_dense_gelu_kernel", "cls_layernorm_kernel"),
                "reorder_rows": ("gather_rows_kernel",),
-               "train_attention_fwd": ("train_attention_fwd_kernel",),
-               "train_attention_bwd": ("train_attention_bwd_kernel",),
+               "train_attention_fwd": ("train_attention_fwd_mma_kernel",),
+               "train_attention_bwd": ("train_attention_bwd_dq_mma_kernel",
+                                       "train_attention_bwd_dkdv_mma_kernel"),
+               "train_attention_fwd_cuda_cores": ("train_attention_fwd_kernel",),
+               "train_attention_bwd_cuda_cores": ("train_attention_bwd_kernel",),
                "train_attention_bwd_tiled": ("train_attention_bwd_dq_kernel",
                                              "train_attention_bwd_dkdv_kernel"),
                "ffn_fwd": ("ffn_fwd_kernel",), "ffn_bwd": ("ffn_bwd_kernel",),
@@ -435,11 +464,17 @@ def dtype_name(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def report(name: str, shape: str, dtype, err: float, ms, plain, bound, library=None) -> dict:
+def report(name: str, shape: str, dtype, err: float, ms, plain, bound, library=None,
+           before=None) -> dict:
+    """Print a kernel's row (``before``: the CUDA-core kernel's times and max
+    abs error on the same inputs, printed beside its own) and return the JSON
+    keys."""
     b_ms, b_by = bound
     lib = f"{library[0]:.5f} ({library[1]})" if library else "none"
+    was = (f" (the CUDA-core kernel on the same inputs {before[0][0]:.5f}, max_abs_err "
+           f"{before[1]:.3e})" if before else "")
     print(f"{name} {shape} {dtype_name(dtype)}: max_abs_err {err:.3e}; device ms per call: "
-          f"kernel {ms[0]:.5f}, plain {plain[0]:.5f}, one PyTorch call {lib}; host-paced ms: "
+          f"kernel {ms[0]:.5f}{was}, plain {plain[0]:.5f}, one PyTorch call {lib}; host-paced ms: "
           f"kernel {ms[1]:.5f}, plain {plain[1]:.5f}; bound {b_ms:.5f} ms by {b_by} (estimate "
           f"against nominal peaks)", flush=True)
     return {"max_abs_err": err, "ms": ms[0], "plain_ms": plain[0], "bound_ms": b_ms,
@@ -727,7 +762,7 @@ def kernel_reorder_rows() -> dict:
 
 def _sdpa_train(q, k, v, keep):
     """The yardstick for #2: SDPA on [B, H, L, D] views, boolean key mask, prob dropout."""
-    B, L, HD = q.shape
+    B, _, HD = q.shape
     heads = [t.view(B, t.shape[1], TA_HEADS, HD // TA_HEADS).transpose(1, 2) for t in (q, k, v)]
     return F.scaled_dot_product_attention(*heads, attn_mask=keep[:, None, None, :],
                                           dropout_p=TA_RATE)
@@ -741,128 +776,43 @@ def _one_hot(B: int, L: int, n: int) -> torch.Tensor:
     return eye.reshape(1, L, TA_HEADS * n).expand(B, -1, -1).contiguous()
 
 
-def check_dropout_masks(dtype) -> float:
+def _launched(fn):
+    """fn's result and the launch counts it moved, {kernel: launches}."""
+    before = read_launches()
+    out = fn()
+    after = read_launches()
+    return out, {k: n - before[k] for k, n in after.items() if n != before[k]}
+
+
+def check_dropout_masks(dtype, L: int, kinds=None) -> float:
     """The forward kernel, the backward kernel and the plain version drop the
-    same probabilities: v one-hot over keys makes out[i, j] the dropped
-    probability (i, j), g one-hot over queries makes dv[j, i] the same; with
-    every key valid no kept probability is 0. Returns the dropped share."""
-    B, L, H, D = TA_B, TA_L, TA_HEADS, TA_D
+    same probabilities at [TA_B, L]: v one-hot over keys makes out[i, j] the
+    dropped probability (i, j), g one-hot over queries makes dv[j, i] the
+    same; with every key valid no kept probability is 0. ``kinds`` names the
+    (forward, backward) kernels, launched uncounted (None: the dtype's route,
+    through the wrappers). Returns the dropped share."""
+    B, H, D = TA_B, TA_HEADS, TA_D
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype) for _ in range(2))
     v, grad = _one_hot(B, L, D).to(dtype), _one_hot(B, L, D).to(dtype)
     mask = torch.ones(B, L, device="cuda")
-    out, m, l = ta.train_attention_fwd(q, k, v, mask, TA_SEED, TA_RATE, H)
-    _, _, dv = ta.train_attention_bwd(q, k, v, mask, TA_SEED, TA_RATE, H, m, l, grad)
+    args = (q, k, v, mask, TA_SEED, TA_RATE, H)
+    if kinds is None:
+        out, m, l = ta.train_attention_fwd(*args)
+        _, _, dv = ta.train_attention_bwd(*args, m, l, grad)
+    else:
+        out, m, l = ta._launch_fwd(kinds[0], *args)
+        _, _, dv = ta._launch_bwd(kinds[1], *args, m, l, grad)
     fwd = out.view(B, L, H, D)[..., :L].permute(0, 2, 1, 3) != 0  # [b, h, i, j]
-    bwd = dv.view(B, L, H, D)[..., :L].permute(0, 2, 3, 1) != 0  # dv[b, j, h, i]
+    back = dv.view(B, L, H, D)[..., :L].permute(0, 2, 3, 1) != 0  # dv[b, j, h, i]
     plain = ta.dropout_keep(TA_SEED, B, H, L, L, TA_RATE, device="cuda")
     torch.cuda.synchronize()
+    what = f"({dtype_name(dtype)}, [{B},{L}], {_ta_kinds_name(dtype, L, L, kinds)})"
     require(torch.equal(fwd, plain), f"forward kernel's dropout mask differs from the plain "
-                                     f"version's ({dtype})")
-    require(torch.equal(bwd, plain), f"backward kernel's dropout mask differs from the plain "
-                                     f"version's ({dtype})")
+                                     f"version's {what}")
+    require(torch.equal(back, plain), f"backward kernel's dropout mask differs from the plain "
+                                      f"version's {what}")
     return 1.0 - float(plain.float().mean())
-
-
-def kernel_train_attention() -> dict:
-    """#2 forward and backward against the plain versions at the FT-Joint
-    towers' shape and FT-Align's cross shape (ragged key masks, one all-masked
-    row), in f32 and bf16, at rates 0 and 0.1; the dropout masks of both
-    kernels against the plain version's; times, bounds and the SDPA yardstick
-    (forward, and backward through autograd). The row is the cross shape's."""
-    H, D = TA_HEADS, TA_D
-    rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        drop = check_dropout_masks(dtype)
-        n = TA_B * H * TA_L * TA_L
-        print(f"train_attention dropout masks ({dtype_name(dtype)}): forward kernel, backward "
-              f"kernel and plain version equal over {n} draws; dropped share {drop:.6f} "
-              f"(rate {TA_RATE}, limit +-{KEEP_RATE_TOL})", flush=True)
-        require(abs(drop - TA_RATE) <= KEEP_RATE_TOL, f"dropped share {drop} is not {TA_RATE}")
-    for B, L in TA_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            atol, rtol = TA_TOL[dtype_name(dtype)]
-            for rate in (0.0, TA_RATE):
-                g = torch.Generator(device="cuda").manual_seed(6)
-                q, k, v, grad = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype)
-                                 for _ in range(4))
-                mask = (torch.rand(B, L, generator=g, device="cuda") > 0.3).float()
-                mask[:, 0] = 1.0
-                mask[1] = 0.0  # no valid key: a uniform softmax in both versions
-                args = (q, k, v, mask, TA_SEED, rate, H)
-                out, m, l = ta.train_attention_fwd(*args)
-                want = ta.train_attention_reference_fwd(*args)
-                grads = ta.train_attention_bwd(*args, m, l, grad)
-                want_grads = ta.train_attention_reference_bwd(*args, want[1], want[2], grad)
-                torch.cuda.synchronize()
-                errs = {}
-                for part, pairs in (("fwd", zip((out, m, l), want)),
-                                    ("bwd", zip(grads, want_grads))):
-                    err = 0.0
-                    for got, ref in pairs:
-                        diff = (got.float() - ref.float()).abs()
-                        excess = float((diff - atol - rtol * ref.float().abs()).max())
-                        require(excess <= 0.0, f"train_attention {part} disagrees with its plain "
-                                               f"version at [{B},{L}] {dtype_name(dtype)} rate "
-                                               f"{rate}: max abs err {float(diff.max())}")
-                        err = max(err, float(diff.max()))
-                    errs[part] = err
-                    worst[part] = max(worst[part], err)
-                del want, want_grads
-                if rate == 0.0:
-                    continue
-                es = q.element_size()
-                io = B * L * H * D * es
-                stats = 2 * B * H * L * 4 + B * L * 4  # m, l, key mask
-                fwd_ms = cuda_time_ms(lambda: ta.train_attention_fwd(*args))
-                bwd_ms = cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))
-                fwd_plain = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args))
-                bwd_plain = cuda_time_ms(
-                    lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
-                keep = mask.bool()
-                keep[1] = True  # SDPA gives NaN on a row with no valid key
-                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-                sdpa_fwd = cuda_time_ms(lambda: _sdpa_train(*leaves, keep))
-                sdpa_out = _sdpa_train(*leaves, keep)
-                g4 = grad.view(B, L, H, D).transpose(1, 2)
-                sdpa_bwd = cuda_time_ms(
-                    lambda: torch.autograd.grad(sdpa_out, leaves, g4, retain_graph=True))
-                del sdpa_out
-                shape = f"[{B},{L},{H * D}] x {H} heads rate {rate}"
-                lib = "scaled_dot_product_attention, boolean key mask, dropout_p 0.1"
-                rows_dt = {
-                    "fwd": report("train_attention_fwd", shape, dtype, errs["fwd"], fwd_ms,
-                                  fwd_plain, bound_ms(4 * io + stats, 4.0 * B * H * L * L * D,
-                                                      dtype_name(dtype)),
-                                  (sdpa_fwd[0], lib)),
-                    "bwd": report("train_attention_bwd", shape, dtype, errs["bwd"], bwd_ms,
-                                  bwd_plain, bound_ms(7 * io + stats, 10.0 * B * H * L * L * D,
-                                                      dtype_name(dtype)),
-                                  (sdpa_bwd[0], lib + ", autograd backward")),
-                }
-                if dtype == torch.bfloat16:
-                    rows = rows_dt
-    return {f"train_attention_{p}": {**rows[p], "max_abs_err": worst[p]} for p in rows}
-
-
-def check_tiled_dropout_masks(dtype) -> None:
-    """The tiled backward drops what the forward kernel and the plain version
-    drop: the one-hot check of ``check_dropout_masks`` through
-    ``train_attention_bwd_tiled`` at TA_SHAPES[0] (32-row tiles: a ragged
-    second tile of 16 rows and keys)."""
-    B, L, H, D = TA_B, TA_L, TA_HEADS, TA_D
-    g = torch.Generator(device="cuda").manual_seed(5)
-    q, k = (torch.randn(B, L, H * D, generator=g, device="cuda").to(dtype) for _ in range(2))
-    v, grad = _one_hot(B, L, D).to(dtype), _one_hot(B, L, D).to(dtype)
-    mask = torch.ones(B, L, device="cuda")
-    out, m, l = ta.train_attention_fwd(q, k, v, mask, TA_SEED, TA_RATE, H)
-    _, _, dv = ta.train_attention_bwd_tiled(q, k, v, mask, TA_SEED, TA_RATE, H, m, l, grad)
-    fwd = out.view(B, L, H, D)[..., :L].permute(0, 2, 1, 3) != 0
-    bwd = dv.view(B, L, H, D)[..., :L].permute(0, 2, 3, 1) != 0
-    plain = ta.dropout_keep(TA_SEED, B, H, L, L, TA_RATE, device="cuda")
-    torch.cuda.synchronize()
-    require(torch.equal(fwd, plain) and torch.equal(bwd, plain),
-            f"the tiled backward's dropout mask differs from the plain version's ({dtype})")
 
 
 def _ta_inputs(B: int, Lq: int, Lk: int, dtype):
@@ -873,88 +823,208 @@ def _ta_inputs(B: int, Lq: int, Lk: int, dtype):
     k, v = (torch.randn(B, Lk, H * D, generator=g, device="cuda").to(dtype) for _ in range(2))
     mask = (torch.rand(B, Lk, generator=g, device="cuda") > 0.3).float()
     mask[:, 0] = 1.0
-    mask[1] = 0.0
+    mask[1] = 0.0  # no valid key: a uniform softmax in both versions
     return q, k, v, grad, mask
 
 
-def kernel_train_attention_tiled() -> dict:
-    """#2 at the caption step's lengths (TA_LONG_SHAPES): forward and the
-    tiled backward against the plain versions, f32 and bf16, rates 0 and 0.1;
-    the tiled kernels' dropout masks; bf16 times beside the bound, the plain
-    version and SDPA's autograd backward; and the tiled backward against the
-    whole-head one at TA_SHAPES, where both run. The row is the cross
-    tower's [16, 224] in bf16."""
+def _ta_agree(part: str, got, want, dtype, what: str) -> float:
+    """Max abs error of a kernel's outputs against the plain version's, each
+    within TA_TOL (atol + rtol * |ref|)."""
+    atol, rtol = TA_TOL[dtype_name(dtype)]
+    err = 0.0
+    for a, ref in zip(got, want):
+        diff = (a.float() - ref.float()).abs()
+        excess = float((diff - atol - rtol * ref.float().abs()).max())
+        require(excess <= 0.0, f"train_attention {part} disagrees with its plain version at "
+                               f"{what}: max abs err {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def _ta_cuda_cores(Lq: int, Lk: int) -> tuple:
+    """The CUDA-core (forward, backward) kernels at a head of Lq x Lk."""
+    return ta.FWD, ta.BWD_WHOLE if ta.whole_head_backward_fits(Lq, Lk, TA_D) else ta.BWD_TILED
+
+
+TA_KIND_NAMES = {ta.FWD: "train_attention_fwd_cuda_cores",
+                 ta.BWD_WHOLE: "train_attention_bwd_cuda_cores",
+                 ta.BWD_TILED: "train_attention_bwd_tiled"}
+
+
+def _ta_kinds_name(dtype, Lq: int, Lk: int, kinds) -> str:
+    if kinds is None:
+        return f"{ta.cuda_route(dtype, TA_D, Lq, Lk)}, the dtype's route"
+    return " and ".join(TA_KIND_NAMES[k] for k in kinds) + ", uncounted"
+
+
+def _ta_expect(dtype, Lq: int, Lk: int) -> tuple:
+    """The kernels one forward and one backward call launch, by their counters."""
+    if ta.cuda_route(dtype, TA_D, Lq, Lk) == ta.TENSOR_CORES:
+        return {"train_attention_fwd": 1}, {"train_attention_bwd": 1}
+    bwd = ("train_attention_bwd_cuda_cores" if ta.whole_head_backward_fits(Lq, Lk, TA_D)
+           else "train_attention_bwd_tiled")
+    return {"train_attention_fwd_cuda_cores": 1}, {bwd: 1}
+
+
+def _ta_bounds(B: int, Lq: int, Lk: int, dtype) -> tuple:
+    """Forward and backward bounds: the forward reads q, k, v and writes out,
+    m, l; the backward reads q, g, k, v, m, l and writes dq, dk, dv; both
+    read the key mask."""
+    H, D, es = TA_HEADS, TA_D, torch.finfo(dtype).bits // 8
+    qb, kb = B * Lq * H * D * es, B * Lk * H * D * es
+    stats = 2 * B * H * Lq * 4 + B * Lk * 4
+    return (bound_ms(2 * qb + 2 * kb + stats, 4.0 * B * H * Lq * Lk * D, dtype_name(dtype)),
+            bound_ms(3 * qb + 4 * kb + stats, 10.0 * B * H * Lq * Lk * D, dtype_name(dtype)))
+
+
+def _ta_times(args, m, l, grad, mask, before: bool = False) -> dict:
+    """Device times of #2 on one set of inputs: forward and backward of the
+    dtype's route (key None) and, with ``before``, of the CUDA-core kernels
+    (key "before"), the plain versions, SDPA's forward and its autograd
+    backward."""
+    q, k, v = args[:3]
+    B, Lq, HD = q.shape
+    t = {("fwd", None): cuda_time_ms(lambda: ta.train_attention_fwd(*args)),
+         ("bwd", None): cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))}
+    if before:
+        fwd, bwd = _ta_cuda_cores(Lq, k.shape[1])
+        t["fwd", "before"] = cuda_time_ms(lambda: ta._launch_fwd(fwd, *args))
+        t["bwd", "before"] = cuda_time_ms(lambda: ta._launch_bwd(bwd, *args, m, l, grad))
+    t["fwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args))
+    t["bwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
+    keep = mask.bool()
+    keep[1] = True  # SDPA gives NaN on a row with no valid key
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    t["fwd", "sdpa"] = cuda_time_ms(lambda: _sdpa_train(*leaves, keep))
+    out = _sdpa_train(*leaves, keep)
+    g4 = grad.view(B, Lq, TA_HEADS, HD // TA_HEADS).transpose(1, 2)
+    t["bwd", "sdpa"] = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g4,
+                                                                retain_graph=True))
+    return t
+
+
+SDPA_TRAIN = "scaled_dot_product_attention, boolean key mask, dropout_p 0.1"
+
+
+def _ta_report(t: dict, shape: str, dtype, ran: dict, errs: dict, bounds,
+               before_errs=None) -> dict:
+    """Forward and backward rows from _ta_times, named by the kernels the
+    dtype's route ran (``ran``), with the CUDA-core kernels' times and errors
+    (``before_errs``) on the same inputs printed beside them where timed."""
+    rows = {}
+    for i, part in enumerate(("fwd", "bwd")):
+        lib = (t[part, "sdpa"][0], SDPA_TRAIN + (", autograd backward" if part == "bwd" else ""))
+        before = (t[part, "before"], before_errs[part]) if before_errs else None
+        rows[part] = report(ran[part], shape, dtype, errs[part], t[part, None], t[part, "plain"],
+                            bounds[i], lib, before)
+    return rows
+
+
+def kernel_train_attention() -> dict:
+    """#2 forward and backward against the plain versions (ragged key masks,
+    one all-masked row) at rates 0 and 0.1, with the kernels each call
+    launched checked by their counters: at the FT-Joint towers' and FT-Align's
+    cross shapes (TA_SHAPES) in f32 (the CUDA-core kernels) and bf16 (the
+    tensor-core kernels, and the CUDA-core ones on the same inputs); at the
+    caption step's shapes (TA_CAPTION_SHAPES) in bf16 (tensor cores; the
+    CUDA-core kernels, whose backward is the tiled one past the whole-head
+    kernel's shared memory, on the same inputs) and f32 (the CUDA-core
+    kernels). The CUDA-core kernels on bf16 inputs go through the private
+    launch helpers, which count nothing. The dropout masks of each forward
+    and backward against the plain version's. bf16 times and errors of the
+    tensor-core kernels beside the CUDA-core ones, the bound, the plain
+    versions and SDPA; f32 times of the CUDA-core kernels; the tiled backward
+    against the whole-head one where both run. Rows: the tensor-core kernels
+    at the cross shape in bf16 (the main paths' dtype), the CUDA-core kernels
+    there in f32 and the tiled backward at the caption cross tower's [16,
+    224] in f32 (the f32 agreement runs' dtype); each row's max_abs_err is
+    its kernel's worst in the row's dtype."""
     H, D = TA_HEADS, TA_D
+    worst = {}  # (kernel, dtype name): max abs error over the shapes and rates
+    for dtype, kinds in ((torch.float32, None), (torch.bfloat16, None),
+                         (torch.bfloat16, (ta.FWD, ta.BWD_WHOLE))):
+        for L in (TA_L, TA_RAGGED_L):
+            drop = check_dropout_masks(dtype, L, kinds)
+            n = TA_B * H * L * L
+            print(f"train_attention dropout masks ({dtype_name(dtype)}, [{TA_B},{L}], "
+                  f"{_ta_kinds_name(dtype, L, L, kinds)}): forward kernel, backward kernel "
+                  f"and plain version equal over {n} draws; dropped share {drop:.6f} (rate "
+                  f"{TA_RATE}, limit +-{KEEP_RATE_TOL} at [{TA_B},{TA_L}])", flush=True)
+            require(L != TA_L or abs(drop - TA_RATE) <= KEEP_RATE_TOL,
+                    f"dropped share {drop} is not {TA_RATE}")
     for dtype in (torch.float32, torch.bfloat16):
-        check_tiled_dropout_masks(dtype)
+        check_dropout_masks(dtype, TA_L, (ta.FWD, ta.BWD_TILED))
     print(f"train_attention_bwd_tiled dropout masks at [{TA_B},{TA_L}]: forward kernel, tiled "
           f"backward and plain version equal in f32 and bf16", flush=True)
-    worst, row = {"fwd": 0.0, "bwd": 0.0}, None
-    for B, Lq, Lk in TA_LONG_SHAPES:
-        require(not ta.whole_head_backward_fits(Lq, Lk, D),
-                f"[{B},{Lq},{Lk}] fits the whole-head backward; the tiled one is not exercised")
+
+    rows = {}  # kernel: (row, the dtype it was timed in)
+    shapes = [(B, L, L) for B, L in TA_SHAPES] + TA_CAPTION_SHAPES
+    for B, Lq, Lk in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            atol, rtol = TA_TOL[dtype_name(dtype)]
+            before = dtype == torch.bfloat16  # the CUDA-core kernels on the same inputs
             q, k, v, grad, mask = _ta_inputs(B, Lq, Lk, dtype)
+            errs, ran, before_errs = {"fwd": 0.0, "bwd": 0.0}, {}, {"fwd": 0.0, "bwd": 0.0}
             for rate in (0.0, TA_RATE):
                 args = (q, k, v, mask, TA_SEED, rate, H)
-                before = ta.train_attention_bwd_tiled.launches
-                out, m, l = ta.train_attention_fwd(*args)
-                grads = ta.train_attention_bwd(*args, m, l, grad)
-                require(ta.train_attention_bwd_tiled.launches == before + 1,
-                        "train_attention_bwd did not take the tiled kernels")
                 want = ta.train_attention_reference_fwd(*args)
                 want_grads = ta.train_attention_reference_bwd(*args, want[1], want[2], grad)
-                torch.cuda.synchronize()
-                for part, pairs in (("fwd", zip((out, m, l), want)),
-                                    ("bwd", zip(grads, want_grads))):
-                    for got, ref in pairs:
-                        diff = (got.float() - ref.float()).abs()
-                        excess = float((diff - atol - rtol * ref.float().abs()).max())
-                        require(excess <= 0.0, f"train_attention {part} disagrees with its plain "
-                                               f"version at [{B},{Lq},{Lk}] {dtype_name(dtype)} "
-                                               f"rate {rate}: max abs err {float(diff.max())}")
-                        worst[part] = max(worst[part], float(diff.max()))
+                what = f"[{B},{Lq},{Lk}] {dtype_name(dtype)} rate {rate}"
+                (out, m, l), ran_f = _launched(lambda: ta.train_attention_fwd(*args))
+                grads, ran_b = _launched(lambda: ta.train_attention_bwd(*args, m, l, grad))
+                require((ran_f, ran_b) == _ta_expect(dtype, Lq, Lk),
+                        f"#2 at {what} launched {ran_f} and {ran_b}, not "
+                        f"{_ta_expect(dtype, Lq, Lk)}")
+                results = [("fwd", (out, m, l), next(iter(ran_f)), errs),
+                           ("bwd", grads, next(iter(ran_b)), errs)]
+                if before:
+                    kf, kb = _ta_cuda_cores(Lq, Lk)
+                    (out_c, m_c, l_c), moved_f = _launched(lambda: ta._launch_fwd(kf, *args))
+                    grads_c, moved_b = _launched(
+                        lambda: ta._launch_bwd(kb, *args, m_c, l_c, grad))
+                    require(not moved_f and not moved_b,
+                            f"the uncounted launches moved the counters: {moved_f} {moved_b}")
+                    results += [("fwd", (out_c, m_c, l_c), TA_KIND_NAMES[kf], before_errs),
+                                ("bwd", grads_c, TA_KIND_NAMES[kb], before_errs)]
+                for part, got, name, into in results:
+                    ref = want if part == "fwd" else want_grads
+                    err = _ta_agree(part, got, ref, dtype, f"{what} ({name})")
+                    key = (name, dtype_name(dtype))
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    into[part] = max(into[part], err)
+                    if into is errs:
+                        ran[part] = name
                 del want, want_grads
-            if dtype != torch.bfloat16:
-                continue
             args = (q, k, v, mask, TA_SEED, TA_RATE, H)
             _, m, l = ta.train_attention_fwd(*args)
-            ms = cuda_time_ms(lambda: ta.train_attention_bwd_tiled(*args, m, l, grad))
-            plain = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
-            keep = mask.bool()
-            keep[1] = True  # SDPA gives NaN on a row with no valid key
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            heads = [t.view(B, t.shape[1], H, D).transpose(1, 2) for t in leaves]
-            sdpa_out = F.scaled_dot_product_attention(*heads, attn_mask=keep[:, None, None, :],
-                                                      dropout_p=TA_RATE)
-            sdpa = cuda_time_ms(lambda: torch.autograd.grad(
-                sdpa_out, leaves, grad.view(B, Lq, H, D).transpose(1, 2), retain_graph=True))
-            del sdpa_out
-            es = q.element_size()
-            io = (2 * B * Lq + 2 * B * Lk) * H * D * es  # q, g, k, v in
-            out_bytes = (B * Lq + 2 * B * Lk) * H * D * es  # dq, dk, dv out
-            n_bytes = io + out_bytes + 2 * B * H * Lq * 4 + B * Lk * 4  # and m, l, mask in
-            r = report("train_attention_bwd_tiled", f"[{B},{Lq}/{Lk},{H * D}] x {H} heads rate "
-                       f"{TA_RATE}", dtype, 0.0, ms, plain,
-                       bound_ms(n_bytes, 10.0 * B * H * Lq * Lk * D, "bfloat16"),
-                       (sdpa[0], "scaled_dot_product_attention, boolean key mask, dropout_p "
-                                 "0.1, autograd backward"))
-            if (Lq, Lk) == (224, 224):
-                row = r
-    for B, L in TA_SHAPES:  # where both backwards run: is the tiled one slower?
-        q, k, v, grad, mask = _ta_inputs(B, L, L, torch.bfloat16)
-        args = (q, k, v, mask, TA_SEED, TA_RATE, H)
-        _, m, l = ta.train_attention_fwd(*args)
-        whole = ta.train_attention_bwd(*args, m, l, grad)
-        tiled = ta.train_attention_bwd_tiled(*args, m, l, grad)
-        same = all(torch.equal(a, b) for a, b in zip(whole, tiled))
-        t_whole = cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))
-        t_tiled = cuda_time_ms(lambda: ta.train_attention_bwd_tiled(*args, m, l, grad))
-        print(f"train_attention backward at [{B},{L},{H * D}] bf16 rate {TA_RATE}: whole-head "
-              f"{t_whole[0]:.5f} ms, tiled {t_tiled[0]:.5f} ms per call (device); results "
-              f"bitwise equal: {same}", flush=True)
-    return {"train_attention_bwd_tiled": {**row, "max_abs_err": worst["bwd"]}}
+            shape = f"[{B},{Lq}/{Lk},{H * D}] x {H} heads rate {TA_RATE}"
+            cross, long_f32 = (B, Lq) == TA_SHAPES[1], dtype == torch.float32 and Lq == 224
+            if before or cross or long_f32:
+                t = _ta_times(args, m, l, grad, mask, before)
+                r = _ta_report(t, shape, dtype, ran, errs, _ta_bounds(B, Lq, Lk, dtype),
+                               before_errs if before else None)
+                if cross:
+                    rows.update({ran[p]: (r[p], dtype) for p in r})
+                if long_f32:  # the tiled backward, in the dtype it runs in
+                    rows[ran["bwd"]] = (r["bwd"], dtype)
+            del q, k, v, grad, mask
+    require(not ta.whole_head_backward_fits(224, 224, D), "the tiled backward is not exercised")
+    for B, L in TA_SHAPES:  # where both CUDA-core backwards run: do they agree, which is faster?
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, grad, mask = _ta_inputs(B, L, L, dtype)
+            args = (q, k, v, mask, TA_SEED, TA_RATE, H)
+            _, m, l = ta._launch_fwd(ta.FWD, *args)
+            whole = ta._launch_bwd(ta.BWD_WHOLE, *args, m, l, grad)
+            tiled = ta._launch_bwd(ta.BWD_TILED, *args, m, l, grad)
+            same = all(torch.equal(a, b) for a, b in zip(whole, tiled))
+            t_whole = cuda_time_ms(lambda: ta._launch_bwd(ta.BWD_WHOLE, *args, m, l, grad))
+            t_tiled = cuda_time_ms(lambda: ta._launch_bwd(ta.BWD_TILED, *args, m, l, grad))
+            print(f"train_attention CUDA-core backward at [{B},{L},{H * D}] {dtype_name(dtype)} "
+                  f"rate {TA_RATE}: whole-head {t_whole[0]:.5f} ms, tiled {t_tiled[0]:.5f} ms per "
+                  f"call (device); results bitwise equal: {same}", flush=True)
+            require(same, f"the tiled backward differs from the whole-head one at [{B},{L}] "
+                          f"{dtype_name(dtype)}")
+    return {name: {**row, "max_abs_err": worst[name, dtype_name(dtype)]}
+            for name, (row, dtype) in rows.items()}
 
 
 def _ln_agree(name: str, got, want, dtype, tol, what: str) -> float:
@@ -1592,15 +1662,18 @@ def make_train_data(tmp: str, vocab: str, n_videos: int = TRAIN_VIDEOS):
     return files, ds
 
 
-def _launches_per_step(route: str) -> dict:
+def _launches_per_step(route: str, dtype: str = "bfloat16") -> dict:
     """What one training step launches on a route: #2 in every layer's
-    attention, forward and backward; on FT-Align's block route #4 and #5, on
-    its pallas route #3, in every layer of the three towers."""
+    attention, forward and backward (in bf16 its tensor-core kernels, in f32
+    its CUDA-core ones: 48 and 96 positions fit the whole-head backward); on
+    FT-Align's block route #4 and #5, on its pallas route #3, in every layer
+    of the three towers."""
     cfg = UniVLConfig.base(max_words=48, max_frames=48)
     layers = cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
     if route != "ft_joint":
         layers += cfg.cross.num_hidden_layers
-    want = {"train_attention_fwd": layers, "train_attention_bwd": layers}
+    suffix = "" if dtype == "bfloat16" else "_cuda_cores"
+    want = {f"train_attention_fwd{suffix}": layers, f"train_attention_bwd{suffix}": layers}
     ffn_kernels = {"ft_joint": (), "ft_align_xla": (), "ft_align": ("ffn_block", "dense_block"),
                    "ft_align_pallas": ("ffn",)}[route]
     for name in ffn_kernels:
@@ -1681,9 +1754,11 @@ def _train_batches(ds, n: int, device, batch: int = TRAIN_BATCH) -> list:
 
 PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
     "#1": ("eval_attention_kernel",),
-    "#2 forward": ("train_attention_fwd_kernel",),
-    "#2 backward": ("train_attention_bwd_kernel",),
-    "#2 backward, tiled": ("train_attention_bwd_dq_kernel", "train_attention_bwd_dkdv_kernel"),
+    "#2 forward": TRACE_NAMES["train_attention_fwd"],
+    "#2 backward": TRACE_NAMES["train_attention_bwd"],
+    "#2 forward, CUDA cores": TRACE_NAMES["train_attention_fwd_cuda_cores"],
+    "#2 backward, CUDA cores": TRACE_NAMES["train_attention_bwd_cuda_cores"],
+    "#2 backward, tiled (CUDA cores)": TRACE_NAMES["train_attention_bwd_tiled"],
     "#6 forward": ("layernorm_fwd_kernel",),
     "#6 backward": ("layernorm_bwd_kernel",),
     "#3 forward": ("ffn_fwd_kernel",),
@@ -1789,14 +1864,16 @@ def _agreement_run(cfg, sd, host, device: str, dtype: str, steps: int, fused_ln:
     return out["loss"].item(), grads, params, losses
 
 
-def phase_train_agreement(ds, route: str = "ft_joint", control=None):
+def phase_train_agreement(ds, route: str = "ft_joint", control=None, f32_launches=None):
     """Card against CPU at full width, seeded weights, dropout 0: FT-Joint
     with text 2 + visual 1 layers at batch 32, or FT-Align with text 2 +
     visual 1 + cross 1 layers at batch 8 on the route's FFN kernels. f32
     loss, gradients and parameters after 2 BertAdam steps (warmup 0, so both
     steps move them); bf16 losses over AGREE_BF16_STEPS steps. The FT-Align
     xla route is the control: its worst gradient and parameter disagreement
-    are returned, and ``control`` gives them to the kernel routes."""
+    are returned, and ``control`` gives them to the kernel routes. The card's
+    f32 launches go into ``f32_launches`` under the route's name (kept apart
+    from the main paths' counts)."""
     align, is_control = route != "ft_joint", route == "ft_align_xla"
     off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     batch = AGREE_ALIGN_BATCH if align else TRAIN_BATCH
@@ -1817,7 +1894,9 @@ def phase_train_agreement(ds, route: str = "ft_joint", control=None):
     reset_launches()
     card = run("cuda", "float32", 2)
     counts = read_launches()
-    ran = [k for k, n in _launches_per_step(route).items() if n]
+    ran = [k for k, n in _launches_per_step(route, "float32").items() if n]
+    if f32_launches is not None:
+        f32_launches[route] = counts
     require(all(counts[k] > 0 for k in ran),
             f"the card's f32 run did not launch the route's kernels {ran}: {counts}")
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
@@ -1893,18 +1972,20 @@ def _caption_cfg(**kw) -> UniVLConfig:
 
 
 def _caption_launches_per_step(model) -> dict:
-    """#2 in every attention over keys (forward; backward whole-head where
-    the head fits, else tiled: text 128, cross 224, the decoder's encoder
-    attention 128 x 224) and #6 in every LayerNorm, forward and backward."""
+    """#2 in every attention over keys, forward and backward, on its
+    tensor-core kernels at every length (text 128, visual 96, cross 224, the
+    decoder's encoder attention 128 x 224), and #6 in every LayerNorm,
+    forward and backward."""
     cfg, D = model.cfg, model.cfg.bert.hidden_size // model.cfg.bert.num_attention_heads
     W, Fr = CAP_WORDS, CAP_FRAMES
     attn = [(cfg.bert.num_hidden_layers, W, W), (cfg.visual.num_hidden_layers, Fr, Fr),
             (cfg.cross.num_hidden_layers, W + Fr, W + Fr),
             (cfg.decoder.num_decoder_layers, W, W + Fr)]
-    whole = sum(n for n, lq, lk in attn if ta.whole_head_backward_fits(lq, lk, D))
+    require(all(ta.cuda_route(torch.bfloat16, D, lq, lk) == ta.TENSOR_CORES
+                for _, lq, lk in attn), f"a bf16 caption head leaves the tensor cores: {attn}")
+    n_attn = sum(n for n, _, _ in attn)
     n_ln = sum(isinstance(m, LayerNormTF) for m in model.modules())
-    return {"train_attention_fwd": sum(n for n, _, _ in attn), "train_attention_bwd": whole,
-            "train_attention_bwd_tiled": sum(n for n, _, _ in attn) - whole,
+    return {"train_attention_fwd": n_attn, "train_attention_bwd": n_attn,
             "layernorm_fwd": n_ln, "layernorm_bwd": n_ln}
 
 
@@ -2194,12 +2275,12 @@ def phase_caption_profile(ds, tmp: str) -> None:
           f"({ln / res[True]['busy_ms']:.4f} of the busy time)", flush=True)
 
 
-def phase_caption_agreement(ds) -> None:
+def phase_caption_agreement(ds, f32_launches: dict) -> None:
     """Caption training, card against CPU at full width (text 2 + visual 1 +
     cross 1 + decoder 1 layers, batch 4, dropout 0), card f32 with and
     without --fused_ln, then card bf16 with it over AGREE_BF16_STEPS steps,
     all against one CPU f32 run (its plain LayerNorm is #6's plain version's
-    math)."""
+    math). The card's f32 launches go into ``f32_launches``."""
     off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     cfg = _caption_cfg(text_num_hidden_layers=2, visual_num_hidden_layers=1,
                        cross_num_hidden_layers=1, decoder_num_hidden_layers=1,
@@ -2216,8 +2297,8 @@ def phase_caption_agreement(ds) -> None:
         reset_launches()
         card = _agreement_run(cfg, sd, host, "cuda", "float32", 2, fused)
         counts = read_launches()
-        ran = ["train_attention_fwd", "train_attention_bwd_tiled"] + (
-            ["layernorm_fwd", "layernorm_bwd"] if fused else [])
+        f32_launches[f"caption{' --fused_ln' if fused else ''}"] = counts
+        ran = [*F32_ROUTE] + (["layernorm_fwd", "layernorm_bwd"] if fused else [])
         require(all(counts[k] > 0 for k in ran) and (fused or counts["layernorm_fwd"] == 0),
                 f"the card's f32 caption run launched {counts}")
         loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
@@ -2372,10 +2453,10 @@ def main() -> int:
                 "eval_attention_causal": kernel_eval_attention_causal(),
                 "reorder_rows": kernel_reorder_rows(),
                 **kernel_train_attention(),
-                **kernel_train_attention_tiled(),
                 **kernel_ffn(),
                 **kernel_layernorm()}
-    by_path = {}
+    by_path = {}  # main path: {kernel: launches}
+    f32_runs = {}  # the f32 agreement runs (not main paths): {kernel: launches}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vocab = write_vocab(os.path.join(tmp, "vocab.txt"))
         rng = np.random.RandomState(0)
@@ -2404,18 +2485,18 @@ def main() -> int:
         files, ds = make_train_data(tmp, vocab)
         by_path["train"] = phase_train(tmp, vocab, files)
         phase_train_profile(ds, tmp)
-        phase_train_agreement(ds)
+        phase_train_agreement(ds, f32_launches=f32_runs)
         by_path["train_ft_align"] = phase_train(tmp, vocab, files, "ft_align")
         phase_train_profile(ds, tmp, "ft_align")
         small, _ = make_train_data(tmp, vocab, n_videos=PALLAS_VIDEOS)
         by_path["train_ft_align_pallas"] = phase_train(tmp, vocab, small, "ft_align_pallas")
         control = phase_train_agreement(ds, "ft_align_xla")
-        phase_train_agreement(ds, "ft_align", control)
-        phase_train_agreement(ds, "ft_align_pallas", control)
+        phase_train_agreement(ds, "ft_align", control, f32_runs)
+        phase_train_agreement(ds, "ft_align_pallas", control, f32_runs)
         cap_files, cap_ds = make_caption_data(tmp, vocab)
         by_path.update(phase_caption_train(tmp, vocab, cap_files))
         phase_caption_profile(cap_ds, tmp)
-        phase_caption_agreement(cap_ds)
+        phase_caption_agreement(cap_ds, f32_runs)
         ret_files, msrvtt_cap_files = make_msrvtt_data(tmp)
         by_path["caption_eval_msrvtt"] = phase_caption_eval_msrvtt(tmp, vocab, msrvtt_cap_files)
         for mode in ("joint", "cross"):
@@ -2426,14 +2507,19 @@ def main() -> int:
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         launches = sum(counts[name] for counts in by_path.values())
-        if name in NO_ROUTE:
+        if name in NO_ROUTE or name in F32_ROUTE:
             require(launches == 0, f"{name} launched on a main path: {launches}")
         else:
             require(launches > 0, f"{name} never launched on the main paths")
+        f32 = {}
+        if name in F32_ROUTE:
+            f32 = {"f32_agreement_launches": {r: c[name] for r, c in f32_runs.items()}}
+            require(sum(f32["f32_agreement_launches"].values()) > 0,
+                    f"{name} never launched in the f32 agreement runs")
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches,
                      "launches_by_path": {p: c[name] for p, c in by_path.items()},
-                     **measured[name]})
+                     **f32, **measured[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

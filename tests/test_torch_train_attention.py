@@ -3,9 +3,10 @@ against the Pallas kernels it replaces, run in interpret mode on the CPU, and
 its Philox dropout against an independent pure-Python Philox4x32-10.
 
 On a CPU tensor the port's wrappers take the plain PyTorch versions; the CUDA
-kernels themselves are held against those versions on the card by
-chip_smoke.py, which also checks that the forward kernel, the backward kernel
-and the plain version drop the same probabilities.
+kernels themselves (tensor-core kernels for bf16, CUDA-core ones for f32) are
+held against those versions on the card by chip_smoke.py, which also checks
+that the forward kernel, the backward kernel and the plain version drop the
+same probabilities.
 """
 
 import jax
@@ -146,14 +147,18 @@ def test_rejects_bad_inputs(case):
         ta.fused_train_attention(q, k, v, mask, 0, 0.1, heads)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_tiled_backward_cpu_route_is_the_gradient(rate):
-    """train_attention_bwd_tiled's CPU route at Lq 12 / Lk 20 (Lq != Lk, the
-    shape class only the tiled kernels take on the card) against autograd
-    through the plain forward with the same mask, in f32; at rate 0 also
-    against the Pallas kernel's vjp."""
+@pytest.mark.parametrize("rate, Lq, Lk", [
+    pytest.param(0.0, 12, 20, id="0.0"), pytest.param(0.1, 12, 20, id="0.1"),
+    pytest.param(0.0, 20, 36, id="0.0-20x36"), pytest.param(0.1, 20, 36, id="0.1-20x36")])
+def test_tiled_backward_cpu_route_is_the_gradient(rate, Lq, Lk):
+    """train_attention_bwd_tiled's CPU route (the plain version the card holds
+    every backward kernel to) at Lq != Lk, neither a multiple of 16 (the
+    tensor-core kernels' rows a warp and keys a chunk) nor of 64 (their
+    tiles), against autograd through the plain forward with the same mask,
+    in f32; at rate 0 also the forward and the backward against the Pallas
+    kernel and its vjp."""
     rng = np.random.RandomState(4)
-    B, H, D, Lq, Lk = 2, 3, 8, 12, 20
+    B, H, D = 2, 3, 8
     q, g = (rng.randn(B, Lq, H * D).astype(np.float32) for _ in range(2))
     k, v = (rng.randn(B, Lk, H * D).astype(np.float32) for _ in range(2))
     mask = (rng.rand(B, Lk) > 0.3).astype(np.float32)
@@ -167,7 +172,57 @@ def test_tiled_backward_cpu_route_is_the_gradient(rate):
         np.testing.assert_allclose(w.numpy(), leaf.grad.numpy(), rtol=0, atol=1e-6)
     assert ta.train_attention_bwd_tiled.launches == 0
     if rate == 0.0:
-        _, vjp = jax.vjp(jax.jit(lambda *a: jax_train_attention(*a, jnp.asarray(mask), 0, 0.0,
-                                                                 H)), *map(jnp.asarray, (q, k, v)))
+        want, vjp = jax.vjp(jax.jit(lambda *a: jax_train_attention(*a, jnp.asarray(mask), 0, 0.0,
+                                                                    H)),
+                            *map(jnp.asarray, (q, k, v)))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
         for w, want in zip(got, vjp(jnp.asarray(g))):
             np.testing.assert_allclose(w.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def _launch_counts():
+    return (ta.train_attention_fwd.launches, ta.train_attention_fwd.cuda_core_launches,
+            ta.train_attention_bwd.launches, ta.train_attention_bwd.cuda_core_launches,
+            ta.train_attention_bwd_tiled.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensors_take_the_plain_version_whatever_the_route(dtype):
+    """On the CPU either dtype (tensor cores or CUDA cores on the card)
+    computes the plain versions and launches nothing."""
+    q, k, v, g, mask = (t.to(dtype) if t.dim() == 3 else t for t in _t(*_inputs(5)))
+    before = _launch_counts()
+    want, m, l = ta.train_attention_reference_fwd(q, k, v, mask, 3, 0.1, H)
+    want_grads = ta.train_attention_reference_bwd(q, k, v, mask, 3, 0.1, H, m, l, g)
+    out, _, _ = ta.train_attention_fwd(q, k, v, mask, 3, 0.1, H)
+    grads = ta.train_attention_bwd(q, k, v, mask, 3, 0.1, H, m, l, g)
+    tiled = ta.train_attention_bwd_tiled(q, k, v, mask, 3, 0.1, H, m, l, g)
+    assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+    assert all(torch.equal(a, b) for a, b in zip(tiled, want_grads))
+    assert _launch_counts() == before
+
+
+def test_cuda_route_tensor_cores_for_bf16_cuda_cores_for_f32():
+    """The selection a CUDA call goes through: every bf16 head of UniVL's
+    main paths on the tensor-core kernels, f32 (which tensor cores would
+    multiply as TF32) and bf16 heads past their limits on the CUDA-core ones;
+    the launch helpers refuse a CPU tensor before any build or launch."""
+    heads = [(48, 48), (96, 96), (128, 128), (224, 224), (128, 224)]  # towers, cross, caption
+    for Lq, Lk in heads:
+        assert ta.cuda_route(torch.bfloat16, 64, Lq, Lk) == ta.TENSOR_CORES
+        assert ta.cuda_route(torch.float32, 64, Lq, Lk) == ta.CUDA_CORES
+    assert ta.cuda_route(torch.bfloat16, 64, 512, 256) == ta.TENSOR_CORES
+    for D, Lq, Lk in [(32, 48, 48), (128, 48, 48), (64, 48, 257), (64, 513, 48)]:
+        assert ta.cuda_route(torch.bfloat16, D, Lq, Lk) == ta.CUDA_CORES
+    q = torch.zeros(2, 8, 4 * 64)
+    assert ta._cuda_route_of(q, q, 4) == ta.CUDA_CORES
+    assert ta._cuda_route_of(q.bfloat16(), q.bfloat16(), 4) == ta.TENSOR_CORES
+    mask = torch.ones(2, 8)
+    for kind in (ta.FWD, ta.FWD_MMA):
+        with pytest.raises(ValueError, match="no training-attention kernel for device cpu"):
+            ta._launch_fwd(kind, q, q, q, mask, 0, 0.1, 4)
+    m = torch.zeros(2, 4, 8)
+    for kind in (ta.BWD_WHOLE, ta.BWD_TILED, ta.BWD_MMA):
+        with pytest.raises(ValueError, match="no training-attention kernel for device cpu"):
+            ta._launch_bwd(kind, q, q, q, mask, 0, 0.1, 4, m, m, q)

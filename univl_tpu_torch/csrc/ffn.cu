@@ -64,11 +64,17 @@
 #include <atomic>
 #include <type_traits>
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
 
+using univl::cp_async16;
+using univl::cp_async_commit;
+using univl::cp_async_wait;
 using univl::Dropout;
+using univl::ld_pair;
+using univl::mma16816;
 using univl::philox4x32_10;
 using univl::philox_word;
 using bf16 = __nv_bfloat16;
@@ -237,30 +243,6 @@ constexpr int kARow = kH + 8;       // a staged activation row
 constexpr int kHRow = kFc + 8;      // a staged chunk row
 constexpr int kYRow = kH + 4;       // an f32 output row, laid out for the row epilogue
 constexpr int kStage = kH * kBRow;  // bf16 elements of one weight-tile buffer (up to kH columns)
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += A B for one 16 x 8 tile, 16 deep, bf16 in, f32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Rows [row0, row0 + kRows) of a [N, kH] matrix into rows of kARow, zeros past N.
 __device__ __forceinline__ void stage_rows_tc(bf16* dst, const bf16* __restrict__ src, int N,

@@ -1,6 +1,7 @@
 // Training attention for the PyTorch port, hand-written for Hopper (sm_90a):
-// a forward and a backward kernel with in-kernel dropout of the attention
-// probabilities.
+// forward and backward kernels with in-kernel dropout of the attention
+// probabilities, on two routes: tensor-core kernels for bf16 and CUDA-core
+// kernels for f32.
 //
 // Replaces the Pallas TPU kernels of univl_tpu/kernels/train_attention.py:
 // _attn_train_fwd_kernel (called from _fwd_call) and _attn_train_bwd_kernel
@@ -25,34 +26,86 @@
 // The TPU kernels' bits (pltpu.prng_random_bits) cannot be reproduced; the
 // distribution is the same.
 //
+// Routes. bf16 at head dim 64 with Lk <= 256 and Lq <= 512 (every bf16 head
+// of UniVL) takes the tensor-core kernels. f32 takes the CUDA-core kernels:
+// the tensor cores multiply f32 as TF32 (a 10-bit mantissa), which would
+// break the 1e-5 agreement of the card's f32 runs with the plain version; so
+// does a bf16 head outside those limits. The wrapper picks the route.
+//
 // What bounds it: at UniVL's lengths (L <= 224, D = 64) one (b, h) does
 // ~4 L^2 D flops forward and ~10 L^2 D backward over ~4-7 L D * 2 bytes: far
-// below the H100's ~295 flop/byte ridge, so the work is bound by memory
-// traffic and, at FT-Joint's 3-5 us per call, by launch latency and occupancy.
+// below the H100's ~295 flop/byte ridge, so by the roofline memory traffic
+// bounds the work (at FT-Align's [1024, 96] in bf16, 0.18 ms forward and
+// 0.32 ms backward) and, at FT-Joint's few microseconds a call, launch
+// latency and occupancy. What the kernels spend is the per-score work that
+// the bound does not count: the products, exp, the dropout bits, the
+// shuffles and the staging.
 //
-// What the design does about it: every input byte is read from device memory
-// once and the [Lq, Lk] scores, probabilities and dropout bits never leave
-// the SM. One block owns one (b, h): it stages that head's rows in shared
-// memory (16-byte loads, rows padded to D + 4 floats so the lanes of a
-// quarter-warp reading different rows hit distinct banks). Forward: each
-// warp takes query rows in turn, one key per lane, as in attention.cu.
-// Backward: the warps fill the block's [Lq, Lk] tiles of dropped
-// probabilities and ds, then every thread computes four adjacent columns of
-// dq, dk and dv with fixed-order sums: no atomics, so the result is
-// deterministic. One Philox call gives the keep bits of four keys. A head
-// that does not fit the block's shared memory (Lq = Lk = 128 needs 283 KB,
-// the caption cross tower's 224 positions 668 KB; the card gives 227 KB)
-// takes the tiled backward below: 32-row tiles of queries and keys, two
-// kernels, the same arithmetic. Tensor-core products (mma.sync / wgmma) and
-// TMA are left for later work.
+// The tensor-core kernels (bf16). Products run on mma.sync m16n8k16 (bf16
+// in, f32 accumulators); every warp owns 16 rows of a product's output, so
+// the accumulator layout of one product is the A-fragment layout of the
+// next and the [Lq, Lk] tiles never leave registers. Rows are staged in
+// shared memory as bf16 with cp.async, padded to 144 bytes so ldmatrix's
+// eight rows hit distinct banks. Blocks take 3 warps (48 rows) where the
+// length is a multiple of 48, else 4 (64 rows).
+//  - Forward: one block per (b, h, query tile), the head's k and v staged.
+//    A warp's 16 x Lk scores stay in registers (8 floats a thread per 16
+//    keys; the kernel is instantiated for 2 to 16 chunks of 16 keys), the
+//    row max and sum are taken across each quad with shuffles, and p is
+//    dropped and rounded to bf16 straight into the A fragments of p v (v read
+//    with ldmatrix.trans). No online rescaling: the whole row is in
+//    registers, so the kernel keeps the TPU kernel's one-pass softmax and
+//    its rounding points, and m and l are the exact row max and sum.
+//  - Backward: FlashAttention-2's split into two kernels, no atomics, so
+//    the result is deterministic. The dq kernel, one block per (b, h, query
+//    tile) with the head's k and v staged, makes two passes over the keys:
+//    the first sums delta = rowsum(dp * p), the TPU kernel's form (FA2's
+//    rowsum(dO * O) differs from it by O's rounding), and leaves the keep
+//    bits in shared memory; the second recomputes p and dp, forms ds in
+//    registers and accumulates ds k. Two passes, since a warp's p and dp
+//    over 224 keys (2 x 112 floats a thread) do not fit its registers, and
+//    four warps' of them in shared memory (114 KB beside k and v's 64 KB)
+//    would leave one block an SM. The dk/dv kernel,
+//    one block per (b, h, key tile) with the head's q, g, m, l and delta
+//    staged, walks the queries 16 at a time; each warp keeps its 16 keys' k
+//    and v fragments in registers, forms the scores as the forward does, and
+//    transposes p and ds in registers (movmatrix) into the A fragments of
+//    round(p_dropped)^T g and ds^T q.
+//  - The scores are formed the same way in all three kernels: q as the A
+//    operand and k as B, the head dim in four 16-deep steps in ascending
+//    order, then (acc * scale) + bias; p = expf(s - m) / l, the quotient
+//    taken as e (1 / l) plus one fma correction. So the
+//    backward's recomputed p is the forward's bit for bit, as the TPU
+//    kernel requires (train_attention.py:141-144).
+//  - Dropout: in the accumulator layout a thread holds two adjacent keys of
+//    an 8-key tile; lane t of a quad draws Philox for keys 4t .. 4t + 3 of a
+//    16-key chunk and the quad shares the words with two shuffles: one call
+//    per row and four keys.
+//
+// The CUDA-core kernels (f32, and bf16 heads past the limits above): every
+// input byte is read from device memory once and the [Lq, Lk] scores,
+// probabilities and dropout bits never leave the SM. One block owns one
+// (b, h): it stages that head's rows in f32 shared memory (16-byte loads,
+// rows padded to D + 4 floats so the lanes of a quarter-warp reading
+// different rows hit distinct banks). Forward: each warp takes query rows in
+// turn, one key per lane, as in attention.cu. Backward: the warps fill the
+// block's [Lq, Lk] tiles of dropped probabilities and ds, then every thread
+// computes four adjacent columns of dq, dk and dv with fixed-order sums: no
+// atomics, so the result is deterministic. One Philox call gives the keep
+// bits of four keys. A head that does not fit the block's shared memory
+// (Lq = Lk = 128 needs 283 KB, the caption cross tower's 224 positions 668
+// KB; the card gives 227 KB) takes the tiled backward below: 32-row tiles of
+// queries and keys, two kernels, the same arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -552,6 +605,555 @@ train_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   }
 }
 
+// ---------------------------------------------------------------- bf16: tensor cores
+// (the design is in the note at the top of the file)
+
+using univl::bf16;
+using univl::cp_async16;
+using univl::cp_async_commit;
+using univl::cp_async_wait;
+using univl::ldmatrix_x4;
+using univl::ldmatrix_x4_trans;
+using univl::mma16816;
+using univl::movmatrix_trans;
+using univl::pack_bf16;
+
+constexpr int kD = 64;            // the head dim the tensor-core kernels take
+constexpr int kRowPad = kD + 8;   // a staged row: 144 bytes, ldmatrix's 8 rows on distinct banks
+constexpr int kDSteps = kD / 16;  // 16-deep steps of a product over the head dim
+constexpr int kDTiles = kD / 8;   // 8-column tiles of a [16, kD] output
+constexpr int kMaxChunks = 16;    // the forward holds a row's scores in registers: Lk <= 256
+constexpr int kMaxQueries = 512;  // the dk/dv kernel stages a head's q and g: Lq <= 512
+constexpr int kMmaMaxWarps = 4;
+
+// Warps a block of the tensor-core kernels takes along a length L, 16 rows
+// each: 3 where L is a multiple of 48 (the towers' 48 and FT-Align's 96, no
+// ragged tile), else 4.
+int mma_warps(int L) { return L % 48 == 0 ? 3 : 4; }
+
+// Rows [0, n) of one head of a dense [., L, H * kD] bf16 tensor (src: its
+// first row, rows ld elements apart) into `rows` staged rows of kRowPad,
+// zeros past n, with cp.async 16-byte copies (the caller commits them).
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, long long ld,
+                                           int n, int rows) {
+  constexpr int kVec = kD / 8;
+  for (int e = threadIdx.x; e < rows * kVec; e += blockDim.x) {
+    const int r = e / kVec, c = (e % kVec) * 8;
+    bf16* d = dst + r * kRowPad + c;
+    if (r < n) {
+      cp_async16(d, src + r * ld + c);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// The key bias of keys [0, n) of batch row `mask` (a row of the f32 key
+// mask): -1e9 where masked, 0 where kept, -inf for the padding keys [Lk, n)
+// (no probability at all).
+__device__ __forceinline__ void stage_bias(float* bias, const float* __restrict__ mask, int Lk,
+                                           int n) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    bias[j] = j < Lk ? (1.0f - mask[j]) * kMaskBias : -INFINITY;
+  }
+}
+
+// A fragments of 16 staged rows over the head dim, a[kk] the step kk.
+__device__ __forceinline__ void load_a(uint32_t (&a)[kDSteps][4], const bf16* rows, int lane) {
+  const bf16* p = rows + (lane & 15) * kRowPad + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) ldmatrix_x4(a[kk], p + 16 * kk);
+}
+
+// B fragments of 16 staged rows read along the head dim, for a product
+// with their transpose (k in q k^T, v in g v^T): b[kk][0..1] give the
+// product's columns 0-7, b[kk][2..3] columns 8-15.
+__device__ __forceinline__ void load_bt(uint32_t (&b)[kDSteps][4], const bf16* rows, int lane) {
+  const bf16* p = rows + ((lane & 7) + ((lane >> 4) << 3)) * kRowPad + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) ldmatrix_x4(b[kk], p + 16 * kk);
+}
+
+// x = A B^T over the head dim for a 16 x 16 tile; x[n] the columns 8n .. 8n + 7.
+__device__ __forceinline__ void product16(float (&x)[2][4], const uint32_t (&a)[kDSteps][4],
+                                          const uint32_t (&b)[kDSteps][4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[n][r] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    mma16816(x[0], a[kk], b[kk][0], b[kk][1]);
+    mma16816(x[1], a[kk], b[kk][2], b[kk][3]);
+  }
+}
+
+// acc += A X for a 16 x 16 A (fragments a) and X 16 staged rows (the depth)
+// of a [., kD] matrix, read across with ldmatrix.trans: p v, ds k, p^T g, ds^T q.
+__device__ __forceinline__ void accumulate(float (&acc)[kDTiles][4], const uint32_t (&a)[4],
+                                           const bf16* rows, int lane) {
+  const bf16* p = rows + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kRowPad + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < kDTiles / 2; ++np) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, p + 16 * np);
+    mma16816(acc[2 * np], a, b[0], b[1]);
+    mma16816(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// The A fragments of a 16 x 16 tile held in product16's layout, each value
+// rounded to bf16 (the TPU kernels' astype points).
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&x)[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// The A fragments of the transpose of the tile whose fragments are a.
+__device__ __forceinline__ void transpose_a(uint32_t (&at)[4], const uint32_t (&a)[4]) {
+  at[0] = movmatrix_trans(a[0]);
+  at[1] = movmatrix_trans(a[2]);
+  at[2] = movmatrix_trans(a[1]);
+  at[3] = movmatrix_trans(a[3]);
+}
+
+// Keep bits of the four words of Philox(counter = (quad, i, h, b)): bit w for word w.
+__device__ __forceinline__ uint32_t keep_quad(const Dropout& drop, int b, int h, int i, int quad) {
+  const uint4 w = philox4x32_10(make_uint4(quad, i, h, b), drop.seed);
+  return static_cast<uint32_t>(w.x >= drop.threshold) |
+         static_cast<uint32_t>(w.y >= drop.threshold) << 1 |
+         static_cast<uint32_t>(w.z >= drop.threshold) << 2 |
+         static_cast<uint32_t>(w.w >= drop.threshold) << 3;
+}
+
+// The keep bits of a thread's eight scores of the 16-key chunk c in
+// product16's layout, rows i and i + 8: bit 4n + r for x[n][r]. One Philox
+// call per row and four keys: lane t of a quad draws keys 16c + 4t .. + 3
+// and the quad shares the words with two shuffles.
+__device__ __forceinline__ uint32_t keep_chunk(const Dropout& drop, int b, int h, int i, int c,
+                                               int lane) {
+  const int t = lane & 3, base = lane & ~3, sh = 2 * (t & 1);
+  const uint32_t mine = keep_quad(drop, b, h, i, 4 * c + t) |
+                        keep_quad(drop, b, h, i + 8, 4 * c + t) << 4;
+  const uint32_t lo = __shfl_sync(0xffffffffu, mine, base | (t >> 1));
+  const uint32_t hi = __shfl_sync(0xffffffffu, mine, base | (2 + (t >> 1)));
+  return ((lo >> sh) & 3u) | ((lo >> (4 + sh)) & 3u) << 2 | ((hi >> sh) & 3u) << 4 |
+         ((hi >> (4 + sh)) & 3u) << 6;
+}
+
+// e / l given rl = 1 / l correctly rounded: e rl, then one fma correction
+// (Markstein), the rounded quotient for normal operands as IEEE division
+// gives it, without the division's range check and slow-path call in every
+// score. A subnormal quotient (p < 2^-126) may differ in its last bit.
+__device__ __forceinline__ float quotient(float e, float l, float rl) {
+  const float q = __fmul_rn(e, rl);
+  return fmaf(fmaf(-l, q, e), rl, q);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// A score from its f32 product: scaled, then biased, two roundings as the
+// TPU kernel and the plain version take them (no contraction into an fma).
+__device__ __forceinline__ float score(float acc, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(acc, scale), bias);
+}
+
+// The scores of the 16-key chunk whose staged rows are `krows`, for the
+// warp's 16 query rows (fragments qa): the f32 product, scaled, plus the key
+// bias (bias: the chunk's 16 keys).
+__device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qa)[kDSteps][4],
+                                       const bf16* krows, const float* bias, float scale,
+                                       int lane) {
+  uint32_t kb[kDSteps][4];
+  load_bt(kb, krows, lane);
+  product16(s, qa, kb);
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[n][r] = score(s[n][r], scale, bias[8 * n + 2 * t + (r & 1)]);
+}
+
+// Rows i and i + 8 (those below L) of [16, kD] accumulators times `scale`,
+// rounded to bf16, into one head of a dense [., L, H * kD] tensor (dst: its
+// first row, rows ld elements apart).
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[kDTiles][4],
+                                           long long ld, int i, int L, float scale, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = i + 8 * half;
+    if (row < L) {
+#pragma unroll
+      for (int n = 0; n < kDTiles; ++n) {
+        *reinterpret_cast<uint32_t*>(dst + row * ld + 8 * n + 2 * t) =
+            pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+      }
+    }
+  }
+}
+
+// Forward: one block per (b, h, tile of 16 x warps query rows). The block
+// stages the head's keys and values; each warp holds its 16 rows' scores
+// over all Lk <= 16 KC keys in registers, takes the row max and sum across
+// its quads (no online rescaling: the TPU kernel's whole-row softmax), then
+// drops and rounds the probabilities straight into the A fragments of p v.
+template <int KC>
+__global__ void __launch_bounds__(32 * kMmaMaxWarps)
+train_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const float* __restrict__ key_mask,
+                               bf16* __restrict__ out, float* __restrict__ m_out,
+                               float* __restrict__ l_out, Shape sh, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk;
+  const int rows = blockDim.x / 2;  // 16 a warp
+  const int nc = (Lk + 15) / 16;    // 16-key chunks
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);               // [16 nc][kRowPad]
+  bf16* vs = ks + 16 * nc * kRowPad;                         // [16 nc][kRowPad]
+  bf16* qs = vs + 16 * nc * kRowPad;                         // [rows][kRowPad]
+  float* bias = reinterpret_cast<float*>(qs + rows * kRowPad);  // [16 nc]
+
+  const int tiles = (Lq + rows - 1) / rows;
+  const int b = blockIdx.x / tiles / H, h = blockIdx.x / tiles % H;
+  const int i0 = blockIdx.x % tiles * rows;
+  const long long ld = static_cast<long long>(H) * kD;
+  stage_rows(ks, k + static_cast<long long>(b) * Lk * ld + h * kD, ld, Lk, 16 * nc);
+  stage_rows(vs, v + static_cast<long long>(b) * Lk * ld + h * kD, ld, Lk, 16 * nc);
+  stage_rows(qs, q + (static_cast<long long>(b) * Lq + i0) * ld + h * kD, ld, min(rows, Lq - i0),
+             rows);
+  cp_async_commit();
+  stage_bias(bias, key_mask + static_cast<long long>(b) * Lk, Lk, 16 * nc);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int i = i0 + 16 * warp + lane / 4;  // the thread's rows: i and i + 8
+  if (i0 + 16 * warp >= Lq) return;         // a ragged tile's idle warp
+  uint32_t qa[kDSteps][4];
+  load_a(qa, qs + 16 * warp * kRowPad, lane);
+
+  float s[KC][2][4];
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c < nc) {
+      scores(s[c], qa, ks + 16 * c * kRowPad, bias + 16 * c, sh.scale, lane);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) mx[r / 2] = fmaxf(mx[r / 2], s[c][n][r]);
+    }
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c < nc) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          s[c][n][r] = expf(s[c][n][r] - mx[r / 2]);
+          sum[r / 2] += s[c][n][r];
+        }
+    }
+  }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+  const float rsum[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+  if (t == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (i + 8 * half < Lq) {
+        const long long stat = (static_cast<long long>(b) * H + h) * Lq + i + 8 * half;
+        m_out[stat] = mx[half];
+        l_out[stat] = sum[half];
+      }
+    }
+  }
+
+  float o[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[n][r] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c < nc) {
+      const uint32_t keep = drop.on ? keep_chunk(drop, b, h, i, c, lane) : 0xffu;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float p = quotient(s[c][n][r], sum[r / 2], rsum[r / 2]);
+          if (drop.on) p = (keep >> (4 * n + r)) & 1u ? p * drop.inv_keep : 0.0f;
+          s[c][n][r] = p;
+        }
+      uint32_t pa[4];
+      to_a(pa, s[c]);
+      accumulate(o, pa, vs + 16 * c * kRowPad, lane);
+    }
+  }
+  store_rows(out + static_cast<long long>(b) * Lq * ld + h * kD, o, ld, i, Lq, 1.0f, t);
+}
+
+// The probabilities, the dropped dp and the dropped probabilities of a
+// thread's eight entries of a 16-key chunk, from the scores s and g v^T
+// (dp), the rows' m, l and 1 / l, and the keep bits.
+__device__ __forceinline__ void probs(float (&p)[2][4], float (&dp)[2][4], float (&pd)[2][4],
+                                      const float (&s)[2][4], const float (&m)[2],
+                                      const float (&l)[2], const float (&rl)[2], uint32_t keep,
+                                      const Dropout& drop) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      p[n][r] = quotient(expf(s[n][r] - m[r / 2]), l[r / 2], rl[r / 2]);  // the forward's p
+      pd[n][r] = p[n][r];
+      if (drop.on) {
+        const bool kept = (keep >> (4 * n + r)) & 1u;
+        pd[n][r] = kept ? p[n][r] * drop.inv_keep : 0.0f;
+        dp[n][r] = kept ? dp[n][r] * drop.inv_keep : 0.0f;
+      }
+    }
+}
+
+// Backward, first kernel: one block per (b, h, tile of 16 x warps query
+// rows), the head's keys and values staged. Pass 1 over the key chunks sums
+// delta = rowsum(dp * p) (written for the second kernel); pass 2 recomputes
+// the chunk's p and dp, forms ds = round(p * (dp - delta)) in registers and
+// accumulates dq += ds k. Pass 1 leaves each chunk's keep bits in shared
+// memory for pass 2.
+__global__ void __launch_bounds__(32 * kMmaMaxWarps)
+train_attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const float* __restrict__ key_mask,
+                                  const float* __restrict__ m_in, const float* __restrict__ l_in,
+                                  const bf16* __restrict__ g, bf16* __restrict__ dq,
+                                  float* __restrict__ delta, Shape sh, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk;
+  const int rows = blockDim.x / 2;
+  const int nc = (Lk + 15) / 16;
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);               // [16 nc][kRowPad]
+  bf16* vs = ks + 16 * nc * kRowPad;                         // [16 nc][kRowPad]
+  bf16* qs = vs + 16 * nc * kRowPad;                         // [rows][kRowPad]
+  bf16* gs = qs + rows * kRowPad;                            // [rows][kRowPad]
+  float* bias = reinterpret_cast<float*>(gs + rows * kRowPad);  // [16 nc]
+  uint8_t* keeps = reinterpret_cast<uint8_t*>(bias + 16 * nc);  // [warps][nc][32]
+
+  const int tiles = (Lq + rows - 1) / rows;
+  const int b = blockIdx.x / tiles / H, h = blockIdx.x / tiles % H;
+  const int i0 = blockIdx.x % tiles * rows;
+  const long long ld = static_cast<long long>(H) * kD;
+  const long long q0 = (static_cast<long long>(b) * Lq + i0) * ld + h * kD;
+  stage_rows(ks, k + static_cast<long long>(b) * Lk * ld + h * kD, ld, Lk, 16 * nc);
+  stage_rows(vs, v + static_cast<long long>(b) * Lk * ld + h * kD, ld, Lk, 16 * nc);
+  stage_rows(qs, q + q0, ld, min(rows, Lq - i0), rows);
+  stage_rows(gs, g + q0, ld, min(rows, Lq - i0), rows);
+  cp_async_commit();
+  stage_bias(bias, key_mask + static_cast<long long>(b) * Lk, Lk, 16 * nc);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int i = i0 + 16 * warp + lane / 4;
+  if (i0 + 16 * warp >= Lq) return;
+  uint32_t qa[kDSteps][4], ga[kDSteps][4];
+  load_a(qa, qs + 16 * warp * kRowPad, lane);
+  load_a(ga, gs + 16 * warp * kRowPad, lane);
+  float m[2] = {0.0f, 0.0f}, l[2] = {1.0f, 1.0f};  // rows past Lq: finite, never written
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (i + 8 * half < Lq) {
+      const long long stat = (static_cast<long long>(b) * H + h) * Lq + i + 8 * half;
+      m[half] = m_in[stat];
+      l[half] = l_in[stat];
+    }
+  }
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  uint8_t* kw = keeps + warp * nc * 32 + lane;
+
+  float rs[2] = {0.0f, 0.0f};
+  for (int c = 0; c < nc; ++c) {  // pass 1: delta
+    float s[2][4], dp[2][4], p[2][4], pd[2][4];
+    uint32_t vb[kDSteps][4];
+    scores(s, qa, ks + 16 * c * kRowPad, bias + 16 * c, sh.scale, lane);
+    load_bt(vb, vs + 16 * c * kRowPad, lane);
+    product16(dp, ga, vb);
+    uint32_t keep = 0xffu;
+    if (drop.on) {
+      keep = keep_chunk(drop, b, h, i, c, lane);
+      kw[32 * c] = static_cast<uint8_t>(keep);
+    }
+    probs(p, dp, pd, s, m, l, rl, keep, drop);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) rs[r / 2] += dp[n][r] * p[n][r];
+  }
+  rs[0] = quad_sum(rs[0]);
+  rs[1] = quad_sum(rs[1]);
+  if (t == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = i + 8 * half;
+      if (row < Lq) delta[(static_cast<long long>(b) * H + h) * Lq + row] = rs[half];
+    }
+  }
+
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.0f;
+  for (int c = 0; c < nc; ++c) {  // pass 2: ds, dq += ds k
+    float s[2][4], dp[2][4], p[2][4], pd[2][4];
+    uint32_t vb[kDSteps][4];
+    scores(s, qa, ks + 16 * c * kRowPad, bias + 16 * c, sh.scale, lane);
+    load_bt(vb, vs + 16 * c * kRowPad, lane);
+    product16(dp, ga, vb);
+    probs(p, dp, pd, s, m, l, rl, drop.on ? kw[32 * c] : 0xffu, drop);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[n][r] = p[n][r] * (dp[n][r] - rs[r / 2]);
+    uint32_t da[4];
+    to_a(da, p);
+    accumulate(acc, da, ks + 16 * c * kRowPad, lane);
+  }
+  store_rows(dq + static_cast<long long>(b) * Lq * ld + h * kD, acc, ld, i, Lq, sh.scale, t);
+}
+
+// Backward, second kernel: one block per (b, h, tile of 16 x warps keys),
+// the head's queries, output gradients, m, l and delta staged. Each warp
+// keeps its 16 keys' k and v fragments in registers and walks the query rows
+// 16 at a time: the scores as the forward forms them (q as A), p and ds in
+// registers, their transposes by movmatrix, dv += round(p_dropped)^T g and
+// dk += ds^T q. Sums run over the queries in ascending order and no two
+// blocks write one element: no atomics, deterministic.
+__global__ void __launch_bounds__(32 * kMmaMaxWarps)
+train_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                    const bf16* __restrict__ v,
+                                    const float* __restrict__ key_mask,
+                                    const float* __restrict__ m_in,
+                                    const float* __restrict__ l_in, const bf16* __restrict__ g,
+                                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                                    bf16* __restrict__ dv, Shape sh, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk;
+  const int keys = blockDim.x / 2;
+  const int nq = (Lq + 15) / 16;  // 16-row query chunks
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);             // [16 nq][kRowPad]
+  bf16* gs = qs + 16 * nq * kRowPad;                       // [16 nq][kRowPad]
+  bf16* kts = gs + 16 * nq * kRowPad;                      // [keys][kRowPad]
+  bf16* vts = kts + keys * kRowPad;                        // [keys][kRowPad]
+  float* ms = reinterpret_cast<float*>(vts + keys * kRowPad);  // [16 nq]
+  float* ls = ms + 16 * nq;                                // [16 nq]
+  float* rls = ls + 16 * nq;                               // [16 nq] 1 / l
+  float* deltas = rls + 16 * nq;                           // [16 nq]
+
+  const int tiles = (Lk + keys - 1) / keys;
+  const int b = blockIdx.x / tiles / H, h = blockIdx.x / tiles % H;
+  const int j0 = blockIdx.x % tiles * keys;
+  const long long ld = static_cast<long long>(H) * kD;
+  const long long k0 = (static_cast<long long>(b) * Lk + j0) * ld + h * kD;
+  stage_rows(qs, q + static_cast<long long>(b) * Lq * ld + h * kD, ld, Lq, 16 * nq);
+  stage_rows(gs, g + static_cast<long long>(b) * Lq * ld + h * kD, ld, Lq, 16 * nq);
+  stage_rows(kts, k + k0, ld, min(keys, Lk - j0), keys);
+  stage_rows(vts, v + k0, ld, min(keys, Lk - j0), keys);
+  cp_async_commit();
+  const long long stat0 = (static_cast<long long>(b) * H + h) * Lq;
+  for (int r = threadIdx.x; r < 16 * nq; r += blockDim.x) {
+    const bool row = r < Lq;  // padding rows: p = exp(s - inf) = 0, ds = 0
+    ms[r] = row ? m_in[stat0 + r] : INFINITY;
+    ls[r] = row ? l_in[stat0 + r] : 1.0f;
+    rls[r] = __frcp_rn(ls[r]);
+    deltas[r] = row ? delta[stat0 + r] : 0.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int jw = j0 + 16 * warp;  // the warp's first key
+  if (jw >= Lk) return;
+  uint32_t kb[kDSteps][4], vb[kDSteps][4];
+  load_bt(kb, kts + 16 * warp * kRowPad, lane);
+  load_bt(vb, vts + 16 * warp * kRowPad, lane);
+  float bias[2][2];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = jw + 8 * n + 2 * t + e;
+      bias[n][e] = j < Lk ? (1.0f - key_mask[static_cast<long long>(b) * Lk + j]) * kMaskBias
+                          : -INFINITY;
+    }
+
+  float ak[kDTiles][4], av[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ak[n][r] = av[n][r] = 0.0f;
+  for (int qc = 0; qc < nq; ++qc) {
+    uint32_t qa[kDSteps][4], ga[kDSteps][4];
+    load_a(qa, qs + 16 * qc * kRowPad, lane);
+    load_a(ga, gs + 16 * qc * kRowPad, lane);
+    float s[2][4], dp[2][4], p[2][4], pd[2][4];
+    product16(s, qa, kb);
+    product16(dp, ga, vb);
+    const int r0 = 16 * qc + lane / 4;  // the thread's rows r0 and r0 + 8
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[n][r] = score(s[n][r], sh.scale, bias[n][r & 1]);
+    const float m[2] = {ms[r0], ms[r0 + 8]}, l[2] = {ls[r0], ls[r0 + 8]};
+    const float rl[2] = {rls[r0], rls[r0 + 8]};
+    probs(p, dp, pd, s, m, l, rl, drop.on ? keep_chunk(drop, b, h, r0, jw / 16, lane) : 0xffu,
+          drop);
+    const float rs[2] = {deltas[r0], deltas[r0 + 8]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[n][r] = p[n][r] * (dp[n][r] - rs[r / 2]);
+    uint32_t a[4], at[4];
+    to_a(a, pd);
+    transpose_a(at, a);
+    accumulate(av, at, gs + 16 * qc * kRowPad, lane);
+    to_a(a, p);
+    transpose_a(at, a);
+    accumulate(ak, at, qs + 16 * qc * kRowPad, lane);
+  }
+  const long long out0 = static_cast<long long>(b) * Lk * ld + h * kD;
+  store_rows(dk + out0, ak, ld, jw + lane / 4, Lk, sh.scale, t);
+  store_rows(dv + out0, av, ld, jw + lane / 4, Lk, 1.0f, t);
+}
+
+size_t fwd_mma_smem_bytes(int Lq, int Lk) {
+  const size_t nc = (Lk + 15) / 16, rows = 16 * mma_warps(Lq);
+  return (32 * nc + rows) * kRowPad * sizeof(bf16) + 16 * nc * sizeof(float);
+}
+
+size_t dq_mma_smem_bytes(int Lq, int Lk) {
+  const size_t nc = (Lk + 15) / 16, rows = 16 * mma_warps(Lq);
+  return (32 * nc + 2 * rows) * kRowPad * sizeof(bf16) + 16 * nc * sizeof(float) +
+         rows / 16 * nc * 32;
+}
+
+size_t dkdv_mma_smem_bytes(int Lq, int Lk) {
+  const size_t nq = (Lq + 15) / 16, keys = 16 * mma_warps(Lk);
+  return (32 * nq + 2 * keys) * kRowPad * sizeof(bf16) + 4 * 16 * nq * sizeof(float);
+}
+
 size_t fwd_smem_bytes(int Lq, int Lk, int D) {
   const size_t lk4 = (Lk + 3) & ~3;
   return (static_cast<size_t>(Lk) * (2 * D + 5) + kWarps * (D + 2 * lk4)) * sizeof(float);
@@ -654,17 +1256,82 @@ cudaError_t launch_bwd_tiled(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
+template <int KC>
+cudaError_t launch_fwd_mma_chunks(const void* q, const void* k, const void* v, const float* mask,
+                                  void* out, float* m, float* l, int B, Shape sh, Dropout drop,
+                                  cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const size_t smem = fwd_mma_smem_bytes(sh.Lq, sh.Lk);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = opt_in_shared_memory(train_attention_fwd_mma_kernel<KC>, done);
+    if (err != cudaSuccess) return err;
+  }
+  const int warps = mma_warps(sh.Lq), tiles = (sh.Lq + 16 * warps - 1) / (16 * warps);
+  train_attention_fwd_mma_kernel<KC><<<B * sh.H * tiles, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
+      static_cast<bf16*>(out), m, l, sh, drop);
+  return cudaGetLastError();
+}
+
+// The forward instance whose registers hold the row's scores: 32 keys apart.
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const float* mask,
+                           void* out, float* m, float* l, int B, Shape sh, Dropout drop,
+                           cudaStream_t stream) {
+  switch ((sh.Lk + 31) / 32) {
+    case 1: return launch_fwd_mma_chunks<2>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    case 2: return launch_fwd_mma_chunks<4>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    case 3: return launch_fwd_mma_chunks<6>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    case 4: return launch_fwd_mma_chunks<8>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    case 5: return launch_fwd_mma_chunks<10>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    case 6: return launch_fwd_mma_chunks<12>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    case 7: return launch_fwd_mma_chunks<14>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    case 8: return launch_fwd_mma_chunks<16>(q, k, v, mask, out, m, l, B, sh, drop, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const float* mask,
+                           const float* m, const float* l, const void* g, void* dq, void* dk,
+                           void* dv, float* delta, int B, Shape sh, Dropout drop,
+                           cudaStream_t stream) {
+  static std::atomic<bool> done_dq[kMaxDevices], done_dkdv[kMaxDevices];
+  cudaError_t err = opt_in_shared_memory(train_attention_bwd_dq_mma_kernel, done_dq);
+  if (err != cudaSuccess) return err;
+  err = opt_in_shared_memory(train_attention_bwd_dkdv_mma_kernel, done_dkdv);
+  if (err != cudaSuccess) return err;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(g);
+  const int wq = mma_warps(sh.Lq), wk = mma_warps(sh.Lk);
+  const int q_tiles = (sh.Lq + 16 * wq - 1) / (16 * wq);
+  const int k_tiles = (sh.Lk + 16 * wk - 1) / (16 * wk);
+  train_attention_bwd_dq_mma_kernel<<<B * sh.H * q_tiles, 32 * wq,
+                                      dq_mma_smem_bytes(sh.Lq, sh.Lk), stream>>>(
+      qt, kt, vt, mask, m, l, gt, static_cast<bf16*>(dq), delta, sh, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  train_attention_bwd_dkdv_mma_kernel<<<B * sh.H * k_tiles, 32 * wk,
+                                        dkdv_mma_smem_bytes(sh.Lq, sh.Lk), stream>>>(
+      qt, kt, vt, mask, m, l, gt, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh, drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one block needs, so the caller can check the budget
 // and pick the backward: kind 0 the forward, 1 the whole-head backward, 2 the
-// tiled backward.
+// tiled backward (the CUDA-core kernels); 3 the tensor-core forward, 4 the
+// larger of the tensor-core backward's two kernels.
 long long univl_train_attention_smem_bytes(int Lq, int Lk, int D, int kind) {
   const size_t bytes = kind == 0   ? fwd_smem_bytes(Lq, Lk, D)
                        : kind == 1 ? bwd_smem_bytes(Lq, Lk, D)
-                                   : tiled_smem_bytes(D);
+                       : kind == 2 ? tiled_smem_bytes(D)
+                       : kind == 3 ? fwd_mma_smem_bytes(Lq, Lk)
+                                   : std::max(dq_mma_smem_bytes(Lq, Lk),
+                                              dkdv_mma_smem_bytes(Lq, Lk));
   return static_cast<long long>(bytes);
 }
 
@@ -727,6 +1394,39 @@ int univl_train_attention_bwd_tiled(const void* q, const void* k, const void* v,
           ? launch_bwd_tiled<__nv_bfloat16>(q, k, v, mask, mf, lf, g, dq, dk, dv, df, B, sh, drop, s)
           : launch_bwd_tiled<float>(q, k, v, mask, mf, lf, g, dq, dk, dv, df, B, sh, drop, s);
   return static_cast<int>(err);
+}
+
+// The tensor-core forward: the forward's arguments, bf16 only (is_bf16 = 1),
+// D = 64, Lk <= 256; otherwise cudaErrorInvalidValue and no launch.
+int univl_train_attention_fwd_mma(const void* q, const void* k, const void* v,
+                                  const void* key_mask, void* out, void* m, void* l, int is_bf16,
+                                  int B, int H, int Lq, int Lk, int D, float scale,
+                                  unsigned int threshold, float inv_keep, int dropout_on,
+                                  unsigned long long seed, void* stream) {
+  if (!is_bf16 || D != kD || Lk > 16 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
+  const Shape sh{H, Lq, Lk, D, scale};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  return static_cast<int>(launch_fwd_mma(q, k, v, static_cast<const float*>(key_mask), out,
+                                         static_cast<float*>(m), static_cast<float*>(l), B, sh,
+                                         drop, static_cast<cudaStream_t>(stream)));
+}
+
+// The tensor-core backward: the tiled backward's arguments, bf16 only, D =
+// 64, Lq <= 512; `delta` is written by its first kernel and read by its second.
+int univl_train_attention_bwd_mma(const void* q, const void* k, const void* v,
+                                  const void* key_mask, const void* m, const void* l,
+                                  const void* g, void* dq, void* dk, void* dv, void* delta,
+                                  int is_bf16, int B, int H, int Lq, int Lk, int D, float scale,
+                                  unsigned int threshold, float inv_keep, int dropout_on,
+                                  unsigned long long seed, void* stream) {
+  if (!is_bf16 || D != kD || Lq > kMaxQueries) return static_cast<int>(cudaErrorInvalidValue);
+  const Shape sh{H, Lq, Lk, D, scale};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  return static_cast<int>(launch_bwd_mma(q, k, v, static_cast<const float*>(key_mask),
+                                         static_cast<const float*>(m),
+                                         static_cast<const float*>(l), g, dq, dk, dv,
+                                         static_cast<float*>(delta), B, sh, drop,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -119,6 +119,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_train_attention_bwd.restype = i
     lib.univl_train_attention_bwd_tiled.argtypes = [p] * 11 + shared
     lib.univl_train_attention_bwd_tiled.restype = i
+    lib.univl_train_attention_fwd_mma.argtypes = [p] * 7 + shared
+    lib.univl_train_attention_fwd_mma.restype = i
+    lib.univl_train_attention_bwd_mma.argtypes = [p] * 11 + shared
+    lib.univl_train_attention_bwd_mma.restype = i
     lib.univl_layernorm_bwd_rows.argtypes = []
     lib.univl_layernorm_bwd_rows.restype = i
     lib.univl_layernorm_max_width.argtypes = []

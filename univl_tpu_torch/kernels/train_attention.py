@@ -13,9 +13,12 @@ recomputes the probabilities and regenerates the same dropout mask, so no
 On a CPU tensor ``train_attention_fwd`` and ``train_attention_bwd`` compute
 the plain versions below; on a CUDA tensor they launch the kernels in
 ``univl_tpu_torch/csrc/train_attention.cu`` (built at first use) or raise.
-The backward has two kernels: the whole-head one stages a head in shared
-memory (Lq, Lk up to ~100 at D = 64); longer heads (the caption step's 128
-and 224 positions) take the tiled one, ``train_attention_bwd_tiled``, two
+``cuda_route`` picks the kernels. bf16 at head dim 64 (every bf16 head of
+UniVL) takes the tensor-core kernels: a forward, and a backward of two
+launches (dq; dk and dv), each counted as one call. f32 takes the CUDA-core
+kernels, since tensor cores would multiply it as TF32: the forward, and the
+whole-head backward where a head fits the block's shared memory (Lq, Lk up
+to ~100 at D = 64), else the tiled one, ``train_attention_bwd_tiled``, two
 launches over 32-row tiles with the same arithmetic.
 
 Dropout bits: the TPU kernels draw theirs from the TPU's own generator
@@ -140,7 +143,28 @@ def _check(q, k, v, key_mask, heads: int) -> None:
         raise ValueError("q, k, v and key_mask must be on one device")
 
 
-FWD, BWD_WHOLE, BWD_TILED = 0, 1, 2  # the kernels, as univl_train_attention_smem_bytes names them
+# the kernels, as univl_train_attention_smem_bytes names them: the CUDA-core
+# forward, whole-head and tiled backwards; the tensor-core forward and backward
+FWD, BWD_WHOLE, BWD_TILED, FWD_MMA, BWD_MMA = 0, 1, 2, 3, 4
+TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
+MMA_HEAD_DIM = 64  # the tensor-core kernels' head dim
+MMA_MAX_KEYS = 256  # the forward holds a row's scores in registers
+MMA_MAX_QUERIES = 512  # the dk/dv kernel stages a head's q and g in shared memory
+
+
+def cuda_route(dtype, head_dim: int, Lq: int, Lk: int) -> str:
+    """The kernels a CUDA call takes: TENSOR_CORES for bf16 at head dim 64,
+    Lk <= 256 and Lq <= 512 (every bf16 head of UniVL), else CUDA_CORES (f32,
+    which tensor cores would multiply as TF32, and other bf16 heads)."""
+    if (dtype == torch.bfloat16 and head_dim == MMA_HEAD_DIM and Lk <= MMA_MAX_KEYS
+            and Lq <= MMA_MAX_QUERIES):
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def _cuda_route_of(q, k, heads: int) -> str:
+    """``cuda_route`` for the tensors of a call."""
+    return cuda_route(q.dtype, q.shape[2] // heads, q.shape[1], k.shape[1])
 
 
 def _cuda_args(q: torch.Tensor, k: torch.Tensor, heads: int, rate: float, kind: int):
@@ -159,7 +183,8 @@ def _cuda_args(q: torch.Tensor, k: torch.Tensor, heads: int, rate: float, kind: 
     lib = _build.load_library()
     smem = lib.univl_train_attention_smem_bytes(Lq, Lk, D, kind)
     if smem > SMEM_LIMIT:
-        what = ("forward", "whole-head backward", "tiled backward")[kind]
+        what = ("forward", "whole-head backward", "tiled backward", "tensor-core forward",
+                "tensor-core backward")[kind]
         raise ValueError(f"Lq={Lq}, Lk={Lk}, D={D} needs {smem} bytes of shared memory per "
                          f"block in the {what}; the limit is {SMEM_LIMIT}")
     return lib, (int(q.dtype == torch.bfloat16), B, heads, Lq, Lk, D, 1.0 / math.sqrt(D),
@@ -167,8 +192,8 @@ def _cuda_args(q: torch.Tensor, k: torch.Tensor, heads: int, rate: float, kind: 
 
 
 def whole_head_backward_fits(Lq: int, Lk: int, D: int) -> bool:
-    """Whether the whole-head backward kernel can stage a head of this shape
-    (otherwise ``train_attention_bwd`` takes the tiled one)."""
+    """Whether the CUDA-core whole-head backward can stage a head of this
+    shape (otherwise the CUDA-core route takes the tiled one)."""
     return _build.load_library().univl_train_attention_smem_bytes(Lq, Lk, D, BWD_WHOLE) \
         <= SMEM_LIMIT
 
@@ -180,31 +205,45 @@ def _aligned(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
-    """(out [B, Lq, heads*D] in q's dtype, m, l [B, heads, Lq] f32): the
-    forward kernel on a CUDA tensor, its plain version on a CPU one."""
-    _check(q, k, v, key_mask, heads)
-    if q.device.type == "cpu":
-        return train_attention_reference_fwd(q, k, v, key_mask, seed, rate, heads)
-    lib, args = _cuda_args(q, k, heads, rate, FWD)
+def _launch_fwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int):
+    """One of the forward kernels (FWD, FWD_MMA) on CUDA tensors, uncounted:
+    (out, m, l)."""
+    lib, args = _cuda_args(q, k, heads, rate, kind)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = key_mask.to(torch.float32).contiguous()
     B, H, Lq = q.shape[0], heads, q.shape[1]
     out = torch.empty_like(q)
     m = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    fn = lib.univl_train_attention_fwd_mma if kind == FWD_MMA else lib.univl_train_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.univl_train_attention_fwd(
-            *_aligned(q, k, v), mask.data_ptr(), *_aligned(out), m.data_ptr(), l.data_ptr(),
-            *args, seed & 0xFFFFFFFFFFFFFFFF, stream)
-    _build.check(lib, err, "training attention forward kernel launch")
-    train_attention_fwd.launches += 1
+        err = fn(*_aligned(q, k, v), mask.data_ptr(), *_aligned(out), m.data_ptr(),
+                 l.data_ptr(), *args, seed & 0xFFFFFFFFFFFFFFFF, stream)
+    _build.check(lib, err, f"training attention forward kernel launch "
+                           f"({TENSOR_CORES if kind == FWD_MMA else CUDA_CORES})")
     return out, m, l
 
 
+def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
+    """(out [B, Lq, heads*D] in q's dtype, m, l [B, heads, Lq] f32): on a
+    CUDA tensor the forward kernel of ``cuda_route``, on a CPU one its plain
+    version."""
+    _check(q, k, v, key_mask, heads)
+    if q.device.type == "cpu":
+        return train_attention_reference_fwd(q, k, v, key_mask, seed, rate, heads)
+    if _cuda_route_of(q, k, heads) == TENSOR_CORES:
+        out = _launch_fwd(FWD_MMA, q, k, v, key_mask, seed, rate, heads)
+        train_attention_fwd.launches += 1
+    else:
+        out = _launch_fwd(FWD, q, k, v, key_mask, seed, rate, heads)
+        train_attention_fwd.cuda_core_launches += 1
+    return out
+
+
 def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
-    """The whole-head or the tiled backward kernel(s) on CUDA tensors."""
+    """One of the backward kernels (BWD_WHOLE, BWD_TILED, BWD_MMA) on CUDA
+    tensors, uncounted: (dq, dk, dv)."""
     lib, args = _cuda_args(q, k, heads, rate, kind)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     g = g.to(q.dtype).contiguous()
@@ -213,37 +252,42 @@ def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = [*_aligned(q, k, v), mask.data_ptr(), m.data_ptr(), l.data_ptr(),
             *_aligned(g, dq, dk, dv)]
-    fn = lib.univl_train_attention_bwd
-    delta = torch.empty_like(m)  # rowsum(dp * p), between the two tiled kernels
-    if kind == BWD_TILED:
+    fn = {BWD_WHOLE: lib.univl_train_attention_bwd, BWD_TILED: lib.univl_train_attention_bwd_tiled,
+          BWD_MMA: lib.univl_train_attention_bwd_mma}[kind]
+    delta = torch.empty_like(m)  # rowsum(dp * p), between the two kernels of a two-launch backward
+    if kind != BWD_WHOLE:
         ptrs.append(delta.data_ptr())
-        fn = lib.univl_train_attention_bwd_tiled
     with torch.cuda.device(q.device):
         err = fn(*ptrs, *args, seed & 0xFFFFFFFFFFFFFFFF,
                  torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, f"training attention {('', 'whole-head', 'tiled')[kind]} backward "
-                           f"kernel launch")
+    what = {BWD_WHOLE: "whole-head", BWD_TILED: "tiled", BWD_MMA: "tensor-core"}[kind]
+    _build.check(lib, err, f"training attention {what} backward kernel launch")
     return dq, dk, dv
 
 
 def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
     """(dq, dk, dv), each in q's dtype and layout: on a CUDA tensor the
-    whole-head backward kernel where it can stage the head, else the tiled
-    one (``train_attention_bwd_tiled``); the plain version on a CPU one."""
+    backward of ``cuda_route``: the tensor-core kernels, or
+    the CUDA-core whole-head kernel where it can stage the head, else the
+    tiled one (``train_attention_bwd_tiled``); on a CPU one the plain version."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
         return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
+    if _cuda_route_of(q, k, heads) == TENSOR_CORES:
+        out = _launch_bwd(BWD_MMA, q, k, v, key_mask, seed, rate, heads, m, l, g)
+        train_attention_bwd.launches += 1
+        return out
     if not whole_head_backward_fits(q.shape[1], k.shape[1], q.shape[2] // heads):
         return train_attention_bwd_tiled(q, k, v, key_mask, seed, rate, heads, m, l, g)
     out = _launch_bwd(BWD_WHOLE, q, k, v, key_mask, seed, rate, heads, m, l, g)
-    train_attention_bwd.launches += 1
+    train_attention_bwd.cuda_core_launches += 1
     return out
 
 
 def train_attention_bwd_tiled(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
-    """(dq, dk, dv) through the tiled backward kernels on a CUDA tensor, any
-    Lq and Lk (two launches, counted as one call); the plain version (the
-    same function) on a CPU one."""
+    """(dq, dk, dv) through the CUDA-core tiled backward kernels on a CUDA
+    tensor, any Lq and Lk (two launches, counted as one call); the plain
+    version (the same function) on a CPU one."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
         return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
@@ -252,8 +296,11 @@ def train_attention_bwd_tiled(q, k, v, key_mask, seed: int, rate: float, heads: 
     return out
 
 
-train_attention_fwd.launches = 0  # kernel launches; the CPU path adds nothing
-train_attention_bwd.launches = 0  # the whole-head backward's
+# calls that launched a kernel; the CPU path adds nothing
+train_attention_fwd.launches = 0  # the tensor-core forward's
+train_attention_fwd.cuda_core_launches = 0
+train_attention_bwd.launches = 0  # the tensor-core backward's
+train_attention_bwd.cuda_core_launches = 0  # the whole-head backward's
 train_attention_bwd_tiled.launches = 0
 
 
