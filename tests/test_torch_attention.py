@@ -7,16 +7,19 @@ CUDA kernel itself is checked against that version on the card by
 chip_smoke.py.
 """
 
+import functools
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from univl_tpu.kernels.attention import fused_attention_masked as jax_attention
+from univl_tpu_torch.kernels import attention as attn
 from univl_tpu_torch.kernels.attention import attention_reference, fused_attention_masked
 
 
@@ -134,3 +137,61 @@ def test_import_needs_no_cuda_toolchain():
     )
     subprocess.run([sys.executable, "-c", code], check=True, env={"PATH": ""},
                    cwd=Path(__file__).parents[1])
+
+
+# The caption eval's cross tower (128 words + 96 frames = 224 keys, the most
+# any call of the model takes) and causal heads with Lq != Lk both ways; the
+# JAX kernel in interpret mode under jax.jit. f32: the same math in another
+# order, 1e-5 as above.
+@pytest.mark.parametrize("B,H,Lq,Lk,D,causal", [(2, 2, 224, 224, 64, False),
+                                                (2, 4, 48, 96, 64, True),
+                                                (2, 4, 96, 48, 64, True),
+                                                (2, 3, 17, 40, 16, True)])
+def test_long_and_causal_heads_match_pallas_kernel(B, H, Lq, Lk, D, causal):
+    rng = np.random.RandomState(5)
+    q = rng.randn(B, H, Lq, D).astype(np.float32)
+    k, v = (rng.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
+    mask = (rng.rand(B, Lk) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0  # every query keeps a valid key at or before it
+    want = np.asarray(jax.jit(functools.partial(jax_attention, causal=causal))(
+        *(jnp.asarray(a) for a in (q, k, v, mask))))
+    got = fused_attention_masked(*(torch.from_numpy(a) for a in (q, k, v, mask)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+# The route of a CUDA call: the tensor cores take bf16 at head dim 64 with at
+# most 256 keys, whatever the query length; f32 (TF32 on the tensor cores)
+# and every other bf16 head take the CUDA cores.
+@pytest.mark.parametrize("dtype,D,Lq,Lk,route", [
+    (torch.bfloat16, 64, 48, 48, attn.TENSOR_CORES),
+    (torch.bfloat16, 64, 224, 224, attn.TENSOR_CORES),
+    (torch.bfloat16, 64, 1000, 256, attn.TENSOR_CORES),
+    (torch.bfloat16, 64, 96, 257, attn.CUDA_CORES),
+    (torch.float32, 64, 96, 96, attn.CUDA_CORES),
+    (torch.bfloat16, 32, 96, 96, attn.CUDA_CORES),
+    (torch.bfloat16, 128, 48, 48, attn.CUDA_CORES),
+])
+def test_cuda_route(dtype, D, Lq, Lk, route):
+    assert attn.cuda_route(dtype, D, Lq, Lk) == route
+
+
+# 16-row query tiles a tensor-core block takes: 3 where Lq is a multiple of
+# 48 (no ragged tile at the towers' 48 and the cross tower's 96), else 4.
+@pytest.mark.parametrize("Lq,warps", [(1, 4), (16, 4), (17, 4), (40, 4), (48, 3), (80, 4),
+                                      (96, 3), (128, 4), (144, 3), (224, 4), (512, 4)])
+def test_query_tile_warps(Lq, warps):
+    assert attn.query_tile_warps(Lq) == warps <= attn.MMA_MAX_WARPS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_path_never_falls_back(dtype):
+    """A tensor that is not on the CPU goes to a kernel or raises, on either route."""
+    q = torch.zeros(2, 3, 8, 64, dtype=dtype, device="meta")
+    mask = torch.ones(2, 8, device="meta")
+    before = [getattr(fused_attention_masked, c) for c in (
+        "launches", "cuda_core_launches", "causal_launches", "cuda_core_causal_launches")]
+    for causal in (False, True):
+        with pytest.raises(ValueError, match="no eval-attention kernel for device meta"):
+            fused_attention_masked(q, q, q, mask, causal=causal)
+    assert before == [getattr(fused_attention_masked, c) for c in (
+        "launches", "cuda_core_launches", "causal_launches", "cuda_core_causal_launches")]

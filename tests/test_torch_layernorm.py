@@ -149,3 +149,39 @@ def test_rejects_bad_inputs(case):
         b = torch.zeros(8)
     with pytest.raises(err):
         ln.fused_layer_norm(x, s, b)
+
+
+# NormalizeVideo's LayerNorm: S3D width 1024 in f32 (the model normalizes the
+# raw features in f32). Tolerances as above; the column sums over 256 rows.
+def test_plain_version_matches_pallas_kernel_at_video_width():
+    rng = np.random.RandomState(3)
+    rows, width = 256, 1024
+    x = rng.randn(rows, width).astype(np.float32) * 2.0 + 0.5
+    scale = (1.0 + 0.2 * rng.randn(width)).astype(np.float32)
+    bias = (0.1 * rng.randn(width)).astype(np.float32)
+    g = rng.randn(rows, width).astype(np.float32)
+
+    def loss(x_, s_, b_):
+        y = jax_fused_layer_norm(x_, s_, b_, EPS, True)
+        return jnp.sum(y * jnp.asarray(g)), y
+
+    (_, want_y), (want_dx, want_ds, want_db) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(*(jnp.asarray(a) for a in (x, scale, bias)))
+    tx, ts, tb, tg = (torch.from_numpy(a) for a in (x, scale, bias, g))
+    y = ln.layer_norm_fwd(tx, ts, tb, EPS)
+    dx, ds, db = ln.layer_norm_bwd(tx, ts, tg, EPS)
+    for got, want, tol in ((y, want_y, 1e-5), (dx, want_dx, 1e-5), (ds, want_ds, 1e-4),
+                           (db, want_db, 1e-4)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=tol)
+
+
+# The backward's grid, and so the partial rows its dscale/dbias sum adds: a
+# block for every BWD_WARPS rows (one a warp), at most one an SM.
+@pytest.mark.parametrize("rows,sms,blocks", [(0, 132, 1), (1, 132, 1), (8, 132, 1), (9, 132, 2),
+                                             (300, 132, 38), (1056, 132, 132),
+                                             (1536, 132, 132), (2048, 132, 132),
+                                             (3584, 132, 132), (3584, 114, 114)])
+def test_bwd_blocks(rows, sms, blocks):
+    assert ln.BWD_WARPS == 8
+    assert ln.bwd_blocks(rows, sms) == blocks
+    assert -(-rows // blocks) * blocks >= rows  # every row has a block

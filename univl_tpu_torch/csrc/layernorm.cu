@@ -11,33 +11,54 @@
 // Backward, per row, recomputing mu and rstd from the saved x:
 //   xhat = (x - mu) * rstd, dyg = dy * gamma
 //   dx = rstd * (dyg - mean(dyg) - xhat * mean(dyg * xhat)), rounded to x's type
-// and per-block partial sums of dy * xhat (dgamma) and dy (dbeta) over the
-// block's rows, in f32, which the wrapper sums over the blocks in a fixed
-// order: no atomics, so the result is deterministic.
+// and the sums over the rows of dy * xhat (dgamma) and dy (dbeta), in f32.
 //
 // What bounds it: a row of D = 768 or 1024 takes ~8 flops an element against
 // 4-12 bytes of device traffic, far below the H100's ~295 flop/byte ridge,
-// so the kernels are bound by memory traffic (bytes over 3.35 TB/s).
+// so the kernels are bound by memory traffic (bytes over 3.35 TB/s) and, at
+// the model's 1,536-3,584 rows (3-19 MB, a few microseconds), by how many
+// bytes are in flight and how long each row's chain of steps takes.
 //
 // What the design does about it: one warp owns one row and holds it in
 // registers, eight contiguous elements a lane (one 16-byte load for bf16,
 // two for f32), so x and dy are read from device memory once and the
 // statistics are warp shuffles; gamma and beta are read through the cache.
-// The backward's block takes kBwdRows rows (kBwdRows / kWarps a warp); each
-// lane keeps its columns' dgamma and dbeta sums in registers over its warp's
-// rows, and the warps add theirs into shared memory one after another (a
-// fixed order) before the block writes its partials. Widths are multiples
-// of 8 up to 4096 (kChunks eight-element chunks a lane, chosen per call).
+// Backward: a grid of one 8-warp block an SM (the wrapper sizes it to the
+// card; registers hold one such block an SM), each block a contiguous range
+// of rows, its warps taking every eighth. A row's x and dy are loaded before
+// its reductions begin, and the warp's next row is loaded before the current
+// row's arithmetic (a double buffer in registers; widths past 1,024 load
+// one row at a time). The reductions take two rounds of two interleaved
+// warp sums: sum(x) with sum(dyg), then sum((x - mu)^2) with
+// sum(dyg (x - mu)). Each warp adds its rows' dy * xhat and dy into its own
+// slice of shared memory; the block then sums its warps' slices in warp
+// order into one partial row, and a second kernel sums the blocks' partials
+// per column in block order. No atomics: the order is fixed by the grid, so
+// two calls give bitwise equal dgamma and dbeta. Widths are multiples of 8
+// up to 4096 (kChunks eight-element chunks a lane, chosen per call; 4-warp
+// blocks past 2,048).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "opt_in.cuh"
+
 namespace {
+
+using univl::kMaxDevices;
+using univl::opt_in_shared_memory;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBwdRows = 16;  // rows a backward block owns: 2 a warp
+constexpr int kSumGroups = 16;  // row groups of a block of the partials' sum
+
+// Warps a backward block takes: 8, or 4 past 2,048 columns (each warp keeps
+// its [2][D] f32 sums in shared memory).
+template <int kChunks>
+constexpr int kBwdWarps = kChunks <= 8 ? 8 : 4;
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -130,85 +151,168 @@ layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// A row's x and dy into registers: chunk t of lane is columns 8 (lane + 32 t) .. + 7.
 template <typename T, int kChunks>
-__global__ void __launch_bounds__(kThreads)
-layernorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                     const T* __restrict__ dy, T* __restrict__ dx,
-                     float* __restrict__ dgamma_part, float* __restrict__ dbeta_part, int rows,
-                     int D, float eps) {
-  extern __shared__ float acc[];  // [2][D]: the block's dgamma and dbeta sums
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+__device__ __forceinline__ void load_row(const T* xr, const T* dyr, float* xv, float* gv, int D,
+                                         int lane) {
+#pragma unroll
+  for (int t = 0; t < kChunks; ++t) {
+    const int c = lane + 32 * t;
+    if (c < D / 8) {
+      load8(xr + 8 * c, xv + 8 * t);
+      load8(dyr + 8 * c, gv + 8 * t);
+    }
+  }
+}
+
+// Two warp sums, their shuffles interleaved.
+__device__ __forceinline__ float2 warp_sum2(float a, float b) {
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+  return make_float2(a, b);
+}
+
+// One row's dx from its x and dy in registers (xv, gv), and its dy * xhat and
+// dy added into the warp's partial sums (wacc: [2][D] in shared memory).
+template <typename T, int kChunks>
+__device__ __forceinline__ void row_bwd(const float* xv, const float* gv,
+                                        const float* __restrict__ gamma, T* dxr, float* wacc,
+                                        int D, float eps, int lane) {
   const int chunks = D / 8;
   const float inv_d = 1.0f / static_cast<float>(D);
-  float dg[kChunks * 8], db[kChunks * 8];
+  float sx = 0.0f, s1 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kChunks * 8; ++i) dg[i] = db[i] = 0.0f;
-
-  for (int r = warp; r < kBwdRows; r += kWarps) {
-    const long long row = static_cast<long long>(blockIdx.x) * kBwdRows + r;
-    if (row >= rows) break;
-    float v[kChunks * 8], g[kChunks * 8];
-    const float2 st = row_stats<T, kChunks>(x + row * D, v, D, eps, lane);
-    float s1 = 0.0f, s2 = 0.0f;
+  for (int t = 0; t < kChunks; ++t) {
+    const int c = lane + 32 * t;
+    if (c < chunks) {
+      float gm[8];
+      load8(gamma + 8 * c, gm);
 #pragma unroll
-    for (int t = 0; t < kChunks; ++t) {
-      const int c = lane + 32 * t;
-      if (c < chunks) {
-        float gm[8];
-        load8(dy + row * D + 8 * c, g + 8 * t);
-        load8(gamma + 8 * c, gm);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int e = 8 * t + i;
-          const float xhat = (v[e] - st.x) * st.y;
-          dg[e] += g[e] * xhat;
-          db[e] += g[e];
-          v[e] = xhat;
-          g[e] *= gm[i];  // dyg
-          s1 += g[e];
-          s2 += g[e] * xhat;
-        }
-      }
-    }
-    const float m1 = warp_sum(s1) * inv_d, m2 = warp_sum(s2) * inv_d;
-    T* dxr = dx + row * D;
-#pragma unroll
-    for (int t = 0; t < kChunks; ++t) {
-      const int c = lane + 32 * t;
-      if (c < chunks) {
-        float o[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int e = 8 * t + i;
-          o[i] = st.y * (g[e] - m1 - v[e] * m2);
-        }
-        store8(dxr + 8 * c, o);
+      for (int i = 0; i < 8; ++i) {
+        sx += xv[8 * t + i];
+        s1 += gv[8 * t + i] * gm[i];
       }
     }
   }
+  const float2 r1 = warp_sum2(sx, s1);
+  const float mu = r1.x * inv_d, m1 = r1.y * inv_d;
+  float sq = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kChunks; ++t) {
+    const int c = lane + 32 * t;
+    if (c < chunks) {
+      float gm[8];
+      load8(gamma + 8 * c, gm);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float d = xv[8 * t + i] - mu;
+        sq += d * d;
+        s2 += gv[8 * t + i] * gm[i] * d;
+      }
+    }
+  }
+  const float2 r2 = warp_sum2(sq, s2);
+  const float rstd = rsqrtf(r2.x * inv_d + eps);
+  const float m2 = r2.y * inv_d * rstd;  // mean(dyg * xhat)
+#pragma unroll
+  for (int t = 0; t < kChunks; ++t) {
+    const int c = lane + 32 * t;
+    if (c < chunks) {
+      float gm[8], o[8], dg[8], db[8];
+      load8(gamma + 8 * c, gm);
+      load8(wacc + 8 * c, dg);
+      load8(wacc + D + 8 * c, db);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float dyv = gv[8 * t + i];
+        const float xhat = (xv[8 * t + i] - mu) * rstd;
+        dg[i] += dyv * xhat;
+        db[i] += dyv;
+        o[i] = rstd * (dyv * gm[i] - m1 - xhat * m2);
+      }
+      store8(wacc + 8 * c, dg);
+      store8(wacc + D + 8 * c, db);
+      store8(dxr + 8 * c, o);
+    }
+  }
+}
 
-  for (int c = threadIdx.x; c < 2 * D; c += kThreads) acc[c] = 0.0f;
+// Backward: block g owns rows [g R, (g + 1) R) (R = rows_per_block), its
+// warps every kBwdWarps-th of them; writes dx and the block's partial sums
+// (part: [gridDim.x][2][D], dgamma's row then dbeta's).
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(32 * kBwdWarps<kChunks>)
+layernorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                     const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+                     int rows, int D, int rows_per_block, float eps) {
+  constexpr int kW = kBwdWarps<kChunks>, kT = 32 * kW;
+  extern __shared__ __align__(16) float acc[];  // [kW][2][D]: each warp's sums
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c = threadIdx.x; c < kW * 2 * D; c += kT) acc[c] = 0.0f;
   __syncthreads();
-  for (int w = 0; w < kWarps; ++w) {  // one warp after another: a fixed order
-    if (warp == w) {
-#pragma unroll
-      for (int t = 0; t < kChunks; ++t) {
-        const int c = lane + 32 * t;
-        if (c < chunks) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc[8 * c + i] += dg[8 * t + i];
-            acc[D + 8 * c + i] += db[8 * t + i];
-          }
-        }
-      }
+  float* wacc = acc + warp * 2 * D;
+  const long long first = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long end = min(first + rows_per_block, static_cast<long long>(rows));
+  constexpr int N = kChunks * 8;
+  float xa[N], ga[N];
+  if constexpr (kChunks <= 4) {  // the next row loaded before this row's arithmetic
+    float xb[N], gb[N];
+    long long r = first + warp;
+    if (r < end) load_row<T, kChunks>(x + r * D, dy + r * D, xa, ga, D, lane);
+    while (r < end) {
+      const long long rn = r + kW;
+      if (rn < end) load_row<T, kChunks>(x + rn * D, dy + rn * D, xb, gb, D, lane);
+      row_bwd<T, kChunks>(xa, ga, gamma, dx + r * D, wacc, D, eps, lane);
+      if (rn >= end) break;
+      r = rn + kW;
+      if (r < end) load_row<T, kChunks>(x + r * D, dy + r * D, xa, ga, D, lane);
+      row_bwd<T, kChunks>(xb, gb, gamma, dx + rn * D, wacc, D, eps, lane);
     }
-    __syncthreads();
+  } else {  // wide rows: one row in registers at a time
+    for (long long r = first + warp; r < end; r += kW) {
+      load_row<T, kChunks>(x + r * D, dy + r * D, xa, ga, D, lane);
+      row_bwd<T, kChunks>(xa, ga, gamma, dx + r * D, wacc, D, eps, lane);
+    }
   }
-  const long long base = static_cast<long long>(blockIdx.x) * D;
-  for (int c = threadIdx.x; c < D; c += kThreads) {
-    dgamma_part[base + c] = acc[c];
-    dbeta_part[base + c] = acc[D + c];
+  __syncthreads();
+  float* out = part + static_cast<long long>(blockIdx.x) * 2 * D;
+  for (int c = threadIdx.x; c < 2 * D; c += kT) {
+    float s = acc[c];
+#pragma unroll
+    for (int w = 1; w < kW; ++w) s += acc[w * 2 * D + c];  // warp order
+    out[c] = s;
+  }
+}
+
+// The blocks' partials summed per column in block order: a block takes 32
+// of part's 2 D columns, its warps every kSumGroups-th partial row, then
+// warp 0 adds the warps' sums in warp order.
+__global__ void __launch_bounds__(32 * kSumGroups)
+layernorm_bwd_sum_kernel(const float* __restrict__ part, int blocks, int D,
+                         float* __restrict__ dgamma, float* __restrict__ dbeta) {
+  __shared__ float red[kSumGroups][32];
+  const int group = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.0f;
+  if (c < 2 * D) {
+#pragma unroll 4
+    for (int g = group; g < blocks; g += kSumGroups) {
+      s += part[static_cast<long long>(g) * 2 * D + c];
+    }
+  }
+  red[group][lane] = s;
+  __syncthreads();
+  if (group == 0 && c < 2 * D) {
+    float t = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < kSumGroups; ++w) t += red[w][lane];
+    if (c < D) {
+      dgamma[c] = t;
+    } else {
+      dbeta[c - D] = t;
+    }
   }
 }
 
@@ -231,13 +335,28 @@ cudaError_t fwd(const void* x, const float* gamma, const float* beta, void* y, i
   return cudaGetLastError();
 }
 
+template <int kChunks>
+size_t bwd_smem_bytes(int D) {
+  return static_cast<size_t>(kBwdWarps<kChunks>) * 2 * D * sizeof(float);
+}
+
 template <typename T, int kChunks>
-cudaError_t bwd(const void* x, const float* gamma, const void* dy, void* dx, float* dgp,
-                float* dbp, int rows, int D, float eps, cudaStream_t stream) {
-  const int blocks = (rows + kBwdRows - 1) / kBwdRows;
-  layernorm_bwd_kernel<T, kChunks><<<blocks, kThreads, 2 * D * sizeof(float), stream>>>(
-      static_cast<const T*>(x), gamma, static_cast<const T*>(dy), static_cast<T*>(dx), dgp, dbp,
-      rows, D, eps);
+cudaError_t bwd(const void* x, const float* gamma, const void* dy, void* dx, float* part,
+                float* dgamma, float* dbeta, int rows, int D, float eps, int blocks,
+                cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const size_t smem = bwd_smem_bytes<kChunks>(D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = opt_in_shared_memory(layernorm_bwd_kernel<T, kChunks>, done);
+    if (err != cudaSuccess) return err;
+  }
+  layernorm_bwd_kernel<T, kChunks><<<blocks, 32 * kBwdWarps<kChunks>, smem, stream>>>(
+      static_cast<const T*>(x), gamma, static_cast<const T*>(dy), static_cast<T*>(dx), part,
+      rows, D, (rows + blocks - 1) / blocks, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  layernorm_bwd_sum_kernel<<<(2 * D + 31) / 32, 32 * kSumGroups, 0, stream>>>(part, blocks, D,
+                                                                               dgamma, dbeta);
   return cudaGetLastError();
 }
 
@@ -256,15 +375,16 @@ cudaError_t fwd_dispatch(const void* x, const float* gamma, const float* beta, v
 }
 
 template <typename T>
-cudaError_t bwd_dispatch(const void* x, const float* gamma, const void* dy, void* dx, float* dgp,
-                         float* dbp, int rows, int D, float eps, cudaStream_t s) {
+cudaError_t bwd_dispatch(const void* x, const float* gamma, const void* dy, void* dx, float* part,
+                         float* dg, float* db, int rows, int D, float eps, int blocks,
+                         cudaStream_t s) {
   switch (chunks_for(D)) {
-    case 1: return bwd<T, 1>(x, gamma, dy, dx, dgp, dbp, rows, D, eps, s);
-    case 2: return bwd<T, 2>(x, gamma, dy, dx, dgp, dbp, rows, D, eps, s);
-    case 3: return bwd<T, 3>(x, gamma, dy, dx, dgp, dbp, rows, D, eps, s);
-    case 4: return bwd<T, 4>(x, gamma, dy, dx, dgp, dbp, rows, D, eps, s);
-    case 8: return bwd<T, 8>(x, gamma, dy, dx, dgp, dbp, rows, D, eps, s);
-    case 16: return bwd<T, 16>(x, gamma, dy, dx, dgp, dbp, rows, D, eps, s);
+    case 1: return bwd<T, 1>(x, gamma, dy, dx, part, dg, db, rows, D, eps, blocks, s);
+    case 2: return bwd<T, 2>(x, gamma, dy, dx, part, dg, db, rows, D, eps, blocks, s);
+    case 3: return bwd<T, 3>(x, gamma, dy, dx, part, dg, db, rows, D, eps, blocks, s);
+    case 4: return bwd<T, 4>(x, gamma, dy, dx, part, dg, db, rows, D, eps, blocks, s);
+    case 8: return bwd<T, 8>(x, gamma, dy, dx, part, dg, db, rows, D, eps, blocks, s);
+    case 16: return bwd<T, 16>(x, gamma, dy, dx, part, dg, db, rows, D, eps, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -272,9 +392,6 @@ cudaError_t bwd_dispatch(const void* x, const float* gamma, const void* dy, void
 }  // namespace
 
 extern "C" {
-
-// Rows a backward block owns: the wrapper allocates one partial row per block.
-int univl_layernorm_bwd_rows() { return kBwdRows; }
 
 // The widest row the kernels take (a multiple of 8).
 int univl_layernorm_max_width() { return 8 * 32 * 16; }
@@ -291,18 +408,23 @@ int univl_layernorm_fwd(const void* x, const void* gamma, const void* beta, void
                                   : fwd_dispatch<float>(x, g, b, y, rows, D, eps, s));
 }
 
-// x, dy, dx: like the forward's x; gamma f32 [D]; dgamma_part, dbeta_part:
-// f32 [ceil(rows / univl_layernorm_bwd_rows()), D], one row per block.
-int univl_layernorm_bwd(const void* x, const void* gamma, const void* dy, void* dx,
-                        void* dgamma_part, void* dbeta_part, int is_bf16, int rows, int D,
-                        float eps, void* stream) {
+// x, dy, dx: like the forward's x; gamma f32 [D]; part: f32 scratch
+// [blocks][2][D] for the blocks' partial sums; dgamma, dbeta: f32 [D].
+// blocks >= 1: the backward's grid, each block a contiguous range of
+// ceil(rows / blocks) rows. Launches the backward and the partials' sum on
+// `stream`, returns cudaGetLastError().
+int univl_layernorm_bwd(const void* x, const void* gamma, const void* dy, void* dx, void* part,
+                        void* dgamma, void* dbeta, int is_bf16, int rows, int D, float eps,
+                        int blocks, void* stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
-  float* dgp = static_cast<float*>(dgamma_part);
-  float* dbp = static_cast<float*>(dbeta_part);
+  float* pt = static_cast<float*>(part);
+  float* dg = static_cast<float*>(dgamma);
+  float* db = static_cast<float*>(dbeta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      is_bf16 ? bwd_dispatch<__nv_bfloat16>(x, g, dy, dx, dgp, dbp, rows, D, eps, s)
-              : bwd_dispatch<float>(x, g, dy, dx, dgp, dbp, rows, D, eps, s));
+      is_bf16 ? bwd_dispatch<__nv_bfloat16>(x, g, dy, dx, pt, dg, db, rows, D, eps, blocks, s)
+              : bwd_dispatch<float>(x, g, dy, dx, pt, dg, db, rows, D, eps, blocks, s));
 }
 
 }  // extern "C"

@@ -95,7 +95,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         [p, p, p, p, p, i, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
     )
     lib.univl_eval_attention.restype = i
-    lib.univl_eval_attention_smem_bytes.argtypes = [i, i]
+    lib.univl_eval_attention_mma.argtypes = (
+        [p, p, p, p, p, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, i, p]
+    )
+    lib.univl_eval_attention_mma.restype = i
+    lib.univl_eval_attention_smem_bytes.argtypes = [i, i, i]
     lib.univl_eval_attention_smem_bytes.restype = ll
     lib.univl_reorder_groups.argtypes = [p, p, i, p, i, i, p]
     lib.univl_reorder_groups.restype = i
@@ -123,13 +127,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_train_attention_fwd_mma.restype = i
     lib.univl_train_attention_bwd_mma.argtypes = [p] * 11 + shared
     lib.univl_train_attention_bwd_mma.restype = i
-    lib.univl_layernorm_bwd_rows.argtypes = []
-    lib.univl_layernorm_bwd_rows.restype = i
     lib.univl_layernorm_max_width.argtypes = []
     lib.univl_layernorm_max_width.restype = i
     lib.univl_layernorm_fwd.argtypes = [p] * 4 + [i, i, i, ctypes.c_float, p]
     lib.univl_layernorm_fwd.restype = i
-    lib.univl_layernorm_bwd.argtypes = [p] * 6 + [i, i, i, ctypes.c_float, p]
+    lib.univl_layernorm_bwd.argtypes = [p] * 7 + [i, i, i, ctypes.c_float, i, p]
     lib.univl_layernorm_bwd.restype = i
     drop = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]
     lib.univl_ffn_block_rows.argtypes = []

@@ -14,8 +14,10 @@ versions below; on a CUDA tensor they launch the kernels in
 ``univl_tpu_torch/csrc/layernorm.cu`` (built at first use) or raise. The
 kernels take every row count and widths that are multiples of 8 up to
 4,096 (the JAX package's fallback to plain ``jnp`` for row counts its TPU
-blocks do not tile has no counterpart here). The backward kernel writes
-per-block dscale/dbias partials, summed here in a fixed order.
+blocks do not tile has no counterpart here). The backward runs on one
+block an SM (``bwd_blocks``); each block writes its dscale/dbias partials
+and a second kernel sums them in block order, so two calls give bitwise
+equal dscale and dbias.
 """
 
 from __future__ import annotations
@@ -25,6 +27,14 @@ import torch
 from univl_tpu_torch.kernels import _build
 
 LN_EPS = 1e-12
+BWD_WARPS = 8  # rows a backward block takes at once, one a warp (csrc/layernorm.cu)
+
+
+def bwd_blocks(rows: int, sms: int) -> int:
+    """The backward's grid on a card of ``sms`` SMs, and the count of partial
+    rows its dscale/dbias sum adds: a block for every BWD_WARPS rows, at
+    most one an SM (then each block takes a longer range)."""
+    return max(1, min(-(-rows // BWD_WARPS), sms))
 
 
 def _stats(xf: torch.Tensor, eps: float):
@@ -113,9 +123,8 @@ def layer_norm_fwd(x, scale, bias, eps: float = LN_EPS) -> torch.Tensor:
 
 
 def layer_norm_bwd(x, scale, dy, eps: float = LN_EPS):
-    """(dx in x's dtype, dscale, dbias in f32): the backward kernel on a
-    CUDA tensor (its per-block partials summed here), the plain version on a
-    CPU one."""
+    """(dx in x's dtype, dscale, dbias in f32): the backward kernels on a
+    CUDA tensor, the plain version on a CPU one."""
     dy = dy.to(x.dtype)
     _check(x, scale, dy)
     if x.device.type == "cpu":
@@ -126,14 +135,15 @@ def layer_norm_bwd(x, scale, dy, eps: float = LN_EPS):
     scale = scale.contiguous()  # alive through the launch
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
-    blocks = -(-rows // lib.univl_layernorm_bwd_rows())
-    part = torch.empty(2, blocks, d, dtype=torch.float32, device=x.device)
-    if rows:
-        _launch(x2, lib.univl_layernorm_bwd, "LayerNorm backward kernel launch",
-                *_ptrs(x2, scale, dy2, dx, part[0], part[1]),
-                int(x.dtype == torch.bfloat16), rows, d, eps)
-        layer_norm_bwd.launches += 1
-    dscale, dbias = part.sum(dim=1)
+    dscale, dbias = torch.empty(2, d, dtype=torch.float32, device=x.device)
+    if not rows:
+        return dx.view(x.shape), dscale.zero_(), dbias.zero_()
+    blocks = bwd_blocks(rows, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty(blocks, 2, d, dtype=torch.float32, device=x.device)
+    _launch(x2, lib.univl_layernorm_bwd, "LayerNorm backward kernel launch",
+            *_ptrs(x2, scale, dy2, dx, part, dscale, dbias),
+            int(x.dtype == torch.bfloat16), rows, d, eps, blocks)
+    layer_norm_bwd.launches += 1
     return dx.view(x.shape), dscale, dbias
 
 
