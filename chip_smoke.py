@@ -29,9 +29,13 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      beside the CUDA-core ones, SDPA and the bound; the tiled backward
      bitwise the whole-head one where both run. The fused FFN kernels (#3 FFN,
      #4 FFN block, #5 dense block), forward and backward, run at the cross
-     tower's 98,304 rows and a tower's 1,536, rates 0 and 0.1, beside the
-     model's unfused chain for the same work; #4's and #5's forward kernel,
-     backward kernel and plain version must drop the same entries. The
+     tower's 98,304 rows, a tower's 1,536 and a ragged 300 and 6,000, rates 0
+     and 0.1, beside the model's unfused chain for the same work (times with
+     TFLOP/s); #4's and #5's forward kernel, backward kernel and plain
+     version must drop the same entries; in bf16 #3 and #4 run on their
+     wgmma kernels (checked by the route counters) and two calls give
+     bitwise equal outputs and partials, in f32 on their CUDA-core kernels
+     (timed at 1,536 rows). The
      LayerNorm (#6), forward and backward, at the caption step's rows
      (2,048 and 3,584 x 768, 1,536 x 1,024 in f32) and a ragged 300; two
      backward calls must give bitwise equal dx, dscale and dbias. The
@@ -88,8 +92,10 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      --fused_ffn block (text 12, visual 6, cross 2 layers; 1,024 text-video
      pairs of 96 tokens through the cross tower a step) on the same fixtures,
      40 steps: losses, steady clips/s, peak memory, launches (#2, #4 and #5
-     20 forward and 20 backward a step) and a pytorch_model.bin.0 that loads
-     back; then torch.profiler over 3 of its steps;
+     20 forward and 20 backward a step; #3 and #4 on their wgmma kernels, the
+     CUDA-core ones never) and a pytorch_model.bin.0 that loads back; then
+     torch.profiler over 3 of its steps, and over 3 steps of the unfused
+     route (--fused_ffn xla) beside them;
  14. a short --fused_ffn pallas run (5 steps): #3 20 + 20 a step;
  15. FT-Align agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 layers, batch 8 (64 pairs), dropout 0, on the block and pallas
@@ -126,9 +132,9 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
 After the main paths: every bf16 #1 call the model made on the card (each
 recorded by its shape) must have taken the tensor cores, and the one with
 the most keys (the caption eval's cross tower, 224) is timed as in phase 3.
-Then one JSON line describing the kernels (#1's and #2's CUDA-core kernels
-with their launches from the f32 runs of phases 9 and 22, and of 12, 15 and
-18, the only paths that take them), and last
+Then one JSON line describing the kernels (#1's, #2's, #3's and #4's
+CUDA-core kernels with their launches from the f32 runs of phases 9 and 22,
+and of 12, 15 and 18, the only paths that take them), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 1.
 """
@@ -247,7 +253,10 @@ LN_SUM_RTOL = 1e-5
 # fused FFN kernels (#3, #4, #5): rows of FT-Align's cross tower (1,024 pairs x
 # 96 tokens) and of a text or visual tower (32 x 48); H 768, F 3072
 FFN_ROWS, FFN_H, FFN_F, FFN_RATE, FFN_SEED = (98304, 1536), 768, 3072, 0.1, 4321
-FFN_RAGGED_ROWS = 300  # checked, not timed: a last block of 12 rows, bounds-checked
+# checked, not timed: 300 rows end in a block of 12 (#5, the CUDA-core
+# kernels) and a GEMM tile of 44, with F split 8 ways (ffn_plan); 6,000 end
+# in a GEMM tile of 112, unsplit, whose second 64-row half is cut at 48
+FFN_RAGGED_ROWS = (300, 6000)
 # f32 (CUDA cores): sums of up to 3,072 products in another order, erff
 # against torch.erf: atol + rtol * |ref| element by element. bf16 (tensor
 # cores): the products are summed in another order than the plain version's,
@@ -380,6 +389,14 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                       "univl_tpu/kernels/ffn.py:309"),
     "ffn_block_bwd": (ffn_k.ffn_block_bwd, "univl_tpu_torch/csrc/ffn.cu",
                       "univl_tpu/kernels/ffn.py:329"),
+    "ffn_fwd_cuda_cores": ((ffn_k.ffn_fwd, "cuda_core_launches"), "univl_tpu_torch/csrc/ffn.cu",
+                           "univl_tpu/kernels/ffn.py:100"),
+    "ffn_bwd_cuda_cores": ((ffn_k.ffn_bwd, "cuda_core_launches"), "univl_tpu_torch/csrc/ffn.cu",
+                           "univl_tpu/kernels/ffn.py:111"),
+    "ffn_block_fwd_cuda_cores": ((ffn_k.ffn_block_fwd, "cuda_core_launches"),
+                                 "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:309"),
+    "ffn_block_bwd_cuda_cores": ((ffn_k.ffn_block_bwd, "cuda_core_launches"),
+                                 "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:329"),
     "dense_block_fwd": (ffn_k.dense_block_fwd, "univl_tpu_torch/csrc/ffn.cu",
                         "univl_tpu/kernels/ffn.py:545"),
     "dense_block_bwd": (ffn_k.dense_block_bwd, "univl_tpu_torch/csrc/ffn.cu",
@@ -392,12 +409,14 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
 # the kernels no path of the port (nor of the JAX package) runs: held against
 # their plain versions here, never launched on the main paths
 NO_ROUTE = ("eval_attention_causal", "eval_attention_causal_cuda_cores", "reorder_rows")
-# #1's and #2's CUDA-core kernels: the f32 route, which only the f32
-# agreement runs (phases 9 and 22 for #1; 12, 15 and 18 for #2) take: 0
-# launches on the main paths, which run bf16; their launches in those runs
-# are printed apart from the main paths' (``f32_agreement_launches``)
+# #1's, #2's, #3's and #4's CUDA-core kernels: the f32 route, which only the
+# f32 agreement runs (phases 9 and 22 for #1; 12, 15 and 18 for #2; 15 for
+# #3 and #4) take: 0 launches on the main paths, which run bf16; their
+# launches in those runs are printed apart from the main paths'
+# (``f32_agreement_launches``)
 F32_ROUTE = ("eval_attention_cuda_cores", "train_attention_fwd_cuda_cores",
-             "train_attention_bwd_cuda_cores", "train_attention_bwd_tiled")
+             "train_attention_bwd_cuda_cores", "train_attention_bwd_tiled", "ffn_fwd_cuda_cores",
+             "ffn_bwd_cuda_cores", "ffn_block_fwd_cuda_cores", "ffn_block_bwd_cuda_cores")
 TRACE_NAMES = {"eval_attention": ("eval_attention_mma_kernel",),
                "eval_attention_cuda_cores": ("eval_attention_kernel",),
                "beam_reorder_groups": ("reorder_groups_kernel",),
@@ -412,9 +431,15 @@ TRACE_NAMES = {"eval_attention": ("eval_attention_mma_kernel",),
                "train_attention_bwd_cuda_cores": ("train_attention_bwd_kernel",),
                "train_attention_bwd_tiled": ("train_attention_bwd_dq_kernel",
                                              "train_attention_bwd_dkdv_kernel"),
-               "ffn_fwd": ("ffn_fwd_kernel",), "ffn_bwd": ("ffn_bwd_kernel",),
-               "ffn_block_fwd": ("ffn_block_fwd_kernel",),
-               "ffn_block_bwd": ("ffn_block_bwd_kernel",),
+               # bf16 #3 and #4: the same wgmma GEMMs and row kernels
+               "ffn_fwd": ("ffn_fwd_gemm_kernel", "ffn_fwd_rows_kernel"),
+               "ffn_bwd": ("ffn_bwd_gemm_kernel", "ffn_bwd_rows_kernel"),
+               "ffn_block_fwd": ("ffn_fwd_gemm_kernel", "ffn_fwd_rows_kernel"),
+               "ffn_block_bwd": ("ffn_bwd_ln_kernel", "ffn_bwd_gemm_kernel",
+                                 "ffn_bwd_rows_kernel"),
+               "ffn_fwd_cuda_cores": ("ffn_fwd_kernel",), "ffn_bwd_cuda_cores": ("ffn_bwd_kernel",),
+               "ffn_block_fwd_cuda_cores": ("ffn_block_fwd_kernel",),
+               "ffn_block_bwd_cuda_cores": ("ffn_block_bwd_kernel",),
                "dense_block_fwd": ("dense_block_fwd_kernel",),
                "dense_block_bwd": ("dense_block_bwd_kernel",),
                "layernorm_fwd": ("layernorm_fwd_kernel",),
@@ -1261,6 +1286,28 @@ def check_ffn_dropout_masks(dtype) -> dict:
     return shares
 
 
+def _same_twice(name: str, got, again, dtype, what: str) -> None:
+    """A bf16 call of #3 or #4 gives bitwise the same outputs (and #4's
+    backward the same dscale and dbias) when called again: the F splits'
+    partial sums are added in a fixed order, without atomics."""
+    if dtype != torch.bfloat16:
+        return
+    second = again()
+    same = [torch.equal(a, b) for a, b in zip(got, second) if a is not None]
+    require(all(same), f"{name} at {what}: two calls differ in outputs {same}")
+
+
+def _check_ffn_route(before: dict, after: dict, dtype, N: int) -> None:
+    """#3's and #4's calls in kernel_ffn took their dtype's route: bf16 the
+    wgmma kernels (``launches``), f32 the CUDA-core kernels."""
+    for name in ("ffn_fwd", "ffn_bwd", "ffn_block_fwd", "ffn_block_bwd"):
+        tc = after[name] - before[name]
+        cc = after[f"{name}_cuda_cores"] - before[f"{name}_cuda_cores"]
+        ok = (tc > 0 and cc == 0) if dtype == torch.bfloat16 else (tc == 0 and cc > 0)
+        require(ok, f"{name} at N={N} {dtype_name(dtype)}: {tc} wgmma-route and {cc} "
+                    f"CUDA-core calls")
+
+
 def _unfused_chains(dtype):
     """The model's xla route (UniVL's unfused TransformerLayer modules at
     full width, in training mode) for the work of #3, #4 and #5."""
@@ -1278,15 +1325,18 @@ def _unfused_chains(dtype):
 def kernel_ffn() -> dict:
     """#3, #4 and #5, forward and backward, against their plain versions at
     the cross and tower row counts and a ragged one, f32 and bf16, rates 0
-    and 0.1 (#3 has no
-    dropout); the three-way dropout-mask check; device times in bf16 beside
-    the bound, the plain version and the model's unfused chain for the same
-    work (forward, and the input gradient through autograd). No single
-    PyTorch call computes these functions. The rows are the cross shape's."""
+    and 0.1 (#3 has no dropout); the three-way dropout-mask check; in bf16
+    two calls of #3 and #4 bitwise equal; each call on its dtype's route;
+    device times beside the bound, the plain version and the model's
+    unfused chain for the same work (forward, and the input gradient
+    through autograd). No single PyTorch call computes these functions. The
+    rows are the cross shape's in bf16, and #3's and #4's CUDA-core kernels
+    at a tower's rows in f32."""
     H, Fd = FFN_H, FFN_F
     names = ("ffn_fwd", "ffn_bwd", "ffn_block_fwd", "ffn_block_bwd", "dense_block_fwd",
              "dense_block_bwd")
     worst, rows = {n: 0.0 for n in names}, {}
+    worst_f32 = {n: 0.0 for n in names[:4]}  # #3 and #4 in f32: their CUDA-core kernels
     for dtype in (torch.float32, torch.bfloat16):
         shares = check_ffn_dropout_masks(dtype)
         print(f"fused FFN dropout masks ({dtype_name(dtype)}, {FFN_ROWS[0]} x {H}): forward "
@@ -1294,7 +1344,7 @@ def kernel_ffn() -> dict:
               f"{shares} (rate {FFN_RATE}, limit +-{FFN_KEEP_TOL})", flush=True)
         require(all(abs(v - FFN_RATE) <= FFN_KEEP_TOL for v in shares.values()),
                 f"dropped shares {shares} are not {FFN_RATE}")
-    for N in (*FFN_ROWS, FFN_RAGGED_ROWS):
+    for N in (*FFN_ROWS, *FFN_RAGGED_ROWS):
         big = N == FFN_ROWS[0]
         timing = dict(runs=3, repeats=3) if big else {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -1302,27 +1352,38 @@ def kernel_ffn() -> dict:
             x, r, g, w1, b1, w2, b2, w, b, sc, bi = (t[k] for k in (
                 "x", "r", "g", "w1", "b1", "w2", "b2", "w", "b", "scale", "bias"))
             errs = {}
+            before = read_launches()
             for rate in (0.0, FFN_RATE):
                 what = f"N={N} {dtype_name(dtype)} rate {rate}"
                 ffn_args = (x, w1, b1, w2, b2)
                 blk_args = (*ffn_args, sc, bi, FFN_SEED, rate)
                 den_args = (x, r, w, b, sc, bi, FFN_SEED, rate)
                 if rate == 0.0:
-                    y, pre = ffn_k.ffn_fwd(*ffn_args, save=True)
+                    got = ffn_k.ffn_fwd(*ffn_args, save=True)
                     want = ffn_k.ffn_reference_fwd(*ffn_args)
-                    errs["ffn_fwd"] = _agree("ffn_fwd", (y, pre), want, dtype, what)
-                    errs["ffn_bwd"] = _agree("ffn_bwd", ffn_k.ffn_bwd(want[1], g, w1, w2),
+                    errs["ffn_fwd"] = _agree("ffn_fwd", got, want, dtype, what)
+                    _same_twice("ffn_fwd", got, lambda: ffn_k.ffn_fwd(*ffn_args, save=True),
+                                dtype, what)
+                    got = ffn_k.ffn_bwd(want[1], g, w1, w2)
+                    errs["ffn_bwd"] = _agree("ffn_bwd", got,
                                              ffn_k.ffn_reference_bwd(want[1], g, w1, w2),
                                              dtype, what)
-                    del y, pre, want
+                    _same_twice("ffn_bwd", got, lambda: ffn_k.ffn_bwd(want[1], g, w1, w2), dtype,
+                                what)
+                    del got, want
                 got = ffn_k.ffn_block_fwd(*blk_args, save=True)
                 want = ffn_k.ffn_block_reference_fwd(*blk_args)
                 errs["ffn_block_fwd"] = _agree("ffn_block_fwd", got, want, dtype, what)
+                _same_twice("ffn_block_fwd", got,
+                            lambda: ffn_k.ffn_block_fwd(*blk_args, save=True), dtype, what)
                 _, pre, s = want
                 bwd_args = (s, g, pre, w1, w2, sc, FFN_SEED, rate)
-                errs["ffn_block_bwd"] = _agree("ffn_block_bwd", ffn_k.ffn_block_bwd(*bwd_args),
+                got = ffn_k.ffn_block_bwd(*bwd_args)
+                errs["ffn_block_bwd"] = _agree("ffn_block_bwd", got,
                                                ffn_k.ffn_block_reference_bwd(*bwd_args), dtype,
                                                what)
+                _same_twice("ffn_block_bwd", got, lambda: ffn_k.ffn_block_bwd(*bwd_args), dtype,
+                            what)
                 del got, want, pre
                 got = ffn_k.dense_block_fwd(*den_args, save=True)
                 want = ffn_k.dense_block_reference_fwd(*den_args)
@@ -1339,22 +1400,33 @@ def kernel_ffn() -> dict:
                       f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }", flush=True)
                 for k, v in errs.items():
                     worst[k] = max(worst[k], v)
-            if dtype != torch.bfloat16 or N == FFN_RAGGED_ROWS:
-                continue
-            rows_n = _time_ffn(N, t, timing)
-            if big:
-                rows = rows_n
+            _check_ffn_route(before, read_launches(), dtype, N)
+            if dtype == torch.float32:
+                for k, v in errs.items():
+                    if not k.startswith("dense"):
+                        worst_f32[k] = max(worst_f32[k], v)
+                if N == FFN_ROWS[1]:  # #3's and #4's CUDA-core kernels at a tower's rows
+                    rows.update({f"{k}_cuda_cores": v for k, v in _time_ffn(
+                        N, t, {}, torch.float32, names[:4]).items()})
+            elif N not in FFN_RAGGED_ROWS:
+                rows_n = _time_ffn(N, t, timing)
+                if big:
+                    rows.update(rows_n)
             del t
-    return {n: {**rows[n], "max_abs_err": worst[n]} for n in names}
+    out = {n: {**rows[n], "max_abs_err": worst[n]} for n in names}
+    out.update({f"{n}_cuda_cores": {**rows[f"{n}_cuda_cores"], "max_abs_err": worst_f32[n]}
+                for n in names[:4]})
+    return out
 
 
-def _time_ffn(N: int, t: dict, timing: dict) -> dict:
-    """Device times of the six kernels (bf16, #4 and #5 at rate 0.1), their
-    plain versions and the unfused chains, with their bounds."""
-    H, Fd, es = FFN_H, FFN_F, 2
+def _time_ffn(N: int, t: dict, timing: dict, dtype=torch.bfloat16, only=None) -> dict:
+    """Device times of the six kernels (#4 and #5 at rate 0.1; ``only``
+    some of them) in ``dtype``, their plain versions and the unfused chains,
+    with their bounds."""
+    H, Fd, es = FFN_H, FFN_F, t["x"].element_size()
     x, r, g, w1, b1, w2, b2, w, b, sc, bi = (t[k] for k in (
         "x", "r", "g", "w1", "b1", "w2", "b2", "w", "b", "scale", "bias"))
-    rate, seed, dtype = FFN_RATE, FFN_SEED, torch.bfloat16
+    rate, seed = FFN_RATE, FFN_SEED
     _, pre, s4 = ffn_k.ffn_block_fwd(x, w1, b1, w2, b2, sc, bi, seed, rate, save=True)
     _, s5 = ffn_k.dense_block_fwd(x, r, w, b, sc, bi, seed, rate, save=True)
     chains = _unfused_chains(dtype)
@@ -1389,6 +1461,8 @@ def _time_ffn(N: int, t: dict, timing: dict) -> dict:
     }
     rows = {}
     for name, (kernel, plain, chain, n_bytes, ops) in cases.items():
+        if only is not None and name not in only:
+            continue
         ms = cuda_time_ms(kernel, **timing)
         plain_ms = cuda_time_ms(plain, **timing)
         leaf = x.detach().requires_grad_()
@@ -1400,13 +1474,16 @@ def _time_ffn(N: int, t: dict, timing: dict) -> dict:
             chain_ms = cuda_time_ms(
                 lambda: torch.autograd.grad(y, leaf, g, retain_graph=True), **timing)
             del y
+        tflops = {k: ops / v[0] / 1e9 for k, v in (("kernel", ms), ("unfused chain", chain_ms))}
         print(f"{name} [{N}, {H}] F {Fd}: the model's unfused chain (xla route) for the same "
               f"work: device ms {chain_ms[0]:.5f}"
-              f"{' (input gradient through autograd)' if name.endswith('_bwd') else ''}",
-              flush=True)
+              f"{' (input gradient through autograd)' if name.endswith('_bwd') else ''}; "
+              f"TFLOP/s of the function's {ops / 1e12:.4f} TFLOP: "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in tflops.items())}", flush=True)
         rows[name] = report(name, f"[{N}, {H}] F {Fd} rate {rate if 'block' in name else 0.0}",
-                            dtype, 0.0, ms, plain_ms, bound_ms(n_bytes, ops, "bfloat16"))
+                            dtype, 0.0, ms, plain_ms, bound_ms(n_bytes, ops, dtype_name(dtype)))
         rows[name]["unfused_chain_ms"] = chain_ms[0]
+        rows[name]["tflop_s"] = tflops["kernel"]
     return rows
 
 
@@ -1745,7 +1822,8 @@ def _launches_per_step(route: str, dtype: str = "bfloat16") -> dict:
     attention, forward and backward (in bf16 its tensor-core kernels, in f32
     its CUDA-core ones: 48 and 96 positions fit the whole-head backward); on
     FT-Align's block route #4 and #5, on its pallas route #3, in every layer
-    of the three towers."""
+    of the three towers (#3 and #4 on their wgmma kernels in bf16, their
+    CUDA-core kernels in f32)."""
     cfg = UniVLConfig.base(max_words=48, max_frames=48)
     layers = cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
     if route != "ft_joint":
@@ -1754,8 +1832,9 @@ def _launches_per_step(route: str, dtype: str = "bfloat16") -> dict:
     want = {f"train_attention_fwd{suffix}": layers, f"train_attention_bwd{suffix}": layers}
     ffn_kernels = {"ft_joint": (), "ft_align_xla": (), "ft_align": ("ffn_block", "dense_block"),
                    "ft_align_pallas": ("ffn",)}[route]
-    for name in ffn_kernels:
-        want[f"{name}_fwd"] = want[f"{name}_bwd"] = layers
+    for name in ffn_kernels:  # #5 counts its f32 calls with its bf16 ones
+        sfx = "" if name == "dense_block" else suffix
+        want[f"{name}_fwd{sfx}"] = want[f"{name}_bwd{sfx}"] = layers
     return want
 
 
@@ -1840,10 +1919,11 @@ PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
     "#2 backward, tiled (CUDA cores)": TRACE_NAMES["train_attention_bwd_tiled"],
     "#6 forward": ("layernorm_fwd_kernel",),
     "#6 backward": TRACE_NAMES["layernorm_bwd"],
-    "#3 forward": ("ffn_fwd_kernel",),
-    "#3 backward": ("ffn_bwd_kernel",),
-    "#4 forward": ("ffn_block_fwd_kernel",),
-    "#4 backward": ("ffn_block_bwd_kernel",),
+    # on the block route #4's kernels, on the pallas route #3's (one body)
+    "#3/#4 forward": TRACE_NAMES["ffn_block_fwd"],
+    "#3/#4 backward": TRACE_NAMES["ffn_block_bwd"],
+    "#3/#4, CUDA cores": ("ffn_fwd_kernel", "ffn_bwd_kernel", "ffn_block_fwd_kernel",
+                          "ffn_block_bwd_kernel"),
     "#5 forward": ("dense_block_fwd_kernel",),
     "#5 backward": ("dense_block_bwd_kernel",),
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
@@ -1851,18 +1931,18 @@ PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
 }
 
 
-def phase_train_profile(ds, tmp: str, route: str = "ft_joint") -> None:
+def phase_train_profile(ds, tmp: str, route: str = "ft_joint") -> dict:
     """torch.profiler over PROFILE_STEPS steady steps of the full training
     step on a route (batches already on the card): device busy share, kernel
     time by name, launches per step."""
     align = route != "ft_joint"
     cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
                            batch_size_per_device=TRAIN_BATCH, train_sim_after_cross=align,
-                           use_fused_ffn="block" if align else False)
+                           use_fused_ffn="block" if route == "ft_align" else False)
     model = UniVL(cfg, device="cuda")
     model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
-    profile_training(model, ds, TRAIN_BATCH, os.path.join(tmp, f"train_trace_{route}.json"),
-                     TRAIN_ROUTES[route][0])
+    return profile_training(model, ds, TRAIN_BATCH,
+                            os.path.join(tmp, f"train_trace_{route}.json"), TRAIN_ROUTES[route][0])
 
 
 def profile_training(model, ds, batch: int, trace: str, label: str) -> dict:
@@ -2570,7 +2650,11 @@ def main() -> int:
         phase_train_profile(ds, tmp)
         phase_train_agreement(ds, f32_launches=f32_runs)
         by_path["train_ft_align"] = phase_train(tmp, vocab, files, "ft_align")
-        phase_train_profile(ds, tmp, "ft_align")
+        fused = phase_train_profile(ds, tmp, "ft_align")
+        unfused = phase_train_profile(ds, tmp, "ft_align_xla")
+        print(f"FT-Align step, --fused_ffn block against xla (one profile each, same batches): "
+              f"device busy {fused['busy_ms']:.3f} against {unfused['busy_ms']:.3f} ms a step, "
+              f"wall {fused['wall_ms']:.3f} against {unfused['wall_ms']:.3f} ms", flush=True)
         small, _ = make_train_data(tmp, vocab, n_videos=PALLAS_VIDEOS)
         by_path["train_ft_align_pallas"] = phase_train(tmp, vocab, small, "ft_align_pallas")
         control = phase_train_agreement(ds, "ft_align_xla")

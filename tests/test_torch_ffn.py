@@ -189,6 +189,48 @@ def test_cuda_path_never_falls_back():
     assert ffn.ffn_fwd.launches == 0
 
 
+@pytest.mark.parametrize("N, splits, wide, narrow, fwd_mb, bwd_mb", [
+    (1, 8, 12, 24, 0.0307, 0.0251),
+    (300, 8, 36, 72, 9.2160, 7.3779),
+    (1536, 4, 144, 144, 28.3116, 18.8989),
+    (98304, 1, 9216, 2304, 603.9798, 1.5729),
+])
+def test_bf16_plan(N, splits, wide, narrow, fwd_mb, bwd_mb):
+    """The bf16 kernels' plan at FT-Align's shapes (F 3072): 128-row GEMM
+    tiles; h W2 and dpre W1^T split along F until the card's 132 SMs have a
+    tile each (at least 4 stages of 64 a split), so a tower's 1,536 rows
+    fill the card; scratch: h, the splits' f32 sums, #4's row statistics."""
+    plan = ffn.ffn_plan(N, 3072)
+    assert (plan["row_tile"], plan["col_tile"]) == (128, 256)
+    assert (plan["splits"], plan["wide_tiles"], plan["narrow_tiles"]) == (splits, wide, narrow)
+    steps = 3072 // ffn.GEMM_DEPTH
+    assert steps % splits == 0 and steps // splits >= ffn.MIN_SPLIT_STEPS
+    rows = -(-N // 32) * 32
+    part = 4 * splits * N * 768 if splits > 1 else 0
+    assert plan["scratch_bytes"] == {"fwd": 2 * N * 3072 + part, "bwd": part + 16 * rows}
+    assert [round(plan["scratch_bytes"][k] / 1e6, 4) for k in ("fwd", "bwd")] == [fwd_mb, bwd_mb]
+    if N >= 1536:
+        assert min(wide, narrow) >= ffn.CARD_SMS
+    # #3 keeps no row statistics; a narrow F cannot be split below 4 stages
+    assert ffn.ffn_plan(N, 3072, block=False)["scratch_bytes"]["bwd"] == part
+    assert ffn.ffn_plan(N, 256)["splits"] == 1
+
+
+@pytest.mark.parametrize("H, F", [(512, 1024), (768, 640), (768, 128)])
+def test_card_refuses_shapes_the_kernels_do_not_take(H, F):
+    """On the card the kernels take H = 768 and F a multiple of 256 (the
+    GEMM tile's columns): other shapes raise before anything launches."""
+    x = torch.zeros(4, H, device="meta")
+    w1, b1 = torch.zeros(H, F, device="meta"), torch.zeros(F, device="meta")
+    w2, b2 = torch.zeros(F, H, device="meta"), torch.zeros(H, device="meta")
+    scale, bias = torch.zeros(H, device="meta"), torch.zeros(H, device="meta")
+    with pytest.raises(ValueError, match="the kernels take H = 768 and F a multiple of 256"):
+        ffn.ffn_fwd(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="the kernels take H = 768 and F a multiple of 256"):
+        ffn.ffn_block_bwd(x, x, torch.zeros(4, F, device="meta"), w1, w2, scale, 0, 0.1)
+    assert ffn.ffn_fwd.launches == ffn.ffn_block_bwd.launches == 0
+
+
 @pytest.mark.parametrize("case", ["rank", "dtype", "ln_dtype", "rate"])
 def test_rejects_bad_inputs(case):
     inp = {k: torch.from_numpy(v) for k, v in _inputs(8).items()}

@@ -22,11 +22,11 @@
 //           dx = round(dy W^T), and the partials
 // The weight and bias gradients and the partials' final sums are left to
 // plain PyTorch, as the TPU kernels leave them to XLA (ffn.py:238-250,
-// 486-498, 705-712). erff stands in for the TPU kernels' A&S 7.1.26 erf
-// polynomial (|err| <= 1.5e-7). The forwards take their weights as
-// nn.Linear stores them ([out, in]: W1^T, W2^T, W^T), the backwards in the
-// JAX layout ([in, out]): either way a product's B operand is read along its
-// depth, in 16-byte rows.
+// 486-498, 705-712). The f32 kernels use erff, the bf16 ones the TPU
+// kernels' A&S 7.1.26 erf polynomial (|err| <= 1.5e-7). The forwards take
+// their weights as nn.Linear stores them ([out, in]: W1^T, W2^T, W^T), the
+// backwards in the JAX layout ([in, out]): either way a product's B operand
+// is read along its depth, in 16-byte rows.
 //
 // Dropout bits: counter-based Philox4x32-10 (philox.cuh). Element (row, col)
 // is kept where word col % 4 of Philox(counter = (col / 4, row, tag, 0), key =
@@ -36,27 +36,38 @@
 // bits cannot be reproduced; the distribution is the same.
 //
 // What bounds it: at FT-Align's cross tower (98,304 rows, H 768, F 3072) #3
-// and #4 do 4 N H F = 0.93 TFLOP a call over ~0.9 GB: far above the H100's
-// ridge, so operations bound them (0.94 ms at the bf16 tensor-core peak).
+// and #4 do 4 N H F = 0.93 TFLOP a call over ~0.9 GB (and the [N, F] pre, h
+// and dpre the function writes): far above the H100's ridge, so operations
+// bound them (0.94 ms at the bf16 tensor-core peak).
 //
-// What the design does about it, in this first version: the [rows, F]
-// intermediate never leaves the SM (only pre, h and dpre, where the TPU
-// kernels write them). One block owns 32 whole rows, so the LayerNorm
-// epilogue reduces a row inside one warp and the backward's dscale/dbias
-// partials are summed per block in a fixed order (no atomics: a step is
-// reproducible). The block walks F in chunks of 256: the chunk's [32, 256]
-// activation goes to shared memory and is immediately multiplied into the
-// [32, 768] output held in registers. In bf16 the products run on the tensor
-// cores (mma.sync m16n8k16, f32 accumulators; each warp owns an eighth of the
-// columns for both 16-row halves), over weight tiles 32 deep copied with
-// cp.async into two shared-memory buffers, so the copy of the next tile
-// overlaps the products of this one; the output goes through shared memory
-// to the row-wise LayerNorm epilogue. In f32 (the agreement runs) they run
-// on CUDA cores, 4 rows x 24 columns a thread over staged f32 tiles. wgmma,
-// TMA and deeper pipelines are left for later work. The kernels take H = 768
-// and F a multiple of 256.
+// What the design does about it. In bf16, #3 and #4 are two GEMMs on
+// Hopper's wgmma and TMA, through device memory where the function already
+// writes: x W1 (epilogue: bias, pre, h = gelu(pre)) and h W2 (bias, y) in
+// the forward, (dffn or g) W2^T (dpre = . * gelu'(pre), h) and dpre W1^T
+// (dx, + ds for #4) in the backward; row kernels do #4's dropout, residual
+// and LayerNorm (forward and backward) and add F splits. A GEMM tile of 128
+// x 256 reads each staged weight byte for 128 rows (a 32-row block of the
+// first version restaged all of W1 and W2: 29 GB of L2 traffic a call). A
+// persistent block a SM: one producer warpgroup keeps TMA loads in flight
+// into a ring of three 48 KB stages, two consumer warpgroups run wgmma
+// m64n256k16 (128 f32 accumulators a thread), and each epilogue writes its
+// bf16 outputs through swizzled staging buffers to TMA stores, its inputs
+// (pre; #4's s and g) prefetched by TMA while the products run. At a
+// tower's 1,536 rows h W2 and dpre W1^T split F until every SM has a tile
+// (ffn_plan in kernels/ffn.py); the splits' f32 sums are added in split
+// order, so every output is bitwise the same from call to call. The bf16
+// GELU is the TPU kernels' erf polynomial (one exp, one reciprocal for gelu
+// and gelu'). A fused alternative (one kernel a direction, the [64, 768]
+// output in registers, W1 and W2 restaged per 64 rows) took 2.6x this
+// route's time on #3's forward (PERF.md). In f32 (the agreement runs) #3
+// and #4 run on CUDA cores, 4 rows x 24 columns a thread over staged f32
+// tiles; #5 runs on mma.sync in bf16 (one block owns 32 rows; cp.async
+// weight tiles 32 deep in two buffers; the LayerNorm epilogue through
+// shared memory) and on CUDA cores in f32. The kernels take H = 768 and F
+// a multiple of 256.
 
 #include <cuda_bf16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -66,6 +77,7 @@
 
 #include "mma.cuh"
 #include "philox.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -75,6 +87,7 @@ using univl::cp_async_wait;
 using univl::Dropout;
 using univl::ld_pair;
 using univl::mma16816;
+using univl::pack_bf16;
 using univl::philox4x32_10;
 using univl::philox_word;
 using bf16 = __nv_bfloat16;
@@ -153,6 +166,20 @@ __device__ __forceinline__ float gelu(float x) { return x * 0.5f * (1.0f + erff(
 __device__ __forceinline__ float gelu_grad(float x) {
   const float cdf = 0.5f * (1.0f + erff(x * kInvSqrt2));
   return cdf + x * (expf(-0.5f * x * x) * kInvSqrt2Pi);
+}
+
+// The bf16 route's GELU: the TPU kernels' erf (Abramowitz & Stegun 7.1.26,
+// |err| <= 1.5e-7; univl_tpu/kernels/ffn.py:54-66), whose exp(-x^2 / 2) is
+// also the derivative's: cdf = Phi(x) and pdf = exp(-x^2 / 2) / sqrt(2 pi)
+// from one exp and one fast reciprocal. gelu = x cdf, gelu' = cdf + x pdf.
+__device__ __forceinline__ float2 gelu_cdf_pdf(float x) {
+  const float a = fabsf(x) * kInvSqrt2;
+  const float e = __expf(-a * a);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, a, 1.0f));
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  return make_float2(0.5f * (1.0f + copysignf(1.0f - poly * e, x)), e * kInvSqrt2Pi);
 }
 
 // The lane's first column of quad q of a row: lanes hold 4 adjacent columns,
@@ -240,7 +267,6 @@ __device__ __forceinline__ void zero(float4 (&acc)[kRowsPerWarp][NQ]) {
 constexpr int kKt = 32;             // depth of a staged weight tile
 constexpr int kBRow = kKt + 8;      // its rows in shared memory: 80 bytes, conflict-free fragments
 constexpr int kARow = kH + 8;       // a staged activation row
-constexpr int kHRow = kFc + 8;      // a staged chunk row
 constexpr int kYRow = kH + 4;       // an f32 output row, laid out for the row epilogue
 constexpr int kStage = kH * kBRow;  // bf16 elements of one weight-tile buffer (up to kH columns)
 
@@ -478,7 +504,7 @@ __device__ void layer_norm_backward(const T* __restrict__ s, const T* __restrict
         at(ds, t) = rstd * (at(gv[q], t) - m1 - at(sv[q], t) * m2);
         at(dd, t) = round_to<T>(drop.on ? at(ds, t) * at(k, t) : at(ds, t));
       }
-      store4(as + lr * lda + col, dd);
+      if (as) store4(as + lr * lda + col, dd);
       if (valid) {
         store4(dropped_out + base + col, dd);
         if (ds_out) store4(ds_out + base + col, round4<T>(ds));
@@ -506,6 +532,9 @@ __device__ void layer_norm_backward(const T* __restrict__ s, const T* __restrict
 // ds of one element from its row's statistics (dx = ds + the FFN's dx in #4)
 __device__ __forceinline__ float ds_of(const float* st, float s, float g, float scale) {
   return st[1] * (g * scale - st[2] - (s - st[0]) * st[1] * st[3]);
+}
+__device__ __forceinline__ float ds_of(float4 st, float s, float g, float scale) {
+  return st.y * (g * scale - st.z - (s - st.x) * st.y * st.w);
 }
 
 // ---------------------------------------------------------------- #3, #4 forward
@@ -569,58 +598,6 @@ __device__ __forceinline__ void ffn_fwd_cc(
       for (int q = 0; q < kQH; ++q) store4(out + static_cast<long long>(row) * kH + quad_col(q), y[q]);
     }
   }
-}
-
-template <bool kBlock>
-__device__ __forceinline__ void ffn_fwd_tc(
-    const bf16* __restrict__ x, const bf16* __restrict__ w1t, const bf16* __restrict__ b1,
-    const bf16* __restrict__ w2t, const bf16* __restrict__ b2, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, bf16* __restrict__ out, bf16* __restrict__ pre_out,
-    bf16* __restrict__ s_out, int N, int F, float eps, const Dropout& drop) {
-  extern __shared__ __align__(16) float smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kRows][kARow] the block's rows of x
-  bf16* hs = xs + kRows * kARow;             // [kRows][kHRow] the chunk's activation
-  bf16* bs = hs + kRows * kHRow;             // 2 x kStage weight tiles
-  float* ys = reinterpret_cast<float*>(bs);  // [kRows][kYRow] the output, after the products
-  const int row0 = blockIdx.x * kRows;
-  stage_rows_tc(xs, x, N, row0);
-  float acc[2][12][4] = {};
-  for (int f0 = 0; f0 < F; f0 += kFc) {
-    float c1[2][4][4] = {};
-    mma_gemm<4>(c1, xs, kARow, kH, w1t, kH, f0, bs);  // x W1[:, f0:f0+kFc]
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int lr = mma_row(m, e), col = mma_col<4>(j, e);
-          const float2 bias = load2(b1 + f0 + col);
-          const float p0 = round_to<bf16>(round_to<bf16>(c1[m][j][e]) + bias.x);
-          const float p1 = round_to<bf16>(round_to<bf16>(c1[m][j][e + 1]) + bias.y);
-          if (pre_out && row0 + lr < N) {
-            store2(pre_out + static_cast<long long>(row0 + lr) * F + f0 + col, p0, p1);
-          }
-          store2(hs + lr * kHRow + col, gelu(p0), gelu(p1));
-        }
-    mma_gemm<12>(acc, hs, kHRow, kFc, w2t + f0, F, 0, bs);  // h W2[f0:f0+kFc, :]
-  }
-  __syncthreads();  // every warp is done with the weight tiles, which ys overwrites
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int lr = mma_row(m, e), col = mma_col<12>(j, e);
-        const float2 bias = load2(b2 + col);
-        *reinterpret_cast<float2*>(ys + lr * kYRow + col) =
-            make_float2(round_to<bf16>(round_to<bf16>(acc[m][j][e]) + bias.x),
-                        round_to<bf16>(round_to<bf16>(acc[m][j][e + 1]) + bias.y));
-      }
-  __syncthreads();
-  row_epilogue<bf16, kBlock>(ys, xs, kARow, N, row0, ln_scale, ln_bias, eps, drop, kFfnBlockTag,
-                             out, s_out);
 }
 
 // ---------------------------------------------------------------- #3, #4 backward
@@ -695,68 +672,374 @@ __device__ __forceinline__ void ffn_bwd_cc(
   }
 }
 
-template <bool kBlock>
-__device__ __forceinline__ void ffn_bwd_tc(
-    const bf16* __restrict__ pre, const bf16* __restrict__ g, const bf16* __restrict__ w1,
-    const bf16* __restrict__ w2, const bf16* __restrict__ s, const float* __restrict__ ln_scale,
-    bf16* __restrict__ dx, bf16* __restrict__ dpre, bf16* __restrict__ h, bf16* __restrict__ dffn,
-    float* __restrict__ dscale_p, float* __restrict__ dbias_p, int N, int F, float eps,
-    const Dropout& drop) {
-  extern __shared__ __align__(16) float smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);                // [kRows][kARow] the FFN's gradient
-  bf16* hs = as + kRows * kARow;                           // [kRows][kHRow] the chunk's dpre
-  bf16* bs = hs + kRows * kHRow;                           // 2 x kStage weight tiles
-  float* stats = reinterpret_cast<float*>(bs + 2 * kStage);  // [kRows][4]
-  const int row0 = blockIdx.x * kRows;
-  if (kBlock) {
-    layer_norm_backward<bf16>(s, g, ln_scale, N, row0, eps, drop, kFfnBlockTag, as, kARow, dffn,
-                              static_cast<bf16*>(nullptr), stats, reinterpret_cast<float*>(bs),
-                              dscale_p, dbias_p);
-  } else {
-    stage_rows_tc(as, g, N, row0);
+// ---------------------------------------------------------------- #3, #4 in bf16: wgmma GEMMs
+
+// A bf16 call is two GEMMs and row kernels, all through device memory where
+// the function already writes ([N, F] pre, h, dpre): GEMM tiles of kBM x kBN
+// read each staged weight byte for kBM rows. A persistent block a SM: one
+// producer warpgroup issues TMA loads of A and B tiles, kBK deep, into a
+// ring of kStages; two consumer warpgroups each run wgmma m64n256k16 on 64
+// rows of the tile into 128 f32 registers a thread. A consumer's epilogue
+// writes its bf16 outputs into a staging tile in shared memory and one of
+// its threads hands the tile to TMA stores, which run on while the
+// consumer takes up the next tile's products (the producer has filled the
+// ring meanwhile). Both operands are K-major: A [M, K] (x, h, dffn or g,
+// dpre) and B [N, K] (W1^T, W2^T as nn.Linear stores them; W2, W1 in the
+// JAX layout).
+constexpr int kBM = 128;           // rows of a tile: a 64-row wgmma for each consumer
+constexpr int kBN = 256;           // its columns: one m64n256 accumulator a consumer
+constexpr int kBK = 64;            // depth of a stage: one 128-byte swizzled row
+constexpr int kStages = 3;
+constexpr int kGemmThreads = 384;  // the producer warpgroup and two consumers
+constexpr int kStageA = kBM * kBK, kStageB = kBN * kBK;  // bf16 elements of a stage
+constexpr uint32_t kStageBytes = (kStageA + kStageB) * sizeof(bf16);
+constexpr int kOutTile = 64 * kBN;  // bf16 elements of a consumer's two staging buffers
+constexpr int kOutBox = 64 * 64;    // ... of one of their TMA boxes (two a buffer)
+constexpr size_t kGemmSmem =        // the ring, the staging tiles, their alignment
+    kStages * kStageBytes + 2 * kOutTile * sizeof(bf16) + 1024;
+constexpr int kMinSteps = 4;        // stages of depth a split takes at least
+
+enum Epilogue { kBias, kPartial, kDGelu, kDx };
+
+struct EpiArgs {
+  bf16* out;            // [M, N]: pre or y (kBias; may be null), dpre (kDGelu), dx (kDx)
+  bf16* h;              // [M, N]: round(gelu(out)) (kBias, where not null), h (kDGelu)
+  const bf16* bias;     // [N] (kBias)
+  const bf16* pre;      // [M, N] (kDGelu)
+  float* part;          // [splits, M, N]: each split's f32 sums (kPartial)
+  const bf16* s;        // kDx for #4: the LayerNorm input, the output gradient,
+  const bf16* g;        // the scale and the row statistics, from which ds is
+  const float* scale;   // added; stats null for #3
+  const float* stats;
+};
+
+// The TMA maps of a GEMM: its operands, its bf16 outputs (out, h) and the
+// epilogue's prefetched inputs (kDGelu: pre; kDx for #4: s and g).
+struct GemmMaps {
+  CUtensorMap a, b, out, h, in0, in1;
+};
+
+// Element (r, c) of a staging buffer: two 64 x 64 boxes in TMA's 128-byte
+// swizzle, so a warp's fragment writes and reads (8 rows x 4 column pairs)
+// hit 32 banks.
+__device__ __forceinline__ int staged(int r, int c) {
+  return (c >> 6) * kOutBox + r * 64 + ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// The epilogue's inputs for column half `half` of a consumer's tile at
+// (row0, col0), loaded by its leader into the staging buffers once the last
+// stores have read them (for half 0 while the products run): kDGelu pre into
+// buffer 0; kDx for #4 s into buffer 0 and g into buffer 1.
+template <int kEpi>
+__device__ __forceinline__ void epilogue_prefetch(const GemmMaps& m, bf16* tile, uint64_t* bar,
+                                                  int row0, int col0, int half) {
+  univl::tma_store_wait<0, true>();
+  const int boxes = kEpi == kDGelu ? 2 : 4;
+  univl::mbar_arrive_expect_tx(bar, boxes * kOutBox * sizeof(bf16));
+  for (int b = 0; b < boxes; ++b) {
+    univl::tma_load_2d(tile + b * kOutBox, b < 2 ? &m.in0 : &m.in1, bar,
+                       col0 + 128 * half + 64 * (b & 1), row0);
   }
-  float acc[2][12][4] = {};
-  for (int f0 = 0; f0 < F; f0 += kFc) {
-    float c1[2][4][4] = {};
-    mma_gemm<4>(c1, as, kARow, kH, w2, kH, f0, bs);  // g W2[f0:f0+kFc, :]^T
+}
+
+// The epilogue of a consumer's 64 x 256 accumulator at (row0, col0). kPartial
+// stores its f32 sums straight from registers. The others go by column
+// parts: each bf16 output of the part goes into a staging buffer (of 64 x
+// 128 columns, or 64 for kBias's quarters), which the leader hands to TMA
+// stores (they drop rows past M):
+// kBias pre (buffer 0, when saved) and h (buffer 1, when wanted; y alone in
+// buffer 0); kDGelu h over the prefetched pre (buffer 0) and dpre (buffer
+// 1); kDx dx (buffer 0; for #4 over the prefetched s, with g in buffer 1).
+template <int kEpi>
+__device__ __forceinline__ void gemm_epilogue(const float (&d)[128], const EpiArgs& e,
+                                              const GemmMaps& m, bf16* tile, uint64_t* bar,
+                                              uint32_t& phase, int M, int N, int row0, int col0,
+                                              int split) {
+  const int t = threadIdx.x & 127, lane = t & 31;
+  const int rl = 16 * (t >> 5) + (lane >> 2), cl = 2 * (lane & 3);
+  if constexpr (kEpi == kPartial) {
+    float* part = e.part + static_cast<long long>(split) * M * N;
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + rl + 8 * half;
+      if (row >= M) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int lr = mma_row(m, e), col = mma_col<4>(j, e), row = row0 + lr;
-          const bool valid = row < N;
-          const long long base = static_cast<long long>(row) * F + f0 + col;
-          const float2 p = valid ? load2(pre + base) : make_float2(0.0f, 0.0f);
-          const float dp0 = round_to<bf16>(c1[m][j][e] * gelu_grad(p.x));
-          const float dp1 = round_to<bf16>(c1[m][j][e + 1] * gelu_grad(p.y));
-          if (valid) {
-            store2(h + base, gelu(p.x), gelu(p.y));
-            store2(dpre + base, dp0, dp1);
-          }
-          store2(hs + lr * kHRow + col, dp0, dp1);
-        }
-    mma_gemm<12>(acc, hs, kHRow, kFc, w1 + f0, F, 0, bs);  // dpre W1[:, f0:f0+kFc]^T
-  }
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int lr = mma_row(m, e), col = mma_col<12>(j, e), row = row0 + lr;
-        if (row >= N) continue;
-        const long long base = static_cast<long long>(row) * kH + col;
-        float o0 = acc[m][j][e], o1 = acc[m][j][e + 1];
-        if (kBlock) {  // dx = ds + dx_ffn, ds recomputed from the row statistics
-          const float2 sv = load2(s + base), gv = load2(g + base);
-          const float2 sc = *reinterpret_cast<const float2*>(ln_scale + col);
-          o0 += ds_of(stats + 4 * lr, sv.x, gv.x, sc.x);
-          o1 += ds_of(stats + 4 * lr, sv.y, gv.y, sc.y);
-        }
-        store2(dx + base, o0, o1);
+      for (int j = 0; j < 32; ++j) {
+        *reinterpret_cast<float2*>(part + static_cast<long long>(row) * N + col0 + cl + 8 * j) =
+            make_float2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
       }
+    }
+  } else {
+    // kBias goes by quarters, alternating between two sets of buffers (64
+    // columns of pre and of h each), so a quarter's stores read shared
+    // memory while the next quarter is computed; the others go by halves.
+    constexpr int kParts = kEpi == kBias ? 4 : 2, kJ = 32 / kParts, kBoxes = 4 / kParts;
+    const bool leader = t == 0;
+    const int named = threadIdx.x / 128;  // named barriers 1 and 2, one a consumer
+    const bool loaded = kEpi == kDGelu || (kEpi == kDx && e.stats);
+    float4 st[2];
+    if (kEpi == kDx && e.stats) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        st[half] = *reinterpret_cast<const float4*>(e.stats + 4 * min(row0 + rl + 8 * half, M - 1));
+      }
+    }
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      bf16* buf0 = kParts == 4 ? tile + (part & 1) * 2 * kOutBox : tile;
+      bf16* buf1 = buf0 + kBoxes * kOutBox;
+      if (loaded) {
+        if (part == 1 && leader) epilogue_prefetch<kEpi>(m, tile, bar, row0, col0, 1);
+        univl::mbar_wait(bar, phase);
+        phase ^= 1;
+      } else {
+        // the stores that last read these buffers: two parts ago (quarters)
+        // or one (halves)
+        if (leader) {
+          if (kParts == 4) univl::tma_store_wait<1, true>();
+          else univl::tma_store_wait<0, true>();
+        }
+        univl::named_barrier(named, 128);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kJ; ++jj) {
+        const int j = part * kJ + jj;
+        const int col = col0 + cl + 8 * j;
+        float2 b;
+        if constexpr (kEpi == kBias) b = load2(e.bias + col);
+        float2 sc;
+        if constexpr (kEpi == kDx) sc = e.stats ? *reinterpret_cast<const float2*>(e.scale + col)
+                                                : make_float2(0.0f, 0.0f);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float a0 = d[4 * j + 2 * half], a1 = d[4 * j + 2 * half + 1];
+          const int at = staged(rl + 8 * half, cl + 8 * jj);
+          uint32_t* b0 = reinterpret_cast<uint32_t*>(buf0 + at);
+          uint32_t* b1 = reinterpret_cast<uint32_t*>(buf1 + at);
+          if constexpr (kEpi == kBias) {  // pre (or y) to buffer 0; h from it below
+            *b0 = pack_bf16(round_to<bf16>(a0) + b.x, round_to<bf16>(a1) + b.y);
+          } else if constexpr (kEpi == kDGelu) {
+            const float2 p = unpack2(*b0);
+            const float2 c0 = gelu_cdf_pdf(p.x), c1 = gelu_cdf_pdf(p.y);
+            *b0 = pack_bf16(p.x * c0.x, p.y * c1.x);  // h over pre
+            *b1 = pack_bf16(a0 * fmaf(p.x, c0.y, c0.x), a1 * fmaf(p.y, c1.y, c1.x));
+          } else if (e.stats) {  // kDx for #4: dx = ds + dx_ffn, ds from the row statistics
+            const float2 sv = unpack2(*b0), gv = unpack2(*b1);
+            *b0 = pack_bf16(a0 + ds_of(st[half], sv.x, gv.x, sc.x), a1 + ds_of(st[half], sv.y, gv.y, sc.y));
+          } else {
+            *b0 = pack_bf16(a0, a1);
+          }
+        }
+      }
+      if (kEpi == kBias && e.h) {  // h = round(gelu(pre)), each thread over its own pairs
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int at = staged(rl + 8 * half, cl + 8 * jj);
+            const float2 p = unpack2(*reinterpret_cast<const uint32_t*>(buf0 + at));
+            *reinterpret_cast<uint32_t*>(buf1 + at) =
+                pack_bf16(p.x * gelu_cdf_pdf(p.x).x, p.y * gelu_cdf_pdf(p.y).x);
+          }
+      }
+      univl::fence_proxy_async();
+      univl::named_barrier(named, 128);
+      if (leader) {
+        const bool first = kEpi != kBias || e.out, second = kEpi == kDGelu || (kEpi == kBias && e.h);
+        for (int b = 0; b < kBoxes; ++b) {
+          const int col = col0 + part * 64 * kBoxes + 64 * b;
+          if (first) univl::tma_store_2d(kEpi == kDGelu ? &m.h : &m.out, buf0 + b * kOutBox, col, row0);
+          if (second) univl::tma_store_2d(kEpi == kDGelu ? &m.out : &m.h, buf1 + b * kOutBox, col, row0);
+        }
+        univl::tma_store_commit();
+      }
+    }
+  }
+}
+
+// C = A B^T, [M, N] over depth K (N a multiple of kBN, K of kBK * splits),
+// tile by tile: tile t is split t % splits of column tile (t / splits) %
+// (N / kBN) of row tile t / splits / (N / kBN), so the blocks at work at
+// once share their weight tiles and rows in L2. A split takes K / splits of
+// the depth and writes its own f32 sums (kPartial), summed later in split
+// order: every output is the same from call to call.
+template <int kEpi>
+__device__ __forceinline__ void gemm_body(const GemmMaps& m, int M, int N, int K, int splits,
+                                          const EpiArgs& e) {
+  extern __shared__ uint8_t gemm_smem[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], epi[2];
+  bf16* sa = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* sb = sa + kStages * kStageA;
+  const int tiles_n = N / kBN, tiles = (M + kBM - 1) / kBM * tiles_n * splits;
+  const int steps = K / kBK / splits;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      univl::mbar_init(&full[i], 1);   // the producer's arrival, then the bytes
+      univl::mbar_init(&empty[i], 2);  // one arrival a consumer
+    }
+    univl::mbar_init(&epi[0], 1);  // a consumer leader's prefetch, then its bytes
+    univl::mbar_init(&epi[1], 1);
+    univl::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {  // the producer
+    univl::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int split = tile % splits, tn = tile / splits % tiles_n, tm = tile / splits / tiles_n;
+        for (int k = 0; k < steps; ++k, ++it) {
+          const int st = it % kStages;
+          univl::mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+          univl::mbar_arrive_expect_tx(&full[st], kStageBytes);
+          const int kc = (split * steps + k) * kBK;
+          univl::tma_load_2d(sa + st * kStageA, &m.a, &full[st], kc, tm * kBM);
+          univl::tma_load_2d(sb + st * kStageB, &m.b, &full[st], kc, tn * kBN);
+        }
+      }
+    }
+  } else {
+    univl::setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;  // this consumer's 64 rows of the tile
+    bf16* staging = sb + kStages * kStageB + c * kOutTile;
+    const bool leader = (threadIdx.x & 127) == 0;
+    const bool prefetch = kEpi == kDGelu || (kEpi == kDx && e.stats);
+    uint32_t phase = 0;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int split = tile % splits, tn = tile / splits % tiles_n, tm = tile / splits / tiles_n;
+      const int row0 = tm * kBM + 64 * c, col0 = tn * kBN;
+      if (prefetch && leader && row0 < M) {
+        epilogue_prefetch<kEpi>(m, staging, &epi[c], row0, col0, 0);
+      }
+      float d[128];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+      univl::wgmma_fence_operands(d);
+      int prev = 0;
+      for (int k = 0; k < steps; ++k, ++it) {
+        const int st = it % kStages;
+        univl::mbar_wait(&full[st], (it / kStages) & 1);
+        univl::wgmma_fence();
+        const bf16* a = sa + st * kStageA + c * 64 * kBK;
+        const bf16* b = sb + st * kStageB;
+#pragma unroll
+        for (int kk = 0; kk < kBK; kk += 16) {
+          univl::wgmma_m64n256k16(d, univl::wgmma_desc(a + kk), univl::wgmma_desc(b + kk), 1);
+        }
+        univl::wgmma_commit();
+        univl::wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (k > 0 && leader) univl::mbar_arrive(&empty[prev]);
+        prev = st;
+      }
+      univl::wgmma_wait<0>();
+      univl::wgmma_fence_operands(d);
+      if (leader) univl::mbar_arrive(&empty[prev]);
+      if (row0 < M) gemm_epilogue<kEpi>(d, e, m, staging, &epi[c], phase, M, N, row0, col0, split);
+    }
+    if (leader) univl::tma_store_wait<0, false>();  // the last stores are done with the tile
+  }
+}
+
+// Under names of their own for the forward and the backward, so a profile
+// tells them apart
+template <int kEpi>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    ffn_fwd_gemm_kernel(const __grid_constant__ GemmMaps m, int M, int N, int K, int splits,
+                        EpiArgs e) {
+  gemm_body<kEpi>(m, M, N, K, splits, e);
+}
+template <int kEpi>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    ffn_bwd_gemm_kernel(const __grid_constant__ GemmMaps m, int M, int N, int K, int splits,
+                        EpiArgs e) {
+  gemm_body<kEpi>(m, M, N, K, splits, e);
+}
+
+// The forward's rows after h W2: y = round(round(sum of the splits' partials)
+// + b2), or with splits = 0 the GEMM's y, already in out; for #4 then
+// dropped, s = round(y + x), out = round(LN(s)) (in place over y). A warp a row.
+template <bool kBlock>
+__global__ void __launch_bounds__(kThreads)
+    ffn_fwd_rows_kernel(const float* __restrict__ part, int splits, const bf16* __restrict__ b2,
+                        const bf16* __restrict__ x, const float* __restrict__ ln_scale,
+                        const float* __restrict__ ln_bias, bf16* out, bf16* __restrict__ s_out,
+                        int N, float eps, Dropout drop) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const long long base = static_cast<long long>(row) * kH, stride = static_cast<long long>(N) * kH;
+  float4 y[kQH], res[kQH];
+#pragma unroll
+  for (int q = 0; q < kQH; ++q) {
+    const int col = quad_col(q);
+    if (splits == 0) {
+      y[q] = load4(out + base + col);
+    } else {
+      float4 acc = load4(part + base + col);
+      for (int sp = 1; sp < splits; ++sp) {
+        const float4 v = load4(part + sp * stride + base + col);
+        acc = make_float4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
+      }
+      const float4 b = load4(b2 + col);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) at(y[q], t) = round_to<bf16>(round_to<bf16>(at(acc, t)) + at(b, t));
+    }
+    res[q] = kBlock ? load4(x + base + col) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  if (kBlock) {
+    residual_layer_norm<bf16>(y, res, row, true, ln_scale, ln_bias, eps, drop, kFfnBlockTag, out,
+                              s_out);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kQH; ++q) store4(out + base + quad_col(q), y[q]);
+  }
+}
+
+// The backward's rows after dpre W1^T split along F: dx = round(sum of the
+// partials + ds), ds from the row statistics (#4; stats null for #3).
+__global__ void __launch_bounds__(kThreads)
+    ffn_bwd_rows_kernel(const float* __restrict__ part, int splits, const bf16* __restrict__ s,
+                        const bf16* __restrict__ g, const float* __restrict__ ln_scale,
+                        const float* __restrict__ stats, bf16* __restrict__ dx, int N) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const long long base = static_cast<long long>(row) * kH, stride = static_cast<long long>(N) * kH;
+#pragma unroll
+  for (int q = 0; q < kQH; ++q) {
+    const int col = quad_col(q);
+    float4 acc = load4(part + base + col);
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 v = load4(part + sp * stride + base + col);
+      acc = make_float4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
+    }
+    if (stats) {
+      const float4 sv = load4(s + base + col), gv = load4(g + base + col);
+      const float4 sc = load4(ln_scale + col);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) at(acc, t) += ds_of(stats + 4 * row, at(sv, t), at(gv, t), at(sc, t));
+    }
+    store4(dx + base + col, acc);
+  }
+}
+
+// #4's backward head: the LayerNorm backward of kRows rows a block, the
+// dropped gradient dffn (the next product's A), the row statistics and the
+// block's dscale/dbias partials (layer_norm_backward).
+__global__ void __launch_bounds__(kThreads)
+    ffn_bwd_ln_kernel(const bf16* __restrict__ s, const bf16* __restrict__ g,
+                      const float* __restrict__ ln_scale, bf16* __restrict__ dffn,
+                      float* __restrict__ stats, float* __restrict__ dscale_p,
+                      float* __restrict__ dbias_p, int N, float eps, Dropout drop) {
+  __shared__ __align__(16) float red[2 * kWarps * kH];
+  const int row0 = blockIdx.x * kRows;
+  layer_norm_backward<bf16>(s, g, ln_scale, N, row0, eps, drop, kFfnBlockTag,
+                            static_cast<bf16*>(nullptr), 0, dffn, static_cast<bf16*>(nullptr),
+                            stats + 4 * row0, red, dscale_p, dbias_p);
 }
 
 // ---------------------------------------------------------------- #5
@@ -879,43 +1162,36 @@ __device__ __forceinline__ void dense_bwd_tc(
 
 // ---------------------------------------------------------------- the kernels
 
-// #3 and #4 under names of their own, so a profile tells them apart
-#define UNIVL_FFN_FWD_PARAMS                                                                  \
-  const T *__restrict__ x, const T *__restrict__ w1t, const T *__restrict__ b1,               \
-      const T *__restrict__ w2t, const T *__restrict__ b2,                                    \
-      const float *__restrict__ ln_scale, const float *__restrict__ ln_bias,                  \
-      T *__restrict__ out, T *__restrict__ pre_out, T *__restrict__ s_out, int N, int F,      \
-      float eps, Dropout drop
+// f32 #3 and #4 under names of their own, so a profile tells them apart (in
+// bf16 they are the wgmma GEMMs and row kernels above)
+#define UNIVL_FFN_FWD_PARAMS                                                                   \
+  const float *__restrict__ x, const float *__restrict__ w1t, const float *__restrict__ b1,    \
+      const float *__restrict__ w2t, const float *__restrict__ b2,                             \
+      const float *__restrict__ ln_scale, const float *__restrict__ ln_bias,                   \
+      float *__restrict__ out, float *__restrict__ pre_out, float *__restrict__ s_out, int N,  \
+      int F, float eps, Dropout drop
 #define UNIVL_FFN_FWD_ARGS \
   x, w1t, b1, w2t, b2, ln_scale, ln_bias, out, pre_out, s_out, N, F, eps, drop
-#define UNIVL_FFN_BWD_PARAMS                                                                  \
-  const T *__restrict__ pre, const T *__restrict__ g, const T *__restrict__ w1,               \
-      const T *__restrict__ w2, const T *__restrict__ s, const float *__restrict__ ln_scale,  \
-      T *__restrict__ dx, T *__restrict__ dpre, T *__restrict__ h, T *__restrict__ dffn,      \
-      float *__restrict__ dscale_p, float *__restrict__ dbias_p, int N, int F, float eps,     \
-      Dropout drop
+#define UNIVL_FFN_BWD_PARAMS                                                                   \
+  const float *__restrict__ pre, const float *__restrict__ g, const float *__restrict__ w1,     \
+      const float *__restrict__ w2, const float *__restrict__ s,                               \
+      const float *__restrict__ ln_scale, float *__restrict__ dx, float *__restrict__ dpre,     \
+      float *__restrict__ h, float *__restrict__ dffn, float *__restrict__ dscale_p,           \
+      float *__restrict__ dbias_p, int N, int F, float eps, Dropout drop
 #define UNIVL_FFN_BWD_ARGS \
   pre, g, w1, w2, s, ln_scale, dx, dpre, h, dffn, dscale_p, dbias_p, N, F, eps, drop
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) ffn_fwd_kernel(UNIVL_FFN_FWD_PARAMS) {
-  if constexpr (kTensorCores<T>) ffn_fwd_tc<false>(UNIVL_FFN_FWD_ARGS);
-  else ffn_fwd_cc<T, false>(UNIVL_FFN_FWD_ARGS);
+  ffn_fwd_cc<float, false>(UNIVL_FFN_FWD_ARGS);
 }
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) ffn_block_fwd_kernel(UNIVL_FFN_FWD_PARAMS) {
-  if constexpr (kTensorCores<T>) ffn_fwd_tc<true>(UNIVL_FFN_FWD_ARGS);
-  else ffn_fwd_cc<T, true>(UNIVL_FFN_FWD_ARGS);
+  ffn_fwd_cc<float, true>(UNIVL_FFN_FWD_ARGS);
 }
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) ffn_bwd_kernel(UNIVL_FFN_BWD_PARAMS) {
-  if constexpr (kTensorCores<T>) ffn_bwd_tc<false>(UNIVL_FFN_BWD_ARGS);
-  else ffn_bwd_cc<T, false>(UNIVL_FFN_BWD_ARGS);
+  ffn_bwd_cc<float, false>(UNIVL_FFN_BWD_ARGS);
 }
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) ffn_block_bwd_kernel(UNIVL_FFN_BWD_PARAMS) {
-  if constexpr (kTensorCores<T>) ffn_bwd_tc<true>(UNIVL_FFN_BWD_ARGS);
-  else ffn_bwd_cc<T, true>(UNIVL_FFN_BWD_ARGS);
+  ffn_bwd_cc<float, true>(UNIVL_FFN_BWD_ARGS);
 }
 
 template <typename T>
@@ -941,23 +1217,23 @@ dense_block_bwd_kernel(const T* __restrict__ s, const T* __restrict__ g, const T
 
 // ---------------------------------------------------------------- launch
 
-// Dynamic shared memory: f32 (CUDA cores) and bf16 (tensor cores), with the
-// row statistics of the backwards. The bf16 forwards' f32 output rows and the
-// backwards' dscale/dbias partials reuse the weight-tile buffers.
+// Dynamic shared memory: f32 (CUDA cores) and #5's bf16 (tensor cores), with
+// the row statistics of the backwards. #5's bf16 forward's f32 output rows
+// and the backwards' dscale/dbias partials reuse the weight-tile buffers.
 constexpr size_t kFfnSmemCc = (kRows * kH + kRows * kFc + kKc * kBStride + 4 * kRows) * sizeof(float);
 constexpr size_t kDenseSmemCc = (kRows * kH + kKc * kBStride + 4 * kRows) * sizeof(float);
-constexpr size_t kFfnSmemTc =
-    (kRows * kARow + kRows * kHRow + 2 * kStage) * sizeof(bf16) + 4 * kRows * sizeof(float);
 constexpr size_t kDenseSmemTc = (kRows * kARow + 2 * kStage) * sizeof(bf16) + 4 * kRows * sizeof(float);
 static_assert(2 * kWarps * kH <= kKc * kBStride, "the partials' buffer must fit in the tile's");
 static_assert(2 * kWarps * kH * sizeof(float) <= 2 * kStage * sizeof(bf16) &&
                   kRows * kYRow * sizeof(float) <= 2 * kStage * sizeof(bf16),
               "the partials and the output rows must fit in the weight tiles' buffers");
-static_assert(kFfnSmemTc <= 232448 && kFfnSmemCc <= 232448, "over Hopper's shared memory");
+static_assert(kFfnSmemCc <= 232448 && kGemmSmem <= 232448 && kDenseSmemTc <= 232448,
+              "over Hopper's shared memory");
+static_assert(kH % kBN == 0 && kFc % kBN == 0 && kH % (kBK * kMinSteps) == 0 &&
+                  kFc % (kBK * kMinSteps) == 0,
+              "the GEMM tiles must divide H and the F granule");
 constexpr int kMaxDevices = 64;
 
-template <typename T>
-constexpr size_t ffn_smem() { return kTensorCores<T> ? kFfnSmemTc : kFfnSmemCc; }
 template <typename T>
 constexpr size_t dense_smem() { return kTensorCores<T> ? kDenseSmemTc : kDenseSmemCc; }
 
@@ -976,40 +1252,129 @@ cudaError_t opt_in(Kernel kernel, size_t bytes, std::atomic<bool>* done) {
 }
 
 int blocks(int N) { return (N + kRows - 1) / kRows; }
+int row_blocks(int N) { return (N + kWarps - 1) / kWarps; }  // a warp a row
 
 bool bad_shape(int N, int H, int F) { return N < 1 || H != kH || F < kFc || F % kFc; }
 
-template <typename T, bool kBlock>
-cudaError_t launch_ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2t,
-                           const void* b2, const float* sc, const float* bi, void* out,
-                           void* pre, void* s, int N, int F, float eps, Dropout drop,
-                           cudaStream_t stream) {
-  static std::atomic<bool> done[kMaxDevices];
-  const auto kernel = kBlock ? ffn_block_fwd_kernel<T> : ffn_fwd_kernel<T>;
-  const cudaError_t err = opt_in(kernel, ffn_smem<T>(), done);
+// splits must cut F into equal parts of at least kMinSteps stages
+bool bad_splits(int F, int splits) {
+  return splits < 1 || (F / kBK) % splits || F / kBK / splits < kMinSteps;
+}
+
+cudaError_t launch_ffn_fwd(const float* x, const float* w1t, const float* b1, const float* w2t,
+                           const float* b2, const float* sc, const float* bi, float* out,
+                           float* pre, float* s, bool block, int N, int F, float eps,
+                           Dropout drop, cudaStream_t stream) {
+  static std::atomic<bool> done[2][kMaxDevices];
+  const auto kernel = block ? ffn_block_fwd_kernel : ffn_fwd_kernel;
+  const cudaError_t err = opt_in(kernel, kFfnSmemCc, done[block]);
   if (err != cudaSuccess) return err;
-  kernel<<<blocks(N), kThreads, ffn_smem<T>(), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1t), static_cast<const T*>(b1),
-      static_cast<const T*>(w2t), static_cast<const T*>(b2), sc, bi, static_cast<T*>(out),
-      static_cast<T*>(pre), static_cast<T*>(s), N, F, eps, drop);
+  kernel<<<blocks(N), kThreads, kFfnSmemCc, stream>>>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s,
+                                                      N, F, eps, drop);
   return cudaGetLastError();
 }
 
-template <typename T, bool kBlock>
-cudaError_t launch_ffn_bwd(const void* pre, const void* g, const void* w1, const void* w2,
-                           const void* s, const float* sc, void* dx, void* dpre, void* h,
-                           void* dffn, float* dsc, float* dbi, int N, int F, float eps,
-                           Dropout drop, cudaStream_t stream) {
-  static std::atomic<bool> done[kMaxDevices];
-  const auto kernel = kBlock ? ffn_block_bwd_kernel<T> : ffn_bwd_kernel<T>;
-  const cudaError_t err = opt_in(kernel, ffn_smem<T>(), done);
+cudaError_t launch_ffn_bwd(const float* pre, const float* g, const float* w1, const float* w2,
+                           const float* s, const float* sc, float* dx, float* dpre, float* h,
+                           float* dffn, float* dsc, float* dbi, bool block, int N, int F,
+                           float eps, Dropout drop, cudaStream_t stream) {
+  static std::atomic<bool> done[2][kMaxDevices];
+  const auto kernel = block ? ffn_block_bwd_kernel : ffn_bwd_kernel;
+  const cudaError_t err = opt_in(kernel, kFfnSmemCc, done[block]);
   if (err != cudaSuccess) return err;
-  kernel<<<blocks(N), kThreads, ffn_smem<T>(), stream>>>(
-      static_cast<const T*>(pre), static_cast<const T*>(g), static_cast<const T*>(w1),
-      static_cast<const T*>(w2), static_cast<const T*>(s), sc, static_cast<T*>(dx),
-      static_cast<T*>(dpre), static_cast<T*>(h), static_cast<T*>(dffn), dsc, dbi, N, F, eps,
-      drop);
+  kernel<<<blocks(N), kThreads, kFfnSmemCc, stream>>>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn,
+                                                      dsc, dbi, N, F, eps, drop);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, a driver-API function, fetched through the runtime
+// so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a row-major bf16 [rows, cols] matrix in boxes of box_cols
+// (64: 128 bytes) by box_rows, 128-byte swizzled; rows past the end read as
+// zeros and are not written.
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+                int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static std::atomic<int> count[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && count[dev].load(std::memory_order_acquire)) return count[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices) count[dev].store(n, std::memory_order_release);
+  return n;
+}
+
+// C = A B^T through `kernel`: A [M, K] and B [N, K] bf16, row-major; the
+// epilogue's bf16 outputs e.out and e.h ([M, N]) stored, and its inputs
+// (kDGelu: pre; kDx: s, g) loaded through TMA.
+template <typename Kernel>
+cudaError_t launch_gemm(Kernel kernel, std::atomic<bool>* done, const void* a, const void* b,
+                        int M, int N, int K, int splits, const EpiArgs& e, cudaStream_t stream) {
+  GemmMaps m{};
+  const auto map = [&](CUtensorMap* t, const void* p, int rows, int cols, int box_rows) {
+    return !p || tensor_map(t, p, rows, cols, 64, box_rows);
+  };
+  if (!map(&m.a, a, M, K, kBM) || !map(&m.b, b, N, K, kBN) || !map(&m.out, e.out, M, N, 64) ||
+      !map(&m.h, e.h, M, N, 64) || !map(&m.in0, e.pre ? e.pre : e.stats ? e.s : nullptr, M, N, 64) ||
+      !map(&m.in1, e.stats ? e.g : nullptr, M, N, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = opt_in(kernel, kGemmSmem, done);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + kBM - 1) / kBM * (N / kBN) * splits, sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  kernel<<<tiles < sms ? tiles : sms, kGemmThreads, kGemmSmem, stream>>>(m, M, N, K, splits, e);
+  return cudaGetLastError();
+}
+
+// One of the five GEMM kernels: forward (kBias, kPartial) or backward
+// (kDGelu, kDx, kPartial).
+template <bool kFwd, int kEpi>
+cudaError_t gemm(const void* a, const void* b, int M, int N, int K, int splits, const EpiArgs& e,
+                 cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  if constexpr (kFwd) {
+    return launch_gemm(ffn_fwd_gemm_kernel<kEpi>, done, a, b, M, N, K, splits, e, stream);
+  } else {
+    return launch_gemm(ffn_bwd_gemm_kernel<kEpi>, done, a, b, M, N, K, splits, e, stream);
+  }
 }
 
 template <typename T>
@@ -1042,68 +1407,139 @@ cudaError_t launch_dense_bwd(const void* s, const void* g, const void* w, const 
 
 extern "C" {
 
-// Rows a block owns: the partials of a backward are [ceil(N / rows), H] f32.
+// Rows a block owns in the backwards' LayerNorm: their dscale/dbias
+// partials are [ceil(N / rows), H] f32, the row statistics [that many
+// blocks x rows, 4] f32.
 int univl_ffn_block_rows() { return kRows; }
 
-// #3 (block = 0) or #4 (block = 1) forward. x: [N, H]; w1t: [F, H] (W1
-// transposed, as nn.Linear stores it); b1: [F]; w2t: [H, F]; b2: [H]; all
-// contiguous, 16-byte aligned, one type, float32 or bfloat16 (is_bf16).
-// ln_scale, ln_bias: f32 [H] (#4). out like x; pre [N, F] and s like x:
-// written when not null (pre: #3's save variant and #4; s: #4). H must be 768
-// and F a multiple of 256. Launches on `stream`, returns cudaGetLastError().
+// #3 (block = 0) or #4 (block = 1) forward in f32 on CUDA cores. x: [N, H];
+// w1t: [F, H] (W1 transposed, as nn.Linear stores it); b1: [F]; w2t: [H, F];
+// b2: [H]; all contiguous, 16-byte aligned. ln_scale, ln_bias: [H] (#4). out
+// like x; pre [N, F] and s like x: written when not null (pre: #3's save
+// variant and #4; s: #4). H must be 768 and F a multiple of 256. Launches on
+// `stream`, returns cudaGetLastError().
 int univl_ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
                   const void* ln_scale, const void* ln_bias, void* out, void* pre, void* s,
-                  int is_bf16, int block, int N, int H, int F, float eps, unsigned int threshold,
+                  int block, int N, int H, int F, float eps, unsigned int threshold,
                   float inv_keep, int dropout_on, unsigned long long seed, void* stream) {
   if (bad_shape(N, H, F)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
-  const float* sc = static_cast<const float*>(ln_scale);
-  const float* bi = static_cast<const float*>(ln_bias);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    err = block ? launch_ffn_fwd<bf16, true>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F, eps,
-                                             drop, st)
-                : launch_ffn_fwd<bf16, false>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F,
-                                              eps, drop, st);
-  } else {
-    err = block ? launch_ffn_fwd<float, true>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F,
-                                              eps, drop, st)
-                : launch_ffn_fwd<float, false>(x, w1t, b1, w2t, b2, sc, bi, out, pre, s, N, F,
-                                               eps, drop, st);
-  }
-  return static_cast<int>(err);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return static_cast<int>(launch_ffn_fwd(
+      f(x), f(w1t), f(b1), f(w2t), f(b2), f(ln_scale), f(ln_bias), static_cast<float*>(out),
+      static_cast<float*>(pre), static_cast<float*>(s), block, N, F, eps,
+      Dropout{seed, threshold, inv_keep, dropout_on}, static_cast<cudaStream_t>(stream)));
 }
 
-// #3 (block = 0) or #4 (block = 1) backward. pre: [N, F] from the forward;
-// g: the output gradient like x; w1: [H, F], w2: [F, H] (the JAX layout);
-// s and ln_scale (#4): the forward's LayerNorm input and scale. Writes dx like
-// x, dpre and h [N, F], and for #4 dffn like x and the partials dscale_p,
-// dbias_p (f32 [ceil(N / 32), H]).
+// #3 (block = 0) or #4 (block = 1) backward in f32 on CUDA cores. pre: [N,
+// F] from the forward; g: the output gradient like x; w1: [H, F], w2: [F, H]
+// (the JAX layout); s and ln_scale (#4): the forward's LayerNorm input and
+// scale. Writes dx like x, dpre and h [N, F], and for #4 dffn like x and the
+// partials dscale_p, dbias_p (f32 [ceil(N / 32), H]).
 int univl_ffn_bwd(const void* pre, const void* g, const void* w1, const void* w2, const void* s,
                   const void* ln_scale, void* dx, void* dpre, void* h, void* dffn,
-                  void* dscale_p, void* dbias_p, int is_bf16, int block, int N, int H, int F,
-                  float eps, unsigned int threshold, float inv_keep, int dropout_on,
+                  void* dscale_p, void* dbias_p, int block, int N, int H, int F, float eps,
+                  unsigned int threshold, float inv_keep, int dropout_on,
                   unsigned long long seed, void* stream) {
   if (bad_shape(N, H, F)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
-  const float* sc = static_cast<const float*>(ln_scale);
-  float* dsc = static_cast<float*>(dscale_p);
-  float* dbi = static_cast<float*>(dbias_p);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto o = [](void* p) { return static_cast<float*>(p); };
+  return static_cast<int>(launch_ffn_bwd(
+      f(pre), f(g), f(w1), f(w2), f(s), f(ln_scale), o(dx), o(dpre), o(h), o(dffn), o(dscale_p),
+      o(dbias_p), block, N, F, eps, Dropout{seed, threshold, inv_keep, dropout_on},
+      static_cast<cudaStream_t>(stream)));
+}
+
+// #3 (block = 0) or #4 (block = 1) forward in bf16: x W1 with the bias and
+// GELU epilogue (pre, when not null, and h: [N, F], h scratch), then h W2:
+// with splits = 1 y = round(round(h W2) + b2) from its epilogue, else split
+// `splits` ways along F into part (f32 [splits, N, H]) and summed by the row
+// kernel; for #4 the row kernel then drops, adds x and normalizes (s written
+// when not null). part is needed only where split.
+// Arguments otherwise as univl_ffn_fwd's; splits must cut F / 64 into equal
+// parts of at least 4.
+int univl_ffn_fwd_tc(const void* x, const void* w1t, const void* b1, const void* w2t,
+                     const void* b2, const void* ln_scale, const void* ln_bias, void* out,
+                     void* pre, void* s, void* h, void* part, int block, int N, int H, int F,
+                     int splits, float eps, unsigned int threshold, float inv_keep,
+                     int dropout_on, unsigned long long seed, void* stream) {
+  if (bad_shape(N, H, F) || bad_splits(F, splits)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    err = block ? launch_ffn_bwd<bf16, true>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc, dbi,
-                                             N, F, eps, drop, st)
-                : launch_ffn_bwd<bf16, false>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc, dbi,
-                                              N, F, eps, drop, st);
+  EpiArgs e{};
+  e.out = static_cast<bf16*>(pre);
+  e.h = static_cast<bf16*>(h);
+  e.bias = static_cast<const bf16*>(b1);
+  cudaError_t err = gemm<true, kBias>(x, w1t, N, F, kH, 1, e, st);  // pre, h
+  if (err != cudaSuccess) return static_cast<int>(err);
+  e = EpiArgs{};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const auto rows = block ? ffn_fwd_rows_kernel<true> : ffn_fwd_rows_kernel<false>;
+  if (splits == 1) {  // y from the GEMM's epilogue; #4 then its rows in place
+    e.out = static_cast<bf16*>(out);
+    e.bias = static_cast<const bf16*>(b2);
+    err = gemm<true, kBias>(h, w2t, N, kH, F, 1, e, st);
+    if (err != cudaSuccess || !block) return static_cast<int>(err);
+    splits = 0;
   } else {
-    err = block ? launch_ffn_bwd<float, true>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc,
-                                              dbi, N, F, eps, drop, st)
-                : launch_ffn_bwd<float, false>(pre, g, w1, w2, s, sc, dx, dpre, h, dffn, dsc,
-                                               dbi, N, F, eps, drop, st);
+    e.part = static_cast<float*>(part);
+    err = gemm<true, kPartial>(h, w2t, N, kH, F, splits, e, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(err);
+  rows<<<row_blocks(N), kThreads, 0, st>>>(
+      static_cast<const float*>(part), splits, static_cast<const bf16*>(b2),
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<bf16*>(out), static_cast<bf16*>(s), N,
+      eps, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// #3 (block = 0) or #4 (block = 1) backward in bf16: for #4 first the
+// LayerNorm backward (dffn, the row statistics stats [ceil(N / 32) x 32, 4]
+// f32 and the partials); then (dffn or g) W2^T with the GELU-gradient
+// epilogue (dpre, h), then dpre W1^T split `splits` ways along F, with ds
+// added for #4 (from the GEMM's epilogue when splits = 1, else through part,
+// f32 [splits, N, H], and a row kernel). Arguments otherwise as
+// univl_ffn_bwd's.
+int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void* w2,
+                     const void* s, const void* ln_scale, void* dx, void* dpre, void* h,
+                     void* dffn, void* dscale_p, void* dbias_p, void* stats, void* part,
+                     int block, int N, int H, int F, int splits, float eps,
+                     unsigned int threshold, float inv_keep, int dropout_on,
+                     unsigned long long seed, void* stream) {
+  if (bad_shape(N, H, F) || bad_splits(F, splits)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* sv = static_cast<const bf16*>(s);
+  const bf16* gv = static_cast<const bf16*>(g);
+  const float* sc = static_cast<const float*>(ln_scale);
+  float* stv = block ? static_cast<float*>(stats) : nullptr;
+  if (block) {
+    ffn_bwd_ln_kernel<<<blocks(N), kThreads, 0, st>>>(
+        sv, gv, sc, static_cast<bf16*>(dffn), stv, static_cast<float*>(dscale_p),
+        static_cast<float*>(dbias_p), N, eps, Dropout{seed, threshold, inv_keep, dropout_on});
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  EpiArgs e{};
+  e.out = static_cast<bf16*>(dpre);
+  e.h = static_cast<bf16*>(h);
+  e.pre = static_cast<const bf16*>(pre);
+  cudaError_t err = gemm<false, kDGelu>(block ? dffn : g, w2, N, F, kH, 1, e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  e = EpiArgs{};
+  if (splits == 1) {
+    e.out = static_cast<bf16*>(dx);
+    e.s = sv;
+    e.g = gv;
+    e.scale = sc;
+    e.stats = stv;
+    return static_cast<int>(gemm<false, kDx>(dpre, w1, N, kH, F, 1, e, st));
+  }
+  e.part = static_cast<float*>(part);
+  err = gemm<false, kPartial>(dpre, w1, N, kH, F, splits, e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_bwd_rows_kernel<<<row_blocks(N), kThreads, 0, st>>>(static_cast<const float*>(part),
+                                                          splits, sv, gv, sc, stv,
+                                                          static_cast<bf16*>(dx), N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // #5 forward. x (the product's input), r (the residual): [N, H]; wt: [H, H]

@@ -136,10 +136,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     drop = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]
     lib.univl_ffn_block_rows.argtypes = []
     lib.univl_ffn_block_rows.restype = i
-    lib.univl_ffn_fwd.argtypes = [p] * 10 + [i] * 5 + drop
+    lib.univl_ffn_fwd.argtypes = [p] * 10 + [i] * 4 + drop
     lib.univl_ffn_fwd.restype = i
-    lib.univl_ffn_bwd.argtypes = [p] * 12 + [i] * 5 + drop
+    lib.univl_ffn_bwd.argtypes = [p] * 12 + [i] * 4 + drop
     lib.univl_ffn_bwd.restype = i
+    lib.univl_ffn_fwd_tc.argtypes = [p] * 12 + [i] * 5 + drop
+    lib.univl_ffn_fwd_tc.restype = i
+    lib.univl_ffn_bwd_tc.argtypes = [p] * 14 + [i] * 5 + drop
+    lib.univl_ffn_bwd_tc.restype = i
     lib.univl_dense_block_fwd.argtypes = [p] * 8 + [i] * 3 + drop
     lib.univl_dense_block_fwd.restype = i
     lib.univl_dense_block_bwd.argtypes = [p] * 9 + [i] * 3 + drop

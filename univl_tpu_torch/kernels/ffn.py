@@ -24,12 +24,16 @@ to XLA (ffn.py:238-250, 486-498, 705-712), and come back in the compute
 dtype.
 
 On a CPU tensor each wrapper below computes its plain version; on a CUDA
-tensor it launches its kernel in ``univl_tpu_torch/csrc/ffn.cu`` (built at
-first use) or raises. The kernels take H = 768 and F a multiple of 256; in
-bf16 their products run on the tensor cores, in f32 on CUDA cores. The
+tensor it launches its kernels in ``univl_tpu_torch/csrc/ffn.cu`` (built at
+first use) or raises. The kernels take H = 768 and F a multiple of 256. In
+bf16, #3 and #4 are two wgmma GEMMs fed by TMA with fused epilogues and row
+kernels (``ffn_plan`` says how N rows are cut), #5 one ``mma.sync`` kernel;
+in f32 all three run on CUDA cores. Each wrapper counts its calls by route:
+``launches`` on the tensor cores (bf16), ``cuda_core_launches`` in f32. The
 forward kernels read the weights as ``nn.Linear`` stores them (``w1.t()``,
 free when ``w1`` is the transposed view of such a weight, as in
-``nn/layers.py``), the backward kernels in the JAX layout.
+``nn/layers.py``), the backward kernels in the JAX layout: either way every
+product reads its B operand along its depth.
 
 Dropout (``kernels/philox.py``): element (row, col) of #4's or #5's output is
 kept where word ``col % 4`` of Philox(counter = (col // 4, row, tag, 0), key
@@ -54,6 +58,10 @@ from univl_tpu_torch.kernels.philox import (
 
 KERNEL_HIDDEN = 768  # the hidden width the CUDA kernels take
 F_CHUNK = 256  # F must be a multiple of this on the card
+# csrc/ffn.cu's bf16 GEMM tile (kBM, kBN, kBK), the least depth of an F
+# split in stages (kMinSteps) and the rows of the backward's LayerNorm block
+GEMM_ROWS, GEMM_COLS, GEMM_DEPTH, MIN_SPLIT_STEPS, LN_BLOCK_ROWS = 128, 256, 64, 4, 32
+CARD_SMS = 132  # the H100 SXM's SMs: the GEMM tiles a plan aims to give at least
 LN_EPS = 1e-12
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -201,11 +209,11 @@ def _check_dropout(rate: float) -> None:
 
 def _cuda(x: torch.Tensor, F: int = F_CHUNK):
     """The library, for a CUDA tensor whose shapes the kernels take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused-FFN kernel for device {x.device}")
-    if x.shape[1] != KERNEL_HIDDEN or F % F_CHUNK:
+    if x.shape[1] != KERNEL_HIDDEN or F < F_CHUNK or F % F_CHUNK:
         raise ValueError(f"the kernels take H = {KERNEL_HIDDEN} and F a multiple of {F_CHUNK}; "
                          f"got H = {x.shape[1]}, F = {F}")
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused-FFN kernel for device {x.device}")
     return _build.load_library()
 
 
@@ -230,9 +238,78 @@ def _launch(x: torch.Tensor, fn, what: str, *args) -> None:
     _build.check(lib, err, what)
 
 
+def ffn_plan(N: int, F: int, H: int = KERNEL_HIDDEN, block: bool = True) -> dict:
+    """How the bf16 kernels of #3 (``block=False``) and #4 cut N rows.
+
+    x W1 and (dffn or g) W2^T run one GEMM tile of GEMM_ROWS x GEMM_COLS
+    for each of ``wide_tiles``; h W2 and dpre W1^T have H / GEMM_COLS
+    column tiles, so their depth F is split ``splits`` ways, the fewest that
+    give CARD_SMS tiles, each split at least MIN_SPLIT_STEPS stages of
+    GEMM_DEPTH deep. A split writes its f32 sums to scratch, and a row
+    kernel adds them in split order, so every output is the same from call
+    to call. Scratch bytes: the forward's h ([N, F] bf16) and partials
+    (where split), the backward's partials (where split) and #4's row
+    statistics."""
+    row_tiles = -(-N // GEMM_ROWS)
+    steps = F // GEMM_DEPTH
+    options = [s for s in (1, 2, 4, 8) if steps % s == 0 and steps // s >= MIN_SPLIT_STEPS]
+    narrow = row_tiles * (H // GEMM_COLS)
+    splits = next((s for s in options if narrow * s >= CARD_SMS), options[-1])
+    part = splits * N * H * 4
+    stats = -(-N // LN_BLOCK_ROWS) * LN_BLOCK_ROWS * 4 * 4 if block else 0
+    return {"row_tile": GEMM_ROWS, "col_tile": GEMM_COLS, "splits": splits,
+            "wide_tiles": row_tiles * (F // GEMM_COLS), "narrow_tiles": narrow * splits,
+            "scratch_bytes": {"fwd": N * F * 2 + (part if splits > 1 else 0),
+                              "bwd": (part if splits > 1 else 0) + stats}}
+
+
 def _partials(x: torch.Tensor, lib) -> torch.Tensor:
     blocks = -(-x.shape[0] // lib.univl_ffn_block_rows())
     return torch.empty(2, blocks, x.shape[1], dtype=torch.float32, device=x.device)
+
+
+def _forward(lib, x, w1t, b1, w2t, b2, scale, bias, out, pre, s, block: bool, eps: float,
+             seed: int, rate: float, what: str, wrapper) -> None:
+    """Launch #3's or #4's forward on its dtype's route and count the call."""
+    N, H = x.shape
+    F = w1t.shape[0]
+    if x.dtype == torch.float32:
+        _launch(x, lib.univl_ffn_fwd, what, *_ptrs(x, w1t, b1, w2t, b2, scale, bias, out, pre, s),
+                int(block), N, H, F, eps, *_dropout_args(seed, rate))
+        wrapper.cuda_core_launches += 1
+        return
+    plan = ffn_plan(N, F, H, block)
+    h = torch.empty(N, F, dtype=x.dtype, device=x.device)
+    part = (torch.empty(plan["splits"], N, H, dtype=torch.float32, device=x.device)
+            if plan["splits"] > 1 else None)
+    _launch(x, lib.univl_ffn_fwd_tc, what,
+            *_ptrs(x, w1t, b1, w2t, b2, scale, bias, out, pre, s, h, part), int(block), N, H, F,
+            plan["splits"], eps, *_dropout_args(seed, rate))
+    wrapper.launches += 1
+
+
+def _backward(lib, pre, g, w1, w2, s, scale, dx, dpre, h, dffn, part, block: bool, eps: float,
+              seed: int, rate: float, what: str, wrapper) -> None:
+    """Launch #3's or #4's backward on its dtype's route and count the call;
+    ``part``: #4's dscale/dbias partials [2, blocks, H]."""
+    N, H = g.shape
+    F = w1.shape[1]
+    parts = (None, None) if part is None else (part[0], part[1])
+    if g.dtype == torch.float32:
+        _launch(g, lib.univl_ffn_bwd, what,
+                *_ptrs(pre, g, w1, w2, s, scale, dx, dpre, h, dffn, *parts), int(block), N, H, F,
+                eps, *_dropout_args(seed, rate))
+        wrapper.cuda_core_launches += 1
+        return
+    plan = ffn_plan(N, F, H, block)
+    split = (torch.empty(plan["splits"], N, H, dtype=torch.float32, device=g.device)
+             if plan["splits"] > 1 else None)
+    stats = (torch.empty(-(-N // lib.univl_ffn_block_rows()) * lib.univl_ffn_block_rows(), 4,
+                         dtype=torch.float32, device=g.device) if block else None)
+    _launch(g, lib.univl_ffn_bwd_tc, what,
+            *_ptrs(pre, g, w1, w2, s, scale, dx, dpre, h, dffn, *parts, stats, split), int(block),
+            N, H, F, plan["splits"], eps, *_dropout_args(seed, rate))
+    wrapper.launches += 1
 
 
 def ffn_fwd(x, w1, b1, w2, b2, save: bool = False):
@@ -249,10 +326,8 @@ def ffn_fwd(x, w1, b1, w2, b2, save: bool = False):
     x, w1t, b1, w2t, b2 = (t.contiguous() for t in (x, w1.t(), b1, w2.t(), b2))
     y = torch.empty_like(x)
     pre = torch.empty(N, F, dtype=x.dtype, device=x.device) if save else None
-    _launch(x, lib.univl_ffn_fwd, "FFN forward kernel launch",
-            *_ptrs(x, w1t, b1, w2t, b2), None, None, *_ptrs(y, pre), None,
-            int(x.dtype == torch.bfloat16), 0, N, H, F, LN_EPS, *_dropout_args(0, 0.0))
-    ffn_fwd.launches += 1
+    _forward(lib, x, w1t, b1, w2t, b2, None, None, y, pre, None, False, LN_EPS, 0, 0.0,
+             "FFN forward kernel launch", ffn_fwd)
     return y, pre
 
 
@@ -263,14 +338,10 @@ def ffn_bwd(pre, g, w1, w2):
     if g.device.type == "cpu":
         return ffn_reference_bwd(pre, g, w1, w2)
     lib = _cuda(g, w1.shape[1])
-    N, H = g.shape
-    F = w1.shape[1]
     pre, g, w1, w2 = (t.contiguous() for t in (pre, g, w1, w2))
     dx, dpre, h = torch.empty_like(g), torch.empty_like(pre), torch.empty_like(pre)
-    _launch(g, lib.univl_ffn_bwd, "FFN backward kernel launch",
-            *_ptrs(pre, g, w1, w2), None, None, *_ptrs(dx, dpre, h), None, None, None,
-            int(g.dtype == torch.bfloat16), 0, N, H, F, LN_EPS, *_dropout_args(0, 0.0))
-    ffn_bwd.launches += 1
+    _backward(lib, pre, g, w1, w2, None, None, dx, dpre, h, None, None, False, LN_EPS, 0, 0.0,
+              "FFN backward kernel launch", ffn_bwd)
     return dx, dpre, h
 
 
@@ -290,10 +361,8 @@ def ffn_block_fwd(x, w1, b1, w2, b2, scale, bias, seed: int, rate: float,
     out = torch.empty_like(x)
     pre = torch.empty(N, F, dtype=x.dtype, device=x.device) if save else None
     s = torch.empty_like(x) if save else None
-    _launch(x, lib.univl_ffn_fwd, "FFN block forward kernel launch",
-            *_ptrs(x, w1t, b1, w2t, b2, scale, bias, out, pre, s),
-            int(x.dtype == torch.bfloat16), 1, N, H, F, eps, *_dropout_args(seed, rate))
-    ffn_block_fwd.launches += 1
+    _forward(lib, x, w1t, b1, w2t, b2, scale, bias, out, pre, s, True, eps, seed, rate,
+             "FFN block forward kernel launch", ffn_block_fwd)
     return out, pre, s
 
 
@@ -305,16 +374,12 @@ def ffn_block_bwd(s, g, pre, w1, w2, scale, seed: int, rate: float, eps: float =
     if s.device.type == "cpu":
         return ffn_block_reference_bwd(s, g, pre, w1, w2, scale, seed, rate, eps)
     lib = _cuda(s, w1.shape[1])
-    N, H = s.shape
-    F = w1.shape[1]
     s, g, pre, w1, w2, scale = (t.contiguous() for t in (s, g, pre, w1, w2, scale))
     dx, dffn = torch.empty_like(s), torch.empty_like(s)
     dpre, h = torch.empty_like(pre), torch.empty_like(pre)
     part = _partials(s, lib)
-    _launch(s, lib.univl_ffn_bwd, "FFN block backward kernel launch",
-            *_ptrs(pre, g, w1, w2, s, scale, dx, dpre, h, dffn, part[0], part[1]),
-            int(s.dtype == torch.bfloat16), 1, N, H, F, eps, *_dropout_args(seed, rate))
-    ffn_block_bwd.launches += 1
+    _backward(lib, pre, g, w1, w2, s, scale, dx, dpre, h, dffn, part, True, eps, seed, rate,
+              "FFN block backward kernel launch", ffn_block_bwd)
     dscale, dbias = part.sum(dim=1)
     return dx, dpre, h, dffn, dscale, dbias
 
@@ -364,7 +429,9 @@ def dense_block_bwd(s, g, w, scale, seed: int, rate: float, eps: float = LN_EPS)
 
 for _wrapper in (ffn_fwd, ffn_bwd, ffn_block_fwd, ffn_block_bwd, dense_block_fwd,
                  dense_block_bwd):
-    _wrapper.launches = 0  # kernel launches; the CPU path adds nothing
+    _wrapper.launches = 0  # calls on the card (#3, #4: in bf16); the CPU path adds nothing
+for _wrapper in (ffn_fwd, ffn_bwd, ffn_block_fwd, ffn_block_bwd):
+    _wrapper.cuda_core_launches = 0  # calls in f32, on the CUDA-core kernels
 
 
 # ------------------------------------------------------------ differentiable
