@@ -32,15 +32,20 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      tower's 98,304 rows, a tower's 1,536 and a ragged 300 and 6,000, rates 0
      and 0.1, beside the model's unfused chain for the same work (times with
      TFLOP/s); #4's and #5's forward kernel, backward kernel and plain
-     version must drop the same entries; in bf16 #3 and #4 run on their
+     version must drop the same entries; in bf16 #3, #4 and #5 run on their
      wgmma kernels (checked by the route counters) and two calls give
      bitwise equal outputs and partials, in f32 on their CUDA-core kernels
-     (timed at 1,536 rows). The
+     (timed at 1,536 rows). The vocab top-k (#10) at the caption server's 80
+     rows, the MSRVTT eval's 160 and a ragged 35 whose top three tie in
+     every row: bf16 on its tensor-core tile kernel (two calls bitwise
+     equal), f32 on its CUDA-core one (each call's route checked by the
+     counters), timed at 80 and 160. The
      LayerNorm (#6), forward and backward, at the caption step's rows
      (2,048 and 3,584 x 768, 1,536 x 1,024 in f32) and a ragged 300; two
      backward calls must give bitwise equal dx, dscale and dbias. The
      classifier transform inside the vocab top-k kernel (#10t) at the decode
-     step's 80 rows and a ragged 37, beside the unfused chain; the causal
+     step's 80 rows and a ragged 37, on #10's two routes, beside the unfused
+     chain; the causal
      branch of the eval attention (#1c) at [16, 12, 48, 64] and [80, 12, 48,
      64] against SDPA with one combined mask, on #1's two routes; the row
      gather (#8) on the six decode caches and an int32 array, bitwise,
@@ -131,10 +136,13 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      matrices within stated limits and the metrics equal.
 After the main paths: every bf16 #1 call the model made on the card (each
 recorded by its shape) must have taken the tensor cores, and the one with
-the most keys (the caption eval's cross tower, 224) is timed as in phase 3.
-Then one JSON line describing the kernels (#1's, #2's, #3's and #4's
-CUDA-core kernels with their launches from the f32 runs of phases 9 and 22,
-and of 12, 15 and 18, the only paths that take them), and last
+the most keys (the caption eval's cross tower, 224) is timed as in phase 3;
+every #10 and #10t call of the beam search (each recorded by its rows,
+dtype and the counter it moved) must have taken its dtype's kernel, bf16
+the tensor-core one at the server's 80 rows and the evals' 160. Then one
+JSON line describing the kernels (the CUDA-core kernels of #1, #2, #3-#5
+and #10 with their launches from the f32 runs of phases 9 and 22, and of
+12, 15 and 18, the only paths that take them), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 1.
 """
@@ -164,6 +172,7 @@ from univl_tpu_torch.data import fixtures
 from univl_tpu_torch.data.batching import Batcher, collate
 from univl_tpu_torch.data.msrvtt import MsrvttRetrievalEvalDataset
 from univl_tpu_torch.data.youcook import YoucookCaptionDataset, YoucookRetrievalDataset
+from univl_tpu_torch.evals import beam as beam_search
 from univl_tpu_torch.evals.fast_decoder import FastDecoder, encoder_bias
 from univl_tpu_torch.evals.metrics import compute_retrieval_metrics
 from univl_tpu_torch.evals.retrieval import RetrievalEvaluator
@@ -205,6 +214,11 @@ CAPTION_WINDOW, UNFUSED_WINDOW, CONCURRENT = 20, 10, 16
 ATTN_SHAPES = [(16, 12, 48, 64), (16, 12, 96, 64), (128, 12, 96, 64), (512, 12, 96, 64)]
 TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 VOCAB_ATOL = 1e-4  # logp: f32 sums of the same products in another order
+# #10's rows: the caption server's beam rows (16 clips x beam 5) and the
+# MSRVTT eval's (32 x 5), timed; a ragged count, with vocab rows VOCAB_TIE
+# tied at the top of every row
+VOCAB_TIMED_ROWS, VOCAB_TIE = (BATCH * BEAM, 32 * BEAM), (10, 20, 300)
+VOCAB_ROWS = (*VOCAB_TIMED_ROWS, 35)
 DLOGP_LIMIT = 0.25  # card bf16 vs CPU f32 over the trajectory, stated before the first run
 SAME_CAPTIONS_MIN = 4  # of 8 clips, card f32 vs CPU f32
 # #10t, stated before the first run. f32: the same f32 math in another order
@@ -253,9 +267,9 @@ LN_SUM_RTOL = 1e-5
 # fused FFN kernels (#3, #4, #5): rows of FT-Align's cross tower (1,024 pairs x
 # 96 tokens) and of a text or visual tower (32 x 48); H 768, F 3072
 FFN_ROWS, FFN_H, FFN_F, FFN_RATE, FFN_SEED = (98304, 1536), 768, 3072, 0.1, 4321
-# checked, not timed: 300 rows end in a block of 12 (#5, the CUDA-core
-# kernels) and a GEMM tile of 44, with F split 8 ways (ffn_plan); 6,000 end
-# in a GEMM tile of 112, unsplit, whose second 64-row half is cut at 48
+# checked, not timed: 300 rows end in a block of 12 (the CUDA-core kernels)
+# and a GEMM tile of 44, with F split 8 ways (ffn_plan; #5 unsplit); 6,000
+# end in a GEMM tile of 112, unsplit, whose second 64-row half is cut at 48
 FFN_RAGGED_ROWS = (300, 6000)
 # f32 (CUDA cores): sums of up to 3,072 products in another order, erff
 # against torch.erf: atol + rtol * |ref| element by element. bf16 (tensor
@@ -370,6 +384,13 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
     "vocab_topk_transform": ((vocab_topk.classify_topk, "transform_launches"),
                              "univl_tpu_torch/csrc/vocab_topk.cu",
                              "univl_tpu/kernels/vocab_topk.py:106"),
+    "vocab_topk_cuda_cores": ((vocab_topk.classify_topk, "cuda_core_launches"),
+                              "univl_tpu_torch/csrc/vocab_topk.cu",
+                              "univl_tpu/kernels/vocab_topk.py:62"),
+    "vocab_topk_transform_cuda_cores": ((vocab_topk.classify_topk,
+                                         "cuda_core_transform_launches"),
+                                        "univl_tpu_torch/csrc/vocab_topk.cu",
+                                        "univl_tpu/kernels/vocab_topk.py:106"),
     "train_attention_fwd": (ta.train_attention_fwd, "univl_tpu_torch/csrc/train_attention.cu",
                             "univl_tpu/kernels/train_attention.py:83"),
     "train_attention_bwd": (ta.train_attention_bwd, "univl_tpu_torch/csrc/train_attention.cu",
@@ -401,6 +422,10 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                         "univl_tpu/kernels/ffn.py:545"),
     "dense_block_bwd": (ffn_k.dense_block_bwd, "univl_tpu_torch/csrc/ffn.cu",
                         "univl_tpu/kernels/ffn.py:571"),
+    "dense_block_fwd_cuda_cores": ((ffn_k.dense_block_fwd, "cuda_core_launches"),
+                                   "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:545"),
+    "dense_block_bwd_cuda_cores": ((ffn_k.dense_block_bwd, "cuda_core_launches"),
+                                   "univl_tpu_torch/csrc/ffn.cu", "univl_tpu/kernels/ffn.py:571"),
     "layernorm_fwd": (ln_k.layer_norm_fwd, "univl_tpu_torch/csrc/layernorm.cu",
                       "univl_tpu/kernels/layernorm.py:45"),
     "layernorm_bwd": (ln_k.layer_norm_bwd, "univl_tpu_torch/csrc/layernorm.cu",
@@ -409,20 +434,27 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
 # the kernels no path of the port (nor of the JAX package) runs: held against
 # their plain versions here, never launched on the main paths
 NO_ROUTE = ("eval_attention_causal", "eval_attention_causal_cuda_cores", "reorder_rows")
-# #1's, #2's, #3's and #4's CUDA-core kernels: the f32 route, which only the
-# f32 agreement runs (phases 9 and 22 for #1; 12, 15 and 18 for #2; 15 for
-# #3 and #4) take: 0 launches on the main paths, which run bf16; their
-# launches in those runs are printed apart from the main paths'
-# (``f32_agreement_launches``)
+# the CUDA-core kernels of #1, #2, #3-#5 and #10 (with #10t): the f32 route,
+# which only the f32 agreement runs (phases 9 and 22 for #1; 12, 15 and 18
+# for #2; 15 for #3-#5; 9 for #10 and #10t) take: 0 launches on the main
+# paths, which run bf16; their launches in those runs are printed apart from
+# the main paths' (``f32_agreement_launches``)
 F32_ROUTE = ("eval_attention_cuda_cores", "train_attention_fwd_cuda_cores",
              "train_attention_bwd_cuda_cores", "train_attention_bwd_tiled", "ffn_fwd_cuda_cores",
-             "ffn_bwd_cuda_cores", "ffn_block_fwd_cuda_cores", "ffn_block_bwd_cuda_cores")
+             "ffn_bwd_cuda_cores", "ffn_block_fwd_cuda_cores", "ffn_block_bwd_cuda_cores",
+             "dense_block_fwd_cuda_cores", "dense_block_bwd_cuda_cores", "vocab_topk_cuda_cores",
+             "vocab_topk_transform_cuda_cores")
 TRACE_NAMES = {"eval_attention": ("eval_attention_mma_kernel",),
                "eval_attention_cuda_cores": ("eval_attention_kernel",),
                "beam_reorder_groups": ("reorder_groups_kernel",),
                "beam_decode_self_attention": ("decode_attention_kernel",),
-               "vocab_topk": ("vocab_tile_kernel", "vocab_merge_kernel"),
-               "vocab_topk_transform": ("cls_dense_gelu_kernel", "cls_layernorm_kernel"),
+               # #10's merge kernel serves both routes: it is counted with bf16's
+               "vocab_topk": ("vocab_tile_mma_kernel", "vocab_merge_kernel"),
+               "vocab_topk_transform": ("cls_dense_gelu_kernel<__nv_bfloat16>",
+                                        "cls_layernorm_kernel<__nv_bfloat16>"),
+               "vocab_topk_cuda_cores": ("vocab_tile_kernel(",),
+               "vocab_topk_transform_cuda_cores": ("cls_dense_gelu_kernel<float>",
+                                                   "cls_layernorm_kernel<float>"),
                "reorder_rows": ("gather_rows_kernel",),
                "train_attention_fwd": ("train_attention_fwd_mma_kernel",),
                "train_attention_bwd": ("train_attention_bwd_dq_mma_kernel",
@@ -440,8 +472,11 @@ TRACE_NAMES = {"eval_attention": ("eval_attention_mma_kernel",),
                "ffn_fwd_cuda_cores": ("ffn_fwd_kernel",), "ffn_bwd_cuda_cores": ("ffn_bwd_kernel",),
                "ffn_block_fwd_cuda_cores": ("ffn_block_fwd_kernel",),
                "ffn_block_bwd_cuda_cores": ("ffn_block_bwd_kernel",),
-               "dense_block_fwd": ("dense_block_fwd_kernel",),
-               "dense_block_bwd": ("dense_block_bwd_kernel",),
+               # bf16 #5: the same GEMM body and row kernels under names of its own
+               "dense_block_fwd": ("dense_fwd_gemm_kernel", "dense_fwd_rows_kernel"),
+               "dense_block_bwd": ("dense_bwd_ln_kernel", "dense_bwd_gemm_kernel"),
+               "dense_block_fwd_cuda_cores": ("dense_block_fwd_kernel",),
+               "dense_block_bwd_cuda_cores": ("dense_block_bwd_kernel",),
                "layernorm_fwd": ("layernorm_fwd_kernel",),
                "layernorm_bwd": ("layernorm_bwd_kernel", "layernorm_bwd_sum_kernel")}
 
@@ -473,6 +508,45 @@ def check_attention_routes() -> tuple:
     B, H, Lq, Lk, D, _ = max(bf16, key=lambda c: (c[3], c[0]))
     require(Lq == Lk, f"the longest bf16 eval_attention call is not self-attention: {Lq}, {Lk}")
     return B, H, Lk, D
+
+
+# the beam search's #10 calls on the card by (R, dtype, transform, the
+# counter the call moved): _recorded_topk holds a lock around each call, so
+# the counter it moved is its own
+VOCAB_CALLS = {}
+_VOCAB_CALLS_LOCK = threading.Lock()
+_TOPK_COUNTERS = ("launches", "cuda_core_launches", "transform_launches",
+                  "cuda_core_transform_launches")
+
+
+def _recorded_topk(h, w, bias, k, transform=None):
+    fn = vocab_topk.classify_topk
+    if h.device.type != "cuda":
+        return fn(h, w, bias, k, transform)
+    with _VOCAB_CALLS_LOCK:
+        before = [getattr(fn, c) for c in _TOPK_COUNTERS]
+        out = fn(h, w, bias, k, transform)
+        moved = tuple(c for c, n in zip(_TOPK_COUNTERS, before) if getattr(fn, c) != n)
+        key = (h.shape[0], dtype_name(h.dtype), transform is not None, moved)
+        VOCAB_CALLS[key] = VOCAB_CALLS.get(key, 0) + 1
+    return out
+
+
+def check_vocab_routes() -> None:
+    """Every #10 and #10t call of the beam search on the card took its
+    dtype's kernel (bf16: the tensor-core tile kernel), each call one launch
+    of its counter; the caption server's 80 rows and the MSRVTT eval's 160
+    ran in bf16."""
+    print(f"vocab top-k calls of the beam search on the card, (R, dtype, transform, counter): "
+          f"count: {dict(sorted(VOCAB_CALLS.items()))}", flush=True)
+    off = [key for key in VOCAB_CALLS
+           if key[3] != (("" if key[1] == "bfloat16" else "cuda_core_")
+                         + ("transform_launches" if key[2] else "launches"),)]
+    require(not off, f"vocab top-k calls off their dtype's kernel: {off}")
+    bf16_rows = {key[0] for key in VOCAB_CALLS if key[1] == "bfloat16"}
+    require(set(VOCAB_TIMED_ROWS) <= bf16_rows,
+            f"the beam search ran bf16 vocab top-k at rows {sorted(bf16_rows)}, not at "
+            f"{VOCAB_TIMED_ROWS}")
 
 
 def require(ok: bool, what: str) -> None:
@@ -708,37 +782,90 @@ def kernel_decode_attention() -> dict:
     return {**row, "max_abs_err": worst}
 
 
+def _vocab_agrees(logp, idx, h, w, b, k: int, what: str):
+    """Holds #10's (logp, idx) against the plain version: the values within
+    VOCAB_ATOL, the indices wherever a value is clear of its neighbours.
+    Returns the max abs error and where the indices were clear."""
+    ref_v, ref_i = vocab_topk.classify_topk_reference(h, w, b, k + 1)
+    torch.cuda.synchronize()
+    err = float((logp - ref_v[:, :k]).abs().max())
+    require(err <= VOCAB_ATOL, f"vocab top-k values differ from the plain version's by "
+                               f"{err} at {what}")
+    gaps = (ref_v[:, :-1] - ref_v[:, 1:]).abs()
+    clear = torch.minimum(torch.cat([gaps[:, :1], gaps[:, :-1]], 1), gaps[:, :k]) > VOCAB_ATOL
+    require(bool((idx[clear] == ref_i[:, :k][clear]).all()),
+            f"vocab top-k indices differ from the plain version's at {what}")
+    return err, clear
+
+
 def kernel_vocab_topk() -> dict:
-    """h [80, 768] against BERT's tied 30,522 x 768 classifier, k = 5."""
-    R, Hd, V, k = BATCH * BEAM, 768, 30522, BEAM
-    worst, row = 0.0, None
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device="cuda").manual_seed(3)
-        h = torch.randn(R, Hd, generator=g, device="cuda").to(dtype)
-        w = (0.02 * torch.randn(V, Hd, generator=g, device="cuda")).to(dtype)
-        b = 0.02 * torch.randn(V, generator=g, device="cuda")
-        wp, bp = vocab_topk.pad_vocab_inputs(w, b)
-        logp, idx = vocab_topk.classify_topk(h, wp, bp, k)
-        ref_v, ref_i = vocab_topk.classify_topk_reference(h, w, b, k + 1)
-        torch.cuda.synchronize()
-        err = float((logp - ref_v[:, :k]).abs().max())
-        worst = max(worst, err)
-        require(err <= VOCAB_ATOL, f"vocab top-k values differ from the plain version's by {err}")
-        # indices must agree wherever a value is clear of its neighbours
-        gaps = (ref_v[:, :-1] - ref_v[:, 1:]).abs()
-        clear = torch.minimum(torch.cat([gaps[:, :1], gaps[:, :-1]], 1), gaps[:, :k]) > VOCAB_ATOL
-        require(bool((idx[clear] == ref_i[:, :k][clear]).all()),
-                f"vocab top-k indices differ from the plain version's at {dtype}")
-        ms = cuda_time_ms(lambda: vocab_topk.classify_topk(h, wp, bp, k))
-        plain = cuda_time_ms(lambda: vocab_topk.classify_topk_reference(h, w, b, k))
-        es = h.element_size()
-        n_bytes = V * Hd * es + R * Hd * es + 4 * V + 12 * R * k
-        bound = bound_ms(n_bytes, 2.0 * R * Hd * V, dtype_name(dtype))
-        r = report("vocab_topk", f"h {[R, Hd]} W {[V, Hd]} k={k} ({int(clear.sum())} of "
-                                 f"{R * k} indices clear of ties)", dtype, err, ms, plain, bound)
-        if dtype == torch.bfloat16:
-            row = r
-    return {**row, "max_abs_err": worst}
+    """h [R, 768] against BERT's tied 30,522 x 768 classifier, k = 5, at the
+    caption server's R = 80 (16 clips x beam 5), the MSRVTT eval's 160 (32 x
+    5) and a ragged 35 whose vocab rows 10, 20 and 300 tie every row's top
+    three (zero rows, equal bias: the lower index first), there also at the
+    largest k, 32. bf16 takes the tensor-core tile kernel (two calls bitwise
+    equal), f32 the CUDA-core one, each checked by its counter; both timed at
+    80 and 160 rows."""
+    Hd, V, k = 768, 30522, BEAM
+    worst, rows = {"bfloat16": 0.0, "float32": 0.0}, {}
+    for R in VOCAB_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(3)
+            h = torch.randn(R, Hd, generator=g, device="cuda").to(dtype)
+            w = (0.02 * torch.randn(V, Hd, generator=g, device="cuda")).to(dtype)
+            b = 0.02 * torch.randn(V, generator=g, device="cuda")
+            tied = R not in VOCAB_TIMED_ROWS
+            if tied:
+                w[list(VOCAB_TIE)] = 0.0
+                b[list(VOCAB_TIE)] = 20.0
+            wp, bp = vocab_topk.pad_vocab_inputs(w, b)
+            before = read_launches()
+            logp, idx = vocab_topk.classify_topk(h, wp, bp, k)
+            counts = read_launches()
+            route = "vocab_topk" if dtype == torch.bfloat16 else "vocab_topk_cuda_cores"
+            require(all(counts[n] - before[n] == (n == route) for n in counts),
+                    f"vocab top-k at R={R} {dtype_name(dtype)} did not take {route} alone")
+            what = f"R={R} {dtype_name(dtype)}"
+            err, clear = _vocab_agrees(logp, idx, h, w, b, k, what)
+            worst[dtype_name(dtype)] = max(worst[dtype_name(dtype)], err)
+            if tied:
+                require(bool((idx[:, :3] == torch.tensor(VOCAB_TIE, device="cuda")).all())
+                        and bool((logp[:, :3] == logp[:, :1]).all()),
+                        f"vocab top-k: the tied entries are not first in index order at {what}")
+                # the largest k: the merge stages 239 x 65 words of winners, past
+                # the 48 KB a block takes without the opt-in
+                kk = vocab_topk.MAX_K
+                before = read_launches()
+                big = vocab_topk.classify_topk(h, wp, bp, kk)
+                counts = read_launches()
+                require(all(counts[n] - before[n] == (n == route) for n in counts),
+                        f"vocab top-k at R={R} k={kk} {dtype_name(dtype)} did not take {route}")
+                err_k, _ = _vocab_agrees(*big, h, w, b, kk, f"{what} k={kk}")
+                worst[dtype_name(dtype)] = max(worst[dtype_name(dtype)], err_k)
+                print(f"vocab_topk h {[R, Hd]} W {[V, Hd]} k={kk} {dtype_name(dtype)}: "
+                      f"max_abs_err {err_k:.3e}", flush=True)
+            if dtype == torch.bfloat16:
+                again = vocab_topk.classify_topk(h, wp, bp, k)
+                require(torch.equal(logp, again[0]) and torch.equal(idx, again[1]),
+                        f"vocab top-k: two calls differ at {what}")
+            shape = (f"h {[R, Hd]} W {[V, Hd]} k={k} ({int(clear.sum())} of {R * k} indices "
+                     f"clear of ties{'; rows 10, 20, 300 tied in every row' if tied else ''})")
+            if tied:
+                print(f"vocab_topk {shape} {dtype_name(dtype)}: max_abs_err {err:.3e}", flush=True)
+                continue
+            ms = cuda_time_ms(lambda: vocab_topk.classify_topk(h, wp, bp, k))
+            plain = cuda_time_ms(lambda: vocab_topk.classify_topk_reference(h, w, b, k))
+            es = h.element_size()
+            n_bytes = V * Hd * es + R * Hd * es + 4 * V + 12 * R * k
+            bound = bound_ms(n_bytes, 2.0 * R * Hd * V, dtype_name(dtype))
+            rows[(route, R)] = report(route, shape, dtype, err, ms, plain, bound)
+    out = {}
+    for route, dt in (("vocab_topk", "bfloat16"), ("vocab_topk_cuda_cores", "float32")):
+        main, eval_rows = (rows[(route, R)] for R in VOCAB_TIMED_ROWS)
+        out[route] = {**main, "max_abs_err": worst[dt],
+                      f"r{VOCAB_TIMED_ROWS[1]}": {n: eval_rows[n] for n in ("ms", "plain_ms",
+                                                                            "bound_ms")}}
+    return out
 
 
 def kernel_vocab_topk_transform() -> dict:
@@ -747,9 +874,10 @@ def kernel_vocab_topk_transform() -> dict:
     k = 5, at the decode step's 80 rows and a ragged 37. Beside it the chain
     the decoder runs without --fused_cls for the same work (F.linear, GELU,
     F.layer_norm in the compute dtype, then #10); no single PyTorch call
-    computes the function."""
+    computes the function. bf16 runs #10's tensor-core tile kernel after the
+    transform's two, f32 the CUDA-core one (each checked by its counter)."""
     Hd, V, k = 768, 30522, BEAM
-    worst, row = 0.0, None
+    worst, rows = {"bfloat16": 0.0, "float32": 0.0}, {}
     for R in VOCAB_T_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device="cuda").manual_seed(5)
@@ -762,12 +890,19 @@ def kernel_vocab_topk_transform() -> dict:
             be = 0.1 * torch.randn(Hd, generator=g, device="cuda")
             tr = (wt, bt, ga, be, LN_EPS)
             wp, bp = vocab_topk.pad_vocab_inputs(w, b)
+            before = read_launches()
             logp, idx = vocab_topk.classify_topk(h, wp, bp, k, transform=tr)
+            counts = read_launches()
+            route = ("vocab_topk_transform" if dtype == torch.bfloat16
+                     else "vocab_topk_transform_cuda_cores")
+            require(all(counts[n] - before[n] == (n == route) for n in counts),
+                    f"vocab top-k with the transform at R={R} {dtype_name(dtype)} did not take "
+                    f"{route} alone")
             ref_v, ref_i = vocab_topk.classify_topk_reference(h, w, b, k + 1, transform=tr)
             torch.cuda.synchronize()
             tol = VOCAB_T_TOL[dtype_name(dtype)]
             err = float((logp - ref_v[:, :k]).abs().max())
-            worst = max(worst, err)
+            worst[dtype_name(dtype)] = max(worst[dtype_name(dtype)], err)
             require(err <= tol, f"vocab top-k with the transform: logp differs from the plain "
                                 f"version's by {err} at R={R} {dtype} (limit {tol})")
             gaps = (ref_v[:, :-1] - ref_v[:, 1:]).abs()
@@ -797,11 +932,12 @@ def kernel_vocab_topk_transform() -> dict:
             print(f"vocab_topk_transform {what} {dtype_name(dtype)}: the unfused chain for the "
                   f"same work (F.linear, GELU, F.layer_norm, #10): device ms {chain_ms[0]:.5f}",
                   flush=True)
-            r = report("vocab_topk_transform", what, dtype, err, ms, plain, bound)
-            r["unfused_chain_ms"] = chain_ms[0]
-            if dtype == torch.bfloat16:
-                row = r
-    return {**row, "max_abs_err": worst}
+            rows[route] = report(route, what, dtype, err, ms, plain, bound)
+            rows[route]["unfused_chain_ms"] = chain_ms[0]
+    return {"vocab_topk_transform": {**rows["vocab_topk_transform"],
+                                     "max_abs_err": worst["bfloat16"]},
+            "vocab_topk_transform_cuda_cores": {**rows["vocab_topk_transform_cuda_cores"],
+                                                "max_abs_err": worst["float32"]}}
 
 
 def kernel_eval_attention_causal() -> dict:
@@ -1287,9 +1423,9 @@ def check_ffn_dropout_masks(dtype) -> dict:
 
 
 def _same_twice(name: str, got, again, dtype, what: str) -> None:
-    """A bf16 call of #3 or #4 gives bitwise the same outputs (and #4's
-    backward the same dscale and dbias) when called again: the F splits'
-    partial sums are added in a fixed order, without atomics."""
+    """A bf16 call of #3, #4 or #5 gives bitwise the same outputs (and #4's
+    and #5's backward the same dscale and dbias) when called again: the
+    splits' partial sums are added in a fixed order, without atomics."""
     if dtype != torch.bfloat16:
         return
     second = again()
@@ -1298,9 +1434,10 @@ def _same_twice(name: str, got, again, dtype, what: str) -> None:
 
 
 def _check_ffn_route(before: dict, after: dict, dtype, N: int) -> None:
-    """#3's and #4's calls in kernel_ffn took their dtype's route: bf16 the
-    wgmma kernels (``launches``), f32 the CUDA-core kernels."""
-    for name in ("ffn_fwd", "ffn_bwd", "ffn_block_fwd", "ffn_block_bwd"):
+    """#3's, #4's and #5's calls in kernel_ffn took their dtype's route: bf16
+    the wgmma kernels (``launches``), f32 the CUDA-core kernels."""
+    for name in ("ffn_fwd", "ffn_bwd", "ffn_block_fwd", "ffn_block_bwd", "dense_block_fwd",
+                 "dense_block_bwd"):
         tc = after[name] - before[name]
         cc = after[f"{name}_cuda_cores"] - before[f"{name}_cuda_cores"]
         ok = (tc > 0 and cc == 0) if dtype == torch.bfloat16 else (tc == 0 and cc > 0)
@@ -1326,17 +1463,18 @@ def kernel_ffn() -> dict:
     """#3, #4 and #5, forward and backward, against their plain versions at
     the cross and tower row counts and a ragged one, f32 and bf16, rates 0
     and 0.1 (#3 has no dropout); the three-way dropout-mask check; in bf16
-    two calls of #3 and #4 bitwise equal; each call on its dtype's route;
-    device times beside the bound, the plain version and the model's
+    two calls of #3, #4 and #5 bitwise equal; each call on its dtype's
+    route; device times beside the bound, the plain version and the model's
     unfused chain for the same work (forward, and the input gradient
     through autograd). No single PyTorch call computes these functions. The
-    rows are the cross shape's in bf16, and #3's and #4's CUDA-core kernels
-    at a tower's rows in f32."""
+    rows are the cross shape's in bf16 (#5 also at a tower's rows, under
+    ``tower_1536``), and the CUDA-core kernels at a tower's rows in f32."""
     H, Fd = FFN_H, FFN_F
     names = ("ffn_fwd", "ffn_bwd", "ffn_block_fwd", "ffn_block_bwd", "dense_block_fwd",
              "dense_block_bwd")
     worst, rows = {n: 0.0 for n in names}, {}
-    worst_f32 = {n: 0.0 for n in names[:4]}  # #3 and #4 in f32: their CUDA-core kernels
+    worst_f32 = {n: 0.0 for n in names}  # in f32: their CUDA-core kernels
+    tower = {}
     for dtype in (torch.float32, torch.bfloat16):
         shares = check_ffn_dropout_masks(dtype)
         print(f"fused FFN dropout masks ({dtype_name(dtype)}, {FFN_ROWS[0]} x {H}): forward "
@@ -1388,12 +1526,16 @@ def kernel_ffn() -> dict:
                 got = ffn_k.dense_block_fwd(*den_args, save=True)
                 want = ffn_k.dense_block_reference_fwd(*den_args)
                 errs["dense_block_fwd"] = _agree("dense_block_fwd", got, want, dtype, what)
+                _same_twice("dense_block_fwd", got,
+                            lambda: ffn_k.dense_block_fwd(*den_args, save=True), dtype, what)
                 s = want[1]
                 den_bwd = (s, g, w, sc, FFN_SEED, rate)
-                errs["dense_block_bwd"] = _agree("dense_block_bwd",
-                                                 ffn_k.dense_block_bwd(*den_bwd),
+                got = ffn_k.dense_block_bwd(*den_bwd)
+                errs["dense_block_bwd"] = _agree("dense_block_bwd", got,
                                                  ffn_k.dense_block_reference_bwd(*den_bwd),
                                                  dtype, what)
+                _same_twice("dense_block_bwd", got, lambda: ffn_k.dense_block_bwd(*den_bwd),
+                            dtype, what)
                 del got, want, s
                 torch.cuda.synchronize()
                 print(f"fused FFN kernels vs plain versions, {what}: max abs errs "
@@ -1403,19 +1545,23 @@ def kernel_ffn() -> dict:
             _check_ffn_route(before, read_launches(), dtype, N)
             if dtype == torch.float32:
                 for k, v in errs.items():
-                    if not k.startswith("dense"):
-                        worst_f32[k] = max(worst_f32[k], v)
-                if N == FFN_ROWS[1]:  # #3's and #4's CUDA-core kernels at a tower's rows
+                    worst_f32[k] = max(worst_f32[k], v)
+                if N == FFN_ROWS[1]:  # the CUDA-core kernels at a tower's rows
                     rows.update({f"{k}_cuda_cores": v for k, v in _time_ffn(
-                        N, t, {}, torch.float32, names[:4]).items()})
+                        N, t, {}, torch.float32).items()})
             elif N not in FFN_RAGGED_ROWS:
                 rows_n = _time_ffn(N, t, timing)
                 if big:
                     rows.update(rows_n)
+                else:  # #5 at a tower's rows: 18 of its 20 calls a direction a step
+                    tower = {n: {k: rows_n[n][k] for k in ("ms", "plain_ms", "bound_ms")}
+                             for n in ("dense_block_fwd", "dense_block_bwd")}
             del t
     out = {n: {**rows[n], "max_abs_err": worst[n]} for n in names}
+    for n in tower:
+        out[n]["tower_1536"] = tower[n]
     out.update({f"{n}_cuda_cores": {**rows[f"{n}_cuda_cores"], "max_abs_err": worst_f32[n]}
-                for n in names[:4]})
+                for n in names})
     return out
 
 
@@ -1430,9 +1576,10 @@ def _time_ffn(N: int, t: dict, timing: dict, dtype=torch.bfloat16, only=None) ->
     _, pre, s4 = ffn_k.ffn_block_fwd(x, w1, b1, w2, b2, sc, bi, seed, rate, save=True)
     _, s5 = ffn_k.dense_block_fwd(x, r, w, b, sc, bi, seed, rate, save=True)
     chains = _unfused_chains(dtype)
+    # ln: the LayerNorm's f32 scale and bias (read in the forward), or the
+    # backward's dscale and dbias (written; the kernels' per-block partials
+    # are their own choice and not counted), beside the scale read (ln // 2)
     nh, nf, hf, hh, ln = N * H * es, N * Fd * es, H * Fd * es, H * H * es, 2 * H * 4
-    rows_per_block = _build.load_library().univl_ffn_block_rows()
-    part = 2 * (-(-N // rows_per_block)) * H * 4  # the backward's dscale/dbias partials
     ffn_ops, dense_ops = 4.0 * N * H * Fd, 2.0 * N * H * H
     cases = {  # name -> (kernel, plain, chain input, bytes, operations)
         "ffn_fwd": (lambda: ffn_k.ffn_fwd(x, w1, b1, w2, b2, save=True),
@@ -1449,7 +1596,7 @@ def _time_ffn(N: int, t: dict, timing: dict, dtype=torch.bfloat16, only=None) ->
         "ffn_block_bwd": (lambda: ffn_k.ffn_block_bwd(s4, g, pre, w1, w2, sc, seed, rate),
                           lambda: ffn_k.ffn_block_reference_bwd(s4, g, pre, w1, w2, sc, seed,
                                                                 rate),
-                          "ffn_block", 4 * nh + 3 * nf + 2 * hf + ln // 2 + part, ffn_ops),
+                          "ffn_block", 4 * nh + 3 * nf + 2 * hf + ln // 2 + ln, ffn_ops),
         "dense_block_fwd": (lambda: ffn_k.dense_block_fwd(x, r, w, b, sc, bi, seed, rate,
                                                           save=True),
                             lambda: ffn_k.dense_block_reference_fwd(x, r, w, b, sc, bi, seed,
@@ -1457,7 +1604,7 @@ def _time_ffn(N: int, t: dict, timing: dict, dtype=torch.bfloat16, only=None) ->
                             "dense_block", 4 * nh + hh + H * es + ln, dense_ops),
         "dense_block_bwd": (lambda: ffn_k.dense_block_bwd(s5, g, w, sc, seed, rate),
                             lambda: ffn_k.dense_block_reference_bwd(s5, g, w, sc, seed, rate),
-                            "dense_block", 5 * nh + hh + ln // 2 + part, dense_ops),
+                            "dense_block", 5 * nh + hh + ln // 2 + ln, dense_ops),
     }
     rows = {}
     for name, (kernel, plain, chain, n_bytes, ops) in cases.items():
@@ -1822,7 +1969,7 @@ def _launches_per_step(route: str, dtype: str = "bfloat16") -> dict:
     attention, forward and backward (in bf16 its tensor-core kernels, in f32
     its CUDA-core ones: 48 and 96 positions fit the whole-head backward); on
     FT-Align's block route #4 and #5, on its pallas route #3, in every layer
-    of the three towers (#3 and #4 on their wgmma kernels in bf16, their
+    of the three towers (#3-#5 on their wgmma kernels in bf16, their
     CUDA-core kernels in f32)."""
     cfg = UniVLConfig.base(max_words=48, max_frames=48)
     layers = cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
@@ -1832,9 +1979,8 @@ def _launches_per_step(route: str, dtype: str = "bfloat16") -> dict:
     want = {f"train_attention_fwd{suffix}": layers, f"train_attention_bwd{suffix}": layers}
     ffn_kernels = {"ft_joint": (), "ft_align_xla": (), "ft_align": ("ffn_block", "dense_block"),
                    "ft_align_pallas": ("ffn",)}[route]
-    for name in ffn_kernels:  # #5 counts its f32 calls with its bf16 ones
-        sfx = "" if name == "dense_block" else suffix
-        want[f"{name}_fwd{sfx}"] = want[f"{name}_bwd{sfx}"] = layers
+    for name in ffn_kernels:
+        want[f"{name}_fwd{suffix}"] = want[f"{name}_bwd{suffix}"] = layers
     return want
 
 
@@ -1924,8 +2070,9 @@ PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
     "#3/#4 backward": TRACE_NAMES["ffn_block_bwd"],
     "#3/#4, CUDA cores": ("ffn_fwd_kernel", "ffn_bwd_kernel", "ffn_block_fwd_kernel",
                           "ffn_block_bwd_kernel"),
-    "#5 forward": ("dense_block_fwd_kernel",),
-    "#5 backward": ("dense_block_bwd_kernel",),
+    "#5 forward": TRACE_NAMES["dense_block_fwd"],
+    "#5 backward": TRACE_NAMES["dense_block_bwd"],
+    "#5, CUDA cores": ("dense_block_fwd_kernel", "dense_block_bwd_kernel"),
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
     "optimizer (foreach)": ("multi_tensor_apply", "foreach"),
 }
@@ -2234,9 +2381,12 @@ def phase_caption_train(tmp: str, vocab: str, files) -> dict:
 
 
 def _require_fused_cls_steps(counts: dict, what: str) -> None:
-    """A --fused_cls decode: #10t once and #9 three times a decode step, #10 never."""
+    """A --fused_cls decode in bf16: #10t once (on the tensor-core tile
+    kernel) and #9 three times a decode step, #10 and the CUDA-core route
+    never."""
     steps = counts["vocab_topk_transform"]
     require(steps > 0 and counts["vocab_topk"] == 0
+            and counts["vocab_topk_cuda_cores"] == counts["vocab_topk_transform_cuda_cores"] == 0
             and counts["beam_decode_self_attention"] == DECODER_LAYERS * steps,
             f"{what}: launches {counts}, want #10t once and #9 {DECODER_LAYERS} times a step")
 
@@ -2601,6 +2751,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
 
     nn_layers.fused_attention_masked = _recorded_attention
+    beam_search.classify_topk = _recorded_topk
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -2609,8 +2760,8 @@ def main() -> int:
     measured = {**kernel_eval_attention(),
                 "beam_reorder_groups": kernel_reorder(),
                 "beam_decode_self_attention": kernel_decode_attention(),
-                "vocab_topk": kernel_vocab_topk(),
-                "vocab_topk_transform": kernel_vocab_topk_transform(),
+                **kernel_vocab_topk(),
+                **kernel_vocab_topk_transform(),
                 **kernel_eval_attention_causal(),
                 "reorder_rows": kernel_reorder_rows(),
                 **kernel_train_attention(),
@@ -2674,6 +2825,7 @@ def main() -> int:
         f32_runs["retrieval eval agreement"] = read_launches()
 
     longest = check_attention_routes()
+    check_vocab_routes()
     if longest not in ATTN_SHAPES:  # the caption eval's cross tower: timed here
         for name, row in kernel_eval_attention([longest]).items():
             measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],

@@ -220,6 +220,58 @@ def test_vocab_padding_changes_nothing():
         np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+@pytest.mark.parametrize("V, padded", [(1, 128), (128, 128), (129, 256), (30522, 30592)])
+def test_vocab_padding_at_the_tile(V, padded):
+    """The classifier padded to the kernels' vocab tile (128 rows a block, on
+    the bf16 tensor-core route and the f32 CUDA-core one): zero rows and
+    bias -1e30, which no top-k takes; BERT's 30,522 give 239 tiles."""
+    from univl_tpu_torch.kernels import vocab_topk
+
+    assert vocab_topk.VOCAB_TILE == 128 and 768 % vocab_topk.TC_DEPTH == 0
+    w = torch.ones(V, 8, dtype=torch.bfloat16)
+    b = torch.zeros(V)
+    wp, bp = pad_vocab_inputs(w, b)
+    assert wp.shape == (padded, 8) and bp.shape == (padded,) and wp.dtype == torch.bfloat16
+    assert bp.dtype == torch.float32 and wp.is_contiguous() and bp.is_contiguous()
+    assert torch.equal(wp[:V], w) and not wp[V:].any() and bool((bp[V:] == -1e30).all())
+    assert padded // vocab_topk.VOCAB_TILE == -(-V // 128)
+
+
+def test_vocab_topk_counts_nothing_on_the_cpu():
+    """Calls on the card are counted by route (bf16 tensor cores, f32 CUDA
+    cores, with and without the transform); the CPU path counts none, and a
+    tensor on another device raises."""
+    h, w, b = (torch.from_numpy(a) for a in _vocab_inputs())
+    for dtype in (torch.float32, torch.bfloat16):
+        classify_topk(h.to(dtype), w.to(dtype), b, 5)
+    wp, bp = pad_vocab_inputs(w, b)
+    with pytest.raises(ValueError, match="no vocab top-k kernel for device meta"):
+        classify_topk(h.to("meta"), wp.to("meta"), bp.to("meta"), 5)
+    assert (classify_topk.launches, classify_topk.cuda_core_launches,
+            classify_topk.transform_launches, classify_topk.cuda_core_transform_launches) == (
+        0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("dtype, H, refused", [
+    (torch.bfloat16, 96, True),
+    (torch.bfloat16, 128, False),
+    (torch.float32, 96, False),
+])
+def test_card_refuses_depths_the_vocab_kernels_do_not_take(dtype, H, refused):
+    """Off the CPU the kernels take H a multiple of their stage depth, 64 in
+    bf16 (kTcDepth) and 32 in f32 (kChunkH), and w padded to the vocab
+    tile; a shape they do not take raises before the device is looked at."""
+    h = torch.zeros(4, H, dtype=dtype, device="meta")
+    w, b = torch.zeros(256, H, dtype=dtype, device="meta"), torch.zeros(256, device="meta")
+    match = f"H a multiple of {64 if dtype == torch.bfloat16 else 32}" if refused else \
+        "no vocab top-k kernel for device meta"
+    with pytest.raises(ValueError, match=match):
+        classify_topk(h, w, b, 5)
+    with pytest.raises(ValueError, match="padded to a multiple of 128 rows"):
+        classify_topk(h, w[:200], b[:200], 5)
+    assert classify_topk.launches == classify_topk.cuda_core_launches == 0
+
+
 def test_stable_topk_orders_ties_by_index():
     x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]])
     vals, idx = stable_topk(x, 4)

@@ -216,6 +216,38 @@ def test_bf16_plan(N, splits, wide, narrow, fwd_mb, bwd_mb):
     assert ffn.ffn_plan(N, 256)["splits"] == 1
 
 
+@pytest.mark.parametrize("N, ln_rows, blocks", [
+    (98304, 32, 3072),
+    (1536, 8, 192),
+    (300, 8, 38),
+    (1, 8, 1),
+])
+def test_ln_block_rows(N, ln_rows, blocks):
+    """The bf16 backwards' LayerNorm head (#4 and #5) takes 32 rows a block
+    where that gives the card's 132 SMs two blocks each, else 8 (a tower's
+    1,536 rows: 192 blocks, not 48); the dscale/dbias partials have one row
+    a block, and #4's plan reports the same rows."""
+    assert ffn.ln_block_rows(N) == ffn.ffn_plan(N, 3072)["ln_block_rows"] == ln_rows
+    assert -(-N // ln_rows) == blocks
+    assert blocks >= 2 * ffn.CARD_SMS or ln_rows == ffn.LN_BLOCK_ROWS // 4
+    x = torch.zeros(N, 768, dtype=torch.bfloat16, device="meta")
+    assert ffn._partials(x, None).shape == (2, blocks, 768)
+
+
+def test_dense_block_never_falls_back():
+    """#5's wrappers send a tensor that is not on the CPU to the kernels or
+    raise; nothing is counted."""
+    x = torch.zeros(4, 768, device="meta")
+    w, b = torch.zeros(768, 768, device="meta"), torch.zeros(768, device="meta")
+    ln = torch.zeros(768, device="meta")
+    with pytest.raises(ValueError, match="no fused-FFN kernel for device meta"):
+        ffn.dense_block_fwd(x, x, w, b, ln, ln, 0, 0.1)
+    with pytest.raises(ValueError, match="no fused-FFN kernel for device meta"):
+        ffn.dense_block_bwd(x, x, w, ln, 0, 0.1)
+    for f in (ffn.dense_block_fwd, ffn.dense_block_bwd):
+        assert f.launches == f.cuda_core_launches == 0
+
+
 @pytest.mark.parametrize("H, F", [(512, 1024), (768, 640), (768, 128)])
 def test_card_refuses_shapes_the_kernels_do_not_take(H, F):
     """On the card the kernels take H = 768 and F a multiple of 256 (the

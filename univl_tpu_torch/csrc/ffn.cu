@@ -38,7 +38,9 @@
 // What bounds it: at FT-Align's cross tower (98,304 rows, H 768, F 3072) #3
 // and #4 do 4 N H F = 0.93 TFLOP a call over ~0.9 GB (and the [N, F] pre, h
 // and dpre the function writes): far above the H100's ridge, so operations
-// bound them (0.94 ms at the bf16 tensor-core peak).
+// bound them (0.94 ms at the bf16 tensor-core peak). #5 does 2 N H^2 = 0.12
+// TFLOP over the ~0.6 GB of its [N, H] inputs and outputs: bytes bound it
+// (0.18 ms forward, 0.23 backward, at 3.35 TB/s).
 //
 // What the design does about it. In bf16, #3 and #4 are two GEMMs on
 // Hopper's wgmma and TMA, through device memory where the function already
@@ -59,12 +61,18 @@
 // GELU is the TPU kernels' erf polynomial (one exp, one reciprocal for gelu
 // and gelu'). A fused alternative (one kernel a direction, the [64, 768]
 // output in registers, W1 and W2 restaged per 64 rows) took 2.6x this
-// route's time on #3's forward (PERF.md). In f32 (the agreement runs) #3
-// and #4 run on CUDA cores, 4 rows x 24 columns a thread over staged f32
-// tiles; #5 runs on mma.sync in bf16 (one block owns 32 rows; cp.async
-// weight tiles 32 deep in two buffers; the LayerNorm epilogue through
-// shared memory) and on CUDA cores in f32. The kernels take H = 768 and F
-// a multiple of 256.
+// route's time on #3's forward (PERF.md). #5 in bf16 is the same GEMM
+// under names of its own: x W with the bias epilogue, then a row kernel
+// (dropout with #5's tag, the residual r, the LayerNorm) in the forward; a
+// LayerNorm head (dy, dr, the partials), then dy W^T in the backward. Its
+// depth H is not split: at a tower's 1,536 rows (36 tiles) a 3-way split
+// saved ~1 us of GEMM and cost a ~5 us row kernel to add the splits
+// (PERF.md). A block of the first version owned 32 rows
+// and restaged all of W (1.2 MB) for them: 3.6 GB of L2 traffic a call at
+// 98,304 rows.
+// In f32 (the agreement runs) #3, #4 and #5 run on CUDA cores, 4 rows x 24
+// columns a thread over staged f32 tiles. The kernels take H = 768 and F a
+// multiple of 256.
 
 #include <cuda_bf16.h>
 #include <cuda.h>
@@ -73,7 +81,6 @@
 #include <stdint.h>
 
 #include <atomic>
-#include <type_traits>
 
 #include "mma.cuh"
 #include "philox.cuh"
@@ -81,12 +88,7 @@
 
 namespace {
 
-using univl::cp_async16;
-using univl::cp_async_commit;
-using univl::cp_async_wait;
 using univl::Dropout;
-using univl::ld_pair;
-using univl::mma16816;
 using univl::pack_bf16;
 using univl::philox4x32_10;
 using univl::philox_word;
@@ -103,10 +105,6 @@ constexpr int kQF = kFc / 128;                // ... across an F chunk
 constexpr unsigned kFfnBlockTag = 4, kDenseBlockTag = 5;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.39894228040143268f;
-
-// bf16 runs on the tensor cores, f32 on CUDA cores
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, bf16>::value;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
@@ -146,9 +144,6 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
 
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T>
@@ -262,99 +257,6 @@ __device__ __forceinline__ void zero(float4 (&acc)[kRowsPerWarp][NQ]) {
     for (int q = 0; q < NQ; ++q) acc[r][q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// ---------------------------------------------------------------- bf16: tensor cores
-
-constexpr int kKt = 32;             // depth of a staged weight tile
-constexpr int kBRow = kKt + 8;      // its rows in shared memory: 80 bytes, conflict-free fragments
-constexpr int kARow = kH + 8;       // a staged activation row
-constexpr int kYRow = kH + 4;       // an f32 output row, laid out for the row epilogue
-constexpr int kStage = kH * kBRow;  // bf16 elements of one weight-tile buffer (up to kH columns)
-
-// Rows [row0, row0 + kRows) of a [N, kH] matrix into rows of kARow, zeros past N.
-__device__ __forceinline__ void stage_rows_tc(bf16* dst, const bf16* __restrict__ src, int N,
-                                              int row0) {
-  constexpr int kVec = kH / 8;
-  for (int e = threadIdx.x; e < kRows * kVec; e += kThreads) {
-    const int r = e / kVec, c = (e % kVec) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < N) {
-      v = *reinterpret_cast<const uint4*>(src + static_cast<long long>(row0 + r) * kH + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kARow + c) = v;
-  }
-}
-
-// Start copying B(k, n) = M[(n0 + n) * ld + k], n < NC, k in [k0, k0 + kKt),
-// to bs[n * kBRow + k - k0]: 16-byte rows along the depth.
-template <int NC>
-__device__ __forceinline__ void stage_bt(bf16* bs, const bf16* __restrict__ M, int ld, int k0,
-                                         int n0) {
-  constexpr int kVec = kKt / 8;
-  for (int e = threadIdx.x; e < NC * kVec; e += kThreads) {
-    const int n = e / kVec, k = (e % kVec) * 8;
-    cp_async16(bs + n * kBRow + k, M + static_cast<long long>(n0 + n) * ld + k0 + k);
-  }
-  cp_async_commit();
-}
-
-// c[m][j] += A[rows 16m..16m+15] B(:, the warp's n-tile j), over depth K.
-// The warp's NT tiles of 8 columns start at column warp * NT * 8; A: the
-// block's kRows rows in shared memory (row stride lda); B as in stage_bt,
-// kKt deep in two buffers, the next tile's copy overlapping this one's products.
-// Fragments (PTX m16n8k16, g = lane / 4, t = lane % 4): A rows g and g + 8,
-// columns 2t, 2t + 1 and 2t + 8, 2t + 9; B depth 2t, 2t + 1 and 2t + 8, 2t + 9
-// of column g; c[0..1] row g, c[2..3] row g + 8, columns 2t, 2t + 1.
-template <int NT>
-__device__ __forceinline__ void mma_gemm(float (&c)[2][NT][4], const bf16* as, int lda, int K,
-                                         const bf16* __restrict__ M, int ld, int n0, bf16* bs) {
-  constexpr int NC = NT * 8 * kWarps;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int b_lane = ((threadIdx.x >> 5) * NT * 8 + g) * kBRow + 2 * t;
-  const bf16* a_lane = as + g * lda + 2 * t;
-  const int steps = K / kKt;
-  __syncthreads();  // every warp is done with both buffers and sees the A rows
-  stage_bt<NC>(bs, M, ld, 0, n0);
-  for (int s = 0; s < steps; ++s) {
-    const bf16* cur = bs + (s & 1) * kStage + b_lane;
-    if (s + 1 < steps) {
-      stage_bt<NC>(bs + ((s + 1) & 1) * kStage, M, ld, (s + 1) * kKt, n0);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKt; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const bf16* p = a_lane + m * 16 * lda + s * kKt + kk;
-        a[m][0] = ld_pair(p);
-        a[m][1] = ld_pair(p + 8 * lda);
-        a[m][2] = ld_pair(p + 8);
-        a[m][3] = ld_pair(p + 8 * lda + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const bf16* q = cur + j * 8 * kBRow + kk;
-        const uint32_t b0 = ld_pair(q), b1 = ld_pair(q + 8);
-        mma16816(c[0][j], a[0], b0, b1);
-        mma16816(c[1][j], a[1], b0, b1);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before the copy after next
-  }
-}
-
-// The accumulator element (m, j, e) of mma_gemm<NT>: its row in the block and its column.
-__device__ __forceinline__ int mma_row(int m, int e) {
-  return m * 16 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
-}
-template <int NT>
-__device__ __forceinline__ int mma_col(int j, int e) {
-  return (threadIdx.x >> 5) * NT * 8 + j * 8 + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
 // ---------------------------------------------------------------- epilogues
 
 // The block epilogue of one row held by a warp: y (already + bias, rounded)
@@ -401,44 +303,15 @@ __device__ __forceinline__ void residual_layer_norm(float4 (&y)[kQH], const floa
     store4(out + base + col, o);
   }
 }
-
-// The rows' epilogue of a forward whose output went to shared memory (ys,
-// f32 rows of kYRow): each warp takes its 4 rows, adds the residual (rows of
-// res with stride res_ld, in shared or global memory), drops, normalizes.
-template <typename T, bool kBlock, typename R>
-__device__ __forceinline__ void row_epilogue(const float* ys, const R* res, long long res_ld,
-                                             int N, int row0, const float* ln_scale,
-                                             const float* ln_bias, float eps, const Dropout& drop,
-                                             unsigned tag, T* out, T* s_out) {
-  const int rb = (threadIdx.x >> 5) * kRowsPerWarp;
-#pragma unroll 1
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + rb + r;
-    const bool valid = row < N;
-    float4 y[kQH], rv[kQH];
-#pragma unroll
-    for (int q = 0; q < kQH; ++q) {
-      y[q] = load4(ys + (rb + r) * kYRow + quad_col(q));
-      rv[q] = kBlock && valid ? load4(res + (rb + r) * res_ld + quad_col(q))
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-    if (kBlock) {
-      residual_layer_norm<T>(y, rv, row, valid, ln_scale, ln_bias, eps, drop, tag, out, s_out);
-    } else if (valid) {
-#pragma unroll
-      for (int q = 0; q < kQH; ++q) store4(out + static_cast<long long>(row) * kH + quad_col(q), y[q]);
-    }
-  }
-}
-
 // LayerNormTF's backward for the block's rows (ffn.py:335-362): with
 // xhat = (s - u) * rstd and gs = g * scale,
 //   ds = rstd * (gs - mean(gs) - xhat * mean(gs * xhat))   (f32),
 // the dropped gradient round(keep ? ds / (1 - rate) : 0) to `as` (the next
 // product's A, rows of lda) and to dropped_out, round(ds) to ds_out (if
-// given), each row's (u, rstd, mean(gs), mean(gs * xhat)) to stats, and the
-// block's column sums of g and g * xhat, summed in a fixed order, to the partials.
-template <typename T, typename A>
+// given), each row's (u, rstd, mean(gs), mean(gs * xhat)) to stats (if
+// given), and the block's column sums of g and g * xhat, summed in a fixed
+// order, to the partials. A warp takes kRpw rows: the block kWarps * kRpw.
+template <typename T, typename A, int kRpw = kRowsPerWarp>
 __device__ void layer_norm_backward(const T* __restrict__ s, const T* __restrict__ g,
                                     const float* __restrict__ ln_scale, int N, int row0,
                                     float eps, const Dropout& drop, unsigned tag, A* as, int lda,
@@ -448,8 +321,8 @@ __device__ void layer_norm_backward(const T* __restrict__ s, const T* __restrict
   float4 pg[kQH], pgx[kQH];
 #pragma unroll
   for (int q = 0; q < kQH; ++q) pg[q] = pgx[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int lr = warp * kRowsPerWarp + r, row = row0 + lr;
+  for (int r = 0; r < kRpw; ++r) {
+    const int lr = warp * kRpw + r, row = row0 + lr;
     const bool valid = row < N;
     const long long base = static_cast<long long>(row) * kH;
     float4 sv[kQH], gv[kQH];
@@ -488,7 +361,7 @@ __device__ void layer_norm_backward(const T* __restrict__ s, const T* __restrict
       }
     }
     const float m1 = warp_sum(s1) / kH, m2 = warp_sum(s2) / kH;
-    if (lane == 0) {
+    if (lane == 0 && stats) {
       stats[4 * lr] = u;
       stats[4 * lr + 1] = rstd;
       stats[4 * lr + 2] = m1;
@@ -946,34 +819,36 @@ __device__ __forceinline__ void gemm_body(const GemmMaps& m, int M, int N, int K
   }
 }
 
-// Under names of their own for the forward and the backward, so a profile
-// tells them apart
-template <int kEpi>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-    ffn_fwd_gemm_kernel(const __grid_constant__ GemmMaps m, int M, int N, int K, int splits,
-                        EpiArgs e) {
-  gemm_body<kEpi>(m, M, N, K, splits, e);
-}
-template <int kEpi>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-    ffn_bwd_gemm_kernel(const __grid_constant__ GemmMaps m, int M, int N, int K, int splits,
-                        EpiArgs e) {
-  gemm_body<kEpi>(m, M, N, K, splits, e);
-}
+// Under names of their own for #3's and #4's forward and backward and #5's,
+// so a profile tells them apart: one body (gemm_body) under four names
+#define UNIVL_GEMM_KERNEL(name)                                                                 \
+  template <int kEpi>                                                                          \
+  __global__ void __launch_bounds__(kGemmThreads, 1)                                           \
+      name(const __grid_constant__ GemmMaps m, int M, int N, int K, int splits, EpiArgs e) {   \
+    gemm_body<kEpi>(m, M, N, K, splits, e);                                                    \
+  }
+UNIVL_GEMM_KERNEL(ffn_fwd_gemm_kernel)
+UNIVL_GEMM_KERNEL(ffn_bwd_gemm_kernel)
+UNIVL_GEMM_KERNEL(dense_fwd_gemm_kernel)
+UNIVL_GEMM_KERNEL(dense_bwd_gemm_kernel)
+#undef UNIVL_GEMM_KERNEL
 
-// The forward's rows after h W2: y = round(round(sum of the splits' partials)
-// + b2), or with splits = 0 the GEMM's y, already in out; for #4 then
-// dropped, s = round(y + x), out = round(LN(s)) (in place over y). A warp a row.
+// A forward's rows after its last product (h W2 for #3 and #4, x W for #5):
+// y = round(round(sum of the splits' partials) + b), or with splits = 0 the
+// GEMM's y, already in out (always for #5); for #4 and #5 (kBlock) then
+// dropped with the kernel's Philox tag, s = round(y + res), out =
+// round(LN(s)) (in place over y); res is x for #4, r for #5. A warp a row.
 template <bool kBlock>
-__global__ void __launch_bounds__(kThreads)
-    ffn_fwd_rows_kernel(const float* __restrict__ part, int splits, const bf16* __restrict__ b2,
-                        const bf16* __restrict__ x, const float* __restrict__ ln_scale,
-                        const float* __restrict__ ln_bias, bf16* out, bf16* __restrict__ s_out,
-                        int N, float eps, Dropout drop) {
+__device__ __forceinline__ void fwd_rows(const float* __restrict__ part, int splits,
+                                         const bf16* __restrict__ b, const bf16* __restrict__ res,
+                                         const float* __restrict__ ln_scale,
+                                         const float* __restrict__ ln_bias, bf16* out,
+                                         bf16* __restrict__ s_out, int N, float eps,
+                                         const Dropout& drop, unsigned tag) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= N) return;
   const long long base = static_cast<long long>(row) * kH, stride = static_cast<long long>(N) * kH;
-  float4 y[kQH], res[kQH];
+  float4 y[kQH], rv[kQH];
 #pragma unroll
   for (int q = 0; q < kQH; ++q) {
     const int col = quad_col(q);
@@ -985,19 +860,34 @@ __global__ void __launch_bounds__(kThreads)
         const float4 v = load4(part + sp * stride + base + col);
         acc = make_float4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
       }
-      const float4 b = load4(b2 + col);
+      const float4 bv = load4(b + col);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) at(y[q], t) = round_to<bf16>(round_to<bf16>(at(acc, t)) + at(b, t));
+      for (int t = 0; t < 4; ++t) at(y[q], t) = round_to<bf16>(round_to<bf16>(at(acc, t)) + at(bv, t));
     }
-    res[q] = kBlock ? load4(x + base + col) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    rv[q] = kBlock ? load4(res + base + col) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   if (kBlock) {
-    residual_layer_norm<bf16>(y, res, row, true, ln_scale, ln_bias, eps, drop, kFfnBlockTag, out,
-                              s_out);
+    residual_layer_norm<bf16>(y, rv, row, true, ln_scale, ln_bias, eps, drop, tag, out, s_out);
   } else {
 #pragma unroll
     for (int q = 0; q < kQH; ++q) store4(out + base + quad_col(q), y[q]);
   }
+}
+
+template <bool kBlock>
+__global__ void __launch_bounds__(kThreads)
+    ffn_fwd_rows_kernel(const float* __restrict__ part, int splits, const bf16* __restrict__ b2,
+                        const bf16* __restrict__ x, const float* __restrict__ ln_scale,
+                        const float* __restrict__ ln_bias, bf16* out, bf16* __restrict__ s_out,
+                        int N, float eps, Dropout drop) {
+  fwd_rows<kBlock>(part, splits, b2, x, ln_scale, ln_bias, out, s_out, N, eps, drop, kFfnBlockTag);
+}
+__global__ void __launch_bounds__(kThreads)
+    dense_fwd_rows_kernel(const bf16* __restrict__ r, const float* __restrict__ ln_scale,
+                          const float* __restrict__ ln_bias, bf16* out, bf16* __restrict__ s_out,
+                          int N, float eps, Dropout drop) {
+  fwd_rows<true>(nullptr, 0, nullptr, r, ln_scale, ln_bias, out, s_out, N, eps, drop,
+                 kDenseBlockTag);
 }
 
 // The backward's rows after dpre W1^T split along F: dx = round(sum of the
@@ -1027,19 +917,45 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// #4's backward head: the LayerNorm backward of kRows rows a block, the
-// dropped gradient dffn (the next product's A), the row statistics and the
-// block's dscale/dbias partials (layer_norm_backward).
-__global__ void __launch_bounds__(kThreads)
+// A backward's head for #4 and #5: the LayerNorm backward of kWarps * kRpw
+// rows a block (layer_norm_backward), the dropped gradient (#4's dffn, #5's
+// dy: the next product's A) with the kernel's Philox tag, the row
+// statistics (#4), round(ds) (#5's dr), and the block's dscale/dbias
+// partials. Two blocks an SM (128 registers a thread): one block a SM left
+// each warp's loads and Philox words waiting on each other. kRpw is 4 where
+// that gives every SM two blocks, else 1 (kernels/ffn.py:ln_block_rows): a
+// tower's 1,536 rows make 192 blocks, not 48.
+template <int kRpw>
+__device__ __forceinline__ void bwd_ln(const bf16* __restrict__ s, const bf16* __restrict__ g,
+                                       const float* __restrict__ ln_scale,
+                                       bf16* __restrict__ dropped, bf16* __restrict__ ds_out,
+                                       float* __restrict__ stats, float* __restrict__ dscale_p,
+                                       float* __restrict__ dbias_p, int N, float eps,
+                                       const Dropout& drop, unsigned tag) {
+  __shared__ __align__(16) float red[2 * kWarps * kH];
+  const int row0 = blockIdx.x * kWarps * kRpw;
+  layer_norm_backward<bf16, bf16, kRpw>(s, g, ln_scale, N, row0, eps, drop, tag, nullptr, 0,
+                                        dropped, ds_out, stats ? stats + 4 * row0 : nullptr, red,
+                                        dscale_p, dbias_p);
+}
+
+template <int kRpw>
+__global__ void __launch_bounds__(kThreads, 2)
     ffn_bwd_ln_kernel(const bf16* __restrict__ s, const bf16* __restrict__ g,
                       const float* __restrict__ ln_scale, bf16* __restrict__ dffn,
                       float* __restrict__ stats, float* __restrict__ dscale_p,
                       float* __restrict__ dbias_p, int N, float eps, Dropout drop) {
-  __shared__ __align__(16) float red[2 * kWarps * kH];
-  const int row0 = blockIdx.x * kRows;
-  layer_norm_backward<bf16>(s, g, ln_scale, N, row0, eps, drop, kFfnBlockTag,
-                            static_cast<bf16*>(nullptr), 0, dffn, static_cast<bf16*>(nullptr),
-                            stats + 4 * row0, red, dscale_p, dbias_p);
+  bwd_ln<kRpw>(s, g, ln_scale, dffn, nullptr, stats, dscale_p, dbias_p, N, eps, drop,
+               kFfnBlockTag);
+}
+template <int kRpw>
+__global__ void __launch_bounds__(kThreads, 2)
+    dense_bwd_ln_kernel(const bf16* __restrict__ s, const bf16* __restrict__ g,
+                        const float* __restrict__ ln_scale, bf16* __restrict__ dy,
+                        bf16* __restrict__ dr, float* __restrict__ dscale_p,
+                        float* __restrict__ dbias_p, int N, float eps, Dropout drop) {
+  bwd_ln<kRpw>(s, g, ln_scale, dy, dr, nullptr, dscale_p, dbias_p, N, eps, drop,
+               kDenseBlockTag);
 }
 
 // ---------------------------------------------------------------- #5
@@ -1078,37 +994,6 @@ __device__ __forceinline__ void dense_fwd_cc(
   }
 }
 
-__device__ __forceinline__ void dense_fwd_tc(
-    const bf16* __restrict__ x, const bf16* __restrict__ res_in, const bf16* __restrict__ wt,
-    const bf16* __restrict__ b, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, bf16* __restrict__ out, bf16* __restrict__ s_out, int N,
-    float eps, const Dropout& drop) {
-  extern __shared__ __align__(16) float smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kRows][kARow]
-  bf16* bs = xs + kRows * kARow;             // 2 x kStage weight tiles
-  float* ys = reinterpret_cast<float*>(bs);  // [kRows][kYRow] the output, after the product
-  const int row0 = blockIdx.x * kRows;
-  stage_rows_tc(xs, x, N, row0);
-  float acc[2][12][4] = {};
-  mma_gemm<12>(acc, xs, kARow, kH, wt, kH, 0, bs);  // x W
-  __syncthreads();  // every warp is done with the weight tiles, which ys overwrites
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int lr = mma_row(m, e), col = mma_col<12>(j, e);
-        const float2 bias = load2(b + col);
-        *reinterpret_cast<float2*>(ys + lr * kYRow + col) =
-            make_float2(round_to<bf16>(round_to<bf16>(acc[m][j][e]) + bias.x),
-                        round_to<bf16>(round_to<bf16>(acc[m][j][e + 1]) + bias.y));
-      }
-  __syncthreads();
-  row_epilogue<bf16, true>(ys, res_in + static_cast<long long>(row0) * kH, kH, N, row0, ln_scale,
-                           ln_bias, eps, drop, kDenseBlockTag, out, s_out);
-}
-
 template <typename T>
 __device__ __forceinline__ void dense_bwd_cc(
     const T* __restrict__ s, const T* __restrict__ g, const T* __restrict__ w,
@@ -1134,32 +1019,6 @@ __device__ __forceinline__ void dense_bwd_cc(
     for (int q = 0; q < kQH; ++q) store4(dx + static_cast<long long>(row) * kH + quad_col(q), acc[r][q]);
   }
 }
-
-__device__ __forceinline__ void dense_bwd_tc(
-    const bf16* __restrict__ s, const bf16* __restrict__ g, const bf16* __restrict__ w,
-    const float* __restrict__ ln_scale, bf16* __restrict__ dx, bf16* __restrict__ dy,
-    bf16* __restrict__ dr, float* __restrict__ dscale_p, float* __restrict__ dbias_p, int N,
-    float eps, const Dropout& drop) {
-  extern __shared__ __align__(16) float smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);                  // [kRows][kARow] dy
-  bf16* bs = as + kRows * kARow;                             // 2 x kStage weight tiles
-  float* stats = reinterpret_cast<float*>(bs + 2 * kStage);  // [kRows][4]
-  const int row0 = blockIdx.x * kRows;
-  layer_norm_backward<bf16>(s, g, ln_scale, N, row0, eps, drop, kDenseBlockTag, as, kARow, dy, dr,
-                            stats, reinterpret_cast<float*>(bs), dscale_p, dbias_p);
-  float acc[2][12][4] = {};
-  mma_gemm<12>(acc, as, kARow, kH, w, kH, 0, bs);  // dy W^T
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int lr = mma_row(m, e), col = mma_col<12>(j, e), row = row0 + lr;
-        if (row < N) store2(dx + static_cast<long long>(row) * kH + col, acc[m][j][e], acc[m][j][e + 1]);
-      }
-}
-
 // ---------------------------------------------------------------- the kernels
 
 // f32 #3 and #4 under names of their own, so a profile tells them apart (in
@@ -1194,48 +1053,38 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_block_bwd_kernel(UNIVL_FFN_BW
   ffn_bwd_cc<float, true>(UNIVL_FFN_BWD_ARGS);
 }
 
-template <typename T>
+// f32 #5 (in bf16 it is the wgmma GEMM and the row kernels above)
 __global__ void __launch_bounds__(kThreads, 1)
-dense_block_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res_in,
-                       const T* __restrict__ wt, const T* __restrict__ b,
+dense_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ res_in,
+                       const float* __restrict__ wt, const float* __restrict__ b,
                        const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-                       T* __restrict__ out, T* __restrict__ s_out, int N, float eps,
+                       float* __restrict__ out, float* __restrict__ s_out, int N, float eps,
                        Dropout drop) {
-  if constexpr (kTensorCores<T>) dense_fwd_tc(x, res_in, wt, b, ln_scale, ln_bias, out, s_out, N, eps, drop);
-  else dense_fwd_cc<T>(x, res_in, wt, b, ln_scale, ln_bias, out, s_out, N, eps, drop);
+  dense_fwd_cc<float>(x, res_in, wt, b, ln_scale, ln_bias, out, s_out, N, eps, drop);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-dense_block_bwd_kernel(const T* __restrict__ s, const T* __restrict__ g, const T* __restrict__ w,
-                       const float* __restrict__ ln_scale, T* __restrict__ dx,
-                       T* __restrict__ dy, T* __restrict__ dr, float* __restrict__ dscale_p,
-                       float* __restrict__ dbias_p, int N, float eps, Dropout drop) {
-  if constexpr (kTensorCores<T>) dense_bwd_tc(s, g, w, ln_scale, dx, dy, dr, dscale_p, dbias_p, N, eps, drop);
-  else dense_bwd_cc<T>(s, g, w, ln_scale, dx, dy, dr, dscale_p, dbias_p, N, eps, drop);
+dense_block_bwd_kernel(const float* __restrict__ s, const float* __restrict__ g,
+                       const float* __restrict__ w, const float* __restrict__ ln_scale,
+                       float* __restrict__ dx, float* __restrict__ dy, float* __restrict__ dr,
+                       float* __restrict__ dscale_p, float* __restrict__ dbias_p, int N, float eps,
+                       Dropout drop) {
+  dense_bwd_cc<float>(s, g, w, ln_scale, dx, dy, dr, dscale_p, dbias_p, N, eps, drop);
 }
 
 // ---------------------------------------------------------------- launch
 
-// Dynamic shared memory: f32 (CUDA cores) and #5's bf16 (tensor cores), with
-// the row statistics of the backwards. #5's bf16 forward's f32 output rows
-// and the backwards' dscale/dbias partials reuse the weight-tile buffers.
+// Dynamic shared memory of the f32 (CUDA-core) kernels, with the row
+// statistics of the backwards; their dscale/dbias partials reuse the
+// weight-tile buffer.
 constexpr size_t kFfnSmemCc = (kRows * kH + kRows * kFc + kKc * kBStride + 4 * kRows) * sizeof(float);
 constexpr size_t kDenseSmemCc = (kRows * kH + kKc * kBStride + 4 * kRows) * sizeof(float);
-constexpr size_t kDenseSmemTc = (kRows * kARow + 2 * kStage) * sizeof(bf16) + 4 * kRows * sizeof(float);
 static_assert(2 * kWarps * kH <= kKc * kBStride, "the partials' buffer must fit in the tile's");
-static_assert(2 * kWarps * kH * sizeof(float) <= 2 * kStage * sizeof(bf16) &&
-                  kRows * kYRow * sizeof(float) <= 2 * kStage * sizeof(bf16),
-              "the partials and the output rows must fit in the weight tiles' buffers");
-static_assert(kFfnSmemCc <= 232448 && kGemmSmem <= 232448 && kDenseSmemTc <= 232448,
-              "over Hopper's shared memory");
+static_assert(kFfnSmemCc <= 232448 && kGemmSmem <= 232448, "over Hopper's shared memory");
 static_assert(kH % kBN == 0 && kFc % kBN == 0 && kH % (kBK * kMinSteps) == 0 &&
                   kFc % (kBK * kMinSteps) == 0,
               "the GEMM tiles must divide H and the F granule");
 constexpr int kMaxDevices = 64;
-
-template <typename T>
-constexpr size_t dense_smem() { return kTensorCores<T> ? kDenseSmemTc : kDenseSmemCc; }
 
 // Above 48 KB of dynamic shared memory a block needs the per-kernel opt-in,
 // set once per device and kernel (as in train_attention.cu).
@@ -1252,6 +1101,16 @@ cudaError_t opt_in(Kernel kernel, size_t bytes, std::atomic<bool>* done) {
 }
 
 int blocks(int N) { return (N + kRows - 1) / kRows; }
+
+// The bf16 backwards' LayerNorm head at `ln_rows` rows a block (kRows, or
+// kWarps: one a warp): its kernel and grid.
+template <typename Kernel>
+bool ln_head(Kernel four, Kernel one, int ln_rows, int N, Kernel* kernel, int* grid) {
+  if (ln_rows != kRows && ln_rows != kWarps) return false;
+  *kernel = ln_rows == kRows ? four : one;
+  *grid = (N + ln_rows - 1) / ln_rows;
+  return true;
+}
 int row_blocks(int N) { return (N + kWarps - 1) / kWarps; }  // a warp a row
 
 bool bad_shape(int N, int H, int F) { return N < 1 || H != kH || F < kFc || F % kFc; }
@@ -1364,44 +1223,26 @@ cudaError_t launch_gemm(Kernel kernel, std::atomic<bool>* done, const void* a, c
   return cudaGetLastError();
 }
 
-// One of the five GEMM kernels: forward (kBias, kPartial) or backward
-// (kDGelu, kDx, kPartial).
-template <bool kFwd, int kEpi>
+// The GEMM kernels by name: #3's and #4's forward (kBias, kPartial) and
+// backward (kDGelu, kDx, kPartial), #5's forward (kBias) and backward (kDx
+// without the ds term).
+enum GemmName { kFfnFwd, kFfnBwd, kDenseFwd, kDenseBwd };
+
+template <int kName, int kEpi>
 cudaError_t gemm(const void* a, const void* b, int M, int N, int K, int splits, const EpiArgs& e,
                  cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  if constexpr (kFwd) {
+  if constexpr (kName == kFfnFwd) {
     return launch_gemm(ffn_fwd_gemm_kernel<kEpi>, done, a, b, M, N, K, splits, e, stream);
-  } else {
+  } else if constexpr (kName == kFfnBwd) {
     return launch_gemm(ffn_bwd_gemm_kernel<kEpi>, done, a, b, M, N, K, splits, e, stream);
+  } else if constexpr (kName == kDenseFwd) {
+    return launch_gemm(dense_fwd_gemm_kernel<kEpi>, done, a, b, M, N, K, splits, e, stream);
+  } else {
+    return launch_gemm(dense_bwd_gemm_kernel<kEpi>, done, a, b, M, N, K, splits, e, stream);
   }
 }
 
-template <typename T>
-cudaError_t launch_dense_fwd(const void* x, const void* r, const void* wt, const void* b,
-                             const float* sc, const float* bi, void* out, void* s, int N,
-                             float eps, Dropout drop, cudaStream_t stream) {
-  static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t err = opt_in(dense_block_fwd_kernel<T>, dense_smem<T>(), done);
-  if (err != cudaSuccess) return err;
-  dense_block_fwd_kernel<T><<<blocks(N), kThreads, dense_smem<T>(), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(wt),
-      static_cast<const T*>(b), sc, bi, static_cast<T*>(out), static_cast<T*>(s), N, eps, drop);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dense_bwd(const void* s, const void* g, const void* w, const float* sc,
-                             void* dx, void* dy, void* dr, float* dsc, float* dbi, int N,
-                             float eps, Dropout drop, cudaStream_t stream) {
-  static std::atomic<bool> done[kMaxDevices];
-  const cudaError_t err = opt_in(dense_block_bwd_kernel<T>, dense_smem<T>(), done);
-  if (err != cudaSuccess) return err;
-  dense_block_bwd_kernel<T><<<blocks(N), kThreads, dense_smem<T>(), stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(g), static_cast<const T*>(w), sc,
-      static_cast<T*>(dx), static_cast<T*>(dy), static_cast<T*>(dr), dsc, dbi, N, eps, drop);
-  return cudaGetLastError();
-}
 
 }  // namespace
 
@@ -1468,7 +1309,7 @@ int univl_ffn_fwd_tc(const void* x, const void* w1t, const void* b1, const void*
   e.out = static_cast<bf16*>(pre);
   e.h = static_cast<bf16*>(h);
   e.bias = static_cast<const bf16*>(b1);
-  cudaError_t err = gemm<true, kBias>(x, w1t, N, F, kH, 1, e, st);  // pre, h
+  cudaError_t err = gemm<kFfnFwd, kBias>(x, w1t, N, F, kH, 1, e, st);  // pre, h
   if (err != cudaSuccess) return static_cast<int>(err);
   e = EpiArgs{};
   const Dropout drop{seed, threshold, inv_keep, dropout_on};
@@ -1476,12 +1317,12 @@ int univl_ffn_fwd_tc(const void* x, const void* w1t, const void* b1, const void*
   if (splits == 1) {  // y from the GEMM's epilogue; #4 then its rows in place
     e.out = static_cast<bf16*>(out);
     e.bias = static_cast<const bf16*>(b2);
-    err = gemm<true, kBias>(h, w2t, N, kH, F, 1, e, st);
+    err = gemm<kFfnFwd, kBias>(h, w2t, N, kH, F, 1, e, st);
     if (err != cudaSuccess || !block) return static_cast<int>(err);
     splits = 0;
   } else {
     e.part = static_cast<float*>(part);
-    err = gemm<true, kPartial>(h, w2t, N, kH, F, splits, e, st);
+    err = gemm<kFfnFwd, kPartial>(h, w2t, N, kH, F, splits, e, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   rows<<<row_blocks(N), kThreads, 0, st>>>(
@@ -1493,8 +1334,9 @@ int univl_ffn_fwd_tc(const void* x, const void* w1t, const void* b1, const void*
 }
 
 // #3 (block = 0) or #4 (block = 1) backward in bf16: for #4 first the
-// LayerNorm backward (dffn, the row statistics stats [ceil(N / 32) x 32, 4]
-// f32 and the partials); then (dffn or g) W2^T with the GELU-gradient
+// LayerNorm backward at ln_rows (32 or 8) rows a block (dffn, the row
+// statistics stats [ceil(N / 32) x 32, 4] f32 and the partials, f32
+// [ceil(N / ln_rows), H] each); then (dffn or g) W2^T with the GELU-gradient
 // epilogue (dpre, h), then dpre W1^T split `splits` ways along F, with ds
 // added for #4 (from the GEMM's epilogue when splits = 1, else through part,
 // f32 [splits, N, H], and a row kernel). Arguments otherwise as
@@ -1502,7 +1344,7 @@ int univl_ffn_fwd_tc(const void* x, const void* w1t, const void* b1, const void*
 int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void* w2,
                      const void* s, const void* ln_scale, void* dx, void* dpre, void* h,
                      void* dffn, void* dscale_p, void* dbias_p, void* stats, void* part,
-                     int block, int N, int H, int F, int splits, float eps,
+                     int block, int N, int H, int F, int splits, int ln_rows, float eps,
                      unsigned int threshold, float inv_keep, int dropout_on,
                      unsigned long long seed, void* stream) {
   if (bad_shape(N, H, F) || bad_splits(F, splits)) return static_cast<int>(cudaErrorInvalidValue);
@@ -1512,9 +1354,14 @@ int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void*
   const float* sc = static_cast<const float*>(ln_scale);
   float* stv = block ? static_cast<float*>(stats) : nullptr;
   if (block) {
-    ffn_bwd_ln_kernel<<<blocks(N), kThreads, 0, st>>>(
-        sv, gv, sc, static_cast<bf16*>(dffn), stv, static_cast<float*>(dscale_p),
-        static_cast<float*>(dbias_p), N, eps, Dropout{seed, threshold, inv_keep, dropout_on});
+    auto head = ffn_bwd_ln_kernel<kRowsPerWarp>;
+    int grid = 0;
+    if (!ln_head(ffn_bwd_ln_kernel<kRowsPerWarp>, ffn_bwd_ln_kernel<1>, ln_rows, N, &head, &grid)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    head<<<grid, kThreads, 0, st>>>(sv, gv, sc, static_cast<bf16*>(dffn), stv,
+                                    static_cast<float*>(dscale_p), static_cast<float*>(dbias_p),
+                                    N, eps, Dropout{seed, threshold, inv_keep, dropout_on});
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -1522,7 +1369,7 @@ int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void*
   e.out = static_cast<bf16*>(dpre);
   e.h = static_cast<bf16*>(h);
   e.pre = static_cast<const bf16*>(pre);
-  cudaError_t err = gemm<false, kDGelu>(block ? dffn : g, w2, N, F, kH, 1, e, st);
+  cudaError_t err = gemm<kFfnBwd, kDGelu>(block ? dffn : g, w2, N, F, kH, 1, e, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   e = EpiArgs{};
   if (splits == 1) {
@@ -1531,10 +1378,10 @@ int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void*
     e.g = gv;
     e.scale = sc;
     e.stats = stv;
-    return static_cast<int>(gemm<false, kDx>(dpre, w1, N, kH, F, 1, e, st));
+    return static_cast<int>(gemm<kFfnBwd, kDx>(dpre, w1, N, kH, F, 1, e, st));
   }
   e.part = static_cast<float*>(part);
-  err = gemm<false, kPartial>(dpre, w1, N, kH, F, splits, e, st);
+  err = gemm<kFfnBwd, kPartial>(dpre, w1, N, kH, F, splits, e, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   ffn_bwd_rows_kernel<<<row_blocks(N), kThreads, 0, st>>>(static_cast<const float*>(part),
                                                           splits, sv, gv, sc, stv,
@@ -1542,42 +1389,93 @@ int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// #5 forward. x (the product's input), r (the residual): [N, H]; wt: [H, H]
-// (W transposed, as nn.Linear stores it); b: [H]; one type as above;
-// ln_scale, ln_bias f32 [H]. out like x; s like x when not null.
+// #5 forward in f32 on CUDA cores. x (the product's input), r (the
+// residual): [N, H]; wt: [H, H] (W transposed, as nn.Linear stores it); b:
+// [H]; ln_scale, ln_bias [H]; all f32. out like x; s like x when not null.
 int univl_dense_block_fwd(const void* x, const void* r, const void* wt, const void* b,
-                          const void* ln_scale, const void* ln_bias, void* out, void* s,
-                          int is_bf16, int N, int H, float eps, unsigned int threshold,
-                          float inv_keep, int dropout_on, unsigned long long seed, void* stream) {
+                          const void* ln_scale, const void* ln_bias, void* out, void* s, int N,
+                          int H, float eps, unsigned int threshold, float inv_keep,
+                          int dropout_on, unsigned long long seed, void* stream) {
   if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
-  const float* sc = static_cast<const float*>(ln_scale);
-  const float* bi = static_cast<const float*>(ln_bias);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dense_fwd<bf16>(x, r, wt, b, sc, bi, out, s, N, eps, drop, st)
-              : launch_dense_fwd<float>(x, r, wt, b, sc, bi, out, s, N, eps, drop, st);
-  return static_cast<int>(err);
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t err = opt_in(dense_block_fwd_kernel, kDenseSmemCc, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  dense_block_fwd_kernel<<<blocks(N), kThreads, kDenseSmemCc, static_cast<cudaStream_t>(stream)>>>(
+      f(x), f(r), f(wt), f(b), f(ln_scale), f(ln_bias), static_cast<float*>(out),
+      static_cast<float*>(s), N, eps, Dropout{seed, threshold, inv_keep, dropout_on});
+  return static_cast<int>(cudaGetLastError());
 }
 
-// #5 backward. s: the forward's LayerNorm input; g: the output gradient; w:
-// [H, H] (the JAX layout); ln_scale as in the forward. Writes dx, dy (the
-// dense output's gradient), dr (the residual's) like x, and the partials
-// dscale_p, dbias_p.
+// #5 backward in f32 on CUDA cores. s: the forward's LayerNorm input; g: the
+// output gradient; w: [H, H] (the JAX layout); ln_scale as in the forward.
+// Writes dx, dy (the dense output's gradient), dr (the residual's) like x,
+// and the partials dscale_p, dbias_p (f32 [ceil(N / 32), H]).
 int univl_dense_block_bwd(const void* s, const void* g, const void* w, const void* ln_scale,
-                          void* dx, void* dy, void* dr, void* dscale_p, void* dbias_p,
-                          int is_bf16, int N, int H, float eps, unsigned int threshold,
-                          float inv_keep, int dropout_on, unsigned long long seed, void* stream) {
+                          void* dx, void* dy, void* dr, void* dscale_p, void* dbias_p, int N,
+                          int H, float eps, unsigned int threshold, float inv_keep,
+                          int dropout_on, unsigned long long seed, void* stream) {
   if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
-  const float* sc = static_cast<const float*>(ln_scale);
-  float* dsc = static_cast<float*>(dscale_p);
-  float* dbi = static_cast<float*>(dbias_p);
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t err = opt_in(dense_block_bwd_kernel, kDenseSmemCc, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto o = [](void* p) { return static_cast<float*>(p); };
+  dense_block_bwd_kernel<<<blocks(N), kThreads, kDenseSmemCc, static_cast<cudaStream_t>(stream)>>>(
+      f(s), f(g), f(w), f(ln_scale), o(dx), o(dy), o(dr), o(dscale_p), o(dbias_p), N, eps,
+      Dropout{seed, threshold, inv_keep, dropout_on});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// #5 forward in bf16: x W on the wgmma GEMM, whose epilogue writes y =
+// round(round(x W) + b) into out, then the rows kernel: y dropped, r added,
+// normalized (in place over y; s written when not null). Arguments as
+// univl_dense_block_fwd's, in bf16.
+int univl_dense_block_fwd_tc(const void* x, const void* r, const void* wt, const void* b,
+                             const void* ln_scale, const void* ln_bias, void* out, void* s,
+                             int N, int H, float eps, unsigned int threshold, float inv_keep,
+                             int dropout_on, unsigned long long seed, void* stream) {
+  if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dense_bwd<bf16>(s, g, w, sc, dx, dy, dr, dsc, dbi, N, eps, drop, st)
-              : launch_dense_bwd<float>(s, g, w, sc, dx, dy, dr, dsc, dbi, N, eps, drop, st);
-  return static_cast<int>(err);
+  EpiArgs e{};
+  e.out = static_cast<bf16*>(out);
+  e.bias = static_cast<const bf16*>(b);
+  const cudaError_t err = gemm<kDenseFwd, kBias>(x, wt, N, kH, kH, 1, e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_fwd_rows_kernel<<<row_blocks(N), kThreads, 0, st>>>(
+      static_cast<const bf16*>(r), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<bf16*>(out), static_cast<bf16*>(s), N, eps,
+      Dropout{seed, threshold, inv_keep, dropout_on});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// #5 backward in bf16: the LayerNorm head at ln_rows (32 or 8) rows a block
+// (dy, dr and the partials, f32 [ceil(N / ln_rows), H] each), then dx =
+// round(dy W^T) from the wgmma GEMM's epilogue. Arguments otherwise as
+// univl_dense_block_bwd's, in bf16.
+int univl_dense_block_bwd_tc(const void* s, const void* g, const void* w, const void* ln_scale,
+                             void* dx, void* dy, void* dr, void* dscale_p, void* dbias_p, int N,
+                             int H, int ln_rows, float eps, unsigned int threshold,
+                             float inv_keep, int dropout_on, unsigned long long seed,
+                             void* stream) {
+  if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto head = dense_bwd_ln_kernel<kRowsPerWarp>;
+  int grid = 0;
+  if (!ln_head(dense_bwd_ln_kernel<kRowsPerWarp>, dense_bwd_ln_kernel<1>, ln_rows, N, &head,
+               &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  head<<<grid, kThreads, 0, st>>>(
+      static_cast<const bf16*>(s), static_cast<const bf16*>(g),
+      static_cast<const float*>(ln_scale), static_cast<bf16*>(dy), static_cast<bf16*>(dr),
+      static_cast<float*>(dscale_p), static_cast<float*>(dbias_p), N, eps,
+      Dropout{seed, threshold, inv_keep, dropout_on});
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  EpiArgs e{};
+  e.out = static_cast<bf16*>(dx);
+  return static_cast<int>(gemm<kDenseBwd, kDx>(dy, w, N, kH, kH, 1, e, st));
 }
 
 }  // extern "C"

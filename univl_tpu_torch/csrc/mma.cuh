@@ -1,5 +1,6 @@
-// Tensor-core and copy helpers shared by the port's bf16 kernels (ffn.cu,
-// and through attention_mma.cuh attention.cu and train_attention.cu): cp.async 16-byte copies to shared memory, fragment
+// Tensor-core and copy helpers shared by the port's bf16 kernels
+// (vocab_topk.cu, ffn.cu's packing, and through attention_mma.cuh
+// attention.cu and train_attention.cu): cp.async 16-byte copies to shared memory, fragment
 // loads (ldmatrix, plain 32-bit pairs), the warp-wide transpose of an 8 x 8
 // fragment (movmatrix) and mma.sync m16n8k16 with bf16 operands and f32
 // accumulators.

@@ -142,12 +142,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_ffn_bwd.restype = i
     lib.univl_ffn_fwd_tc.argtypes = [p] * 12 + [i] * 5 + drop
     lib.univl_ffn_fwd_tc.restype = i
-    lib.univl_ffn_bwd_tc.argtypes = [p] * 14 + [i] * 5 + drop
+    lib.univl_ffn_bwd_tc.argtypes = [p] * 14 + [i] * 6 + drop
     lib.univl_ffn_bwd_tc.restype = i
-    lib.univl_dense_block_fwd.argtypes = [p] * 8 + [i] * 3 + drop
+    lib.univl_dense_block_fwd.argtypes = [p] * 8 + [i] * 2 + drop
     lib.univl_dense_block_fwd.restype = i
-    lib.univl_dense_block_bwd.argtypes = [p] * 9 + [i] * 3 + drop
+    lib.univl_dense_block_bwd.argtypes = [p] * 9 + [i] * 2 + drop
     lib.univl_dense_block_bwd.restype = i
+    lib.univl_dense_block_fwd_tc.argtypes = [p] * 8 + [i] * 2 + drop
+    lib.univl_dense_block_fwd_tc.restype = i
+    lib.univl_dense_block_bwd_tc.argtypes = [p] * 9 + [i] * 3 + drop
+    lib.univl_dense_block_bwd_tc.restype = i
     lib.univl_cuda_error_string.argtypes = [i]
     lib.univl_cuda_error_string.restype = ctypes.c_char_p
 

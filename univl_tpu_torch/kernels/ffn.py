@@ -27,8 +27,11 @@ On a CPU tensor each wrapper below computes its plain version; on a CUDA
 tensor it launches its kernels in ``univl_tpu_torch/csrc/ffn.cu`` (built at
 first use) or raises. The kernels take H = 768 and F a multiple of 256. In
 bf16, #3 and #4 are two wgmma GEMMs fed by TMA with fused epilogues and row
-kernels (``ffn_plan`` says how N rows are cut), #5 one ``mma.sync`` kernel;
-in f32 all three run on CUDA cores. Each wrapper counts its calls by route:
+kernels (``ffn_plan`` says how N rows are cut), #5 one such GEMM a
+direction, after its LayerNorm head in the backward and before its row
+kernel in the forward, over the whole depth H; in f32 all three run on CUDA
+cores.
+Each wrapper counts its calls by route:
 ``launches`` on the tensor cores (bf16), ``cuda_core_launches`` in f32. The
 forward kernels read the weights as ``nn.Linear`` stores them (``w1.t()``,
 free when ``w1`` is the transposed view of such a weight, as in
@@ -238,6 +241,14 @@ def _launch(x: torch.Tensor, fn, what: str, *args) -> None:
     _build.check(lib, err, what)
 
 
+def ln_block_rows(N: int) -> int:
+    """Rows a block of the bf16 backwards' LayerNorm head (#4, #5) takes:
+    LN_BLOCK_ROWS (4 a warp) where that gives every SM two blocks, else 8
+    (one a warp), so a tower's 1,536 rows make 192 blocks, not 48. The
+    dscale/dbias partials are [ceil(N / rows), H]."""
+    return LN_BLOCK_ROWS if -(-N // LN_BLOCK_ROWS) >= 2 * CARD_SMS else LN_BLOCK_ROWS // 4
+
+
 def ffn_plan(N: int, F: int, H: int = KERNEL_HIDDEN, block: bool = True) -> dict:
     """How the bf16 kernels of #3 (``block=False``) and #4 cut N rows.
 
@@ -249,7 +260,7 @@ def ffn_plan(N: int, F: int, H: int = KERNEL_HIDDEN, block: bool = True) -> dict
     kernel adds them in split order, so every output is the same from call
     to call. Scratch bytes: the forward's h ([N, F] bf16) and partials
     (where split), the backward's partials (where split) and #4's row
-    statistics."""
+    statistics; #4's LayerNorm head takes ``ln_block_rows`` rows a block."""
     row_tiles = -(-N // GEMM_ROWS)
     steps = F // GEMM_DEPTH
     options = [s for s in (1, 2, 4, 8) if steps % s == 0 and steps // s >= MIN_SPLIT_STEPS]
@@ -259,13 +270,18 @@ def ffn_plan(N: int, F: int, H: int = KERNEL_HIDDEN, block: bool = True) -> dict
     stats = -(-N // LN_BLOCK_ROWS) * LN_BLOCK_ROWS * 4 * 4 if block else 0
     return {"row_tile": GEMM_ROWS, "col_tile": GEMM_COLS, "splits": splits,
             "wide_tiles": row_tiles * (F // GEMM_COLS), "narrow_tiles": narrow * splits,
+            "ln_block_rows": ln_block_rows(N),
             "scratch_bytes": {"fwd": N * F * 2 + (part if splits > 1 else 0),
                               "bwd": (part if splits > 1 else 0) + stats}}
 
 
 def _partials(x: torch.Tensor, lib) -> torch.Tensor:
-    blocks = -(-x.shape[0] // lib.univl_ffn_block_rows())
-    return torch.empty(2, blocks, x.shape[1], dtype=torch.float32, device=x.device)
+    """The backwards' dscale/dbias partials, [2, blocks, H] f32: a block of
+    the LayerNorm head takes ln_block_rows(N) rows in bf16, and the CUDA-core
+    kernels' univl_ffn_block_rows() in f32."""
+    rows = lib.univl_ffn_block_rows() if x.dtype == torch.float32 else ln_block_rows(x.shape[0])
+    return torch.empty(2, -(-x.shape[0] // rows), x.shape[1], dtype=torch.float32,
+                       device=x.device)
 
 
 def _forward(lib, x, w1t, b1, w2t, b2, scale, bias, out, pre, s, block: bool, eps: float,
@@ -308,7 +324,7 @@ def _backward(lib, pre, g, w1, w2, s, scale, dx, dpre, h, dffn, part, block: boo
                          dtype=torch.float32, device=g.device) if block else None)
     _launch(g, lib.univl_ffn_bwd_tc, what,
             *_ptrs(pre, g, w1, w2, s, scale, dx, dpre, h, dffn, *parts, stats, split), int(block),
-            N, H, F, plan["splits"], eps, *_dropout_args(seed, rate))
+            N, H, F, plan["splits"], plan["ln_block_rows"], eps, *_dropout_args(seed, rate))
     wrapper.launches += 1
 
 
@@ -397,12 +413,18 @@ def dense_block_fwd(x, r, w, b, scale, bias, seed: int, rate: float, eps: float 
         return out, (s if save else None)
     lib = _cuda(x)
     N, H = x.shape
+    # the forward reads W as nn.Linear stores it: [H_out, H_in]
     x, r, wt, b, scale, bias = (t.contiguous() for t in (x, r, w.t(), b, scale, bias))
     out = torch.empty_like(x)
     s = torch.empty_like(x) if save else None
-    _launch(x, lib.univl_dense_block_fwd, "dense block forward kernel launch",
-            *_ptrs(x, r, wt, b, scale, bias, out, s), int(x.dtype == torch.bfloat16), N, H, eps,
-            *_dropout_args(seed, rate))
+    what = "dense block forward kernel launch"
+    if x.dtype == torch.float32:
+        _launch(x, lib.univl_dense_block_fwd, what, *_ptrs(x, r, wt, b, scale, bias, out, s), N,
+                H, eps, *_dropout_args(seed, rate))
+        dense_block_fwd.cuda_core_launches += 1
+        return out, s
+    _launch(x, lib.univl_dense_block_fwd_tc, what, *_ptrs(x, r, wt, b, scale, bias, out, s), N,
+            H, eps, *_dropout_args(seed, rate))
     dense_block_fwd.launches += 1
     return out, s
 
@@ -419,18 +441,26 @@ def dense_block_bwd(s, g, w, scale, seed: int, rate: float, eps: float = LN_EPS)
     s, g, w, scale = (t.contiguous() for t in (s, g, w, scale))
     dx, dy, dr = torch.empty_like(s), torch.empty_like(s), torch.empty_like(s)
     part = _partials(s, lib)
-    _launch(s, lib.univl_dense_block_bwd, "dense block backward kernel launch",
-            *_ptrs(s, g, w, scale, dx, dy, dr, part[0], part[1]),
-            int(s.dtype == torch.bfloat16), N, H, eps, *_dropout_args(seed, rate))
-    dense_block_bwd.launches += 1
+    what = "dense block backward kernel launch"
+    if s.dtype == torch.float32:
+        _launch(s, lib.univl_dense_block_bwd, what,
+                *_ptrs(s, g, w, scale, dx, dy, dr, part[0], part[1]), N, H, eps,
+                *_dropout_args(seed, rate))
+        dense_block_bwd.cuda_core_launches += 1
+    else:
+        # dy W^T over the whole depth: a 3-way split at a tower's 1,536 rows
+        # (108 tiles, not 36) measured 0.0470 ms a call against 0.0415 (PERF.md)
+        _launch(s, lib.univl_dense_block_bwd_tc, what,
+                *_ptrs(s, g, w, scale, dx, dy, dr, part[0], part[1]), N, H,
+                ln_block_rows(N), eps, *_dropout_args(seed, rate))
+        dense_block_bwd.launches += 1
     dscale, dbias = part.sum(dim=1)
     return dx, dy, dr, dscale, dbias
 
 
 for _wrapper in (ffn_fwd, ffn_bwd, ffn_block_fwd, ffn_block_bwd, dense_block_fwd,
                  dense_block_bwd):
-    _wrapper.launches = 0  # calls on the card (#3, #4: in bf16); the CPU path adds nothing
-for _wrapper in (ffn_fwd, ffn_bwd, ffn_block_fwd, ffn_block_bwd):
+    _wrapper.launches = 0  # calls in bf16, on the wgmma kernels; the CPU path adds nothing
     _wrapper.cuda_core_launches = 0  # calls in f32, on the CUDA-core kernels
 
 

@@ -7,7 +7,10 @@ in ``classify_topk``: the top-k log-probabilities of the tied classifier,
 ``top_k(log_softmax(h @ w.T + bias), k)``, without the [R, V] f32 logits
 ever reaching device memory. On CPU tensors it computes
 ``classify_topk_reference``; on CUDA tensors it launches the kernels in
-``univl_tpu_torch/csrc/vocab_topk.cu`` or raises. Among equal values the
+``univl_tpu_torch/csrc/vocab_topk.cu`` or raises: in bf16 the tensor-core
+tile kernel (every row of h against a vocab tile in one block, up to 160
+rows a row group), in f32 the CUDA-core one (the tensor cores
+would multiply f32 as TF32), then the merge. Among equal values the
 lower index comes first, as ``lax.top_k`` orders them; ``stable_topk`` is
 that order for plain tensors (``torch.topk`` promises none among ties).
 
@@ -22,8 +25,11 @@ first, in f32, rounded once to h's dtype (``classifier_transform_reference``).
 ``wt`` is the dense's weight as ``nn.Linear`` stores it, [H_out, H_in] (JAX's
 kernel takes Flax's [H_in, H_out]); all four tensors are f32, the
 parameters themselves. On the card one C entry point launches the transform's
-two kernels and then the vocab kernels, and counts one call in
-``classify_topk.transform_launches``.
+two kernels and then the vocab kernels.
+
+Each call on the card is counted once, by route: ``classify_topk.launches``
+(bf16, the tensor cores), ``.cuda_core_launches`` (f32), and with the
+transform ``.transform_launches`` and ``.cuda_core_transform_launches``.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ import torch.nn.functional as F
 
 from univl_tpu_torch.kernels import _build
 
-VOCAB_TILE = 128  # kTileV in csrc/vocab_topk.cu
-HIDDEN_CHUNK = 32  # kChunkH
+VOCAB_TILE = 128  # kTileV in csrc/vocab_topk.cu: a block's vocab rows, on either route
+HIDDEN_CHUNK = 32  # kChunkH: the f32 kernel's depth a stage
+TC_DEPTH = 64  # kTcDepth: the bf16 kernel's depth a stage
 MAX_K = 32  # kMaxK
 TRANSFORM_CHUNK = 128  # kTfChunk: the transform's H is a multiple of it
 PAD_BIAS = -1e30  # univl_tpu/kernels/vocab_topk.py:38
@@ -122,15 +129,16 @@ def classify_topk(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, k: int,
         _check_transform(h, transform)
     if h.device.type == "cpu":
         return classify_topk_reference(h, w, bias, k, transform)
-    if h.device.type != "cuda":
-        raise ValueError(f"no vocab top-k kernel for device {h.device}")
     R, H = h.shape
-    if w.shape[0] % VOCAB_TILE or H % HIDDEN_CHUNK:
+    depth = TC_DEPTH if h.dtype == torch.bfloat16 else HIDDEN_CHUNK
+    if w.shape[0] % VOCAB_TILE or H % depth:
         raise ValueError(f"the kernel takes w padded to a multiple of {VOCAB_TILE} rows "
-                         f"(pad_vocab_inputs) and H a multiple of {HIDDEN_CHUNK}; got "
+                         f"(pad_vocab_inputs) and H a multiple of {depth}; got "
                          f"{tuple(w.shape)}")
     if transform is not None and H % TRANSFORM_CHUNK:
         raise ValueError(f"the transform kernel takes H a multiple of {TRANSFORM_CHUNK}, got {H}")
+    if h.device.type != "cuda":
+        raise ValueError(f"no vocab top-k kernel for device {h.device}")
     h, w, bias = h.contiguous(), w.contiguous(), bias.float().contiguous()
     if h.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("h and w must be 16-byte aligned")
@@ -162,13 +170,15 @@ def classify_topk(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, k: int,
                 float(eps), u.data_ptr(), ht.data_ptr(), w.data_ptr(), bias.data_ptr(), *tail,
                 stream)
     _build.check(lib, err, "vocab top-k kernel launch")
-    if transform is None:
-        classify_topk.launches += 1
-    else:
-        classify_topk.transform_launches += 1
+    counter = (("" if h.dtype == torch.bfloat16 else "cuda_core_")
+               + ("launches" if transform is None else "transform_launches"))
+    setattr(classify_topk, counter, getattr(classify_topk, counter) + 1)
     return logp, idx
 
 
-# kernel launches, without and with the transform; the CPU path adds nothing
+# calls on the card by route (bf16: the tensor cores; f32: the CUDA cores),
+# without and with the transform; the CPU path adds nothing
 classify_topk.launches = 0
+classify_topk.cuda_core_launches = 0
 classify_topk.transform_launches = 0
+classify_topk.cuda_core_transform_launches = 0
