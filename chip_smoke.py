@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and evaluation paths once on
-one CUDA card.
+"""Drive the PyTorch port's serving, training, evaluation and pretraining
+paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -133,7 +133,32 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      their 4,096 pairs (device busy share, kernel time by group);
  22. retrieval eval agreement: card f32 against CPU f32 at full width, text 2
      + visual 1 + cross 1 layers, 64 clips, both modes: the similarity
-     matrices within stated limits and the metrics equal.
+     matrices within stated limits and the metrics equal;
+ P1. HowTo100M pretraining stage I: univl_tpu_torch.cli.pretrain --do_pretrain
+     --sampled_use_mil --n_pair 3 at the full width of UniVLConfig.base (text
+     12 + visual 6 layers), bf16, 48 words, 64 frames, 120 clips x 3 pairs =
+     360 rows a micro-step (the micro-batch JAX's finalize_args gives one
+     device), accumulation 2, 4 steps over 2 epochs of HowTo100M-format
+     fixtures: the losses, steady clips/s, peak memory, #2 18 + 18 a
+     micro-step on its tensor-core kernels, a pytorch_model.bin.1 that loads;
+ P2. stage II from that file (--stage_two --pretrain_enhance_vmodal
+     --fused_ffn block; cross 2 + decoder 3 layers more), 16 clips x 3 = 48
+     rows a micro-step (2,304 pairs through the cross tower), accumulation
+     4, 4 steps: all five losses, clips/s, peak memory, the launches of #2,
+     #4 and #5 derived from the layer counts, a .bin with both heads; then
+     torch.profiler over 3 of its micro-steps;
+ P3. resume on the card: two uninterrupted stage-I runs (the controls), whose
+     differing parameters name the operation that varies between runs; then,
+     under torch.use_deterministic_algorithms, two controls and one run
+     preempted (--inject_preempt_after) and resumed (--load_checkpoint): the
+     parameters, moments, BertAdam's step count and losses of the resumed run
+     within the controls' difference (bitwise where they are bitwise equal);
+ P4. stage II agreement with the CPU at full width, text 2 + visual 1 +
+     cross 1 + decoder 1 layers, 4 clips x 3 pairs, dropout 0: card f32 (the
+     unfused route as the control, then --fused_ffn block) and card bf16
+     against CPU f32, with the limits of phases 12 and 15.
+Phase 3 also runs #2 at pretraining's [360, 64], [2304, 112] and q 48 / kv
+112, and #4 and #5 at its 258,048 cross rows, in bf16.
 After the main paths: every bf16 #1 call the model made on the card (each
 recorded by its shape) must have taken the tensor cores, and the one with
 the most keys (the caption eval's cross tower, 224) is timed as in phase 3;
@@ -149,9 +174,17 @@ Without a CUDA device it prints no result and exits 1.
 
 from __future__ import annotations
 
+import os
+
+# P3 runs under torch.use_deterministic_algorithms, which needs cuBLAS's
+# fixed workspace (the size PyTorch gives Hopper by default), set before the
+# first cuBLAS handle
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import json
 import math
-import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -166,10 +199,12 @@ import torch.nn.functional as F
 
 from univl_tpu_torch import UniVLConfig, WordPieceTokenizer
 from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_bin
-from univl_tpu_torch.cli import task_caption, task_retrieval
+from univl_tpu_torch.checkpoint.io import restore_checkpoint
+from univl_tpu_torch.cli import pretrain, task_caption, task_retrieval
 from univl_tpu_torch.cli.serve import main as serve_main
 from univl_tpu_torch.data import fixtures
 from univl_tpu_torch.data.batching import Batcher, collate
+from univl_tpu_torch.data.howto100m import HowTo100MPretrainDataset
 from univl_tpu_torch.data.msrvtt import MsrvttRetrievalEvalDataset
 from univl_tpu_torch.data.youcook import YoucookCaptionDataset, YoucookRetrievalDataset
 from univl_tpu_torch.evals import beam as beam_search
@@ -355,6 +390,45 @@ EVAL_CLIPS, EVAL_CAP_CLIPS, EVAL_REFS, EVAL_BATCH = 1000, 64, 20, 64
 # outputs; cross: f32 scores of the cross tower through #1 against its plain
 # version), and the metrics equal
 EVAL_AGREE_CLIPS, EVAL_AGREE_ATOL = 64, {"joint": 1e-5, "cross": 1e-4}
+# HowTo100M pretraining, the reference's recipe (docs/REPRODUCE.md:107-137) at the
+# full width of UniVLConfig.base, bf16: 48 words, 64 frames, --n_pair 3
+# --sampled_use_mil --lr 1e-4 --coef_lr 0.1, at the micro-batch finalize_args
+# gives one device, which sets every contrastive loss's negatives: stage I
+# 1920 / 16 = 120 clips x 3 pairs = 360 rows (text 12 + visual 6 layers), stage
+# II 960 / 60 = 16 clips x 3 = 48 rows (text 12 + visual 6 + cross 2 + decoder 3
+# layers, --pretrain_enhance_vmodal --fused_ffn block). Cut: the accumulation
+# (16 -> PRE1_ACCUM, 60 -> PRE2_ACCUM), the steps (2 an epoch, 2 epochs) and the
+# corpus (HowTo100M's 1.2 M videos -> PRE_VIDEOS fixture videos of PRE_CLIPS
+# clips over PRE_SECONDS s of S3D features; stage II reads the first
+# PRE2_VIDEOS)
+PRE_WORDS, PRE_FRAMES, PRE_PAIRS = 48, 64, 3
+PRE1_CLIPS, PRE1_ACCUM, PRE2_CLIPS, PRE2_ACCUM = 120, 2, 16, 4
+PRE_VIDEOS, PRE2_VIDEOS, PRE_CLIPS, PRE_SECONDS = 480, 128, 6, 120
+PRE_FLAGS = ["--n_pair", str(PRE_PAIRS), "--sampled_use_mil", "--lr", "1e-4", "--coef_lr", "0.1",
+             "--warmup_proportion", "0.1", "--max_words", str(PRE_WORDS), "--max_frames",
+             str(PRE_FRAMES), "--epochs", "2", "--n_display", "1", "--seed", "0",
+             "--num_thread_reader", "8"]
+# P3, stated before the first run: the preempted and resumed stage-I run differs
+# from an uninterrupted one by no more than two uninterrupted runs differ from
+# each other (bitwise where they are bitwise equal): parameters, moments,
+# BertAdam's step count and the per-step losses. The default mode's controls
+# differ in the embedding tables (their backward adds repeated ids' rows with
+# atomics), so the three runs compared go under torch.use_deterministic_algorithms
+PRE_PREEMPT_AFTER = 1
+# P4, card against CPU, stated before the first run: stage II at full width,
+# text 2 + visual 1 + cross 1 + decoder 1 layers, 4 clips x 3 pairs, dropout 0,
+# on the --fused_ffn block route: f32 each of the five losses within
+# AGREE_LOSS_RTOL, every gradient within AGREE_GRAD_RTOL of its norm, the
+# parameters after 2 BertAdam steps within AGREE_PARAM_RTOL (phase 12's
+# limits); the gradients that cancel (the cross tower's under the cross
+# similarity's CrossEn, as FT-Align's under the max-margin loss) are held as
+# phase 15 holds FT-Align: gradients under AGREE_GRAD_FLOOR of the largest norm
+# to AGREE_GRAD_RTOL of that floor, and every limit at least
+# AGREE_CONTROL_FACTOR times the unfused route's (--fused_ffn xla) disagreement;
+# the zero-gradient parameters (key biases, similarity_dense.bias) to
+# AGREE_ZERO_GRAD and AGREE_ZERO_PARAM; bf16 losses over 10 steps within
+# LOSS_BF16_RTOL
+PRE_AGREE_CLIPS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -1111,29 +1185,31 @@ def _ta_bounds(B: int, Lq: int, Lk: int, dtype) -> tuple:
             bound_ms(3 * qb + 4 * kb + stats, 10.0 * B * H * Lq * Lk * D, dtype_name(dtype)))
 
 
-def _ta_times(args, m, l, grad, mask, before: bool = False) -> dict:
+def _ta_times(args, m, l, grad, mask, before: bool = False, **timing) -> dict:
     """Device times of #2 on one set of inputs: forward and backward of the
     dtype's route (key None) and, with ``before``, of the CUDA-core kernels
     (key "before"), the plain versions, SDPA's forward and its autograd
-    backward."""
+    backward (``timing``: cuda_time_ms's runs and repeats)."""
     q, k, v = args[:3]
     B, Lq, HD = q.shape
-    t = {("fwd", None): cuda_time_ms(lambda: ta.train_attention_fwd(*args)),
-         ("bwd", None): cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad))}
+    t = {("fwd", None): cuda_time_ms(lambda: ta.train_attention_fwd(*args), **timing),
+         ("bwd", None): cuda_time_ms(lambda: ta.train_attention_bwd(*args, m, l, grad),
+                                     **timing)}
     if before:
         fwd, bwd = _ta_cuda_cores(Lq, k.shape[1])
         t["fwd", "before"] = cuda_time_ms(lambda: ta._launch_fwd(fwd, *args))
         t["bwd", "before"] = cuda_time_ms(lambda: ta._launch_bwd(bwd, *args, m, l, grad))
-    t["fwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args))
-    t["bwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad))
+    t["fwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args), **timing)
+    t["bwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad),
+                                     **timing)
     keep = mask.bool()
     keep[1] = True  # SDPA gives NaN on a row with no valid key
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    t["fwd", "sdpa"] = cuda_time_ms(lambda: _sdpa_train(*leaves, keep))
+    t["fwd", "sdpa"] = cuda_time_ms(lambda: _sdpa_train(*leaves, keep), **timing)
     out = _sdpa_train(*leaves, keep)
     g4 = grad.view(B, Lq, TA_HEADS, HD // TA_HEADS).transpose(1, 2)
     t["bwd", "sdpa"] = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g4,
-                                                                retain_graph=True))
+                                                                retain_graph=True), **timing)
     return t
 
 
@@ -1632,6 +1708,91 @@ def _time_ffn(N: int, t: dict, timing: dict, dtype=torch.bfloat16, only=None) ->
         rows[name]["unfused_chain_ms"] = chain_ms[0]
         rows[name]["tflop_s"] = tflops["kernel"]
     return rows
+
+
+# pretraining's new shapes: #2 at stage I's visual tower [360, 64], stage II's
+# cross tower over all pairs [2304, 112] and its decoder's encoder attention
+# (48 queries, 112 keys); #4 and #5 at the pairs' 2,304 x 112 = 258,048 rows
+PRE_TA_SHAPES = [(PRE1_CLIPS * PRE_PAIRS, PRE_FRAMES, PRE_FRAMES),
+                 ((PRE2_CLIPS * PRE_PAIRS) ** 2, PRE_WORDS + PRE_FRAMES, PRE_WORDS + PRE_FRAMES),
+                 (PRE2_CLIPS * PRE_PAIRS, PRE_WORDS, PRE_WORDS + PRE_FRAMES)]
+PRE_FFN_ROWS = (PRE2_CLIPS * PRE_PAIRS) ** 2 * (PRE_WORDS + PRE_FRAMES)
+
+
+def kernel_pretrain_shapes(measured: dict) -> None:
+    """#2 (rate 0.1), #4 and #5 (rate 0 and 0.1) at pretraining's new shapes
+    in bf16 against their plain versions, on their tensor-core and wgmma
+    kernels (checked by the counters), timed beside the bound, the plain
+    versions and SDPA (#2) or the unfused chain (#4, #5); each row goes into
+    its kernel's ``pretrain_shapes`` in ``measured``."""
+    dtype, H = torch.bfloat16, TA_HEADS
+    for B, Lq, Lk in PRE_TA_SHAPES:
+        q, k, v, grad, mask = _ta_inputs(B, Lq, Lk, dtype)
+        args = (q, k, v, mask, TA_SEED, TA_RATE, H)
+        what = f"[{B},{Lq},{Lk}] bf16 rate {TA_RATE}"
+        want = ta.train_attention_reference_fwd(*args)
+        want_grads = ta.train_attention_reference_bwd(*args, want[1], want[2], grad)
+        (out, m, l), ran_f = _launched(lambda: ta.train_attention_fwd(*args))
+        grads, ran_b = _launched(lambda: ta.train_attention_bwd(*args, m, l, grad))
+        require((ran_f, ran_b) == ({"train_attention_fwd": 1}, {"train_attention_bwd": 1}),
+                f"#2 at {what} launched {ran_f} and {ran_b}, not the tensor-core kernels")
+        errs = {"fwd": _ta_agree("fwd", (out, m, l), want, dtype, what),
+                "bwd": _ta_agree("bwd", grads, want_grads, dtype, what)}
+        del want, want_grads, out, grads
+        # the pairs' [2304, 112]: the plain versions take ~0.2 s a call
+        t = _ta_times(args, m, l, grad, mask, **(dict(runs=3, repeats=3) if B * Lq > 100_000
+                                                 else {}))
+        shape = f"[{B},{Lq}/{Lk},{H * TA_D}] x {H} heads rate {TA_RATE}"
+        ran = {"fwd": "train_attention_fwd", "bwd": "train_attention_bwd"}
+        rows = _ta_report(t, shape, dtype, ran, errs, _ta_bounds(B, Lq, Lk, dtype))
+        for part, name in ran.items():
+            measured[name].setdefault("pretrain_shapes", {})[f"[{B},{Lq},{Lk}]"] = rows[part]
+        del q, k, v, grad, mask, m, l
+        torch.cuda.empty_cache()
+    N = PRE_FFN_ROWS
+    t = _ffn_inputs(N, dtype, seed=9)
+    x, r, g, w1, b1, w2, b2, w, b, sc, bi = (t[k] for k in (
+        "x", "r", "g", "w1", "b1", "w2", "b2", "w", "b", "scale", "bias"))
+    errs = {}
+    before = read_launches()
+    for rate in (0.0, FFN_RATE):
+        what = f"N={N} bf16 rate {rate}"
+        blk_args = (x, w1, b1, w2, b2, sc, bi, FFN_SEED, rate)
+        got = ffn_k.ffn_block_fwd(*blk_args, save=True)
+        want = ffn_k.ffn_block_reference_fwd(*blk_args)
+        errs["ffn_block_fwd"] = max(errs.get("ffn_block_fwd", 0.0),
+                                    _agree("ffn_block_fwd", got, want, dtype, what))
+        _, pre, s4 = want
+        bwd_args = (s4, g, pre, w1, w2, sc, FFN_SEED, rate)
+        got = ffn_k.ffn_block_bwd(*bwd_args)
+        errs["ffn_block_bwd"] = max(errs.get("ffn_block_bwd", 0.0), _agree(
+            "ffn_block_bwd", got, ffn_k.ffn_block_reference_bwd(*bwd_args), dtype, what))
+        del got, want, pre, s4
+        den_args = (x, r, w, b, sc, bi, FFN_SEED, rate)
+        got = ffn_k.dense_block_fwd(*den_args, save=True)
+        want = ffn_k.dense_block_reference_fwd(*den_args)
+        errs["dense_block_fwd"] = max(errs.get("dense_block_fwd", 0.0),
+                                      _agree("dense_block_fwd", got, want, dtype, what))
+        den_bwd = (want[1], g, w, sc, FFN_SEED, rate)
+        got = ffn_k.dense_block_bwd(*den_bwd)
+        errs["dense_block_bwd"] = max(errs.get("dense_block_bwd", 0.0), _agree(
+            "dense_block_bwd", got, ffn_k.dense_block_reference_bwd(*den_bwd), dtype, what))
+        del got, want
+        torch.cuda.empty_cache()
+    after = read_launches()
+    for name in errs:
+        require(after[name] > before[name]
+                and after[f"{name}_cuda_cores"] == before[f"{name}_cuda_cores"],
+                f"{name} at N={N} left its wgmma kernels")
+    print(f"fused FFN kernels vs plain versions at pretraining's N={N} bf16, rates 0 and "
+          f"{FFN_RATE}: max abs errs { {k: float(f'{v:.3e}') for k, v in errs.items()} }",
+          flush=True)
+    rows = _time_ffn(N, t, dict(runs=3, repeats=3), only=tuple(errs))
+    for name, row in rows.items():
+        measured[name].setdefault("pretrain_shapes", {})[f"[{N}, {FFN_H}]"] = {
+            **row, "max_abs_err": errs[name]}
+    del t, x, r, g
+    torch.cuda.empty_cache()
 
 
 def write_vocab(path: str) -> str:
@@ -2146,8 +2307,8 @@ def kernel_groups(kernels, n_units: int):
 def _agreement_run(cfg, sd, host, device: str, dtype: str, steps: int, fused_ln: bool = False):
     """The seeded weights in ``dtype`` on ``device``: (loss, gradients of the
     first batch, parameters after 2 BertAdam steps, losses of ``steps``
-    steps), all f32 on the CPU. A parameter off the loss's path gets a zero
-    gradient."""
+    steps, the first batch's dict of losses), all f32 on the CPU. A
+    parameter off the loss's path gets a zero gradient."""
     model = UniVL(cfg.replace(compute_dtype=dtype), device=device)
     model.load_state_dict(sd, strict=True)
     set_fused_layer_norm(model, fused_ln)
@@ -2167,7 +2328,7 @@ def _agreement_run(cfg, sd, host, device: str, dtype: str, steps: int, fused_ln:
         if i == 1:
             params = {n: p.detach().to("cpu", torch.float32, copy=True)
                       for n, p in model.named_parameters()}
-    return out["loss"].item(), grads, params, losses
+    return out["loss"].item(), grads, params, losses, {k: v.item() for k, v in out.items()}
 
 
 def phase_train_agreement(ds, route: str = "ft_joint", control=None, f32_launches=None):
@@ -2738,6 +2899,298 @@ def phase_agreement(vocab: str, clips) -> None:
         require(same >= SAME_CAPTIONS_MIN, f"only {same} of 8 captions agree ({what})")
 
 
+def make_pretrain_data(tmp: str):
+    """HowTo100M-format fixtures at S3D width 1024 (one .npy of features a
+    video); the csv of all PRE_VIDEOS (stage I) and one of the first
+    PRE2_VIDEOS (stage II)."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "howto100m")
+    csv, data, feats = fixtures.make_howto100m(root, n_videos=PRE_VIDEOS,
+                                               clips_per_video=PRE_CLIPS, video_dim=1024,
+                                               seconds_per_video=PRE_SECONDS, seed=3,
+                                               corrupt_last=False)
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    csv2 = os.path.join(root, "howto100m_stage2.csv")
+    with open(csv2, "w") as f:
+        f.write("\n".join(lines[: PRE2_VIDEOS + 1]) + "\n")
+    print(f"HowTo100M fixtures: {PRE_VIDEOS} videos x {PRE_CLIPS} clips, {PRE_SECONDS} s of "
+          f"1024-wide features each, written in {time.perf_counter() - t0:.1f} s", flush=True)
+    return csv, csv2, data, feats
+
+
+def _pretrain_argv(files, vocab: str, out: str, stage: int, *extra) -> list:
+    csv1, csv2, data, feats = files
+    clips, accum = (PRE1_CLIPS, PRE1_ACCUM) if stage == 1 else (PRE2_CLIPS, PRE2_ACCUM)
+    argv = ["--do_pretrain", "--device", "cuda", "--vocab_file", vocab,
+            "--train_csv", csv1 if stage == 1 else csv2, "--data_path", data,
+            "--features_path", feats, "--output_dir", out, "--batch_size", str(clips * accum),
+            "--gradient_accumulation_steps", str(accum), *PRE_FLAGS]
+    if stage == 2:
+        argv += ["--stage_two", "--pretrain_enhance_vmodal", "--fused_ffn", "block"]
+    return argv + list(extra)
+
+
+def _pretrain_cfg(stage: int, **kw) -> UniVLConfig:
+    return UniVLConfig.base(max_words=PRE_WORDS, max_frames=PRE_FRAMES, n_pair=PRE_PAIRS,
+                            use_mil=True, sampled_use_mil=True, do_pretrain=True,
+                            stage_two=stage == 2, **kw)
+
+
+def _pretrain_launches_per_step(stage: int) -> dict:
+    """What one update step launches, from the layer counts: #2 in every
+    attention over keys, forward and backward. Stage I: the text and visual
+    towers. Stage II: both towers twice (the clean and the masked input),
+    the cross tower three times (the masked encode's, the decoder's, and
+    the cross similarity's over all pairs) and the decoder's encoder
+    attention (its causal self-attention is PyTorch's SDPA, as JAX's is
+    XLA's); #4 and #5 in every layer of the three towers' runs (the
+    decoder's FFN is unfused). Every head on the tensor cores."""
+    cfg = _pretrain_cfg(stage)
+    t, v = cfg.bert.num_hidden_layers, cfg.visual.num_hidden_layers
+    c, d = cfg.cross.num_hidden_layers, cfg.decoder.num_decoder_layers
+    W, Fr, L = PRE_WORDS, PRE_FRAMES, PRE_WORDS + PRE_FRAMES
+    if stage == 1:
+        heads, accum, ffn_layers = [(t, W, W), (v, Fr, Fr)], PRE1_ACCUM, 0
+    else:
+        heads = [(2 * t, W, W), (2 * v, Fr, Fr), (3 * c, L, L), (d, W, L)]
+        accum, ffn_layers = PRE2_ACCUM, 2 * t + 2 * v + 3 * c
+    require(all(ta.cuda_route(torch.bfloat16, TA_D, lq, lk) == ta.TENSOR_CORES
+                for _, lq, lk in heads), f"a bf16 pretraining head leaves the tensor cores")
+    n = sum(k for k, _, _ in heads) * accum
+    want = {"train_attention_fwd": n, "train_attention_bwd": n}
+    for name in ("ffn_block_fwd", "ffn_block_bwd", "dense_block_fwd", "dense_block_bwd"):
+        if ffn_layers:
+            want[name] = ffn_layers * accum
+    return want
+
+
+def _train_losses(out: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "train"]
+
+
+def phase_pretrain(tmp: str, vocab: str, files, stage: int, init: str = None):
+    """Pretraining through univl_tpu_torch.cli.pretrain at full width, bf16
+    (stage II from ``init``, stage I's last .bin); returns (the kernels'
+    launches, the output dir)."""
+    out = os.path.join(tmp, f"pretrain_stage{stage}")
+    argv = _pretrain_argv(files, vocab, out, stage, *(["--init_model", init] if init else []))
+    clips, accum = (PRE1_CLIPS, PRE1_ACCUM) if stage == 1 else (PRE2_CLIPS, PRE2_ACCUM)
+    per_step = _pretrain_launches_per_step(stage)
+    cfg = _pretrain_cfg(stage)
+    layers = (f"text {cfg.bert.num_hidden_layers} + visual {cfg.visual.num_hidden_layers}"
+              + (f" + cross {cfg.cross.num_hidden_layers} + decoder "
+                 f"{cfg.decoder.num_decoder_layers}" if stage == 2 else ""))
+    print(f"pretraining stage {'I' * stage} (CLI, bf16, {layers} layers, {clips} clips x "
+          f"{PRE_PAIRS} pairs = {clips * PRE_PAIRS} rows a micro-step, accumulation {accum}): "
+          f"launches required a step, from the layer counts: {per_step}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    steps, _ = pretrain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    shown = _train_losses(out)
+    names = [k for k in shown[0] if "loss" in k]
+    for r in shown:
+        print(f"pretraining stage {'I' * stage} step {r['step']} (epoch {r['epoch'] + 1}): "
+              + ", ".join(f"{k} {r[k]:.6f}" for k in names), flush=True)
+    require(steps == 4 and [r["step"] for r in shown] == [1, 2, 3, 4]
+            and all(math.isfinite(r[k]) for r in shown for k in names),
+            f"display points {[(r['step'], r['loss']) for r in shown]}")
+    # display points read the losses, so each is a synchronized host time; the
+    # steady rate leaves out the interval over the epoch's end (its saves)
+    inside = [(a, b) for a, b in zip(shown, shown[1:]) if a["epoch"] == b["epoch"]]
+    rate = len(inside) * clips * accum / sum(b["ts"] - a["ts"] for a, b in inside)
+    print(f"pretraining stage {'I' * stage}: {steps} steps in {wall:.3f} s including set-up and "
+          f"the epoch-end saves; steady {rate:.3f} clips/s ({rate * PRE_PAIRS:.3f} pairs/s) over "
+          f"the steps within an epoch (host clock between synchronized display points); peak "
+          f"device memory {(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held "
+          f"before the run; launches {counts}", flush=True)
+    want = {**{k: 0 for k in KERNELS}, **{k: n * steps for k, n in per_step.items()}}
+    require(counts == want, f"pretraining stage {stage} launches {counts}, {steps} steps imply "
+                            f"{want}")
+    sd = load_reference_bin(os.path.join(out, "pytorch_model.bin.1"))
+    UniVL(cfg, device="meta").load_state_dict(sd, strict=True, assign=True)
+    heads = sorted(k for k in sd if k.startswith(("cls.predictions.", "cls_visual.predictions.")))
+    require(all(bool(torch.isfinite(v).all()) for v in sd.values()), "non-finite saved weights")
+    require((len(heads) == 10) == (stage == 2), f"stage {stage} heads {heads}")
+    print(f"pretraining stage {'I' * stage} pytorch_model.bin.1: {len(sd)} tensors, loads with "
+          f"strict=True, all finite; heads {heads}", flush=True)
+    return counts, out
+
+
+def _pretrain_dataset(files, vocab: str, stage: int = 2) -> HowTo100MPretrainDataset:
+    csv1, csv2, data, feats = files
+    with open(data, "rb") as f:
+        data_dict = pickle.load(f)
+    return HowTo100MPretrainDataset(
+        csv2 if stage == 2 else csv1, data_dict, feats, WordPieceTokenizer(vocab),
+        max_words=PRE_WORDS, max_frames=PRE_FRAMES, min_time=5.0, n_pair=PRE_PAIRS,
+        only_sim=stage == 1, sampled_use_mil=True, pretrain_enhance_vmodal=stage == 2,
+        video_dim=1024, seed=0)
+
+
+def phase_pretrain_profile(files, vocab: str, tmp: str) -> None:
+    """torch.profiler over PROFILE_STEPS stage-II micro-steps at full width,
+    bf16, --fused_ffn block, batches on the card."""
+    cfg = _pretrain_cfg(2, compute_dtype="bfloat16", batch_size_per_device=PRE2_CLIPS,
+                        use_fused_ffn="block")
+    model = UniVL(cfg, device="cuda")
+    model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    profile_training(model, _pretrain_dataset(files, vocab), PRE2_CLIPS,
+                     os.path.join(tmp, "pretrain_trace.json"),
+                     f"pretraining stage II ({PRE2_CLIPS} clips x {PRE_PAIRS} pairs)")
+
+
+def _state_diff(a: str, b: str) -> dict:
+    """The largest |difference| of two runs' final train states (parameters,
+    moments) and per-step losses, BertAdam's step counts, whether the
+    displayed steps agree, and the parameters that differ."""
+    sa, _ = restore_checkpoint(os.path.join(a, "train_state.pt"))
+    sb, _ = restore_checkpoint(os.path.join(b, "train_state.pt"))
+
+    def worst(x: dict, y: dict):
+        return max((float((x[k].float() - y[k].float()).abs().max()), k) for k in x)
+
+    moments = {f"{i}.{key}": st[key] for i, st in sa["optimizer"]["state"].items()
+               for key in ("m", "v")}
+    moments_b = {f"{i}.{key}": st[key] for i, st in sb["optimizer"]["state"].items()
+                 for key in ("m", "v")}
+    la, lb = _train_losses(a), _train_losses(b)
+    return {"params": worst(sa["model"], sb["model"]), "moments": worst(moments, moments_b),
+            "steps": (sa["optimizer"]["steps"], sb["optimizer"]["steps"]),
+            "losses": max(abs(x["loss"] - y["loss"]) for x, y in zip(la, lb)),
+            "same_steps": [x["step"] for x in la] == [y["step"] for y in lb],
+            "differing": [k for k, v in sa["model"].items() if not torch.equal(v, sb["model"][k])]}
+
+
+def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
+    """P3: stage I at full width, 4 steps over 2 epochs. Two uninterrupted
+    runs (the controls); where they differ, the parameters that differ name
+    the operation. Then under torch.use_deterministic_algorithms two
+    uninterrupted runs and one preempted after PRE_PREEMPT_AFTER steps
+    (--inject_preempt_after) and resumed (--load_checkpoint): the resumed
+    run may differ from the first by no more than the two differ from each
+    other, bitwise where they are bitwise equal."""
+
+    def run(name: str, *extra):
+        out = os.path.join(tmp, f"pretrain_resume_{name}")
+        return pretrain.main(_pretrain_argv(files, vocab, out, 1, *extra))[0], out
+
+    t0 = time.perf_counter()
+    (_, a), (_, b) = run("control_a"), run("control_b")
+    print(f"pretraining resume, default mode: the controls differ by {_state_diff(a, b)} (the "
+          f"parameters that differ name the operation)", flush=True)
+    for out in (a, b):
+        shutil.rmtree(out)
+    torch.use_deterministic_algorithms(True)
+    try:
+        (_, a), (_, b) = run("deterministic_a"), run("deterministic_b")
+        control = _state_diff(a, b)
+        shutil.rmtree(b)
+        k, _ = run("resumed", "--inject_preempt_after", str(PRE_PREEMPT_AFTER))
+        n, c = run("resumed", "--load_checkpoint")
+        resumed = _state_diff(a, c)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"pretraining resume, torch.use_deterministic_algorithms (stage I, full width, 4 steps "
+          f"over 2 epochs; preempted after {k} step(s), resumed to step {n}) in "
+          f"{time.perf_counter() - t0:.1f} s for the five runs: the controls differ by {control}; "
+          f"the resumed run differs from the first control by {resumed} (limit: the controls' "
+          f"difference, bitwise where they are bitwise equal)", flush=True)
+    require(k == PRE_PREEMPT_AFTER and n == 4 and resumed["same_steps"]
+            and resumed["steps"][0] == resumed["steps"][1] == 4
+            and resumed["params"][0] <= control["params"][0]
+            and resumed["moments"][0] <= control["moments"][0]
+            and resumed["losses"] <= control["losses"],
+            f"the resumed run strays from the uninterrupted one: {resumed} against {control}")
+    shutil.rmtree(a)
+    shutil.rmtree(c)
+
+
+def phase_pretrain_agreement(files, vocab: str, f32_launches: dict) -> None:
+    """P4: stage II, card against CPU at full width, text 2 + visual 1 +
+    cross 1 + decoder 1 layers, PRE_AGREE_CLIPS clips x 3 pairs, dropout 0:
+    card f32 on the unfused route (the control) and on --fused_ffn block
+    against one CPU f32 run, then card bf16 on the block route over
+    AGREE_BF16_STEPS steps; the limits stated at PRE_AGREE_CLIPS."""
+    off = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cfg = _pretrain_cfg(2, text_num_hidden_layers=2, visual_num_hidden_layers=1,
+                        cross_num_hidden_layers=1, decoder_num_hidden_layers=1,
+                        batch_size_per_device=PRE_AGREE_CLIPS)
+    cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off),
+                      cross=cfg.cross.replace(**off), decoder=cfg.decoder.replace(**off))
+    sd = init_state_dict(cfg, seed=0)
+    host = _train_batches(_pretrain_dataset(files, vocab), AGREE_BF16_STEPS, "cpu",
+                          PRE_AGREE_CLIPS)
+    cpu = _agreement_run(cfg, sd, host, "cpu", "float32", AGREE_BF16_STEPS)
+    zero = ("attention.self.key.bias", "att.key.bias", "similarity_dense.bias")
+    floor = AGREE_GRAD_FLOOR * max(float(g.norm()) for g in cpu[1].values())
+
+    def worst(a: dict, b: dict, floor: float = 0.0):
+        return max((float((a[n] - b[n]).norm()) / max(float(b[n].norm()), floor, 1e-30), n)
+                   for n in b if not n.endswith(zero))
+
+    control = None
+    for route in (False, "block"):
+        label = "--fused_ffn block" if route else "--fused_ffn xla, the control"
+        reset_launches()
+        card = _agreement_run(cfg.replace(use_fused_ffn=route), sd, host, "cuda", "float32", 2)
+        counts = read_launches()
+        f32_launches[f"pretrain stage II ({label})"] = counts
+        ran = ["train_attention_fwd_cuda_cores"] + (
+            [f"{n}_cuda_cores" for n in ("ffn_block_fwd", "ffn_block_bwd", "dense_block_fwd",
+                                         "dense_block_bwd")] if route else [])
+        require(all(counts[k] > 0 for k in ran)
+                and counts["train_attention_bwd_cuda_cores"] + counts[
+                    "train_attention_bwd_tiled"] > 0,
+                f"the card's f32 pretraining run launched {counts}")
+        loss_rel = {k: abs(card[4][k] - cpu[4][k]) / abs(cpu[4][k]) for k in cpu[4]}
+        grad_rel, param_rel = worst(card[1], cpu[1], floor), worst(card[2], cpu[2])
+        zero_grad = max(float(card[1][n].norm()) for n in card[1] if n.endswith(zero))
+        zero_param = max(float((card[2][n] - cpu[2][n]).abs().max()) for n in cpu[2]
+                         if n.endswith(zero))
+        limits = None if control is None else (
+            max(AGREE_GRAD_RTOL, AGREE_CONTROL_FACTOR * control[0]),
+            max(AGREE_PARAM_RTOL, AGREE_CONTROL_FACTOR * control[1]))
+        limit_text = ("measured as the control" if limits is None
+                      else f"limits {limits[0]:.3e} and {limits[1]:.3e}")
+        print(f"pretraining stage II agreement, card f32 ({label}, TF32 off) vs CPU f32 (plain "
+              f"versions), full width, text 2 + visual 1 + cross 1 + decoder 1 layers, "
+              f"{PRE_AGREE_CLIPS} clips x {PRE_PAIRS} pairs, dropout 0: losses rel "
+              f"{ {k: float(f'{v:.3e}') for k, v in loss_rel.items()} } (limit "
+              f"{AGREE_LOSS_RTOL}); worst gradient rel to its norm or the floor "
+              f"{grad_rel[0]:.3e} ({grad_rel[1]}; floor {floor:.3e}); worst parameter rel after "
+              f"2 BertAdam steps {param_rel[0]:.3e} ({param_rel[1]}); "
+              f"{limit_text}; "
+              f"zero-gradient parameters {zero}: gradient norm at most {zero_grad:.3e} (limit "
+              f"{AGREE_ZERO_GRAD}), parameter difference at most {zero_param:.3e} (limit "
+              f"{AGREE_ZERO_PARAM}); card launches {counts}", flush=True)
+        require(max(loss_rel.values()) <= AGREE_LOSS_RTOL and zero_grad <= AGREE_ZERO_GRAD
+                and zero_param <= AGREE_ZERO_PARAM,
+                f"card f32 pretraining ({label}) disagrees with the CPU")
+        if limits is not None:
+            require(grad_rel[0] <= limits[0] and param_rel[0] <= limits[1],
+                    f"card f32 pretraining ({label}) gradients or parameters disagree with "
+                    f"the CPU")
+        control = (grad_rel[0], param_rel[0])
+    bf16 = _agreement_run(cfg.replace(use_fused_ffn="block"), sd, host, "cuda", "bfloat16",
+                          AGREE_BF16_STEPS)[3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(bf16, cpu[3])]
+    print(f"pretraining stage II agreement, card bf16 (--fused_ffn block) vs CPU f32 over "
+          f"{AGREE_BF16_STEPS} steps: losses {[round(x, 6) for x in bf16]} vs "
+          f"{[round(x, 6) for x in cpu[3]]}; worst rel {max(rel):.3e} (limit {LOSS_BF16_RTOL})",
+          flush=True)
+    require(all(math.isfinite(x) for x in bf16) and max(rel) <= LOSS_BF16_RTOL,
+            "card bf16 pretraining loss strays from the CPU's f32")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -2767,6 +3220,7 @@ def main() -> int:
                 **kernel_train_attention(),
                 **kernel_ffn(),
                 **kernel_layernorm()}
+    kernel_pretrain_shapes(measured)
     by_path = {}  # main path: {kernel: launches}
     f32_runs = {}  # the f32 agreement runs (not main paths): {kernel: launches}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2823,6 +3277,15 @@ def main() -> int:
         reset_launches()
         phase_retrieval_agreement(vocab, ret_files)
         f32_runs["retrieval eval agreement"] = read_launches()
+        pre_files = make_pretrain_data(tmp)
+        by_path["pretrain_stage_one"], stage1 = phase_pretrain(tmp, vocab, pre_files, 1)
+        by_path["pretrain_stage_two"], stage2 = phase_pretrain(
+            tmp, vocab, pre_files, 2, init=os.path.join(stage1, "pytorch_model.bin.1"))
+        for out in (stage1, stage2):  # a train state is ~1.8 GB at this width
+            shutil.rmtree(out)
+        phase_pretrain_profile(pre_files, vocab, tmp)
+        phase_pretrain_resume(tmp, vocab, pre_files)
+        phase_pretrain_agreement(pre_files, vocab, f32_runs)
 
     longest = check_attention_routes()
     check_vocab_routes()

@@ -291,8 +291,30 @@ def test_cli_trains_evaluates_and_writes_a_bin(caption_files, tmp_path):
     assert open(os.path.join(out2, "hyp.txt")).read().split("\n") == hyps
 
 
+@pytest.mark.parametrize("extra", [["--use_mil"], ["--load_checkpoint"]])
+def test_cli_runs_what_it_once_refused(caption_files, tmp_path, extra):
+    """Flags this CLI once refused. ``--use_mil``: accepted and ignored, as
+    JAX's driver does in stage two: the weights equal a run without it,
+    bitwise. ``--load_checkpoint``: a run preempted after its first step and
+    resumed writes the uninterrupted run's weights and losses, bitwise."""
+    full, out = str(tmp_path / "full"), str(tmp_path / "out")
+    assert task_caption.main(_cli_argv(caption_files, full, "--do_train"))[0] == 2
+    if extra == ["--load_checkpoint"]:
+        assert task_caption.main(_cli_argv(caption_files, out, "--do_train",
+                                           "--inject_preempt_after", "1"))[0] == 1
+    assert task_caption.main(_cli_argv(caption_files, out, "--do_train", *extra))[0] == 2
+    want, got = (load_reference_bin(os.path.join(d, "pytorch_model.bin.0")) for d in (full, out))
+    assert sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+
+    def losses(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [(r["step"], r["loss"]) for r in map(json.loads, f) if r["kind"] == "train"]
+
+    assert losses(out) == losses(full)
+
+
 @pytest.mark.parametrize("extra", [
-    ["--do_pretrain"], ["--use_mil"], ["--load_checkpoint"], ["--zero1"], ["--remat"],
+    ["--do_pretrain"], ["--zero1"], ["--remat"],
     ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--train_sim_after_cross"],
 ])

@@ -143,12 +143,20 @@ def test_max_margin_ranking_loss_with_negative_weighting():
 
 @pytest.mark.parametrize("route", ["stage_two", "use_mil", "do_pretrain"])
 def test_training_routes_not_ported_raise(carried, route):
-    """MIL and pretraining stay refused; stage two only with pretraining
-    (stage-two fine-tuning is ported: tests/test_torch_captioning_train.py)."""
+    """The routes this file once held refused run now, each against JAX (loss
+    and every gradient, tests/test_torch_pretrain.py's limits): MIL-NCE in
+    stage one (``use_mil``), pretraining stage I (``do_pretrain``, the
+    max-margin loss without MIL) and stage II (``stage_two`` with
+    ``do_pretrain``: the five losses)."""
+    from test_torch_pretrain import check_route_against_jax, pretrain_batch
+
     flags = {"stage_two": dict(stage_two=True, do_pretrain=True)}.get(route, {route: True})
-    cfg = config.UniVLConfig.tiny(**flags, task_type="retrieval")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        UniVL(cfg).train()(_t(carried[4]), torch.Generator().manual_seed(0))
+    batch = carried[4]
+    if route == "stage_two":
+        batch = pretrain_batch(config.UniVLConfig.tiny(), seed=1, clips=B, pairs=1)
+    out = check_route_against_jax(dict(batch_size_per_device=B, **flags), batch,
+                                  spread_cross=route == "stage_two")
+    assert len(out) == (6 if route == "stage_two" else 2)
 
 
 def test_dropout_is_seeded_and_at_its_rate(carried):
@@ -418,9 +426,55 @@ def test_cli_trains_ft_align_and_writes_a_bin_jax_reads(youcook_files, tmp_path,
         assert torch.equal(back[k], v), k
 
 
+@pytest.mark.parametrize("extra", [["--load_checkpoint"], ["--use_mil"], ["--sampled_use_mil"]])
+def test_cli_runs_what_it_once_refused(youcook_files, tmp_path, extra):
+    """Flags this CLI once refused. ``--use_mil`` and ``--sampled_use_mil``:
+    the JAX package's parser, finalize_args and build_config, given the same
+    flags, make a config (MIL-NCE) whose eval-mode loss on the trained
+    weights equals the port's. ``--load_checkpoint``: a run preempted after
+    2 steps and resumed writes the uninterrupted run's weights, bitwise."""
+    import logging
+
+    from univl_tpu.cli import common as jax_common
+    from univl_tpu_torch.cli import common
+
+    out = str(tmp_path / "out")
+    argv = _cli_argv(youcook_files, out, *extra)
+    if extra == ["--load_checkpoint"]:
+        assert task_retrieval.main(_cli_argv(youcook_files, out,
+                                             "--inject_preempt_after", "2"))[0] == 2
+    assert task_retrieval.main(argv)[0] == 3
+    path = os.path.join(out, "pytorch_model.bin.0")
+    if extra == ["--load_checkpoint"]:
+        full = str(tmp_path / "full")
+        task_retrieval.main(_cli_argv(youcook_files, full))
+        want = load_reference_bin(os.path.join(full, "pytorch_model.bin.0"))
+        got = load_reference_bin(path)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        return
+    i = argv.index("--device")
+    jargs = jax_common.finalize_args(jax_common.base_parser("test").parse_args(
+        argv[:i] + argv[i + 2:] + ["--output_dir", str(tmp_path / "jax"), "--n_gpu", "1"]))
+    args = task_retrieval.parse_args(argv)
+    args = common.finalize_args(args)
+    vocab = WordPieceTokenizer(youcook_files[3])
+    jcfg = jax_common.build_config(jargs, task_type="retrieval", vocab_size=len(vocab))
+    cfg = common.build_config(args, torch.device("cpu"), vocab_size=len(vocab))
+    assert jcfg.use_mil and cfg.use_mil and cfg.batch_size_per_device == jcfg.batch_size_per_device
+    ds = youcook.YoucookRetrievalDataset(*youcook_files[:3], vocab, max_words=12, max_frames=6)
+    batch = next(batching.Batcher(ds, cfg.batch_size_per_device, shuffle=False).epoch(0))
+    jm = JaxUniVL(jcfg)
+    jargs.init_model = path
+    params = jax_common.load_init_params(jargs, jm, batch, logging.getLogger("test"))
+    want = jm.apply({"params": params}, batch, deterministic=True)["loss"]
+    model = UniVL(cfg)
+    model.load_state_dict(load_reference_bin(path), strict=True)
+    got = model.eval()({k: torch.from_numpy(v) for k, v in batch.items()})["loss"]
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("extra", [
-    ["--do_pretrain"], ["--load_checkpoint"], ["--zero1"], ["--remat"],
-    ["--use_mil"], ["--sampled_use_mil"], ["--do_pretrain", "--stage_two"],
+    ["--do_pretrain"], ["--zero1"], ["--remat"], ["--do_pretrain", "--stage_two"],
     ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--fused_ffn", "auto"], ["--fused_ffn", "auto_block"],  # TPU-measured row thresholds
     ["--train_attention", "pallas"],  # a TPU-only knob: not a flag of the port
@@ -441,17 +495,19 @@ def test_cli_needs_do_train(youcook_files, tmp_path):
 
 
 class _StubTrainer:
-    """One step per batch, a fixed loss; the model is saved each epoch."""
+    """One step per batch, a fixed loss; the model, and with the optimizer
+    the train state, are saved each epoch."""
 
     def __init__(self):
         self.model = torch.nn.Linear(1, 1)
+        self.optimizer = torch.optim.SGD(self.model.parameters(), lr=0.0)
 
     def train_step(self, batch, global_step):
         return {"loss": torch.tensor(1.0)}
 
 
 class _StubBatcher:
-    def epoch(self, epoch):
+    def epoch(self, epoch, start_batch=0):
         yield {"x": np.zeros((1, 1), np.float32)}
 
 
@@ -466,7 +522,8 @@ def test_best_epoch_skips_a_nan_metric(tmp_path, select_sign):
 
     scores = iter([float("nan"), 0.25, 0.5])
     args = SimpleNamespace(epochs=3, gradient_accumulation_steps=1, batch_size=1,
-                           n_display=1, output_dir=str(tmp_path))
+                           n_display=1, output_dir=str(tmp_path), load_checkpoint=False,
+                           no_preempt_checkpoint=False)
     steps, best = common.run_train_epochs(
         args, _StubTrainer(), _StubBatcher(), common.get_logger(None), torch.device("cpu"),
         eval_fn=lambda epoch: {"R1": next(scores)}, select_key="R1", select_sign=select_sign)

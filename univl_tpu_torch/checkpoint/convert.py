@@ -1,8 +1,9 @@
 """Weights for the port: from a JAX parameter tree, a reference ``.bin``, or a seeded init.
 
 All three give a state dict under the reference PyTorch names, restricted
-to what ``univl_tpu_torch.models.univl.UniVL`` owns (no pretraining heads,
-no text/visual poolers, and the decoder's tied tables only once, as bert's),
+to what ``univl_tpu_torch.models.univl.UniVL`` owns (no text/visual poolers,
+and the tied tables only once: the decoder's and the masked-language head's
+as bert's, the masked-frame head's weight as the feature projection's),
 ready for ``load_state_dict(strict=True)``. Nothing here imports JAX: a JAX
 tree arrives as nested dicts of numpy arrays.
 """
@@ -56,7 +57,11 @@ _INV_TOP = {
     "cross/pos_embed/embedding": "cross.embeddings.position_embeddings.weight",
     "cross/type_embed/embedding": "cross.embeddings.token_type_embeddings.weight",
     "decoder/classifier_bias": "decoder.classifier.cls.predictions.bias",
+    "mlm_head/bias": "cls.predictions.bias",
+    "mfm_head/bias": "cls_visual.predictions.bias",
 }
+_HEADS = {"mlm_head": "cls", "mfm_head": "cls_visual"}
+_JAX_HEADS = {v: k for k, v in _HEADS.items()}
 
 _TOWER = {"text": "bert", "visual": "visual", "cross": "cross"}
 _JAX_TOWER = {v: k for k, v in _TOWER.items()}
@@ -64,17 +69,19 @@ _JAX_TOWER = {v: k for k, v in _TOWER.items()}
 _BLOCK = {suffix: (sub, kind) for sub, (suffix, kind) in _INV_BLOCK.items()}
 _DECODER_BLOCK = {suffix: (sub, kind) for sub, (suffix, kind) in _INV_DECODER_BLOCK.items()}
 
-# what the port does not own: pretraining heads, and the text/visual poolers
-# UniVL never reads
-_JAX_NOT_OWNED = re.compile(r"^(mlm_head|mfm_head)/")
-_TORCH_NOT_OWNED = re.compile(r"^(cls\.|cls_visual\.|(bert|visual)\.pooler\.)")
+# what the port does not own: the text/visual poolers UniVL never reads
+_TORCH_NOT_OWNED = re.compile(r"^(bert|visual)\.pooler\.")
 
-# the decoder's tied tables, which a reference .bin stores as duplicates of bert's
+# the tied tables, which a reference .bin stores as duplicates: the decoder's
+# and the masked-language head's of bert's, the masked-frame head's weight of
+# the feature projection's ([hidden, video_dim] both)
 _TIED = {
     "decoder.embeddings.word_embeddings.weight": "bert.embeddings.word_embeddings.weight",
     "decoder.embeddings.position_embeddings.weight":
         "bert.embeddings.position_embeddings.weight",
     "decoder.classifier.cls.predictions.decoder.weight": "bert.embeddings.word_embeddings.weight",
+    "cls.predictions.decoder.weight": "bert.embeddings.word_embeddings.weight",
+    "cls_visual.predictions.weight": "visual.embeddings.word_embeddings.weight",
 }
 
 
@@ -125,6 +132,11 @@ def _torch_name(path: str, value: np.ndarray):
         kind, tname = ("linear", "dense") if m.group(1) == "dense" else ("ln", "LayerNorm")
         name, v = _torch_leaf(kind, m.group(2), value)
         return f"decoder.classifier.cls.predictions.transform.{tname}.{name}", v
+    m = re.match(r"^(mlm_head|mfm_head)/transform/(dense|ln)/(\w+)$", path)
+    if m:
+        kind, tname = ("linear", "dense") if m.group(2) == "dense" else ("ln", "LayerNorm")
+        name, v = _torch_leaf(kind, m.group(3), value)
+        return f"{_HEADS[m.group(1)]}.predictions.transform.{tname}.{name}", v
     m = re.match(r"^(cross/pooler/dense|similarity_dense)/(kernel|bias)$", path)
     if m:
         name, v = _torch_leaf("linear", m.group(2), value)
@@ -143,8 +155,6 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     parts the port owns; raises on a path it does not recognise."""
     sd = {}
     for path, value in _flatten(params).items():
-        if _JAX_NOT_OWNED.match(path):
-            continue
         name, v = _torch_name(path, value)
         sd[name] = torch.from_numpy(np.array(v, np.float32, order="C"))  # a copy
     return sd
@@ -182,6 +192,10 @@ def jax_path(name: str) -> str:
     if m:
         sub, kind = ("dense", lin) if m.group(1) == "dense" else ("ln", ln)
         return f"decoder/classifier_transform/{sub}/{kind[leaf]}"
+    m = re.match(r"^(cls|cls_visual)\.predictions\.transform\.(dense|LayerNorm)$", module)
+    if m:
+        sub, kind = ("dense", lin) if m.group(2) == "dense" else ("ln", ln)
+        return f"{_JAX_HEADS[m.group(1)]}/transform/{sub}/{kind[leaf]}"
     if module in ("cross.pooler.dense", "similarity_dense"):
         return f"{module.replace('.', '/')}/{lin[leaf]}"
     if module == "normalize_video.visual_norm2d":
@@ -191,9 +205,9 @@ def jax_path(name: str) -> str:
 
 def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:
     """A reference ``.bin`` state dict, with gamma/beta renamed to
-    weight/bias and the keys the port does not own dropped. The decoder's
-    tied duplicates are checked equal to the bert tables they repeat, then
-    dropped: the port holds each table once."""
+    weight/bias and the keys the port does not own dropped. The tied
+    duplicates are checked equal to the tables they repeat, then dropped:
+    the port holds each table once."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     out = {}
     for k, v in sd.items():
@@ -215,7 +229,8 @@ def init_state_dict(cfg: UniVLConfig, seed: int) -> Dict[str, torch.Tensor]:
 
     rng = np.random.RandomState(seed)
     shapes = UniVL(cfg, device="meta").state_dict()
-    std = {"bert": cfg.bert, "visual": cfg.visual, "cross": cfg.cross, "decoder": cfg.decoder}
+    std = {"bert": cfg.bert, "visual": cfg.visual, "cross": cfg.cross, "decoder": cfg.decoder,
+           "cls_visual": cfg.visual}
     sd = {}
     for name, t in shapes.items():
         shape = tuple(t.shape)

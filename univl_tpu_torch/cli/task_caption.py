@@ -25,10 +25,15 @@ scores each clip against all its references.
         --output_dir ckpt --lr 3e-5 --epochs 5 --batch_size 16 \\
         --max_words 128 --max_frames 96 [--fused_ln]
 
-Each epoch's weights go to ``<output_dir>/pytorch_model.bin.<epoch>``, each
-eval's captions and references to ``hyp.<epoch>.txt`` and ``ref.<epoch>.txt``.
-The flags of paths not ported yet are refused with an error that names the
-slice each waits for.
+Each epoch's weights go to ``<output_dir>/pytorch_model.bin.<epoch>``, the
+best epoch's to ``pytorch_model.bin.best``, each eval's captions and
+references to ``hyp.<epoch>.txt`` and ``ref.<epoch>.txt``, and the train
+state to ``train_state.pt`` after each epoch and on preemption;
+``--load_checkpoint`` resumes at the exact update-batch. ``--use_mil`` is
+accepted and ignored, as by JAX's driver (stage two has no MIL loss);
+``--do_pretrain`` is refused: pretraining's entry point is
+``univl_tpu_torch.cli.pretrain``. The flags of paths not ported yet are
+refused with an error that names the slice each waits for.
 """
 
 from __future__ import annotations
@@ -44,15 +49,15 @@ from univl_tpu_torch.evals.beam import CaptionGenerator
 from univl_tpu_torch.evals.caption_metrics import compute_caption_metrics
 from univl_tpu_torch.serving.captioning import resolve_fused
 
-# flag -> the slice of the port that will run it
-NOT_PORTED = {
-    "do_pretrain": "pretraining",
-    "use_mil": "pretraining",
-    "load_checkpoint": "checkpointing",
-    "zero1": "multi-device",
+# flag -> why it is refused: the entry point that runs it, or the slice of the
+# port that will
+REFUSED = {
+    "do_pretrain": "pretraining has its own entry point: python -m univl_tpu_torch.cli.pretrain",
+    "zero1": "not ported yet (waits for the multi-device slice)",
     # torch.utils.checkpoint re-runs the forward, which would draw new Philox
     # seeds from the step's generator: the recomputed dropout would differ
-    "remat": "activation checkpointing (dropout seeds replayed in the recomputed forward)",
+    "remat": "not ported yet (waits for the activation checkpointing slice: dropout seeds "
+             "replayed in the recomputed forward)",
 }
 DATATYPES = ("youcook", "msrvtt")
 EVAL_KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask")
@@ -67,14 +72,14 @@ def parse_args(argv=None):
     parser.add_argument("--do_eval", action="store_true",
                         help="beam-5 captions of --val_csv and their metrics; with --do_train "
                              "after every epoch")
-    for flag in ("do_pretrain", "load_checkpoint", "zero1", "remat"):
-        parser.add_argument(f"--{flag}", action="store_true", help="not ported yet")
+    for flag in ("do_pretrain", "zero1", "remat"):
+        parser.add_argument(f"--{flag}", action="store_true", help="refused here")
     parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
     parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
     args = parser.parse_args(argv)
-    for flag, lifted_by in NOT_PORTED.items():
+    for flag, why in REFUSED.items():
         if getattr(args, flag):
-            parser.error(f"--{flag} is not ported yet (waits for the {lifted_by} slice)")
+            parser.error(f"--{flag}: {why}")
     for flag in ("n_gpu", "tensor_parallel"):
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} {getattr(args, flag)}: one device only (waits for the "

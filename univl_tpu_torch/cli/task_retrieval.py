@@ -29,10 +29,17 @@ MSRVTT (``--datatype msrvtt``): ``--train_csv`` lists the training videos,
 (video_id, sentence), ``--features_path`` the features pickle;
 ``--expand_msrvtt_sentences`` trains on every caption.
 
-Each epoch's weights go to ``<output_dir>/pytorch_model.bin.<epoch>``. The
-flags of paths not ported yet are refused with an error that names the
-slice each waits for. JAX's host-thread prefetch of eval batches waits for
-the input-pipeline slice.
+``--use_mil`` (or ``--sampled_use_mil``) trains stage one with MIL-NCE
+over the unnormalised joint similarity.
+
+Each epoch's weights go to ``<output_dir>/pytorch_model.bin.<epoch>``, the
+best epoch's to ``pytorch_model.bin.best``, and the train state to
+``train_state.pt`` after each epoch and on preemption (SIGTERM, or
+``--inject_preempt_after``); ``--load_checkpoint`` resumes at the exact
+update-batch. ``--do_pretrain`` is refused: pretraining's entry point is
+``univl_tpu_torch.cli.pretrain``. The flags of paths not ported yet are
+refused with an error that names the slice each waits for. JAX's
+host-thread prefetch of eval batches waits for the input-pipeline slice.
 """
 
 from __future__ import annotations
@@ -45,16 +52,15 @@ from univl_tpu_torch.data.youcook import YoucookRetrievalDataset
 from univl_tpu_torch.evals.retrieval import KEYS, RetrievalEvaluator
 
 DATATYPES = ("youcook", "msrvtt")
-# flag -> the slice of the port that will run it
-NOT_PORTED = {
-    "do_pretrain": "pretraining",
-    "load_checkpoint": "checkpointing",
-    "zero1": "multi-device",
+# flag -> why it is refused: the entry point that runs it, or the slice of the
+# port that will
+REFUSED = {
+    "do_pretrain": "pretraining has its own entry point: python -m univl_tpu_torch.cli.pretrain",
+    "zero1": "not ported yet (waits for the multi-device slice)",
     # torch.utils.checkpoint re-runs the forward, which would draw new Philox
     # seeds from the step's generator: the recomputed dropout would differ
-    "remat": "activation checkpointing (dropout seeds replayed in the recomputed forward)",
-    "use_mil": "pretraining",
-    "sampled_use_mil": "pretraining",
+    "remat": "not ported yet (waits for the activation checkpointing slice: dropout seeds "
+             "replayed in the recomputed forward)",
 }
 
 
@@ -66,14 +72,14 @@ def parse_args(argv=None):
     parser.add_argument("--do_eval", action="store_true",
                         help="R@K, MedianR and MeanR over --val_csv; with --do_train after "
                              "every epoch")
-    for flag in ("do_pretrain", "load_checkpoint", "zero1", "remat", "sampled_use_mil"):
-        parser.add_argument(f"--{flag}", action="store_true", help="not ported yet")
+    for flag in ("do_pretrain", "zero1", "remat"):
+        parser.add_argument(f"--{flag}", action="store_true", help="refused here")
     parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
     parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
     args = parser.parse_args(argv)
-    for flag, lifted_by in NOT_PORTED.items():
+    for flag, why in REFUSED.items():
         if getattr(args, flag):
-            parser.error(f"--{flag} is not ported yet (waits for the {lifted_by} slice)")
+            parser.error(f"--{flag}: {why}")
     for flag in ("n_gpu", "tensor_parallel"):
         if getattr(args, flag) > 1:
             parser.error(f"--{flag} {getattr(args, flag)}: one device only (waits for the "

@@ -39,8 +39,10 @@ class Batcher:
         n = len(self.dataset)
         return n // chunk if self.drop_last else -(-n // chunk)
 
-    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        """The epoch's update-batches in the order seeded by (seed, epoch)."""
+    def epoch(self, epoch: int = 0, start_batch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """The epoch's update-batches in the order seeded by (seed, epoch);
+        ``start_batch`` skips the first update-batches without reading their
+        samples (a resume inside the epoch)."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -53,7 +55,7 @@ class Batcher:
             return self.dataset[int(i)]
 
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
-            for off in range(0, n - chunk + 1 if self.drop_last else n, chunk):
+            for off in range(start_batch * chunk, n - chunk + 1 if self.drop_last else n, chunk):
                 idxs = order[off: off + chunk]
                 if len(idxs) < chunk and self.grad_accum > 1:
                     # the accum reshape needs a full chunk: wrap-pad the last

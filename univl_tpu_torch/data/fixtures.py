@@ -1,6 +1,7 @@
 """Synthetic data in the reference's file formats, the port's copy of
-``univl_tpu/data/fixtures.py``'s ``make_vocab``, ``make_youcook`` and
-``make_msrvtt``: the same files, byte for byte, for the same arguments.
+``univl_tpu/data/fixtures.py``'s ``make_vocab``, ``make_youcook``,
+``make_msrvtt`` and ``make_howto100m``: the same files, byte for byte, for
+the same arguments.
 
 ``chip_smoke.py`` and the tests make their training data with these.
 """
@@ -129,3 +130,42 @@ def make_msrvtt(out_dir: str, n_videos: int = 8, sentences_per_video: int = 3,
     with open(feat_path, "wb") as f:
         pickle.dump(feats, f)
     return train_csv, test_csv, json_path, feat_path
+
+
+def make_howto100m(out_dir: str, n_videos: int = 5, clips_per_video: int = 6,
+                   video_dim: int = 32, seconds_per_video: int = 120, seed: int = 0,
+                   corrupt_last: bool = True):
+    """Writes the csv, the caption pickle and a dir of per-video .npy
+    features (the last video's file not a .npy with ``corrupt_last``);
+    returns their paths."""
+    rng = np.random.RandomState(seed)
+    feat_dir = os.path.join(out_dir, "features")
+    os.makedirs(feat_dir, exist_ok=True)
+    vids = [f"ht{i:03d}" for i in range(n_videos)]
+
+    csv_path = os.path.join(out_dir, "howto100m.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["video_id", "feature_file"])
+        for v in vids:
+            w.writerow([v, v + ".npy"])
+
+    data = {}
+    for i, v in enumerate(vids):
+        bounds = np.sort(rng.uniform(0, seconds_per_video, 2 * clips_per_video))
+        data[v] = {
+            "start": np.asarray(bounds[0::2], dtype=object),
+            "end": np.asarray(bounds[1::2] + 2.0, dtype=object),
+            "text": np.asarray([_sentence(rng) for _ in range(clips_per_video)], dtype=object),
+        }
+        path = os.path.join(feat_dir, v + ".npy")
+        if corrupt_last and i == n_videos - 1:
+            with open(path, "wb") as f:
+                f.write(b"not-an-npy")  # the reader's zero-video path
+        else:
+            np.save(path, rng.randn(seconds_per_video, video_dim).astype(np.float32))
+
+    data_path = os.path.join(out_dir, "howto100m_caption.pickle")
+    with open(data_path, "wb") as f:
+        pickle.dump(data, f)
+    return csv_path, data_path, feat_dir

@@ -15,7 +15,8 @@ reference optimizer (modules/optimization.py), which is not Adam:
 
 Everything but the schedule runs on the device in ``torch._foreach_*`` ops,
 with no host sync: the step count lives on the host, so the learning rate is
-a host number.
+a host number. ``state_dict`` carries the step count beside the moments, so
+one ``load_state_dict`` restores the whole optimizer.
 """
 
 from __future__ import annotations
@@ -85,6 +86,23 @@ class BertAdam(torch.optim.Optimizer):
         progress = np.float32(step) / np.float32(self.t_total)
         factor = SCHEDULES[self.schedule](progress, np.float32(self.warmup))
         return float(np.float32(lr) * np.float32(factor))
+
+    def state_dict(self):
+        sd = super().state_dict()
+        sd["steps"] = self.steps
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        steps = int(state_dict.pop("steps"))
+        super().load_state_dict(state_dict)
+        self.steps = steps
+        if self.state_dtype is not None:
+            # the base class casts the moments to the parameter's dtype; the
+            # round trip through f32 is exact, so this restores them bit for bit
+            for st in self.state.values():
+                for key in ("m", "v"):
+                    st[key] = st[key].to(self.state_dtype)
 
     def _moments(self, p: torch.Tensor):
         st = self.state[p]
