@@ -83,7 +83,7 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      --fused_cls;
  10. the FT-Joint training slice: univl_tpu_torch.cli.task_retrieval
      --do_train at the full width of UniVLConfig.base (text 12, visual 6
-     layers), bf16, batch 32, 40 steps on YouCook2-format fixtures: the loss
+     layers), bf16, batch 32, 20 steps on YouCook2-format fixtures: the loss
      at each display point, the steady clips/s, peak device memory, #2's
      launches (#2's tensor-core kernels, 18 forward and 18 backward a step)
      and a pytorch_model.bin.0 that loads back;
@@ -96,7 +96,7 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  13. the FT-Align training slice: the same CLI with --train_sim_after_cross
      --fused_ffn block (text 12, visual 6, cross 2 layers; 1,024 text-video
      pairs of 96 tokens through the cross tower a step) on the same fixtures,
-     40 steps: losses, steady clips/s, peak memory, launches (#2, #4 and #5
+     20 steps: losses, steady clips/s, peak memory, launches (#2, #4 and #5
      20 forward and 20 backward a step; #3 and #4 on their wgmma kernels, the
      CUDA-core ones never) and a pytorch_model.bin.0 that loads back; then
      torch.profiler over 3 of its steps, and over 3 steps of the unfused
@@ -108,7 +108,7 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  16. the caption fine-tuning slice: univl_tpu_torch.cli.task_caption
      --do_train --fused_ln at the full width of UniVLConfig.base (text 12,
      visual 6, cross 2, decoder 3 layers), bf16, batch 16, 128 words, 96
-     frames, 40 steps on YouCook2-format fixtures with transcripts: losses,
+     frames, 20 steps on YouCook2-format fixtures with transcripts: losses,
      steady clips/s, peak memory, launches (#6 in every LayerNorm, #2's
      tensor-core kernels in every attention over keys, 23 forward and 23
      backward a step, the tiled backward never) and a pytorch_model.bin.0
@@ -157,6 +157,30 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      cross 1 + decoder 1 layers, 4 clips x 3 pairs, dropout 0: card f32 (the
      unfused route as the control, then --fused_ffn block) and card bf16
      against CPU f32, with the limits of phases 12 and 15.
+ R1. remat: P2's stage-II micro-step (16 clips x 3 pairs, --fused_ffn block)
+     and phase 13's FT-Align step (batch 32), each without remat, with
+     remat=True and with "dots" from one init and the same batches: 2 steps
+     at dropout 0.1 under torch.use_deterministic_algorithms, their losses
+     and the parameters after them bitwise equal across the three, the
+     launches of #2, #4 and #5 those the layer counts imply (each
+     rematerialized layer's forward kernels twice); then peak device memory,
+     wall clips/s over 5 more steps and device busy ms a step (torch.profiler
+     over 2 more);
+ R2. the input pipeline: FT-Joint (phase 10's config) through
+     cli.common.make_input_iter: the prefetch and --no_prefetch give bitwise
+     equal losses over 10 steps in deterministic mode; --transfer_dtype
+     bfloat16 losses within a stated limit of the f32 transfer's; 5
+     alternating pairs of 20-step windows of each mode under a CUDA-only
+     profiler (clips/s and device busy share, medians); the joint retrieval
+     eval of phase 20 (its batches prefetched) against --no_prefetch: the
+     same R@1/5/10, MedR and MeanR;
+ R3. (in P3) the preempted and resumed stage-I run again with
+     --async_checkpointing, bitwise equal to the control; the seconds the
+     loop blocked at each epoch-end save, synchronous and async;
+ R4. the checkpoint converter without JAX: a full-width reference .bin from
+     seeded weights (every module: stage II with the heads) through
+     univl_tpu_torch.cli.convert_checkpoint to a flax params file and back
+     with --export_torch: bitwise equal, with the times.
 Phase 3 also runs #2 at pretraining's [360, 64], [2304, 112] and q 48 / kv
 112, and #4 and #5 at its 258,048 cross rows, in bf16.
 After the main paths: every bf16 #1 call the model made on the card (each
@@ -181,6 +205,7 @@ import os
 # first cuBLAS handle
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import contextlib
 import json
 import math
 import pickle
@@ -192,15 +217,21 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from univl_tpu_torch import UniVLConfig, WordPieceTokenizer
-from univl_tpu_torch.checkpoint.convert import init_state_dict, load_reference_bin
+from univl_tpu_torch.checkpoint.convert import (
+    init_state_dict,
+    load_reference_bin,
+    reference_state_dict,
+)
 from univl_tpu_torch.checkpoint.io import restore_checkpoint
-from univl_tpu_torch.cli import pretrain, task_caption, task_retrieval
+from univl_tpu_torch.cli import common as cli_common
+from univl_tpu_torch.cli import convert_checkpoint, pretrain, task_caption, task_retrieval
 from univl_tpu_torch.cli.serve import main as serve_main
 from univl_tpu_torch.data import fixtures
 from univl_tpu_torch.data.batching import Batcher, collate
@@ -316,8 +347,9 @@ FFN_RAGGED_ROWS = (300, 6000)
 FFN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 FFN_KEEP_TOL = 2e-4  # dropped share over 75,497,472 draws: ~6 binomial standard deviations
 # FT-Joint training: UniVLConfig.base (text 12, visual 6 layers), batch 32,
-# YouCook2-format fixtures of 160 videos x 8 clips = 1,280 pairs: 40 steps
-TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_DISPLAY = 32, 160, 8, 120, 5
+# YouCook2-format fixtures of 80 videos x 8 clips = 640 pairs: 20 steps (cut
+# from 40 to make room for R1-R4)
+TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_DISPLAY = 32, 80, 8, 120, 5
 PALLAS_VIDEOS = 20  # the short --fused_ffn pallas run: 160 pairs, 5 steps
 TRAIN_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1",
                "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--max_words", "48",
@@ -353,9 +385,9 @@ AGREE_CONTROL_FACTOR = 10
 # caption fine-tuning: the reference's YouCook2 caption command
 # (docs/REPRODUCE.md:58-74) at full width, bf16, with --fused_ln: batch 16, 128
 # words, 96 frames, text 12 + visual 6 + cross 2 + decoder 3 layers, on
-# fixtures of 80 videos x 8 clips = 640 clips (40 steps); 4 more videos (32
+# fixtures of 40 videos x 8 clips = 320 clips (20 steps, cut from 40); 4 more videos (32
 # clips) are the val split of a short --do_eval
-CAP_BATCH, CAP_WORDS, CAP_FRAMES, CAP_VIDEOS, CAP_VAL_VIDEOS = 16, 128, 96, 80, 4
+CAP_BATCH, CAP_WORDS, CAP_FRAMES, CAP_VIDEOS, CAP_VAL_VIDEOS = 16, 128, 96, 40, 4
 CAP_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1", "--epochs", "1",
              "--batch_size", str(CAP_BATCH), "--batch_size_val", "32",
              "--max_words", str(CAP_WORDS), "--max_frames", str(CAP_FRAMES),
@@ -429,6 +461,22 @@ PRE_PREEMPT_AFTER = 1
 # AGREE_ZERO_GRAD and AGREE_ZERO_PARAM; bf16 losses over 10 steps within
 # LOSS_BF16_RTOL
 PRE_AGREE_CLIPS = 4
+# R1-R4, stated before their first run. R1: REMAT_CHECK_STEPS steps at
+# dropout 0.1 in deterministic mode, the losses and the parameters after them
+# bitwise equal without remat, with remat=True and with "dots" (each layer's
+# randomness is keyed by where it is drawn, so the recompute draws the first
+# pass's masks, and the backward runs the same kernels on the same inputs);
+# then REMAT_TIMED_STEPS steps timed and REMAT_PROFILE_STEPS profiled. R2:
+# INPUT_CHECK_STEPS steps bitwise equal with and without the prefetch in
+# deterministic mode (the same batches, copied another way), the bf16
+# transfer's losses within TRANSFER_BF16_RTOL of the f32 transfer's (the
+# features rounded to bf16, about 3 significant digits, before the f32 feature
+# LayerNorm of a bf16 model), INPUT_PAIRS alternating pairs of INPUT_WINDOW-step
+# windows. R3: as P3's resumed run, bitwise. R4: bitwise.
+REMAT_CHECK_STEPS, REMAT_TIMED_STEPS, REMAT_PROFILE_STEPS = 2, 5, 2
+REMAT_MODES = (False, True, "dots")
+INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 20, 5
+TRANSFER_BF16_RTOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -1968,6 +2016,19 @@ def device_events(prof, trace: str, name: str):
     return events, busy_us
 
 
+def busy_seconds(prof, name: str) -> float:
+    """The device busy time of a profile (the union of its device events'
+    intervals), read from the profiler's events without a trace file."""
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    require(bool(spans), f"profile {name}: no device activity")
+    busy, end = 0, -1
+    for s, e in spans:
+        busy += max(0, e - max(s, end))
+        end = max(end, e)
+    return busy / 1e9
+
+
 def ms(events) -> float:
     return sum(e["dur"] for e in events) / 1e3
 
@@ -2646,7 +2707,7 @@ def phase_retrieval_eval(tmp: str, vocab: str, files, mode: str) -> dict:
                                             ("R1", "R5", "R10", "MR", "MeanR")),
             f"retrieval eval ({mode}): {metrics}")
     require(counts == want, f"retrieval eval ({mode}) launches {counts}, want {want}")
-    return counts
+    return counts, metrics
 
 
 def phase_eval_profile(vocab: str, files, tmp: str) -> None:
@@ -3070,6 +3131,15 @@ def _state_diff(a: str, b: str) -> dict:
             "differing": [k for k, v in sa["model"].items() if not torch.equal(v, sb["model"][k])]}
 
 
+def _within(resumed: dict, control: dict) -> bool:
+    """P3's limit: a resumed run's difference from a control within the two
+    controls' (so bitwise where they are bitwise equal)."""
+    return (resumed["same_steps"] and resumed["steps"][0] == resumed["steps"][1] == 4
+            and resumed["params"][0] <= control["params"][0]
+            and resumed["moments"][0] <= control["moments"][0]
+            and resumed["losses"] <= control["losses"])
+
+
 def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
     """P3: stage I at full width, 4 steps over 2 epochs. Two uninterrupted
     runs (the controls); where they differ, the parameters that differ name
@@ -3077,7 +3147,9 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
     uninterrupted runs and one preempted after PRE_PREEMPT_AFTER steps
     (--inject_preempt_after) and resumed (--load_checkpoint): the resumed
     run may differ from the first by no more than the two differ from each
-    other, bitwise where they are bitwise equal."""
+    other, bitwise where they are bitwise equal. R3: one more preempted and
+    resumed run with --async_checkpointing, held to the same limit, and the
+    seconds each epoch-end save held the loop, synchronous and async."""
 
     def run(name: str, *extra):
         out = os.path.join(tmp, f"pretrain_resume_{name}")
@@ -3097,21 +3169,35 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
         k, _ = run("resumed", "--inject_preempt_after", str(PRE_PREEMPT_AFTER))
         n, c = run("resumed", "--load_checkpoint")
         resumed = _state_diff(a, c)
+        # R3: the same with the train state written on a thread
+        ka, _ = run("async", "--async_checkpointing", "--inject_preempt_after",
+                    str(PRE_PREEMPT_AFTER))
+        na, ca = run("async", "--async_checkpointing", "--load_checkpoint")
+        resumed_async = _state_diff(a, ca)
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"pretraining resume, torch.use_deterministic_algorithms (stage I, full width, 4 steps "
           f"over 2 epochs; preempted after {k} step(s), resumed to step {n}) in "
-          f"{time.perf_counter() - t0:.1f} s for the five runs: the controls differ by {control}; "
-          f"the resumed run differs from the first control by {resumed} (limit: the controls' "
-          f"difference, bitwise where they are bitwise equal)", flush=True)
-    require(k == PRE_PREEMPT_AFTER and n == 4 and resumed["same_steps"]
-            and resumed["steps"][0] == resumed["steps"][1] == 4
-            and resumed["params"][0] <= control["params"][0]
-            and resumed["moments"][0] <= control["moments"][0]
-            and resumed["losses"] <= control["losses"],
+          f"{time.perf_counter() - t0:.1f} s for the seven runs: the controls differ by "
+          f"{control}; the resumed run differs from the first control by {resumed} (limit: the "
+          f"controls' difference, bitwise where they are bitwise equal)", flush=True)
+    require(k == PRE_PREEMPT_AFTER and n == 4 and _within(resumed, control),
             f"the resumed run strays from the uninterrupted one: {resumed} against {control}")
-    shutil.rmtree(a)
-    shutil.rmtree(c)
+
+    def blocked(out: str, preempted: bool) -> list:
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            return [round(r["blocked_seconds"], 4) for r in map(json.loads, f)
+                    if r["kind"] == "checkpoint" and r["preempted"] == preempted]
+
+    print(f"R3 --async_checkpointing (preempted after {ka} step(s), resumed to step {na}): "
+          f"differs from the first control by {resumed_async} (limit: bitwise, as the resumed "
+          f"run); seconds the loop blocked at the epoch-end saves of ~2.4 GB: synchronous "
+          f"{blocked(a, False)}, async {blocked(ca, False)}; at the preemption's save: "
+          f"synchronous {blocked(c, True)}, async {blocked(ca, True)}", flush=True)
+    require(ka == PRE_PREEMPT_AFTER and na == 4 and _within(resumed_async, control),
+            f"R3: the async resumed run strays: {resumed_async} against {control}")
+    for out in (a, c, ca):
+        shutil.rmtree(out)
 
 
 def phase_pretrain_agreement(files, vocab: str, f32_launches: dict) -> None:
@@ -3189,6 +3275,241 @@ def phase_pretrain_agreement(files, vocab: str, f32_launches: dict) -> None:
           flush=True)
     require(all(math.isfinite(x) for x in bf16) and max(rel) <= LOSS_BF16_RTOL,
             "card bf16 pretraining loss strays from the CPU's f32")
+
+
+def _remat_launches(cfg, remat) -> dict:
+    """One micro-step's launches of #2, #4 and #5 from the layer counts: every
+    tower layer's attention, dense block and FFN block (FT-Align: text,
+    visual, cross; stage II: both towers twice and the cross tower three
+    times), and stage II's decoder's encoder attention, which is not
+    rematerialized; with remat each tower layer's forward kernels run twice."""
+    t, v = cfg.bert.num_hidden_layers, cfg.visual.num_hidden_layers
+    c, d = cfg.cross.num_hidden_layers, cfg.decoder.num_decoder_layers
+    towers, decoder = (2 * t + 2 * v + 3 * c, d) if cfg.do_pretrain else (t + v + c, 0)
+    again = towers if remat else 0
+    want = {"train_attention_fwd": towers + decoder + again,
+            "train_attention_bwd": towers + decoder}
+    for name in ("ffn_block", "dense_block"):
+        want[f"{name}_fwd"], want[f"{name}_bwd"] = towers + again, towers
+    return want
+
+
+def _remat_run(label: str, cfg, sd, batches, remat, reference=None) -> dict:
+    """One remat mode: the check steps in deterministic mode (losses,
+    launches, peak memory, the parameters after them against
+    ``reference``'s), then the timed and the profiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = UniVL(cfg.replace(remat=remat), device="cuda")
+    model.load_state_dict(sd, strict=True)
+    opt = make_univl_optimizer(model, lr=1e-4, t_total=40, warmup_proportion=0.1, coef_lr=0.1)
+    trainer = Trainer(model, opt, seed=0)
+    reset_launches()
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses = [{k: float(v) for k, v in trainer.train_step(batches[i], i).items()}
+                  for i in range(REMAT_CHECK_STEPS)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() - held
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    if reference is None:
+        params = {n: p.clone() for n, p in params.items()}
+        differing = []
+    else:
+        differing = [n for n, p in params.items() if not torch.equal(p, reference["params"][n])]
+    steps = range(REMAT_CHECK_STEPS, REMAT_CHECK_STEPS + REMAT_TIMED_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in steps:
+        trainer.train_step(batches[i % len(batches)], i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / REMAT_TIMED_STEPS
+    first = REMAT_CHECK_STEPS + REMAT_TIMED_STEPS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(first, first + REMAT_PROFILE_STEPS):
+            trainer.train_step(batches[i % len(batches)], i)
+        torch.cuda.synchronize()
+    busy = busy_seconds(prof, f"R1 {label} remat={remat}")
+    del trainer, opt, model
+    return {"losses": losses, "counts": counts, "peak_gib": peak / 2**30, "wall_ms": 1e3 * wall,
+            "busy_ms": 1e3 * busy / REMAT_PROFILE_STEPS, "params": params,
+            "differing": differing}
+
+
+def phase_remat(ds, pre_files, vocab: str) -> dict:
+    """R1: P2's stage-II micro-step and phase 13's FT-Align step without
+    remat, with remat=True and with "dots"; returns each run's launches by
+    path."""
+    configs = {
+        "stage II": (_pretrain_cfg(2, compute_dtype="bfloat16", batch_size_per_device=PRE2_CLIPS,
+                                   use_fused_ffn="block"), _pretrain_dataset(pre_files, vocab),
+                     PRE2_CLIPS),
+        "FT-Align": (UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
+                                      batch_size_per_device=TRAIN_BATCH,
+                                      train_sim_after_cross=True, use_fused_ffn="block"),
+                     ds, TRAIN_BATCH),
+    }
+    by_path = {}
+    for label, (cfg, data, batch) in configs.items():
+        sd = init_state_dict(cfg, seed=0)
+        batches = _train_batches(data, REMAT_CHECK_STEPS + REMAT_TIMED_STEPS, "cuda", batch)
+        reference = None
+        for remat in REMAT_MODES:
+            r = _remat_run(label, cfg, sd, batches, remat, reference)
+            per_step = _remat_launches(cfg, remat)
+            want = {**{k: 0 for k in KERNELS},
+                    **{k: n * REMAT_CHECK_STEPS for k, n in per_step.items()}}
+            mode = {False: "no remat", True: "--remat", "dots": "--remat --remat_policy dots"}
+            print(f"R1 remat, {label} ({batch} clips a step, bf16, {mode[remat]}): peak device "
+                  f"memory {r['peak_gib']:.3f} GiB (parameters, gradients and moments "
+                  f"included); wall {r['wall_ms']:.3f} ms a step, {1e3 * batch / r['wall_ms']:.3f} "
+                  f"clips/s over {REMAT_TIMED_STEPS} steps; device busy {r['busy_ms']:.3f} ms a "
+                  f"step over {REMAT_PROFILE_STEPS} profiled; losses of the "
+                  f"{REMAT_CHECK_STEPS} deterministic steps {r['losses']}; launches a step "
+                  f"{per_step} (from the layer counts), {REMAT_CHECK_STEPS} steps gave "
+                  f"{ {k: v for k, v in r['counts'].items() if v} }", flush=True)
+            require(r["counts"] == want, f"R1 {label} {mode[remat]}: launches {r['counts']}, "
+                                         f"the layer counts imply {want}")
+            if reference is None:
+                reference = r
+            else:
+                require(r["losses"] == reference["losses"] and not r["differing"],
+                        f"R1 {label} {mode[remat]}: not bitwise the run without remat: losses "
+                        f"{r['losses']} against {reference['losses']}, parameters that differ "
+                        f"{r['differing'][:8]}")
+                print(f"R1 remat, {label}, {mode[remat]}: the losses and all {len(r['params'])} "
+                      f"parameters after {REMAT_CHECK_STEPS} steps bitwise those without remat",
+                      flush=True)
+            by_path[f"remat_{label.replace(' ', '_').replace('-', '_').lower()}_{remat}"] = \
+                r["counts"]
+        del reference
+    return by_path
+
+
+def _input_args(**kw):
+    return SimpleNamespace(**{"gradient_accumulation_steps": 1, "transfer_dtype": "float32",
+                              "no_prefetch": False, **kw})
+
+
+def _input_run(trainer, batcher, args, epoch: int, steps: int, profiled: bool = False):
+    """``steps`` training steps of ``batcher``'s epoch through
+    cli.common.make_input_iter: (losses, wall seconds, device busy seconds
+    or None; with ``profiled``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    losses = []
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext()
+    with prof:
+        t0 = time.perf_counter()
+        with contextlib.closing(cli_common.make_input_iter(args, batcher, epoch,
+                                                           torch.device("cuda"))) as batches:
+            for i, batch in enumerate(batches):
+                losses.append(trainer.train_step(batch, epoch * 1000 + i)["loss"])
+                if i + 1 == steps:
+                    break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(prof, "R2 window") if profiled else None
+    return [float(x) for x in losses], wall, busy
+
+
+def phase_input_pipeline(ds, vocab: str, ret_files, tmp: str, joint_metrics: dict) -> dict:
+    """R2: FT-Joint (phase 10's config) through make_input_iter; returns the
+    launches."""
+    cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
+                           batch_size_per_device=TRAIN_BATCH)
+    sd = init_state_dict(cfg, seed=0)
+    batcher = Batcher(ds, TRAIN_BATCH, seed=0, num_workers=8)
+
+    def trainer():
+        model = UniVL(cfg, device="cuda")
+        model.load_state_dict(sd, strict=True)
+        opt = make_univl_optimizer(model, lr=3e-5, t_total=40, warmup_proportion=0.1,
+                                   coef_lr=0.1)
+        return Trainer(model, opt, seed=0)
+
+    reset_launches()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {name: _input_run(trainer(), batcher, _input_args(**kw), 0, INPUT_CHECK_STEPS)[0]
+                for name, kw in (("prefetch", {}), ("no_prefetch", {"no_prefetch": True}),
+                                 ("bf16", {"transfer_dtype": "bfloat16"}))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(runs["bf16"], runs["prefetch"]))
+    print(f"R2 input pipeline, FT-Joint (batch {TRAIN_BATCH}, bf16, deterministic mode, "
+          f"{INPUT_CHECK_STEPS} steps): losses with the prefetch {runs['prefetch']}, with "
+          f"--no_prefetch {runs['no_prefetch']}; --transfer_dtype bfloat16 {runs['bf16']}, at "
+          f"most {worst:.3e} rel from the f32 transfer's (limit {TRANSFER_BF16_RTOL})", flush=True)
+    require(runs["prefetch"] == runs["no_prefetch"],
+            "R2: the prefetch's losses are not bitwise --no_prefetch's")
+    require(all(math.isfinite(x) for x in runs["bf16"]) and worst <= TRANSFER_BF16_RTOL,
+            f"R2: --transfer_dtype bfloat16 losses {worst:.3e} rel from f32's")
+    tr = trainer()
+    rates = {"prefetch": [], "no_prefetch": []}
+    busy = {"prefetch": [], "no_prefetch": []}
+    order = []
+    for k in range(INPUT_PAIRS):
+        order += ["prefetch", "no_prefetch"] if k % 2 == 0 else ["no_prefetch", "prefetch"]
+    for w, mode in enumerate(order):
+        _, wall, dev = _input_run(tr, batcher, _input_args(no_prefetch=mode == "no_prefetch"),
+                                  1 + w % 3, INPUT_WINDOW, profiled=True)
+        rates[mode].append(INPUT_WINDOW * TRAIN_BATCH / wall)
+        busy[mode].append(dev / wall)
+    counts = read_launches()
+    steps = 3 * INPUT_CHECK_STEPS + len(order) * INPUT_WINDOW
+    want = {**{k: 0 for k in KERNELS},
+            **{k: n * steps for k, n in _launches_per_step("ft_joint").items()}}
+    for mode in rates:
+        print(f"R2 input pipeline, FT-Joint, {mode}: {INPUT_PAIRS} windows of {INPUT_WINDOW} "
+              f"steps (alternating pairs, CUDA-only profiler on): clips/s "
+              f"{[round(x, 3) for x in rates[mode]]}, median {np.median(rates[mode]):.3f}; device "
+              f"busy share {[round(x, 4) for x in busy[mode]]}, median "
+              f"{np.median(busy[mode]):.4f}", flush=True)
+    require(counts == want, f"R2 launches {counts}, {steps} steps imply {want}")
+    out = os.path.join(tmp, "msrvtt_retrieval_joint_no_prefetch")
+    argv = _msrvtt_argv(ret_files, vocab, out) + ["--batch_size_val", str(EVAL_BATCH),
+                                                  "--no_prefetch"]
+    _, metrics = task_retrieval.main(argv)
+    keys = ("R1", "R5", "R10", "MR", "MeanR")
+    print(f"R2 retrieval eval (joint) with --no_prefetch: "
+          f"{ {k: metrics[k] for k in keys} }; phase 20 (prefetched) "
+          f"{ {k: joint_metrics[k] for k in keys} }", flush=True)
+    require(all(metrics[k] == joint_metrics[k] for k in keys),
+            "R2: the prefetched eval's metrics differ from --no_prefetch's")
+    return counts
+
+
+def phase_converter(tmp: str) -> None:
+    """R4: a full-width reference .bin (every module) through
+    univl_tpu_torch.cli.convert_checkpoint to flax params and back."""
+    flags = ["--stage_two", "--do_pretrain"]
+    cfg = convert_checkpoint.build_config(convert_checkpoint.parse_args(
+        flags + ["--torch_bin", "-", "--output", "-"]))
+    src, flax_file, back = (os.path.join(tmp, n) for n in ("src.bin", "params.msgpack",
+                                                           "back.bin"))
+    torch.save(reference_state_dict(init_state_dict(cfg, seed=5)), src)
+    t0 = time.perf_counter()
+    convert_checkpoint.main(flags + ["--torch_bin", src, "--output", flax_file])
+    t1 = time.perf_counter()
+    convert_checkpoint.main(["--export_torch", "--flax_params", flax_file, "--output", back])
+    t2 = time.perf_counter()
+    a, b = (torch.load(p, weights_only=True) for p in (src, back))
+    same = list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"R4 converter (no JAX on this machine): a reference .bin of {len(a)} tensors "
+          f"({os.path.getsize(src) / 2**20:.1f} MiB, UniVLConfig.base stage II with the heads) "
+          f"to flax params ({os.path.getsize(flax_file) / 2**20:.1f} MiB) in {t1 - t0:.3f} s and "
+          f"back with --export_torch in {t2 - t1:.3f} s: bitwise equal {same}", flush=True)
+    require(same, "R4: the converter's round trip changed the .bin")
+    for path in (src, flax_file, back):
+        os.remove(path)
 
 
 def main() -> int:
@@ -3271,8 +3592,10 @@ def main() -> int:
         phase_caption_agreement(cap_ds, f32_runs)
         ret_files, msrvtt_cap_files = make_msrvtt_data(tmp)
         by_path["caption_eval_msrvtt"] = phase_caption_eval_msrvtt(tmp, vocab, msrvtt_cap_files)
+        eval_metrics = {}
         for mode in ("joint", "cross"):
-            by_path[f"retrieval_eval_{mode}"] = phase_retrieval_eval(tmp, vocab, ret_files, mode)
+            by_path[f"retrieval_eval_{mode}"], eval_metrics[mode] = phase_retrieval_eval(
+                tmp, vocab, ret_files, mode)
         phase_eval_profile(vocab, ret_files, tmp)
         reset_launches()
         phase_retrieval_agreement(vocab, ret_files)
@@ -3286,6 +3609,10 @@ def main() -> int:
         phase_pretrain_profile(pre_files, vocab, tmp)
         phase_pretrain_resume(tmp, vocab, pre_files)
         phase_pretrain_agreement(pre_files, vocab, f32_runs)
+        by_path.update(phase_remat(ds, pre_files, vocab))
+        by_path["input_pipeline"] = phase_input_pipeline(ds, vocab, ret_files, tmp,
+                                                         eval_metrics["joint"])
+        phase_converter(tmp)
 
     longest = check_attention_routes()
     check_vocab_routes()

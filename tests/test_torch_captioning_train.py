@@ -291,12 +291,16 @@ def test_cli_trains_evaluates_and_writes_a_bin(caption_files, tmp_path):
     assert open(os.path.join(out2, "hyp.txt")).read().split("\n") == hyps
 
 
-@pytest.mark.parametrize("extra", [["--use_mil"], ["--load_checkpoint"]])
+@pytest.mark.parametrize("extra", [["--use_mil"], ["--load_checkpoint"], ["--remat"],
+                                   ["--remat", "--remat_policy", "dots"]])
 def test_cli_runs_what_it_once_refused(caption_files, tmp_path, extra):
     """Flags this CLI once refused. ``--use_mil``: accepted and ignored, as
     JAX's driver does in stage two: the weights equal a run without it,
     bitwise. ``--load_checkpoint``: a run preempted after its first step and
-    resumed writes the uninterrupted run's weights and losses, bitwise."""
+    resumed writes the uninterrupted run's weights and losses, bitwise.
+    ``--remat`` (full, and ``--remat_policy dots``): the towers' layers
+    recomputed in the backward, the weights and losses bitwise the run's
+    without it at the CLI's dropout."""
     full, out = str(tmp_path / "full"), str(tmp_path / "out")
     assert task_caption.main(_cli_argv(caption_files, full, "--do_train"))[0] == 2
     if extra == ["--load_checkpoint"]:
@@ -314,7 +318,7 @@ def test_cli_runs_what_it_once_refused(caption_files, tmp_path, extra):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--do_pretrain"], ["--zero1"], ["--remat"],
+    ["--do_pretrain"], ["--zero1"],
     ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--train_sim_after_cross"],
 ])

@@ -1,10 +1,13 @@
 """The port's train-state checkpoints, preemption and exact resume, on the
 CPU at tiny sizes: BertAdam's state with its step count, the train-state
-file and the rotating manager, the batcher's skip, ``--init_model`` from a
-flax params file, and preempt-then-resume of ``task_retrieval`` and
-``cli.pretrain`` against uninterrupted runs, bit for bit. These mirror the
+file and the rotating manager (synchronous and asynchronous), the batcher's
+skip, ``--init_model`` from a flax params file, preempt-then-resume of
+``task_retrieval`` and ``cli.pretrain`` (also with
+``--async_checkpointing``) against uninterrupted runs, bit for bit, and the
+JAX-free checkpoint converter against the JAX package's. These mirror the
 JAX package's ``tests/test_cli.py`` and ``tests/test_checkpoint_manager.py``
-on the port; only the flax file and the batcher's order come from JAX.
+on the port; the flax files, the batcher's order and the converter's
+reference outputs come from JAX.
 """
 
 import json
@@ -22,6 +25,7 @@ from univl_tpu.models.univl import UniVL as JaxUniVL
 from univl_tpu_torch import config
 from univl_tpu_torch.checkpoint.io import (
     TRAIN_STATE,
+    CheckpointWriter,
     read_flax_params,
     restore_checkpoint,
     save_checkpoint,
@@ -320,6 +324,32 @@ def test_pretrain_preempt_then_resume_is_bit_exact(howto_files, pretrain_uninter
     _same_train_state(out, full, os.path.join(_latest(out), TRAIN_STATE))
 
 
+@pytest.mark.parametrize("backend", ["msgpack", "orbax"])
+def test_pretrain_async_preempt_then_resume_is_bit_exact(howto_files, pretrain_uninterrupted,
+                                                         tmp_path, backend):
+    """As above with --async_checkpointing: each save returns after the
+    copy to the host and writes on a thread; the preempted runs wait for
+    their writes before they return, so the resumes read them whole; the
+    result is the synchronous uninterrupted run's, bitwise. Every save
+    logged the seconds it held the loop."""
+    full = pretrain_uninterrupted[backend]
+    out = str(tmp_path / "out")
+    argv = _pretrain_argv(howto_files, out, "--checkpoint_backend", backend,
+                          "--async_checkpointing", "--checkpoint_every_steps", "2")
+    assert pretrain.main(argv + ["--inject_preempt_after", "3"])[0] == 3
+    assert pretrain.main(argv + ["--load_checkpoint", "--inject_preempt_after", "1"])[0] == 4
+    assert pretrain.main(argv + ["--load_checkpoint"])[0] == 12
+    assert _train_records(out) == _train_records(full)
+    for e in range(3):
+        a, b = (torch.load(os.path.join(d, f"pytorch_model.bin.{e}"), weights_only=True)
+                for d in (out, full))
+        assert all(torch.equal(a[k], b[k]) for k in b), e
+    _same_train_state(out, full, os.path.join(_latest(out), TRAIN_STATE))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        saves = [r for r in map(json.loads, f) if r["kind"] == "checkpoint"]
+    assert len(saves) >= 6 and all(r["blocked_seconds"] >= 0 for r in saves)
+
+
 def test_pretrain_periodic_checkpoint_survives_a_crash(howto_files, pretrain_uninterrupted,
                                                        tmp_path):
     """--checkpoint_every_steps 2 with --inject_crash_after 3: the crash
@@ -340,7 +370,7 @@ def test_pretrain_periodic_checkpoint_survives_a_crash(howto_files, pretrain_uni
 
 
 def test_pretrain_refuses_what_it_does_not_run(howto_files, tmp_path, capsys):
-    for extra in (["--async_checkpointing"], ["--zero1"], ["--remat"], ["--n_gpu", "2"]):
+    for extra in (["--zero1"], ["--n_gpu", "2"]):
         with pytest.raises(SystemExit) as e:
             pretrain.main(_pretrain_argv(howto_files, str(tmp_path / "out"), *extra))
         assert e.value.code == 2 and extra[0] in capsys.readouterr().err
@@ -392,3 +422,146 @@ def test_numpy_scalar_metrics_are_written_as_json(tmp_path):
     _, meta = mgr.restore(1)
     assert abs(meta["r1"] - 0.41) < 1e-6 and meta["n"] == 7.0 and meta["j"] == 0.5
     assert meta["flag"] is True and meta["name"] == "x"
+
+
+@pytest.mark.parametrize("async_save", [False, True], ids=["sync", "async"])
+def test_manager_round_trip_and_same_step(tmp_path, async_save):
+    """Save and restore, the rotation, and a second save at a step whose
+    first save may still be in flight (the preemption at an epoch's last
+    step): the second replaces the first."""
+    mgr = RotatingCheckpointManager(str(tmp_path / "ck"), max_to_keep=2, async_save=async_save)
+    for s in range(4):
+        mgr.save(s, _state(float(s)), metrics={"loss": 4.0 - s})
+    mgr.save(3, _state(7.0), metrics={"loss": 0.5})
+    state, meta, step = mgr.restore_latest()
+    assert step == 3 and float(state["model"]["w"][0, 0]) == 7.0 and meta == {"loss": 0.5}
+    assert mgr.all_steps() == [2, 3]
+
+
+def test_async_save_copies_the_state_before_it_returns(tmp_path):
+    """The optimizer updates the parameters in place right after a save:
+    the write holds the values at the save."""
+    writer = CheckpointWriter(async_save=True)
+    w = torch.full((256, 256), 1.0)
+    writer.save(str(tmp_path / "a.pt"), {"model": {"w": w}}, metadata={"step": 1})
+    w.add_(1.0)
+    writer.wait()
+    state, meta = restore_checkpoint(str(tmp_path / "a.pt"))
+    assert torch.equal(state["model"]["w"], torch.full((256, 256), 1.0)) and meta == {"step": 1}
+
+
+def test_a_failed_async_write_raises_at_the_next_wait(tmp_path):
+    blocker = tmp_path / "file"
+    blocker.write_text("not a directory")
+    writer = CheckpointWriter(async_save=True)
+    writer.save(str(blocker / "sub" / "a.pt"), _state(1.0))  # returns; the write fails
+    with pytest.raises(RuntimeError, match="asynchronous checkpoint write failed"):
+        writer.wait()
+    writer.wait()  # reported once
+
+
+# ------------------------------------------------------------- the converter
+
+
+CONVERT_FLAGS = ["--stage_two", "--do_pretrain", "--text_num_hidden_layers", "1",
+                 "--visual_num_hidden_layers", "1", "--cross_num_hidden_layers", "1",
+                 "--decoder_num_hidden_layers", "1", "--max_words", "8", "--max_frames", "6",
+                 "--video_dim", "32", "--hidden_size", "64", "--num_attention_heads", "4",
+                 "--intermediate_size", "128", "--vocab_size", "96"]
+
+
+@pytest.fixture(scope="module")
+def reference_bin(tmp_path_factory):
+    """A .bin in the reference layout from the port's seeded init (the tied
+    duplicates written out), with an unused pooler and a name no converter
+    knows."""
+    from univl_tpu_torch.checkpoint.convert import reference_state_dict
+    from univl_tpu_torch.cli.convert_checkpoint import build_config, parse_args
+
+    cfg = build_config(parse_args(CONVERT_FLAGS + ["--torch_bin", "x", "--output", "y"]))
+    sd = reference_state_dict(common.init_state_dict(cfg, 3))
+    sd["bert.pooler.dense.weight"] = torch.ones(64, 64)
+    sd["bert.encoder.layer.0.adapter.weight"] = torch.ones(2)
+    path = str(tmp_path_factory.mktemp("convert") / "ref.bin")
+    torch.save(sd, path)
+    return path
+
+
+def test_converter_writes_the_flax_file_jax_writes(reference_bin, tmp_path, capsys):
+    """The port's .bin -> flax conversion against JAX's on the same file:
+    the same report, the same tree (read by flax's msgpack_restore), and
+    every converted leaf bitwise JAX's; the sidecar names the source."""
+    from flax import serialization
+
+    from univl_tpu.cli import convert_checkpoint as jax_convert
+    from univl_tpu_torch.cli import convert_checkpoint
+
+    ours, theirs = str(tmp_path / "port.msgpack"), str(tmp_path / "jax.msgpack")
+    convert_checkpoint.main(CONVERT_FLAGS + ["--torch_bin", reference_bin, "--output", ours])
+    port_out = capsys.readouterr().out
+    jax_convert.main(CONVERT_FLAGS + ["--torch_bin", reference_bin, "--output", theirs])
+    jax_out = capsys.readouterr().out
+    assert port_out.splitlines()[0] == jax_out.splitlines()[0]
+    assert "unknown=1" in port_out and "left-at-init=0" in port_out
+    with open(ours, "rb") as f:
+        got = serialization.msgpack_restore(f.read())
+    with open(theirs, "rb") as f:
+        want = serialization.msgpack_restore(f.read())
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    got, want = flat(got), flat(want)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype == np.float32 and np.array_equal(got[k], v), k
+    assert json.load(open(ours + ".json")) == {"source": reference_bin}
+
+
+def test_converter_exports_the_bin_jax_exports(reference_bin, tmp_path):
+    """--export_torch of one flax file by both packages: the same names in
+    the same order, every tensor bitwise equal, the tied duplicates
+    included; and a .bin -> flax -> .bin round trip gives back the .bin's
+    converted tensors bitwise."""
+    from univl_tpu.checkpoint.torch_convert import save_torch_bin
+    from univl_tpu_torch.cli import convert_checkpoint
+
+    flax_file = str(tmp_path / "p.msgpack")
+    convert_checkpoint.main(CONVERT_FLAGS + ["--torch_bin", reference_bin, "--output", flax_file])
+    ours, theirs = str(tmp_path / "port.bin"), str(tmp_path / "jax.bin")
+    convert_checkpoint.main(["--export_torch", "--flax_params", flax_file, "--output", ours])
+    save_torch_bin(theirs, read_flax_params(flax_file))
+    got, want = (torch.load(p, weights_only=True) for p in (ours, theirs))
+    assert list(got) == list(want)
+    assert all(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want)
+    original = torch.load(reference_bin, weights_only=True)
+    assert sorted(got) == sorted(k for k in original if not k.startswith(
+        ("bert.pooler.", "bert.encoder.layer.0.adapter.")))
+    assert all(torch.equal(got[k], original[k]) for k in got)
+
+
+@pytest.mark.parametrize("chunk", [None, 1000], ids=["whole", "chunked"])
+def test_write_flax_params_writes_flaxs_bytes(tmp_path, monkeypatch, chunk):
+    """write_flax_params gives the bytes of flax's serialization.to_bytes
+    of the same tree, also where arrays are chunked (the limit lowered to
+    1,000 bytes here); both packages' readers read it back."""
+    from flax import serialization
+
+    from univl_tpu_torch.checkpoint import io
+
+    rng = np.random.RandomState(0)
+    tree = {"a": {"kernel": rng.randn(30, 20).astype(np.float32),
+                  "bias": np.zeros(20, np.float32)},
+            "b": rng.randint(0, 9, (5,)).astype(np.int32), "c": np.float32(2.5)}
+    if chunk:
+        monkeypatch.setattr(io, "MAX_CHUNK_SIZE", chunk)
+        monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", chunk)
+    path = io.write_flax_params(str(tmp_path / "t.msgpack"), tree)
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data == serialization.to_bytes(tree)
+    back = read_flax_params(path)
+    assert np.array_equal(back["a"]["kernel"], tree["a"]["kernel"]) and back["c"] == 2.5

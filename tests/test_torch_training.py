@@ -473,8 +473,28 @@ def test_cli_runs_what_it_once_refused(youcook_files, tmp_path, extra):
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("remat", [["--remat"], ["--remat", "--remat_policy", "dots"]])
+def test_cli_trains_with_remat(youcook_files, tmp_path, remat):
+    """``--remat`` (full, and ``--remat_policy dots``), once refused: at the
+    CLI's dropout 0.1 the run's losses and weights are bitwise a run's
+    without it."""
+    full, out = str(tmp_path / "full"), str(tmp_path / "out")
+    assert task_retrieval.main(_cli_argv(youcook_files, full))[0] == 3
+    assert task_retrieval.main(_cli_argv(youcook_files, out, *remat))[0] == 3
+    with open(os.path.join(out, "args.json")) as f:
+        assert json.load(f)["remat"] is True
+    want, got = (load_reference_bin(os.path.join(d, "pytorch_model.bin.0")) for d in (full, out))
+    assert sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+
+    def losses(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [(r["step"], r["loss"]) for r in map(json.loads, f) if r["kind"] == "train"]
+
+    assert losses(out) == losses(full) and len(losses(out)) == 3
+
+
 @pytest.mark.parametrize("extra", [
-    ["--do_pretrain"], ["--zero1"], ["--remat"], ["--do_pretrain", "--stage_two"],
+    ["--do_pretrain"], ["--zero1"], ["--do_pretrain", "--stage_two"],
     ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--fused_ffn", "auto"], ["--fused_ffn", "auto_block"],  # TPU-measured row thresholds
     ["--train_attention", "pallas"],  # a TPU-only knob: not a flag of the port

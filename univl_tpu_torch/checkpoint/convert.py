@@ -4,8 +4,11 @@ All three give a state dict under the reference PyTorch names, restricted
 to what ``univl_tpu_torch.models.univl.UniVL`` owns (no text/visual poolers,
 and the tied tables only once: the decoder's and the masked-language head's
 as bert's, the masked-frame head's weight as the feature projection's),
-ready for ``load_state_dict(strict=True)``. Nothing here imports JAX: a JAX
-tree arrives as nested dicts of numpy arrays.
+ready for ``load_state_dict(strict=True)``. The other way,
+``jax_params_from_state_dict`` gives the JAX tree of a port state dict and
+``reference_state_dict`` the reference ``.bin`` layout, the tied duplicates
+written out. Nothing here imports JAX: a JAX tree is nested dicts of numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -160,6 +163,35 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A port state dict -> the JAX parameter tree (nested dicts of f32
+    numpy arrays, a Linear's weight transposed into its ``kernel``): the
+    inverse of ``state_dict_from_jax_params``."""
+    tree: Dict = {}
+    for name, value in sd.items():
+        *parents, leaf = jax_path(name).split("/")
+        v = value.detach().to("cpu", torch.float32).numpy()
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v.T if leaf == "kernel" else v)
+    return tree
+
+
+def reference_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A port state dict in the reference ``.bin`` layout, as
+    ``univl_tpu.checkpoint.torch_convert.export_torch_state_dict`` writes
+    it: the JAX tree's order, then each tied duplicate of a module the dict
+    holds (the decoder's tables and classifier weight, the heads' weights),
+    written out as a copy of the table it repeats."""
+    order = sorted(sd, key=lambda n: jax_path(n).split("/"))
+    out = {name: sd[name].detach().cpu() for name in order}
+    for dup, src in _TIED.items():
+        if src in out and any(k.startswith(dup.split(".")[0] + ".") for k in sd):
+            out[dup] = out[src].clone()
+    return out
+
+
 def jax_path(name: str) -> str:
     """The JAX parameter path (``text/encoder/layer_0/attention/query/kernel``)
     of a port parameter name (``bert.encoder.layer.0.attention.self.query.weight``):
@@ -201,6 +233,25 @@ def jax_path(name: str) -> str:
     if module == "normalize_video.visual_norm2d":
         return f"video_norm/{ln[leaf]}"
     raise ValueError(f"unrecognized port parameter name: {name}")
+
+
+def sort_reference_names(names) -> Dict[str, list]:
+    """The names of a reference ``.bin`` as JAX's ``convert_torch_state_dict``
+    reports them (gamma/beta read as weight/bias): ``skipped`` the tied
+    duplicates and the text and visual poolers, ``converted`` a name with a
+    JAX path, ``unknown`` the rest."""
+    out = {"converted": [], "skipped": [], "unknown": []}
+    for name in names:
+        k = name.replace("gamma", "weight").replace("beta", "bias")
+        if k in _TIED or _TORCH_NOT_OWNED.match(k):
+            out["skipped"].append(k)
+            continue
+        try:
+            jax_path(k)
+            out["converted"].append(k)
+        except ValueError:
+            out["unknown"].append(k)
+    return out
 
 
 def load_reference_bin(path: str) -> Dict[str, torch.Tensor]:

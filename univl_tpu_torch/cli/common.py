@@ -6,16 +6,19 @@ The port's own copies of ``univl_tpu/cli/common.py``'s ``MetricsWriter``,
 read, under the JAX names and defaults, plus ``--fused_ln`` and
 ``--fused_cls``, the counterparts of JAX's ``UNIVL_TPU_FUSED_LN=1`` and
 ``UNIVL_TPU_FUSED_CLS=1``), ``add_fused_ffn_arg`` (the
-trainers' ``--fused_ffn``), ``finalize_args``, ``build_config``,
+trainers' ``--fused_ffn``), ``finalize_args``, ``build_config`` (with the
+local ``<kind>_config.json`` of ``--bert_model`` and the other three),
 ``load_init_params`` (a reference or port ``.bin``, or a JAX flax params
-``.msgpack``; in ``make_model``), ``make_trainer``, ``make_preempt_flag``,
-``preempt_hit`` and ``run_train_epochs`` (per-epoch eval and the best
-epoch, preemption, the train-state checkpoints and exact resume).
+``.msgpack``; in ``make_model``), ``make_trainer``, ``make_input_iter``
+(the prefetching input pipeline), ``make_preempt_flag``, ``preempt_hit``
+and ``run_train_epochs`` (per-epoch eval and the best epoch, preemption,
+the train-state checkpoints, synchronous or on a thread, and exact resume).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -34,16 +37,31 @@ from univl_tpu_torch.checkpoint.convert import (
 )
 from univl_tpu_torch.checkpoint.io import (
     TRAIN_STATE,
+    CheckpointWriter,
     merge_state_dict,
     read_flax_params,
     restore_checkpoint,
     save_checkpoint,
 )
-from univl_tpu_torch.config import TPU_THRESHOLD, UniVLConfig
+from univl_tpu_torch.config import (
+    TPU_THRESHOLD,
+    BertConfig,
+    CrossConfig,
+    DecoderConfig,
+    UniVLConfig,
+    VisualConfig,
+)
+from univl_tpu_torch.data.batching import (
+    DeviceTransfer,
+    cast_floats,
+    prefetch_to_device,
+    to_device,
+)
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.nn.layers import set_fused_layer_norm
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
+from univl_tpu_torch.utils.file_utils import ARCHIVES, cached_path
 from univl_tpu_torch.utils.profiling import StepTimer
 
 
@@ -171,6 +189,31 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--fused_ln", action="store_true",
                    help="every LayerNorm of the model through the LayerNorm kernel, forward "
                         "and backward (off by default, as JAX's UNIVL_TPU_FUSED_LN)")
+    p.add_argument("--remat", action="store_true",
+                   help="activation checkpointing of the text, visual and cross towers' "
+                        "layers: their activations are recomputed in the backward")
+    p.add_argument("--remat_policy", type=str, default="full", choices=["full", "dots"],
+                   help="with --remat: the full layer, or keep the weight products "
+                        "(nn.Linear's GEMMs) and recompute the rest, the kernels included")
+    p.add_argument("--transfer_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="host-to-device dtype of the float features; bfloat16 halves the "
+                        "bytes moved (input fidelity about 3 digits)")
+    p.add_argument("--no_prefetch", action="store_true",
+                   help="no background input thread: each batch is built and copied to the "
+                        "device inside the step loop")
+    p.add_argument("--bert_model", type=str, default="bert-base-uncased",
+                   help="a directory holding bert_config.json (or a .tar.gz of one) whose "
+                        "fields replace the text tower's defaults")
+    p.add_argument("--visual_model", type=str, default="visual-base",
+                   help="likewise, visual_config.json for the visual tower")
+    p.add_argument("--cross_model", type=str, default="cross-base",
+                   help="likewise, cross_config.json for the cross tower")
+    p.add_argument("--decoder_model", type=str, default="decoder-base",
+                   help="likewise, decoder_config.json for the decoder")
+    p.add_argument("--cache_dir", type=str, default="",
+                   help="where a --*_model archive is extracted (default: UNIVL_TPU_CACHE or "
+                        "~/.cache/univl_tpu/artifacts)")
     return p
 
 
@@ -222,13 +265,28 @@ def finalize_args(args):
     return args
 
 
+def _json_config(cls, model_dir: str, json_name: str, cache_dir: str):
+    """``cls.from_json`` of ``<model_dir>/<json_name>`` (``model_dir`` may be
+    an archive, extracted through ``cached_path``), or None without one."""
+    if str(model_dir).endswith(ARCHIVES) and os.path.isfile(model_dir):
+        model_dir = cached_path(model_dir, cache_dir or None)
+    path = os.path.join(str(model_dir), json_name)
+    if os.path.isdir(str(model_dir)) and os.path.exists(path):
+        return cls.from_json(path)
+    return None
+
+
 def build_config(args, device: torch.device, task_type: str = "retrieval",
                  vocab_size: Optional[int] = None) -> UniVLConfig:
     """Layer counts, widths, lengths, video_dim, vocab size (text tower and
     decoder alike), the stage switches, the loss fields, the (micro-)batch,
-    the FFN route (``--fused_ffn``, where the parser has it) and the compute
-    dtype (bf16 on a CUDA device, f32 on the CPU, unless
-    --compute_dtype or --fp16 says otherwise)."""
+    the FFN route (``--fused_ffn``, where the parser has it), ``--remat``
+    and the compute dtype (bf16 on a CUDA device, f32 on the CPU, unless
+    --compute_dtype or --fp16 says otherwise). A ``--bert_model`` (and
+    ``--visual_model``, ``--cross_model``, ``--decoder_model``) directory
+    with its ``<kind>_config.json`` replaces that config; then the CLI's
+    layer counts apply again, then the width flags, in
+    ``univl_tpu/cli/common.py:293-367``'s order."""
     dtype = args.compute_dtype or (
         "bfloat16" if (device.type == "cuda" or args.fp16) else "float32")
     cfg = UniVLConfig.base(
@@ -253,7 +311,22 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
         batch_size_per_device=args.batch_size,
         compute_dtype=dtype,
         use_fused_ffn=FUSED_FFN[getattr(args, "fused_ffn", "xla")],
+        remat=("dots" if args.remat_policy == "dots" else True) if args.remat else False,
     )
+    # the JSON configs replace the defaults, then the CLI's layer counts apply
+    # again (the reference's update_attr order)
+    counts = (("bert", BertConfig, args.bert_model, "num_hidden_layers",
+               args.text_num_hidden_layers),
+              ("visual", VisualConfig, args.visual_model, "num_hidden_layers",
+               args.visual_num_hidden_layers),
+              ("cross", CrossConfig, args.cross_model, "num_hidden_layers",
+               args.cross_num_hidden_layers),
+              ("decoder", DecoderConfig, args.decoder_model, "num_decoder_layers",
+               args.decoder_num_hidden_layers))
+    for kind, cls, model_dir, field, n in counts:
+        loaded = _json_config(cls, model_dir, f"{kind}_config.json", args.cache_dir)
+        if loaded is not None:
+            cfg = cfg.replace(**{kind: loaded.replace(**{field: n})})
     arch = {}
     if args.hidden_size != 768:
         arch.update(hidden_size=args.hidden_size)
@@ -261,14 +334,16 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
         arch.update(num_attention_heads=args.num_attention_heads)
     if args.intermediate_size != 3072:
         arch.update(intermediate_size=args.intermediate_size)
-    bert = cfg.bert.replace(**arch)
-    decoder = cfg.decoder.replace(**arch)
+    bert, visual = cfg.bert.replace(**arch), cfg.visual.replace(**arch)
+    cross, decoder = cfg.cross.replace(**arch), cfg.decoder.replace(**arch)
     if vocab_size is not None:
         bert = bert.replace(vocab_size=vocab_size)
         decoder = decoder.replace(vocab_size=vocab_size)
-    visual = cfg.visual.replace(**arch, vocab_size=args.video_dim)
-    cross = cfg.cross.replace(**arch)
-    return cfg.replace(bert=bert, visual=visual, cross=cross, decoder=decoder).validate()
+    if args.video_dim != visual.vocab_size:
+        visual = visual.replace(vocab_size=args.video_dim)
+    if arch or vocab_size is not None or args.video_dim != 1024:
+        cfg = cfg.replace(bert=bert, visual=visual, cross=cross, decoder=decoder)
+    return cfg.validate()
 
 
 def make_model(args, cfg: UniVLConfig, device: torch.device, logger) -> UniVL:
@@ -332,6 +407,30 @@ def save_state_dict(model: torch.nn.Module, path: str) -> None:
     torch.save(cpu_state_dict(model), path)
 
 
+def make_input_iter(args, batcher, epoch: int, device: torch.device, start_batch: int = 0):
+    """The epoch's update-batches on ``device`` as ``[accum, B, ...]``
+    tensors (``univl_tpu/cli/common.py:492-514``): the host batches, their
+    float arrays cast to ``--transfer_dtype``, then the copy. By default a
+    worker thread builds the next batches and stages each one's copy to the
+    card (``data/batching.py:DeviceTransfer``: pinned memory, a side stream)
+    while the step runs; with ``--no_prefetch`` each batch is built and
+    copied in the loop. ``start_batch`` skips that many update-batches (a
+    resume inside the epoch)."""
+    accum = args.gradient_accumulation_steps
+    transfer_dtype = getattr(args, "transfer_dtype", "float32")
+
+    def host_iter():
+        for b in batcher.epoch(epoch, start_batch=start_batch):
+            yield cast_floats({k: (v if accum > 1 else v[None]) for k, v in b.items()},
+                              transfer_dtype)
+
+    if getattr(args, "no_prefetch", False):
+        return (to_device(b, device) for b in host_iter())
+    # put in the worker: the pinning and the start of the copy overlap the step
+    transfer = DeviceTransfer(device)
+    return prefetch_to_device(host_iter(), put=transfer.put, ready=transfer.ready)
+
+
 def make_preempt_flag(args) -> dict:
     """The SIGTERM handler every trainer's loop shares: it sets the returned
     flag (``{"hit": False}``), unless ``--no_preempt_checkpoint``."""
@@ -380,8 +479,8 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                      select_key: Optional[str] = None, select_sign: float = 1.0,
                      manager=None, state_every_epoch: bool = False):
     """The epoch loop of ``univl_tpu.cli.common.run_train_epochs`` (and of
-    ``univl_tpu/cli/pretrain.py``'s ``main``): each batch to the device, one
-    optimizer step, the losses summed on the device (read at display points
+    ``univl_tpu/cli/pretrain.py``'s ``main``): the batches through
+    ``make_input_iter``, one optimizer step, the losses summed on the device (read at display points
     and at the epoch's end, every loss of the step's dict in metrics.jsonl),
     and each epoch's weights saved as ``pytorch_model.bin.<epoch>`` (the
     reference's per-epoch file). With ``eval_fn(epoch)`` each epoch is then
@@ -395,7 +494,10 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
     saved after every epoch (unless ``--no_preempt_checkpoint``; always with
     ``state_every_epoch``), every ``--checkpoint_every_steps`` steps of an
     epoch, and on preemption (SIGTERM, or ``--inject_preempt_after``), after
-    which the loop returns. ``--load_checkpoint`` restores the parameters,
+    which the loop returns; with ``--async_checkpointing`` each save returns
+    after the copy to the host and writes on a thread, and the loop waits for
+    the write in flight before it returns or raises (a failed write raises
+    there). Each save's blocking seconds go to metrics.jsonl. ``--load_checkpoint`` restores the parameters,
     the moments, BertAdam's step count, the epoch, the offset in it and the
     best so far, and the run goes on at the next update-batch: the batcher
     skips the done ones, each step's dropout comes from (seed, global step)
@@ -430,83 +532,98 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                         start_epoch + 1, global_step, start_step_in_epoch)
             del state
     preempt = make_preempt_flag(args)
+    # the train state goes to the manager, or to train_state.pt through a
+    # writer; both write on a thread with --async_checkpointing
+    store = manager if manager is not None else CheckpointWriter(
+        getattr(args, "async_checkpointing", False))
+    mw = MetricsWriter(args.output_dir)
 
     def save_train_state(epoch: int, in_epoch_step: int, preempted: bool, **extra):
         meta = {"epoch": epoch - 1 if in_epoch_step else epoch, "global_step": global_step,
                 "in_epoch_step": in_epoch_step, "preempted": preempted,
                 "best": _json_best(best),
                 "best_score": None if best is None else float(best_score), **extra}
+        t0 = time.perf_counter()
         if manager is not None:
             manager.save(global_step, train_state(trainer), metrics=meta)
         else:
-            save_checkpoint(ckpt_path, train_state(trainer), metadata=meta)
+            store.save(ckpt_path, train_state(trainer), metadata=meta)
+        blocked = time.perf_counter() - t0
+        # the seconds the loop was held: the whole write, or with
+        # --async_checkpointing the wait for the last one and the host copy
+        logger.info("train state saved at step %d: the loop blocked %.3f s", global_step,
+                    blocked)
+        mw.write("checkpoint", epoch=epoch, step=global_step, preempted=preempted,
+                 blocked_seconds=blocked)
 
-    timer = StepTimer()
-    mw = MetricsWriter(args.output_dir)
-    accum = args.gradient_accumulation_steps
-    items_per_step = args.batch_size * accum
-    every = getattr(args, "checkpoint_every_steps", 0)
-    crash_after = getattr(args, "inject_crash_after", 0)
-    steps_at_start = global_step
-    for epoch in range(start_epoch, args.epochs):
-        t0 = time.time()
-        loss_sum, n_steps = None, 0
-        offset = start_step_in_epoch if epoch == start_epoch else 0
-        for batch in batcher.epoch(epoch, start_batch=offset):
-            batch = {k: torch.from_numpy(v if accum > 1 else v[None]).to(device)
-                     for k, v in batch.items()}
-            metrics = trainer.train_step(batch, global_step)
-            global_step += 1
-            n_steps += 1
-            loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
-            timer.tick(items_per_step)
-            if global_step % args.n_display == 0:
-                shown = {k: float(v) for k, v in metrics.items()}
-                disp_loss = shown.pop("loss")
-                logger.info("Epoch %d/%d Step %d Loss %.6f %s Time/step %.3f (%.0f clips/s)",
-                            epoch + 1, args.epochs, global_step, disp_loss, shown,
-                            timer.ema or 0.0, timer.items_per_sec)
-                mw.write("train", epoch=epoch, step=global_step, loss=disp_loss,
-                         clips_per_sec=timer.items_per_sec, **shown)
-            if preempt_hit(args, preempt, global_step - steps_at_start):
+    try:
+        timer = StepTimer()
+        accum = args.gradient_accumulation_steps
+        items_per_step = args.batch_size * accum
+        every = getattr(args, "checkpoint_every_steps", 0)
+        crash_after = getattr(args, "inject_crash_after", 0)
+        steps_at_start = global_step
+        for epoch in range(start_epoch, args.epochs):
+            t0 = time.time()
+            loss_sum, n_steps = None, 0
+            offset = start_step_in_epoch if epoch == start_epoch else 0
+            with contextlib.closing(make_input_iter(args, batcher, epoch, device,
+                                                    start_batch=offset)) as batches:
+                for batch in batches:
+                    metrics = trainer.train_step(batch, global_step)
+                    global_step += 1
+                    n_steps += 1
+                    loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
+                    timer.tick(items_per_step)
+                    if global_step % args.n_display == 0:
+                        shown = {k: float(v) for k, v in metrics.items()}
+                        disp_loss = shown.pop("loss")
+                        logger.info("Epoch %d/%d Step %d Loss %.6f %s Time/step %.3f (%.0f "
+                                    "clips/s)", epoch + 1, args.epochs, global_step, disp_loss,
+                                    shown, timer.ema or 0.0, timer.items_per_sec)
+                        mw.write("train", epoch=epoch, step=global_step, loss=disp_loss,
+                                 clips_per_sec=timer.items_per_sec, **shown)
+                    if preempt_hit(args, preempt, global_step - steps_at_start):
+                        save_train_state(epoch, offset + n_steps, True)
+                        logger.info("preempted at epoch %d step %d: checkpoint saved, exiting",
+                                    epoch + 1, global_step)
+                        return global_step, best
+                    if crash_after and global_step - steps_at_start >= crash_after:
+                        raise RuntimeError("injected crash (no checkpoint)")
+                    if every and n_steps % every == 0:
+                        save_train_state(epoch, offset + n_steps, False)
+                        logger.info("periodic checkpoint at epoch %d step %d", epoch + 1,
+                                    global_step)
+            total_loss = float(loss_sum) if loss_sum is not None else 0.0
+            logger.info("Epoch %d done: mean loss %.6f (%.1fs)", epoch + 1,
+                        total_loss / max(n_steps, 1), time.time() - t0)
+            mw.write("epoch", epoch=epoch, mean_loss=total_loss / max(n_steps, 1),
+                     seconds=time.time() - t0, steps=n_steps)
+            # a SIGTERM after the epoch's last step saves now, before the eval:
+            # a preemption's grace is tens of seconds
+            if preempt["hit"]:
                 save_train_state(epoch, offset + n_steps, True)
-                logger.info("preempted at epoch %d step %d: checkpoint saved, exiting",
-                            epoch + 1, global_step)
-                mw.close()
+                logger.info("preempted at epoch %d end: checkpoint saved, exiting", epoch + 1)
                 return global_step, best
-            if crash_after and global_step - steps_at_start >= crash_after:
-                raise RuntimeError("injected crash (no checkpoint)")
-            if every and n_steps % every == 0:
-                save_train_state(epoch, offset + n_steps, False)
-                logger.info("periodic checkpoint at epoch %d step %d", epoch + 1, global_step)
-        total_loss = float(loss_sum) if loss_sum is not None else 0.0
-        logger.info("Epoch %d done: mean loss %.6f (%.1fs)", epoch + 1,
-                    total_loss / max(n_steps, 1), time.time() - t0)
-        mw.write("epoch", epoch=epoch, mean_loss=total_loss / max(n_steps, 1),
-                 seconds=time.time() - t0, steps=n_steps)
-        # a SIGTERM after the epoch's last step saves now, before the eval:
-        # a preemption's grace is tens of seconds
-        if preempt["hit"]:
-            save_train_state(epoch, offset + n_steps, True)
-            logger.info("preempted at epoch %d end: checkpoint saved, exiting", epoch + 1)
-            mw.close()
-            return global_step, best
-        save_state_dict(trainer.model, os.path.join(args.output_dir,
-                                                    f"pytorch_model.bin.{epoch}"))
-        if eval_fn is not None:
-            metrics = eval_fn(epoch)
-            score = select_sign * metrics[select_key]
-            if score > best_score:
-                best_score, best = score, dict(metrics, epoch=epoch)
-                save_checkpoint(os.path.join(args.output_dir, BEST_BIN), cpu_state_dict(
-                    trainer.model), metadata={"epoch": epoch, "metrics": _json_best(metrics)})
-            logger.info("Eval epoch %d: %s", epoch + 1, metrics)
-            mw.write("eval", epoch=epoch, **metrics)
-        if state_every_epoch or not args.no_preempt_checkpoint:
-            save_train_state(epoch, 0, False, mean_loss=total_loss / max(n_steps, 1))
-    if best is not None:
-        logger.info("Best: epoch %d by %s, %s: %s", best["epoch"] + 1, select_key, BEST_BIN,
-                    best)
-        mw.write("best", **best)
-    mw.close()
-    return global_step, best
+            save_state_dict(trainer.model, os.path.join(args.output_dir,
+                                                        f"pytorch_model.bin.{epoch}"))
+            if eval_fn is not None:
+                metrics = eval_fn(epoch)
+                score = select_sign * metrics[select_key]
+                if score > best_score:
+                    best_score, best = score, dict(metrics, epoch=epoch)
+                    save_checkpoint(os.path.join(args.output_dir, BEST_BIN), cpu_state_dict(
+                        trainer.model), metadata={"epoch": epoch, "metrics": _json_best(metrics)})
+                logger.info("Eval epoch %d: %s", epoch + 1, metrics)
+                mw.write("eval", epoch=epoch, **metrics)
+            if state_every_epoch or not args.no_preempt_checkpoint:
+                save_train_state(epoch, 0, False, mean_loss=total_loss / max(n_steps, 1))
+        if best is not None:
+            logger.info("Best: epoch %d by %s, %s: %s", best["epoch"] + 1, select_key, BEST_BIN,
+                        best)
+            mw.write("best", **best)
+        return global_step, best
+    finally:
+        store.wait()  # a failed write raises here
+        mw.close()
+

@@ -29,7 +29,13 @@ an epoch. On SIGTERM (or ``--inject_preempt_after``) the train state is
 saved with the offset in the epoch and the run exits; ``--load_checkpoint``
 resumes at the next update-batch, bit-identical to an uninterrupted run.
 Losses at display points and epoch summaries go to ``metrics.jsonl``.
-``--async_checkpointing`` is refused: saves are synchronous.
+``--async_checkpointing`` copies the train state to the host and writes it
+on a background thread (either backend); the loop waits for the write in
+flight before the next save and before it returns. ``--remat`` (with
+``--remat_policy dots``) recomputes the towers' layers in the backward. The
+batches come through ``common.make_input_iter``. ``--zero1``, ``--n_gpu``
+and ``--tensor_parallel`` above 1 are refused with an error that names the
+multi-device slice they wait for.
 """
 
 from __future__ import annotations
@@ -43,13 +49,10 @@ from univl_tpu_torch.data.batching import Batcher
 from univl_tpu_torch.data.howto100m import HowTo100MPretrainDataset
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 
-# flag -> why it is refused: the slice of the port that will run it
+# flag -> why it is refused: the slice of the port that will run it (--n_gpu and
+# --tensor_parallel above 1 wait for it too)
 REFUSED = {
-    "async_checkpointing": "not ported yet (saves are synchronous; waits for the "
-                           "asynchronous-checkpointing slice)",
     "zero1": "not ported yet (waits for the multi-device slice)",
-    "remat": "not ported yet (waits for the activation checkpointing slice: dropout seeds "
-             "replayed in the recomputed forward)",
 }
 
 
@@ -65,6 +68,10 @@ def add_pretrain_args(p):
                         "per-step directories keeping the last --keep_checkpoints")
     p.add_argument("--keep_checkpoints", type=int, default=3,
                    help="orbax backend: how many checkpoints to keep")
+    p.add_argument("--async_checkpointing", action="store_true",
+                   help="write the train state on a background thread: the save returns "
+                        "after the copy to the host; the next save and the end of the run "
+                        "wait for the write")
     p.add_argument("--checkpoint_every_steps", type=int, default=0,
                    help="also save the train state every N update-steps within an epoch")
     p.add_argument("--inject_crash_after", type=int, default=0,
@@ -122,7 +129,8 @@ def main(argv=None):
     manager = None
     if args.checkpoint_backend == "orbax":
         manager = RotatingCheckpointManager(os.path.join(args.output_dir, "checkpoints"),
-                                            max_to_keep=args.keep_checkpoints)
+                                            max_to_keep=args.keep_checkpoints,
+                                            async_save=args.async_checkpointing)
     steps, _ = common.run_train_epochs(args, trainer, batcher, logger, device, manager=manager,
                                        state_every_epoch=True)
     return steps, trainer

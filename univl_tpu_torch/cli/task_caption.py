@@ -32,8 +32,13 @@ state to ``train_state.pt`` after each epoch and on preemption;
 ``--load_checkpoint`` resumes at the exact update-batch. ``--use_mil`` is
 accepted and ignored, as by JAX's driver (stage two has no MIL loss);
 ``--do_pretrain`` is refused: pretraining's entry point is
-``univl_tpu_torch.cli.pretrain``. The flags of paths not ported yet are
-refused with an error that names the slice each waits for.
+``univl_tpu_torch.cli.pretrain``. ``--remat`` (with ``--remat_policy
+dots``) recomputes the towers' layers in the backward (the decoder's are
+kept, as in JAX); the training batches come through
+``common.make_input_iter`` and the eval batches through
+``prefetch_to_device`` (built while the beam search runs) unless
+``--no_prefetch``. ``--zero1``, ``--n_gpu`` and ``--tensor_parallel`` above 1
+are refused with an error that names the multi-device slice they wait for.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from __future__ import annotations
 import os
 
 from univl_tpu_torch.cli import common
-from univl_tpu_torch.data.batching import Batcher
+from univl_tpu_torch.data.batching import Batcher, prefetch_to_device
 from univl_tpu_torch.data.msrvtt import MsrvttCaptionDataset
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.data.youcook import YoucookCaptionDataset
@@ -50,14 +55,10 @@ from univl_tpu_torch.evals.caption_metrics import compute_caption_metrics
 from univl_tpu_torch.serving.captioning import resolve_fused
 
 # flag -> why it is refused: the entry point that runs it, or the slice of the
-# port that will
+# port that will (--n_gpu and --tensor_parallel above 1 wait for it too)
 REFUSED = {
     "do_pretrain": "pretraining has its own entry point: python -m univl_tpu_torch.cli.pretrain",
     "zero1": "not ported yet (waits for the multi-device slice)",
-    # torch.utils.checkpoint re-runs the forward, which would draw new Philox
-    # seeds from the step's generator: the recomputed dropout would differ
-    "remat": "not ported yet (waits for the activation checkpointing slice: dropout seeds "
-             "replayed in the recomputed forward)",
 }
 DATATYPES = ("youcook", "msrvtt")
 EVAL_KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask")
@@ -72,7 +73,7 @@ def parse_args(argv=None):
     parser.add_argument("--do_eval", action="store_true",
                         help="beam-5 captions of --val_csv and their metrics; with --do_train "
                              "after every epoch")
-    for flag in ("do_pretrain", "zero1", "remat"):
+    for flag in REFUSED:
         parser.add_argument(f"--{flag}", action="store_true", help="refused here")
     parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
     parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
@@ -140,7 +141,11 @@ def make_eval_fn(args, model, tokenizer, device, val_ds, logger):
                                fused_vocab=resolve_fused(args.fused_vocab, device),
                                fused_cls=args.fused_cls)
         hyps = []
-        for batch in batcher.epoch(0):
+        batches = batcher.epoch(0)
+        if not args.no_prefetch:
+            # host batches only: the generator moves them to the device itself
+            batches = prefetch_to_device(batches)
+        for batch in batches:
             hyps.extend(gen.generate({k: batch[k] for k in EVAL_KEYS}))
         refs = [references_for(val_ds, i) for i in range(len(hyps))]
         metrics = compute_caption_metrics(refs, hyps)

@@ -37,15 +37,18 @@ best epoch's to ``pytorch_model.bin.best``, and the train state to
 ``train_state.pt`` after each epoch and on preemption (SIGTERM, or
 ``--inject_preempt_after``); ``--load_checkpoint`` resumes at the exact
 update-batch. ``--do_pretrain`` is refused: pretraining's entry point is
-``univl_tpu_torch.cli.pretrain``. The flags of paths not ported yet are
-refused with an error that names the slice each waits for. JAX's
-host-thread prefetch of eval batches waits for the input-pipeline slice.
+``univl_tpu_torch.cli.pretrain``. ``--remat`` (with ``--remat_policy
+dots``) recomputes the towers' layers in the backward; the training batches
+come through ``common.make_input_iter`` and the eval batches through
+``prefetch_to_device`` (read and tokenized while the device encodes) unless
+``--no_prefetch``. ``--zero1``, ``--n_gpu`` and ``--tensor_parallel`` above 1
+are refused with an error that names the multi-device slice they wait for.
 """
 
 from __future__ import annotations
 
 from univl_tpu_torch.cli import common
-from univl_tpu_torch.data.batching import Batcher
+from univl_tpu_torch.data.batching import Batcher, prefetch_to_device
 from univl_tpu_torch.data.msrvtt import MsrvttRetrievalEvalDataset, MsrvttRetrievalTrainDataset
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.data.youcook import YoucookRetrievalDataset
@@ -53,14 +56,10 @@ from univl_tpu_torch.evals.retrieval import KEYS, RetrievalEvaluator
 
 DATATYPES = ("youcook", "msrvtt")
 # flag -> why it is refused: the entry point that runs it, or the slice of the
-# port that will
+# port that will (--n_gpu and --tensor_parallel above 1 wait for it too)
 REFUSED = {
     "do_pretrain": "pretraining has its own entry point: python -m univl_tpu_torch.cli.pretrain",
     "zero1": "not ported yet (waits for the multi-device slice)",
-    # torch.utils.checkpoint re-runs the forward, which would draw new Philox
-    # seeds from the step's generator: the recomputed dropout would differ
-    "remat": "not ported yet (waits for the activation checkpointing slice: dropout seeds "
-             "replayed in the recomputed forward)",
 }
 
 
@@ -72,7 +71,7 @@ def parse_args(argv=None):
     parser.add_argument("--do_eval", action="store_true",
                         help="R@K, MedianR and MeanR over --val_csv; with --do_train after "
                              "every epoch")
-    for flag in ("do_pretrain", "zero1", "remat"):
+    for flag in REFUSED:
         parser.add_argument(f"--{flag}", action="store_true", help="refused here")
     parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
     parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
@@ -140,7 +139,11 @@ def main(argv=None):
 
         def eval_fn(epoch=None):
             """The metrics, and the encode and similarity passes' seconds."""
-            metrics = evaluator.evaluate(eval_batches(test_ds, args.batch_size_val), mode=mode)
+            batches = eval_batches(test_ds, args.batch_size_val)
+            if not args.no_prefetch:
+                # host batches only: the evaluator pads and moves them itself
+                batches = prefetch_to_device(batches)
+            metrics = evaluator.evaluate(batches, mode=mode)
             metrics.update(evaluator.seconds)
             logger.info("Retrieval eval (%s) over %d pairs: %s", mode, len(test_ds), metrics)
             return metrics

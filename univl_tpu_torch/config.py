@@ -1,18 +1,19 @@
 """Configuration dataclasses, the port's own copy of ``univl_tpu/config.py``.
 
 The same fields, defaults and constructors (``base()``, ``tiny()``,
-``replace()``, ``validate()``), so ``dataclasses.asdict`` of a port config
+``replace()``, ``validate()``, the encoder configs' ``from_json``), so ``dataclasses.asdict`` of a port config
 equals the JAX package's for the same arguments. Knobs that only the TPU
 package reads (``use_pallas``, ``scan_layers``, ...) are kept so the two
 stay comparable field for field; the port ignores them. The port reads
 ``use_fused_ffn`` (False, True or "block": the FFN kernels #3, or #4 and #5)
 and refuses JAX's "auto" and "auto_block", whose row thresholds were
-measured on the TPU.
+measured on the TPU; and ``remat`` (False, True or "dots").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 
 FUSED_FFN_ROUTES = (False, True, "block")  # the unfused FFN, kernel #3, kernels #4 and #5
@@ -27,6 +28,14 @@ def check_fused_ffn(route) -> None:
                          f"'block'")
     if route not in FUSED_FFN_ROUTES:
         raise ValueError(f"use_fused_ffn must be False, True or 'block', got {route!r}")
+
+
+REMAT_MODES = (False, True, "dots")  # none, each tower layer whole, save its weight products
+
+
+def check_remat(remat) -> None:
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be False, True or 'dots', got {remat!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +53,17 @@ class EncoderConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     initializer_range: float = 0.02
+
+    @classmethod
+    def from_json(cls, path: str, **overrides):
+        """A reference ``<kind>_config.json``: the keys this config does not
+        have dropped, then ``overrides`` applied (``univl_tpu/config.py:43-50``)."""
+        with open(path, "r", encoding="utf-8") as f:
+            d = json.load(f)
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in known}
+        d.update(overrides)
+        return cls(**d)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -106,12 +126,12 @@ class UniVLConfig:
 
     compute_dtype: str = "float32"  # or "bfloat16"
     # read only by the JAX package (its Pallas and XLA switches), but for
-    # use_fused_ffn: False | True | "block", the port's FFN route
+    # use_fused_ffn: False | True | "block", the port's FFN route, and remat
     use_pallas: object = False
     use_train_pallas: object = False
     use_fused_ffn: object = False
     fused_qkv: bool = False
-    remat: bool = False
+    remat: object = False  # False | True | "dots": the towers' activation checkpointing
     scan_layers: bool = False
     sequence_parallel: bool = False
 
@@ -123,6 +143,7 @@ class UniVLConfig:
             raise ValueError(f"max_words {self.max_words} / max_frames {self.max_frames} "
                              f"exceed the position tables")
         check_fused_ffn(self.use_fused_ffn)
+        check_remat(self.remat)
         return self
 
     def replace(self, **kw):

@@ -12,8 +12,10 @@ the tied classifier's logits), retrieval fine-tuning (CrossEn over the cross
 similarity) and, with ``do_pretrain``, pretraining stage II's five
 objectives. Parameters are f32;
 ``cfg.compute_dtype`` ("float32" or "bfloat16") is the dtype the towers
-compute in, and ``cfg.use_fused_ffn`` (False, True or "block") the FFN
-route of every tower layer (``nn/layers.py``). The state dict uses the
+compute in, ``cfg.use_fused_ffn`` (False, True or "block") the FFN
+route of every tower layer, and ``cfg.remat`` (False, True or "dots") the
+activation checkpointing of the text, visual and cross towers' layers
+(``nn/layers.py``); the decoder is not rematerialized, as in JAX. The state dict uses the
 reference checkpoint's names:
 
     bert.*                      text tower (with the shared word/position tables)
@@ -94,13 +96,13 @@ class UniVL(nn.Module):
         self.cfg = cfg
         dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
         self.compute_dtype = dt
-        ffn = cfg.use_fused_ffn
-        self.bert = TextEncoder(cfg.bert, dt, device, ffn)
-        self.visual = VisualEncoder(cfg.visual, cfg.video_dim, dt, device, ffn)
+        ffn, remat = cfg.use_fused_ffn, cfg.remat
+        self.bert = TextEncoder(cfg.bert, dt, device, ffn, remat)
+        self.visual = VisualEncoder(cfg.visual, cfg.video_dim, dt, device, ffn, remat)
         self.normalize_video = NormalizeVideo(cfg.video_dim, device)
         self.has_cross = cfg.stage_two or cfg.train_sim_after_cross
         if self.has_cross:
-            self.cross = CrossEncoder(cfg.cross, dt, device, ffn)
+            self.cross = CrossEncoder(cfg.cross, dt, device, ffn, remat)
             self.similarity_dense = Linear(cfg.cross.hidden_size, 1, dt, device)
         self.has_decoder = cfg.stage_two and not cfg.train_sim_after_cross
         if self.has_decoder:

@@ -33,6 +33,7 @@ from univl_tpu_torch.nn.layers import (
     MultiHeadAttention,
     PredictionHeadTransform,
     Randomness,
+    TOWER_TAGS,
     ResidualOutput,
     _Intermediate,
     dropout,
@@ -139,8 +140,10 @@ class CaptionDecoder(nn.Module):
         x = x.to(self.compute_dtype)
         self_bias = decoder_self_attn_bias(answer_mask)
         encoder_mask = encoder_mask.float()
-        for layer in self.decoder.layer:
-            x = layer(x, encoder_out, self_bias, encoder_mask, rng)
+        if rng is not None:
+            rng = rng.run(TOWER_TAGS["decoder"])
+        for i, layer in enumerate(self.decoder.layer):
+            x = layer(x, encoder_out, self_bias, encoder_mask, None if rng is None else rng.fold(i))
         pred = self.classifier.cls.predictions
         h = pred.transform(x)
         table = word_table.to(self.compute_dtype)

@@ -28,7 +28,11 @@ backward kernels, the attention-probability dropout drawn inside them), and
 the additive-bias attention (the decoder's causal self-attention) through
 ``sdpa_bias`` with its probability dropout drawn in PyTorch, as the JAX
 package's XLA path draws it. Its randomness comes from a ``Randomness``
-passed down explicitly; nothing reads PyTorch's global random state.
+passed down explicitly and keyed by where it is drawn (each run of a stack
+folds its tower and the run's number in the step, each layer its index), so
+a tower run twice in one step draws other masks the second time and
+``TransformerStack``'s ``remat`` recomputes a layer with its first pass's
+dropout; nothing reads PyTorch's global random state.
 
 ``LayerNormTF`` computes in plain PyTorch unless its ``fused`` flag is set
 (``set_fused_layer_norm``, the counterpart of JAX's ``UNIVL_TPU_FUSED_LN=1``,
@@ -37,14 +41,21 @@ set per model): then ``kernels.layernorm.fused_layer_norm`` (#6).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
-from univl_tpu_torch.config import check_fused_ffn
+from univl_tpu_torch.config import check_fused_ffn, check_remat
 from univl_tpu_torch.kernels.attention import fused_attention_masked
 from univl_tpu_torch.kernels.ffn import fused_dense_block, fused_ffn, fused_ffn_block
 from univl_tpu_torch.kernels.layernorm import fused_layer_norm
@@ -68,36 +79,85 @@ def additive_mask_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return ((1.0 - mask.to(dtype)) * MASK_BIAS)[:, None, None, :]
 
 
-class Randomness(NamedTuple):
-    """A training step's randomness: ``host``, a CPU generator, gives each
-    training-attention call its Philox seed without a device sync; ``device``,
-    a generator on the activations' device, draws the hidden and embedding
-    dropout masks. The counterpart of flax's ``dropout`` rng stream."""
+_MASK64 = (1 << 64) - 1
+KEY_BITS = (1 << 62) - 1  # keys and Philox seeds are 62-bit host ints
 
-    host: torch.Generator
+# the tags a key is folded with: a tower's stack (then the run's number in
+# the step, then its layer index), and within a layer each kernel call that
+# draws in-kernel dropout
+TOWER_TAGS = {"text": 1, "visual": 2, "cross": 3, "decoder": 4}
+CALL_ATTENTION, CALL_DENSE_BLOCK, CALL_FFN_BLOCK = 1, 2, 3
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_key(key: int, tag: int) -> int:
+    """A fixed mix of (key, tag) to a 62-bit key: flax's ``fold_in``."""
+    return _splitmix64(key ^ _splitmix64(tag)) & KEY_BITS
+
+
+class Randomness(NamedTuple):
+    """A training step's randomness, keyed by where it is drawn, as flax
+    folds its ``dropout`` rng stream per module path: ``key``, a host int,
+    and ``device``, a generator on the activations' device seeded from it
+    (the hidden, embedding and additive-bias attention dropout masks).
+    ``run(tag)`` keys the n-th run of a stack in the step by (tag, n), as
+    flax counts a scope's ``make_rng`` calls, and ``fold`` gives each layer
+    of that run a child of its own; a kernel call inside the layer takes
+    ``kernel_seed(call)``, its Philox key. A layer recomputed under
+    activation checkpointing folds again from its run's key, so it draws the
+    masks of its first pass. Nothing reads PyTorch's global random state."""
+
+    key: int
     device: torch.Generator
+    runs: dict  # tag -> runs counted so far in this step
+
+    @classmethod
+    def from_key(cls, key: int, device) -> "Randomness":
+        return cls(key, torch.Generator(device=torch.device(device)).manual_seed(key), {})
 
     @classmethod
     def derive(cls, generator: torch.Generator, device) -> "Randomness":
-        """From the step's CPU generator: ``generator`` itself, and a
-        generator on ``device`` seeded from its next draw."""
-        device = torch.device(device)
-        seed = int(torch.randint(0, 2**62, (), generator=generator))
-        return cls(generator, torch.Generator(device=device).manual_seed(seed))
+        """The step's randomness on ``device``, keyed by the next draw of
+        the step's CPU generator."""
+        return cls.from_key(int(torch.randint(0, KEY_BITS + 1, (), generator=generator)),
+                            device)
 
-    def kernel_seed(self) -> int:
-        """A Philox key for one training-attention or fused-FFN call (JAX's
-        ``_kernel_dropout_seed``: one draw per call)."""
-        return int(torch.randint(0, 2**62, (), generator=self.host))
+    def fold(self, *tags: int) -> "Randomness":
+        """The child keyed by ``tags`` folded in turn, with a device
+        generator of its own."""
+        key = self.key
+        for tag in tags:
+            key = fold_key(key, tag)
+        return Randomness.from_key(key, self.device.device)
+
+    def run(self, tag: int) -> "Randomness":
+        """The child of the next run of the stack tagged ``tag`` in this
+        step: ``fold(tag, n)`` for its n-th run. It counts, so it is called
+        once a run and outside any checkpointed region."""
+        n = self.runs.get(tag, 0)
+        self.runs[tag] = n + 1
+        return self.fold(tag, n)
+
+    def kernel_seed(self, call: int) -> int:
+        """The Philox key of one training-attention or fused-FFN call,
+        fixed by its call tag (JAX's ``_kernel_dropout_seed``)."""
+        return fold_key(self.key, call)
 
 
-def kernel_dropout(training: bool, rate: float, rng: Optional[Randomness]):
-    """(rate, Philox seed) of a kernel with in-kernel dropout: rate 0 outside
-    training, and a rate of 0 draws no seed (``univl_tpu/nn/layers.py:270-282``)."""
+def kernel_dropout(training: bool, rate: float, rng: Optional[Randomness], call: int):
+    """(rate, Philox seed) of a kernel with in-kernel dropout at call tag
+    ``call``: rate 0 outside training, and a rate of 0 takes seed 0
+    (``univl_tpu/nn/layers.py:270-282``)."""
     rate = rate if training else 0.0
     if rate > 0.0 and rng is None:
         raise ValueError("dropout in training mode needs a Randomness")
-    return rate, (rng.kernel_seed() if rate > 0.0 else 0)
+    return rate, (rng.kernel_seed(call) if rate > 0.0 else 0)
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[Randomness]) -> torch.Tensor:
@@ -196,7 +256,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError("give exactly one of key_mask and bias")
         kv_in = x if kv_in is None else kv_in
         if self.training and key_mask is not None:
-            rate, seed = kernel_dropout(True, self.dropout_rate, rng)
+            rate, seed = kernel_dropout(True, self.dropout_rate, rng, CALL_ATTENTION)
             return fused_train_attention(self.query(x), self.key(kv_in), self.value(kv_in),
                                          key_mask, seed, rate, self.num_heads)
 
@@ -230,7 +290,7 @@ class ResidualOutput(nn.Module):
                 rng: Optional[Randomness] = None) -> torch.Tensor:
         if self.fold_epilogue:
             dt, ln = self.dense.compute_dtype, self.LayerNorm
-            rate, seed = kernel_dropout(self.training, self.dropout_rate, rng)
+            rate, seed = kernel_dropout(self.training, self.dropout_rate, rng, CALL_DENSE_BLOCK)
             out = fused_dense_block(
                 x.reshape(-1, x.shape[-1]).to(dt), residual.reshape(-1, residual.shape[-1]).to(dt),
                 self.dense.weight.to(dt).t(), self.dense.bias.to(dt), ln.weight, ln.bias, seed,
@@ -256,7 +316,7 @@ class FusedFFNOutput(ResidualOutput):
         w = (intermediate.weight.to(dt).t(), intermediate.bias.to(dt),
              self.dense.weight.to(dt).t(), self.dense.bias.to(dt))
         if self.fold_epilogue:
-            rate, seed = kernel_dropout(self.training, self.dropout_rate, rng)
+            rate, seed = kernel_dropout(self.training, self.dropout_rate, rng, CALL_FFN_BLOCK)
             return fused_ffn_block(x2, *w, ln.weight, ln.bias, seed, rate, ln.eps).view(x.shape)
         y = fused_ffn(x2, *w).view(x.shape)
         if self.training:
@@ -321,11 +381,41 @@ class TransformerLayer(nn.Module):
         return self.output(inter, attn_out, rng)
 
 
-class TransformerStack(nn.Module):
-    """``cfg.num_hidden_layers`` identical post-LN blocks."""
+# the products "dots" keeps: the 2-D weight products (nn.Linear's GEMMs), as
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps the dots
+# without batch dimensions; batched products (bmm) and the kernels are recomputed
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
-    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False):
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat="dots"``: save the
+    outputs of ``DOTS_SAVED``, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layer(layer, x, key_mask, rng, i):
+    # the fold happens inside the checkpointed call: the recompute re-seeds
+    # from the run's key and draws the first pass's masks
+    return layer(x, key_mask, None if rng is None else rng.fold(i))
+
+
+class TransformerStack(nn.Module):
+    """``cfg.num_hidden_layers`` identical post-LN blocks; in the stack's
+    n-th run of the step, layer i draws its randomness from
+    ``rng.run(tag).fold(i)``, that is ``rng.fold(tag, n, i)``.
+
+    ``remat`` (``univl_tpu/nn/layers.py:560-579``): False, True (each layer
+    under ``torch.utils.checkpoint``: only its input is kept, the layer runs
+    again in the backward) or "dots" (selective checkpointing by
+    ``dots_policy``). Only where autograd records: without it there is
+    nothing to recompute."""
+
+    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False,
+                 tag: int = 0, remat=False):
         super().__init__()
+        check_remat(remat)
+        self.tag = tag
+        self.remat = remat
         self.layer = nn.ModuleList(
             TransformerLayer(cfg, compute_dtype, device, use_fused_ffn)
             for _ in range(cfg.num_hidden_layers)
@@ -333,8 +423,20 @@ class TransformerStack(nn.Module):
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
-        for layer in self.layer:
-            x = layer(x, key_mask, rng)
+        remat = self.remat and torch.is_grad_enabled()
+        context = (functools.partial(create_selective_checkpoint_contexts, dots_policy)
+                   if self.remat == "dots" else noop_context_fn)
+        if rng is not None:
+            rng = rng.run(self.tag)
+        for i, layer in enumerate(self.layer):
+            if remat:
+                # the port's generators are keyed, so PyTorch's global RNG
+                # state need not be stashed
+                x = checkpoint(_run_layer, layer, x, key_mask, rng, i,
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=context)
+            else:
+                x = _run_layer(layer, x, key_mask, rng, i)
         return x
 
 

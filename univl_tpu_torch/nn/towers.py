@@ -4,9 +4,11 @@ Ports ``univl_tpu/nn/towers.py``. The towers share ``TransformerStack`` and
 differ only in their embeddings; every tower sums its embeddings and takes
 their LayerNorm in f32, then (in training mode) their dropout, then runs its
 stack in the compute dtype. ``use_fused_ffn`` (``UniVLConfig.use_fused_ffn``)
-goes to every layer of all three towers, as in
-``univl_tpu/models/univl.py:142-162``. Module names are the reference
-checkpoint's (``bert.embeddings.word_embeddings``,
+and ``remat`` (``UniVLConfig.remat``) go to every layer of all three towers,
+as in ``univl_tpu/models/univl.py:142-162``; each run of a tower's stack
+folds its own tag (``TOWER_TAGS``) and the run's number in the step into the
+step's randomness, so a tower run twice in one step draws fresh masks.
+Module names are the reference checkpoint's (``bert.embeddings.word_embeddings``,
 ``visual.embeddings.word_embeddings`` for the feature projection, ...).
 """
 
@@ -21,6 +23,7 @@ from torch import nn
 from univl_tpu_torch.nn.layers import (
     LayerNormTF,
     Pooler,
+    TOWER_TAGS,
     Randomness,
     TransformerStack,
     dropout,
@@ -35,13 +38,14 @@ class _Tower(nn.Module):
     """The part the towers share: embedding LayerNorm in f32, its dropout in
     training (on the f32 value, before the cast), then the stack."""
 
-    def __init__(self, cfg, compute_dtype: torch.dtype, embeddings: nn.Module, device=None,
-                 use_fused_ffn=False):
+    def __init__(self, cfg, compute_dtype: torch.dtype, embeddings: nn.Module, tower: str,
+                 device=None, use_fused_ffn=False, remat=False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.dropout_rate = cfg.hidden_dropout_prob
         self.embeddings = embeddings
-        self.encoder = TransformerStack(cfg, compute_dtype, device, use_fused_ffn)
+        self.encoder = TransformerStack(cfg, compute_dtype, device, use_fused_ffn,
+                                        TOWER_TAGS[tower], remat)
 
     def _encode(self, x: torch.Tensor, mask: torch.Tensor,
                 rng: Optional[Randomness]) -> torch.Tensor:
@@ -65,8 +69,10 @@ class _TextEmbeddings(nn.Module):
 class TextEncoder(_Tower):
     """BERT text encoder without its pooler, which UniVL never reads."""
 
-    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False):
-        super().__init__(cfg, compute_dtype, _TextEmbeddings(cfg, device), device, use_fused_ffn)
+    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False,
+                 remat=False):
+        super().__init__(cfg, compute_dtype, _TextEmbeddings(cfg, device), "text", device,
+                         use_fused_ffn, remat)
 
     def forward(self, input_ids, token_type_ids, attention_mask,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
@@ -104,10 +110,10 @@ class VisualEncoder(_Tower):
     """Transformer over LayerNorm-normalised S3D features."""
 
     def __init__(self, cfg, video_dim: int, compute_dtype: torch.dtype, device=None,
-                 use_fused_ffn=False):
+                 use_fused_ffn=False, remat=False):
         super().__init__(cfg, compute_dtype,
-                         _VisualEmbeddings(cfg, video_dim, compute_dtype, device), device,
-                         use_fused_ffn)
+                         _VisualEmbeddings(cfg, video_dim, compute_dtype, device), "visual",
+                         device, use_fused_ffn, remat)
 
     def forward(self, video: torch.Tensor, video_mask: torch.Tensor,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
@@ -130,9 +136,10 @@ class CrossEncoder(_Tower):
     """Fusion transformer over [text ; video] hidden states; returns
     (last hidden states, CLS pooler output)."""
 
-    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False):
-        super().__init__(cfg, compute_dtype, _CrossEmbeddings(cfg, device), device,
-                         use_fused_ffn)
+    def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False,
+                 remat=False):
+        super().__init__(cfg, compute_dtype, _CrossEmbeddings(cfg, device), "cross", device,
+                         use_fused_ffn, remat)
         self.pooler = Pooler(cfg.hidden_size, compute_dtype, device)
 
     def forward(self, concat_features, concat_type, concat_mask,
