@@ -92,7 +92,7 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  12. training agreement with the CPU at full width and text 2 + visual 1
      layers, dropout 0: card f32 (kernels) against CPU f32 (plain versions)
      for the loss, every gradient and the parameters after 2 BertAdam steps;
-     card bf16 against CPU f32 losses over 10 steps;
+     card bf16 against CPU f32 losses over 5 steps (cut from 10 for D1-D3);
  13. the FT-Align training slice: the same CLI with --train_sim_after_cross
      --fused_ffn block (text 12, visual 6, cross 2 layers; 1,024 text-video
      pairs of 96 tokens through the cross tower a step) on the same fixtures,
@@ -118,7 +118,7 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  17. torch.profiler over 3 caption steps with --fused_ln and 3 without;
  18. caption agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, batch 4, dropout 0: card f32 without
-     --fused_ln (the control) and with it, card bf16 over 10 steps, with the
+     --fused_ln (the control) and with it, card bf16 over 5 steps, with the
      limits of phase 12 and the control's;
  19. MSRVTT caption eval: univl_tpu_torch.cli.task_caption --do_eval
      --fused_cls --datatype msrvtt at full width, seeded weights, over 64
@@ -132,7 +132,7 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  21. torch.profiler over the eval's encode of 64 clips and the rescoring of
      their 4,096 pairs (device busy share, kernel time by group);
  22. retrieval eval agreement: card f32 against CPU f32 at full width, text 2
-     + visual 1 + cross 1 layers, 64 clips, both modes: the similarity
+     + visual 1 + cross 1 layers, 32 clips (cut from 64), both modes: the similarity
      matrices within stated limits and the metrics equal;
  P1. HowTo100M pretraining stage I: univl_tpu_torch.cli.pretrain --do_pretrain
      --sampled_use_mil --n_pair 3 at the full width of UniVLConfig.base (text
@@ -147,12 +147,11 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      4, 4 steps: all five losses, clips/s, peak memory, the launches of #2,
      #4 and #5 derived from the layer counts, a .bin with both heads; then
      torch.profiler over 3 of its micro-steps;
- P3. resume on the card: two uninterrupted stage-I runs (the controls), whose
-     differing parameters name the operation that varies between runs; then,
-     under torch.use_deterministic_algorithms, two controls and one run
-     preempted (--inject_preempt_after) and resumed (--load_checkpoint): the
+ P3. resume on the card, under torch.use_deterministic_algorithms: one
+     uninterrupted stage-I run (the control) and one run preempted
+     (--inject_preempt_after) and resumed (--load_checkpoint): the
      parameters, moments, BertAdam's step count and losses of the resumed run
-     within the controls' difference (bitwise where they are bitwise equal);
+     bitwise the control's;
  P4. stage II agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, 4 clips x 3 pairs, dropout 0: card f32 (the
      unfused route as the control, then --fused_ffn block) and card bf16
@@ -164,12 +163,12 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      and the parameters after them bitwise equal across the three, the
      launches of #2, #4 and #5 those the layer counts imply (each
      rematerialized layer's forward kernels twice); then peak device memory,
-     wall clips/s over 5 more steps and device busy ms a step (torch.profiler
+     wall clips/s over 3 more steps (cut from 5) and device busy ms a step (torch.profiler
      over 2 more);
  R2. the input pipeline: FT-Joint (phase 10's config) through
      cli.common.make_input_iter: the prefetch and --no_prefetch give bitwise
      equal losses over 10 steps in deterministic mode; --transfer_dtype
-     bfloat16 losses within a stated limit of the f32 transfer's; 5
+     bfloat16 losses within a stated limit of the f32 transfer's; 3
      alternating pairs of 20-step windows of each mode under a CUDA-only
      profiler (clips/s and device busy share, medians); the joint retrieval
      eval of phase 20 (its batches prefetched) against --no_prefetch: the
@@ -180,7 +179,23 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  R4. the checkpoint converter without JAX: a full-width reference .bin from
      seeded weights (every module: stage II with the heads) through
      univl_tpu_torch.cli.convert_checkpoint to a flax params file and back
-     with --export_torch: bitwise equal, with the times.
+     with --export_torch: bitwise equal, with the times;
+ D1. data parallelism: FT-Align (--fused_ffn block) through task_retrieval
+     --n_gpu 2 --dist_backend gloo, two ranks spawned by the CLI sharing the
+     card, under torch.use_deterministic_algorithms (set here, inherited by
+     the ranks), global batch 32, 6 steps, replicated and --zero1:
+     each rank's launches of #2, #4 and #5 (a one-process step's counts;
+     summed into the kernels line) and peak memory, clips/s (not a scaling
+     number); each against one process with --gradient_accumulation_steps 2
+     over the same steps: bitwise replicated, within 1e-6 of each tensor's
+     norm with --zero1;
+ D2. pretraining stage I on two ranks with --zero1 (60 clips x 3 pairs a
+     rank), deterministic as D1, preempted after 2 steps and resumed without
+     --zero1: within 1e-6 of the uninterrupted --zero1 run;
+ D3. --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
+     through the CLI for 2 steps, then probes/zero1_ab at FT-Align's
+     parameters: ZeRO-1 against BertAdam, each update's profiled device ms,
+     both optimizers' state bytes.
 Phase 3 also runs #2 at pretraining's [360, 64], [2304, 112] and q 48 / kv
 112, and #4 and #5 at its 258,048 cross rows, in bf16.
 After the main paths: every bf16 #1 call the model made on the card (each
@@ -260,6 +275,8 @@ from univl_tpu_torch.nn.layers import (
     gelu_erf,
     set_fused_layer_norm,
 )
+from univl_tpu_torch.parallel import mesh as dp_mesh
+from univl_tpu_torch.probes import zero1_ab
 from univl_tpu_torch.serving.captioning import CaptionService
 from univl_tpu_torch.serving.index import RERANK_TILE, VideoRetrievalIndex
 from univl_tpu_torch.train.optimization import make_univl_optimizer
@@ -351,14 +368,16 @@ FFN_KEEP_TOL = 2e-4  # dropped share over 75,497,472 draws: ~6 binomial standard
 # from 40 to make room for R1-R4)
 TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_DISPLAY = 32, 80, 8, 120, 5
 PALLAS_VIDEOS = 20  # the short --fused_ffn pallas run: 160 pairs, 5 steps
-TRAIN_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1",
+# every single-device phase pins --n_gpu 1 (the default, 0, takes every
+# visible card), so that each stays one process on one card
+TRAIN_FLAGS = ["--n_gpu", "1", "--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1",
                "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--max_words", "48",
                "--max_frames", "48", "--n_display", str(TRAIN_DISPLAY), "--seed", "0"]
 PROFILE_WARMUP, PROFILE_STEPS = 3, 3
 # card vs CPU at full width, text 2 and visual 1 layers, dropout 0, stated
 # before the first run: f32 (kernels, TF32 off) within the plain versions'
-# rounding; bf16 loss over 10 steps within LOSS_BF16_RTOL of the CPU's f32
-AGREE_LOSS_RTOL, AGREE_GRAD_RTOL, AGREE_PARAM_RTOL, AGREE_BF16_STEPS = 1e-5, 1e-4, 1e-5, 10
+# rounding; bf16 loss over 5 steps (cut from 10) within LOSS_BF16_RTOL of the CPU's f32
+AGREE_LOSS_RTOL, AGREE_GRAD_RTOL, AGREE_PARAM_RTOL, AGREE_BF16_STEPS = 1e-5, 1e-4, 1e-5, 5
 LOSS_BF16_RTOL = 0.05
 # Parameters whose gradient is zero in exact arithmetic hold rounding noise on
 # both sides, so they get absolute limits: the key biases (a per-query
@@ -388,7 +407,7 @@ AGREE_CONTROL_FACTOR = 10
 # fixtures of 40 videos x 8 clips = 320 clips (20 steps, cut from 40); 4 more videos (32
 # clips) are the val split of a short --do_eval
 CAP_BATCH, CAP_WORDS, CAP_FRAMES, CAP_VIDEOS, CAP_VAL_VIDEOS = 16, 128, 96, 40, 4
-CAP_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1", "--epochs", "1",
+CAP_FLAGS = ["--n_gpu", "1", "--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1", "--epochs", "1",
              "--batch_size", str(CAP_BATCH), "--batch_size_val", "32",
              "--max_words", str(CAP_WORDS), "--max_frames", str(CAP_FRAMES),
              "--n_display", str(TRAIN_DISPLAY), "--seed", "0"]
@@ -398,7 +417,7 @@ CAP_FLAGS = ["--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1", "
 # every gradient within 1e-4 of its norm, parameters after 2 BertAdam steps
 # within 1e-5 of theirs; the key biases (zero gradient in exact arithmetic)
 # to AGREE_ZERO_GRAD and, after BertAdam's per-element normalization,
-# AGREE_ZERO_PARAM; card bf16 losses over 10 steps within LOSS_BF16_RTOL.
+# AGREE_ZERO_PARAM; card bf16 losses over AGREE_BF16_STEPS steps within LOSS_BF16_RTOL.
 # Restated after a run on the card: a zero-initialized bias is, after 2
 # steps, two BertAdam updates, and BertAdam divides each gradient element by
 # its own magnitude (plus 1e-6), so an element near 1e-6 passes its own
@@ -436,16 +455,18 @@ EVAL_AGREE_CLIPS, EVAL_AGREE_ATOL = 64, {"joint": 1e-5, "cross": 1e-4}
 PRE_WORDS, PRE_FRAMES, PRE_PAIRS = 48, 64, 3
 PRE1_CLIPS, PRE1_ACCUM, PRE2_CLIPS, PRE2_ACCUM = 120, 2, 16, 4
 PRE_VIDEOS, PRE2_VIDEOS, PRE_CLIPS, PRE_SECONDS = 480, 128, 6, 120
-PRE_FLAGS = ["--n_pair", str(PRE_PAIRS), "--sampled_use_mil", "--lr", "1e-4", "--coef_lr", "0.1",
+PRE_FLAGS = ["--n_gpu", "1", "--n_pair", str(PRE_PAIRS), "--sampled_use_mil", "--lr", "1e-4", "--coef_lr", "0.1",
              "--warmup_proportion", "0.1", "--max_words", str(PRE_WORDS), "--max_frames",
              str(PRE_FRAMES), "--epochs", "2", "--n_display", "1", "--seed", "0",
              "--num_thread_reader", "8"]
-# P3, stated before the first run: the preempted and resumed stage-I run differs
-# from an uninterrupted one by no more than two uninterrupted runs differ from
-# each other (bitwise where they are bitwise equal): parameters, moments,
+# P3, stated before its first run: the preempted and resumed stage-I run
+# differs from an uninterrupted one by no more than two uninterrupted runs differ
+# from each other (bitwise where they are bitwise equal): parameters, moments,
 # BertAdam's step count and the per-step losses. The default mode's controls
 # differ in the embedding tables (their backward adds repeated ids' rows with
-# atomics), so the three runs compared go under torch.use_deterministic_algorithms
+# atomics), so the runs compared go under torch.use_deterministic_algorithms,
+# where two controls were bitwise equal in every run: now one control (cut
+# from two, for D1-D3), and the resumed runs held to bitwise
 PRE_PREEMPT_AFTER = 1
 # P4, card against CPU, stated before the first run: stage II at full width,
 # text 2 + visual 1 + cross 1 + decoder 1 layers, 4 clips x 3 pairs, dropout 0,
@@ -458,7 +479,7 @@ PRE_PREEMPT_AFTER = 1
 # to AGREE_GRAD_RTOL of that floor, and every limit at least
 # AGREE_CONTROL_FACTOR times the unfused route's (--fused_ffn xla) disagreement;
 # the zero-gradient parameters (key biases, similarity_dense.bias) to
-# AGREE_ZERO_GRAD and AGREE_ZERO_PARAM; bf16 losses over 10 steps within
+# AGREE_ZERO_GRAD and AGREE_ZERO_PARAM; bf16 losses over AGREE_BF16_STEPS steps within
 # LOSS_BF16_RTOL
 PRE_AGREE_CLIPS = 4
 # R1-R4, stated before their first run. R1: REMAT_CHECK_STEPS steps at
@@ -473,10 +494,34 @@ PRE_AGREE_CLIPS = 4
 # features rounded to bf16, about 3 significant digits, before the f32 feature
 # LayerNorm of a bf16 model), INPUT_PAIRS alternating pairs of INPUT_WINDOW-step
 # windows. R3: as P3's resumed run, bitwise. R4: bitwise.
-REMAT_CHECK_STEPS, REMAT_TIMED_STEPS, REMAT_PROFILE_STEPS = 2, 5, 2
+REMAT_CHECK_STEPS, REMAT_TIMED_STEPS, REMAT_PROFILE_STEPS = 2, 3, 2  # timed: cut from 5
 REMAT_MODES = (False, True, "dots")
-INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 20, 5
+INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 20, 3  # pairs: cut from 5
 TRANSFER_BF16_RTOL = 2e-2
+# D1-D3, data parallelism and ZeRO-1, stated before their first run. D1:
+# FT-Align (--fused_ffn block) through the CLI with --n_gpu 2 --dist_backend
+# gloo, two ranks on one card, global batch 32 (16 a rank), DP_STEPS steps,
+# replicated and --zero1: per rank the launches of #2, #4 and #5 (the
+# one-process counts a step), its peak memory; clips/s from rank 0's display
+# points (two ranks sharing a card: not a scaling number). At dropout 0.1
+# under torch.use_deterministic_algorithms (set in this process, inherited by
+# the ranks) against one process with --gradient_accumulation_steps 2: the parameters bitwise equal replicated, within DP_PARAM_RTOL of each
+# tensor's norm with --zero1 (the clips' norms summed in another order).
+# The timed runs are the compared ones (deterministic, all DP_STEPS
+# steps), not separate 2-step runs: two fewer spawns of two full-width ranks. D2: pretraining stage I, --n_gpu 2 --zero1, 60
+# clips x 3 pairs a rank (P1's 120 a micro-step over two ranks), one epoch of
+# 4 steps, deterministic as D1: preempted after DP_PREEMPT_AFTER steps, resumed
+# without --zero1, against the uninterrupted --zero1 run: the parameters and
+# moments within DP_PARAM_RTOL of each tensor's norm, the losses within
+# DP_PARAM_RTOL relative. D3: --n_gpu 1 --zero1, a process group of one rank
+# on NCCL: FT-Align through the CLI (DP_CHECK_STEPS steps), then
+# probes/zero1_ab at FT-Align's parameters: ZeRO-1 against BertAdam, both
+# updates profiled, and both optimizers' state bytes.
+DP_RANKS, DP_STEPS, DP_CHECK_STEPS, DP_PREEMPT_AFTER = 2, 6, 2, 2
+DP_PARAM_RTOL = 1e-6
+DP_FLAGS = ["--train_sim_after_cross", "--fused_ffn", "block", "--n_display", "1",
+            "--no_preempt_checkpoint"]
+SLOW_CALL_MS = 2.0  # cuda_time_ms: a reference call this slow is timed over 3 x 3 calls
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -690,19 +735,31 @@ def read_launches() -> dict:
     return {name: getattr(*_counter(entry)) for name, (entry, _, _) in KERNELS.items()}
 
 
-def cuda_time_ms(fn, runs: int = 20, repeats: int = 5):
+def cuda_time_ms(fn, runs: int = 20, repeats: int = 5, reference: bool = False):
     """(device ms, host-paced ms) per call of fn, each the median of `repeats`.
 
     Device time: a sleep kernel holds the stream while the host queues `runs`
     calls, so CUDA events around them see the calls back to back on the card.
     Host-paced time: CUDA events around single calls, which also count the
-    gaps while the card waits for the host to launch the next kernel."""
+    gaps while the card waits for the host to launch the next kernel. A
+    ``reference`` call (a plain version, a library call or an unfused chain,
+    never a hand-written kernel) that takes SLOW_CALL_MS or more alone is
+    timed over at most 3 repeats of 3 calls: its device time dwarfs the
+    host's launch gaps that the longer windows even out (the cut that made
+    room for D1-D3)."""
 
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     fn()
     torch.cuda.synchronize()
+    start, end = events()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if reference and start.elapsed_time(end) >= SLOW_CALL_MS:
+        runs, repeats = min(runs, 3), min(repeats, 3)
     device, paced = [], []
     for _ in range(repeats):
         start, end = events()
@@ -1247,17 +1304,20 @@ def _ta_times(args, m, l, grad, mask, before: bool = False, **timing) -> dict:
         fwd, bwd = _ta_cuda_cores(Lq, k.shape[1])
         t["fwd", "before"] = cuda_time_ms(lambda: ta._launch_fwd(fwd, *args))
         t["bwd", "before"] = cuda_time_ms(lambda: ta._launch_bwd(bwd, *args, m, l, grad))
-    t["fwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args), **timing)
+    t["fwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_fwd(*args),
+                                     reference=True, **timing)
     t["bwd", "plain"] = cuda_time_ms(lambda: ta.train_attention_reference_bwd(*args, m, l, grad),
-                                     **timing)
+                                     reference=True, **timing)
     keep = mask.bool()
     keep[1] = True  # SDPA gives NaN on a row with no valid key
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    t["fwd", "sdpa"] = cuda_time_ms(lambda: _sdpa_train(*leaves, keep), **timing)
+    t["fwd", "sdpa"] = cuda_time_ms(lambda: _sdpa_train(*leaves, keep), reference=True,
+                                    **timing)
     out = _sdpa_train(*leaves, keep)
     g4 = grad.view(B, Lq, TA_HEADS, HD // TA_HEADS).transpose(1, 2)
     t["bwd", "sdpa"] = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g4,
-                                                                retain_graph=True), **timing)
+                                                                retain_graph=True),
+                                    reference=True, **timing)
     return t
 
 
@@ -1450,23 +1510,26 @@ def kernel_layernorm() -> dict:
             es, dt = x.element_size(), dtype_name(dtype)
             xl = x.detach().requires_grad_()
             sl, bl = (t.to(dtype).requires_grad_() for t in (scale, bias))
-            lib = (cuda_time_ms(lambda: F.layer_norm(xl, (D,), sl, bl, LN_EPS)),
+            lib = (cuda_time_ms(lambda: F.layer_norm(xl, (D,), sl, bl, LN_EPS), reference=True),
                    "torch.nn.functional.layer_norm, weight and bias in x's dtype")
             yl = F.layer_norm(xl, (D,), sl, bl, LN_EPS)
             lib_b = (cuda_time_ms(lambda: torch.autograd.grad(yl, [xl, sl, bl], dy,
-                                                              retain_graph=True)),
+                                                              retain_graph=True),
+                                  reference=True),
                      "its autograd backward (dx, dweight, dbias)")
             del yl
             fwd = report("layernorm_fwd", f"[{N}, {D}]", dtype, err_f,
                          cuda_time_ms(lambda: ln_k.layer_norm_fwd(x, scale, bias, LN_EPS)),
                          cuda_time_ms(lambda: ln_k.layer_norm_reference_fwd(x, scale, bias,
-                                                                            LN_EPS)),
+                                                                            LN_EPS),
+                                      reference=True),
                          bound_ms(2 * N * D * es + 2 * D * 4, 8.0 * N * D, dt),
                          (lib[0][0], lib[1]))
             bwd = report("layernorm_bwd", f"[{N}, {D}]", dtype, err_b,
                          cuda_time_ms(lambda: ln_k.layer_norm_bwd(x, scale, dy, LN_EPS)),
                          cuda_time_ms(lambda: ln_k.layer_norm_reference_bwd(x, scale, dy,
-                                                                            LN_EPS)),
+                                                                            LN_EPS),
+                                      reference=True),
                          bound_ms(3 * N * D * es + 3 * D * 4, 16.0 * N * D, dt),
                          (lib_b[0][0], lib_b[1]))
             if (N, dtype) == (3584, torch.bfloat16):
@@ -1735,15 +1798,16 @@ def _time_ffn(N: int, t: dict, timing: dict, dtype=torch.bfloat16, only=None) ->
         if only is not None and name not in only:
             continue
         ms = cuda_time_ms(kernel, **timing)
-        plain_ms = cuda_time_ms(plain, **timing)
+        plain_ms = cuda_time_ms(plain, reference=True, **timing)
         leaf = x.detach().requires_grad_()
         if name.endswith("_fwd"):
             with torch.no_grad():
-                chain_ms = cuda_time_ms(lambda: chains[chain](leaf), **timing)
+                chain_ms = cuda_time_ms(lambda: chains[chain](leaf), reference=True, **timing)
         else:
             y = chains[chain](leaf)
             chain_ms = cuda_time_ms(
-                lambda: torch.autograd.grad(y, leaf, g, retain_graph=True), **timing)
+                lambda: torch.autograd.grad(y, leaf, g, retain_graph=True), reference=True,
+                **timing)
             del y
         tflops = {k: ops / v[0] / 1e9 for k, v in (("kernel", ms), ("unfused chain", chain_ms))}
         print(f"{name} [{N}, {H}] F {Fd}: the model's unfused chain (xla route) for the same "
@@ -3131,41 +3195,31 @@ def _state_diff(a: str, b: str) -> dict:
             "differing": [k for k, v in sa["model"].items() if not torch.equal(v, sb["model"][k])]}
 
 
-def _within(resumed: dict, control: dict) -> bool:
-    """P3's limit: a resumed run's difference from a control within the two
-    controls' (so bitwise where they are bitwise equal)."""
+def _bitwise(resumed: dict) -> bool:
+    """P3's limit: the resumed run bitwise the uninterrupted one."""
     return (resumed["same_steps"] and resumed["steps"][0] == resumed["steps"][1] == 4
-            and resumed["params"][0] <= control["params"][0]
-            and resumed["moments"][0] <= control["moments"][0]
-            and resumed["losses"] <= control["losses"])
+            and resumed["params"][0] == resumed["moments"][0] == resumed["losses"] == 0.0)
 
 
 def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
-    """P3: stage I at full width, 4 steps over 2 epochs. Two uninterrupted
-    runs (the controls); where they differ, the parameters that differ name
-    the operation. Then under torch.use_deterministic_algorithms two
-    uninterrupted runs and one preempted after PRE_PREEMPT_AFTER steps
-    (--inject_preempt_after) and resumed (--load_checkpoint): the resumed
-    run may differ from the first by no more than the two differ from each
-    other, bitwise where they are bitwise equal. R3: one more preempted and
-    resumed run with --async_checkpointing, held to the same limit, and the
-    seconds each epoch-end save held the loop, synchronous and async."""
+    """P3: stage I at full width, 4 steps over 2 epochs, under
+    torch.use_deterministic_algorithms: an uninterrupted run (the control)
+    and one preempted after PRE_PREEMPT_AFTER steps (--inject_preempt_after)
+    and resumed (--load_checkpoint), bitwise the control. Two default-mode
+    controls (their difference named the embedding backward's atomics) and
+    a second deterministic one, bitwise the first in every run, were cut
+    for D1-D3. R3: one more preempted and resumed run with
+    --async_checkpointing, bitwise too, and the seconds each epoch-end save
+    held the loop, synchronous and async."""
 
     def run(name: str, *extra):
         out = os.path.join(tmp, f"pretrain_resume_{name}")
         return pretrain.main(_pretrain_argv(files, vocab, out, 1, *extra))[0], out
 
     t0 = time.perf_counter()
-    (_, a), (_, b) = run("control_a"), run("control_b")
-    print(f"pretraining resume, default mode: the controls differ by {_state_diff(a, b)} (the "
-          f"parameters that differ name the operation)", flush=True)
-    for out in (a, b):
-        shutil.rmtree(out)
     torch.use_deterministic_algorithms(True)
     try:
-        (_, a), (_, b) = run("deterministic_a"), run("deterministic_b")
-        control = _state_diff(a, b)
-        shutil.rmtree(b)
+        _, a = run("deterministic")
         k, _ = run("resumed", "--inject_preempt_after", str(PRE_PREEMPT_AFTER))
         n, c = run("resumed", "--load_checkpoint")
         resumed = _state_diff(a, c)
@@ -3178,11 +3232,10 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
         torch.use_deterministic_algorithms(False)
     print(f"pretraining resume, torch.use_deterministic_algorithms (stage I, full width, 4 steps "
           f"over 2 epochs; preempted after {k} step(s), resumed to step {n}) in "
-          f"{time.perf_counter() - t0:.1f} s for the seven runs: the controls differ by "
-          f"{control}; the resumed run differs from the first control by {resumed} (limit: the "
-          f"controls' difference, bitwise where they are bitwise equal)", flush=True)
-    require(k == PRE_PREEMPT_AFTER and n == 4 and _within(resumed, control),
-            f"the resumed run strays from the uninterrupted one: {resumed} against {control}")
+          f"{time.perf_counter() - t0:.1f} s for the five runs: the resumed run differs from the "
+          f"control by {resumed} (limit: bitwise)", flush=True)
+    require(k == PRE_PREEMPT_AFTER and n == 4 and _bitwise(resumed),
+            f"the resumed run strays from the uninterrupted one: {resumed}")
 
     def blocked(out: str, preempted: bool) -> list:
         with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -3190,12 +3243,12 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
                     if r["kind"] == "checkpoint" and r["preempted"] == preempted]
 
     print(f"R3 --async_checkpointing (preempted after {ka} step(s), resumed to step {na}): "
-          f"differs from the first control by {resumed_async} (limit: bitwise, as the resumed "
+          f"differs from the control by {resumed_async} (limit: bitwise, as the resumed "
           f"run); seconds the loop blocked at the epoch-end saves of ~2.4 GB: synchronous "
           f"{blocked(a, False)}, async {blocked(ca, False)}; at the preemption's save: "
           f"synchronous {blocked(c, True)}, async {blocked(ca, True)}", flush=True)
-    require(ka == PRE_PREEMPT_AFTER and na == 4 and _within(resumed_async, control),
-            f"R3: the async resumed run strays: {resumed_async} against {control}")
+    require(ka == PRE_PREEMPT_AFTER and na == 4 and _bitwise(resumed_async),
+            f"R3: the async resumed run strays: {resumed_async}")
     for out in (a, c, ca):
         shutil.rmtree(out)
 
@@ -3512,6 +3565,217 @@ def phase_converter(tmp: str) -> None:
         os.remove(path)
 
 
+_STAMPS = [time.perf_counter()]
+
+
+def stamp(label: str) -> None:
+    """The seconds since the script started and since the last stamp."""
+    now = time.perf_counter()
+    print(f"[time] {label}: done at {now - _STAMPS[0]:.1f} s ({now - _STAMPS[-1]:.1f} s for "
+          f"this stretch)", flush=True)
+    _STAMPS.append(now)
+
+
+def _launch_key(entry) -> str:
+    """A KERNELS entry's name in ``parallel/mesh.py:kernel_launches``."""
+    fn, attr = _counter(entry)
+    return f"{fn.__module__.rsplit('.', 1)[1]}.{fn.__name__}.{attr}"
+
+
+def ranks_launches(reports) -> dict:
+    """The launches of every kernel summed over a spawned run's ranks."""
+    return {name: sum(r["launches"][_launch_key(entry)] for r in reports)
+            for name, (entry, _, _) in KERNELS.items()}
+
+
+def _dp_argv(files, vocab: str, out: str, *extra) -> list:
+    csv, data, feats = files
+    return ["--do_train", "--device", "cuda", "--datatype", "youcook", "--vocab_file", vocab,
+            "--train_csv", csv, "--data_path", data, "--features_path", feats,
+            "--output_dir", out, *TRAIN_FLAGS, *DP_FLAGS, *extra]
+
+
+def _rel_diff(got: dict, want: dict):
+    """(the largest norm-relative difference over the tensors, its name)."""
+    return max((float((got[k].float() - want[k].float()).norm())
+                / max(float(want[k].float().norm()), 1e-30), k) for k in want)
+
+
+@contextlib.contextmanager
+def deterministic_mode():
+    """torch.use_deterministic_algorithms in this process and in the ranks
+    it spawns (mesh.spawn passes the setting on), lifted after."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_dp_train(tmp: str, vocab: str, files) -> dict:
+    """D1: FT-Align on two ranks sharing the card (gloo), replicated and
+    --zero1, through task_retrieval in deterministic mode, each against one
+    process accumulating two micro-batches over the same steps. Returns the
+    launches by path."""
+    with deterministic_mode():
+        return _dp_train(tmp, vocab, files)
+
+
+def _dp_train(tmp: str, vocab: str, files) -> dict:
+    per_step = _launches_per_step("ft_align")  # a rank's 16 rows launch a step's count
+    ranks = ["--n_gpu", str(DP_RANKS), "--dist_backend", "gloo"]
+    ref = os.path.join(tmp, "dp_accum")
+    task_retrieval.main(_dp_argv(files, vocab, ref, "--n_gpu", "1",
+                                 "--gradient_accumulation_steps", str(DP_RANKS)))
+    want = load_reference_bin(os.path.join(ref, "pytorch_model.bin.0"))
+    want_losses = [r["loss"] for r in _train_losses(ref)]
+    shutil.rmtree(ref)
+    by_path = {}
+    for zero1 in (False, True):
+        name = "dp_ft_align" + ("_zero1" if zero1 else "")
+        label = f"D1 FT-Align --n_gpu {DP_RANKS}" + (" --zero1" if zero1 else "")
+        out = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        steps, _ = task_retrieval.main(_dp_argv(files, vocab, out, *ranks,
+                                                *(["--zero1"] if zero1 else [])))
+        wall = time.perf_counter() - t0
+        reports = dp_mesh.spawn.ranks
+        shown = _train_losses(out)
+        require(steps == DP_STEPS and len(shown) == steps
+                and all(math.isfinite(r["loss"]) for r in shown),
+                f"{label}: display points {[(r['step'], r['loss']) for r in shown]}")
+        first, last = shown[1], shown[-1]  # the first step's interval holds the warm-up
+        rate = (last["step"] - first["step"]) * TRAIN_BATCH / (last["ts"] - first["ts"])
+        counts = ranks_launches(reports)
+        want_counts = {**{k: 0 for k in KERNELS},
+                       **{k: n * steps * DP_RANKS for k, n in per_step.items()}}
+        print(f"{label} (CLI, gloo, deterministic mode, bf16, global batch {TRAIN_BATCH}, "
+              f"{TRAIN_BATCH // DP_RANKS} a rank): {steps} steps in {wall:.3f} s including the "
+              f"ranks' start; steady {rate:.3f} clips/s over steps {first['step']}-"
+              f"{last['step']} (rank 0's synchronized display points), {rate / DP_RANKS:.3f} a "
+              f"rank", flush=True)
+        print(f"{label}: two ranks share one card through gloo (host-staged collectives), so "
+              f"these rates are not a scaling number", flush=True)
+        for r in reports:
+            mine = {k: r["launches"][_launch_key(KERNELS[k][0])] for k in per_step}
+            print(f"{label} rank {r['rank']}: peak device memory "
+                  f"{r['peak_bytes'] / 2**30:.3f} GiB; launches {mine}", flush=True)
+            require(mine == {k: n * steps for k, n in per_step.items()},
+                    f"{label} rank {r['rank']} launches {mine}")
+        require(counts == want_counts, f"{label} launches {counts}, {steps} steps imply "
+                                       f"{want_counts}")
+        by_path[name] = counts
+        got = load_reference_bin(os.path.join(out, "pytorch_model.bin.0"))
+        losses = [r["loss"] for r in shown]
+        same = [k for k in want if torch.equal(got[k], want[k])]
+        worst = _rel_diff(got, want)
+        print(f"{label} against one process with --gradient_accumulation_steps {DP_RANKS} "
+              f"(deterministic mode, dropout 0.1, {steps} steps): losses {losses} against "
+              f"{want_losses}; {len(same)} of {len(want)} tensors bitwise equal, the largest "
+              f"difference {worst[0]:.3e} of its tensor's norm ({worst[1]}; limit "
+              f"{DP_PARAM_RTOL if zero1 else 'bitwise'})", flush=True)
+        if zero1:
+            require(worst[0] <= DP_PARAM_RTOL and max(
+                abs(a - b) / abs(b) for a, b in zip(losses, want_losses)) <= DP_PARAM_RTOL,
+                f"D1: --zero1 strays from the accumulated run: {worst}")
+        else:
+            require(len(same) == len(want) and losses == want_losses,
+                    "D1: two ranks are not bitwise one process accumulating two micro-batches")
+        shutil.rmtree(out)
+    return by_path
+
+
+def phase_dp_pretrain(tmp: str, vocab: str, files) -> dict:
+    """D2: stage I on two ranks with --zero1, preempted, resumed without it,
+    in deterministic mode; returns the uninterrupted run's launches."""
+    with deterministic_mode():
+        return _dp_pretrain(tmp, vocab, files)
+
+
+def _dp_pretrain(tmp: str, vocab: str, files) -> dict:
+    ranks = ["--n_gpu", str(DP_RANKS), "--dist_backend", "gloo", "--epochs", "1", "--batch_size", str(PRE1_CLIPS)]
+
+    def run(name: str, *extra):
+        out = os.path.join(tmp, f"dp_pretrain_{name}")
+        argv = _pretrain_argv(files, vocab, out, 1) + ranks + list(extra)
+        argv[argv.index("--gradient_accumulation_steps") + 1] = "1"
+        steps = pretrain.main(argv)[0]
+        return steps, out, ranks_launches(dp_mesh.spawn.ranks)
+
+    t0 = time.perf_counter()
+    n, a, counts = run("uninterrupted", "--zero1")
+    k, _, _ = run("resumed", "--zero1", "--inject_preempt_after", str(DP_PREEMPT_AFTER))
+    m, c, _ = run("resumed", "--load_checkpoint")
+    sa, _ = restore_checkpoint(os.path.join(a, "train_state.pt"))
+    sc, _ = restore_checkpoint(os.path.join(c, "train_state.pt"))
+
+    def moments(state):
+        return {f"{i}.{key}": st[key] for i, st in state["optimizer"]["state"].items()
+                for key in ("m", "v")}
+
+    params, moms = _rel_diff(sc["model"], sa["model"]), _rel_diff(moments(sc), moments(sa))
+    la, lc = _train_losses(a), _train_losses(c)
+    loss_rel = max(abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(lc, la))
+    print(f"D2 pretraining stage I, {DP_RANKS} ranks --zero1 ({PRE1_CLIPS // DP_RANKS} clips x "
+          f"{PRE_PAIRS} pairs a rank, deterministic mode, {n} steps in one epoch; three runs in "
+          f"{time.perf_counter() - t0:.1f} s): preempted after {k} step(s), resumed without "
+          f"--zero1 to step {m}; against the uninterrupted --zero1 run: parameters "
+          f"{params[0]:.3e} of their tensor's norm ({params[1]}), moments {moms[0]:.3e} "
+          f"({moms[1]}), losses {loss_rel:.3e} rel, BertAdam's steps "
+          f"{sc['optimizer']['steps']} and {sa['optimizer']['steps']} (limit {DP_PARAM_RTOL})",
+          flush=True)
+    require(k == DP_PREEMPT_AFTER and n == m == 4
+            and sc["optimizer"]["steps"] == sa["optimizer"]["steps"] == 4
+            and [r["step"] for r in lc] == [r["step"] for r in la]
+            and max(params[0], moms[0], loss_rel) <= DP_PARAM_RTOL,
+            "D2: the run resumed across layouts strays from the uninterrupted one")
+    want = {**{k: 0 for k in KERNELS},
+            **{key: v * DP_RANKS * n // PRE1_ACCUM
+               for key, v in _pretrain_launches_per_step(1).items()}}
+    require(counts == want, f"D2 launches {counts}, {n} steps imply {want}")
+    for out in (a, c):
+        shutil.rmtree(out)
+    return counts
+
+
+def phase_dp_nccl(tmp: str, vocab: str, check) -> dict:
+    """D3: --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
+    through the CLI (in this process; returns its launches), then the
+    ZeRO-1 probe at FT-Align's parameters, profiled."""
+    out = os.path.join(tmp, "dp_nccl")
+    reset_launches()
+    steps, _ = task_retrieval.main(_dp_argv(check, vocab, out, "--n_gpu", "1", "--zero1"))
+    counts = read_launches()
+    want = {**{k: 0 for k in KERNELS},
+            **{k: n * steps for k, n in _launches_per_step("ft_align").items()}}
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        [mesh] = [r for r in map(json.loads, f) if r["kind"] == "mesh"]
+    shown = _train_losses(out)
+    print(f"D3 FT-Align --n_gpu 1 --zero1 (CLI): {steps} steps, losses "
+          f"{[round(r['loss'], 6) for r in shown]}; the run's mesh record {mesh}", flush=True)
+    require(steps == DP_CHECK_STEPS and all(math.isfinite(r["loss"]) for r in shown)
+            and mesh["backend"] == "nccl" and mesh["ranks"] == 1 and mesh["zero1"],
+            f"D3: the CLI run ({steps} steps, {mesh})")
+    require(counts == want, f"D3 launches {counts}, {steps} steps imply {want}")
+    shutil.rmtree(out)
+    [rep] = zero1_ab.main(["--device", "cuda", "--n_gpu", "1", "--train_sim_after_cross",
+                           "--steps", "3", "--profile", "3"])
+    print(f"D3 ZeRO-1 against BertAdam at FT-Align's {rep['params']:,} parameters, one rank on "
+          f"{rep['backend']}, f32 moments: the largest parameter difference "
+          f"{max(x['max_rel_diff'] for x in rep['steps']):.3e} of its tensor's scale; device ms "
+          f"an update (torch.profiler, collectives included) ZeRO-1 "
+          f"{rep['zero1_device_ms']:.3f}, BertAdam {rep['replicated_device_ms']:.3f} (phase "
+          f"13's FT-Align profile, PERF.md: 9.54); CUDA events around the update (host-paced) "
+          f"{[round(x['zero1_ms'], 3) for x in rep['steps']]} against "
+          f"{[round(x['replicated_ms'], 3) for x in rep['steps']]}; optimizer state "
+          f"{rep['zero1_state_bytes'] / 2**30:.3f} GiB (m, v, the f32 master and the gradient "
+          f"shard) against {rep['replicated_state_bytes'] / 2**30:.3f} GiB (m, v)", flush=True)
+    require(rep["backend"] == "nccl"
+            and all(x["max_rel_diff"] <= 1e-5 for x in rep["steps"]),
+            f"D3: ZeRO-1 strays from BertAdam: {rep['steps']}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -3531,17 +3795,22 @@ def main() -> int:
     _build.load_library()
     print(f"build: {os.path.relpath(lib_path)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    stamp("build (phase 2)")
     measured = {**kernel_eval_attention(),
                 "beam_reorder_groups": kernel_reorder(),
                 "beam_decode_self_attention": kernel_decode_attention(),
                 **kernel_vocab_topk(),
                 **kernel_vocab_topk_transform(),
                 **kernel_eval_attention_causal(),
-                "reorder_rows": kernel_reorder_rows(),
-                **kernel_train_attention(),
-                **kernel_ffn(),
-                **kernel_layernorm()}
+                "reorder_rows": kernel_reorder_rows()}
+    stamp("phase 3: #1, #7-#10")
+    measured.update(kernel_train_attention())
+    stamp("phase 3: #2")
+    measured.update(kernel_ffn())
+    stamp("phase 3: #3-#5")
+    measured.update(kernel_layernorm())
     kernel_pretrain_shapes(measured)
+    stamp("phase 3: #6 and the pretraining shapes")
     by_path = {}  # main path: {kernel: launches}
     f32_runs = {}  # the f32 agreement runs (not main paths): {kernel: launches}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3554,6 +3823,7 @@ def main() -> int:
             np.save(paths[-1], c)
         by_path["retrieval"] = {**{k: 0 for k in KERNELS},
                                 "eval_attention": phase_slice(tmp, vocab, paths, clips)}
+        stamp("retrieval serving (phases 4-6)")
         fused = phase_caption(tmp, vocab, paths, fused=True)
         fused_cls = phase_caption(tmp, vocab, paths, fused=True, fused_cls=True)
         unfused = phase_caption(tmp, vocab, paths, fused=False)
@@ -3568,13 +3838,16 @@ def main() -> int:
               f"{fused_cls['per_step']['busy_ms']:.4f} ms, kernel launches "
               f"{fused['per_step']['kernels']:.2f} against "
               f"{fused_cls['per_step']['kernels']:.2f}", flush=True)
+        stamp("caption serving (phases 7-8)")
         reset_launches()
         phase_agreement(vocab, clips)
         f32_runs["serving agreement"] = read_launches()
+        stamp("serving agreement (phase 9)")
         files, ds = make_train_data(tmp, vocab)
         by_path["train"] = phase_train(tmp, vocab, files)
         phase_train_profile(ds, tmp)
         phase_train_agreement(ds, f32_launches=f32_runs)
+        stamp("FT-Joint (phases 10-12)")
         by_path["train_ft_align"] = phase_train(tmp, vocab, files, "ft_align")
         fused = phase_train_profile(ds, tmp, "ft_align")
         unfused = phase_train_profile(ds, tmp, "ft_align_xla")
@@ -3586,10 +3859,12 @@ def main() -> int:
         control = phase_train_agreement(ds, "ft_align_xla")
         phase_train_agreement(ds, "ft_align", control, f32_runs)
         phase_train_agreement(ds, "ft_align_pallas", control, f32_runs)
+        stamp("retrieval training (phases 10-15)")
         cap_files, cap_ds = make_caption_data(tmp, vocab)
         by_path.update(phase_caption_train(tmp, vocab, cap_files))
         phase_caption_profile(cap_ds, tmp)
         phase_caption_agreement(cap_ds, f32_runs)
+        stamp("caption training (phases 16-18)")
         ret_files, msrvtt_cap_files = make_msrvtt_data(tmp)
         by_path["caption_eval_msrvtt"] = phase_caption_eval_msrvtt(tmp, vocab, msrvtt_cap_files)
         eval_metrics = {}
@@ -3600,6 +3875,7 @@ def main() -> int:
         reset_launches()
         phase_retrieval_agreement(vocab, ret_files)
         f32_runs["retrieval eval agreement"] = read_launches()
+        stamp("evaluation (phases 19-22)")
         pre_files = make_pretrain_data(tmp)
         by_path["pretrain_stage_one"], stage1 = phase_pretrain(tmp, vocab, pre_files, 1)
         by_path["pretrain_stage_two"], stage2 = phase_pretrain(
@@ -3607,12 +3883,24 @@ def main() -> int:
         for out in (stage1, stage2):  # a train state is ~1.8 GB at this width
             shutil.rmtree(out)
         phase_pretrain_profile(pre_files, vocab, tmp)
+        stamp("P1, P2 and its profile")
         phase_pretrain_resume(tmp, vocab, pre_files)
+        stamp("P3 (with R3)")
         phase_pretrain_agreement(pre_files, vocab, f32_runs)
+        stamp("pretraining (P1-P4)")
         by_path.update(phase_remat(ds, pre_files, vocab))
         by_path["input_pipeline"] = phase_input_pipeline(ds, vocab, ret_files, tmp,
                                                          eval_metrics["joint"])
         phase_converter(tmp)
+        stamp("R1-R4")
+        dp_files, _ = make_train_data(tmp, vocab, n_videos=DP_STEPS * TRAIN_BATCH // TRAIN_CLIPS)
+        check, _ = make_train_data(tmp, vocab, n_videos=DP_CHECK_STEPS * TRAIN_BATCH // TRAIN_CLIPS)
+        by_path.update(phase_dp_train(tmp, vocab, dp_files))
+        stamp("D1")
+        by_path["dp_pretrain_zero1"] = phase_dp_pretrain(tmp, vocab, pre_files)
+        stamp("D2")
+        by_path["dp_zero1_nccl"] = phase_dp_nccl(tmp, vocab, check)
+        stamp("D3")
 
     longest = check_attention_routes()
     check_vocab_routes()

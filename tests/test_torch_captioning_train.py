@@ -35,6 +35,7 @@ from univl_tpu_torch.evals import caption_metrics
 from univl_tpu_torch.models import losses
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.nn import layers
+from univl_tpu_torch.parallel import mesh as dp_mesh
 
 B = 4
 CAPTION_KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask",
@@ -317,9 +318,46 @@ def test_cli_runs_what_it_once_refused(caption_files, tmp_path, extra):
     assert losses(out) == losses(full)
 
 
+@pytest.mark.parametrize("extra", [["--zero1"], ["--n_gpu", "2"]], ids=["zero1", "n_gpu_2"])
+def test_cli_runs_data_parallel_and_zero1(caption_files, tmp_path, extra):
+    """``--zero1`` and ``--n_gpu 2``, once refused. Two ranks (gloo on the
+    CPU) at the CLI's dropout 0.1 compute what one process computes with
+    ``--gradient_accumulation_steps 2`` (at a rank's thread count): losses and
+    weights bitwise. ``--zero1`` on one rank against the replicated BertAdam:
+    losses within 1e-6, weights within 1e-6 of each tensor's norm (the key
+    biases, rounding noise, within 1e-8 absolutely)."""
+    full, out = str(tmp_path / "full"), str(tmp_path / "out")
+    dp = extra == ["--n_gpu", "2"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(dp_mesh.CPU_THREADS if dp else threads)
+    try:
+        control = ["--gradient_accumulation_steps", "2"] if dp else []
+        assert task_caption.main(_cli_argv(caption_files, full, "--do_train", *control))[0] == 2
+    finally:
+        torch.set_num_threads(threads)
+    assert task_caption.main(_cli_argv(caption_files, out, "--do_train", *extra))[0] == 2
+
+    def losses(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [(r["step"], r["loss"]) for r in map(json.loads, f) if r["kind"] == "train"]
+
+    want, got = (load_reference_bin(os.path.join(d, "pytorch_model.bin.0")) for d in (full, out))
+    assert sorted(got) == sorted(want)
+    if dp:
+        assert losses(out) == losses(full)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        return
+    np.testing.assert_allclose(np.array(losses(out)), np.array(losses(full)), rtol=1e-6)
+    for k in want:
+        diff = float((got[k] - want[k]).norm())
+        if k.endswith("key.bias"):
+            assert diff < 1e-8, k
+        else:
+            assert diff <= 1e-6 * float(want[k].norm()), k
+
+
 @pytest.mark.parametrize("extra", [
-    ["--do_pretrain"], ["--zero1"],
-    ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
+    ["--do_pretrain"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--train_sim_after_cross"],
 ])
 def test_cli_refuses_what_it_does_not_run(caption_files, tmp_path, extra, capsys):

@@ -370,7 +370,9 @@ def test_pretrain_periodic_checkpoint_survives_a_crash(howto_files, pretrain_uni
 
 
 def test_pretrain_refuses_what_it_does_not_run(howto_files, tmp_path, capsys):
-    for extra in (["--zero1"], ["--n_gpu", "2"]):
+    """Tensor and sequence parallelism (and ZeRO-1 under them): the TP slice."""
+    for extra in (["--tensor_parallel", "2"], ["--sequence_parallel"],
+                  ["--zero1", "--tensor_parallel", "2"]):
         with pytest.raises(SystemExit) as e:
             pretrain.main(_pretrain_argv(howto_files, str(tmp_path / "out"), *extra))
         assert e.value.code == 2 and extra[0] in capsys.readouterr().err

@@ -5,6 +5,7 @@ tokenizer and text encoding, and the port's independence from JAX."""
 
 import ast
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -27,9 +28,12 @@ from univl_tpu.models.univl import UniVL as JaxUniVL
 from univl_tpu.serving import VideoRetrievalIndex as JaxIndex
 from univl_tpu_torch import config
 from univl_tpu_torch.checkpoint.convert import state_dict_from_jax_params
+from univl_tpu_torch.cli import pretrain, task_caption, task_retrieval
 from univl_tpu_torch.data import text_encoding
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.models.univl import UniVL
+from univl_tpu_torch.parallel import mesh, replay
+from univl_tpu_torch.probes import zero1_ab
 from univl_tpu_torch.serving.index import VideoRetrievalIndex
 
 ATOL = 1e-4  # f32 on both sides
@@ -225,11 +229,24 @@ def test_port_runs_with_jax_blocked(tmp_path, vocab):
 
 
 def test_chip_smoke_imports_only_the_port():
-    """No module of the port, and not chip_smoke.py, imports the JAX package
-    or JAX itself, at any depth of the file; without a CUDA device
-    chip_smoke.py prints no result and exits non-zero."""
+    """No module of the port (the data-parallel ``parallel/`` modules
+    included), and not chip_smoke.py, imports the JAX package or JAX itself,
+    at any depth of the file; every child process's entry point (the
+    spawned rank's ``parallel/mesh.py:_rank_main`` and the entries it runs)
+    is in the port; without a CUDA device chip_smoke.py prints no result and
+    exits non-zero."""
     files = sorted((REPO / "univl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    parallel = {REPO / "univl_tpu_torch" / "parallel" / f"{m}.py"
+                for m in ("mesh", "comm", "replay")}
+    assert parallel <= set(files)
+    assert mesh._rank_main.__module__ == "univl_tpu_torch.parallel.mesh"
+    for entry in (task_retrieval.ENTRY, task_caption.ENTRY, pretrain.ENTRY, replay.ENTRY,
+                  zero1_ab.ENTRY):
+        module, fn = entry.split(":")
+        assert module.startswith("univl_tpu_torch.") and (
+            REPO / (module.replace(".", "/") + ".py")) in files, entry
+        assert callable(getattr(importlib.import_module(module), fn)), entry
     for path in files:
         tree = ast.parse(path.read_text())
         modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]

@@ -47,6 +47,7 @@ from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.models import losses
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.nn import layers
+from univl_tpu_torch.parallel import mesh as dp_mesh
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
 
@@ -493,9 +494,57 @@ def test_cli_trains_with_remat(youcook_files, tmp_path, remat):
     assert losses(out) == losses(full) and len(losses(out)) == 3
 
 
+def _same_weights_or_close(out: str, full: str, rtol: float) -> None:
+    """The two runs' pytorch_model.bin.0: bitwise at rtol 0, else each tensor
+    within rtol of its norm (the key biases, whose gradients are rounding
+    noise, within 1e-8 absolutely)."""
+    want, got = (load_reference_bin(os.path.join(d, "pytorch_model.bin.0")) for d in (full, out))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if rtol == 0:
+            assert torch.equal(got[k], want[k]), k
+        elif k.endswith("attention.self.key.bias"):
+            assert float((got[k] - want[k]).norm()) < 1e-8, k
+        else:
+            assert float((got[k] - want[k]).norm()) <= rtol * float(want[k].norm()), k
+
+
+@pytest.mark.parametrize("extra", [["--zero1"], ["--n_gpu", "2"]], ids=["zero1", "n_gpu_2"])
+def test_cli_runs_data_parallel_and_zero1(youcook_files, tmp_path, extra):
+    """``--zero1`` and ``--n_gpu 2``, once refused. ``--n_gpu 2`` starts two
+    ranks (gloo on the CPU), each with the loss over its rows of the global
+    batch: at the CLI's dropout 0.1 they compute what one process computes
+    with ``--gradient_accumulation_steps 2`` (run at a rank's thread count),
+    losses and weights bitwise. ``--zero1`` on one rank (a gloo group of one)
+    against the replicated BertAdam: losses within 1e-6, weights within 1e-6
+    of each tensor's norm (the clips' norms summed in another order)."""
+    full, out = str(tmp_path / "full"), str(tmp_path / "out")
+    dp = extra == ["--n_gpu", "2"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(dp_mesh.CPU_THREADS if dp else threads)
+    try:
+        control = ["--gradient_accumulation_steps", "2"] if dp else []
+        assert task_retrieval.main(_cli_argv(youcook_files, full, *control))[0] == 3
+    finally:
+        torch.set_num_threads(threads)
+    assert task_retrieval.main(_cli_argv(youcook_files, out, *extra))[0] == 3
+    with open(os.path.join(out, "args.json")) as f:
+        assert json.load(f)[extra[0][2:]] == (2 if dp else True)
+
+    def losses(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [(r["step"], r["loss"]) for r in map(json.loads, f) if r["kind"] == "train"]
+
+    if dp:
+        assert losses(out) == losses(full)
+    else:
+        np.testing.assert_allclose(np.array(losses(out)), np.array(losses(full)), rtol=1e-6)
+    _same_weights_or_close(out, full, 0.0 if dp else 1e-6)
+
+
 @pytest.mark.parametrize("extra", [
-    ["--do_pretrain"], ["--zero1"], ["--do_pretrain", "--stage_two"],
-    ["--n_gpu", "2"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
+    ["--do_pretrain"], ["--do_pretrain", "--stage_two"],
+    ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
     ["--fused_ffn", "auto"], ["--fused_ffn", "auto_block"],  # TPU-measured row thresholds
     ["--train_attention", "pallas"],  # a TPU-only knob: not a flag of the port
 ])

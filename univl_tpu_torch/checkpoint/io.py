@@ -71,10 +71,14 @@ class CheckpointWriter:
     then takes ``host_copy`` of the state and returns, the write going on
     through ``save_checkpoint``'s temporary file and rename. ``wait`` blocks
     until the write in flight is on disk; a write that failed raises there
-    (or at the next ``save``), never silently."""
+    (or at the next ``save``), never silently. Under data parallelism every
+    rank calls ``save`` and only the ``primary`` writer (rank 0) writes, as
+    JAX's ``save_checkpoint`` writes on ``process_index() == 0`` alone; the
+    caller gathers any sharded state before and holds a barrier after."""
 
-    def __init__(self, async_save: bool = False):
+    def __init__(self, async_save: bool = False, primary: bool = True):
         self.async_save = async_save
+        self.primary = primary
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -82,6 +86,8 @@ class CheckpointWriter:
         """``write(state, *args)``, now or on the writer thread with the
         host copy of ``state``."""
         self.wait()
+        if not self.primary:
+            return
         if not self.async_save:
             write(state, *args)
             return

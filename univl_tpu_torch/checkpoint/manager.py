@@ -10,7 +10,8 @@ key ranks last). A save at a step that exists replaces it. With
 write and the rotation go on on a background thread
 (``checkpoint/io.py:CheckpointWriter``); the next save, ``restore``,
 ``restore_latest`` and ``wait`` wait for it first, and a failed write raises
-there.
+there. Under data parallelism every rank holds a manager and calls
+``save``; only the ``primary`` one (rank 0) writes and rotates.
 """
 
 from __future__ import annotations
@@ -45,14 +46,14 @@ def _coerce_metric(v):
 
 class RotatingCheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3, best_metric: Optional[str] = None,
-                 best_mode: str = "max", async_save: bool = False):
+                 best_mode: str = "max", async_save: bool = False, primary: bool = True):
         if best_mode not in ("max", "min"):
             raise ValueError(f"best_mode {best_mode!r}: choose max or min")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.best_metric = best_metric
         self.best_mode = best_mode
-        self.writer = CheckpointWriter(async_save)
+        self.writer = CheckpointWriter(async_save, primary)
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:

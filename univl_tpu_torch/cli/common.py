@@ -12,7 +12,10 @@ local ``<kind>_config.json`` of ``--bert_model`` and the other three),
 ``.msgpack``; in ``make_model``), ``make_trainer``, ``make_input_iter``
 (the prefetching input pipeline), ``make_preempt_flag``, ``preempt_hit``
 and ``run_train_epochs`` (per-epoch eval and the best epoch, preemption,
-the train-state checkpoints, synchronous or on a thread, and exact resume).
+the train-state checkpoints, synchronous or on a thread, and exact resume),
+and the trainers' data parallelism: ``add_parallel_args``,
+``check_parallel_args`` and ``run_on_ranks`` (``--n_gpu``, ``--zero1``,
+``--dist_backend``; ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import logging
 import os
 import random
 import signal
+import sys
 import time
 from typing import Callable, Optional
 
@@ -59,8 +63,11 @@ from univl_tpu_torch.data.batching import (
 )
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.nn.layers import set_fused_layer_norm
+from univl_tpu_torch.parallel import mesh as dp_mesh
+from univl_tpu_torch.parallel.mesh import Mesh
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
+from univl_tpu_torch.train.zero1 import make_univl_zero1_optimizer
 from univl_tpu_torch.utils.file_utils import ARCHIVES, cached_path
 from univl_tpu_torch.utils.profiling import StepTimer
 
@@ -95,11 +102,16 @@ class MetricsWriter:
             self._f = None
 
 
-def get_logger(output_dir: Optional[str] = None, name: str = "univl_tpu_torch"):
+def get_logger(output_dir: Optional[str] = None, name: str = "univl_tpu_torch",
+               primary: bool = True):
+    """The log on stderr and in ``<output_dir>/log.txt``; a rank other than
+    0 logs warnings only, to stderr alone."""
     logger = logging.getLogger(name)
     if logger.handlers:
         return logger
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if primary else logging.WARNING)
+    if not primary:
+        output_dir = None
     fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
@@ -217,6 +229,67 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+TP_SLICE = "waits for the port's tensor-parallel slice (TP, SP and ZeRO-1 under TP)"
+
+
+def add_parallel_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The trainers' data-parallel flags, under the JAX names and defaults
+    (``univl_tpu/cli/common.py:133-150``), and ``--dist_backend``."""
+    p.add_argument("--n_gpu", type=int, default=0,
+                   help="data-parallel ranks, one a card; 0 = every visible card (one rank "
+                        "on the CPU). Above 1 the command starts its ranks itself, unless a "
+                        "launcher (torchrun) started it")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: BertAdam's moments and update sharded over the ranks "
+                        "(train/zero1.py)")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="the ranks' process group: nccl on the card, gloo on the CPU by "
+                        "default; gloo given explicitly may put several ranks on one card")
+    p.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--sequence_parallel", action="store_true", help="refused here")
+    return p
+
+
+def check_parallel_args(parser: argparse.ArgumentParser, args) -> None:
+    """Refuse what the ranks cannot run: tensor and sequence parallelism
+    (ZeRO-1 under them too), a rank count below 0, more ranks than cards
+    without ``--dist_backend gloo``."""
+    if args.tensor_parallel > 1:
+        what = "--zero1 --tensor_parallel" if args.zero1 else "--tensor_parallel"
+        parser.error(f"{what} {args.tensor_parallel}: {TP_SLICE}")
+    if args.sequence_parallel:
+        parser.error(f"--sequence_parallel: {TP_SLICE}")
+    if args.n_gpu < 0:
+        parser.error(f"--n_gpu {args.n_gpu}: give 0 (every visible card) or a count")
+    why = dp_mesh.rank_error(args.n_gpu, torch.device(args.device).type, args.dist_backend)
+    if why:
+        parser.error(why)
+
+
+def run_on_ranks(entry: str, argv, args, body: Callable, portable: Callable = lambda r: r):
+    """``body(args, mesh)`` on this process's rank. With ``--n_gpu`` above 1
+    and no launcher, start the ranks (``mesh.spawn`` of ``entry``, the CLI's
+    ``"module:main"``, with the same ``argv``) and return rank 0's result,
+    made ``portable`` across processes. A process group is joined when there
+    are several ranks or ``--zero1`` (on one card a group of one rank), and
+    destroyed when the body returns or raises. Spawned ranks inherit this
+    process's ``torch.use_deterministic_algorithms`` (``mesh.spawn``)."""
+    device_type = torch.device(args.device).type
+    size = dp_mesh.resolve_size(args.n_gpu, device_type)
+    if size > 1 and not dp_mesh.launched():
+        return dp_mesh.spawn(entry, sys.argv[1:] if argv is None else argv, size)
+    mesh = None
+    try:
+        if size == 1 and not args.zero1:
+            return body(args, Mesh(device=resolve_device(args.device)))
+        mesh = dp_mesh.init(args.device, args.dist_backend)
+        result = body(args, mesh)
+        return portable(result) if dp_mesh.launched() else result
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
 FUSED_FFN = {"xla": False, "pallas": True, "block": "block"}  # --fused_ffn -> use_fused_ffn
 
 
@@ -247,18 +320,19 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def finalize_args(args):
+def finalize_args(args, mesh: Optional[Mesh] = None):
     """The batch divided by gradient accumulation (the reference's global
-    batch over its micro-batches), the resolved flags in ``args.json``, and
-    Python's and numpy's global seeds."""
+    batch over its micro-batches), the resolved flags in ``args.json`` (by
+    rank 0), and Python's and numpy's global seeds."""
     if args.gradient_accumulation_steps < 1:
         raise ValueError("gradient_accumulation_steps must be >= 1")
     args.batch_size = int(args.batch_size / args.gradient_accumulation_steps)
     if args.sampled_use_mil:
         args.use_mil = True
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=1, default=str)
+    if mesh is None or mesh.primary:
+        with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=1, default=str)
     random.seed(args.seed)
     np.random.seed(args.seed)
     os.environ["PYTHONHASHSEED"] = str(args.seed)
@@ -277,9 +351,11 @@ def _json_config(cls, model_dir: str, json_name: str, cache_dir: str):
 
 
 def build_config(args, device: torch.device, task_type: str = "retrieval",
-                 vocab_size: Optional[int] = None) -> UniVLConfig:
+                 vocab_size: Optional[int] = None, ranks: int = 1) -> UniVLConfig:
     """Layer counts, widths, lengths, video_dim, vocab size (text tower and
-    decoder alike), the stage switches, the loss fields, the (micro-)batch,
+    decoder alike), the stage switches, the loss fields, the (micro-)batch
+    of one of ``ranks`` data-parallel ranks (the global micro-batch over
+    them: the MIL-NCE and max-margin masks' shapes),
     the FFN route (``--fused_ffn``, where the parser has it), ``--remat``
     and the compute dtype (bf16 on a CUDA device, f32 on the CPU, unless
     --compute_dtype or --fp16 says otherwise). A ``--bert_model`` (and
@@ -289,6 +365,9 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
     ``univl_tpu/cli/common.py:293-367``'s order."""
     dtype = args.compute_dtype or (
         "bfloat16" if (device.type == "cuda" or args.fp16) else "float32")
+    if args.batch_size % ranks:
+        raise ValueError(f"the micro-batch of {args.batch_size} does not split over {ranks} "
+                         f"ranks")
     cfg = UniVLConfig.base(
         text_num_hidden_layers=args.text_num_hidden_layers,
         visual_num_hidden_layers=args.visual_num_hidden_layers,
@@ -308,7 +387,7 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
         pretrain_enhance_vmodal=getattr(args, "pretrain_enhance_vmodal", False),
         train_sim_after_cross=args.train_sim_after_cross,
         task_type=task_type,
-        batch_size_per_device=args.batch_size,
+        batch_size_per_device=args.batch_size // ranks,
         compute_dtype=dtype,
         use_fused_ffn=FUSED_FFN[getattr(args, "fused_ffn", "xla")],
         remat=("dots" if args.remat_policy == "dots" else True) if args.remat else False,
@@ -382,16 +461,23 @@ def load_init_params(args, model: torch.nn.Module, logger) -> None:
     model.load_state_dict(sd, strict=True)
 
 
-def make_trainer(args, model: torch.nn.Module, n_train_batches: int, logger) -> Trainer:
-    """BertAdam over ``t_total = n_train_batches * epochs`` updates, and the
-    single-device trainer with ``--gradient_accumulation_steps``."""
+def make_trainer(args, model: torch.nn.Module, n_train_batches: int, logger,
+                 mesh: Optional[Mesh] = None) -> Trainer:
+    """BertAdam over ``t_total = n_train_batches * epochs`` updates (with
+    ``--zero1`` sharded over the ranks), and the trainer with
+    ``--gradient_accumulation_steps`` on ``mesh``'s rank."""
+    mesh = mesh or Mesh()
+    zero1 = bool(getattr(args, "zero1", False))
     t_total = n_train_batches * args.epochs
-    opt = make_univl_optimizer(
-        model, lr=args.lr, t_total=max(t_total, 1), warmup_proportion=args.warmup_proportion,
-        coef_lr=args.coef_lr, state_dtype=args.adam_state_dtype)
-    logger.info("one device (%s); t_total=%d", next(model.parameters()).device, t_total)
+    kw = dict(lr=args.lr, t_total=max(t_total, 1), warmup_proportion=args.warmup_proportion,
+              coef_lr=args.coef_lr, state_dtype=args.adam_state_dtype)
+    opt = make_univl_zero1_optimizer(model, mesh, **kw) if zero1 else make_univl_optimizer(
+        model, **kw)
+    logger.info("mesh: %d rank(s) (dp=%d, zero1=%s, %s) on %s; t_total=%d", mesh.size,
+                mesh.size, zero1, mesh.backend or "no process group",
+                next(model.parameters()).device, t_total)
     return Trainer(model, opt, grad_accum_steps=args.gradient_accumulation_steps,
-                   seed=args.seed)
+                   seed=args.seed, mesh=mesh)
 
 
 BEST_BIN = "pytorch_model.bin.best"  # the best epoch's weights (JAX's best.msgpack)
@@ -505,7 +591,18 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
     bit for bit the uninterrupted one. ``--inject_crash_after`` raises after
     that many steps, without a checkpoint. Returns (the global step, the
     best epoch's metrics with its ``epoch``, or None without eval or when no
-    epoch scored)."""
+    epoch scored).
+
+    metrics.jsonl opens with a ``mesh`` record (ranks, backend, device,
+    zero1). Under data parallelism (the trainer's ``mesh``) rank 0 alone
+    writes metrics.jsonl, each ``.bin`` and the train state, which every rank
+    builds (with ``--zero1`` the moments gathered from their shards); the
+    others wait at a barrier on the control group after each save and after
+    each epoch's files. The ranks agree on a preemption after every step
+    (the flag's maximum over the control group, so a SIGTERM that reaches
+    one rank stops all at the same step), and rank 0 runs ``eval_fn`` and
+    broadcasts the score of the selected metric."""
+    mesh = getattr(trainer, "mesh", None) or Mesh()
     best, best_score = None, -np.inf
     global_step, start_epoch, start_step_in_epoch = 0, 0, 0
     ckpt_path = os.path.join(args.output_dir, TRAIN_STATE)
@@ -535,8 +632,10 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
     # the train state goes to the manager, or to train_state.pt through a
     # writer; both write on a thread with --async_checkpointing
     store = manager if manager is not None else CheckpointWriter(
-        getattr(args, "async_checkpointing", False))
-    mw = MetricsWriter(args.output_dir)
+        getattr(args, "async_checkpointing", False), primary=mesh.primary)
+    mw = MetricsWriter(args.output_dir if mesh.primary else None)
+    mw.write("mesh", ranks=mesh.size, backend=mesh.backend, device=str(mesh.device),
+             zero1=bool(getattr(trainer, "zero1", False)))
 
     def save_train_state(epoch: int, in_epoch_step: int, preempted: bool, **extra):
         meta = {"epoch": epoch - 1 if in_epoch_step else epoch, "global_step": global_step,
@@ -544,11 +643,14 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                 "best": _json_best(best),
                 "best_score": None if best is None else float(best_score), **extra}
         t0 = time.perf_counter()
+        state = train_state(trainer)  # a collective under --zero1
         if manager is not None:
-            manager.save(global_step, train_state(trainer), metrics=meta)
+            manager.save(global_step, state, metrics=meta)
         else:
-            store.save(ckpt_path, train_state(trainer), metadata=meta)
+            store.save(ckpt_path, state, metadata=meta)
+        del state
         blocked = time.perf_counter() - t0
+        mesh.barrier()
         # the seconds the loop was held: the whole write, or with
         # --async_checkpointing the wait for the last one and the host copy
         logger.info("train state saved at step %d: the loop blocked %.3f s", global_step,
@@ -583,7 +685,7 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                                     shown, timer.ema or 0.0, timer.items_per_sec)
                         mw.write("train", epoch=epoch, step=global_step, loss=disp_loss,
                                  clips_per_sec=timer.items_per_sec, **shown)
-                    if preempt_hit(args, preempt, global_step - steps_at_start):
+                    if mesh.any(preempt_hit(args, preempt, global_step - steps_at_start)):
                         save_train_state(epoch, offset + n_steps, True)
                         logger.info("preempted at epoch %d step %d: checkpoint saved, exiting",
                                     epoch + 1, global_step)
@@ -601,21 +703,29 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                      seconds=time.time() - t0, steps=n_steps)
             # a SIGTERM after the epoch's last step saves now, before the eval:
             # a preemption's grace is tens of seconds
-            if preempt["hit"]:
+            if mesh.any(preempt["hit"]):
                 save_train_state(epoch, offset + n_steps, True)
                 logger.info("preempted at epoch %d end: checkpoint saved, exiting", epoch + 1)
                 return global_step, best
-            save_state_dict(trainer.model, os.path.join(args.output_dir,
-                                                        f"pytorch_model.bin.{epoch}"))
+            if mesh.primary:
+                save_state_dict(trainer.model, os.path.join(args.output_dir,
+                                                            f"pytorch_model.bin.{epoch}"))
             if eval_fn is not None:
-                metrics = eval_fn(epoch)
-                score = select_sign * metrics[select_key]
+                metrics = eval_fn(epoch) if mesh.primary else None
+                score = mesh.broadcast(select_sign * metrics[select_key] if mesh.primary
+                                       else None)
                 if score > best_score:
-                    best_score, best = score, dict(metrics, epoch=epoch)
-                    save_checkpoint(os.path.join(args.output_dir, BEST_BIN), cpu_state_dict(
-                        trainer.model), metadata={"epoch": epoch, "metrics": _json_best(metrics)})
-                logger.info("Eval epoch %d: %s", epoch + 1, metrics)
-                mw.write("eval", epoch=epoch, **metrics)
+                    best_score = score
+                    if mesh.primary:
+                        best = dict(metrics, epoch=epoch)
+                        save_checkpoint(os.path.join(args.output_dir, BEST_BIN),
+                                        cpu_state_dict(trainer.model),
+                                        metadata={"epoch": epoch,
+                                                  "metrics": _json_best(metrics)})
+                if mesh.primary:
+                    logger.info("Eval epoch %d: %s", epoch + 1, metrics)
+                    mw.write("eval", epoch=epoch, **metrics)
+            mesh.barrier()
             if state_every_epoch or not args.no_preempt_checkpoint:
                 save_train_state(epoch, 0, False, mean_loss=total_loss / max(n_steps, 1))
         if best is not None:

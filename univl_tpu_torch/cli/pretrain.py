@@ -33,9 +33,12 @@ Losses at display points and epoch summaries go to ``metrics.jsonl``.
 on a background thread (either backend); the loop waits for the write in
 flight before the next save and before it returns. ``--remat`` (with
 ``--remat_policy dots``) recomputes the towers' layers in the backward. The
-batches come through ``common.make_input_iter``. ``--zero1``, ``--n_gpu``
-and ``--tensor_parallel`` above 1 are refused with an error that names the
-multi-device slice they wait for.
+batches come through ``common.make_input_iter``. ``--n_gpu N`` pretrains on
+N data-parallel ranks, each with MIL-NCE over its own rows of the global
+batch, and ``--zero1`` shards BertAdam's state over them, as in
+``task_retrieval`` (rank 0 writes the files and the checkpoints);
+``--tensor_parallel`` above 1 and ``--sequence_parallel`` are refused with
+an error that names the tensor-parallel slice they wait for.
 """
 
 from __future__ import annotations
@@ -49,11 +52,7 @@ from univl_tpu_torch.data.batching import Batcher
 from univl_tpu_torch.data.howto100m import HowTo100MPretrainDataset
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 
-# flag -> why it is refused: the slice of the port that will run it (--n_gpu and
-# --tensor_parallel above 1 wait for it too)
-REFUSED = {
-    "zero1": "not ported yet (waits for the multi-device slice)",
-}
+ENTRY = "univl_tpu_torch.cli.pretrain:main"  # what each spawned rank runs
 
 
 def add_pretrain_args(p):
@@ -80,24 +79,14 @@ def add_pretrain_args(p):
 
 
 def parse_args(argv=None):
-    parser = add_pretrain_args(common.add_fused_ffn_arg(
-        common.base_parser("UniVL Pretrain (PyTorch)")))
+    parser = common.add_parallel_args(add_pretrain_args(common.add_fused_ffn_arg(
+        common.base_parser("UniVL Pretrain (PyTorch)"))))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu (their "
                              "plain PyTorch versions)")
     parser.add_argument("--do_pretrain", action="store_true", help="implied")
-    for flag in REFUSED:
-        parser.add_argument(f"--{flag}", action="store_true", help="refused here")
-    parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
-    parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
     args = parser.parse_args(argv)
-    for flag, why in REFUSED.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag}: {why}")
-    for flag in ("n_gpu", "tensor_parallel"):
-        if getattr(args, flag) > 1:
-            parser.error(f"--{flag} {getattr(args, flag)}: one device only (waits for the "
-                         f"multi-device slice)")
+    common.check_parallel_args(parser, args)
     if not args.vocab_file:
         parser.error("--vocab_file required")
     args.do_pretrain = True
@@ -105,12 +94,20 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Pretrain; returns (the global step, the trainer)."""
-    args = common.finalize_args(parse_args(argv))
-    logger = common.get_logger(args.output_dir)
-    device = common.resolve_device(args.device)
+    """Pretrain; returns (the global step, the trainer; None when the
+    command started its ranks itself)."""
+    return common.run_on_ranks(ENTRY, argv, parse_args(argv), run,
+                               portable=lambda result: (result[0], None))
+
+
+def run(args, mesh):
+    """``main`` on one rank."""
+    args = common.finalize_args(args, mesh)
+    logger = common.get_logger(args.output_dir, primary=mesh.primary)
+    device = mesh.device
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
-    cfg = common.build_config(args, device, task_type="retrieval", vocab_size=len(tokenizer))
+    cfg = common.build_config(args, device, task_type="retrieval", vocab_size=len(tokenizer),
+                              ranks=mesh.size)
     model = common.make_model(args, cfg, device, logger)
     with open(args.data_path, "rb") as f:
         data_dict = pickle.load(f)
@@ -124,13 +121,15 @@ def main(argv=None):
         seed=args.seed)
     batcher = Batcher(ds, args.batch_size, shuffle=True, seed=args.seed,
                       grad_accum=args.gradient_accumulation_steps,
-                      num_workers=args.num_thread_reader)
-    trainer = common.make_trainer(args, model, len(batcher), logger)
+                      num_workers=args.num_thread_reader, process_index=mesh.rank,
+                      process_count=mesh.size)
+    trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     manager = None
     if args.checkpoint_backend == "orbax":
         manager = RotatingCheckpointManager(os.path.join(args.output_dir, "checkpoints"),
                                             max_to_keep=args.keep_checkpoints,
-                                            async_save=args.async_checkpointing)
+                                            async_save=args.async_checkpointing,
+                                            primary=mesh.primary)
     steps, _ = common.run_train_epochs(args, trainer, batcher, logger, device, manager=manager,
                                        state_every_epoch=True)
     return steps, trainer

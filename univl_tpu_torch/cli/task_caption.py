@@ -37,8 +37,11 @@ dots``) recomputes the towers' layers in the backward (the decoder's are
 kept, as in JAX); the training batches come through
 ``common.make_input_iter`` and the eval batches through
 ``prefetch_to_device`` (built while the beam search runs) unless
-``--no_prefetch``. ``--zero1``, ``--n_gpu`` and ``--tensor_parallel`` above 1
-are refused with an error that names the multi-device slice they wait for.
+``--no_prefetch``. ``--n_gpu N`` trains on N data-parallel ranks and
+``--zero1`` shards BertAdam's state over them, as in ``task_retrieval``
+(rank 0 writes the files and runs the eval); ``--tensor_parallel`` above 1
+and ``--sequence_parallel`` are refused with an error that names the
+tensor-parallel slice they wait for.
 """
 
 from __future__ import annotations
@@ -54,11 +57,10 @@ from univl_tpu_torch.evals.beam import CaptionGenerator
 from univl_tpu_torch.evals.caption_metrics import compute_caption_metrics
 from univl_tpu_torch.serving.captioning import resolve_fused
 
-# flag -> why it is refused: the entry point that runs it, or the slice of the
-# port that will (--n_gpu and --tensor_parallel above 1 wait for it too)
+ENTRY = "univl_tpu_torch.cli.task_caption:main"  # what each spawned rank runs
+# flag -> why it is refused: the entry point that runs it
 REFUSED = {
     "do_pretrain": "pretraining has its own entry point: python -m univl_tpu_torch.cli.pretrain",
-    "zero1": "not ported yet (waits for the multi-device slice)",
 }
 DATATYPES = ("youcook", "msrvtt")
 EVAL_KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask")
@@ -66,7 +68,8 @@ BEAM_SIZE = 5
 
 
 def parse_args(argv=None):
-    parser = common.add_fused_ffn_arg(common.base_parser("UniVL Caption (PyTorch)"))
+    parser = common.add_parallel_args(common.add_fused_ffn_arg(
+        common.base_parser("UniVL Caption (PyTorch)")))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu (their "
                              "plain PyTorch versions)")
@@ -75,16 +78,11 @@ def parse_args(argv=None):
                              "after every epoch")
     for flag in REFUSED:
         parser.add_argument(f"--{flag}", action="store_true", help="refused here")
-    parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
-    parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
     args = parser.parse_args(argv)
     for flag, why in REFUSED.items():
         if getattr(args, flag):
             parser.error(f"--{flag}: {why}")
-    for flag in ("n_gpu", "tensor_parallel"):
-        if getattr(args, flag) > 1:
-            parser.error(f"--{flag} {getattr(args, flag)}: one device only (waits for the "
-                         f"multi-device slice)")
+    common.check_parallel_args(parser, args)
     if args.datatype not in DATATYPES:
         parser.error(f"--datatype {args.datatype}: choose from {DATATYPES}")
     if args.train_sim_after_cross:
@@ -162,12 +160,21 @@ def make_eval_fn(args, model, tokenizer, device, val_ds, logger):
 def main(argv=None):
     """Train and/or evaluate; returns (optimizer steps taken, metrics): the
     best epoch's with --do_train --do_eval, the eval's with --do_eval alone,
-    None with --do_train alone."""
-    args = common.finalize_args(parse_args(argv))
-    logger = common.get_logger(args.output_dir)
-    device = common.resolve_device(args.device)
+    None with --do_train alone. --do_eval alone runs on one card."""
+    args = parse_args(argv)
+    if not args.do_train:
+        args.n_gpu, args.zero1 = 1, False
+    return common.run_on_ranks(ENTRY, argv, args, run)
+
+
+def run(args, mesh):
+    """``main`` on one rank."""
+    args = common.finalize_args(args, mesh)
+    logger = common.get_logger(args.output_dir, primary=mesh.primary)
+    device = mesh.device
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
-    cfg = common.build_config(args, device, task_type="caption", vocab_size=len(tokenizer))
+    cfg = common.build_config(args, device, task_type="caption", vocab_size=len(tokenizer),
+                              ranks=mesh.size)
     model = common.make_model(args, cfg, device, logger)
     train_ds, val_ds = build_datasets(args, tokenizer)
 
@@ -178,8 +185,9 @@ def main(argv=None):
         return 0, eval_fn()
     batcher = Batcher(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                       grad_accum=args.gradient_accumulation_steps,
-                      num_workers=args.num_thread_reader)
-    trainer = common.make_trainer(args, model, len(batcher), logger)
+                      num_workers=args.num_thread_reader, process_index=mesh.rank,
+                      process_count=mesh.size)
+    trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     return common.run_train_epochs(args, trainer, batcher, logger, device, eval_fn=eval_fn,
                                    select_key="Bleu_4")
 

@@ -41,8 +41,19 @@ update-batch. ``--do_pretrain`` is refused: pretraining's entry point is
 dots``) recomputes the towers' layers in the backward; the training batches
 come through ``common.make_input_iter`` and the eval batches through
 ``prefetch_to_device`` (read and tokenized while the device encodes) unless
-``--no_prefetch``. ``--zero1``, ``--n_gpu`` and ``--tensor_parallel`` above 1
-are refused with an error that names the multi-device slice they wait for.
+``--no_prefetch``.
+
+``--n_gpu N`` trains on N data-parallel ranks, one a card (0, the default,
+is every visible card; one rank on the CPU), each with the similarity loss
+over its own rows of the global ``--batch_size`` (the reference's
+per-device negatives): the command starts its ranks itself, or joins
+torchrun's. ``--zero1`` shards BertAdam's state over the ranks. Rank 0
+writes every file and runs the eval (on its card alone).
+``--dist_backend gloo`` may put several ranks on one card.
+``--tensor_parallel`` above 1 and ``--sequence_parallel`` are refused with
+an error that names the tensor-parallel slice they wait for.
+
+    python -m univl_tpu_torch.cli.task_retrieval --do_train --n_gpu 8 [--zero1] ...
 """
 
 from __future__ import annotations
@@ -55,16 +66,16 @@ from univl_tpu_torch.data.youcook import YoucookRetrievalDataset
 from univl_tpu_torch.evals.retrieval import KEYS, RetrievalEvaluator
 
 DATATYPES = ("youcook", "msrvtt")
-# flag -> why it is refused: the entry point that runs it, or the slice of the
-# port that will (--n_gpu and --tensor_parallel above 1 wait for it too)
+ENTRY = "univl_tpu_torch.cli.task_retrieval:main"  # what each spawned rank runs
+# flag -> why it is refused: the entry point that runs it
 REFUSED = {
     "do_pretrain": "pretraining has its own entry point: python -m univl_tpu_torch.cli.pretrain",
-    "zero1": "not ported yet (waits for the multi-device slice)",
 }
 
 
 def parse_args(argv=None):
-    parser = common.add_fused_ffn_arg(common.base_parser("UniVL Retrieval (PyTorch)"))
+    parser = common.add_parallel_args(common.add_fused_ffn_arg(
+        common.base_parser("UniVL Retrieval (PyTorch)")))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu (their "
                              "plain PyTorch versions)")
@@ -73,16 +84,11 @@ def parse_args(argv=None):
                              "every epoch")
     for flag in REFUSED:
         parser.add_argument(f"--{flag}", action="store_true", help="refused here")
-    parser.add_argument("--n_gpu", type=int, default=1, help="devices; only 1 is ported")
-    parser.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
     args = parser.parse_args(argv)
     for flag, why in REFUSED.items():
         if getattr(args, flag):
             parser.error(f"--{flag}: {why}")
-    for flag in ("n_gpu", "tensor_parallel"):
-        if getattr(args, flag) > 1:
-            parser.error(f"--{flag} {getattr(args, flag)}: one device only (waits for the "
-                         f"multi-device slice)")
+    common.check_parallel_args(parser, args)
     if not (args.do_train or args.do_eval):
         parser.error("give --do_train, --do_eval or both")
     if args.datatype not in DATATYPES:
@@ -122,12 +128,21 @@ def eval_batches(dataset, batch_size: int):
 def main(argv=None):
     """Train and/or evaluate; returns (optimizer steps taken, metrics): the
     best epoch's with --do_train --do_eval, the eval's with --do_eval alone,
-    None with --do_train alone."""
-    args = common.finalize_args(parse_args(argv))
-    logger = common.get_logger(args.output_dir)
-    device = common.resolve_device(args.device)
+    None with --do_train alone. --do_eval alone runs on one card."""
+    args = parse_args(argv)
+    if not args.do_train:
+        args.n_gpu, args.zero1 = 1, False
+    return common.run_on_ranks(ENTRY, argv, args, run)
+
+
+def run(args, mesh):
+    """``main`` on one rank."""
+    args = common.finalize_args(args, mesh)
+    logger = common.get_logger(args.output_dir, primary=mesh.primary)
+    device = mesh.device
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
-    cfg = common.build_config(args, device, task_type="retrieval", vocab_size=len(tokenizer))
+    cfg = common.build_config(args, device, task_type="retrieval", vocab_size=len(tokenizer),
+                              ranks=mesh.size)
     model = common.make_model(args, cfg, device, logger)
     train_ds, test_ds = build_datasets(args, tokenizer)
 
@@ -152,8 +167,9 @@ def main(argv=None):
         return 0, eval_fn()
     batcher = Batcher(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                       grad_accum=args.gradient_accumulation_steps,
-                      num_workers=args.num_thread_reader)
-    trainer = common.make_trainer(args, model, len(batcher), logger)
+                      num_workers=args.num_thread_reader, process_index=mesh.rank,
+                      process_count=mesh.size)
+    trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     return common.run_train_epochs(args, trainer, batcher, logger, device, eval_fn=eval_fn,
                                    select_key="R1", select_sign=1.0)
 

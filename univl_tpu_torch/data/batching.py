@@ -1,5 +1,6 @@
 """Fixed-shape batching and the input pipeline, the port's copy of
-``univl_tpu/data/batching.py``'s ``collate``, ``Batcher``, ``pad_rows``,
+``univl_tpu/data/batching.py``'s ``collate``, ``Batcher`` (with its
+per-rank slices), ``pad_rows``,
 ``cast_floats`` and ``prefetch_to_device``.
 
 Samples are fixed-shape numpy arrays, fetched by a thread pool and stacked.
@@ -30,10 +31,17 @@ class Batcher:
     """Deterministic shuffling batcher.
 
     Yields ``[batch_size, ...]`` dicts; with ``grad_accum > 1``,
-    ``[grad_accum, batch_size, ...]`` (the trainer's layout)."""
+    ``[grad_accum, batch_size, ...]`` (the trainer's layout). ``batch_size``
+    is the global batch; with ``process_count > 1`` every rank walks the same
+    seeded order and builds only its slice of each micro-batch, rows
+    ``[process_index * local, (process_index + 1) * local)`` with ``local =
+    batch_size // process_count`` (the DistributedSampler's counterpart)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = True, grad_accum: int = 1, num_workers: int = 8):
+                 drop_last: bool = True, grad_accum: int = 1, num_workers: int = 8,
+                 process_index: int = 0, process_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"batch {batch_size} does not split over {process_count} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -41,6 +49,9 @@ class Batcher:
         self.drop_last = drop_last
         self.grad_accum = grad_accum
         self.num_workers = num_workers
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_batch = batch_size // process_count
 
     def __len__(self):
         chunk = self.batch_size * self.grad_accum
@@ -65,14 +76,18 @@ class Batcher:
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
             for off in range(start_batch * chunk, n - chunk + 1 if self.drop_last else n, chunk):
                 idxs = order[off: off + chunk]
-                if len(idxs) < chunk and self.grad_accum > 1:
-                    # the accum reshape needs a full chunk: wrap-pad the last
-                    # partial one with indices from the epoch's start (torch
-                    # DistributedSampler's equal-size padding)
+                if len(idxs) < chunk and (self.grad_accum > 1 or self.process_count > 1):
+                    # the accum and rank reshapes need a full chunk: wrap-pad
+                    # the last partial one with indices from the epoch's start
+                    # (torch DistributedSampler's equal-size padding)
                     idxs = np.concatenate([idxs, np.resize(order, chunk - len(idxs))])
+                if self.process_count > 1:  # the rank's rows of each micro-batch
+                    lo = self.process_index * self.local_batch
+                    idxs = idxs.reshape(self.grad_accum, self.batch_size)[
+                        :, lo:lo + self.local_batch].reshape(-1)
                 batch = collate(list(ex.map(fetch, idxs)))
                 if self.grad_accum > 1:
-                    batch = {k: v.reshape(self.grad_accum, self.batch_size, *v.shape[1:])
+                    batch = {k: v.reshape(self.grad_accum, self.local_batch, *v.shape[1:])
                              for k, v in batch.items()}
                 yield batch
 

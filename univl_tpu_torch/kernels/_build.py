@@ -6,7 +6,9 @@ objects are linked into one shared library with a plain C interface, placed
 under ``build/univl_tpu_torch/`` at the root of the checkout and named by a
 hash of the sources, so an edited source builds anew and an unchanged one is
 reused. The build writes to per-process temporary names and renames the
-library into place, so concurrent first uses never load a half-written one.
+library into place, so concurrent first uses never load a half-written one,
+and it holds a file lock beside the library, so the data-parallel ranks'
+first uses build it once: the others wait and load it.
 
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.
@@ -15,6 +17,7 @@ without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -54,11 +57,23 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless a library for these sources exists; return its path."""
+    """Compile the kernels unless a library for these sources exists; return
+    its path. One process at a time builds (a lock on ``<library>.lock``)."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path):  # another process built it while this one waited
+                _compile(path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return path
+
+
+def _compile(path: str) -> None:
     nvcc = _nvcc()
     tmp = f"{path}.tmp{os.getpid()}"
     cu = [s for s in _sources() if s.endswith(".cu")]
@@ -86,7 +101,6 @@ def build() -> str:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
-    return path
 
 
 def _declare(lib: ctypes.CDLL) -> None:

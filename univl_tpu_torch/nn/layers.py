@@ -101,6 +101,13 @@ def fold_key(key: int, tag: int) -> int:
     return _splitmix64(key ^ _splitmix64(tag)) & KEY_BITS
 
 
+def draw_key(generator: torch.Generator) -> int:
+    """The next key of a step's CPU generator: each training forward draws
+    one (``Randomness.derive``), so a data-parallel rank skips the keys of
+    the micro-batches before its own by drawing them."""
+    return int(torch.randint(0, KEY_BITS + 1, (), generator=generator))
+
+
 class Randomness(NamedTuple):
     """A training step's randomness, keyed by where it is drawn, as flax
     folds its ``dropout`` rng stream per module path: ``key``, a host int,
@@ -124,9 +131,8 @@ class Randomness(NamedTuple):
     @classmethod
     def derive(cls, generator: torch.Generator, device) -> "Randomness":
         """The step's randomness on ``device``, keyed by the next draw of
-        the step's CPU generator."""
-        return cls.from_key(int(torch.randint(0, KEY_BITS + 1, (), generator=generator)),
-                            device)
+        the step's CPU generator (one draw a forward)."""
+        return cls.from_key(draw_key(generator), device)
 
     def fold(self, *tags: int) -> "Randomness":
         """The child keyed by ``tags`` folded in turn, with a device

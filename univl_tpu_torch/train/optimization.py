@@ -50,13 +50,19 @@ SCHEDULES = {
 }
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
-    """optax ``clip_by_global_norm`` in place: g if the global norm is below
-    ``max_norm``, else ``(g / norm) * max_norm``, decided on the device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def clip_by_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
+    """optax ``clip_by_global_norm`` in place, given the global ``norm``: g
+    if it is below ``max_norm``, else ``(g / norm) * max_norm``, decided on
+    the device."""
     clip = norm >= max_norm
     torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
     torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """``clip_by_norm_`` with the norm of ``grads``."""
+    clip_by_norm_(grads, torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))),
+                  max_norm)
 
 
 class BertAdam(torch.optim.Optimizer):
@@ -128,29 +134,40 @@ class BertAdam(torch.optim.Optimizer):
                 continue
             g = [grads[p] for p in params]
             if self.max_grad_norm > 0:
-                norms = torch.stack(torch._foreach_norm(g))
-                coef = torch.clamp(self.max_grad_norm / (norms + 1e-6), max=1.0)
-                g = torch._foreach_mul(g, list(coef.unbind()))
+                g = torch._foreach_mul(g, list(self.tensor_clip(
+                    torch.stack(torch._foreach_norm(g))).unbind()))
             ms, vs = zip(*(self._moments(p) for p in params))
-            m32 = [m.float() for m in ms]  # the f32 state itself; copies of bf16 state
-            v32 = [v.float() for v in vs]
-            torch._foreach_mul_(m32, self.b1)
-            torch._foreach_add_(m32, torch._foreach_mul(g, 1 - self.b1))
-            torch._foreach_mul_(v32, self.b2)
-            torch._foreach_add_(v32, torch._foreach_mul(torch._foreach_mul(g, 1 - self.b2), g))
-            if self.state_dtype is None:
-                m_new, v_new = m32, v32
-            else:
-                for dst, src in zip(ms + vs, m32 + v32):
-                    dst.copy_(src)
-                m_new, v_new = [m.float() for m in ms], [v.float() for v in vs]
-            upd = torch._foreach_div(m_new, torch._foreach_add(torch._foreach_sqrt(v_new),
-                                                               self.eps))
-            if group["weight_decay"] > 0.0:
-                torch._foreach_add_(upd, torch._foreach_mul(list(params), group["weight_decay"]))
-            alpha = np.float32(lr_t) * np.float32(group["lr_scale"])
-            torch._foreach_add_(list(params), upd, alpha=-float(alpha))
+            self.update_(g, list(ms), list(vs), list(params), group, lr_t)
         self.steps += 1
+
+    def tensor_clip(self, norms: torch.Tensor) -> torch.Tensor:
+        """The reference's per-tensor clip coefficients from the tensors'
+        gradient norms (after the global clip)."""
+        return torch.clamp(self.max_grad_norm / (norms + 1e-6), max=1.0)
+
+    def update_(self, g: List[torch.Tensor], ms: List[torch.Tensor], vs: List[torch.Tensor],
+                params: List[torch.Tensor], group: Dict, lr_t: float) -> None:
+        """One group's moments and update in place, from its clipped
+        gradients ``g``: the moments in f32 (stored rounded to
+        ``state_dtype``, and the update computed from the stored values), the
+        weight decay read from ``params``, which take the update."""
+        m32 = [m.float() for m in ms]  # the f32 state itself; copies of bf16 state
+        v32 = [v.float() for v in vs]
+        torch._foreach_mul_(m32, self.b1)
+        torch._foreach_add_(m32, torch._foreach_mul(g, 1 - self.b1))
+        torch._foreach_mul_(v32, self.b2)
+        torch._foreach_add_(v32, torch._foreach_mul(torch._foreach_mul(g, 1 - self.b2), g))
+        if self.state_dtype is None:
+            m_new, v_new = m32, v32
+        else:
+            for dst, src in zip(ms + vs, m32 + v32):
+                dst.copy_(src)
+            m_new, v_new = [m.float() for m in ms], [v.float() for v in vs]
+        upd = torch._foreach_div(m_new, torch._foreach_add(torch._foreach_sqrt(v_new), self.eps))
+        if group["weight_decay"] > 0.0:
+            torch._foreach_add_(upd, torch._foreach_mul(params, group["weight_decay"]))
+        alpha = np.float32(lr_t) * np.float32(group["lr_scale"])
+        torch._foreach_add_(params, upd, alpha=-float(alpha))
 
 
 def univl_param_groups(model: torch.nn.Module, coef_lr: float,
