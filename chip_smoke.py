@@ -149,9 +149,9 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      torch.profiler over 3 of its micro-steps;
  P3. resume on the card, under torch.use_deterministic_algorithms: one
      uninterrupted stage-I run (the control) and one run preempted
-     (--inject_preempt_after) and resumed (--load_checkpoint): the
-     parameters, moments, BertAdam's step count and losses of the resumed run
-     bitwise the control's;
+     (--inject_preempt_after) and resumed (--load_checkpoint) with
+     --async_checkpointing (R3): the parameters, moments, BertAdam's step
+     count and losses of the resumed run bitwise the control's;
  P4. stage II agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, 4 clips x 3 pairs, dropout 0: card f32 (the
      unfused route as the control, then --fused_ffn block) and card bf16
@@ -173,9 +173,8 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      profiler (clips/s and device busy share, medians); the joint retrieval
      eval of phase 20 (its batches prefetched) against --no_prefetch: the
      same R@1/5/10, MedR and MeanR;
- R3. (in P3) the preempted and resumed stage-I run again with
-     --async_checkpointing, bitwise equal to the control; the seconds the
-     loop blocked at each epoch-end save, synchronous and async;
+ R3. (in P3) the seconds the loop blocked at each epoch-end save,
+     synchronous (the control) and async (the resumed run);
  R4. the checkpoint converter without JAX: a full-width reference .bin from
      seeded weights (every module: stage II with the heads) through
      univl_tpu_torch.cli.convert_checkpoint to a flax params file and back
@@ -183,21 +182,41 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  D1. data parallelism: FT-Align (--fused_ffn block) through task_retrieval
      --n_gpu 2 --dist_backend gloo, two ranks spawned by the CLI sharing the
      card, under torch.use_deterministic_algorithms (set here, inherited by
-     the ranks), global batch 32, 6 steps, replicated and --zero1:
+     the ranks), from phase 14's weights (one .bin, --init_model: no seeded
+     draw in each rank; D3 and T1 too), global batch 32, 6 steps,
+     replicated and --zero1:
      each rank's launches of #2, #4 and #5 (a one-process step's counts;
      summed into the kernels line) and peak memory, clips/s (not a scaling
      number); each against one process with --gradient_accumulation_steps 2
      over the same steps: bitwise replicated, within 1e-6 of each tensor's
      norm with --zero1;
+ T1. tensor parallelism: FT-Align through task_retrieval --n_gpu 4
+     --tensor_parallel 2 --sequence_parallel --zero1 --dist_backend gloo
+     (dp 2 x tp 2, four ranks on the card), deterministic as D1, D1's batch,
+     steps and weights, against D1's one-process accumulated run: the
+     losses, each parameter within a share of its own movement, each rank's
+     launches of #2 (on its heads) and of the split #4 and #5 pieces, its
+     peak memory, clips/s (not a scaling number);
+ T2. caption fine-tuning (--stage_two --fused_ln, f32) at --n_gpu 2
+     --tensor_parallel 2 from phase 16's weights, 2 steps of 4 clips,
+     against one process: the decoder's split layers, the vocab-parallel
+     lookup, logits and cross entropy on the card;
  D2. pretraining stage I on two ranks with --zero1 (60 clips x 3 pairs a
-     rank), deterministic as D1, preempted after 2 steps and resumed without
-     --zero1: within 1e-6 of the uninterrupted --zero1 run;
+     rank) from P1's weights, deterministic as D1, preempted after 2 steps
+     and resumed without --zero1: within 1e-6 of the uninterrupted run (one
+     process accumulating the ranks' two micro-batches: one spawn fewer);
  D3. --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
      through the CLI for 2 steps, then probes/zero1_ab at FT-Align's
      parameters: ZeRO-1 against BertAdam, each update's profiled device ms,
      both optimizers' state bytes.
 Phase 3 also runs #2 at pretraining's [360, 64], [2304, 112] and q 48 / kv
-112, and #4 and #5 at its 258,048 cross rows, in bf16.
+112, and #4 and #5 at its 258,048 cross rows, in bf16; and T1's
+tensor-parallel shapes: #2 on 6 of 12 heads (head0 6) at [256, 96] and [16,
+48], bf16 and f32, bitwise the whole call's heads; #4 and #5 cut at the
+row-parallel product at 24,576 rows with F / 2 and K / 2, each piece against
+its plain version and timed, the two ranks' halves summed within 2 bf16 ulps
+of the unsplit kernels, rank 1's 12,288 rows under sequence parallelism
+bitwise the call's.
 After the main paths: every bf16 #1 call the model made on the card (each
 recorded by its shape) must have taken the tensor cores, and the one with
 the most keys (the caption eval's cross tower, 224) is timed as in phase 3;
@@ -508,10 +527,13 @@ TRANSFER_BF16_RTOL = 2e-2
 # the ranks) against one process with --gradient_accumulation_steps 2: the parameters bitwise equal replicated, within DP_PARAM_RTOL of each
 # tensor's norm with --zero1 (the clips' norms summed in another order).
 # The timed runs are the compared ones (deterministic, all DP_STEPS
-# steps), not separate 2-step runs: two fewer spawns of two full-width ranks. D2: pretraining stage I, --n_gpu 2 --zero1, 60
+# steps), not separate 2-step runs: two fewer spawns of two full-width ranks
+# (D1, D2, D3 and T1-T2 start from a .bin an earlier phase wrote, not a
+# seeded draw in each rank). D2: pretraining stage I, --n_gpu 2 --zero1, 60
 # clips x 3 pairs a rank (P1's 120 a micro-step over two ranks), one epoch of
 # 4 steps, deterministic as D1: preempted after DP_PREEMPT_AFTER steps, resumed
-# without --zero1, against the uninterrupted --zero1 run: the parameters and
+# without --zero1, against the uninterrupted run (one process accumulating
+# the two ranks' micro-batches, one spawn fewer): the parameters and
 # moments within DP_PARAM_RTOL of each tensor's norm, the losses within
 # DP_PARAM_RTOL relative. D3: --n_gpu 1 --zero1, a process group of one rank
 # on NCCL: FT-Align through the CLI (DP_CHECK_STEPS steps), then
@@ -521,6 +543,47 @@ DP_RANKS, DP_STEPS, DP_CHECK_STEPS, DP_PREEMPT_AFTER = 2, 6, 2, 2
 DP_PARAM_RTOL = 1e-6
 DP_FLAGS = ["--train_sim_after_cross", "--fused_ffn", "block", "--n_display", "1",
             "--no_preempt_checkpoint"]
+# Tensor parallelism, stated before the first run. Phase 3: #2 on 6 of 12
+# heads with head0 6 at the cross tower's [256 pairs, 96] and a tower's [16,
+# 48] (16 clips a dp rank), bf16 and f32, forward and backward bitwise the
+# whole call's heads; #4 and #5 cut at the row-parallel product at the cross
+# tower's TP_ROWS rows with F / 2 and K / 2 (rank 0's and rank 1's shares):
+# each piece against its plain version (FFN_TOL), the two ranks' partials
+# summed and finished by the row kernel within 2 bf16 ulps of each row's
+# largest |value| of the unsplit kernel's output (forward) and dx (backward),
+# and the rows of rank 1 under sequence parallelism (TP_SP_ROWS from row
+# TP_SP_ROWS) bitwise the same rows of the whole call; times of each piece,
+# its plain version, its bound and the unsplit kernel's. T1: task_retrieval
+# FT-Align (--fused_ffn block) at --n_gpu 4 --tensor_parallel 2
+# --sequence_parallel --zero1 --dist_backend gloo (dp 2 x tp 2, four ranks on
+# one card), deterministic mode, bf16, D1's batch and steps and D1's initial
+# weights, against D1's one-process accumulated run: losses within
+# TP_LOSS_RTOL relative, each parameter within TP_PARAM_RTOL of its norm (the
+# key biases and similarity_dense.bias, zero gradient in exact arithmetic,
+# within TP_ZERO_PARAM absolutely, above 2 x 3.2 x the run's summed learning
+# rates, the most two BertAdam runs can move an element apart). Restated
+# after the first run on the card (a development script): the norm missed
+# for cross.pooler.dense.bias (5.6e-2 of its norm), a bias that starts at 0,
+# so its norm is its few updates, and BertAdam divides each element's
+# gradient by its own magnitude, so bf16 noise in a small gradient moves the
+# update whatever the tensor's norm. Each parameter is now held to
+# TP_MOVE_FRAC of its own movement over the run (L2, from the initial
+# weights; ``tests/test_tp.py``'s self-calibrating rule, which a wrong or
+# zeroed gradient fails at ~100%), the norm-relative difference reported
+# beside it, the zero-gradient ones as before; per rank the
+# launches of #2 and of the split #4 and #5 pieces, DP_STEPS times the
+# one-process counts of a step (the unsplit #4, #5 and every f32 kernel 0).
+# T2: task_caption --stage_two --fused_ln at --n_gpu 2 --tensor_parallel 2,
+# f32, T2_BATCH clips a step over T2_CLIPS clips (2 steps), from phase 16's
+# weights, deterministic mode, against one process: losses within T2_RTOL
+# relative, each parameter within T2_RTOL of its norm (the zero-gradient key
+# biases within AGREE_ZERO_PARAM absolutely).
+TP_RANKS, TP_SIZE, TP_ROWS, TP_SP_ROWS = 4, 2, 24576, 12288
+TP_TA_SHAPES, TP_HEADS = [(256, 96), (16, 48)], 6
+TP_LOSS_RTOL, TP_MOVE_FRAC, TP_ZERO_PARAM = 2e-2, 0.1, 6e-4
+TP_FLAGS = ["--n_gpu", str(TP_RANKS), "--tensor_parallel", str(TP_SIZE), "--sequence_parallel",
+            "--zero1", "--dist_backend", "gloo"]
+T2_CLIPS, T2_BATCH, T2_WORDS, T2_FRAMES, T2_RTOL = 8, 4, 48, 48, 1e-5
 SLOW_CALL_MS = 2.0  # cuda_time_ms: a reference call this slow is timed over 3 x 3 calls
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
@@ -597,6 +660,23 @@ KERNELS = {  # name -> (wrapper with the launch count, source, the TPU kernel it
                       "univl_tpu/kernels/layernorm.py:45"),
     "layernorm_bwd": (ln_k.layer_norm_bwd, "univl_tpu_torch/csrc/layernorm.cu",
                       "univl_tpu/kernels/layernorm.py:79"),
+    # the split halves under tensor parallelism: #3's and #4's GEMMs over a
+    # rank's F, #5's over its K, the row kernels after the reduce (#3-#5), the
+    # backwards' LayerNorm head (#4, #5) and dx's rows (#3, #4)
+    "ffn_split_fwd": (ffn_k.ffn_part, "univl_tpu_torch/csrc/ffn.cu",
+                      "univl_tpu/kernels/ffn.py:309"),
+    "dense_split_fwd": (ffn_k.dense_part, "univl_tpu_torch/csrc/ffn.cu",
+                        "univl_tpu/kernels/ffn.py:545"),
+    "split_rows": (ffn_k.split_rows, "univl_tpu_torch/csrc/ffn.cu",
+                   "univl_tpu/kernels/ffn.py:309"),
+    "split_bwd_ln": (ffn_k.block_bwd_ln, "univl_tpu_torch/csrc/ffn.cu",
+                     "univl_tpu/kernels/ffn.py:329"),
+    "ffn_split_bwd": (ffn_k.ffn_bwd_part, "univl_tpu_torch/csrc/ffn.cu",
+                      "univl_tpu/kernels/ffn.py:329"),
+    "ffn_split_bwd_rows": (ffn_k.ffn_bwd_rows, "univl_tpu_torch/csrc/ffn.cu",
+                           "univl_tpu/kernels/ffn.py:329"),
+    "dense_split_bwd": (ffn_k.dense_bwd_dx, "univl_tpu_torch/csrc/ffn.cu",
+                        "univl_tpu/kernels/ffn.py:571"),
 }
 # the kernels no path of the port (nor of the JAX package) runs: held against
 # their plain versions here, never launched on the main paths
@@ -1416,7 +1496,10 @@ def kernel_train_attention() -> dict:
             _, m, l = ta.train_attention_fwd(*args)
             shape = f"[{B},{Lq}/{Lk},{H * D}] x {H} heads rate {TA_RATE}"
             cross, long_f32 = (B, Lq) == TA_SHAPES[1], dtype == torch.float32 and Lq == 224
-            if before or cross or long_f32:
+            # timed at the cross shape (the rows) and the tiled backward's f32
+            # caption shape; the bf16 tower and caption shapes' times were cut
+            # for T1 and T2 (their rows in PERF.md are earlier runs')
+            if cross or long_f32:
                 t = _ta_times(args, m, l, grad, mask, before)
                 r = _ta_report(t, shape, dtype, ran, errs, _ta_bounds(B, Lq, Lk, dtype),
                                before_errs if before else None)
@@ -1905,6 +1988,197 @@ def kernel_pretrain_shapes(measured: dict) -> None:
             **row, "max_abs_err": errs[name]}
     del t, x, r, g
     torch.cuda.empty_cache()
+
+
+def _ulps(got, want) -> float:
+    """The largest |got - want| in units of 2 bf16 ulps of its row's largest
+    |want| (at most 1 passes)."""
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return float(((got.float() - want.float()).abs() / (2 * ulp)).max())
+
+
+def _tp_ta_check(dtype) -> dict:
+    """#2 on TP_HEADS of 12 heads with head0 = 12 - TP_HEADS at
+    TP_TA_SHAPES, forward and backward, bitwise against those heads of the
+    whole call; the bf16 cross shape timed. Returns the printed times."""
+    H, D, h, h0 = TA_HEADS, TA_D, TP_HEADS, TA_HEADS - TP_HEADS
+    times = {}
+    for B, L in TP_TA_SHAPES:
+        q, k, v, grad, mask = _ta_inputs(B, L, L, dtype)
+        out, m, l = ta.train_attention_fwd(q, k, v, mask, TA_SEED, TA_RATE, H)
+        dq, dk, dv = ta.train_attention_bwd(q, k, v, mask, TA_SEED, TA_RATE, H, m, l, grad)
+        cols = slice(h0 * D, H * D)
+        mine = [t[..., cols].contiguous() for t in (q, k, v)]
+        g2 = grad[..., cols].contiguous()
+        args = (*mine, mask, TA_SEED, TA_RATE, h)
+        o2, m2, l2 = ta.train_attention_fwd(*args, head0=h0)
+        grads = ta.train_attention_bwd(*args, m2, l2, g2, head0=h0)
+        same = (torch.equal(o2, out[..., cols]) and torch.equal(m2, m[:, h0:])
+                and torch.equal(l2, l[:, h0:])
+                and all(torch.equal(a, b[..., cols]) for a, b in zip(grads, (dq, dk, dv))))
+        require(same, f"#2 on heads {h0}-{H - 1} with head0 {h0} at [{B},{L}] "
+                      f"{dtype_name(dtype)} differs from those heads of the whole call")
+        if dtype == torch.bfloat16 and (B, L) == TP_TA_SHAPES[0]:
+            ref = dict(reference=True)
+            times = {"fwd": cuda_time_ms(lambda: ta.train_attention_fwd(*args, head0=h0)),
+                     "bwd": cuda_time_ms(lambda: ta.train_attention_bwd(*args, m2, l2, g2,
+                                                                        head0=h0)),
+                     "plain_fwd": cuda_time_ms(lambda: ta.train_attention_reference_fwd(
+                         *args, h0), **ref),
+                     "plain_bwd": cuda_time_ms(lambda: ta.train_attention_reference_bwd(
+                         *args, m2, l2, g2, h0), **ref),
+                     "unsplit_fwd": cuda_time_ms(lambda: ta.train_attention_fwd(
+                         q, k, v, mask, TA_SEED, TA_RATE, H)),
+                     "unsplit_bwd": cuda_time_ms(lambda: ta.train_attention_bwd(
+                         q, k, v, mask, TA_SEED, TA_RATE, H, m, l, grad))}
+            es = 2
+            qb = B * L * h * D * es
+            stats = 2 * B * h * L * 4 + B * L * 4
+            bf, bb = (bound_ms(2 * qb + 2 * qb + stats, 4.0 * B * h * L * L * D, "bfloat16"),
+                      bound_ms(3 * qb + 4 * qb + stats, 10.0 * B * h * L * L * D, "bfloat16"))
+            print(f"TP #2 [{B},{L}] bf16, {h} of {H} heads (head0 {h0}), rate {TA_RATE}: device "
+                  f"ms forward {times['fwd'][0]:.5f}, backward {times['bwd'][0]:.5f}; plain "
+                  f"{times['plain_fwd'][0]:.5f} / {times['plain_bwd'][0]:.5f}; bound "
+                  f"{bf[0]:.5f} ({bf[1]}) / {bb[0]:.5f} ({bb[1]}); the whole call's "
+                  f"{H} heads {times['unsplit_fwd'][0]:.5f} / {times['unsplit_bwd'][0]:.5f}",
+                  flush=True)
+        del q, k, v, grad, mask, out, m, l, dq, dk, dv, mine, g2, o2, m2, l2, grads
+        torch.cuda.empty_cache()
+    print(f"TP #2 with head0 at {TP_TA_SHAPES} {dtype_name(dtype)}: forward and backward "
+          f"bitwise the whole call's heads {h0}-{H - 1}", flush=True)
+    return times
+
+
+def kernel_tp_shapes() -> dict:
+    """Phase 3's tensor-parallel shapes (T1's, stated with TP_RANKS): #2 with
+    head0 (``_tp_ta_check``), then #4 and #5 cut at the row-parallel product
+    at TP_ROWS rows, bf16, rate FFN_RATE: rank 0's and rank 1's GEMMs over F /
+    2 and K / 2 against their plain versions, the partials summed and the row
+    kernels against the unsplit kernels within 2 bf16 ulps, rank 1's rows
+    under sequence parallelism bitwise, and each piece timed beside its plain
+    version, its bound and the unsplit kernel. Returns the pieces' JSON keys."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _tp_ta_check(dtype)
+    dtype, N, H, n = torch.bfloat16, TP_ROWS, FFN_H, TP_SP_ROWS
+    t = _ffn_inputs(N, dtype, seed=11)
+    x, r, g, w1, b1, w2, b2, w, b, sc, bi = (t[k] for k in (
+        "x", "r", "g", "w1", "b1", "w2", "b2", "w", "b", "scale", "bias"))
+    f, kk = FFN_F // TP_SIZE, FFN_H // TP_SIZE
+    drop = (FFN_SEED, FFN_RATE, LN_EPS)
+    what = f"N={N} bf16 rate {FFN_RATE}"
+    errs, ulps = {}, {}
+    # #4 forward: the ranks' GEMMs, the sum, the rows; the unsplit kernel
+    shares = [(w1[:, i * f:(i + 1) * f], b1[i * f:(i + 1) * f], w2[i * f:(i + 1) * f])
+              for i in range(TP_SIZE)]
+    parts = [ffn_k.ffn_part(x, *sh) for sh in shares]
+    errs["ffn_split_fwd"] = _agree("ffn_split_fwd", parts[0],
+                                   ffn_k.ffn_part_reference(x, *shares[0]), dtype, what)
+    part = parts[0][0] + parts[1][0]
+    out, s4 = ffn_k.split_rows(part, b2, x, sc, bi, *drop, 4)
+    errs["split_rows"] = _agree("split_rows", (out, s4), ffn_k.split_rows_reference(
+        part, b2, x, sc, bi, *drop, 4), dtype, what)
+    want, pre_full, s_full = ffn_k.ffn_block_fwd(x, w1, b1, w2, b2, sc, bi, FFN_SEED, FFN_RATE,
+                                                 save=True)
+    ulps["#4 forward"] = _ulps(out, want)
+    sp_out, _ = ffn_k.split_rows(part[n:], b2, x[n:], sc, bi, *drop, 4, row0=n)
+    require(torch.equal(sp_out, out[n:]), "#4's rows kernel at row0 differs from the call's rows")
+    # #4 backward: the LayerNorm head, the ranks' GEMMs, dx's rows
+    dffn, _, stats, _, _ = ffn_k.block_bwd_ln(4, s4, g, sc, *drop)
+    plain_head = ffn_k.block_bwd_ln_reference(4, s4, g, sc, *drop)
+    errs["split_bwd_ln"] = _agree("split_bwd_ln", [dffn], [plain_head[0]], dtype, what)
+    sp_dffn = ffn_k.block_bwd_ln(4, s4[n:], g[n:], sc, *drop, row0=n)[0]
+    require(torch.equal(sp_dffn, dffn[n:]), "#4's LayerNorm head at row0 differs")
+    bparts = [ffn_k.ffn_bwd_part(p[1], dffn, *sh[::2]) for p, sh in zip(parts, shares)]
+    errs["ffn_split_bwd"] = _agree("ffn_split_bwd", bparts[0], ffn_k._ffn_backward_core(
+        parts[0][1], dffn, *shares[0][::2]), dtype, what)
+    dpart = bparts[0][0] + bparts[1][0]
+    dx = ffn_k.ffn_bwd_rows(dpart, s4, g, sc, stats, dtype)
+    errs["ffn_split_bwd_rows"] = _agree("ffn_split_bwd_rows", [dx],
+                                        [(dpart + plain_head[2]).to(dtype)], dtype, what)
+    ulps["#4 backward dx"] = _ulps(dx, ffn_k.ffn_block_bwd(s_full, g, pre_full, w1, w2, sc,
+                                                           FFN_SEED, FFN_RATE)[0])
+    # #5: the ranks' K columns of x (their heads' context) and rows of W
+    dparts = [ffn_k.dense_part(x[:, i * kk:(i + 1) * kk].contiguous(), w[i * kk:(i + 1) * kk])
+              for i in range(TP_SIZE)]
+    errs["dense_split_fwd"] = _agree("dense_split_fwd", [dparts[0]], [ffn_k._mm(
+        x[:, :kk], w[:kk])], dtype, what)
+    out5, s5 = ffn_k.split_rows(dparts[0] + dparts[1], b, r, sc, bi, *drop, 5)
+    want5, s5_full = ffn_k.dense_block_fwd(x, r, w, b, sc, bi, FFN_SEED, FFN_RATE, save=True)
+    ulps["#5 forward"] = _ulps(out5, want5)
+    dy = ffn_k.block_bwd_ln(5, s5, g, sc, *drop)[0]
+    dx5 = torch.cat([ffn_k.dense_bwd_dx(dy, w[i * kk:(i + 1) * kk]) for i in range(TP_SIZE)],
+                    dim=1)
+    errs["dense_split_bwd"] = _agree("dense_split_bwd", [dx5[:, :kk].contiguous()],
+                                     [ffn_k._mm(dy, w[:kk].t()).to(dtype)], dtype, what)
+    ulps["#5 backward dx"] = _ulps(dx5, ffn_k.dense_block_bwd(s5_full, g, w, sc, FFN_SEED,
+                                                              FFN_RATE)[0])
+    print(f"TP #4 and #5 split over {TP_SIZE} ranks at {what}: the pieces against their plain "
+          f"versions, max abs errs { {k: float(f'{v:.3e}') for k, v in errs.items()} }; the "
+          f"summed halves against the unsplit kernels, in units of 2 bf16 ulps of each row's "
+          f"largest value (limit 1): { {k: round(v, 4) for k, v in ulps.items()} }; rank 1's "
+          f"{n} rows under sequence parallelism bitwise the call's", flush=True)
+    require(all(v <= 1.0 for v in ulps.values()), f"split #4/#5 against the unsplit: {ulps}")
+    # times: rank 0's share of each piece, its plain version, the unsplit kernel
+    x0, w0 = x[:, :kk].contiguous(), w[:kk]
+    ref = dict(reference=True)
+    dparts_ds = plain_head[2]
+    pieces = {
+        "ffn_split_fwd": (lambda: ffn_k.ffn_part(x, *shares[0]),
+                          lambda: ffn_k.ffn_part_reference(x, *shares[0]),
+                          (N * H * 2 + 2 * H * f * 2 + f * 2 + N * f * 2 + N * H * 4,
+                           4.0 * N * H * f), None),
+        "dense_split_fwd": (lambda: ffn_k.dense_part(x0, w0), lambda: ffn_k._mm(x0, w0),
+                            (N * kk * 2 + H * kk * 2 + N * H * 4, 2.0 * N * kk * H), None),
+        "split_rows": (lambda: ffn_k.split_rows(part, b2, x, sc, bi, *drop, 4),
+                       lambda: ffn_k.split_rows_reference(part, b2, x, sc, bi, *drop, 4),
+                       (N * H * 4 + 3 * N * H * 2 + 3 * H * 4, 12.0 * N * H), None),
+        "split_bwd_ln": (lambda: ffn_k.block_bwd_ln(4, s4, g, sc, *drop),
+                         lambda: ffn_k.block_bwd_ln_reference(4, s4, g, sc, *drop),
+                         (3 * N * H * 2 + N * 16 + 2 * -(-N // 32) * H * 4 + H * 4,
+                          16.0 * N * H), None),
+        "ffn_split_bwd": (lambda: ffn_k.ffn_bwd_part(parts[0][1], dffn, *shares[0][::2]),
+                          lambda: ffn_k._ffn_backward_core(parts[0][1], dffn, *shares[0][::2]),
+                          (3 * N * f * 2 + N * H * 2 + 2 * H * f * 2 + N * H * 4,
+                           4.0 * N * H * f), None),
+        "ffn_split_bwd_rows": (lambda: ffn_k.ffn_bwd_rows(dpart, s4, g, sc, stats, dtype),
+                               lambda: (dpart + dparts_ds).to(dtype),
+                               (N * H * 4 + 3 * N * H * 2 + N * 16, 8.0 * N * H), None),
+        "dense_split_bwd": (lambda: ffn_k.dense_bwd_dx(dy, w0), lambda: ffn_k._mm(
+            dy, w0.t()).to(dtype), (N * H * 2 + kk * H * 2 + N * kk * 2, 2.0 * N * H * kk),
+                            lambda: torch.matmul(dy, w0.t())),
+    }
+    unsplit = {
+        "#4 forward": cuda_time_ms(lambda: ffn_k.ffn_block_fwd(x, w1, b1, w2, b2, sc, bi,
+                                                               FFN_SEED, FFN_RATE)),
+        "#4 backward": cuda_time_ms(lambda: ffn_k.ffn_block_bwd(s_full, g, pre_full, w1, w2, sc,
+                                                                FFN_SEED, FFN_RATE)),
+        "#5 forward": cuda_time_ms(lambda: ffn_k.dense_block_fwd(x, r, w, b, sc, bi, FFN_SEED,
+                                                                 FFN_RATE)),
+        "#5 backward": cuda_time_ms(lambda: ffn_k.dense_block_bwd(s5_full, g, w, sc, FFN_SEED,
+                                                                  FFN_RATE))}
+    rows = {}
+    for name, (kernel, plain, (nbytes, flops), library) in pieces.items():
+        row = report(f"{name} (a rank's share, tp {TP_SIZE})", f"[{N},{H}]", dtype, errs[name],
+                     cuda_time_ms(kernel), cuda_time_ms(plain, **ref),
+                     bound_ms(nbytes, flops, "bfloat16"),
+                     library=(cuda_time_ms(library, **ref)[0], "torch.matmul")
+                     if library else None)
+        rows[name] = {**row, "tp_shape": f"[{N},{H}] tp {TP_SIZE}",
+                      "unsplit_ms": {k: v[0] for k, v in unsplit.items()}}
+    sp_rows = cuda_time_ms(lambda: ffn_k.split_rows(part[n:], b2, x[n:], sc, bi, *drop, 4,
+                                                    row0=n))
+    sp_head = cuda_time_ms(lambda: ffn_k.block_bwd_ln(4, s4[n:], g[n:], sc, *drop, row0=n))
+    rows["split_rows"]["sp_ms"] = sp_rows[0]
+    rows["split_bwd_ln"]["sp_ms"] = sp_head[0]
+    print(f"TP the unsplit kernels at [{N},{H}] bf16 (device ms): "
+          f"{ {k: round(v[0], 5) for k, v in unsplit.items()} }; under sequence parallelism "
+          f"rank 1's {n} rows: split_rows {sp_rows[0]:.5f}, split_bwd_ln {sp_head[0]:.5f}",
+          flush=True)
+    del t, x, r, g, parts, part, bparts, dpart, dparts, out, s4, dffn, stats, dx, dy, dx5
+    del want, pre_full, s_full, want5, s5, s5_full, out5, plain_head, pieces
+    torch.cuda.empty_cache()
+    return rows
 
 
 def write_vocab(path: str) -> str:
@@ -3205,12 +3479,13 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
     """P3: stage I at full width, 4 steps over 2 epochs, under
     torch.use_deterministic_algorithms: an uninterrupted run (the control)
     and one preempted after PRE_PREEMPT_AFTER steps (--inject_preempt_after)
-    and resumed (--load_checkpoint), bitwise the control. Two default-mode
-    controls (their difference named the embedding backward's atomics) and
-    a second deterministic one, bitwise the first in every run, were cut
-    for D1-D3. R3: one more preempted and resumed run with
-    --async_checkpointing, bitwise too, and the seconds each epoch-end save
-    held the loop, synchronous and async."""
+    and resumed (--load_checkpoint) with the train state written on a thread
+    (R3, --async_checkpointing), bitwise the control; the seconds each
+    epoch-end save held the loop, synchronous (the control) and async. Two
+    default-mode controls (their difference named the embedding backward's
+    atomics) and a second deterministic one, bitwise the first in every run,
+    were cut for D1-D3; the synchronous preempted and resumed pair, for T1
+    and T2 (D2 resumes with a synchronous save on the card)."""
 
     def run(name: str, *extra):
         out = os.path.join(tmp, f"pretrain_resume_{name}")
@@ -3220,10 +3495,7 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
     torch.use_deterministic_algorithms(True)
     try:
         _, a = run("deterministic")
-        k, _ = run("resumed", "--inject_preempt_after", str(PRE_PREEMPT_AFTER))
-        n, c = run("resumed", "--load_checkpoint")
-        resumed = _state_diff(a, c)
-        # R3: the same with the train state written on a thread
+        # R3: preempted and resumed, the train state written on a thread
         ka, _ = run("async", "--async_checkpointing", "--inject_preempt_after",
                     str(PRE_PREEMPT_AFTER))
         na, ca = run("async", "--async_checkpointing", "--load_checkpoint")
@@ -3231,11 +3503,7 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"pretraining resume, torch.use_deterministic_algorithms (stage I, full width, 4 steps "
-          f"over 2 epochs; preempted after {k} step(s), resumed to step {n}) in "
-          f"{time.perf_counter() - t0:.1f} s for the five runs: the resumed run differs from the "
-          f"control by {resumed} (limit: bitwise)", flush=True)
-    require(k == PRE_PREEMPT_AFTER and n == 4 and _bitwise(resumed),
-            f"the resumed run strays from the uninterrupted one: {resumed}")
+          f"over 2 epochs) in {time.perf_counter() - t0:.1f} s for the three runs", flush=True)
 
     def blocked(out: str, preempted: bool) -> list:
         with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -3243,13 +3511,13 @@ def phase_pretrain_resume(tmp: str, vocab: str, files) -> None:
                     if r["kind"] == "checkpoint" and r["preempted"] == preempted]
 
     print(f"R3 --async_checkpointing (preempted after {ka} step(s), resumed to step {na}): "
-          f"differs from the control by {resumed_async} (limit: bitwise, as the resumed "
-          f"run); seconds the loop blocked at the epoch-end saves of ~2.4 GB: synchronous "
-          f"{blocked(a, False)}, async {blocked(ca, False)}; at the preemption's save: "
-          f"synchronous {blocked(c, True)}, async {blocked(ca, True)}", flush=True)
+          f"differs from the control by {resumed_async} (limit: bitwise); seconds the loop "
+          f"blocked at the epoch-end saves of ~2.4 GB: synchronous {blocked(a, False)}, async "
+          f"{blocked(ca, False)}; at the preemption's save: async {blocked(ca, True)}",
+          flush=True)
     require(ka == PRE_PREEMPT_AFTER and na == 4 and _bitwise(resumed_async),
-            f"R3: the async resumed run strays: {resumed_async}")
-    for out in (a, c, ca):
+            f"P3/R3: the resumed run strays from the uninterrupted one: {resumed_async}")
+    for out in (a, ca):
         shutil.rmtree(out)
 
 
@@ -3612,20 +3880,21 @@ def deterministic_mode():
         torch.use_deterministic_algorithms(False)
 
 
-def phase_dp_train(tmp: str, vocab: str, files) -> dict:
+def phase_dp_train(tmp: str, vocab: str, files, init: str):
     """D1: FT-Align on two ranks sharing the card (gloo), replicated and
-    --zero1, through task_retrieval in deterministic mode, each against one
-    process accumulating two micro-batches over the same steps. Returns the
-    launches by path."""
+    --zero1, through task_retrieval in deterministic mode from the weights in
+    ``init``, each against one process accumulating two micro-batches over the
+    same steps. Returns the launches by path and the accumulated run's
+    (weights, losses), T1's reference."""
     with deterministic_mode():
-        return _dp_train(tmp, vocab, files)
+        return _dp_train(tmp, vocab, files, init)
 
 
-def _dp_train(tmp: str, vocab: str, files) -> dict:
+def _dp_train(tmp: str, vocab: str, files, init: str):
     per_step = _launches_per_step("ft_align")  # a rank's 16 rows launch a step's count
-    ranks = ["--n_gpu", str(DP_RANKS), "--dist_backend", "gloo"]
+    ranks = ["--n_gpu", str(DP_RANKS), "--dist_backend", "gloo", "--init_model", init]
     ref = os.path.join(tmp, "dp_accum")
-    task_retrieval.main(_dp_argv(files, vocab, ref, "--n_gpu", "1",
+    task_retrieval.main(_dp_argv(files, vocab, ref, "--n_gpu", "1", "--init_model", init,
                                  "--gradient_accumulation_steps", str(DP_RANKS)))
     want = load_reference_bin(os.path.join(ref, "pytorch_model.bin.0"))
     want_losses = [r["loss"] for r in _train_losses(ref)]
@@ -3682,30 +3951,35 @@ def _dp_train(tmp: str, vocab: str, files) -> dict:
             require(len(same) == len(want) and losses == want_losses,
                     "D1: two ranks are not bitwise one process accumulating two micro-batches")
         shutil.rmtree(out)
-    return by_path
+    return by_path, (want, want_losses)
 
 
-def phase_dp_pretrain(tmp: str, vocab: str, files) -> dict:
-    """D2: stage I on two ranks with --zero1, preempted, resumed without it,
-    in deterministic mode; returns the uninterrupted run's launches."""
+def phase_dp_pretrain(tmp: str, vocab: str, files, init: str) -> dict:
+    """D2: stage I on two ranks with --zero1 from the weights in ``init``,
+    preempted, resumed without it, in deterministic mode; returns the two
+    spawns' launches."""
     with deterministic_mode():
-        return _dp_pretrain(tmp, vocab, files)
+        return _dp_pretrain(tmp, vocab, files, init)
 
 
-def _dp_pretrain(tmp: str, vocab: str, files) -> dict:
-    ranks = ["--n_gpu", str(DP_RANKS), "--dist_backend", "gloo", "--epochs", "1", "--batch_size", str(PRE1_CLIPS)]
+def _dp_pretrain(tmp: str, vocab: str, files, init: str) -> dict:
+    ranks = ["--n_gpu", str(DP_RANKS), "--dist_backend", "gloo", "--epochs", "1", "--batch_size",
+             str(PRE1_CLIPS), "--init_model", init]
 
-    def run(name: str, *extra):
+    def run(name: str, *extra, accum: int = 1):
         out = os.path.join(tmp, f"dp_pretrain_{name}")
         argv = _pretrain_argv(files, vocab, out, 1) + ranks + list(extra)
-        argv[argv.index("--gradient_accumulation_steps") + 1] = "1"
+        argv[argv.index("--gradient_accumulation_steps") + 1] = str(accum)
         steps = pretrain.main(argv)[0]
-        return steps, out, ranks_launches(dp_mesh.spawn.ranks)
+        return steps, out, (ranks_launches(dp_mesh.spawn.ranks) if accum == 1 else None)
 
     t0 = time.perf_counter()
-    n, a, counts = run("uninterrupted", "--zero1")
-    k, _, _ = run("resumed", "--zero1", "--inject_preempt_after", str(DP_PREEMPT_AFTER))
-    m, c, _ = run("resumed", "--load_checkpoint")
+    # the uninterrupted run: one process accumulating the two ranks'
+    # micro-batches (D1: bitwise two replicated ranks), not a third spawn
+    n, a, _ = run("uninterrupted", "--n_gpu", "1", accum=DP_RANKS)
+    k, _, first = run("resumed", "--zero1", "--inject_preempt_after", str(DP_PREEMPT_AFTER))
+    m, c, then = run("resumed", "--load_checkpoint")
+    counts = {key: first[key] + then[key] for key in first}
     sa, _ = restore_checkpoint(os.path.join(a, "train_state.pt"))
     sc, _ = restore_checkpoint(os.path.join(c, "train_state.pt"))
 
@@ -3719,7 +3993,8 @@ def _dp_pretrain(tmp: str, vocab: str, files) -> dict:
     print(f"D2 pretraining stage I, {DP_RANKS} ranks --zero1 ({PRE1_CLIPS // DP_RANKS} clips x "
           f"{PRE_PAIRS} pairs a rank, deterministic mode, {n} steps in one epoch; three runs in "
           f"{time.perf_counter() - t0:.1f} s): preempted after {k} step(s), resumed without "
-          f"--zero1 to step {m}; against the uninterrupted --zero1 run: parameters "
+          f"--zero1 to step {m}; against the uninterrupted run (one process accumulating the "
+          f"ranks' {DP_RANKS} micro-batches): parameters "
           f"{params[0]:.3e} of their tensor's norm ({params[1]}), moments {moms[0]:.3e} "
           f"({moms[1]}), losses {loss_rel:.3e} rel, BertAdam's steps "
           f"{sc['optimizer']['steps']} and {sa['optimizer']['steps']} (limit {DP_PARAM_RTOL})",
@@ -3732,19 +4007,21 @@ def _dp_pretrain(tmp: str, vocab: str, files) -> dict:
     want = {**{k: 0 for k in KERNELS},
             **{key: v * DP_RANKS * n // PRE1_ACCUM
                for key, v in _pretrain_launches_per_step(1).items()}}
-    require(counts == want, f"D2 launches {counts}, {n} steps imply {want}")
+    require(counts == want, f"D2 launches {counts} (preempted and resumed), {n} steps imply "
+                            f"{want}")
     for out in (a, c):
         shutil.rmtree(out)
     return counts
 
 
-def phase_dp_nccl(tmp: str, vocab: str, check) -> dict:
+def phase_dp_nccl(tmp: str, vocab: str, check, init: str) -> dict:
     """D3: --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
-    through the CLI (in this process; returns its launches), then the
-    ZeRO-1 probe at FT-Align's parameters, profiled."""
+    through the CLI (in this process, from the weights in ``init``; returns
+    its launches), then the ZeRO-1 probe at FT-Align's parameters, profiled."""
     out = os.path.join(tmp, "dp_nccl")
     reset_launches()
-    steps, _ = task_retrieval.main(_dp_argv(check, vocab, out, "--n_gpu", "1", "--zero1"))
+    steps, _ = task_retrieval.main(_dp_argv(check, vocab, out, "--n_gpu", "1", "--zero1",
+                                            "--init_model", init))
     counts = read_launches()
     want = {**{k: 0 for k in KERNELS},
             **{k: n * steps for k, n in _launches_per_step("ft_align").items()}}
@@ -3773,6 +4050,171 @@ def phase_dp_nccl(tmp: str, vocab: str, check) -> dict:
     require(rep["backend"] == "nccl"
             and all(x["max_rel_diff"] <= 1e-5 for x in rep["steps"]),
             f"D3: ZeRO-1 strays from BertAdam: {rep['steps']}")
+    return counts
+
+
+def write_seeded_bins(tmp: str, vocab: str) -> tuple:
+    """The seeded inits (seed 0, the CLIs' --seed here) that D1, D3 and T1
+    (FT-Align), D2 (stage I) and T2 (caption) start from, drawn once and
+    written as .bin files (--init_model), so no rank draws the 168 M
+    weights on the CPU: the same weights each rank would draw. Stage I's
+    model is FT-Align's first modules (bert, visual, normalize_video, drawn
+    first in the same order), so its file is FT-Align's first keys."""
+    t0 = time.perf_counter()
+    n_vocab = len(WordPieceTokenizer(vocab))
+
+    def seeded(**kw):
+        cfg = UniVLConfig.base(**kw)
+        return init_state_dict(cfg.replace(bert=cfg.bert.replace(vocab_size=n_vocab),
+                                           decoder=cfg.decoder.replace(vocab_size=n_vocab)), 0)
+
+    paths = tuple(os.path.join(tmp, f"{name}_seed0.bin") for name in ("ft_align", "stage1",
+                                                                      "caption"))
+    align = seeded(train_sim_after_cross=True)
+    torch.save(align, paths[0])
+    torch.save({k: v for k, v in align.items() if k.startswith(("bert.", "visual.",
+                                                                 "normalize_video."))},
+               paths[1])
+    del align
+    torch.save(seeded(stage_two=True, task_type="caption"), paths[2])
+    print(f"seeded inits for D1-D3 and T1-T2 written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
+def _zero_grad_param(name: str) -> bool:
+    """Parameters whose gradient is zero in exact arithmetic (the key biases;
+    FT-Align's similarity_dense.bias)."""
+    return name.endswith(("key.bias", "similarity_dense.bias"))
+
+
+def _tp_launches_per_step() -> dict:
+    """What a T1 rank launches in a step (its 16 rows): #2 as one process
+    does (on the rank's heads), and for every #4 and #5 call of one process
+    the split pieces: each GEMM piece once a call, the rows kernel and the
+    LayerNorm head once for each of #4 and #5."""
+    one = _launches_per_step("ft_align")
+    n = one["ffn_block_fwd"]
+    return {"train_attention_fwd": one["train_attention_fwd"],
+            "train_attention_bwd": one["train_attention_bwd"],
+            "ffn_split_fwd": n, "dense_split_fwd": n, "split_rows": 2 * n, "split_bwd_ln": 2 * n,
+            "ffn_split_bwd": n, "ffn_split_bwd_rows": n, "dense_split_bwd": n}
+
+
+def phase_tp_train(tmp: str, vocab: str, files, init: str, reference) -> dict:
+    """T1: FT-Align at dp 2 x tp 2 with sequence parallelism and ZeRO-1,
+    four gloo ranks on the card, deterministic mode, against D1's
+    accumulated run (``reference``: its weights and losses). Returns the
+    ranks' launches."""
+    with deterministic_mode():
+        return _tp_train(tmp, vocab, files, init, reference)
+
+
+def _tp_train(tmp: str, vocab: str, files, init: str, reference) -> dict:
+    want, want_losses = reference
+    label = (f"T1 FT-Align --n_gpu {TP_RANKS} --tensor_parallel {TP_SIZE} --sequence_parallel "
+             f"--zero1")
+    out = os.path.join(tmp, "tp_ft_align")
+    t0 = time.perf_counter()
+    steps, _ = task_retrieval.main(_dp_argv(files, vocab, out, *TP_FLAGS, "--init_model", init))
+    wall = time.perf_counter() - t0
+    reports = dp_mesh.spawn.ranks
+    shown = _train_losses(out)
+    require(steps == DP_STEPS and len(shown) == steps
+            and all(math.isfinite(r["loss"]) for r in shown),
+            f"{label}: display points {[(r['step'], r['loss']) for r in shown]}")
+    first, last = shown[1], shown[-1]
+    rate = (last["step"] - first["step"]) * TRAIN_BATCH / (last["ts"] - first["ts"])
+    print(f"{label} (CLI, gloo, deterministic mode, bf16, global batch {TRAIN_BATCH}, "
+          f"{TRAIN_BATCH * TP_SIZE // TP_RANKS} a dp rank): {steps} steps in {wall:.3f} s "
+          f"including the ranks' start; steady {rate:.3f} clips/s over steps {first['step']}-"
+          f"{last['step']} (rank 0's synchronized display points); four ranks share one card "
+          f"through gloo (host-staged collectives): not a scaling number", flush=True)
+    per_step = _tp_launches_per_step()
+    for r in reports:
+        mine = {k: r["launches"][_launch_key(KERNELS[k][0])] for k in KERNELS}
+        print(f"{label} rank {r['rank']}: peak device memory {r['peak_bytes'] / 2**30:.3f} GiB; "
+              f"launches { {k: v for k, v in mine.items() if v} }", flush=True)
+        require(mine == {**{k: 0 for k in KERNELS}, **{k: n * steps for k, n in per_step.items()}},
+                f"{label} rank {r['rank']} launches {mine}, {steps} steps imply "
+                f"{ {k: n * steps for k, n in per_step.items()} }")
+    counts = ranks_launches(reports)
+    got = load_reference_bin(os.path.join(out, "pytorch_model.bin.0"))
+    init_sd = load_reference_bin(init)
+    losses = [r["loss"] for r in shown]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    diff = {k: float((got[k].float() - v.float()).norm()) for k, v in want.items()}
+    moved = {k: max(float((v.float() - init_sd[k].float()).norm()), 1e-30)
+             for k, v in want.items()}
+    of_norm = {k: diff[k] / max(float(v.float().norm()), 1e-30) for k, v in want.items()
+               if not _zero_grad_param(k)}
+    of_move = {k: diff[k] / moved[k] for k in of_norm}
+    zero = {k: float((got[k].float() - v.float()).abs().max()) for k, v in want.items()
+            if _zero_grad_param(k)}
+    top = sorted(of_move.items(), key=lambda kv: -kv[1])[:5]
+    worst_norm = max(of_norm.items(), key=lambda kv: kv[1])
+    worst_zero = max(zero.items(), key=lambda kv: kv[1])
+    print(f"{label} against D1's one process with --gradient_accumulation_steps {DP_RANKS} "
+          f"(deterministic mode, dropout 0.1, {steps} steps): losses {losses} against "
+          f"{want_losses} ({loss_rel:.3e} rel, limit {TP_LOSS_RTOL}); the largest parameter "
+          f"differences as a share of the tensor's movement over the run "
+          f"{[(k, float(f'{v:.3e}')) for k, v in top]} (limit {TP_MOVE_FRAC}); the largest of "
+          f"its norm {worst_norm[1]:.3e} ({worst_norm[0]}); zero-gradient parameters "
+          f"{worst_zero[1]:.3e} absolute ({worst_zero[0]}; limit {TP_ZERO_PARAM}); "
+          f"{sum(torch.equal(got[k], want[k]) for k in want)} of {len(want)} tensors bitwise "
+          f"equal", flush=True)
+    require(loss_rel <= TP_LOSS_RTOL and top[0][1] <= TP_MOVE_FRAC
+            and worst_zero[1] <= TP_ZERO_PARAM, "T1 strays from D1's reference")
+    shutil.rmtree(out)
+    return counts
+
+
+def phase_tp_caption(tmp: str, vocab: str, files, init: str) -> dict:
+    """T2: caption fine-tuning (stage two, --fused_ln) at --n_gpu 2
+    --tensor_parallel 2 in f32 against one process, deterministic mode.
+    Returns the ranks' launches (an f32 run: not a main path)."""
+    with deterministic_mode():
+        return _tp_caption(tmp, vocab, files, init)
+
+
+def _tp_caption(tmp: str, vocab: str, files, init: str) -> dict:
+    train_csv, _, data, feats = files
+    with open(train_csv) as f:
+        header, first = f.read().splitlines()[:2]  # one video of TRAIN_CLIPS clips
+    csv = os.path.join(tmp, "t2.csv")
+    with open(csv, "w") as f:
+        f.write(f"{header}\n{first}\n")
+    flags = ["--do_train", "--device", "cuda", "--stage_two", "--datatype", "youcook",
+             "--vocab_file", vocab, "--train_csv", csv, "--data_path", data, "--features_path",
+             feats, "--fused_ln", "--compute_dtype", "float32", "--lr", "3e-5",
+             "--warmup_proportion", "0.1", "--coef_lr", "0.1", "--epochs", "1", "--batch_size",
+             str(T2_BATCH), "--max_words", str(T2_WORDS), "--max_frames", str(T2_FRAMES),
+             "--n_display", "1", "--seed", "0", "--no_preempt_checkpoint", "--init_model", init]
+    one, two = os.path.join(tmp, "t2_one"), os.path.join(tmp, "t2_tp")
+    t0 = time.perf_counter()
+    n = task_caption.main([*flags, "--output_dir", one, "--n_gpu", "1"])[0]
+    m = task_caption.main([*flags, "--output_dir", two, "--n_gpu", str(TP_SIZE),
+                           "--tensor_parallel", str(TP_SIZE), "--dist_backend", "gloo"])[0]
+    counts = ranks_launches(dp_mesh.spawn.ranks)
+    want, got = (load_reference_bin(os.path.join(d, "pytorch_model.bin.0")) for d in (one, two))
+    lw, lg = ([r["loss"] for r in _train_losses(d)] for d in (one, two))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lw))
+    rel = {k: float((got[k] - v).norm()) / max(float(v.norm()), 1e-30)
+           for k, v in want.items() if not _zero_grad_param(k)}
+    zero = max(float((got[k] - v).abs().max()) for k, v in want.items() if _zero_grad_param(k))
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    print(f"T2 caption --stage_two --fused_ln f32, --n_gpu {TP_SIZE} --tensor_parallel "
+          f"{TP_SIZE} (gloo, deterministic mode, {T2_BATCH} clips a step, {T2_WORDS} words, "
+          f"{T2_FRAMES} frames, full width) against one process, {n} and {m} steps in "
+          f"{time.perf_counter() - t0:.1f} s: losses {lg} against {lw} ({loss_rel:.3e} rel); "
+          f"the largest parameter difference {worst[1]:.3e} of its tensor's norm ({worst[0]}), "
+          f"the key biases {zero:.3e} absolute (limits {T2_RTOL}, {AGREE_ZERO_PARAM}); the ranks' "
+          f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+    require(n == m == T2_CLIPS // T2_BATCH and loss_rel <= T2_RTOL and worst[1] <= T2_RTOL
+            and zero <= AGREE_ZERO_PARAM and counts["train_attention_fwd_cuda_cores"] > 0
+            and counts["layernorm_fwd"] > 0, "T2 strays from one process")
+    for d in (one, two):
+        shutil.rmtree(d)
     return counts
 
 
@@ -3811,6 +4253,8 @@ def main() -> int:
     measured.update(kernel_layernorm())
     kernel_pretrain_shapes(measured)
     stamp("phase 3: #6 and the pretraining shapes")
+    measured.update(kernel_tp_shapes())
+    stamp("phase 3: the tensor-parallel shapes")
     by_path = {}  # main path: {kernel: launches}
     f32_runs = {}  # the f32 agreement runs (not main paths): {kernel: launches}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3895,11 +4339,17 @@ def main() -> int:
         stamp("R1-R4")
         dp_files, _ = make_train_data(tmp, vocab, n_videos=DP_STEPS * TRAIN_BATCH // TRAIN_CLIPS)
         check, _ = make_train_data(tmp, vocab, n_videos=DP_CHECK_STEPS * TRAIN_BATCH // TRAIN_CLIPS)
-        by_path.update(phase_dp_train(tmp, vocab, dp_files))
+        align_bin, stage1_bin, caption_bin = write_seeded_bins(tmp, vocab)
+        dp_counts, dp_reference = phase_dp_train(tmp, vocab, dp_files, align_bin)
+        by_path.update(dp_counts)
         stamp("D1")
-        by_path["dp_pretrain_zero1"] = phase_dp_pretrain(tmp, vocab, pre_files)
+        by_path["tp_ft_align"] = phase_tp_train(tmp, vocab, dp_files, align_bin, dp_reference)
+        stamp("T1")
+        f32_runs["T2 caption tp 2"] = phase_tp_caption(tmp, vocab, cap_files, caption_bin)
+        stamp("T2")
+        by_path["dp_pretrain_zero1"] = phase_dp_pretrain(tmp, vocab, pre_files, stage1_bin)
         stamp("D2")
-        by_path["dp_zero1_nccl"] = phase_dp_nccl(tmp, vocab, check)
+        by_path["dp_zero1_nccl"] = phase_dp_nccl(tmp, vocab, check, align_bin)
         stamp("D3")
 
     longest = check_attention_routes()

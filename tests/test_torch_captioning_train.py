@@ -357,7 +357,7 @@ def test_cli_runs_data_parallel_and_zero1(caption_files, tmp_path, extra):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--do_pretrain"], ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
+    ["--do_pretrain"], ["--tensor_parallel", "3", "--n_gpu", "2"], ["--datatype", "howto100m"],
     ["--train_sim_after_cross"],
 ])
 def test_cli_refuses_what_it_does_not_run(caption_files, tmp_path, extra, capsys):

@@ -370,12 +370,14 @@ def test_pretrain_periodic_checkpoint_survives_a_crash(howto_files, pretrain_uni
 
 
 def test_pretrain_refuses_what_it_does_not_run(howto_files, tmp_path, capsys):
-    """Tensor and sequence parallelism (and ZeRO-1 under them): the TP slice."""
-    for extra in (["--tensor_parallel", "2"], ["--sequence_parallel"],
-                  ["--zero1", "--tensor_parallel", "2"]):
+    """A --tensor_parallel that does not divide the ranks, alone, with
+    sequence parallelism and with ZeRO-1: refused in JAX's words."""
+    tp3 = ["--tensor_parallel", "3", "--n_gpu", "2"]
+    for extra in (tp3, tp3 + ["--sequence_parallel"], tp3 + ["--zero1"]):
         with pytest.raises(SystemExit) as e:
             pretrain.main(_pretrain_argv(howto_files, str(tmp_path / "out"), *extra))
-        assert e.value.code == 2 and extra[0] in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert e.value.code == 2 and "--tensor_parallel 3 must divide mesh size 2" in err
     assert not (tmp_path / "out").exists()
 
 

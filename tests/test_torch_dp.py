@@ -399,8 +399,8 @@ def test_cli_zero1_on_two_ranks_resumes(youcook_files, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--zero1", "--tensor_parallel", "2"],  # ZeRO-1 under tensor parallelism: the TP slice
-    ["--sequence_parallel"],
+    ["--tensor_parallel", "3", "--n_gpu", "2", "--zero1"],  # tp must divide the ranks
+    ["--tensor_parallel", "3", "--n_gpu", "2", "--sequence_parallel"],
     ["--n_gpu", "-1"],
 ])
 def test_cli_refuses_across_ranks(youcook_files, tmp_path, extra, capsys):
@@ -408,7 +408,7 @@ def test_cli_refuses_across_ranks(youcook_files, tmp_path, extra, capsys):
         task_retrieval.main(_cli_argv(youcook_files, str(tmp_path / "out"), *extra))
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert extra[0] in err and ("tensor-parallel" in err or extra[0] == "--n_gpu")
+    assert extra[0] in err and ("must divide mesh size 2" in err or extra[0] == "--n_gpu")
     assert not (tmp_path / "out").exists()
 
 

@@ -229,8 +229,9 @@ def test_port_runs_with_jax_blocked(tmp_path, vocab):
 
 
 def test_chip_smoke_imports_only_the_port():
-    """No module of the port (the data-parallel ``parallel/`` modules
-    included), and not chip_smoke.py, imports the JAX package or JAX itself,
+    """No module of the port (the data- and tensor-parallel ``parallel/``
+    modules and ``train/zero1_tp.py`` included), and not chip_smoke.py,
+    imports the JAX package or JAX itself,
     at any depth of the file; every child process's entry point (the
     spawned rank's ``parallel/mesh.py:_rank_main`` and the entries it runs)
     is in the port; without a CUDA device chip_smoke.py prints no result and
@@ -238,7 +239,8 @@ def test_chip_smoke_imports_only_the_port():
     files = sorted((REPO / "univl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     parallel = {REPO / "univl_tpu_torch" / "parallel" / f"{m}.py"
-                for m in ("mesh", "comm", "replay")}
+                for m in ("mesh", "comm", "replay", "tp", "sp")}
+    parallel.add(REPO / "univl_tpu_torch" / "train" / "zero1_tp.py")
     assert parallel <= set(files)
     assert mesh._rank_main.__module__ == "univl_tpu_torch.parallel.mesh"
     for entry in (task_retrieval.ENTRY, task_caption.ENTRY, pretrain.ENTRY, replay.ENTRY,

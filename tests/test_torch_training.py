@@ -544,7 +544,7 @@ def test_cli_runs_data_parallel_and_zero1(youcook_files, tmp_path, extra):
 
 @pytest.mark.parametrize("extra", [
     ["--do_pretrain"], ["--do_pretrain", "--stage_two"],
-    ["--tensor_parallel", "2"], ["--datatype", "howto100m"],
+    ["--tensor_parallel", "3", "--n_gpu", "2"], ["--datatype", "howto100m"],
     ["--fused_ffn", "auto"], ["--fused_ffn", "auto_block"],  # TPU-measured row thresholds
     ["--train_attention", "pallas"],  # a TPU-only knob: not a flag of the port
 ])

@@ -13,9 +13,10 @@ local ``<kind>_config.json`` of ``--bert_model`` and the other three),
 (the prefetching input pipeline), ``make_preempt_flag``, ``preempt_hit``
 and ``run_train_epochs`` (per-epoch eval and the best epoch, preemption,
 the train-state checkpoints, synchronous or on a thread, and exact resume),
-and the trainers' data parallelism: ``add_parallel_args``,
+and the trainers' data and tensor parallelism: ``add_parallel_args``,
 ``check_parallel_args`` and ``run_on_ranks`` (``--n_gpu``, ``--zero1``,
-``--dist_backend``; ``parallel/mesh.py``).
+``--dist_backend``, ``--tensor_parallel``, ``--sequence_parallel``;
+``parallel/mesh.py``, ``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from univl_tpu_torch.config import (
     VisualConfig,
 )
 from univl_tpu_torch.data.batching import (
+    Batcher,
     DeviceTransfer,
     cast_floats,
     prefetch_to_device,
@@ -64,10 +66,12 @@ from univl_tpu_torch.data.batching import (
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.nn.layers import set_fused_layer_norm
 from univl_tpu_torch.parallel import mesh as dp_mesh
-from univl_tpu_torch.parallel.mesh import Mesh
+from univl_tpu_torch.parallel import tp as tensor_parallel
+from univl_tpu_torch.parallel.mesh import DP_AXIS, Mesh
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
 from univl_tpu_torch.train.zero1 import make_univl_zero1_optimizer
+from univl_tpu_torch.train.zero1_tp import make_univl_zero1_tp_optimizer
 from univl_tpu_torch.utils.file_utils import ARCHIVES, cached_path
 from univl_tpu_torch.utils.profiling import StepTimer
 
@@ -229,39 +233,44 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-TP_SLICE = "waits for the port's tensor-parallel slice (TP, SP and ZeRO-1 under TP)"
-
-
 def add_parallel_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The trainers' data-parallel flags, under the JAX names and defaults
-    (``univl_tpu/cli/common.py:133-150``), and ``--dist_backend``."""
+    """The trainers' parallelism flags, under the JAX names and defaults
+    (``univl_tpu/cli/common.py:133-150, 224-228``), and ``--dist_backend``."""
     p.add_argument("--n_gpu", type=int, default=0,
                    help="data-parallel ranks, one a card; 0 = every visible card (one rank "
                         "on the CPU). Above 1 the command starts its ranks itself, unless a "
                         "launcher (torchrun) started it")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1: BertAdam's moments and update sharded over the ranks "
-                        "(train/zero1.py)")
+                   help="ZeRO-1: BertAdam's moments and update sharded over the data-parallel "
+                        "ranks (train/zero1.py; with --tensor_parallel above 1 "
+                        "train/zero1_tp.py)")
     p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                    help="the ranks' process group: nccl on the card, gloo on the CPU by "
                         "default; gloo given explicitly may put several ranks on one card")
-    p.add_argument("--tensor_parallel", type=int, default=1, help="only 1 is ported")
-    p.add_argument("--sequence_parallel", action="store_true", help="refused here")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="tp axis size of a 2-D (dp, tp) grid of the ranks; weights are "
+                        "Megatron-sharded over tp (parallel/tp.py). Must divide the rank "
+                        "count")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="with --tensor_parallel > 1: shard the encoder LN/dropout/residual "
+                        "regions over the rows (Megatron-SP; reduce-scatter + all-gather "
+                        "replace the tp all-reduces, parallel/sp.py)")
     return p
 
 
 def check_parallel_args(parser: argparse.ArgumentParser, args) -> None:
-    """Refuse what the ranks cannot run: tensor and sequence parallelism
-    (ZeRO-1 under them too), a rank count below 0, more ranks than cards
-    without ``--dist_backend gloo``."""
-    if args.tensor_parallel > 1:
-        what = "--zero1 --tensor_parallel" if args.zero1 else "--tensor_parallel"
-        parser.error(f"{what} {args.tensor_parallel}: {TP_SLICE}")
-    if args.sequence_parallel:
-        parser.error(f"--sequence_parallel: {TP_SLICE}")
+    """Refuse what the ranks cannot run: a rank count below 0, a
+    ``--tensor_parallel`` that does not divide the ranks (in JAX's words), more
+    ranks than cards without ``--dist_backend gloo``."""
     if args.n_gpu < 0:
         parser.error(f"--n_gpu {args.n_gpu}: give 0 (every visible card) or a count")
-    why = dp_mesh.rank_error(args.n_gpu, torch.device(args.device).type, args.dist_backend)
+    device_type = torch.device(args.device).type
+    if args.tensor_parallel < 1:
+        parser.error(f"--tensor_parallel {args.tensor_parallel}: give 1 or more")
+    n = dp_mesh.resolve_size(args.n_gpu, device_type)
+    if n % args.tensor_parallel:
+        parser.error(f"--tensor_parallel {args.tensor_parallel} must divide mesh size {n}")
+    why = dp_mesh.rank_error(args.n_gpu, device_type, args.dist_backend)
     if why:
         parser.error(why)
 
@@ -282,7 +291,9 @@ def run_on_ranks(entry: str, argv, args, body: Callable, portable: Callable = la
     try:
         if size == 1 and not args.zero1:
             return body(args, Mesh(device=resolve_device(args.device)))
-        mesh = dp_mesh.init(args.device, args.dist_backend)
+        mesh = dp_mesh.init(args.device, args.dist_backend,
+                            tp=getattr(args, "tensor_parallel", 1),
+                            sequence_parallel=getattr(args, "sequence_parallel", False))
         result = body(args, mesh)
         return portable(result) if dp_mesh.launched() else result
     finally:
@@ -425,13 +436,32 @@ def build_config(args, device: torch.device, task_type: str = "retrieval",
     return cfg.validate()
 
 
-def make_model(args, cfg: UniVLConfig, device: torch.device, logger) -> UniVL:
+def make_model(args, cfg: UniVLConfig, device: torch.device, logger,
+               mesh: Optional[Mesh] = None) -> UniVL:
     """The model on ``device``, its LayerNorms on the kernel with
-    ``--fused_ln``, its weights from ``load_init_params``."""
+    ``--fused_ln``, its weights from ``load_init_params``; under tensor
+    parallelism (``mesh.tp`` above 1) then cut to the rank's shares
+    (``parallel/tp.py:parallelize``)."""
     model = UniVL(cfg, device=device)
     set_fused_layer_norm(model, args.fused_ln)
     load_init_params(args, model, logger)
+    if mesh is not None and mesh.tp > 1:
+        ctx = tensor_parallel.parallelize(model, mesh)
+        logger.info("tensor parallelism: %d of %d parameters split over %d ranks%s",
+                    sum(d is not None for d in ctx.layout.values()), len(ctx.layout), ctx.size,
+                    ", sequence-parallel encoders" if ctx.sequence_parallel else "")
     return model
+
+
+def make_eval_model(args, cfg: UniVLConfig, model: UniVL, mesh: Mesh) -> Optional[UniVL]:
+    """The model the per-epoch eval runs: ``model`` itself, or under tensor
+    parallelism a whole one on rank 0's card (None on the other ranks), into
+    which ``run_train_epochs`` loads the weights gathered from the shards."""
+    if mesh.tp == 1:
+        return model
+    if not mesh.primary:
+        return None
+    return set_fused_layer_norm(UniVL(cfg, device=mesh.device), args.fused_ln)
 
 
 def load_init_params(args, model: torch.nn.Module, logger) -> None:
@@ -441,24 +471,44 @@ def load_init_params(args, model: torch.nn.Module, logger) -> None:
     ``best.msgpack``). The caption decoder's keys are dropped when the model
     builds no decoder, the pretraining heads' when it builds none; any other
     key the model does not have is an error. Parameters the file lacks stay
-    at the seeded init, as in univl_tpu.cli.common.load_init_params."""
-    sd = init_state_dict(model.cfg, args.seed)
-    if args.init_model:
-        name = os.path.basename(args.init_model)
-        if ".msgpack" in name:
-            loaded = state_dict_from_jax_params(read_flax_params(args.init_model))
-        elif ".bin" in name:
-            loaded = load_reference_bin(args.init_model)
-        else:
-            raise ValueError(f"--init_model: a reference .bin or a flax .msgpack, got "
-                             f"{args.init_model}")
-        drop = (() if model.has_decoder else ("decoder.",)) + (
-            () if model.has_pretrain_heads else ("cls.", "cls_visual."))
-        loaded = {k: v for k, v in loaded.items() if not k.startswith(drop)}
-        sd, missing = merge_state_dict(sd, loaded, args.init_model)
-        logger.info("loaded %d params from %s; %d left at init%s", len(loaded),
-                    args.init_model, len(missing), f": {missing[:8]}" if missing else "")
+    at the seeded init, as in univl_tpu.cli.common.load_init_params; a file
+    that holds every parameter skips the seeded draw (seconds at full width)."""
+    if not args.init_model:
+        model.load_state_dict(init_state_dict(model.cfg, args.seed), strict=True)
+        return
+    name = os.path.basename(args.init_model)
+    if ".msgpack" in name:
+        loaded = state_dict_from_jax_params(read_flax_params(args.init_model))
+    elif ".bin" in name:
+        loaded = load_reference_bin(args.init_model)
+    else:
+        raise ValueError(f"--init_model: a reference .bin or a flax .msgpack, got "
+                         f"{args.init_model}")
+    drop = (() if model.has_decoder else ("decoder.",)) + (
+        () if model.has_pretrain_heads else ("cls.", "cls_visual."))
+    loaded = {k: v for k, v in loaded.items() if not k.startswith(drop)}
+    names = model.state_dict().keys()
+    template = (dict.fromkeys(names) if set(names) <= set(loaded)
+                else init_state_dict(model.cfg, args.seed))
+    sd, missing = merge_state_dict(template, loaded, args.init_model)
+    logger.info("loaded %d params from %s; %d left at init%s", len(loaded), args.init_model,
+                len(missing), f": {missing[:8]}" if missing else "")
     model.load_state_dict(sd, strict=True)
+
+
+def one_card(args) -> None:
+    """``--do_eval`` alone: one rank on one card, no parallelism."""
+    args.n_gpu, args.zero1, args.tensor_parallel, args.sequence_parallel = 1, False, 1, False
+
+
+def make_batcher(args, dataset, mesh: Mesh):
+    """The training batches of the rank's dp index (the ranks of a tp group
+    read the same rows), JAX's ``process_index`` slice of each update-batch."""
+    dp = mesh.axis(DP_AXIS)
+    return Batcher(dataset, args.batch_size, shuffle=True, seed=args.seed,
+                   grad_accum=args.gradient_accumulation_steps,
+                   num_workers=args.num_thread_reader, process_index=dp.rank,
+                   process_count=dp.size)
 
 
 def make_trainer(args, model: torch.nn.Module, n_train_batches: int, logger,
@@ -471,26 +521,43 @@ def make_trainer(args, model: torch.nn.Module, n_train_batches: int, logger,
     t_total = n_train_batches * args.epochs
     kw = dict(lr=args.lr, t_total=max(t_total, 1), warmup_proportion=args.warmup_proportion,
               coef_lr=args.coef_lr, state_dtype=args.adam_state_dtype)
-    opt = make_univl_zero1_optimizer(model, mesh, **kw) if zero1 else make_univl_optimizer(
-        model, **kw)
-    logger.info("mesh: %d rank(s) (dp=%d, zero1=%s, %s) on %s; t_total=%d", mesh.size,
-                mesh.size, zero1, mesh.backend or "no process group",
-                next(model.parameters()).device, t_total)
+    opt = make_optimizer(model, mesh, zero1, **kw)
+    logger.info("mesh: %d rank(s) (dp=%d, tp=%d, sp=%s, zero1=%s, %s) on %s; t_total=%d",
+                mesh.size, mesh.dp, mesh.tp, mesh.sequence_parallel, zero1,
+                mesh.backend or "no process group", next(model.parameters()).device, t_total)
     return Trainer(model, opt, grad_accum_steps=args.gradient_accumulation_steps,
                    seed=args.seed, mesh=mesh)
+
+
+def make_optimizer(model: torch.nn.Module, mesh: Mesh, zero1: bool, **kw):
+    """BertAdam on ``mesh``: replicated or ZeRO-1 over the data-parallel
+    ranks; under tensor parallelism with its norms summed over the tp ranks,
+    and ZeRO-1 as ``train/zero1_tp.py``'s."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return (make_univl_zero1_optimizer(model, mesh, **kw) if zero1
+                else make_univl_optimizer(model, **kw))
+    if zero1:
+        return make_univl_zero1_tp_optimizer(model, mesh, tp.sharded_ids(model), **kw)
+    opt = make_univl_optimizer(model, **kw)
+    opt.set_tensor_parallel(tp.mesh, tp.sharded_ids(model))
+    return opt
 
 
 BEST_BIN = "pytorch_model.bin.best"  # the best epoch's weights (JAX's best.msgpack)
 
 
-def cpu_state_dict(model: torch.nn.Module) -> dict:
-    return {k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()}
+def full_state_dict(model: torch.nn.Module) -> dict:
+    """The model's weights in the tp=1 layout: gathered from the tp ranks'
+    shares under tensor parallelism (a collective every rank calls)."""
+    sd = model.state_dict()
+    tp = getattr(model, "tp", None)
+    return sd if tp is None else tp.gather_state_dict(sd)
 
 
-def save_state_dict(model: torch.nn.Module, path: str) -> None:
-    """The model's weights under the reference names, on the CPU, as a
-    torch ``.bin`` that both packages' ``--init_model`` read."""
-    torch.save(cpu_state_dict(model), path)
+def cpu_state_dict(model: torch.nn.Module, sd: Optional[dict] = None) -> dict:
+    sd = model.state_dict() if sd is None else sd
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
 
 
 def make_input_iter(args, batcher, epoch: int, device: torch.device, start_batch: int = 0):
@@ -542,13 +609,27 @@ def preempt_hit(args, preempt: dict, steps_since_start: int) -> bool:
 
 def train_state(trainer: Trainer) -> dict:
     """What a train-state checkpoint holds: the parameters, and BertAdam's
-    moments with its step count."""
-    return {"model": trainer.model.state_dict(), "optimizer": trainer.optimizer.state_dict()}
+    moments with its step count, in the tp=1 layout (under tensor
+    parallelism gathered from the ranks' shares: a collective)."""
+    model, opt = trainer.model, trainer.optimizer
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return {"model": model.state_dict(), "optimizer": opt.state_dict()}
+    return {"model": tp.gather_state_dict(model.state_dict()),
+            "optimizer": tp.gather_optimizer_state(opt.state_dict(), model, opt)}
 
 
 def load_train_state(trainer: Trainer, state: dict) -> None:
-    trainer.model.load_state_dict(state["model"], strict=True)
-    trainer.optimizer.load_state_dict(state["optimizer"])
+    """A train state in the tp=1 layout, cut to the rank's shares under
+    tensor parallelism."""
+    model, opt = trainer.model, trainer.optimizer
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        model.load_state_dict(state["model"], strict=True)
+        opt.load_state_dict(state["optimizer"])
+        return
+    model.load_state_dict(tp.shard_state_dict(state["model"]), strict=True)
+    opt.load_state_dict(tp.shard_optimizer_state(state["optimizer"], model, opt))
 
 
 def _json_best(best: Optional[dict]) -> Optional[dict]:
@@ -563,7 +644,8 @@ def _json_best(best: Optional[dict]) -> Optional[dict]:
 def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.device,
                      eval_fn: Optional[Callable[[int], dict]] = None,
                      select_key: Optional[str] = None, select_sign: float = 1.0,
-                     manager=None, state_every_epoch: bool = False):
+                     manager=None, state_every_epoch: bool = False,
+                     eval_model: Optional[torch.nn.Module] = None):
     """The epoch loop of ``univl_tpu.cli.common.run_train_epochs`` (and of
     ``univl_tpu/cli/pretrain.py``'s ``main``): the batches through
     ``make_input_iter``, one optimizer step, the losses summed on the device (read at display points
@@ -601,7 +683,10 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
     each epoch's files. The ranks agree on a preemption after every step
     (the flag's maximum over the control group, so a SIGTERM that reaches
     one rank stops all at the same step), and rank 0 runs ``eval_fn`` and
-    broadcasts the score of the selected metric."""
+    broadcasts the score of the selected metric. Under tensor parallelism
+    every rank gathers the weights into the tp=1 layout after each epoch
+    (``full_state_dict``), which rank 0 writes and loads into ``eval_model``
+    (``make_eval_model``'s whole model) before ``eval_fn`` runs on it."""
     mesh = getattr(trainer, "mesh", None) or Mesh()
     best, best_score = None, -np.inf
     global_step, start_epoch, start_step_in_epoch = 0, 0, 0
@@ -635,7 +720,8 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
         getattr(args, "async_checkpointing", False), primary=mesh.primary)
     mw = MetricsWriter(args.output_dir if mesh.primary else None)
     mw.write("mesh", ranks=mesh.size, backend=mesh.backend, device=str(mesh.device),
-             zero1=bool(getattr(trainer, "zero1", False)))
+             zero1=bool(getattr(trainer, "zero1", False)), tp=mesh.tp,
+             sequence_parallel=mesh.sequence_parallel)
 
     def save_train_state(epoch: int, in_epoch_step: int, preempted: bool, **extra):
         meta = {"epoch": epoch - 1 if in_epoch_step else epoch, "global_step": global_step,
@@ -707,9 +793,14 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                 save_train_state(epoch, offset + n_steps, True)
                 logger.info("preempted at epoch %d end: checkpoint saved, exiting", epoch + 1)
                 return global_step, best
+            full = None  # the weights in the tp=1 layout; gathering is a collective
+            if mesh.primary or mesh.tp > 1:
+                full = cpu_state_dict(trainer.model, full_state_dict(trainer.model))
             if mesh.primary:
-                save_state_dict(trainer.model, os.path.join(args.output_dir,
-                                                            f"pytorch_model.bin.{epoch}"))
+                torch.save(full, os.path.join(args.output_dir, f"pytorch_model.bin.{epoch}"))
+                if eval_fn is not None and eval_model is not None \
+                        and eval_model is not trainer.model:
+                    eval_model.load_state_dict(full, strict=True)
             if eval_fn is not None:
                 metrics = eval_fn(epoch) if mesh.primary else None
                 score = mesh.broadcast(select_sign * metrics[select_key] if mesh.primary
@@ -718,8 +809,7 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                     best_score = score
                     if mesh.primary:
                         best = dict(metrics, epoch=epoch)
-                        save_checkpoint(os.path.join(args.output_dir, BEST_BIN),
-                                        cpu_state_dict(trainer.model),
+                        save_checkpoint(os.path.join(args.output_dir, BEST_BIN), full,
                                         metadata={"epoch": epoch,
                                                   "metrics": _json_best(metrics)})
                 if mesh.primary:

@@ -37,8 +37,10 @@ batches come through ``common.make_input_iter``. ``--n_gpu N`` pretrains on
 N data-parallel ranks, each with MIL-NCE over its own rows of the global
 batch, and ``--zero1`` shards BertAdam's state over them, as in
 ``task_retrieval`` (rank 0 writes the files and the checkpoints);
-``--tensor_parallel`` above 1 and ``--sequence_parallel`` are refused with
-an error that names the tensor-parallel slice they wait for.
+``--tensor_parallel`` and ``--sequence_parallel`` split the model over groups
+of ranks as there (in stage II the masked-language head's logits and cross
+entropy vocab-parallel too); the train state is written in the tp=1 layout,
+so a run resumes at another tp size or with or without ``--zero1``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,6 @@ import pickle
 
 from univl_tpu_torch.checkpoint.manager import RotatingCheckpointManager
 from univl_tpu_torch.cli import common
-from univl_tpu_torch.data.batching import Batcher
 from univl_tpu_torch.data.howto100m import HowTo100MPretrainDataset
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 
@@ -107,8 +108,8 @@ def run(args, mesh):
     device = mesh.device
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
     cfg = common.build_config(args, device, task_type="retrieval", vocab_size=len(tokenizer),
-                              ranks=mesh.size)
-    model = common.make_model(args, cfg, device, logger)
+                              ranks=mesh.dp)
+    model = common.make_model(args, cfg, device, logger, mesh)
     with open(args.data_path, "rb") as f:
         data_dict = pickle.load(f)
     ds = HowTo100MPretrainDataset(
@@ -119,10 +120,7 @@ def run(args, mesh):
         sampled_use_mil=args.sampled_use_mil,
         pretrain_enhance_vmodal=args.pretrain_enhance_vmodal, video_dim=args.video_dim,
         seed=args.seed)
-    batcher = Batcher(ds, args.batch_size, shuffle=True, seed=args.seed,
-                      grad_accum=args.gradient_accumulation_steps,
-                      num_workers=args.num_thread_reader, process_index=mesh.rank,
-                      process_count=mesh.size)
+    batcher = common.make_batcher(args, ds, mesh)
     trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     manager = None
     if args.checkpoint_backend == "orbax":

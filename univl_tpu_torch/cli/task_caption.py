@@ -39,9 +39,11 @@ kept, as in JAX); the training batches come through
 ``prefetch_to_device`` (built while the beam search runs) unless
 ``--no_prefetch``. ``--n_gpu N`` trains on N data-parallel ranks and
 ``--zero1`` shards BertAdam's state over them, as in ``task_retrieval``
-(rank 0 writes the files and runs the eval); ``--tensor_parallel`` above 1
-and ``--sequence_parallel`` are refused with an error that names the
-tensor-parallel slice they wait for.
+(rank 0 writes the files and runs the eval); ``--tensor_parallel`` and
+``--sequence_parallel`` split the model over groups of ranks as there: the
+decoder's attention and FFN, its vocab-parallel word lookup, the tied
+classifier's logits and the cross entropy over them too (the decoder's
+regions stay whole under ``--sequence_parallel``, as in JAX).
 """
 
 from __future__ import annotations
@@ -163,7 +165,7 @@ def main(argv=None):
     None with --do_train alone. --do_eval alone runs on one card."""
     args = parse_args(argv)
     if not args.do_train:
-        args.n_gpu, args.zero1 = 1, False
+        common.one_card(args)
     return common.run_on_ranks(ENTRY, argv, args, run)
 
 
@@ -174,22 +176,20 @@ def run(args, mesh):
     device = mesh.device
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
     cfg = common.build_config(args, device, task_type="caption", vocab_size=len(tokenizer),
-                              ranks=mesh.size)
-    model = common.make_model(args, cfg, device, logger)
+                              ranks=mesh.dp)
+    model = common.make_model(args, cfg, device, logger, mesh)
+    eval_model = common.make_eval_model(args, cfg, model, mesh)
     train_ds, val_ds = build_datasets(args, tokenizer)
 
     eval_fn = None
     if args.do_eval:
-        eval_fn = make_eval_fn(args, model, tokenizer, device, val_ds, logger)
+        eval_fn = make_eval_fn(args, eval_model, tokenizer, device, val_ds, logger)
     if not args.do_train:
         return 0, eval_fn()
-    batcher = Batcher(train_ds, args.batch_size, shuffle=True, seed=args.seed,
-                      grad_accum=args.gradient_accumulation_steps,
-                      num_workers=args.num_thread_reader, process_index=mesh.rank,
-                      process_count=mesh.size)
+    batcher = common.make_batcher(args, train_ds, mesh)
     trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     return common.run_train_epochs(args, trainer, batcher, logger, device, eval_fn=eval_fn,
-                                   select_key="Bleu_4")
+                                   select_key="Bleu_4", eval_model=eval_model)
 
 
 if __name__ == "__main__":

@@ -50,10 +50,16 @@ per-device negatives): the command starts its ranks itself, or joins
 torchrun's. ``--zero1`` shards BertAdam's state over the ranks. Rank 0
 writes every file and runs the eval (on its card alone).
 ``--dist_backend gloo`` may put several ranks on one card.
-``--tensor_parallel`` above 1 and ``--sequence_parallel`` are refused with
-an error that names the tensor-parallel slice they wait for.
+``--tensor_parallel T`` (which must divide the ranks) makes the ranks a
+(dp, tp) grid: the weights are Megatron-split over each group of T ranks
+(``parallel/tp.py``), which read the same rows, and ``--sequence_parallel``
+also splits the encoders' LayerNorm, dropout and residual regions over their
+rows (``parallel/sp.py``); ``--zero1`` then shards over dp
+(``train/zero1_tp.py``). Rank 0 evaluates on a whole model gathered from the
+shards. A (dp, tp) run computes what a dp-only run of the same dp size does.
 
-    python -m univl_tpu_torch.cli.task_retrieval --do_train --n_gpu 8 [--zero1] ...
+    python -m univl_tpu_torch.cli.task_retrieval --do_train --n_gpu 8 [--zero1] \
+        [--tensor_parallel 2 [--sequence_parallel]] ...
 """
 
 from __future__ import annotations
@@ -131,7 +137,7 @@ def main(argv=None):
     None with --do_train alone. --do_eval alone runs on one card."""
     args = parse_args(argv)
     if not args.do_train:
-        args.n_gpu, args.zero1 = 1, False
+        common.one_card(args)
     return common.run_on_ranks(ENTRY, argv, args, run)
 
 
@@ -142,15 +148,18 @@ def run(args, mesh):
     device = mesh.device
     tokenizer = WordPieceTokenizer(args.vocab_file, do_lower_case=args.do_lower_case)
     cfg = common.build_config(args, device, task_type="retrieval", vocab_size=len(tokenizer),
-                              ranks=mesh.size)
-    model = common.make_model(args, cfg, device, logger)
+                              ranks=mesh.dp)
+    model = common.make_model(args, cfg, device, logger, mesh)
+    eval_model = common.make_eval_model(args, cfg, model, mesh)
     train_ds, test_ds = build_datasets(args, tokenizer)
 
     eval_fn = None
     if args.do_eval:
         mode = "cross" if (cfg.train_sim_after_cross or cfg.stage_two) else "joint"
-        # built once, outside eval_fn, as in the JAX driver
-        evaluator = RetrievalEvaluator(model, batch_size=args.batch_size_val)
+        # built once, outside eval_fn, as in the JAX CLI (on rank 0 alone
+        # under tensor parallelism)
+        evaluator = (RetrievalEvaluator(eval_model, batch_size=args.batch_size_val)
+                     if eval_model is not None else None)
 
         def eval_fn(epoch=None):
             """The metrics, and the encode and similarity passes' seconds."""
@@ -165,13 +174,10 @@ def run(args, mesh):
 
     if not args.do_train:
         return 0, eval_fn()
-    batcher = Batcher(train_ds, args.batch_size, shuffle=True, seed=args.seed,
-                      grad_accum=args.gradient_accumulation_steps,
-                      num_workers=args.num_thread_reader, process_index=mesh.rank,
-                      process_count=mesh.size)
+    batcher = common.make_batcher(args, train_ds, mesh)
     trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     return common.run_train_epochs(args, trainer, batcher, logger, device, eval_fn=eval_fn,
-                                   select_key="R1", select_sign=1.0)
+                                   select_key="R1", select_sign=1.0, eval_model=eval_model)
 
 
 if __name__ == "__main__":

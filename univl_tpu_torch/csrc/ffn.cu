@@ -182,9 +182,11 @@ __device__ __forceinline__ float2 gelu_cdf_pdf(float x) {
 __device__ __forceinline__ int quad_col(int q) { return q * 128 + 4 * (threadIdx.x & 31); }
 
 // The dropout factors of the 4 columns from col (a multiple of 4) of a row:
-// 1/(1-rate) where kept, 0 where dropped. One Philox call per quad.
+// 1/(1-rate) where kept, 0 where dropped. One Philox call per quad. The
+// counter's row is row + drop.offset: a sequence-parallel rank's rows are
+// rows [offset, offset + N) of the whole call.
 __device__ __forceinline__ float4 keep4(const Dropout& drop, int row, int col, unsigned tag) {
-  const uint4 w = philox4x32_10(make_uint4(col >> 2, row, tag, 0), drop.seed);
+  const uint4 w = philox4x32_10(make_uint4(col >> 2, row + drop.offset, tag, 0), drop.seed);
   float4 k;
 #pragma unroll
   for (int t = 0; t < 4; ++t) at(k, t) = philox_word(w, t) >= drop.threshold ? drop.inv_keep : 0.0f;
@@ -734,7 +736,9 @@ __device__ __forceinline__ void gemm_epilogue(const float (&d)[128], const EpiAr
   }
 }
 
-// C = A B^T, [M, N] over depth K (N a multiple of kBN, K of kBK * splits),
+// C = A B^T, [M, N] over depth K (K a multiple of kBK * splits; N a
+// multiple of kBN, or for kDx without the ds term any multiple of 64: the
+// last column tile's loads past N read zeros and TMA drops its stores there),
 // tile by tile: tile t is split t % splits of column tile (t / splits) %
 // (N / kBN) of row tile t / splits / (N / kBN), so the blocks at work at
 // once share their weight tiles and rows in L2. A split takes K / splits of
@@ -748,7 +752,7 @@ __device__ __forceinline__ void gemm_body(const GemmMaps& m, int M, int N, int K
   bf16* sa = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~static_cast<uintptr_t>(1023));
   bf16* sb = sa + kStages * kStageA;
-  const int tiles_n = N / kBN, tiles = (M + kBM - 1) / kBM * tiles_n * splits;
+  const int tiles_n = (N + kBN - 1) / kBN, tiles = (M + kBM - 1) / kBM * tiles_n * splits;
   const int steps = K / kBK / splits;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -915,6 +919,35 @@ __global__ void __launch_bounds__(kThreads)
     }
     store4(dx + base + col, acc);
   }
+}
+
+// The split halves of #3-#5 under tensor parallelism (kernels/ffn.py): a
+// rank's GEMMs over its share of the depth leave an f32 partial [N, H]
+// (summed over the splits here, in split order), the ranks' partials are
+// all-reduced or reduce-scattered outside, and the row kernels below finish
+// on the rows the rank holds, with drop.offset the first one's index.
+__global__ void __launch_bounds__(kThreads)
+    sum_splits_kernel(float* __restrict__ part, int splits, long long count) {
+  const long long i = 4 * (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x);
+  if (i >= count) return;
+  float4 acc = load4(part + i);
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 v = load4(part + sp * count + i);
+    acc = make_float4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
+  }
+  store4(part + i, acc);
+}
+
+// After the reduce: y = round(round(part) + b); for #4 and #5 (kBlock) then
+// dropped with `tag` at row + drop.offset, s = round(y + res), out =
+// round(LN(s)). A warp a row.
+template <bool kBlock>
+__global__ void __launch_bounds__(kThreads)
+    split_rows_kernel(const float* __restrict__ part, const bf16* __restrict__ b,
+                      const bf16* __restrict__ res, const float* __restrict__ ln_scale,
+                      const float* __restrict__ ln_bias, bf16* out, bf16* __restrict__ s_out,
+                      int N, float eps, Dropout drop, unsigned tag) {
+  fwd_rows<kBlock>(part, 1, b, res, ln_scale, ln_bias, out, s_out, N, eps, drop, tag);
 }
 
 // A backward's head for #4 and #5: the LayerNorm backward of kWarps * kRpw
@@ -1217,7 +1250,7 @@ cudaError_t launch_gemm(Kernel kernel, std::atomic<bool>* done, const void* a, c
   }
   cudaError_t err = opt_in(kernel, kGemmSmem, done);
   if (err != cudaSuccess) return err;
-  const int tiles = (M + kBM - 1) / kBM * (N / kBN) * splits, sms = sm_count();
+  const int tiles = (M + kBM - 1) / kBM * ((N + kBN - 1) / kBN) * splits, sms = sm_count();
   if (sms < 1) return cudaErrorInvalidDevice;
   kernel<<<tiles < sms ? tiles : sms, kGemmThreads, kGemmSmem, stream>>>(m, M, N, K, splits, e);
   return cudaGetLastError();
@@ -1243,6 +1276,15 @@ cudaError_t gemm(const void* a, const void* b, int M, int N, int K, int splits, 
   }
 }
 
+
+// part[0] = the sum of the splits' partials, in split order (none to add at one)
+cudaError_t sum_splits(float* part, int splits, int N, cudaStream_t st) {
+  if (splits == 1) return cudaSuccess;
+  const long long count = static_cast<long long>(N) * kH;
+  sum_splits_kernel<<<static_cast<unsigned>((count / 4 + kThreads - 1) / kThreads), kThreads, 0,
+                      st>>>(part, splits, count);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1476,6 +1518,152 @@ int univl_dense_block_bwd_tc(const void* s, const void* g, const void* w, const 
   EpiArgs e{};
   e.out = static_cast<bf16*>(dx);
   return static_cast<int>(gemm<kDenseBwd, kDx>(dy, w, N, kH, kH, 1, e, st));
+}
+
+
+// ---------------------------------------------------------------- the split halves
+// (tensor parallelism, bf16): a rank's share of the depth, then the rows
+
+
+// #3's and #4's forward GEMMs over a rank's F columns of W1 (and rows of
+// W2): x W1 with the bias and GELU epilogue (pre when not null, h), then
+// h W2 into part (f32 [splits, N, H]), split `splits` ways along F and summed
+// into part[0]: the rank's partial of y before the bias. x: [N, H]; w1t:
+// [F, H]; b1: [F]; w2t: [H, F]; all bf16.
+int univl_ffn_fwd_part_tc(const void* x, const void* w1t, const void* b1, const void* w2t,
+                          void* pre, void* h, void* part, int N, int H, int F, int splits,
+                          void* stream) {
+  if (bad_shape(N, H, F) || bad_splits(F, splits)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  EpiArgs e{};
+  e.out = static_cast<bf16*>(pre);
+  e.h = static_cast<bf16*>(h);
+  e.bias = static_cast<const bf16*>(b1);
+  cudaError_t err = gemm<kFfnFwd, kBias>(x, w1t, N, F, kH, 1, e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  e = EpiArgs{};
+  e.part = static_cast<float*>(part);
+  err = gemm<kFfnFwd, kPartial>(h, w2t, N, kH, F, splits, e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sum_splits(static_cast<float*>(part), splits, N, st));
+}
+
+// #5's forward GEMM over a rank's K input columns: part = x W (f32 [N, H]),
+// x: [N, K]; wt: [H, K] (the rank's columns of nn.Linear's weight); K a
+// multiple of 64.
+int univl_dense_fwd_part_tc(const void* x, const void* wt, void* part, int N, int H, int K,
+                            void* stream) {
+  if (N < 1 || H != kH || K < kBK || K % kBK) return static_cast<int>(cudaErrorInvalidValue);
+  EpiArgs e{};
+  e.part = static_cast<float*>(part);
+  return static_cast<int>(
+      gemm<kDenseFwd, kPartial>(x, wt, N, kH, K, 1, e, static_cast<cudaStream_t>(stream)));
+}
+
+// The forward rows after the reduce, over the N rows a rank holds: y =
+// round(round(part) + b); kind 3 (#3) writes y to out; kind 4 (#4) and 5
+// (#5) drop it with their tag at rows row0 + [0, N), add res and normalize
+// (s written when not null). part: f32 [N, H]; b: bf16 [H]; res, out, s:
+// bf16 [N, H]; ln_scale, ln_bias: f32 [H].
+int univl_split_rows_tc(const void* part, const void* b, const void* res, const void* ln_scale,
+                        const void* ln_bias, void* out, void* s, int N, int H, int kind,
+                        float eps, unsigned int threshold, float inv_keep, int dropout_on,
+                        unsigned long long seed, int row0, void* stream) {
+  if (N < 1 || H != kH || kind < 3 || kind > 5) return static_cast<int>(cudaErrorInvalidValue);
+  const auto rows = kind == 3 ? split_rows_kernel<false> : split_rows_kernel<true>;
+  rows<<<row_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<const bf16*>(b), static_cast<const bf16*>(res),
+      static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
+      static_cast<bf16*>(out), static_cast<bf16*>(s), N, eps,
+      Dropout{seed, threshold, inv_keep, dropout_on, row0},
+      kind == 5 ? kDenseBlockTag : kFfnBlockTag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A backward's LayerNorm head over the N rows a rank holds (rows row0 + [0,
+// N) of the call, for the dropout counter), at ln_rows (32 or 8) rows a
+// block: kind 4 (#4) writes dropped (dffn) and stats ([ceil(N / 32) x 32,
+// 4] f32), kind 5 (#5) dropped (dy) and dr; both the dscale/dbias partials
+// (f32 [ceil(N / ln_rows), H]).
+int univl_block_bwd_ln_tc(int kind, const void* s, const void* g, const void* ln_scale,
+                          void* dropped, void* dr, void* stats, void* dscale_p, void* dbias_p,
+                          int N, int H, int ln_rows, float eps, unsigned int threshold,
+                          float inv_keep, int dropout_on, unsigned long long seed, int row0,
+                          void* stream) {
+  if (N < 1 || H != kH || (kind != 4 && kind != 5)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{seed, threshold, inv_keep, dropout_on, row0};
+  const bf16* sv = static_cast<const bf16*>(s);
+  const bf16* gv = static_cast<const bf16*>(g);
+  const float* sc = static_cast<const float*>(ln_scale);
+  float* dsc = static_cast<float*>(dscale_p);
+  float* dbi = static_cast<float*>(dbias_p);
+  int grid = 0;
+  if (kind == 4) {
+    auto head = ffn_bwd_ln_kernel<kRowsPerWarp>;
+    if (!ln_head(ffn_bwd_ln_kernel<kRowsPerWarp>, ffn_bwd_ln_kernel<1>, ln_rows, N, &head, &grid)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    head<<<grid, kThreads, 0, st>>>(sv, gv, sc, static_cast<bf16*>(dropped),
+                                    static_cast<float*>(stats), dsc, dbi, N, eps, drop);
+  } else {
+    auto head = dense_bwd_ln_kernel<kRowsPerWarp>;
+    if (!ln_head(dense_bwd_ln_kernel<kRowsPerWarp>, dense_bwd_ln_kernel<1>, ln_rows, N, &head,
+                 &grid)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    head<<<grid, kThreads, 0, st>>>(sv, gv, sc, static_cast<bf16*>(dropped),
+                                    static_cast<bf16*>(dr), dsc, dbi, N, eps, drop);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// #3's and #4's backward GEMMs over a rank's F: (dffn or g) W2^T with the
+// GELU-gradient epilogue (dpre, h: [N, F]), then dpre W1^T into part (f32
+// [splits, N, H], summed into part[0]). g: [N, H] (every row of the call);
+// pre: [N, F]; w1: [H, F], w2: [F, H] (the JAX layout, the rank's share).
+int univl_ffn_bwd_part_tc(const void* pre, const void* g, const void* w1, const void* w2,
+                          void* dpre, void* h, void* part, int N, int H, int F, int splits,
+                          void* stream) {
+  if (bad_shape(N, H, F) || bad_splits(F, splits)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  EpiArgs e{};
+  e.out = static_cast<bf16*>(dpre);
+  e.h = static_cast<bf16*>(h);
+  e.pre = static_cast<const bf16*>(pre);
+  cudaError_t err = gemm<kFfnBwd, kDGelu>(g, w2, N, F, kH, 1, e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  e = EpiArgs{};
+  e.part = static_cast<float*>(part);
+  err = gemm<kFfnBwd, kPartial>(dpre, w1, N, kH, F, splits, e, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sum_splits(static_cast<float*>(part), splits, N, st));
+}
+
+// The backward rows after the reduce, over the N rows a rank holds: dx =
+// round(part + ds), ds from the LayerNorm head's row statistics (#4), or dx
+// = round(part) with stats null (#3). s, g: the rank's rows of the
+// LayerNorm's input and of the output gradient (#4).
+int univl_ffn_bwd_rows_tc(const void* part, const void* s, const void* g, const void* ln_scale,
+                          const void* stats, void* dx, int N, int H, void* stream) {
+  if (N < 1 || H != kH) return static_cast<int>(cudaErrorInvalidValue);
+  ffn_bwd_rows_kernel<<<row_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), 1, static_cast<const bf16*>(s),
+      static_cast<const bf16*>(g), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(stats), static_cast<bf16*>(dx), N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// #5's dx over a rank's K input columns: dx = round(dy W^T), dy: [N, H] (every
+// row of the call); w: [K, H] (the JAX layout, the rank's rows); dx: [N, K],
+// K a multiple of 64 (the last column tile may run past K).
+int univl_dense_bwd_dx_tc(const void* dy, const void* w, void* dx, int N, int H, int K,
+                          void* stream) {
+  if (N < 1 || H != kH || K < kBK || K % kBK) return static_cast<int>(cudaErrorInvalidValue);
+  EpiArgs e{};
+  e.out = static_cast<bf16*>(dx);
+  return static_cast<int>(
+      gemm<kDenseBwd, kDx>(dy, w, N, K, kH, 1, e, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

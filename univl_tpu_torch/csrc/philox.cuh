@@ -38,6 +38,9 @@ struct Dropout {
   uint32_t threshold;       // keep where the word is >= threshold
   float inv_keep;           // 1 / (1 - rate)
   int on;                   // rate > 0
+  int offset;               // added to the head (#2) or row (#4, #5) counter word: the
+                            // first head or row of a rank's shard under tensor or
+                            // sequence parallelism, so its bits are the whole call's
 };
 
 }  // namespace univl

@@ -23,6 +23,9 @@
 // least rate * 2^32. The mask is a pure function of (seed, b, h, i, j), so the
 // forward, the backward and the plain PyTorch version
 // (univl_tpu_torch/kernels/train_attention.py) regenerate it bit for bit.
+// Under tensor parallelism a rank holds heads [head0, head0 + H) as its local
+// heads 0 .. H - 1: every entry point takes head0, added to h in the counter,
+// so a call on a rank's heads draws those heads' bits of the whole call.
 // The TPU kernels' bits (pltpu.prng_random_bits) cannot be reproduced; the
 // distribution is the same.
 //
@@ -147,7 +150,7 @@ __device__ __forceinline__ float round_to(float x) { return to_float(from_float<
 __device__ __forceinline__ void keep_row(float* kw, const Dropout& drop, int b, int h, int i,
                                          int j0, int n, int lane) {
   for (int c = lane; 4 * c < n; c += 32) {
-    const uint4 w = philox4x32_10(make_uint4(j0 / 4 + c, i, h, b), drop.seed);
+    const uint4 w = philox4x32_10(make_uint4(j0 / 4 + c, i, h + drop.offset, b), drop.seed);
     const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
@@ -659,7 +662,7 @@ __device__ __forceinline__ void transpose_a(uint32_t (&at)[4], const uint32_t (&
 
 // Keep bits of the four words of Philox(counter = (quad, i, h, b)): bit w for word w.
 __device__ __forceinline__ uint32_t keep_quad(const Dropout& drop, int b, int h, int i, int quad) {
-  const uint4 w = philox4x32_10(make_uint4(quad, i, h, b), drop.seed);
+  const uint4 w = philox4x32_10(make_uint4(quad, i, h + drop.offset, b), drop.seed);
   return static_cast<uint32_t>(w.x >= drop.threshold) |
          static_cast<uint32_t>(w.y >= drop.threshold) << 1 |
          static_cast<uint32_t>(w.z >= drop.threshold) << 2 |
@@ -1198,13 +1201,16 @@ long long univl_train_attention_smem_bytes(int Lq, int Lk, int D, int kind) {
 
 // q: [B, Lq, H*D], k, v: [B, Lk, H*D], contiguous, 16-byte aligned, float32
 // or bfloat16 (is_bf16); key_mask: contiguous f32 [B, Lk]; out like q;
-// m, l: f32 [B, H, Lq]. Launches on `stream`, returns cudaGetLastError().
+// m, l: f32 [B, H, Lq]; head0: the index of local head 0 in the whole call
+// (a tensor-parallel rank's first head; 0 otherwise), added to the dropout
+// counter's head word by every entry point below. Launches on `stream`,
+// returns cudaGetLastError().
 int univl_train_attention_fwd(const void* q, const void* k, const void* v, const void* key_mask,
                               void* out, void* m, void* l, int is_bf16, int B, int H, int Lq,
                               int Lk, int D, float scale, unsigned int threshold, float inv_keep,
-                              int dropout_on, unsigned long long seed, void* stream) {
+                              int dropout_on, unsigned long long seed, int head0, void* stream) {
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
   const float* mask = static_cast<const float*>(key_mask);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
@@ -1221,9 +1227,9 @@ int univl_train_attention_bwd(const void* q, const void* k, const void* v, const
                               const void* m, const void* l, const void* g, void* dq, void* dk,
                               void* dv, int is_bf16, int B, int H, int Lq, int Lk, int D,
                               float scale, unsigned int threshold, float inv_keep, int dropout_on,
-                              unsigned long long seed, void* stream) {
+                              unsigned long long seed, int head0, void* stream) {
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
   const float* mask = static_cast<const float*>(key_mask);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
@@ -1242,9 +1248,9 @@ int univl_train_attention_bwd_tiled(const void* q, const void* k, const void* v,
                                     const void* g, void* dq, void* dk, void* dv, void* delta,
                                     int is_bf16, int B, int H, int Lq, int Lk, int D, float scale,
                                     unsigned int threshold, float inv_keep, int dropout_on,
-                                    unsigned long long seed, void* stream) {
+                                    unsigned long long seed, int head0, void* stream) {
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
   const float* mask = static_cast<const float*>(key_mask);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
@@ -1263,10 +1269,10 @@ int univl_train_attention_fwd_mma(const void* q, const void* k, const void* v,
                                   const void* key_mask, void* out, void* m, void* l, int is_bf16,
                                   int B, int H, int Lq, int Lk, int D, float scale,
                                   unsigned int threshold, float inv_keep, int dropout_on,
-                                  unsigned long long seed, void* stream) {
+                                  unsigned long long seed, int head0, void* stream) {
   if (!is_bf16 || D != kD || Lk > 16 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
   return static_cast<int>(launch_fwd_mma(q, k, v, static_cast<const float*>(key_mask), out,
                                          static_cast<float*>(m), static_cast<float*>(l), B, sh,
                                          drop, static_cast<cudaStream_t>(stream)));
@@ -1279,10 +1285,10 @@ int univl_train_attention_bwd_mma(const void* q, const void* k, const void* v,
                                   const void* g, void* dq, void* dk, void* dv, void* delta,
                                   int is_bf16, int B, int H, int Lq, int Lk, int D, float scale,
                                   unsigned int threshold, float inv_keep, int dropout_on,
-                                  unsigned long long seed, void* stream) {
+                                  unsigned long long seed, int head0, void* stream) {
   if (!is_bf16 || D != kD || Lq > kMaxQueries) return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
   return static_cast<int>(launch_bwd_mma(q, k, v, static_cast<const float*>(key_mask),
                                          static_cast<const float*>(m),
                                          static_cast<const float*>(l), g, dq, dk, dv,

@@ -130,7 +130,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_vocab_topk_transform.restype = i
     lib.univl_train_attention_smem_bytes.argtypes = [i, i, i, i]
     lib.univl_train_attention_smem_bytes.restype = ll
-    shared = [i] * 6 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]
+    # ... seed, head0, stream
+    shared = [i] * 6 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, i, p]
     lib.univl_train_attention_fwd.argtypes = [p] * 7 + shared
     lib.univl_train_attention_fwd.restype = i
     lib.univl_train_attention_bwd.argtypes = [p] * 10 + shared
@@ -166,6 +167,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_dense_block_fwd_tc.restype = i
     lib.univl_dense_block_bwd_tc.argtypes = [p] * 9 + [i] * 3 + drop
     lib.univl_dense_block_bwd_tc.restype = i
+    # the split halves under tensor parallelism; drop_row: ... seed, row0, stream
+    drop_row = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, i, p]
+    lib.univl_ffn_fwd_part_tc.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.univl_dense_fwd_part_tc.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.univl_split_rows_tc.argtypes = [p] * 7 + [i] * 3 + drop_row
+    lib.univl_block_bwd_ln_tc.argtypes = [i] + [p] * 8 + [i] * 3 + drop_row
+    lib.univl_ffn_bwd_part_tc.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.univl_ffn_bwd_rows_tc.argtypes = [p] * 6 + [i] * 2 + [p]
+    lib.univl_dense_bwd_dx_tc.argtypes = [p] * 3 + [i] * 3 + [p]
+    for fn in (lib.univl_ffn_fwd_part_tc, lib.univl_dense_fwd_part_tc, lib.univl_split_rows_tc,
+               lib.univl_block_bwd_ln_tc, lib.univl_ffn_bwd_part_tc, lib.univl_ffn_bwd_rows_tc,
+               lib.univl_dense_bwd_dx_tc):
+        fn.restype = i
     lib.univl_cuda_error_string.argtypes = [i]
     lib.univl_cuda_error_string.restype = ctypes.c_char_p
 

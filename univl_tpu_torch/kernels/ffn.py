@@ -58,6 +58,7 @@ from univl_tpu_torch.kernels.philox import (
     keep_threshold,
     row_dropout_keep,
 )
+from univl_tpu_torch.parallel import comm
 
 KERNEL_HIDDEN = 768  # the hidden width the CUDA kernels take
 F_CHUNK = 256  # F must be a multiple of this on the card
@@ -464,6 +465,225 @@ for _wrapper in (ffn_fwd, ffn_bwd, ffn_block_fwd, ffn_block_bwd, dense_block_fwd
     _wrapper.cuda_core_launches = 0  # calls in f32, on the CUDA-core kernels
 
 
+# ------------------------------------------------------------ the split halves
+#
+# Under tensor parallelism (parallel/tp.py) a rank holds F / tp columns of
+# W1 and rows of W2 (#3, #4), or K / tp rows of W (#5: its input is the
+# rank's heads). Each function is cut at the row-parallel product: the
+# rank's GEMMs leave an f32 partial [N, H] of the product (``ffn_plan``'s
+# split scratch, its F splits summed in split order), the ranks' partials are
+# all-reduced, or reduce-scattered into the rank's rows under sequence
+# parallelism, and a row kernel adds the bias once, drops at the rows' offset
+# in the call (row0), adds the residual and normalizes. The backwards mirror
+# it: the LayerNorm head on the rank's rows, the GEMMs over its depth, the
+# reduce of dx's partial, then dx's rows. The pieces below are the kernels
+# (CUDA tensors, bf16: the wgmma GEMMs and row kernels of csrc/ffn.cu) and
+# their plain versions (CPU tensors), each counted in ``launches``; the
+# ``*_tp`` autograd functions compose them with parallel/comm.py.
+
+def _split_cuda(dtype, device, H: int, depth: int = F_CHUNK, granule: int = F_CHUNK):
+    """The library, for a CUDA call of the split pieces: bf16, width H, a
+    depth (#3's and #4's F / tp, #5's K / tp) that is a multiple of
+    ``granule``."""
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "the split #3-#5 kernels are bf16 (the tensor-core route); f32 under tensor "
+            "parallelism takes the unfused FFN (--fused_ffn xla) on the card")
+    if H != KERNEL_HIDDEN or depth < granule or depth % granule:
+        raise ValueError(f"the split kernels take H = {KERNEL_HIDDEN} and a rank's depth a "
+                         f"multiple of {granule}; got H = {H}, depth {depth}")
+    if device.type != "cuda":
+        raise ValueError(f"no fused-FFN kernel for device {device}")
+    return _build.load_library()
+
+
+def ffn_part_reference(x, w1, b1, w2):
+    """(part, pre): ``gelu(x @ w1 + b1) @ w2`` summed in f32, before b2."""
+    pre = _mm(x, w1).to(x.dtype) + b1
+    return _mm(_gelu(pre.float()).to(x.dtype), w2), pre
+
+
+def split_rows_reference(part, b, res, scale, bias, seed: int, rate: float, eps: float,
+                         kind: int, row0: int = 0):
+    """(out, s) of the rows after the reduce: y = round(round(part) + b);
+    #3 (kind 3) returns (y, None); #4 and #5 drop y at rows row0 + [0, N)
+    with their tag, add res and normalize."""
+    y = part.to(b.dtype) + b
+    if kind == 3:
+        return y, None
+    if rate > 0.0:
+        tag = FFN_BLOCK_TAG if kind == 4 else DENSE_BLOCK_TAG
+        keep = row_dropout_keep(seed, y.shape[0], y.shape[1], tag, rate, y.device, row0)
+        y = _dropped(y, keep, rate).to(b.dtype)
+    s = y + res
+    return _layer_norm(s, scale, bias, eps), s
+
+
+def block_bwd_ln_reference(kind: int, s, g, scale, seed: int, rate: float, eps: float,
+                           row0: int = 0):
+    """(dropped, dr, ds, dscale, dbias) of the LayerNorm head over a rank's
+    rows: #4's dffn or #5's dy, #5's dr (None for #4), and ds in f32 (what
+    the kernels keep as row statistics)."""
+    dt = s.dtype
+    ds, dscale, dbias = _layer_norm_backward(s, g, scale, eps)
+    dropped = ds
+    if rate > 0.0:
+        tag = FFN_BLOCK_TAG if kind == 4 else DENSE_BLOCK_TAG
+        keep = row_dropout_keep(seed, ds.shape[0], ds.shape[1], tag, rate, ds.device, row0)
+        dropped = _dropped(ds, keep, rate)
+    return dropped.to(dt), (ds.to(dt) if kind == 5 else None), ds, dscale, dbias
+
+
+def ffn_part(x, w1, b1, w2):
+    """#3's and #4's forward GEMMs over a rank's depth: (part f32 [N, H], pre)."""
+    _check(x, w1, b1, w2)
+    if x.device.type == "cpu":
+        return ffn_part_reference(x, w1, b1, w2)
+    N, H = x.shape
+    F = w1.shape[1]
+    lib = _split_cuda(x.dtype, x.device, H, F)
+    splits = ffn_plan(N, F, H, block=False)["splits"]
+    x, w1t, b1, w2t = (t.contiguous() for t in (x, w1.t(), b1, w2.t()))
+    pre, h = (torch.empty(N, F, dtype=x.dtype, device=x.device) for _ in range(2))
+    part = torch.empty(splits, N, H, dtype=torch.float32, device=x.device)
+    _launch(x, lib.univl_ffn_fwd_part_tc, "FFN split forward kernel launch",
+            *_ptrs(x, w1t, b1, w2t, pre, h, part), N, H, F, splits)
+    ffn_part.launches += 1
+    return part[0], pre
+
+
+def dense_part(x, w):
+    """#5's forward GEMM over a rank's depth K: part = x @ w, f32 [N, H]
+    (x [N, K], w [K, H])."""
+    _check(x, w)
+    if x.device.type == "cpu":
+        return _mm(x, w)
+    N, K = x.shape
+    lib = _split_cuda(x.dtype, x.device, w.shape[1], K, GEMM_DEPTH)
+    x, wt = x.contiguous(), w.t().contiguous()
+    part = torch.empty(N, wt.shape[0], dtype=torch.float32, device=x.device)
+    _launch(x, lib.univl_dense_fwd_part_tc, "dense split forward kernel launch",
+            *_ptrs(x, wt, part), N, wt.shape[0], K)
+    dense_part.launches += 1
+    return part
+
+
+def split_rows(part, b, res, scale, bias, seed: int, rate: float, eps: float, kind: int,
+               row0: int = 0):
+    """The forward rows after the reduce (``split_rows_reference``) over a
+    rank's rows: the row kernel on a CUDA tensor."""
+    _check_dropout(rate)
+    if part.device.type == "cpu":
+        return split_rows_reference(part, b, res, scale, bias, seed, rate, eps, kind, row0)
+    N, H = part.shape
+    lib = _split_cuda(b.dtype, part.device, H)
+    block = kind != 3
+    part, b = part.contiguous(), b.contiguous()
+    res = res.contiguous() if block else None
+    out = torch.empty(N, H, dtype=b.dtype, device=b.device)
+    s = torch.empty_like(out) if block else None
+    _launch(part, lib.univl_split_rows_tc, "split rows kernel launch",
+            *_ptrs(part, b, res, scale if block else None, bias if block else None, out, s), N, H,
+            kind, eps, *_dropout_args(seed, rate)[:3], seed & 0xFFFFFFFFFFFFFFFF, row0)
+    split_rows.launches += 1
+    return out, s
+
+
+def block_bwd_ln(kind: int, s, g, scale, seed: int, rate: float, eps: float, row0: int = 0):
+    """The LayerNorm head of #4's or #5's backward over a rank's rows
+    (``block_bwd_ln_reference``; on a CUDA tensor the row statistics in
+    place of ds)."""
+    g = g.to(s.dtype)
+    _check(s, g, ln=(scale,))
+    _check_dropout(rate)
+    if s.device.type == "cpu":
+        return block_bwd_ln_reference(kind, s, g, scale, seed, rate, eps, row0)
+    N, H = s.shape
+    lib = _split_cuda(s.dtype, s.device, H)
+    s, g = s.contiguous(), g.contiguous()
+    dropped = torch.empty_like(s)
+    dr = torch.empty_like(s) if kind == 5 else None
+    rows = lib.univl_ffn_block_rows()
+    stats = (torch.empty(-(-N // rows) * rows, 4, dtype=torch.float32, device=s.device)
+             if kind == 4 else None)
+    part = torch.empty(2, -(-N // ln_block_rows(N)), H, dtype=torch.float32, device=s.device)
+    _launch(s, lib.univl_block_bwd_ln_tc, "split LayerNorm head kernel launch", kind,
+            *_ptrs(s, g, scale, dropped, dr, stats, part[0], part[1]), N, H, ln_block_rows(N),
+            eps, *_dropout_args(seed, rate)[:3], seed & 0xFFFFFFFFFFFFFFFF, row0)
+    block_bwd_ln.launches += 1
+    dscale, dbias = part.sum(dim=1)
+    return dropped, dr, stats, dscale, dbias
+
+
+def ffn_bwd_part(pre, g, w1, w2):
+    """#3's and #4's backward GEMMs over a rank's depth: (part f32 [N, H] of
+    dx, dpre, h); g is every row's (dffn for #4)."""
+    g = g.to(pre.dtype)
+    _check(g, w1, w2)
+    if g.device.type == "cpu":
+        return _ffn_backward_core(pre, g, w1, w2)
+    N, H = g.shape
+    F = w1.shape[1]
+    lib = _split_cuda(g.dtype, g.device, H, F)
+    splits = ffn_plan(N, F, H, block=False)["splits"]
+    pre, g, w1, w2 = (t.contiguous() for t in (pre, g, w1, w2))
+    dpre, h = torch.empty_like(pre), torch.empty_like(pre)
+    part = torch.empty(splits, N, H, dtype=torch.float32, device=g.device)
+    _launch(g, lib.univl_ffn_bwd_part_tc, "FFN split backward kernel launch",
+            *_ptrs(pre, g, w1, w2, dpre, h, part), N, H, F, splits)
+    ffn_bwd_part.launches += 1
+    return part[0], dpre, h
+
+
+def ffn_bwd_rows(part, s, g, scale, stats, dtype):
+    """dx's rows after the reduce: round(part + ds) for #4 (``stats``: the
+    head's row statistics, or ds on the CPU), round(part) for #3 (None)."""
+    if part.device.type == "cpu":
+        return (part if stats is None else part + stats).to(dtype)
+    N, H = part.shape
+    lib = _split_cuda(dtype, part.device, H)
+    part = part.contiguous()
+    dx = torch.empty(N, H, dtype=dtype, device=part.device)
+    block = stats is not None
+    _launch(part, lib.univl_ffn_bwd_rows_tc, "FFN split backward rows kernel launch",
+            *_ptrs(part, s.contiguous() if block else None,
+                   g.to(dtype).contiguous() if block else None, scale if block else None, stats,
+                   dx), N, H)
+    ffn_bwd_rows.launches += 1
+    return dx
+
+
+def dense_bwd_dx(dy, w):
+    """#5's dx over a rank's depth K: round(dy @ w^T), [N, K] (w [K, H])."""
+    _check(dy, w)
+    if dy.device.type == "cpu":
+        return _mm(dy, w.t()).to(dy.dtype)
+    N, H = dy.shape
+    K = w.shape[0]
+    lib = _split_cuda(dy.dtype, dy.device, H, K, GEMM_DEPTH)
+    dy, w = dy.contiguous(), w.contiguous()
+    dx = torch.empty(N, K, dtype=dy.dtype, device=dy.device)
+    _launch(dy, lib.univl_dense_bwd_dx_tc, "dense split dx kernel launch", *_ptrs(dy, w, dx), N,
+            H, K)
+    dense_bwd_dx.launches += 1
+    return dx
+
+
+for _wrapper in (ffn_part, dense_part, split_rows, block_bwd_ln, ffn_bwd_part, ffn_bwd_rows,
+                 dense_bwd_dx):
+    _wrapper.launches = 0  # calls on the card (bf16); the CPU path adds nothing
+
+
+def _reduce(part: torch.Tensor, mesh, sp: bool) -> torch.Tensor:
+    """The ranks' partials summed: the rank's rows of the sum under sequence
+    parallelism, all of them otherwise."""
+    return comm.scatter_rows(part, mesh) if sp else comm.all_reduce_sum(part, mesh)
+
+
+def _gather(t: torch.Tensor, mesh, sp: bool) -> torch.Tensor:
+    return comm.gather_rows(t, mesh) if sp else t
+
+
 # ------------------------------------------------------------ differentiable
 
 
@@ -549,3 +769,107 @@ def fused_dense_block(x, r, w, b, scale, bias, seed: int, rate: float,
     if _needs_grad(x, r, w, b, scale, bias):
         return _FusedDenseBlock.apply(x, r, w, b, scale, bias, seed, rate, eps)
     return dense_block_fwd(x, r, w, b, scale, bias, seed, rate, eps)[0]
+
+
+# ------------------------------------------------------------ differentiable, split
+
+
+class _FusedFFNTp(torch.autograd.Function):
+    """#3 over a rank's F: x and the result are the rank's rows under
+    sequence parallelism, every row otherwise (then dx comes back whole)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, mesh, sp):
+        xf = _gather(x, mesh, sp)
+        part, pre = ffn_part(xf, w1, b1, w2)
+        y, _ = split_rows(_reduce(part, mesh, sp), b2, None, None, None, 0, 0.0, LN_EPS, 3)
+        ctx.save_for_backward(xf, w1, w2, pre)
+        ctx.mesh, ctx.sp = mesh, sp
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, w1, w2, pre = ctx.saved_tensors
+        g = g.to(xf.dtype)
+        gf = _gather(g, ctx.mesh, ctx.sp)
+        part, dpre, h = ffn_bwd_part(pre, gf, w1, w2)
+        dx = ffn_bwd_rows(_reduce(part, ctx.mesh, ctx.sp), None, None, None, None, xf.dtype)
+        dw1, db1 = _weight_grads(xf, dpre, w1.dtype)
+        dw2 = torch.matmul(h.t(), gf).to(w2.dtype)
+        db2 = g.sum(dim=0, dtype=torch.float32).to(w2.dtype)  # the rank's rows under SP
+        return dx, dw1, db1, dw2, db2, None, None
+
+
+class _FusedFFNBlockTp(torch.autograd.Function):
+    """#4 over a rank's F; x (the input and the residual) and the result
+    are the rank's rows under sequence parallelism."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, scale, bias, seed, rate, eps, mesh, sp):
+        xf = _gather(x, mesh, sp)
+        part, pre = ffn_part(xf, w1, b1, w2)
+        part = _reduce(part, mesh, sp)
+        row0 = mesh.rank * part.shape[0] if sp else 0
+        out, s = split_rows(part, b2, x, scale, bias, seed, rate, eps, 4, row0)
+        ctx.save_for_backward(xf, w1, w2, scale, pre, s)
+        ctx.seed, ctx.rate, ctx.eps, ctx.row0, ctx.mesh, ctx.sp = seed, rate, eps, row0, mesh, sp
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, w1, w2, scale, pre, s = ctx.saved_tensors
+        g = g.to(s.dtype)
+        dffn, _, stats, dscale, dbias = block_bwd_ln(4, s, g, scale, ctx.seed, ctx.rate,
+                                                     ctx.eps, ctx.row0)
+        dffn_all = _gather(dffn, ctx.mesh, ctx.sp)
+        part, dpre, h = ffn_bwd_part(pre, dffn_all, w1, w2)
+        dx = ffn_bwd_rows(_reduce(part, ctx.mesh, ctx.sp), s, g, scale, stats, s.dtype)
+        dw1, db1 = _weight_grads(xf, dpre, w1.dtype)
+        dw2 = torch.matmul(h.t(), dffn_all).to(w2.dtype)
+        db2 = dffn.sum(dim=0, dtype=torch.float32).to(w2.dtype)
+        return dx, dw1, db1, dw2, db2, dscale, dbias, None, None, None, None, None
+
+
+class _FusedDenseBlockTp(torch.autograd.Function):
+    """#5 over a rank's K (x: every row's context on the rank's heads); r and
+    the result are the rank's rows under sequence parallelism."""
+
+    @staticmethod
+    def forward(ctx, x, r, w, b, scale, bias, seed, rate, eps, mesh, sp):
+        part = _reduce(dense_part(x, w), mesh, sp)
+        row0 = mesh.rank * part.shape[0] if sp else 0
+        out, s = split_rows(part, b, r, scale, bias, seed, rate, eps, 5, row0)
+        ctx.save_for_backward(x, w, scale, s)
+        ctx.seed, ctx.rate, ctx.eps, ctx.row0, ctx.mesh, ctx.sp = seed, rate, eps, row0, mesh, sp
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, s = ctx.saved_tensors
+        dy, dr, _, dscale, dbias = block_bwd_ln(5, s, g, scale, ctx.seed, ctx.rate, ctx.eps,
+                                                ctx.row0)
+        dy_all = _gather(dy, ctx.mesh, ctx.sp)
+        dx = dense_bwd_dx(dy_all, w)
+        dw = torch.matmul(x.t(), dy_all).to(w.dtype)
+        db = dy.sum(dim=0, dtype=torch.float32).to(w.dtype)
+        return dx, dr, dw, db, dscale, dbias, None, None, None, None, None
+
+
+def fused_ffn_tp(x, w1, b1, w2, b2, mesh, sp: bool = False) -> torch.Tensor:
+    """#3 split over the tp ranks of ``mesh`` (its tp view): w1 [H, F/tp],
+    b1 [F/tp], w2 [F/tp, H], b2 [H] whole; with ``sp`` x and the result are
+    the rank's rows."""
+    return _FusedFFNTp.apply(x, w1, b1, w2, b2, mesh, sp)
+
+
+def fused_ffn_block_tp(x, w1, b1, w2, b2, scale, bias, seed: int, rate: float, eps: float,
+                       mesh, sp: bool = False) -> torch.Tensor:
+    """#4 split over the tp ranks (``fused_ffn_tp``'s shares)."""
+    return _FusedFFNBlockTp.apply(x, w1, b1, w2, b2, scale, bias, seed, rate, eps, mesh, sp)
+
+
+def fused_dense_block_tp(x, r, w, b, scale, bias, seed: int, rate: float, eps: float, mesh,
+                         sp: bool = False) -> torch.Tensor:
+    """#5 split over the tp ranks: x [N, K/tp] (the rank's heads), w [K/tp,
+    H]; r and the result the rank's rows under ``sp``."""
+    return _FusedDenseBlockTp.apply(x, r, w, b, scale, bias, seed, rate, eps, mesh, sp)

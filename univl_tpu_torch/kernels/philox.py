@@ -11,10 +11,12 @@ distribution is the TPU's; the bits are not.
 
 Counters, one Philox call per four neighbouring elements of a row:
 - training attention (#2): element (b, h, i, j) is word ``j % 4`` of
-  Philox(counter = (j // 4, i, h, b));
+  Philox(counter = (j // 4, i, h, b)); a tensor-parallel rank's call on
+  heads [head0, head0 + H) counts h from head0;
 - fused FFN block (#4) and fused dense block (#5): element (row, col) is
   word ``col % 4`` of Philox(counter = (col // 4, row, tag, 0)), ``tag``
-  ``FFN_BLOCK_TAG`` or ``DENSE_BLOCK_TAG``;
+  ``FFN_BLOCK_TAG`` or ``DENSE_BLOCK_TAG``; a sequence-parallel rank's rows
+  are rows [row0, row0 + N) of the whole call (``row_dropout_keep``'s row0);
 each under the call's 64-bit seed as the key. An element is kept where its
 word is at least ``keep_threshold(rate)``.
 """

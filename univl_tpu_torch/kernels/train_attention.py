@@ -26,7 +26,9 @@ Dropout bits: the TPU kernels draw theirs from the TPU's own generator
 reproduced here. Both the kernels and the plain version use the counter-based
 Philox4x32-10 of ``kernels/philox.py`` instead: element (b, h, i, j) is kept
 where word ``j % 4`` of Philox(counter = (j // 4, i, h, b), key = the 64-bit
-seed) is at least ``rate * 2**32`` (the TPU kernel's threshold). The mask is a pure function of
+seed) is at least ``rate * 2**32`` (the TPU kernel's threshold); under tensor
+parallelism a rank's call on heads [head0, head0 + heads) puts ``head0 + h``
+in the counter, so its bits are those heads' of the whole call. The mask is a pure function of
 (seed, b, h, i, j), independent of block size and thread layout, so the
 forward kernel, the backward kernel and the plain version see the same mask
 bit for bit. The distribution is the TPU's; the bits are not.
@@ -47,15 +49,16 @@ MAX_HEAD_DIM = 128
 
 
 def dropout_keep(seed: int, B: int, H: int, Lq: int, Lk: int, rate: float,
-                 device=None) -> torch.Tensor:
-    """The kernels' keep mask, bool [B, H, Lq, Lk]."""
+                 device=None, head0: int = 0) -> torch.Tensor:
+    """The kernels' keep mask, bool [B, H, Lq, Lk], of heads [head0, head0 +
+    H) of the call: heads h of it is head ``head0 + h``'s mask."""
     def axis(n, dim):
         shape = [1, 1, 1, 1]
         shape[dim] = n
         return torch.arange(n, dtype=torch.int64, device=device).view(shape)
 
     quads = -(-Lk // 4)
-    c = torch.broadcast_tensors(axis(quads, 3), axis(Lq, 2), axis(H, 1), axis(B, 0))
+    c = torch.broadcast_tensors(axis(quads, 3), axis(Lq, 2), axis(H, 1) + head0, axis(B, 0))
     words = torch.stack(philox4x32(*c, seed), dim=-1)  # [B, H, Lq, quads, 4]
     return words.reshape(B, H, Lq, 4 * quads)[..., :Lk] >= keep_threshold(rate)
 
@@ -86,20 +89,21 @@ def _probs(q, k, key_mask, heads, m=None, l=None):
     return e / l[..., None], m, l
 
 
-def train_attention_reference_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
+def train_attention_reference_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int,
+                                  head0: int = 0):
     """The forward kernel's math in torch ops: f32 scores and softmax, the
     kept probabilities scaled by 1/(1-rate), rounded to the compute dtype
     before PV, PV summed in f32. Returns (out [B, Lq, heads*D], m, l)."""
     p, m, l = _probs(q, k, key_mask, heads)
     if rate > 0.0:
-        keep = dropout_keep(seed, *p.shape, rate, device=p.device)
+        keep = dropout_keep(seed, *p.shape, rate, device=p.device, head0=head0)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
     o = torch.matmul(p.to(v.dtype).float(), _heads(v, heads))
     return _merge(o, q.dtype), m, l
 
 
 def train_attention_reference_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int,
-                                  m, l, g):
+                                  m, l, g, head0: int = 0):
     """The backward kernel's math in torch ops (the TPU kernel's roundings,
     univl_tpu/kernels/train_attention.py:140-172): p recomputed from m and l,
     the same mask, dv from the dropped probs rounded to the compute dtype, ds
@@ -111,7 +115,7 @@ def train_attention_reference_bwd(q, k, v, key_mask, seed: int, rate: float, hea
     dp = torch.matmul(gh, _heads(v, heads).transpose(-1, -2))
     pd = p
     if rate > 0.0:
-        keep = dropout_keep(seed, *p.shape, rate, device=p.device)
+        keep = dropout_keep(seed, *p.shape, rate, device=p.device, head0=head0)
         inv = 1.0 / (1.0 - rate)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -205,7 +209,8 @@ def _aligned(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def _launch_fwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int):
+def _launch_fwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int,
+                head0: int = 0):
     """One of the forward kernels (FWD, FWD_MMA) on CUDA tensors, uncounted:
     (out, m, l)."""
     lib, args = _cuda_args(q, k, heads, rate, kind)
@@ -219,29 +224,32 @@ def _launch_fwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*_aligned(q, k, v), mask.data_ptr(), *_aligned(out), m.data_ptr(),
-                 l.data_ptr(), *args, seed & 0xFFFFFFFFFFFFFFFF, stream)
+                 l.data_ptr(), *args, seed & 0xFFFFFFFFFFFFFFFF, head0, stream)
     _build.check(lib, err, f"training attention forward kernel launch "
                            f"({TENSOR_CORES if kind == FWD_MMA else CUDA_CORES})")
     return out, m, l
 
 
-def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int):
+def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int,
+                        head0: int = 0):
     """(out [B, Lq, heads*D] in q's dtype, m, l [B, heads, Lq] f32): on a
     CUDA tensor the forward kernel of ``cuda_route``, on a CPU one its plain
-    version."""
+    version. ``head0``: the index of q's first head in the whole call (a
+    tensor-parallel rank's share; its dropout bits are those heads')."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
-        return train_attention_reference_fwd(q, k, v, key_mask, seed, rate, heads)
+        return train_attention_reference_fwd(q, k, v, key_mask, seed, rate, heads, head0)
     if _cuda_route_of(q, k, heads) == TENSOR_CORES:
-        out = _launch_fwd(FWD_MMA, q, k, v, key_mask, seed, rate, heads)
+        out = _launch_fwd(FWD_MMA, q, k, v, key_mask, seed, rate, heads, head0)
         train_attention_fwd.launches += 1
     else:
-        out = _launch_fwd(FWD, q, k, v, key_mask, seed, rate, heads)
+        out = _launch_fwd(FWD, q, k, v, key_mask, seed, rate, heads, head0)
         train_attention_fwd.cuda_core_launches += 1
     return out
 
 
-def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
+def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g,
+                head0: int = 0):
     """One of the backward kernels (BWD_WHOLE, BWD_TILED, BWD_MMA) on CUDA
     tensors, uncounted: (dq, dk, dv)."""
     lib, args = _cuda_args(q, k, heads, rate, kind)
@@ -258,40 +266,45 @@ def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int
     if kind != BWD_WHOLE:
         ptrs.append(delta.data_ptr())
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, *args, seed & 0xFFFFFFFFFFFFFFFF,
+        err = fn(*ptrs, *args, seed & 0xFFFFFFFFFFFFFFFF, head0,
                  torch.cuda.current_stream(q.device).cuda_stream)
     what = {BWD_WHOLE: "whole-head", BWD_TILED: "tiled", BWD_MMA: "tensor-core"}[kind]
     _build.check(lib, err, f"training attention {what} backward kernel launch")
     return dq, dk, dv
 
 
-def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
+def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g,
+                        head0: int = 0):
     """(dq, dk, dv), each in q's dtype and layout: on a CUDA tensor the
     backward of ``cuda_route``: the tensor-core kernels, or
     the CUDA-core whole-head kernel where it can stage the head, else the
-    tiled one (``train_attention_bwd_tiled``); on a CPU one the plain version."""
+    tiled one (``train_attention_bwd_tiled``); on a CPU one the plain version.
+    ``head0`` as in ``train_attention_fwd``."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
-        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
+        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g,
+                                             head0)
     if _cuda_route_of(q, k, heads) == TENSOR_CORES:
-        out = _launch_bwd(BWD_MMA, q, k, v, key_mask, seed, rate, heads, m, l, g)
+        out = _launch_bwd(BWD_MMA, q, k, v, key_mask, seed, rate, heads, m, l, g, head0)
         train_attention_bwd.launches += 1
         return out
     if not whole_head_backward_fits(q.shape[1], k.shape[1], q.shape[2] // heads):
-        return train_attention_bwd_tiled(q, k, v, key_mask, seed, rate, heads, m, l, g)
-    out = _launch_bwd(BWD_WHOLE, q, k, v, key_mask, seed, rate, heads, m, l, g)
+        return train_attention_bwd_tiled(q, k, v, key_mask, seed, rate, heads, m, l, g, head0)
+    out = _launch_bwd(BWD_WHOLE, q, k, v, key_mask, seed, rate, heads, m, l, g, head0)
     train_attention_bwd.cuda_core_launches += 1
     return out
 
 
-def train_attention_bwd_tiled(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g):
+def train_attention_bwd_tiled(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g,
+                              head0: int = 0):
     """(dq, dk, dv) through the CUDA-core tiled backward kernels on a CUDA
     tensor, any Lq and Lk (two launches, counted as one call); the plain
     version (the same function) on a CPU one."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
-        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g)
-    out = _launch_bwd(BWD_TILED, q, k, v, key_mask, seed, rate, heads, m, l, g)
+        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g,
+                                             head0)
+    out = _launch_bwd(BWD_TILED, q, k, v, key_mask, seed, rate, heads, m, l, g, head0)
     train_attention_bwd_tiled.launches += 1
     return out
 
@@ -306,27 +319,29 @@ train_attention_bwd_tiled.launches = 0
 
 class _FusedTrainAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, seed, rate, heads):
+    def forward(ctx, q, k, v, key_mask, seed, rate, heads, head0):
         key_mask = key_mask.to(torch.float32)
-        o, m, l = train_attention_fwd(q, k, v, key_mask, seed, rate, heads)
+        o, m, l = train_attention_fwd(q, k, v, key_mask, seed, rate, heads, head0)
         ctx.save_for_backward(q, k, v, key_mask, m, l)
-        ctx.seed, ctx.rate, ctx.heads = seed, rate, heads
+        ctx.seed, ctx.rate, ctx.heads, ctx.head0 = seed, rate, heads, head0
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_mask, m, l = ctx.saved_tensors
         dq, dk, dv = train_attention_bwd(q, k, v, key_mask, ctx.seed, ctx.rate, ctx.heads,
-                                         m, l, g)
-        return dq, dk, dv, None, None, None, None
+                                         m, l, g, ctx.head0)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def fused_train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           key_mask: torch.Tensor, seed: int, rate: float,
-                          heads: int) -> torch.Tensor:
+                          heads: int, head0: int = 0) -> torch.Tensor:
     """Attention with in-kernel probability dropout, differentiable.
 
     q: [B, Lq, heads*D], k, v: [B, Lk, heads*D], one dtype (f32 or bf16);
     key_mask: [B, Lk], 1 keep and 0 drop; seed: a host int (the Philox key);
-    rate: the probability dropout rate. Returns [B, Lq, heads*D]."""
-    return _FusedTrainAttention.apply(q, k, v, key_mask, seed, rate, heads)
+    rate: the probability dropout rate; head0: the index of the first of the
+    ``heads`` heads in the whole call (a tensor-parallel rank's share: heads
+    [head0, head0 + heads) of it, bit for bit). Returns [B, Lq, heads*D]."""
+    return _FusedTrainAttention.apply(q, k, v, key_mask, seed, rate, heads, head0)

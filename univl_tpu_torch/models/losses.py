@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from univl_tpu_torch.parallel import comm
+
 
 def _mil_mask(batch_size: int, n_pair: int) -> np.ndarray:
     """Block-diagonal positive mask: kron(I_B, ones(n_pair, n_pair))."""
@@ -61,17 +63,40 @@ def cross_en_loss(sim_matrix: torch.Tensor) -> torch.Tensor:
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         ignore_index: int = -1) -> torch.Tensor:
+                         ignore_index: int = -1, vocab=None) -> torch.Tensor:
     """The mean cross entropy (in f32) over positions whose label is not
     ``ignore_index``, 0 when none is (torch's ``ignore_index`` semantics
     without the NaN). Caption targets are padded with 0, not -1, so their
-    padded positions count, as in the reference."""
+    padded positions count, as in the reference. ``vocab`` (a
+    ``parallel/tp.py:VocabShard``): the logits are a tensor-parallel rank's
+    vocab columns, and ``vocab_parallel_nll`` gives each position's loss."""
     logits = logits.reshape(-1, logits.shape[-1]).float()
     labels = labels.reshape(-1).long()
     valid = labels != ignore_index
-    logpt = torch.log_softmax(logits, dim=-1)
-    nll = -logpt.gather(1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    if vocab is not None:
+        nll = vocab_parallel_nll(logits, torch.where(valid, labels, 0), vocab)
+    else:
+        logpt = torch.log_softmax(logits, dim=-1)
+        nll = -logpt.gather(1, torch.where(valid, labels, 0)[:, None])[:, 0]
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, vocab) -> torch.Tensor:
+    """-log softmax(logits)[label] of each row over a vocab split across the
+    tp ranks (Megatron's vocab-parallel cross entropy): logits ``[M, V/tp]``
+    are the rank's columns ``[vocab.start, vocab.start + vocab.size)``. The
+    row max, the sum of exponentials and the target's logit are each reduced
+    over the ranks, so no rank holds ``[M, V]``; the gradient reaches each
+    rank's columns alone (the reductions' backward is the identity, the loss
+    being the same on every rank)."""
+    mesh = vocab.mesh
+    m = comm.all_reduce_max(logits.detach().amax(dim=-1), mesh)
+    sum_exp = comm.reduce_from_tp(torch.exp(logits - m[:, None]).sum(dim=-1), mesh)
+    local = labels - vocab.start
+    inside = (local >= 0) & (local < vocab.size)
+    target = logits.gather(1, torch.where(inside, local, 0)[:, None])[:, 0]
+    target = comm.reduce_from_tp(torch.where(inside, target, 0.0), mesh)
+    return torch.log(sum_exp) + m - target
 
 
 def mfm_nce_loss(frame_scores: torch.Tensor, video: torch.Tensor, video_mask: torch.Tensor,

@@ -51,6 +51,7 @@ from univl_tpu_torch.models.losses import (
 from univl_tpu_torch.nn.decoder import CaptionDecoder
 from univl_tpu_torch.nn.layers import LayerNormTF, Linear, PredictionHeadTransform, Randomness
 from univl_tpu_torch.nn.towers import CrossEncoder, TextEncoder, VisualEncoder
+from univl_tpu_torch.parallel import comm
 
 
 class NormalizeVideo(nn.Module):
@@ -83,11 +84,14 @@ class TiedHead(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.predictions = _HeadPredictions(hidden_size, out_size, compute_dtype, device)
+        self.vocab = None  # a VocabShard: w and the bias are a tp rank's vocab columns
 
     def forward(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         pred = self.predictions
-        return torch.matmul(pred.transform(h).float(),
-                            w.to(self.compute_dtype).float()) + pred.bias
+        t = pred.transform(h)
+        if self.vocab is not None:  # the column-parallel logits' input
+            t = comm.copy_to_tp(t, self.vocab.mesh)
+        return torch.matmul(t.float(), w.to(self.compute_dtype).float()) + pred.bias
 
 
 class UniVL(nn.Module):
@@ -111,6 +115,20 @@ class UniVL(nn.Module):
         if self.has_pretrain_heads:
             self.cls = TiedHead(cfg.bert.hidden_size, cfg.bert.vocab_size, dt, device)
             self.cls_visual = TiedHead(cfg.visual.hidden_size, cfg.video_dim, dt, device)
+        self.vocab = None  # set_vocab_shard
+        self.tp = None  # parallel/tp.py:parallelize's TensorParallel
+
+    def set_vocab_shard(self, vocab) -> None:
+        """The word table (bert's, shared by the decoder and the
+        masked-language head) and the logit biases hold a tensor-parallel
+        rank's vocab rows ``vocab`` (a ``parallel/tp.py:VocabShard``): the
+        lookups are vocab-parallel, the logits the rank's columns, and the
+        cross entropies over them vocab-parallel."""
+        self.vocab = self.bert.vocab = vocab
+        if self.has_decoder:
+            self.decoder.vocab = vocab
+        if self.has_pretrain_heads:
+            self.cls.vocab = vocab
 
     def encode(self, input_ids, token_type_ids, attention_mask, video, video_mask,
                rng: Optional[Randomness] = None):
@@ -263,7 +281,8 @@ class UniVL(nn.Module):
             lt = attention_mask.shape[-1]
             word_table = self.bert.embeddings.word_embeddings.weight
             mlm_logits = self.cls(cross_out[:, :lt], word_table.t())
-            out["alm_loss"] = masked_cross_entropy(mlm_logits, flat2(batch["token_labels"]))
+            out["alm_loss"] = masked_cross_entropy(mlm_logits, flat2(batch["token_labels"]),
+                                                   vocab=self.vocab)
             mfm_scores = self.cls_visual(cross_out[:, lt:],
                                          self.visual.embeddings.word_embeddings.weight)
             out["nce_loss"] = mfm_nce_loss(mfm_scores, video, video_mask,
@@ -275,7 +294,8 @@ class UniVL(nn.Module):
             logits = self.decoder_logits(src_seq, src_vis, attention_mask, video_mask,
                                          flat2(batch["input_caption_ids"]),
                                          flat2(batch["decoder_mask"]), rng)
-            out["decoder_loss"] = masked_cross_entropy(logits, flat2(batch["output_caption_ids"]))
+            out["decoder_loss"] = masked_cross_entropy(logits, flat2(batch["output_caption_ids"]),
+                                                       vocab=self.vocab)
         if c.do_pretrain or c.task_type == "retrieval":
             sim = self.similarity_logits(src_seq, src_vis, attention_mask, video_mask, rng)
             out["sim_loss_text_visual"] = cross_en_loss(sim)
@@ -292,7 +312,8 @@ class UniVL(nn.Module):
     def decoder_logits(self, sequence_output, visual_output, attention_mask, video_mask,
                        input_caption_ids, decoder_mask,
                        rng: Optional[Randomness] = None) -> torch.Tensor:
-        """Cross-encode once, then the full-prefix decoder: f32 logits [B, L, V]."""
+        """Cross-encode once, then the full-prefix decoder: f32 logits [B, L, V]
+        (a tensor-parallel rank's vocab columns under ``set_vocab_shard``)."""
         cross_out, _, concat_mask = self.get_cross_output(
             sequence_output, visual_output, attention_mask, video_mask, rng)
         return self.decode_step_logits(cross_out, concat_mask, input_caption_ids, decoder_mask,

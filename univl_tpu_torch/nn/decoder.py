@@ -37,8 +37,11 @@ from univl_tpu_torch.nn.layers import (
     ResidualOutput,
     _Intermediate,
     dropout,
+    ffn_input,
     gelu_erf,
 )
+from univl_tpu_torch.parallel import comm
+from univl_tpu_torch.parallel.tp import vocab_embed
 
 
 def decoder_self_attn_bias(answer_mask: torch.Tensor) -> torch.Tensor:
@@ -81,7 +84,8 @@ class DecoderLayer(nn.Module):
         slf_out = self.slf_attn.output(slf, x, rng)
         enc = self.enc_attn.att(slf_out, key_mask=encoder_mask, kv_in=encoder_out, rng=rng)
         enc_out = self.enc_attn.output(enc, slf_out, rng)
-        return self.output(gelu_erf(self.intermediate.dense(enc_out)), enc_out, rng)
+        return self.output(gelu_erf(self.intermediate.dense(ffn_input(self.output, enc_out))),
+                           enc_out, rng)
 
 
 class _Stack(nn.Module):
@@ -117,12 +121,16 @@ class _Classifier(nn.Module):
 
 
 class CaptionDecoder(nn.Module):
-    """Decoder stack and tied classifier; returns f32 logits [B, L, vocab]."""
+    """Decoder stack and tied classifier; returns f32 logits [B, L, vocab].
+    Under tensor parallelism (``vocab``, a ``parallel/tp.py:VocabShard``) the
+    word table and the classifier bias are the rank's vocab rows: the lookup
+    is vocab-parallel and the logits are the rank's columns."""
 
     def __init__(self, cfg, compute_dtype: torch.dtype, device=None):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.vocab = None
         self.embeddings = _Embeddings(cfg.hidden_size, device)
         self.decoder = _Stack(cfg, compute_dtype, device)
         self.classifier = _Classifier(cfg, compute_dtype, device)
@@ -133,7 +141,9 @@ class CaptionDecoder(nn.Module):
         """``word_table``/``pos_table``: BERT's word and position embeddings;
         ``rng``: the training step's randomness (training mode only)."""
         L = input_caption_ids.shape[1]
-        x = word_table[input_caption_ids] + pos_table[:L][None]
+        words = (word_table[input_caption_ids] if self.vocab is None
+                 else vocab_embed(word_table, input_caption_ids, self.vocab))
+        x = words + pos_table[:L][None]
         x = self.embeddings.LayerNorm(x)
         if self.training:
             x = dropout(x, self.cfg.hidden_dropout_prob, rng)
@@ -146,6 +156,8 @@ class CaptionDecoder(nn.Module):
             x = layer(x, encoder_out, self_bias, encoder_mask, None if rng is None else rng.fold(i))
         pred = self.classifier.cls.predictions
         h = pred.transform(x)
+        if self.vocab is not None:  # the column-parallel logits' input
+            h = comm.copy_to_tp(h, self.vocab.mesh)
         table = word_table.to(self.compute_dtype)
         # products of compute-dtype operands, summed in f32
         return torch.matmul(h.float(), table.float().t()) + pred.bias

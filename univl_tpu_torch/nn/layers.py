@@ -37,6 +37,20 @@ dropout; nothing reads PyTorch's global random state.
 ``LayerNormTF`` computes in plain PyTorch unless its ``fused`` flag is set
 (``set_fused_layer_norm``, the counterpart of JAX's ``UNIVL_TPU_FUSED_LN=1``,
 set per model): then ``kernels.layernorm.fused_layer_norm`` (#6).
+
+Tensor parallelism (``parallel/tp.py:parallelize`` sets it on a model that
+holds a rank's shares): ``MultiHeadAttention`` runs the rank's heads
+(``local_heads`` from ``head0``, the column-parallel q/k/v) behind
+``comm.copy_to_tp``, ``ResidualOutput`` (and ``FusedFFNOutput``) takes the
+row-parallel product's partial through ``comm.reduce_from_tp`` before the
+bias, or with the kernels #3-#5 their split halves (``kernels/ffn.py``), and
+the layers put ``copy_to_tp`` before the FFN's column-parallel product. With
+sequence parallelism (``parallel/sp.py``) on an encoder stack the stream
+between the blocks is the rank's rows ``[n, H]``: the same places gather the
+rows and scatter them instead. Every random draw keeps the unsplit call's
+shape and bits: the plain dropout draws the full shape and takes the rank's
+rows (``rows``) or heads (``sdpa_bias``'s ``heads``), and the kernels take the
+offset of the rank's first head (#2) or row (#4, #5) in their counters.
 """
 
 from __future__ import annotations
@@ -57,9 +71,17 @@ from torch.utils.checkpoint import (
 
 from univl_tpu_torch.config import check_fused_ffn, check_remat
 from univl_tpu_torch.kernels.attention import fused_attention_masked
-from univl_tpu_torch.kernels.ffn import fused_dense_block, fused_ffn, fused_ffn_block
+from univl_tpu_torch.kernels.ffn import (
+    fused_dense_block,
+    fused_dense_block_tp,
+    fused_ffn,
+    fused_ffn_block,
+    fused_ffn_block_tp,
+    fused_ffn_tp,
+)
 from univl_tpu_torch.kernels.layernorm import fused_layer_norm
 from univl_tpu_torch.kernels.train_attention import fused_train_attention
+from univl_tpu_torch.parallel import comm, sp
 
 MASK_BIAS = -10000.0
 LN_EPS = 1e-12
@@ -166,27 +188,46 @@ def kernel_dropout(training: bool, rate: float, rng: Optional[Randomness], call:
     return rate, (rng.kernel_seed(call) if rate > 0.0 else 0)
 
 
-def dropout(x: torch.Tensor, rate: float, rng: Optional[Randomness]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng: Optional[Randomness],
+            rows: Optional[tuple] = None, heads: Optional[tuple] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, kept values
-    divided by it; rate 0 is the identity and draws nothing."""
+    divided by it; rate 0 is the identity and draws nothing. A
+    tensor-parallel rank's share draws the whole tensor's mask and takes its
+    part, so its bits, and every later draw of the generator, are the
+    unsplit run's: ``rows`` = (row0, total) for rows [row0, row0 + n) of a
+    ``[total, H]`` stream (x ``[n, H]``), ``heads`` = (head0, total) for heads
+    [head0, head0 + h) of ``[B, total, Lq, Lk]`` probabilities."""
     if rate == 0.0:
         return x
     if rng is None:
         raise ValueError("dropout in training mode needs a Randomness")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=rng.device, device=x.device) < keep_prob
+    shape = x.shape
+    if rows is not None:
+        shape = (rows[1], *x.shape[1:])
+    elif heads is not None:
+        shape = (x.shape[0], heads[1], *x.shape[2:])
+    draw = torch.rand(shape, generator=rng.device, device=x.device)
+    if rows is not None:
+        draw = draw[rows[0]:rows[0] + x.shape[0]]
+    elif heads is not None:
+        draw = draw[:, heads[0]:heads[0] + x.shape[1]]
+    keep = draw < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
 
 
 def sdpa_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-              dropout_rate: float = 0.0, rng: Optional[Randomness] = None) -> torch.Tensor:
+              dropout_rate: float = 0.0, rng: Optional[Randomness] = None,
+              heads: Optional[tuple] = None) -> torch.Tensor:
     """Attention with an additive bias broadcastable to [B, H, Lq, Lk], in
     plain PyTorch (``univl_tpu/nn/layers.py:sdpa_xla``): scores and softmax
     in f32, the probabilities dropped at ``dropout_rate`` (drawn from
-    ``rng.device``), rounded to q's dtype before PV, PV summed in f32."""
+    ``rng.device``), rounded to q's dtype before PV, PV summed in f32.
+    ``heads`` = (head0, total): q holds heads [head0, head0 + H) of the call
+    (a tensor-parallel rank's), whose dropout bits they keep."""
     scores = (torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
               + bias.float())
-    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, rng).to(q.dtype)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, rng, heads=heads).to(q.dtype)
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
@@ -250,6 +291,15 @@ class MultiHeadAttention(nn.Module):
         self.query = Linear(hidden_size, hidden_size, compute_dtype, device)
         self.key = Linear(hidden_size, hidden_size, compute_dtype, device)
         self.value = Linear(hidden_size, hidden_size, compute_dtype, device)
+        self.local_heads, self.head0 = num_heads, 0  # a tensor-parallel rank's heads
+        self.tp = None  # the tp view, when q/k/v hold the rank's heads
+        self.sp = None  # the tp view, when x is the rank's rows (sequence parallelism)
+
+    def set_tensor_parallel(self, mesh) -> None:
+        """q/k/v hold heads [head0, head0 + local_heads) of ``mesh``'s rank."""
+        self.tp = mesh
+        self.local_heads = self.num_heads // mesh.size
+        self.head0 = mesh.rank * self.local_heads
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
                 kv_in: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
@@ -257,25 +307,38 @@ class MultiHeadAttention(nn.Module):
         """Exactly one of ``key_mask`` ([B, Lk], 1 keep, 0 drop: the eval
         attention kernel, or in training the training-attention kernels on
         the dense projections) and ``bias`` (additive: ``sdpa_bias``, with
-        probability dropout in training)."""
+        probability dropout in training). Under tensor parallelism the
+        result is the rank's heads' context; under sequence parallelism x
+        is the rank's rows of a self-attention's ``[B, L, H]`` input (B, L
+        from ``key_mask``)."""
         if (key_mask is None) == (bias is None):
             raise ValueError("give exactly one of key_mask and bias")
+        if self.sp is not None:
+            x = comm.gather_rows_tp(x, self.sp).view(*key_mask.shape, x.shape[-1])
+            kv_in = None
+        elif self.tp is not None:
+            x = comm.copy_to_tp(x, self.tp)
+            kv_in = None if kv_in is None else comm.copy_to_tp(kv_in, self.tp)
         kv_in = x if kv_in is None else kv_in
+        heads = self.local_heads
         if self.training and key_mask is not None:
             rate, seed = kernel_dropout(True, self.dropout_rate, rng, CALL_ATTENTION)
+            shard = {} if self.tp is None else {"head0": self.head0}  # the rank's heads
             return fused_train_attention(self.query(x), self.key(kv_in), self.value(kv_in),
-                                         key_mask, seed, rate, self.num_heads)
+                                         key_mask, seed, rate, heads, **shard)
 
         def split(t):  # a strided [B, H, L, D] view of [B, L, H*D]
-            return t.view(t.shape[0], t.shape[1], self.num_heads, self.head_dim).transpose(1, 2)
+            return t.view(t.shape[0], t.shape[1], heads, self.head_dim).transpose(1, 2)
 
         q, k, v = split(self.query(x)), split(self.key(kv_in)), split(self.value(kv_in))
         if key_mask is not None:
             ctx = fused_attention_masked(q, k, v, key_mask)
         else:
-            ctx = sdpa_bias(q, k, v, bias, self.dropout_rate if self.training else 0.0, rng)
+            shard = {} if self.tp is None else {"heads": (self.head0, self.num_heads)}
+            ctx = sdpa_bias(q, k, v, bias, self.dropout_rate if self.training else 0.0, rng,
+                            **shard)
         b, l = x.shape[:2]
-        return ctx.transpose(1, 2).reshape(b, l, self.num_heads * self.head_dim)
+        return ctx.transpose(1, 2).reshape(b, l, heads * self.head_dim)
 
 
 class ResidualOutput(nn.Module):
@@ -291,9 +354,44 @@ class ResidualOutput(nn.Module):
         self.LayerNorm = LayerNormTF(features, device=device)
         self.dropout_rate = dropout_rate
         self.fold_epilogue = fold_epilogue
+        self.tp = None  # the tp view, when dense is row-parallel (the rank's input columns)
+        self.sp = None  # the tp view, when the residual and result are the rank's rows
+
+    def sp_parameters(self):
+        """The replicated parameters of the row-sharded region."""
+        return [self.dense.bias, self.LayerNorm.weight, self.LayerNorm.bias]
+
+    def _rows(self, n: int) -> Optional[tuple]:
+        """(row0, total) of the rank's ``n`` rows under sequence parallelism."""
+        return None if self.sp is None else (self.sp.rank * n, n * self.sp.size)
+
+    def _forward_tp(self, x: torch.Tensor, residual: torch.Tensor,
+                    rng: Optional[Randomness]) -> torch.Tensor:
+        """The row-parallel product's partial reduced over the tp ranks, then
+        the bias, dropout, residual and LayerNorm (on the rank's rows under
+        sequence parallelism: then ``[n, H]``)."""
+        dt, ln, seq = self.dense.compute_dtype, self.LayerNorm, self.sp is not None
+        if self.fold_epilogue:
+            rate, seed = kernel_dropout(self.training, self.dropout_rate, rng, CALL_DENSE_BLOCK)
+            r = residual.reshape(-1, residual.shape[-1]).to(dt)
+            out = fused_dense_block_tp(
+                x.reshape(-1, x.shape[-1]).to(dt), r, self.dense.weight.to(dt).t(),
+                self.dense.bias.to(dt), ln.weight, ln.bias, seed, rate, ln.eps, self.tp, seq)
+            return out if seq else out.view(residual.shape)
+        h = F.linear(x.to(dt), self.dense.weight.to(dt))
+        if seq:
+            h = comm.scatter_rows_tp(h.reshape(-1, h.shape[-1]), self.tp)
+        else:
+            h = comm.reduce_from_tp(h, self.tp)
+        h = h + self.dense.bias.to(dt)
+        if self.training:
+            h = dropout(h, self.dropout_rate, rng, rows=self._rows(h.shape[0]))
+        return self.LayerNorm(h + residual)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
+        if self.tp is not None:
+            return self._forward_tp(x, residual, rng)
         if self.fold_epilogue:
             dt, ln = self.dense.compute_dtype, self.LayerNorm
             rate, seed = kernel_dropout(self.training, self.dropout_rate, rng, CALL_DENSE_BLOCK)
@@ -321,6 +419,19 @@ class FusedFFNOutput(ResidualOutput):
         x2 = x.reshape(-1, x.shape[-1]).to(dt)
         w = (intermediate.weight.to(dt).t(), intermediate.bias.to(dt),
              self.dense.weight.to(dt).t(), self.dense.bias.to(dt))
+        if self.tp is not None:  # the split halves; x is the rank's rows under sp
+            seq = self.sp is not None
+            if self.fold_epilogue:
+                rate, seed = kernel_dropout(self.training, self.dropout_rate, rng,
+                                            CALL_FFN_BLOCK)
+                out = fused_ffn_block_tp(x2, *w, ln.weight, ln.bias, seed, rate, ln.eps,
+                                         self.tp, seq)
+                return out if seq else out.view(x.shape)
+            y = fused_ffn_tp(x2, *w, self.tp, seq)
+            if self.training:
+                y = dropout(y, self.dropout_rate, rng, rows=self._rows(y.shape[0]))
+            y = ln(y + x2)
+            return y if seq else y.view(x.shape)
         if self.fold_epilogue:
             rate, seed = kernel_dropout(self.training, self.dropout_rate, rng, CALL_FFN_BLOCK)
             return fused_ffn_block(x2, *w, ln.weight, ln.bias, seed, rate, ln.eps).view(x.shape)
@@ -383,8 +494,27 @@ class TransformerLayer(nn.Module):
         attn_out = self.attention.output(attn, x, rng)
         if self.fused_ffn:
             return self.output(attn_out, self.intermediate.dense, rng)
-        inter = gelu_erf(self.intermediate.dense(attn_out))
-        return self.output(inter, attn_out, rng)
+        return self.output(gelu_erf(self.intermediate.dense(ffn_input(self.output, attn_out))),
+                           attn_out, rng)
+
+    def set_sequence_parallel(self, mesh) -> bool:
+        """Run the layer on the rank's rows of the stream; False (nothing
+        set) where the attention or the FFN is not split over the ranks."""
+        if self.attention.self.tp is None or self.attention.output.tp is None \
+                or self.output.tp is None:
+            return False
+        self.attention.self.sp = self.attention.output.sp = self.output.sp = mesh
+        return True
+
+
+def ffn_input(output: "ResidualOutput", x: torch.Tensor) -> torch.Tensor:
+    """The unfused FFN's input under tensor parallelism: the column-parallel
+    product's ``copy_to_tp``, or the rows gathered under sequence parallelism."""
+    if output.sp is not None:
+        return comm.gather_rows_tp(x, output.sp)
+    if output.tp is not None:
+        return comm.copy_to_tp(x, output.tp)
+    return x
 
 
 # the products "dots" keeps: the 2-D weight products (nn.Linear's GEMMs), as
@@ -422,10 +552,17 @@ class TransformerStack(nn.Module):
         check_remat(remat)
         self.tag = tag
         self.remat = remat
+        self.sp = None  # the tp view, when the stack runs sequence-parallel
         self.layer = nn.ModuleList(
             TransformerLayer(cfg, compute_dtype, device, use_fused_ffn)
             for _ in range(cfg.num_hidden_layers)
         )
+
+    def set_sequence_parallel(self, mesh) -> None:
+        """Sequence parallelism over ``mesh`` (the tp view) where every layer
+        is split over its ranks; otherwise the stack stays as it is."""
+        if all(layer.set_sequence_parallel(mesh) for layer in self.layer):
+            self.sp = mesh
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
@@ -434,6 +571,9 @@ class TransformerStack(nn.Module):
                    if self.remat == "dots" else noop_context_fn)
         if rng is not None:
             rng = rng.run(self.tag)
+        shape = x.shape
+        if self.sp is not None:
+            x = sp.enter(x, self.sp)
         for i, layer in enumerate(self.layer):
             if remat:
                 # the port's generators are keyed, so PyTorch's global RNG
@@ -443,6 +583,8 @@ class TransformerStack(nn.Module):
                                context_fn=context)
             else:
                 x = _run_layer(layer, x, key_mask, rng, i)
+        if self.sp is not None:
+            x = sp.leave(x, self.sp, shape)
         return x
 
 

@@ -28,6 +28,7 @@ from univl_tpu_torch.nn.layers import (
     TransformerStack,
     dropout,
 )
+from univl_tpu_torch.parallel.tp import vocab_embed
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -67,17 +68,22 @@ class _TextEmbeddings(nn.Module):
 
 
 class TextEncoder(_Tower):
-    """BERT text encoder without its pooler, which UniVL never reads."""
+    """BERT text encoder without its pooler, which UniVL never reads. Under
+    tensor parallelism its word table may be the rank's vocab rows
+    (``vocab``, a ``parallel/tp.py:VocabShard``): the lookup is then
+    vocab-parallel."""
 
     def __init__(self, cfg, compute_dtype: torch.dtype, device=None, use_fused_ffn=False,
                  remat=False):
         super().__init__(cfg, compute_dtype, _TextEmbeddings(cfg, device), "text", device,
                          use_fused_ffn, remat)
+        self.vocab = None
 
     def forward(self, input_ids, token_type_ids, attention_mask,
                 rng: Optional[Randomness] = None) -> torch.Tensor:
         e = self.embeddings
-        x = (e.word_embeddings(input_ids) + e.position_embeddings(_positions(input_ids))
+        x = (vocab_embed(e.word_embeddings.weight, input_ids, self.vocab)
+             + e.position_embeddings(_positions(input_ids))
              + e.token_type_embeddings(token_type_ids))
         return self._encode(x, attention_mask, rng)
 

@@ -1,12 +1,22 @@
-"""The port's data-parallel ranks, the counterpart of ``univl_tpu/parallel/mesh.py``.
+"""The port's ranks, the counterpart of ``univl_tpu/parallel/mesh.py`` and
+of ``univl_tpu/parallel/tp.py:make_mesh_2d``.
 
 JAX runs data parallelism as one program over a 1-D device mesh whose axis
-is ``DP_AXIS``; the port runs one process per rank in a ``torch.distributed``
-process group, as the reference's NCCL DDP does. ``Mesh`` is one rank's view
-of it: its rank, the world size, its local rank and device, the data group
-(the default group: NCCL on the card, gloo on the CPU) and a second gloo
-group for host-side control (the preemption flag, the eval metric, the
-barriers around rank 0's writes), whose reads never synchronise the card.
+is ``DP_AXIS``, and tensor parallelism over a second axis ``TP_AXIS``; the
+port runs one process per rank in a ``torch.distributed`` process group, as
+the reference's NCCL DDP does. ``Mesh`` is one rank's view of it: its rank,
+the world size, its local rank and device, the data group (the default
+group: NCCL on the card, gloo on the CPU) and a second gloo group for
+host-side control (the preemption flag, the eval metric, the barriers around
+rank 0's writes), whose reads never synchronise the card.
+
+With ``tp`` above 1 the ranks form a (dp, tp) grid with tp the inner axis,
+``rank = dp_index * tp + tp_index`` (``make_mesh_2d``'s layout: a tp group's
+ranks sit on neighbouring cards), and each rank joins one group of each
+axis. ``mesh.axis(DP_AXIS)`` and ``mesh.axis(TP_AXIS)`` are views of the
+rank in those groups (their rank, size and group), which the collectives of
+``parallel/comm.py`` take; with tp 1 the dp view is the mesh itself and the
+tp view a group of one rank, whose collectives are the identity.
 
 Ranks come from one of two places:
   - torchrun (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
@@ -40,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 DP_AXIS = "dp"
+TP_AXIS = "tp"
 INIT_METHOD_ENV = "UNIVL_TORCH_INIT_METHOD"  # set by spawn for its children
 TIMEOUT = datetime.timedelta(minutes=30)  # a collective that waits longer raises
 CPU_THREADS = 1  # torch threads of a CPU rank; several ranks share the host's cores
@@ -58,10 +69,28 @@ class Mesh:
     control: Any = None  # the gloo group for host-side control
     store_dir: Optional[str] = None  # a one-rank group's FileStore directory
     staging: dict = field(default_factory=dict)  # comm.py's pinned host buffers
+    group: Any = None  # the data collectives' group: None is the world's
+    tp: int = 1  # ranks in a tensor-parallel group, the inner axis
+    sequence_parallel: bool = False  # with tp above 1: parallel/sp.py's row shards
+    views: dict = field(default_factory=dict)  # axis name -> this rank's view in its group
 
     @property
     def distributed(self) -> bool:
         return self.backend is not None
+
+    @property
+    def dp(self) -> int:
+        return self.size // self.tp
+
+    def axis(self, name: str) -> "Mesh":
+        """This rank's view in its ``DP_AXIS`` or ``TP_AXIS`` group."""
+        if name in self.views:
+            return self.views[name]
+        if name == DP_AXIS and self.tp == 1:
+            return self
+        if name == TP_AXIS and self.tp == 1:
+            return Mesh(device=self.device)
+        raise KeyError(f"no {name!r} axis in this mesh")
 
     @property
     def primary(self) -> bool:
@@ -141,11 +170,14 @@ def rank_error(n_gpu: int, device_type: str, backend: Optional[str]) -> Optional
     return None
 
 
-def init(device: str, backend: Optional[str] = None) -> Mesh:
+def init(device: str, backend: Optional[str] = None, tp: int = 1,
+         sequence_parallel: bool = False) -> Mesh:
     """Join the process group: a launcher's ranks, or a one-rank group of
     this process alone (``--zero1`` on one card, whose collectives are real
     calls of the backend over one rank). ``device`` is ``--device``; a
-    rank's device is ``cuda:local_rank`` modulo the visible cards."""
+    rank's device is ``cuda:local_rank`` modulo the visible cards. With
+    ``tp`` above 1 (which must divide the world size) every rank also
+    creates the dp and tp groups, in one order on every rank."""
     device_type = torch.device(device).type
     backend = backend or default_backend(device_type)
     store_dir = None
@@ -166,11 +198,26 @@ def init(device: str, backend: Optional[str] = None) -> Mesh:
         dev = torch.device(device_type)
         if size > 1:
             torch.set_num_threads(CPU_THREADS)
+    if size % tp:
+        raise ValueError(f"--tensor_parallel {tp} must divide the {size} ranks")
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=size,
                             timeout=TIMEOUT)
     control = dist.new_group(backend="gloo", timeout=TIMEOUT)
-    return Mesh(rank=rank, size=size, local_rank=local_rank, device=dev, backend=backend,
-                control=control, store_dir=store_dir)
+    mesh = Mesh(rank=rank, size=size, local_rank=local_rank, device=dev, backend=backend,
+                control=control, store_dir=store_dir, tp=tp,
+                sequence_parallel=sequence_parallel and tp > 1)
+    if tp > 1:
+        dp = size // tp
+        grids = {TP_AXIS: [[d * tp + t for t in range(tp)] for d in range(dp)],
+                 DP_AXIS: [[d * tp + t for d in range(dp)] for t in range(tp)]}
+        for name in (TP_AXIS, DP_AXIS):
+            for ranks in grids[name]:
+                group = dist.new_group(ranks, backend=backend, timeout=TIMEOUT)
+                if rank in ranks:
+                    mesh.views[name] = Mesh(rank=ranks.index(rank), size=len(ranks),
+                                            local_rank=local_rank, device=dev, backend=backend,
+                                            control=control, group=group)
+    return mesh
 
 
 def kernel_launches() -> dict:

@@ -17,6 +17,11 @@ Everything but the schedule runs on the device in ``torch._foreach_*`` ops,
 with no host sync: the step count lives on the host, so the learning rate is
 a host number. ``state_dict`` carries the step count beside the moments, so
 one ``load_state_dict`` restores the whole optimizer.
+
+Under tensor parallelism (``set_tensor_parallel``) a rank holds its share of
+the split parameters and their moments: the global norm and the per-tensor
+clip norms sum the squares of a split tensor's shares over the tp ranks and
+count a replicated one once, so both clips see the whole gradient's norms.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from univl_tpu_torch.nn.layers import LayerNormTF
+from univl_tpu_torch.parallel import comm
 
 
 def warmup_cosine(x, warmup=0.002):
@@ -82,6 +88,25 @@ class BertAdam(torch.optim.Optimizer):
         self.max_grad_norm, self.global_clip_norm = max_grad_norm, global_clip_norm
         self.state_dtype = {None: None, "float32": None, "bfloat16": torch.bfloat16}[state_dtype]
         self.steps = 0  # updates taken; the schedule reads it before the increment
+        self.tp = None  # the tp view, with the ids of the split parameters in ``sharded``
+        self.sharded = frozenset()
+
+    def set_tensor_parallel(self, mesh, sharded) -> None:
+        """The parameters whose ids are in ``sharded`` are shares split over
+        ``mesh``'s ranks (the tp view): their norms sum over the ranks."""
+        if mesh.size > 1:
+            self.tp, self.sharded = mesh, frozenset(sharded)
+
+    def full_sq(self, tensors: List[torch.Tensor], params: List[torch.Tensor],
+                sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The squared norms of ``tensors`` (the gradients of ``params``) as
+        whole tensors: a split one's summed over the tp ranks, a collective."""
+        if sq is None:
+            norms = torch.stack(torch._foreach_norm(tensors))
+            sq = norms * norms
+        split = torch.tensor([id(p) in self.sharded for p in params], device=sq.device)
+        part = comm.all_reduce_sum(torch.where(split, sq, 0.0), self.tp)
+        return torch.where(split, part, sq)
 
     def lr_at(self, step: int) -> float:
         """The schedule's learning rate factor times ``lr`` at ``step``, in
@@ -127,15 +152,22 @@ class BertAdam(torch.optim.Optimizer):
         grads = {p: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for _, ps in groups for p in ps}
         if self.global_clip_norm is not None:
-            clip_by_global_norm_(list(grads.values()), self.global_clip_norm)
+            if self.tp is None:
+                clip_by_global_norm_(list(grads.values()), self.global_clip_norm)
+            else:
+                gs = list(grads.values())
+                clip_by_norm_(gs, self.full_sq(gs, list(grads)).sum().sqrt(),
+                              self.global_clip_norm)
         lr_t = self.lr_at(self.steps)
         for group, params in groups:
             if not params:
                 continue
             g = [grads[p] for p in params]
             if self.max_grad_norm > 0:
-                g = torch._foreach_mul(g, list(self.tensor_clip(
-                    torch.stack(torch._foreach_norm(g))).unbind()))
+                norms = torch.stack(torch._foreach_norm(g))
+                if self.tp is not None:
+                    norms = self.full_sq(g, params, norms * norms).sqrt()
+                g = torch._foreach_mul(g, list(self.tensor_clip(norms).unbind()))
             ms, vs = zip(*(self._moments(p) for p in params))
             self.update_(g, list(ms), list(vs), list(params), group, lr_t)
         self.steps += 1

@@ -28,6 +28,15 @@ reduce-scatters it itself. The metrics are averaged over the ranks, as
 FT-Joint never runs the cross tower or the decoder, which DDP would need to
 be told about, and the one reduction after the loop is JAX's.
 
+Tensor parallelism (a mesh with ``tp`` above 1, the model cut by
+``parallel/tp.py:parallelize``): the ranks of a tp group read the same rows
+and draw the same keys, so the data-parallel rules above run over the dp
+group (``mesh.axis(DP_AXIS)``): rank r skips the keys of the dp ranks before
+its dp index, the gradients and metrics are averaged over the dp group, and
+ZeRO-1 is ``train/zero1_tp.py``'s. Under sequence parallelism the gradients
+of the row-sharded regions' replicated parameters (``parallel/sp.py``) are
+first summed over the tp group.
+
 The JAX package's ``train_steps`` (K steps in one dispatch) works around
 XLA's per-dispatch cost and has no counterpart here.
 """
@@ -41,8 +50,10 @@ import torch
 
 from univl_tpu_torch.nn.layers import draw_key
 from univl_tpu_torch.parallel import comm
-from univl_tpu_torch.parallel.mesh import Mesh
+from univl_tpu_torch.parallel.mesh import DP_AXIS, TP_AXIS, Mesh
+from univl_tpu_torch.parallel.sp import sp_params
 from univl_tpu_torch.train.zero1 import Zero1BertAdam, flat_offsets
+from univl_tpu_torch.train.zero1_tp import Zero1TpBertAdam
 
 
 def step_generator(seed: int, global_step: int) -> torch.Generator:
@@ -64,17 +75,24 @@ class Trainer:
         self.grad_accum_steps = grad_accum_steps
         self.seed = seed
         self.mesh = mesh or Mesh()
-        self.zero1 = isinstance(optimizer, Zero1BertAdam)  # it takes the flat gradient
+        self.dp = self.mesh.axis(DP_AXIS)
+        # ZeRO-1 takes the flat gradient
+        self.zero1 = isinstance(optimizer, (Zero1BertAdam, Zero1TpBertAdam))
+        self.sp_params = sp_params(model)
         self._flat = None  # the gradient buffer of a data-parallel or ZeRO-1 step
 
     def _grad_buffer(self) -> torch.Tensor:
         """The flat f32 gradient buffer, zeroed, each parameter's ``.grad`` a
         view of it (in the optimizer groups' order; ZeRO-1's padded size)."""
-        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        if self.zero1:  # the optimizer's layout
+            params, offsets = self.optimizer.flat_params, self.optimizer.offsets
+        else:
+            params = [p for g in self.optimizer.param_groups for p in g["params"]]
         if self._flat is None:
-            offsets, size = flat_offsets(params)
             if self.zero1:
                 size = self.optimizer.padded
+            else:
+                offsets, size = flat_offsets(params)
             self._flat = torch.zeros(size, dtype=torch.float32, device=params[0].device)
             self._views = [self._flat[o:o + p.numel()].view_as(p)
                            for p, o in zip(params, offsets)]
@@ -94,15 +112,17 @@ class Trainer:
             raise ValueError(f"batch arrays must lead with the {accum} micro-batches")
         self.model.train()
         generator = step_generator(self.seed, global_step)
-        for _ in range(self.mesh.rank * accum):  # the keys of the ranks before this one
+        for _ in range(self.dp.rank * accum):  # the keys of the dp ranks before this one
             draw_key(generator)
-        flat = self._grad_buffer() if (self.mesh.size > 1 or self.zero1) else None
+        flat = self._grad_buffer() if (self.dp.size > 1 or self.zero1) else None
         sums: Dict[str, torch.Tensor] = {}
         for i in range(accum):
             out = self.model({k: v[i] for k, v in batch.items()}, generator)
             out["loss"].backward()
             for k, v in out.items():
                 sums[k] = v.detach() if k not in sums else sums[k] + v.detach()
+        if self.sp_params:
+            self._sum_sp_grads()
         if flat is None:
             if accum > 1:
                 grads = [p.grad for p in self.model.parameters() if p.grad is not None]
@@ -115,12 +135,20 @@ class Trainer:
             if self.zero1:
                 self.optimizer.step(flat)
             else:
-                comm.all_reduce_mean(flat, self.mesh)
+                comm.all_reduce_mean(flat, self.dp)
                 self.optimizer.step()
         metrics = {k: v / accum for k, v in sums.items()}
-        if self.mesh.size > 1:
+        if self.dp.size > 1:
             keys = sorted(metrics)
             mean = comm.all_reduce_mean(torch.stack([metrics[k].float() for k in keys]),
-                                        self.mesh)
+                                        self.dp)
             metrics = dict(zip(keys, mean.unbind()))
         return metrics
+
+    def _sum_sp_grads(self) -> None:
+        """The row-sharded regions' replicated gradients summed over the tp group."""
+        grads = [p.grad for p in self.sp_params]
+        both = comm.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                   self.mesh.axis(TP_AXIS))
+        torch._foreach_copy_(grads, [t.view_as(g) for t, g in zip(
+            both.split([g.numel() for g in grads]), grads)])

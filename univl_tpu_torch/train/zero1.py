@@ -125,6 +125,16 @@ class Zero1BertAdam(BertAdam):
 
     @torch.no_grad()
     def step(self, flat_grad: torch.Tensor):
+        leaf_sq = self.reduce_grads(flat_grad)
+        norm = leaf_sq.sum().sqrt() if self.global_clip_norm is not None else None
+        self.update_shard(leaf_sq, norm, self.lr_at(self.steps))
+        self.steps += 1
+        self.gather_params(flat_grad)
+
+    def reduce_grads(self, flat_grad: torch.Tensor) -> torch.Tensor:
+        """The mean gradient's shard into ``g``; returns the per-leaf squared
+        norms of the whole gradient (an ``[n_leaves]`` vector, summed over
+        the ranks)."""
         mesh = self.mesh
         g = comm.reduce_scatter(flat_grad, mesh, out=self.g)
         if mesh.size > 1:
@@ -132,22 +142,28 @@ class Zero1BertAdam(BertAdam):
         norms = torch.stack(torch._foreach_norm(self._all_g))
         leaf_sq = torch.zeros(len(self.flat_params), dtype=torch.float32, device=g.device)
         leaf_sq.index_add_(0, self._leaf_index, norms * norms)
-        comm.all_reduce_sum(leaf_sq, mesh)
-        if self.global_clip_norm is not None:
-            norm = leaf_sq.sum().sqrt()
-            clip_by_norm_([g], norm, self.global_clip_norm)
+        return comm.all_reduce_sum(leaf_sq, mesh)
+
+    def update_shard(self, leaf_sq: torch.Tensor, norm: Optional[torch.Tensor],
+                     lr_t: float) -> None:
+        """The global clip at ``norm`` (the whole gradient's; None: no clip),
+        the per-tensor clips and BertAdam's update of the shard's master."""
+        if norm is not None:
+            clip_by_norm_([self.g], norm, self.global_clip_norm)
             factor = torch.where(norm >= self.global_clip_norm,
                                  self.global_clip_norm / norm, 1.0)
             leaf_sq = leaf_sq * (factor * factor)
-        lr_t = self.lr_at(self.steps)
         for group, segs in self._groups:
             gs = segs.g
             if self.max_grad_norm > 0:
                 coef = self.tensor_clip(leaf_sq[segs.leaf_index].sqrt())
                 gs = torch._foreach_mul(gs, list(coef.unbind()))
             self.update_(gs, segs.m, segs.v, segs.master, group, lr_t)
-        self.steps += 1
-        full = comm.all_gather(self.master, mesh, out=flat_grad)
+
+    def gather_params(self, flat_grad: torch.Tensor) -> None:
+        """The new master shards gathered into ``flat_grad`` and copied into
+        the parameters, whose ``.grad`` it sets to None."""
+        full = comm.all_gather(self.master, self.mesh, out=flat_grad)
         torch._foreach_copy_(self.flat_params, self.flat_views(full[:self.total]))
         for p in self.flat_params:
             p.grad = None  # the buffer now holds parameters, not gradients
