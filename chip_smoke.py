@@ -168,8 +168,8 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  R2. the input pipeline: FT-Joint (phase 10's config) through
      cli.common.make_input_iter: the prefetch and --no_prefetch give bitwise
      equal losses over 10 steps in deterministic mode; --transfer_dtype
-     bfloat16 losses within a stated limit of the f32 transfer's; 3
-     alternating pairs of 20-step windows of each mode under a CUDA-only
+     bfloat16 losses within a stated limit of the f32 transfer's; 2
+     alternating pairs (cut from 3) of 20-step windows of each mode under a CUDA-only
      profiler (clips/s and device busy share, medians); the joint retrieval
      eval of phase 20 (its batches prefetched) against --no_prefetch: the
      same R@1/5/10, MedR and MeanR;
@@ -207,8 +207,23 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      process accumulating the ranks' two micro-batches: one spawn fewer);
  D3. --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
      through the CLI for 2 steps, then probes/zero1_ab at FT-Align's
-     parameters: ZeRO-1 against BertAdam, each update's profiled device ms,
-     both optimizers' state bytes.
+     parameters: ZeRO-1 against BertAdam, each update's profiled device ms
+     (2 updates, cut from 3), both optimizers' state bytes.
+ G1. GPipe (parallel/pp.py) over the text tower at full width (12 layers),
+     batch 32 x 48, pp 2 with 4 microbatches, on two gloo ranks sharing the
+     card (one spawn of parallel/pp_replay, deterministic mode, the seeded
+     FT-Align weights): f32 and bf16 output and every gradient against the
+     sequential stack in this process; dropout 0.1 bitwise over two runs; a
+     rank's launches (#2, #4 and #5 24 + 24 a step), parameter bytes (half
+     the stack's), peak memory and step time against the sequential one;
+ E1. in the same spawn, RetrievalEvaluator(mesh=) over the two ranks: the
+     joint and FT-Align evaluation of 256 MSRVTT-format clips against one
+     process on the same clips and weights (similarity matrices, metrics,
+     #1's launches a rank);
+ N1. the native tokenizer, built by the machine's g++ (its version printed
+     after the kernels' build): active, the same ids as the Python path on
+     every fixture caption and transcript and on Unicode strings (the count
+     the C++ path declines), tokens/s of both paths.
 Phase 3 also runs #2 at pretraining's [360, 64], [2304, 112] and q 48 / kv
 112, and #4 and #5 at its 258,048 cross rows, in bf16; and T1's
 tensor-parallel shapes: #2 on 6 of 12 heads (head0 6) at [256, 96] and [16,
@@ -268,6 +283,7 @@ from univl_tpu_torch.cli import common as cli_common
 from univl_tpu_torch.cli import convert_checkpoint, pretrain, task_caption, task_retrieval
 from univl_tpu_torch.cli.serve import main as serve_main
 from univl_tpu_torch.data import fixtures
+from univl_tpu_torch.data import native
 from univl_tpu_torch.data.batching import Batcher, collate
 from univl_tpu_torch.data.howto100m import HowTo100MPretrainDataset
 from univl_tpu_torch.data.msrvtt import MsrvttRetrievalEvalDataset
@@ -291,10 +307,12 @@ from univl_tpu_torch.nn.layers import (
     LayerNormTF,
     Randomness,
     TransformerLayer,
+    TransformerStack,
     gelu_erf,
     set_fused_layer_norm,
 )
 from univl_tpu_torch.parallel import mesh as dp_mesh
+from univl_tpu_torch.parallel import pp_replay
 from univl_tpu_torch.probes import zero1_ab
 from univl_tpu_torch.serving.captioning import CaptionService
 from univl_tpu_torch.serving.index import RERANK_TILE, VideoRetrievalIndex
@@ -515,7 +533,7 @@ PRE_AGREE_CLIPS = 4
 # windows. R3: as P3's resumed run, bitwise. R4: bitwise.
 REMAT_CHECK_STEPS, REMAT_TIMED_STEPS, REMAT_PROFILE_STEPS = 2, 3, 2  # timed: cut from 5
 REMAT_MODES = (False, True, "dots")
-INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 20, 3  # pairs: cut from 5
+INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 20, 2  # pairs: cut from 5, then 3
 TRANSFER_BF16_RTOL = 2e-2
 # D1-D3, data parallelism and ZeRO-1, stated before their first run. D1:
 # FT-Align (--fused_ffn block) through the CLI with --n_gpu 2 --dist_backend
@@ -584,6 +602,43 @@ TP_LOSS_RTOL, TP_MOVE_FRAC, TP_ZERO_PARAM = 2e-2, 0.1, 6e-4
 TP_FLAGS = ["--n_gpu", str(TP_RANKS), "--tensor_parallel", str(TP_SIZE), "--sequence_parallel",
             "--zero1", "--dist_backend", "gloo"]
 T2_CLIPS, T2_BATCH, T2_WORDS, T2_FRAMES, T2_RTOL = 8, 4, 48, 48, 1e-5
+# G1, E1 and N1, stated before their first run (PERF.md, PR 15). G1: GPipe
+# (parallel/pp.py) over UniVLConfig.base's text tower at full width (12
+# layers, hidden 768, 12 heads, F 3072), bf16 over f32 parameters on the
+# block route (#2, #4, #5), PP_BATCH rows of PP_WORDS words with an all-valid
+# key mask (JAX's primitive carries h alone), pp PP_STAGES (6 layers a stage)
+# with PP_MICRO microbatches, on two gloo ranks sharing the card
+# (parallel/pp_replay.py, deterministic mode), from the seeded FT-Align
+# .bin's text layers; against one process running the sequential
+# TransformerStack on the same weights and rows at dropout 0, each rank
+# taking the loss mean(y * probe) from its delivered copy: the output and
+# every parameter's gradient within PP_RTOL of its norm (f32: the CUDA-core
+# kernels; bf16: the tensor-core ones, where a microbatch's products may
+# round to bf16 otherwise than the whole batch's: on the CPU at these
+# shapes 1.1e-2 of the output's norm and 1.9e-2 of a gradient's), the key
+# biases (zero gradient in exact arithmetic) within PP_RTOL of their layer's
+# query bias's gradient norm; at dropout 0.1 two runs bitwise equal; a rank's launches a step #2, #4 and #5 PP_MICRO x 6
+# forward and as many backward; its parameter bytes half the stack's. E1:
+# RetrievalEvaluator(mesh=) over the same two ranks: FT-Align's joint and
+# cross evaluation of E1_CLIPS MSRVTT-format clips (batch E1_BATCH, 48 words,
+# 48 frames, bf16) against one process on the same clips and weights that
+# encodes E1_BATCH / 2 clips a call, as a rank does: the similarity matrices
+# within E1_ATOL, the metrics equal, #1's launches a rank the passes' count.
+# N1: the tokenizer's native path built by the card machine's g++ and
+# active; the ids of every YouCook2 and MSRVTT fixture caption and
+# transcript and of N1_UNICODE equal to the Python path's, the C++ path
+# declining exactly N1_DECLINED of them (each then takes the Python path);
+# tokens/s of both paths.
+PP_STAGES, PP_MICRO, PP_BATCH, PP_WORDS, PP_TIMED = 2, 4, 32, 48, 3
+PP_RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
+E1_CLIPS, E1_BATCH, E1_ATOL = 256, 64, {"joint": 1e-5, "cross": 1e-4}
+N1_UNICODE = ["café olé", "添加洋葱 then stir", "naïve mix", "ÜBER Äpfel", "İstanbul",
+              "ЖИЗНЬ хорошо", "crème brûlée!", "ñoño 한국어", "ＦＵＬＬＷＩＤＴＨ text",
+              "[SEP] café [UNK]", "em—dash and … ellipsis", "«guillemets»",
+              # declined by the C++ path: the context-sensitive sigma, a codepoint
+              # past the tables, a lone surrogate, an embedded NUL
+              "ΣΟΦΟΣ σοφος", "beyond \U00030001 table", "lone \ud800 surrogate", "add\x00salt"]
+N1_DECLINED = 4
 SLOW_CALL_MS = 2.0  # cuda_time_ms: a reference call this slow is timed over 3 x 3 calls
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
@@ -2129,7 +2184,9 @@ def kernel_tp_shapes() -> dict:
                           (N * H * 2 + 2 * H * f * 2 + f * 2 + N * f * 2 + N * H * 4,
                            4.0 * N * H * f), None),
         "dense_split_fwd": (lambda: ffn_k.dense_part(x0, w0), lambda: ffn_k._mm(x0, w0),
-                            (N * kk * 2 + H * kk * 2 + N * H * 4, 2.0 * N * kk * H), None),
+                            (N * kk * 2 + H * kk * 2 + N * H * 4, 2.0 * N * kk * H),
+                            (lambda: torch.matmul(x0, w0),
+                             "torch.matmul, bf16 output where the piece writes f32")),
         "split_rows": (lambda: ffn_k.split_rows(part, b2, x, sc, bi, *drop, 4),
                        lambda: ffn_k.split_rows_reference(part, b2, x, sc, bi, *drop, 4),
                        (N * H * 4 + 3 * N * H * 2 + 3 * H * 4, 12.0 * N * H), None),
@@ -2146,7 +2203,7 @@ def kernel_tp_shapes() -> dict:
                                (N * H * 4 + 3 * N * H * 2 + N * 16, 8.0 * N * H), None),
         "dense_split_bwd": (lambda: ffn_k.dense_bwd_dx(dy, w0), lambda: ffn_k._mm(
             dy, w0.t()).to(dtype), (N * H * 2 + kk * H * 2 + N * kk * 2, 2.0 * N * H * kk),
-                            lambda: torch.matmul(dy, w0.t())),
+                            (lambda: torch.matmul(dy, w0.t()), "torch.matmul")),
     }
     unsplit = {
         "#4 forward": cuda_time_ms(lambda: ffn_k.ffn_block_fwd(x, w1, b1, w2, b2, sc, bi,
@@ -2162,7 +2219,7 @@ def kernel_tp_shapes() -> dict:
         row = report(f"{name} (a rank's share, tp {TP_SIZE})", f"[{N},{H}]", dtype, errs[name],
                      cuda_time_ms(kernel), cuda_time_ms(plain, **ref),
                      bound_ms(nbytes, flops, "bfloat16"),
-                     library=(cuda_time_ms(library, **ref)[0], "torch.matmul")
+                     library=(cuda_time_ms(library[0], **ref)[0], library[1])
                      if library else None)
         rows[name] = {**row, "tp_shape": f"[{N},{H}] tp {TP_SIZE}",
                       "unsplit_ms": {k: v[0] for k, v in unsplit.items()}}
@@ -4036,7 +4093,7 @@ def phase_dp_nccl(tmp: str, vocab: str, check, init: str) -> dict:
     require(counts == want, f"D3 launches {counts}, {steps} steps imply {want}")
     shutil.rmtree(out)
     [rep] = zero1_ab.main(["--device", "cuda", "--n_gpu", "1", "--train_sim_after_cross",
-                           "--steps", "3", "--profile", "3"])
+                           "--steps", "2", "--profile", "2"])  # cut from 3 and 3
     print(f"D3 ZeRO-1 against BertAdam at FT-Align's {rep['params']:,} parameters, one rank on "
           f"{rep['backend']}, f32 moments: the largest parameter difference "
           f"{max(x['max_rel_diff'] for x in rep['steps']):.3e} of its tensor's scale; device ms "
@@ -4218,6 +4275,248 @@ def _tp_caption(tmp: str, vocab: str, files, init: str) -> dict:
     return counts
 
 
+PP_KERNELS = {"bfloat16": ("train_attention_fwd", "train_attention_bwd", "ffn_block_fwd",
+                           "ffn_block_bwd", "dense_block_fwd", "dense_block_bwd"),
+              "float32": ("train_attention_fwd_cuda_cores", "train_attention_bwd_cuda_cores",
+                          "ffn_block_fwd_cuda_cores", "ffn_block_bwd_cuda_cores",
+                          "dense_block_fwd_cuda_cores", "dense_block_bwd_cuda_cores")}
+
+
+def _tower(dropout: float):
+    return UniVLConfig.base().bert.replace(hidden_dropout_prob=dropout,
+                                           attention_probs_dropout_prob=dropout)
+
+
+def _pp_sequential(sd: dict, x: np.ndarray, probe: np.ndarray, dtype: str) -> dict:
+    """G1's reference: the sequential stack in this process on the same
+    weights and rows, dropout 0, the same loss; its output, gradients, step
+    times and peak memory."""
+    dt = pp_replay.DTYPES[dtype]
+    stack = TransformerStack(_tower(0.0), dt, "cuda", use_fused_ffn="block")
+    stack.load_state_dict(sd, strict=True)
+    stack.train()
+    xt = torch.from_numpy(x).cuda().to(dt)
+    pt = torch.from_numpy(probe).cuda()
+    mask = torch.ones(PP_BATCH, PP_WORDS, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    seconds = []
+    for _ in range(PP_TIMED if dtype == "bfloat16" else 1):
+        stack.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = stack(xt, mask)
+        (y.float() * pt).mean().backward()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    out = {"y": y.detach().float().cpu(), "seconds": seconds,
+           "grads": {k: p.grad.detach().cpu() for k, p in stack.named_parameters()},
+           "peak_bytes": torch.cuda.max_memory_allocated() - held,
+           "param_bytes": sum(p.numel() * p.element_size() for p in stack.parameters())}
+    del stack
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_agreement(dtype: str, want: dict, ranks: list) -> None:
+    """The two ranks' delivered output (bitwise equal on both) and gradients
+    (each layer's from the stage that holds it) against the sequential run."""
+    runs = [r["pipelines"][dtype] for r in ranks]
+    require(all(torch.equal(run["y"], runs[0]["y"]) for run in runs),
+            f"G1 {dtype}: the ranks' delivered outputs differ")
+    got_y = runs[0]["y"].float()
+    y_rel = float((got_y - want["y"]).norm()) / float(want["y"].norm())
+    grads = {k: g for run in runs for k, g in run["grads"].items()}
+    require(sorted(grads) == sorted(want["grads"]), f"G1 {dtype}: gradients of {len(grads)} "
+                                                     f"tensors, the stack has {len(want['grads'])}")
+    rel = {}
+    for k, g in want["grads"].items():
+        scale = want["grads"][k.replace("key.bias", "query.bias")] if k.endswith("key.bias") else g
+        rel[k] = float((grads[k] - g).norm()) / max(float(scale.norm()), 1e-30)
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    limit = PP_RTOL[dtype]
+    same = sum(torch.equal(grads[k], g) for k, g in want["grads"].items())
+    print(f"G1 {dtype} against the sequential stack (dropout 0): output {y_rel:.3e} of its norm, "
+          f"the largest gradient difference {worst[1]:.3e} of its norm ({worst[0]}; the key "
+          f"biases of their query bias's); {same} of {len(rel)} gradients bitwise equal; limit "
+          f"{limit}", flush=True)
+    require(y_rel <= limit and worst[1] <= limit, f"G1 {dtype} strays from the sequential stack")
+
+
+def _rank_counts(launches: dict) -> dict:
+    return {name: launches[_launch_key(entry)] for name, (entry, _, _) in KERNELS.items()}
+
+
+def phase_pipeline(tmp: str, vocab: str, ret_files, init: str) -> tuple:
+    """G1 (GPipe on two ranks) and E1 (the evaluator's fan-out) in one spawn
+    of parallel/pp_replay, each against one process. Returns (the main
+    paths' launches by path, the f32 run's launches)."""
+    with deterministic_mode():
+        return _pipeline(tmp, vocab, ret_files, init)
+
+
+def _pipeline(tmp: str, vocab: str, ret_files, init: str) -> tuple:
+    t0 = time.perf_counter()
+    full = torch.load(init, map_location="cpu", weights_only=True)
+    sd = {k[len("bert.encoder."):]: v for k, v in full.items() if k.startswith("bert.encoder.")}
+    del full
+    stack_path = os.path.join(tmp, "g1_stack.pt")
+    torch.save(sd, stack_path)
+    rng = np.random.RandomState(5)
+    x = rng.randn(PP_BATCH, PP_WORDS, 768).astype(np.float32)
+    probe = rng.randn(PP_BATCH, PP_WORDS, 768).astype(np.float32)
+    want = {dt: _pp_sequential(sd, x, probe, dt) for dt in ("float32", "bfloat16")}
+
+    _, test_csv, _, feats = ret_files
+    cfg = UniVLConfig.base(max_words=48, max_frames=48, train_sim_after_cross=True,
+                           compute_dtype="bfloat16")
+    ds = MsrvttRetrievalEvalDataset(test_csv, feats, WordPieceTokenizer(vocab), max_words=48,
+                                    max_frames=48, seed=0)
+    rows = collate([ds[i] for i in range(E1_CLIPS)])
+    keys = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask")
+
+    def batches(n):
+        return [{k: rows[k][i:i + n] for k in keys} for i in range(0, E1_CLIPS, n)]
+
+    model = UniVL(cfg, device="cuda")
+    model.load_state_dict(load_reference_bin(init), strict=True)
+    one = RetrievalEvaluator(model.eval(), batch_size=E1_BATCH // PP_STAGES)
+    e1_want = {}
+    for mode in ("joint", "cross"):
+        metrics = one.evaluate(iter(batches(E1_BATCH // PP_STAGES)), mode=mode)
+        e1_want[mode] = (one.similarity, metrics, dict(one.seconds))
+    del model, one
+    torch.cuda.empty_cache()
+    print(f"G1/E1 references (one process: the sequential stack f32 and bf16, the evaluator) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    tf = dict(kind="transformer", weights=stack_path, x=x, probe=probe,
+              key_mask=np.ones((PP_BATCH, PP_WORDS), np.int32), microbatches=PP_MICRO)
+    spec = {"pipelines": [
+        dict(name="float32", config=_tower(0.0), compute_dtype="float32", **tf),
+        dict(name="bfloat16", config=_tower(0.0), compute_dtype="bfloat16", repeat=PP_TIMED,
+             **tf),
+        dict(name="dropout", config=_tower(0.1), compute_dtype="bfloat16", repeat=2, **tf)],
+        "evals": [dict(name="e1", config=cfg, weights=init, batches=batches(E1_BATCH),
+                       modes=("joint", "cross"), batch_size=E1_BATCH, cross_text_block=8,
+                       cross_video_block=64)]}
+    spec_path, out = os.path.join(tmp, "pp_spec.pt"), os.path.join(tmp, "pp_out")
+    torch.save(spec, spec_path)
+    t1 = time.perf_counter()
+    pp_replay.main(["--spec", spec_path, "--output", out, "--device", "cuda", "--n_gpu",
+                    str(PP_STAGES), "--pipeline_parallel", str(PP_STAGES), "--dist_backend",
+                    "gloo"])
+    wall = time.perf_counter() - t1
+    reports = dp_mesh.spawn.ranks
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(PP_STAGES)]
+    shutil.rmtree(out)
+    print(f"G1 + E1: one spawn of {PP_STAGES} gloo ranks sharing the card, {wall:.1f} s with "
+          f"the ranks' start", flush=True)
+
+    for dtype in ("float32", "bfloat16"):
+        _pp_agreement(dtype, want[dtype], ranks)
+    per_layer = PP_MICRO * (12 // PP_STAGES)
+    counts = {}
+    for name in ("float32", "bfloat16", "dropout"):
+        dtype = "float32" if name == "float32" else "bfloat16"
+        steps = len(ranks[0]["pipelines"][name]["seconds"])
+        mine = [_rank_counts(r["pipelines"][name]["launches"]) for r in ranks]
+        expect = {**{k: 0 for k in KERNELS}, **{k: per_layer * steps for k in PP_KERNELS[dtype]}}
+        for r, got in enumerate(mine):
+            require(got == expect, f"G1 {name} rank {r} launches "
+                                   f"{ {k: v for k, v in got.items() if v} }, want {expect}")
+        counts[name] = {k: sum(m[k] for m in mine) for k in KERNELS}
+    for r, res in enumerate(ranks):
+        drop = res["pipelines"]["dropout"]
+        require(drop["repeat_equal"] and res["pipelines"]["bfloat16"]["repeat_equal"]
+                and not torch.equal(drop["y"], res["pipelines"]["bfloat16"]["y"]),
+                f"G1 rank {r}: two deterministic runs differ, or dropout 0.1 did nothing")
+        run = res["pipelines"]["bfloat16"]
+        require(2 * run["param_bytes"] == want["bfloat16"]["param_bytes"]
+                and run["layers"] == list(range(r * 6, (r + 1) * 6)),
+                f"G1 rank {r}: layers {run['layers']}, {run['param_bytes']} parameter bytes")
+        print(f"G1 rank {r} (stage {r}, layers {run['layers'][0]}-{run['layers'][-1]}): "
+              f"parameters {run['param_bytes'] / 2**20:.1f} MiB (the stack's "
+              f"{want['bfloat16']['param_bytes'] / 2**20:.1f}); peak device memory f32 "
+              f"{res['pipelines']['float32']['peak_bytes'] / 2**30:.3f} GiB, bf16 "
+              f"{run['peak_bytes'] / 2**30:.3f} GiB; bf16 step s "
+              f"{[round(t, 4) for t in run['seconds']]}, dropout 0.1 "
+              f"{[round(t, 4) for t in drop['seconds']]}; two runs at 0.1 bitwise "
+              f"equal; launches a step {per_layer} of #2, #4 and #5 forward and backward",
+              flush=True)
+    seq = want["bfloat16"]
+    print(f"G1 step (bf16, {PP_BATCH} x {PP_WORDS}, forward and backward): pipeline "
+          f"{float(np.median(ranks[0]['pipelines']['bfloat16']['seconds'][1:])) * 1e3:.3f} ms "
+          f"against the sequential stack's {float(np.median(seq['seconds'][1:])) * 1e3:.3f} ms "
+          f"(peak {seq['peak_bytes'] / 2**30:.3f} GiB above the weights held); two ranks on "
+          f"one card with host-staged gloo hops: not a scaling number", flush=True)
+
+    # #1 a rank: 18 encoder layers a batch; the cross tower's 2 in each of a
+    # stripe's video blocks
+    encode = -(-E1_CLIPS // E1_BATCH) * (cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers)
+    cross = (-(-E1_CLIPS // (8 * PP_STAGES)) * -(-E1_CLIPS // 64) * cfg.cross.num_hidden_layers)
+    per_rank = {"joint": encode, "cross": encode + cross}
+    e1 = {k: 0 for k in KERNELS}
+    for mode, (sim, metrics, seconds) in e1_want.items():
+        for r, res in enumerate(ranks):
+            got = res["evals"]["e1"][mode]
+            err = float(np.abs(got["sim"] - sim).max())
+            same = {k: got["metrics"][k] for k in metrics} == metrics
+            n = _rank_counts(got["launches"])
+            print(f"E1 {mode} rank {r} of {PP_STAGES} ({E1_CLIPS} clips, bf16): max |dsim| "
+                  f"{err:.3e} against one process (limit {E1_ATOL[mode]}; scores span "
+                  f"{float(np.ptp(sim)):.4f}); metrics {got['metrics']}, one process {metrics}; "
+                  f"encode {got['seconds']['encode_s']:.3f} s, similarity "
+                  f"{got['seconds']['similarity_s']:.3f} s (one process "
+                  f"{seconds['encode_s']:.3f}, {seconds['similarity_s']:.3f}); #1 "
+                  f"{n['eval_attention']} launches", flush=True)
+            require(err <= E1_ATOL[mode] and same, f"E1 {mode} rank {r} strays from one process")
+            require(n == {**{k: 0 for k in KERNELS}, "eval_attention": per_rank[mode]},
+                    f"E1 {mode} rank {r} launches {n}, want {per_rank[mode]} of #1")
+            e1["eval_attention"] += n["eval_attention"]
+    by_path = {"pp_gpipe": {k: counts["bfloat16"][k] + counts["dropout"][k] for k in KERNELS},
+               "eval_fanout": e1}
+    total = ranks_launches(reports)
+    require(total == {k: by_path["pp_gpipe"][k] + e1[k] + counts["float32"][k] for k in KERNELS},
+            f"G1 + E1: the ranks' launches {total} are not the runs' sum")
+    require(all(not {"jax", "univl_tpu"} & set(r["modules"]) for r in reports),
+            "G1 + E1: a rank imported JAX")
+    os.remove(stack_path)
+    return by_path, counts["float32"]
+
+
+def phase_native_tokenizer(vocab: str, youcook_data: str, msrvtt_json: str) -> None:
+    """N1: the native tokenizer against the Python path on the fixture text."""
+    tok = WordPieceTokenizer(vocab)
+    os.environ["UNIVL_TPU_NO_NATIVE"] = "1"
+    try:
+        py = WordPieceTokenizer(vocab)
+    finally:
+        del os.environ["UNIVL_TPU_NO_NATIVE"]
+    require(tok.native and not py.native, "N1: the native path is not active")
+    with open(youcook_data, "rb") as f:
+        texts = [str(t) for v in pickle.load(f).values() for k in ("text", "transcript")
+                 for t in v[k]]
+    with open(msrvtt_json) as f:
+        texts += [s["caption"] for s in json.load(f)["sentences"]]
+    texts += N1_UNICODE
+    declined = sum(tok._native.tokenize_ids(t) is None for t in texts)
+    rates = {}
+    for name, t in (("native", tok), ("python", py)):
+        t0 = time.perf_counter()
+        ids = [t.convert_tokens_to_ids(t.tokenize(text)) for text in texts]
+        rates[name] = (ids, sum(map(len, ids)) / (time.perf_counter() - t0))
+    differ = sum(a != b for a, b in zip(rates["native"][0], rates["python"][0]))
+    print(f"N1 native tokenizer ({native.library_path().split(os.sep)[-1]}): {len(texts)} texts "
+          f"(YouCook2 and MSRVTT fixture captions and transcripts, {len(N1_UNICODE)} Unicode "
+          f"strings), {differ} with ids other than the Python path's, {declined} declined by the "
+          f"C++ path (Python path); {rates['native'][1]:,.0f} tokens/s native against "
+          f"{rates['python'][1]:,.0f} Python (host clock, one thread)", flush=True)
+    require(differ == 0 and declined == N1_DECLINED, "N1: the native path strays")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -4236,6 +4535,10 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_library()
     print(f"build: {os.path.relpath(lib_path)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    so = native.build()
+    print(f"native tokenizer: {native.CXX} ({native.compiler_version()}) built "
+          f"{os.path.relpath(so)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     stamp("build (phase 2)")
     measured = {**kernel_eval_attention(),
@@ -4351,6 +4654,10 @@ def main() -> int:
         stamp("D2")
         by_path["dp_zero1_nccl"] = phase_dp_nccl(tmp, vocab, check, align_bin)
         stamp("D3")
+        pp_paths, f32_runs["G1 f32"] = phase_pipeline(tmp, vocab, ret_files, align_bin)
+        by_path.update(pp_paths)
+        phase_native_tokenizer(vocab, files[1], ret_files[2])
+        stamp("G1, E1 and N1")
 
     longest = check_attention_routes()
     check_vocab_routes()

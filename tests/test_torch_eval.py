@@ -2,8 +2,10 @@
 tiny widths: the beam decoder with the classifier transform inside the vocab
 top-k kernel (``fused_cls``), the MSRVTT fixtures and readers, the retrieval
 metrics, ``RetrievalEvaluator`` (joint and cross similarity matrices, the
-device-resident rescoring against the host tiles), and the retrieval and
-caption CLIs' eval runs on MSRVTT-format files.
+device-resident rescoring against the host tiles, and its data-parallel
+fan-out on two gloo ranks, spawned once through
+``univl_tpu_torch.parallel.pp_replay``, against JAX's evaluator on a 2-device
+mesh), and the retrieval and caption CLIs' eval runs on MSRVTT-format files.
 
 Weights cross over through univl_tpu_torch.checkpoint.convert. On the CPU the
 port's kernels take their plain versions; the JAX package's Pallas kernels
@@ -13,6 +15,7 @@ run in interpret mode, as its own tests run them.
 import filecmp
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -29,6 +32,7 @@ from univl_tpu.evals.caption_metrics import compute_caption_metrics as jax_capti
 from univl_tpu.evals.metrics import compute_retrieval_metrics as jax_retrieval_metrics
 from univl_tpu.evals.retrieval import RetrievalEvaluator as JaxEvaluator
 from univl_tpu.models.univl import UniVL as JaxUniVL
+from univl_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from univl_tpu_torch.checkpoint.convert import init_state_dict, state_dict_from_jax_params
 from univl_tpu_torch.cli import task_caption, task_retrieval
 from univl_tpu_torch.config import UniVLConfig
@@ -40,6 +44,8 @@ from univl_tpu_torch.evals.retrieval import RetrievalEvaluator
 from univl_tpu_torch.kernels.attention import fused_attention_masked
 from univl_tpu_torch.kernels.vocab_topk import classify_topk
 from univl_tpu_torch.models.univl import UniVL
+from univl_tpu_torch.parallel import mesh as dp_mesh
+from univl_tpu_torch.parallel import pp_replay
 
 B, MAX_LEN, BOS, EOS = 3, 12, 2, 3
 KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask")
@@ -270,6 +276,81 @@ def test_evaluate_matches_jax(retrieval, mode):
     model.eval()
     want = jev.evaluate(iter(batches), mode=mode)
     assert got == want and got["mode"] == mode
+
+
+# --------------------------------------------------------------- fan-out
+RANKS = 2
+MODES = ("joint", "cross")
+ATOL = {"joint": 1e-5, "cross": 1e-4}
+
+
+@pytest.fixture(scope="module")
+def fanout(retrieval, tmp_path_factory):
+    """The evaluator on two gloo ranks (``mesh=`` the ranks' group), both
+    modes, spawned once in the background: ([rank r's results], the ranks'
+    reports)."""
+    _, _, model, batches = retrieval
+    d = tmp_path_factory.mktemp("fanout")
+    torch.save(model.state_dict(), str(d / "weights.bin"))
+    spec = {"evals": [dict(name="fanout", config=model.cfg, weights=str(d / "weights.bin"),
+                           batches=batches, modes=MODES, batch_size=EVAL_BATCH,
+                           cross_text_block=TB, cross_video_block=VB)]}
+    torch.save(spec, str(d / "spec.pt"))
+    argv = ["--spec", str(d / "spec.pt"), "--output", str(d / "out"), "--device", "cpu",
+            "--n_gpu", str(RANKS)]
+
+    def go():
+        pp_replay.main(argv)
+        reports = list(dp_mesh.spawn.ranks)
+        return ([torch.load(str(d / "out" / f"rank{r}.pt"), weights_only=False)["evals"]["fanout"]
+                 for r in range(RANKS)], reports)
+
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(go)
+
+
+def _jax_mesh_sims(retrieval):
+    """JAX's evaluator on a 2-device mesh: {mode: (similarity, metrics)}."""
+    jm, params, _, batches = retrieval
+    jev = JaxEvaluator(jm, params, batch_size=EVAL_BATCH, cross_text_block=TB,
+                       cross_video_block=VB, mesh=jax_make_mesh(RANKS))
+    sims = {"joint": jev.joint_sim_matrix(jev.encode_dataset(iter(batches), store_full=False)),
+            "cross": jev.cross_sim_matrix_device(jev.encode_dataset_device(iter(batches)))}
+    return {m: (sim, jax_retrieval_metrics(sim)) for m, sim in sims.items()}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fanout_matches_jax_mesh(retrieval, fanout, mode):
+    """Two ranks (10 clips, ragged encode batches padded to a multiple of 2,
+    cross stripes of 2 x 3 texts) against JAX's evaluator on its 2-device
+    mesh: joint within 1e-5, cross within 1e-4, the metrics equal, on every
+    rank."""
+    want, want_metrics = _jax_mesh_sims(retrieval)[mode]
+    assert np.ptp(want) > 1e-2
+    for res in fanout.result()[0]:
+        got = res[mode]
+        assert got["sim"].shape == (N_CLIPS, N_CLIPS)
+        np.testing.assert_allclose(got["sim"], want, rtol=0, atol=ATOL[mode])
+        metrics = {k: v for k, v in got["metrics"].items() if k in want_metrics}
+        assert metrics == want_metrics and got["metrics"]["mode"] == mode
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fanout_matches_one_process(retrieval, fanout, mode):
+    """Two ranks against the port's evaluator in one process (no mesh) on the
+    same batches: the same limits, the same metrics, and both ranks hold the
+    same matrix."""
+    _, ev, batches = _evaluators(retrieval)
+    want = ev.evaluate(iter(batches), mode=mode)
+    one, two = fanout.result()[0]
+    np.testing.assert_allclose(one[mode]["sim"], ev.similarity, rtol=0, atol=ATOL[mode])
+    np.testing.assert_array_equal(one[mode]["sim"], two[mode]["sim"])
+    assert {k: one[mode]["metrics"][k] for k in want} == want
+
+
+def test_fanout_children_import_only_the_port(fanout):
+    for r in fanout.result()[1]:
+        assert not {"jax", "jaxlib", "flax", "univl_tpu"} & set(r["modules"]), r["rank"]
 
 
 # --------------------------------------------------------------- CLIs

@@ -32,7 +32,7 @@ from univl_tpu_torch.cli import pretrain, task_caption, task_retrieval
 from univl_tpu_torch.data import text_encoding
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.models.univl import UniVL
-from univl_tpu_torch.parallel import mesh, replay
+from univl_tpu_torch.parallel import mesh, pp_replay, replay
 from univl_tpu_torch.probes import zero1_ab
 from univl_tpu_torch.serving.index import VideoRetrievalIndex
 
@@ -229,9 +229,10 @@ def test_port_runs_with_jax_blocked(tmp_path, vocab):
 
 
 def test_chip_smoke_imports_only_the_port():
-    """No module of the port (the data- and tensor-parallel ``parallel/``
-    modules and ``train/zero1_tp.py`` included), and not chip_smoke.py,
-    imports the JAX package or JAX itself,
+    """No module of the port (the data-, tensor- and pipeline-parallel
+    ``parallel/`` modules, ``train/zero1_tp.py`` and the native tokenizer's
+    ``data/native.py`` included), and not chip_smoke.py, imports the JAX
+    package or JAX itself,
     at any depth of the file; every child process's entry point (the
     spawned rank's ``parallel/mesh.py:_rank_main`` and the entries it runs)
     is in the port; without a CUDA device chip_smoke.py prints no result and
@@ -239,12 +240,13 @@ def test_chip_smoke_imports_only_the_port():
     files = sorted((REPO / "univl_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     parallel = {REPO / "univl_tpu_torch" / "parallel" / f"{m}.py"
-                for m in ("mesh", "comm", "replay", "tp", "sp")}
+                for m in ("mesh", "comm", "replay", "tp", "sp", "pp", "pp_replay")}
     parallel.add(REPO / "univl_tpu_torch" / "train" / "zero1_tp.py")
+    parallel.add(REPO / "univl_tpu_torch" / "data" / "native.py")
     assert parallel <= set(files)
     assert mesh._rank_main.__module__ == "univl_tpu_torch.parallel.mesh"
     for entry in (task_retrieval.ENTRY, task_caption.ENTRY, pretrain.ENTRY, replay.ENTRY,
-                  zero1_ab.ENTRY):
+                  zero1_ab.ENTRY, pp_replay.ENTRY):
         module, fn = entry.split(":")
         assert module.startswith("univl_tpu_torch.") and (
             REPO / (module.replace(".", "/") + ".py")) in files, entry

@@ -1,10 +1,14 @@
-"""BERT WordPiece tokenizer, the port's own pure-Python copy of
+"""BERT WordPiece tokenizer, the port's own copy of
 ``univl_tpu/data/tokenization.py``.
 
 Basic tokenization (cleanup, CJK spacing, optional lowercasing and accent
 stripping, punctuation splitting), then greedy longest-match-first WordPiece
-with '##' continuations. The JAX package's optional native fast path
-(``csrc/wordpiece.cc``) is not carried over; both give the same ids.
+with '##' continuations. As in the JAX package, ``WordPieceTokenizer`` takes
+the native C++ path (``data/native.py``, ``csrc/wordpiece.cc``) by default,
+and the Python path here for a string the C++ path declines; both give the
+same ids. ``UNIVL_TPU_NO_NATIVE=1`` turns the native path off. Unlike the
+JAX package, a native path that cannot be built raises, with the compiler's
+message, rather than leaving the tokenizer on the Python path unnoticed.
 """
 
 from __future__ import annotations
@@ -163,11 +167,27 @@ class WordPieceTokenizer:
                              "some ids would have no reverse mapping")
         self.basic = BasicTokenizer(do_lower_case=do_lower_case, never_split=never_split)
         self.wordpiece = GreedyWordpiece(self.vocab)
+        self._vocab_tokens = list(self.vocab)
+        self._native = None
+        if not os.environ.get("UNIVL_TPU_NO_NATIVE"):
+            from univl_tpu_torch.data.native import NativeWordPiece
+
+            self._native = NativeWordPiece(self._vocab_tokens, do_lower_case,
+                                           never_split=list(never_split))
+
+    @property
+    def native(self) -> bool:
+        """Whether ``tokenize`` takes the native C++ path."""
+        return self._native is not None
 
     def __len__(self) -> int:
         return len(self.vocab)
 
     def tokenize(self, text: str) -> List[str]:
+        if self._native is not None:
+            ids = self._native.tokenize_ids(text)
+            if ids is not None:
+                return [self._vocab_tokens[i] for i in ids]
         out: List[str] = []
         for tok in self.basic.tokenize(text):
             out.extend(self.wordpiece.tokenize(tok))

@@ -29,6 +29,22 @@ each over the tp view:
     rows of a replicated tensor forward, the gather backward; and the
     reverse), around the sequence-parallel stack.
 Rows are the leading dim, split in equal contiguous shares, rank r's share r.
+
+The pipeline's two operators (``parallel/pp.py``), each over the pp view:
+  - ``ring_hop``: JAX's ``lax.ppermute`` with the perm s -> s + 1 (mod S),
+    stage s's tensor to stage s + 1; its backward is the inverse hop. Each
+    hop posts its send and its receive together (``isend``/``irecv``, then
+    both waits), so a ring never deadlocks as blocking sends can on gloo;
+    under gloo the bytes go through pinned host memory. A hop also threads a
+    scalar ``token`` from the one before it, so the backward runs every
+    rank's hops in the reverse of the forward's order, each of them, even
+    the hops whose output no stage reads: the ranks' point-to-point calls
+    pair up in the backward as in the forward;
+  - ``deliver_last``: the last stage's tensor on every stage (JAX's psum
+    over a one-hot). Every stage then takes the same loss from its copy, so
+    the backward hands the last stage the stages' mean of their gradients
+    (JAX's ``shard_map`` transposes a replicated output so), not their sum:
+    the sequential loop's gradient, not S times it.
 """
 
 from __future__ import annotations
@@ -254,3 +270,99 @@ def split_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def join_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     return _JoinRows.apply(x, mesh) if _active(mesh) else x
+
+
+def _staged(t: torch.Tensor, mesh, role: str) -> torch.Tensor:
+    """A pinned host byte buffer for ``t`` kept in the mesh's ``staging``
+    under ``role`` (a send and a receive in flight together need two); a
+    CPU tensor's own bytes."""
+    if t.device.type == "cpu":
+        return t.reshape(-1).view(torch.uint8)
+    key = (role, t.numel() * t.element_size())
+    if key not in mesh.staging:
+        mesh.staging[key] = torch.empty(key[1], dtype=torch.uint8, pin_memory=True)
+    return mesh.staging[key]
+
+
+def exchange(send: torch.Tensor, recv: torch.Tensor, to: int, frm: int, mesh) -> torch.Tensor:
+    """Send ``send`` to the group's rank ``to`` and receive ``recv`` from
+    rank ``frm``, both posted before either waits. Under gloo the bytes go
+    through pinned host memory (exact in every dtype)."""
+    group = mesh.group
+    dst, src = (dist.get_global_rank(group, r) if group is not None else r for r in (to, frm))
+    if mesh.backend == "nccl":
+        ops = [dist.P2POp(dist.isend, send.contiguous(), dst, group),
+               dist.P2POp(dist.irecv, recv, src, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recv
+    send = send.contiguous()
+    out, inbox = _staged(send, mesh, "send"), _staged(recv, mesh, "recv")
+    if send.device.type != "cpu":
+        out.copy_(send.reshape(-1).view(torch.uint8))
+    works = [dist.isend(out, dst, group=group), dist.irecv(inbox, src, group=group)]
+    for work in works:
+        work.wait()
+    if recv.device.type != "cpu":
+        recv.reshape(-1).view(torch.uint8).copy_(inbox)
+    return recv
+
+
+def broadcast_from(t: torch.Tensor, root: int, mesh) -> torch.Tensor:
+    """``t`` of the group's rank ``root`` on every rank, in place (under gloo
+    through pinned host memory, as bytes)."""
+    if not _active(mesh):
+        return t
+    src = dist.get_global_rank(mesh.group, root) if mesh.group is not None else root
+    if mesh.backend == "nccl":
+        dist.broadcast(t, src, group=mesh.group)
+        return t
+    host = _staged(t, mesh, "broadcast")
+    if t.device.type != "cpu" and mesh.rank == root:
+        host.copy_(t.reshape(-1).view(torch.uint8))
+    dist.broadcast(host, src, group=mesh.group)
+    if t.device.type != "cpu":
+        t.reshape(-1).view(torch.uint8).copy_(host)
+    return t
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, token, mesh):
+        ctx.mesh = mesh
+        s, n = mesh.rank, mesh.size
+        recv = exchange(h, torch.empty_like(h), (s + 1) % n, (s - 1) % n, mesh)
+        return recv, token.clone()
+
+    @staticmethod
+    def backward(ctx, g_recv, g_token):
+        mesh = ctx.mesh
+        s, n = mesh.rank, mesh.size
+        g_h = exchange(g_recv, torch.empty_like(g_recv), (s - 1) % n, (s + 1) % n, mesh)
+        return g_h, g_token, None
+
+
+class _DeliverLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, token, mesh):
+        ctx.mesh = mesh
+        return broadcast_from(y.clone(), mesh.size - 1, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = all_reduce_sum(g.contiguous().clone(), mesh).div_(mesh.size)
+        last = mesh.rank == mesh.size - 1
+        return (g if last else None), torch.zeros((), device=g.device), None
+
+
+def ring_hop(h: torch.Tensor, token: torch.Tensor, mesh):
+    """(stage s - 1's ``h`` on stage s, the next token); see the module's
+    docstring."""
+    return _RingHop.apply(h, token, mesh)
+
+
+def deliver_last(y: torch.Tensor, token: torch.Tensor, mesh) -> torch.Tensor:
+    """The last stage's ``y`` on every stage (the others pass a tensor of its
+    shape and dtype); see the module's docstring."""
+    return _DeliverLast.apply(y, token, mesh) if _active(mesh) else y

@@ -1,5 +1,6 @@
-"""The port's ranks, the counterpart of ``univl_tpu/parallel/mesh.py`` and
-of ``univl_tpu/parallel/tp.py:make_mesh_2d``.
+"""The port's ranks, the counterpart of ``univl_tpu/parallel/mesh.py``, of
+``univl_tpu/parallel/tp.py:make_mesh_2d`` and of
+``univl_tpu/parallel/pp.py:make_mesh_pp``.
 
 JAX runs data parallelism as one program over a 1-D device mesh whose axis
 is ``DP_AXIS``, and tensor parallelism over a second axis ``TP_AXIS``; the
@@ -16,7 +17,11 @@ ranks sit on neighbouring cards), and each rank joins one group of each
 axis. ``mesh.axis(DP_AXIS)`` and ``mesh.axis(TP_AXIS)`` are views of the
 rank in those groups (their rank, size and group), which the collectives of
 ``parallel/comm.py`` take; with tp 1 the dp view is the mesh itself and the
-tp view a group of one rank, whose collectives are the identity.
+tp view a group of one rank, whose collectives are the identity. With ``pp``
+above 1 (``parallel/pp.py``'s GPipe) the ranks form a (dp, pp) grid the same
+way, pp the inner axis, ``rank = dp_index * pp + pp_index``, so a stage's
+neighbour is the next rank; ``mesh.axis(PP_AXIS)`` is the rank's view in its
+pipeline. As in JAX, no grid has both tp and pp.
 
 Ranks come from one of two places:
   - torchrun (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
@@ -51,6 +56,7 @@ import torch.distributed as dist
 
 DP_AXIS = "dp"
 TP_AXIS = "tp"
+PP_AXIS = "pp"
 INIT_METHOD_ENV = "UNIVL_TORCH_INIT_METHOD"  # set by spawn for its children
 TIMEOUT = datetime.timedelta(minutes=30)  # a collective that waits longer raises
 CPU_THREADS = 1  # torch threads of a CPU rank; several ranks share the host's cores
@@ -71,6 +77,7 @@ class Mesh:
     staging: dict = field(default_factory=dict)  # comm.py's pinned host buffers
     group: Any = None  # the data collectives' group: None is the world's
     tp: int = 1  # ranks in a tensor-parallel group, the inner axis
+    pp: int = 1  # stages of a pipeline, the inner axis (tp and pp are never both above 1)
     sequence_parallel: bool = False  # with tp above 1: parallel/sp.py's row shards
     views: dict = field(default_factory=dict)  # axis name -> this rank's view in its group
 
@@ -80,15 +87,16 @@ class Mesh:
 
     @property
     def dp(self) -> int:
-        return self.size // self.tp
+        return self.size // (self.tp * self.pp)
 
     def axis(self, name: str) -> "Mesh":
-        """This rank's view in its ``DP_AXIS`` or ``TP_AXIS`` group."""
+        """This rank's view in its ``DP_AXIS``, ``TP_AXIS`` or ``PP_AXIS``
+        group."""
         if name in self.views:
             return self.views[name]
-        if name == DP_AXIS and self.tp == 1:
+        if name == DP_AXIS and self.tp == 1 and self.pp == 1:
             return self
-        if name == TP_AXIS and self.tp == 1:
+        if (name == TP_AXIS and self.tp == 1) or (name == PP_AXIS and self.pp == 1):
             return Mesh(device=self.device)
         raise KeyError(f"no {name!r} axis in this mesh")
 
@@ -171,13 +179,15 @@ def rank_error(n_gpu: int, device_type: str, backend: Optional[str]) -> Optional
 
 
 def init(device: str, backend: Optional[str] = None, tp: int = 1,
-         sequence_parallel: bool = False) -> Mesh:
+         sequence_parallel: bool = False, pp: int = 1,
+         timeout: datetime.timedelta = TIMEOUT) -> Mesh:
     """Join the process group: a launcher's ranks, or a one-rank group of
     this process alone (``--zero1`` on one card, whose collectives are real
     calls of the backend over one rank). ``device`` is ``--device``; a
     rank's device is ``cuda:local_rank`` modulo the visible cards. With
-    ``tp`` above 1 (which must divide the world size) every rank also
-    creates the dp and tp groups, in one order on every rank."""
+    ``tp`` (or ``pp``) above 1, which must divide the world size, every rank
+    also creates the dp and tp (or pp) groups, in one order on every rank.
+    ``timeout`` bounds every wait of a collective or a point-to-point call."""
     device_type = torch.device(device).type
     backend = backend or default_backend(device_type)
     store_dir = None
@@ -187,6 +197,8 @@ def init(device: str, backend: Optional[str] = None, tp: int = 1,
         init_method = os.environ.get(INIT_METHOD_ENV, "env://")
     else:
         rank, size, local_rank = 0, 1, 0
+    check_grid(size, tp, pp)
+    if not launched():
         store_dir = tempfile.mkdtemp(prefix="univl_group_")
         init_method = "file://" + os.path.join(store_dir, "store")
     if device_type == "cuda":
@@ -198,26 +210,36 @@ def init(device: str, backend: Optional[str] = None, tp: int = 1,
         dev = torch.device(device_type)
         if size > 1:
             torch.set_num_threads(CPU_THREADS)
-    if size % tp:
-        raise ValueError(f"--tensor_parallel {tp} must divide the {size} ranks")
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=size,
-                            timeout=TIMEOUT)
-    control = dist.new_group(backend="gloo", timeout=TIMEOUT)
+                            timeout=timeout)
+    control = dist.new_group(backend="gloo", timeout=timeout)
     mesh = Mesh(rank=rank, size=size, local_rank=local_rank, device=dev, backend=backend,
-                control=control, store_dir=store_dir, tp=tp,
+                control=control, store_dir=store_dir, tp=tp, pp=pp,
                 sequence_parallel=sequence_parallel and tp > 1)
-    if tp > 1:
-        dp = size // tp
-        grids = {TP_AXIS: [[d * tp + t for t in range(tp)] for d in range(dp)],
-                 DP_AXIS: [[d * tp + t for d in range(dp)] for t in range(tp)]}
-        for name in (TP_AXIS, DP_AXIS):
+    inner_name, inner = (TP_AXIS, tp) if tp > 1 else (PP_AXIS, pp)
+    if inner > 1:
+        dp = size // inner
+        grids = {inner_name: [[d * inner + t for t in range(inner)] for d in range(dp)],
+                 DP_AXIS: [[d * inner + t for d in range(dp)] for t in range(inner)]}
+        for name in (inner_name, DP_AXIS):
             for ranks in grids[name]:
-                group = dist.new_group(ranks, backend=backend, timeout=TIMEOUT)
+                group = dist.new_group(ranks, backend=backend, timeout=timeout)
                 if rank in ranks:
                     mesh.views[name] = Mesh(rank=ranks.index(rank), size=len(ranks),
                                             local_rank=local_rank, device=dev, backend=backend,
                                             control=control, group=group)
     return mesh
+
+
+def check_grid(size: int, tp: int, pp: int) -> None:
+    """The (dp, tp) or (dp, pp) grids ``init`` builds, or an error."""
+    if tp > 1 and pp > 1:
+        raise ValueError(f"tensor parallelism ({tp}) and pipeline parallelism ({pp}) in one "
+                         f"mesh: the JAX package has no such mesh; choose one")
+    if size % tp:
+        raise ValueError(f"--tensor_parallel {tp} must divide the {size} ranks")
+    if size % pp:
+        raise ValueError(f"pipeline parallelism {pp} must divide the {size} ranks")
 
 
 def kernel_launches() -> dict:
