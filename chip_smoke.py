@@ -59,7 +59,7 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      the card's bf16 video embeddings must agree with the port's f32 CPU run
      of the same weights. The first requests' times are smoke readings;
   5. a sustained window of the same traffic: the index grows to YouCook2
-     val's 3,328 clips in adds of 64, then takes 200 searches; add rate over
+     val's 3,328 clips in adds of 64, then takes 100 searches; add rate over
      the window and p50/p99 request latencies;
   6. torch.profiler over one more add and one more search, giving each
      request's device busy time, kernel and copy time, and the
@@ -112,16 +112,31 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      steady clips/s, peak memory, launches (#6 in every LayerNorm, #2's
      tensor-core kernels in every attention over keys, 23 forward and 23
      backward a step, the tiled backward never) and a pytorch_model.bin.0
-     that loads back; then --do_eval of that file over 32 val clips (beam
-     5: captions and BLEU, METEOR, ROUGE-L, CIDEr), and once more with
-     --fused_cls;
+     that loads back; then --do_eval --fused_decode --fused_vocab of that
+     file over 32 val clips (beam 5: captions and BLEU, METEOR, ROUGE-L,
+     CIDEr), and once more with --fused_cls;
  17. torch.profiler over 3 caption steps with --fused_ln and 3 without;
  18. caption agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, batch 4, dropout 0: card f32 without
      --fused_ln (the control) and with it, card bf16 over 5 steps, with the
      limits of phase 12 and the control's;
+ K1. Trainer.train_steps (K optimizer steps a call, each step after a
+     shape's first a replay of one step captured as a CUDA graph) at
+     bf16, UniVLConfig.base, seeded weights, dropout 0.1, under
+     torch.use_deterministic_algorithms: FT-Joint at bench.py's batch 32,
+     48 words, 48 frames, K = 5; FT-Align --fused_ffn block at phase 13's
+     shape, K = 3; caption --stage_two --fused_ln at phase 16's, K = 3. Two
+     calls (the first runs its first step eagerly and captures; the second
+     only replays) bitwise K train_step calls each from the same weights:
+     every step's metrics, every parameter, both moments, the step count;
+     the wrappers' counts (the calls captured) times the replays; then
+     K1_PAIRS alternating windows of one train_steps(K) call against K
+     train_step calls (median clips/s of both), a profiled call and K
+     profiled train_step calls (device busy share and kernel launches a
+     step, replayed and eager) and each route's peak device memory;
  19. MSRVTT caption eval: univl_tpu_torch.cli.task_caption --do_eval
-     --fused_cls --datatype msrvtt at full width, seeded weights, over 64
+     --fused_decode --fused_vocab --fused_cls --datatype msrvtt (the eval's
+     fused kernels are off unless given) at full width, seeded weights, over 64
      fixture clips with 20 references each (the caption test layout):
      captions, BLEU/METEOR/ROUGE-L/CIDEr, #10t once a decode step;
  20. MSRVTT retrieval eval: univl_tpu_torch.cli.task_retrieval --do_eval
@@ -168,8 +183,9 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  R2. the input pipeline: FT-Joint (phase 10's config) through
      cli.common.make_input_iter: the prefetch and --no_prefetch give bitwise
      equal losses over 10 steps in deterministic mode; --transfer_dtype
-     bfloat16 losses within a stated limit of the f32 transfer's; 2
-     alternating pairs (cut from 3) of 20-step windows of each mode under a CUDA-only
+     bfloat16 losses within a stated limit of the f32 transfer's; 1
+     pair (cut from 3, then 2 for K1) of 10-step windows (cut from 20 for K1)
+     of each mode under a CUDA-only
      profiler (clips/s and device busy share, medians); the joint retrieval
      eval of phase 20 (its batches prefetched) against --no_prefetch: the
      same R@1/5/10, MedR and MeanR;
@@ -322,10 +338,11 @@ from univl_tpu_torch.train.trainer import Trainer
 # retrieval traffic
 N_CLIPS, N_QUERIES, TOP_K, RERANK, BATCH = 64, 8, 5, 16, 16
 N_FILES = 512  # distinct clip files; the sustained window cycles through them
-SUSTAINED_INDEX, SUSTAINED_SEARCHES = 3328, 200  # YouCook2 val's clip count
+# YouCook2 val's clip count; the searches cut from 200 to 100 for K1
+SUSTAINED_INDEX, SUSTAINED_SEARCHES = 3328, 100
 # caption traffic: requests of BATCH clips, beam BEAM, max_len = max_words
 BEAM, MAX_WORDS, DECODER_LAYERS = 5, 48, 3
-CAPTION_WINDOW, UNFUSED_WINDOW, CONCURRENT = 20, 10, 16
+CAPTION_WINDOW, UNFUSED_WINDOW, CONCURRENT = 10, 5, 16  # windows cut from 20, 10 for K1
 # #1: a tower; the cross tower; the server's rerank; FT-Align eval rescoring
 # (8 texts x 64 videos a block). bf16 takes the tensor-core kernel, f32 the
 # CUDA-core one; the bf16 shape with the most keys that the model launched
@@ -465,6 +482,18 @@ CAP_FLAGS = ["--n_gpu", "1", "--lr", "3e-5", "--warmup_proportion", "0.1", "--co
 # control's disagreement (the two routes read alike: #6 adds at most its own
 # rounding)
 AGREE_CAP_BATCH, AGREE_CAP_PARAM_RTOL, AGREE_CAP_FUSED_FACTOR = 4, 1e-4, 3
+# K1, stated before its first run: train_steps at K steps a call bitwise K
+# train_step calls (metrics, parameters, moments, step count) over two calls,
+# the first with the eager step and the capture, the second all replays;
+# K1_PAIRS alternating pairs of windows (one call against K eager steps)
+K1_ROUTES = {  # label -> (config flags, K, data)
+    "FT-Joint": (dict(), 5, "retrieval"),
+    "FT-Align (--fused_ffn block)": (dict(train_sim_after_cross=True, use_fused_ffn="block"), 3,
+                                     "retrieval"),
+    "caption (--stage_two --fused_ln)": (dict(stage_two=True, task_type="caption"), 3,
+                                         "caption"),
+}
+K1_PAIRS = 5
 # evaluation on MSRVTT-format fixtures at S3D width 1024: retrieval over the
 # JSFusion test split's 1,000 clips (48 words, 48 frames, batch 64; joint, then
 # the device-resident FT-Align rescoring of all 1,000,000 pairs in blocks of 8
@@ -533,7 +562,9 @@ PRE_AGREE_CLIPS = 4
 # windows. R3: as P3's resumed run, bitwise. R4: bitwise.
 REMAT_CHECK_STEPS, REMAT_TIMED_STEPS, REMAT_PROFILE_STEPS = 2, 3, 2  # timed: cut from 5
 REMAT_MODES = (False, True, "dots")
-INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 20, 2  # pairs: cut from 5, then 3
+# cut for K1: the windows from 20 steps to 10 and the pairs from 2 to 1 (cut
+# from 5, then 3, before)
+INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 10, 1
 TRANSFER_BF16_RTOL = 2e-2
 # D1-D3, data parallelism and ZeRO-1, stated before their first run. D1:
 # FT-Align (--fused_ffn block) through the CLI with --n_gpu 2 --dist_backend
@@ -639,7 +670,7 @@ N1_UNICODE = ["café olé", "添加洋葱 then stir", "naïve mix", "ÜBER Äpfe
               # past the tables, a lone surrogate, an embedded NUL
               "ΣΟΦΟΣ σοφος", "beyond \U00030001 table", "lone \ud800 surrogate", "add\x00salt"]
 N1_DECLINED = 4
-SLOW_CALL_MS = 2.0  # cuda_time_ms: a reference call this slow is timed over 3 x 3 calls
+SLOW_CALL_MS = 2.0  # cuda_time_ms: a reference call this slow is timed over 2 x 2 calls
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, nominal
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores bf16; CUDA cores f32
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan", "add salt and pepper",
@@ -870,7 +901,7 @@ def read_launches() -> dict:
     return {name: getattr(*_counter(entry)) for name, (entry, _, _) in KERNELS.items()}
 
 
-def cuda_time_ms(fn, runs: int = 20, repeats: int = 5, reference: bool = False):
+def cuda_time_ms(fn, runs: int = 20, repeats: int = 3, reference: bool = False):
     """(device ms, host-paced ms) per call of fn, each the median of `repeats`.
 
     Device time: a sleep kernel holds the stream while the host queues `runs`
@@ -879,9 +910,10 @@ def cuda_time_ms(fn, runs: int = 20, repeats: int = 5, reference: bool = False):
     gaps while the card waits for the host to launch the next kernel. A
     ``reference`` call (a plain version, a library call or an unfused chain,
     never a hand-written kernel) that takes SLOW_CALL_MS or more alone is
-    timed over at most 3 repeats of 3 calls: its device time dwarfs the
+    timed over at most 2 repeats of 2 calls: its device time dwarfs the
     host's launch gaps that the longer windows even out (the cut that made
-    room for D1-D3)."""
+    room for D1-D3, 3 x 3 until the cut for K1; repeats cut from 5 to 3 for
+    K1 too)."""
 
     def events():
         return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -894,7 +926,7 @@ def cuda_time_ms(fn, runs: int = 20, repeats: int = 5, reference: bool = False):
     end.record()
     end.synchronize()
     if reference and start.elapsed_time(end) >= SLOW_CALL_MS:
-        runs, repeats = min(runs, 3), min(repeats, 3)
+        runs, repeats = min(runs, 2), min(repeats, 2)
     device, paced = [], []
     for _ in range(repeats):
         start, end = events()
@@ -2961,7 +2993,8 @@ def phase_caption_train(tmp: str, vocab: str, files) -> dict:
 
     reset_launches()
     t0 = time.perf_counter()
-    _, metrics = task_caption.main(["--do_eval", "--output_dir", os.path.join(tmp, "caption_eval"),
+    _, metrics = task_caption.main(["--do_eval", "--fused_decode", "--fused_vocab",
+                                    "--output_dir", os.path.join(tmp, "caption_eval"),
                                     "--init_model", os.path.join(out, "pytorch_model.bin.0"),
                                     *common])
     eval_counts = read_launches()
@@ -2981,7 +3014,8 @@ def phase_caption_train(tmp: str, vocab: str, files) -> dict:
     # the same eval with the classifier transform inside the vocab kernel
     reset_launches()
     t0 = time.perf_counter()
-    _, metrics_cls = task_caption.main(["--do_eval", "--fused_cls", "--output_dir",
+    _, metrics_cls = task_caption.main(["--do_eval", "--fused_decode", "--fused_vocab",
+                                        "--fused_cls", "--output_dir",
                                         os.path.join(tmp, "caption_eval_cls"), "--init_model",
                                         os.path.join(out, "pytorch_model.bin.0"), *common])
     cls_counts = read_launches()
@@ -3006,6 +3040,147 @@ def _require_fused_cls_steps(counts: dict, what: str) -> None:
             and counts["vocab_topk_cuda_cores"] == counts["vocab_topk_transform_cuda_cores"] == 0
             and counts["beam_decode_self_attention"] == DECODER_LAYERS * steps,
             f"{what}: launches {counts}, want #10t once and #9 {DECODER_LAYERS} times a step")
+
+
+def _k1_trainer(cfg, sd, fused_ln: bool) -> Trainer:
+    model = UniVL(cfg, device="cuda")
+    model.load_state_dict(sd, strict=True)
+    set_fused_layer_norm(model, fused_ln)
+    opt = make_univl_optimizer(model, lr=3e-5, t_total=100, warmup_proportion=0.1, coef_lr=0.1)
+    return Trainer(model, opt, seed=0)
+
+
+def _stacked(batches: list) -> dict:
+    """[accum, B, ...] batches stacked into train_steps' [K, accum, B, ...]."""
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def _k1_bitwise(graph: Trainer, eager: Trainer, got: list, want: list) -> list:
+    """What differs between the two trainers after the same steps: metrics,
+    parameters, moments, step counts (empty when all is bitwise equal)."""
+    off = [f"metric {k}" for k in want[0]
+           if not torch.equal(torch.cat([g[k] for g in got]), torch.stack([w[k] for w in want]))]
+    if graph.optimizer.steps != eager.optimizer.steps:
+        off.append(f"steps {graph.optimizer.steps} against {eager.optimizer.steps}")
+    for (name, p), q in zip(graph.model.named_parameters(), eager.model.parameters()):
+        if not torch.equal(p, q):
+            off.append(name)
+        sp, sq = graph.optimizer.state.get(p, {}), eager.optimizer.state.get(q, {})
+        off += [f"{name} {k}" for k in ("m", "v") if (k in sp) != (k in sq)
+                or (k in sp and not torch.equal(sp[k], sq[k]))]
+    return off
+
+
+def _k1_window(fn, steps: int, batch: int) -> float:
+    """clips/s of fn() over ``steps`` steps of ``batch`` clips, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return steps * batch / (time.perf_counter() - t0)
+
+
+def phase_train_steps(ds, cap_ds) -> dict:
+    """K1: Trainer.train_steps on its CUDA-graph route against the eager
+    loop, on FT-Joint, FT-Align's block route and caption fine-tuning with
+    --fused_ln; returns each route's launches (the calls captured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    by_path = {}
+    with deterministic_mode():
+        for label, (flags, k, data) in K1_ROUTES.items():
+            caption = data == "caption"
+            batch = CAP_BATCH if caption else TRAIN_BATCH
+            words, frames = (CAP_WORDS, CAP_FRAMES) if caption else (48, 48)
+            cfg = UniVLConfig.base(max_words=words, max_frames=frames, compute_dtype="bfloat16",
+                                   batch_size_per_device=batch, **flags)
+            require(cfg.bert.hidden_dropout_prob == 0.1, f"K1 {label}: dropout {cfg.bert}")
+            sd = init_state_dict(cfg, seed=0)
+            host = _train_batches(cap_ds if caption else ds, 2 * k, "cuda", batch)
+            stacks = [_stacked(host[:k]), _stacked(host[k:])]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            graph = _k1_trainer(cfg, sd, caption)
+            got = [graph.train_steps(stacks[0], 0), graph.train_steps(stacks[1], k)]
+            torch.cuda.synchronize()
+            counts = read_launches()
+            peak_graph = torch.cuda.max_memory_allocated() - held
+            held_eager = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eager = _k1_trainer(cfg, sd, caption)
+            want = [eager.train_step(host[i], i) for i in range(2 * k)]
+            torch.cuda.synchronize()
+            peak_eager = torch.cuda.max_memory_allocated() - held_eager
+            off = _k1_bitwise(graph, eager, got, want)
+            losses = [round(float(x), 6) for g in got for x in g["loss"]]
+            require(not off, f"K1 {label}: train_steps is not bitwise the train_step loop: "
+                             f"{off[:8]} ({len(off)} differ); losses {losses} against "
+                             f"{[round(float(w['loss']), 6) for w in want]}")
+            per_step = (_caption_launches_per_step(graph.model) if caption else
+                        _launches_per_step("ft_align" if flags else "ft_joint"))
+            # the wrappers ran for the first call's eager step and its capture
+            want_counts = {**{n: 0 for n in KERNELS}, **{n: 2 * c for n, c in per_step.items()}}
+            require(counts == want_counts, f"K1 {label}: launches {counts}, want {want_counts}")
+            replays = 2 * k - 1
+            print(f"K1 train_steps, {label} (bf16, batch {batch}, {words} words, {frames} "
+                  f"frames, K = {k}, dropout 0.1, deterministic mode): two calls bitwise "
+                  f"{2 * k} train_step calls (losses {losses}; every metric, all "
+                  f"{len(list(graph.model.parameters()))} parameters, both moments, steps "
+                  f"{graph.optimizer.steps}); the wrappers counted the eager step and the "
+                  f"capture, {per_step} each, so the card ran the captured calls x "
+                  f"{replays} replays + the eager step's: "
+                  f"{ {n: c * (replays + 1) for n, c in per_step.items()} }; peak device "
+                  f"memory {peak_graph / 2**30:.3f} GiB (train_steps: the eager step, the "
+                  f"capture and the graph's pool) against {peak_eager / 2**30:.3f} GiB "
+                  f"(train_step), parameters and moments included", flush=True)
+            rates = {"train_steps": [], "train_step": []}
+            step_g = step_e = 2 * k
+            for pair in range(K1_PAIRS):
+                for mode in (("train_steps", "train_step") if pair % 2 == 0
+                             else ("train_step", "train_steps")):
+                    if mode == "train_steps":
+                        rates[mode].append(_k1_window(
+                            lambda: graph.train_steps(stacks[pair % 2], step_g), k, batch))
+                        step_g += k
+                    else:
+                        def loop(first=step_e):
+                            for i in range(k):
+                                eager.train_step(host[(pair % 2) * k + i], first + i)
+                        rates[mode].append(_k1_window(loop, k, batch))
+                        step_e += k
+            profiled = {}
+            for mode, run in (
+                    ("train_steps", lambda: graph.train_steps(stacks[0], step_g)),
+                    ("train_step", lambda: [eager.train_step(host[i], step_e + i)
+                                            for i in range(k)])):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                busy = busy_seconds(prof, f"K1 {label} {mode}")
+                kernels = sum(1 for e in prof.profiler.kineto_results.events()
+                              if e.device_type() == torch.autograd.DeviceType.CUDA
+                              and not e.name().startswith(("Memcpy", "Memset")))
+                profiled[mode] = (f"wall {1e3 * wall / k:.3f} ms a step, device busy "
+                                  f"{1e3 * busy / k:.3f} ms a step ({busy / wall:.4f} of "
+                                  f"wall), {kernels / k:.1f} kernel launches a step")
+            med = {m: float(np.median(r)) for m, r in rates.items()}
+            print(f"K1 train_steps, {label}: {K1_PAIRS} alternating pairs of windows of {k} "
+                  f"steps, clips/s train_steps {[round(x, 3) for x in rates['train_steps']]} "
+                  f"median {med['train_steps']:.3f}, train_step "
+                  f"{[round(x, 3) for x in rates['train_step']]} median {med['train_step']:.3f} "
+                  f"({med['train_steps'] / med['train_step']:.3f}x); profiled (CUDA-only "
+                  f"profiler on) over {k} steps: a call of {k} replays "
+                  f"{profiled['train_steps']}; {k} train_step calls "
+                  f"{profiled['train_step']}", flush=True)
+            by_path[f"train_steps_{label.split(' ')[0].lower().replace('-', '_')}"] = counts
+            del graph, eager, host, stacks, got, want
+    return by_path
 
 
 def make_msrvtt_data(tmp: str):
@@ -3036,7 +3211,8 @@ def phase_caption_eval_msrvtt(tmp: str, vocab: str, files) -> dict:
     the seeded weights: captions of the test split, scored against every
     reference of a clip."""
     out = os.path.join(tmp, "msrvtt_caption_eval")
-    argv = _msrvtt_argv(files, vocab, out) + ["--fused_cls", "--batch_size_val", "32"]
+    argv = _msrvtt_argv(files, vocab, out) + ["--fused_decode", "--fused_vocab", "--fused_cls",
+                                              "--batch_size_val", "32"]
     reset_launches()
     t0 = time.perf_counter()
     _, metrics = task_caption.main(argv)
@@ -4612,6 +4788,8 @@ def main() -> int:
         phase_caption_profile(cap_ds, tmp)
         phase_caption_agreement(cap_ds, f32_runs)
         stamp("caption training (phases 16-18)")
+        by_path.update(phase_train_steps(ds, cap_ds))
+        stamp("K1")
         ret_files, msrvtt_cap_files = make_msrvtt_data(tmp)
         by_path["caption_eval_msrvtt"] = phase_caption_eval_msrvtt(tmp, vocab, msrvtt_cap_files)
         eval_metrics = {}

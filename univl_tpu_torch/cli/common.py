@@ -191,12 +191,14 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--fused_decode", action=argparse.BooleanOptionalAction, default=None,
                    help="beam decode: the pending beam permutation, the cache update and "
                         "the self-attention in one pass over the KV cache (the decode-"
-                        "attention kernel). Unset: on for a CUDA device, off on the CPU")
+                        "attention kernel). Unset: the server's on for a CUDA device; off on the "
+                        "CPU and in task_caption's eval, as in JAX")
     p.add_argument("--fused_vocab", action=argparse.BooleanOptionalAction, default=None,
                    help="beam decode: the tied classifier, its log-softmax normalizer and "
                         "the per-row top-K in one pass over vocab tiles (the vocab top-k "
-                        "kernel); the [B*K, V] logits are never written. Unset: on for a "
-                        "CUDA device, off on the CPU")
+                        "kernel); the [B*K, V] logits are never written. Unset: the server's "
+                        "on for a CUDA device; off on the CPU and in task_caption's eval, "
+                        "as in JAX")
     p.add_argument("--fused_cls", action="store_true",
                    help="beam decode: the classifier transform (dense, erf-GELU, LayerNorm) "
                         "inside the vocab top-k kernel, in f32 with one rounding; only with "

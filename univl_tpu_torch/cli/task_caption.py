@@ -6,8 +6,9 @@ main_task_caption.py): stage two with the caption task, the text
 (transcript), visual and cross towers and the decoder under teacher forcing,
 the masked cross entropy over the tied classifier's logits, BertAdam, one
 CUDA device. ``--do_eval`` decodes the val split
-with beam 5 (the KV-cache beam search of ``evals/beam.py``, on its fused
-kernels on a CUDA device) and scores BLEU-1..4, METEOR, ROUGE-L and CIDEr;
+with beam 5 (the KV-cache beam search of ``evals/beam.py``; its fused
+kernels with ``--fused_decode`` and ``--fused_vocab``, off unless given, as
+in JAX) and scores BLEU-1..4, METEOR, ROUGE-L and CIDEr;
 with ``--do_train`` every epoch is evaluated and the best is the one with
 the highest BLEU-4; ``--do_eval`` alone evaluates the ``--init_model``
 weights. ``--fused_ln`` runs every LayerNorm through the LayerNorm kernel
@@ -49,6 +50,7 @@ regions stay whole under ``--sequence_parallel``, as in JAX).
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 from univl_tpu_torch.cli import common
 from univl_tpu_torch.data.batching import Batcher, prefetch_to_device
@@ -57,7 +59,6 @@ from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.data.youcook import YoucookCaptionDataset
 from univl_tpu_torch.evals.beam import CaptionGenerator
 from univl_tpu_torch.evals.caption_metrics import compute_caption_metrics
-from univl_tpu_torch.serving.captioning import resolve_fused
 
 ENTRY = "univl_tpu_torch.cli.task_caption:main"  # what each spawned rank runs
 # flag -> why it is refused: the entry point that runs it
@@ -125,6 +126,17 @@ def references_for(dataset, idx: int):
     return [dataset.reference_caption(idx)]
 
 
+def eval_fused(explicit: Optional[bool]) -> bool:
+    """The eval's ``--fused_decode`` and ``--fused_vocab``: off unless given,
+    on every device, as JAX's ``task_caption`` eval resolves them
+    (``univl_tpu/cli/task_caption.py:81-86``, ``univl_tpu/evals/beam.py:172-180``):
+    the eval's default decoder keeps the full-prefix decoder's captions bit
+    for bit, so published metrics reproduce
+    (``univl_tpu/serving/captioning.py:30-37``). The caption server keeps its
+    on-for-CUDA default (``serving/captioning.py:resolve_fused``)."""
+    return bool(explicit)
+
+
 def make_eval_fn(args, model, tokenizer, device, val_ds, logger):
     """eval_fn(epoch or None) -> metrics: beam-5 captions of the val split
     in batches of ``min(--batch_size_val, 32)``, their metrics, and the
@@ -137,8 +149,8 @@ def make_eval_fn(args, model, tokenizer, device, val_ds, logger):
         model.eval()
         gen = CaptionGenerator(model, tokenizer, device, beam_size=BEAM_SIZE,
                                max_len=args.max_words,
-                               fused_decode=resolve_fused(args.fused_decode, device),
-                               fused_vocab=resolve_fused(args.fused_vocab, device),
+                               fused_decode=eval_fused(args.fused_decode),
+                               fused_vocab=eval_fused(args.fused_vocab),
                                fused_cls=args.fused_cls)
         hyps = []
         batches = batcher.epoch(0)

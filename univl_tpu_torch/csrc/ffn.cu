@@ -186,7 +186,8 @@ __device__ __forceinline__ int quad_col(int q) { return q * 128 + 4 * (threadIdx
 // counter's row is row + drop.offset: a sequence-parallel rank's rows are
 // rows [offset, offset + N) of the whole call.
 __device__ __forceinline__ float4 keep4(const Dropout& drop, int row, int col, unsigned tag) {
-  const uint4 w = philox4x32_10(make_uint4(col >> 2, row + drop.offset, tag, 0), drop.seed);
+  const uint4 w =
+      philox4x32_10(make_uint4(col >> 2, row + drop.offset, tag, 0), univl::key_of(drop));
   float4 k;
 #pragma unroll
   for (int t = 0; t < 4; ++t) at(k, t) = philox_word(w, t) >= drop.threshold ? drop.inv_keep : 0.0f;
@@ -1290,6 +1291,11 @@ cudaError_t sum_splits(float* part, int splits, int N, cudaStream_t st) {
 
 extern "C" {
 
+// Every entry below that drops takes `key`, the device address of the 64-bit
+// Philox key (read by the kernels' draws, so a CUDA graph that captured the
+// launch draws the key written there before each replay; null without
+// dropout).
+
 // Rows a block owns in the backwards' LayerNorm: their dscale/dbias
 // partials are [ceil(N / rows), H] f32, the row statistics [that many
 // blocks x rows, 4] f32.
@@ -1304,13 +1310,14 @@ int univl_ffn_block_rows() { return kRows; }
 int univl_ffn_fwd(const void* x, const void* w1t, const void* b1, const void* w2t, const void* b2,
                   const void* ln_scale, const void* ln_bias, void* out, void* pre, void* s,
                   int block, int N, int H, int F, float eps, unsigned int threshold,
-                  float inv_keep, int dropout_on, unsigned long long seed, void* stream) {
+                  float inv_keep, int dropout_on, const void* key, void* stream) {
   if (bad_shape(N, H, F)) return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   return static_cast<int>(launch_ffn_fwd(
       f(x), f(w1t), f(b1), f(w2t), f(b2), f(ln_scale), f(ln_bias), static_cast<float*>(out),
       static_cast<float*>(pre), static_cast<float*>(s), block, N, F, eps,
-      Dropout{seed, threshold, inv_keep, dropout_on}, static_cast<cudaStream_t>(stream)));
+      univl::dropout_of(key, threshold, inv_keep, dropout_on),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // #3 (block = 0) or #4 (block = 1) backward in f32 on CUDA cores. pre: [N,
@@ -1322,13 +1329,13 @@ int univl_ffn_bwd(const void* pre, const void* g, const void* w1, const void* w2
                   const void* ln_scale, void* dx, void* dpre, void* h, void* dffn,
                   void* dscale_p, void* dbias_p, int block, int N, int H, int F, float eps,
                   unsigned int threshold, float inv_keep, int dropout_on,
-                  unsigned long long seed, void* stream) {
+                  const void* key, void* stream) {
   if (bad_shape(N, H, F)) return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto o = [](void* p) { return static_cast<float*>(p); };
   return static_cast<int>(launch_ffn_bwd(
       f(pre), f(g), f(w1), f(w2), f(s), f(ln_scale), o(dx), o(dpre), o(h), o(dffn), o(dscale_p),
-      o(dbias_p), block, N, F, eps, Dropout{seed, threshold, inv_keep, dropout_on},
+      o(dbias_p), block, N, F, eps, univl::dropout_of(key, threshold, inv_keep, dropout_on),
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -1344,7 +1351,7 @@ int univl_ffn_fwd_tc(const void* x, const void* w1t, const void* b1, const void*
                      const void* b2, const void* ln_scale, const void* ln_bias, void* out,
                      void* pre, void* s, void* h, void* part, int block, int N, int H, int F,
                      int splits, float eps, unsigned int threshold, float inv_keep,
-                     int dropout_on, unsigned long long seed, void* stream) {
+                     int dropout_on, const void* key, void* stream) {
   if (bad_shape(N, H, F) || bad_splits(F, splits)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   EpiArgs e{};
@@ -1354,7 +1361,7 @@ int univl_ffn_fwd_tc(const void* x, const void* w1t, const void* b1, const void*
   cudaError_t err = gemm<kFfnFwd, kBias>(x, w1t, N, F, kH, 1, e, st);  // pre, h
   if (err != cudaSuccess) return static_cast<int>(err);
   e = EpiArgs{};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on};
+  const Dropout drop = univl::dropout_of(key, threshold, inv_keep, dropout_on);
   const auto rows = block ? ffn_fwd_rows_kernel<true> : ffn_fwd_rows_kernel<false>;
   if (splits == 1) {  // y from the GEMM's epilogue; #4 then its rows in place
     e.out = static_cast<bf16*>(out);
@@ -1388,7 +1395,7 @@ int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void*
                      void* dffn, void* dscale_p, void* dbias_p, void* stats, void* part,
                      int block, int N, int H, int F, int splits, int ln_rows, float eps,
                      unsigned int threshold, float inv_keep, int dropout_on,
-                     unsigned long long seed, void* stream) {
+                     const void* key, void* stream) {
   if (bad_shape(N, H, F) || bad_splits(F, splits)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* sv = static_cast<const bf16*>(s);
@@ -1403,7 +1410,7 @@ int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void*
     }
     head<<<grid, kThreads, 0, st>>>(sv, gv, sc, static_cast<bf16*>(dffn), stv,
                                     static_cast<float*>(dscale_p), static_cast<float*>(dbias_p),
-                                    N, eps, Dropout{seed, threshold, inv_keep, dropout_on});
+                                    N, eps, univl::dropout_of(key, threshold, inv_keep, dropout_on));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -1437,7 +1444,7 @@ int univl_ffn_bwd_tc(const void* pre, const void* g, const void* w1, const void*
 int univl_dense_block_fwd(const void* x, const void* r, const void* wt, const void* b,
                           const void* ln_scale, const void* ln_bias, void* out, void* s, int N,
                           int H, float eps, unsigned int threshold, float inv_keep,
-                          int dropout_on, unsigned long long seed, void* stream) {
+                          int dropout_on, const void* key, void* stream) {
   if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<bool> done[kMaxDevices];
   const cudaError_t err = opt_in(dense_block_fwd_kernel, kDenseSmemCc, done);
@@ -1445,7 +1452,7 @@ int univl_dense_block_fwd(const void* x, const void* r, const void* wt, const vo
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   dense_block_fwd_kernel<<<blocks(N), kThreads, kDenseSmemCc, static_cast<cudaStream_t>(stream)>>>(
       f(x), f(r), f(wt), f(b), f(ln_scale), f(ln_bias), static_cast<float*>(out),
-      static_cast<float*>(s), N, eps, Dropout{seed, threshold, inv_keep, dropout_on});
+      static_cast<float*>(s), N, eps, univl::dropout_of(key, threshold, inv_keep, dropout_on));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1456,7 +1463,7 @@ int univl_dense_block_fwd(const void* x, const void* r, const void* wt, const vo
 int univl_dense_block_bwd(const void* s, const void* g, const void* w, const void* ln_scale,
                           void* dx, void* dy, void* dr, void* dscale_p, void* dbias_p, int N,
                           int H, float eps, unsigned int threshold, float inv_keep,
-                          int dropout_on, unsigned long long seed, void* stream) {
+                          int dropout_on, const void* key, void* stream) {
   if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<bool> done[kMaxDevices];
   const cudaError_t err = opt_in(dense_block_bwd_kernel, kDenseSmemCc, done);
@@ -1465,7 +1472,7 @@ int univl_dense_block_bwd(const void* s, const void* g, const void* w, const voi
   const auto o = [](void* p) { return static_cast<float*>(p); };
   dense_block_bwd_kernel<<<blocks(N), kThreads, kDenseSmemCc, static_cast<cudaStream_t>(stream)>>>(
       f(s), f(g), f(w), f(ln_scale), o(dx), o(dy), o(dr), o(dscale_p), o(dbias_p), N, eps,
-      Dropout{seed, threshold, inv_keep, dropout_on});
+      univl::dropout_of(key, threshold, inv_keep, dropout_on));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1476,7 +1483,7 @@ int univl_dense_block_bwd(const void* s, const void* g, const void* w, const voi
 int univl_dense_block_fwd_tc(const void* x, const void* r, const void* wt, const void* b,
                              const void* ln_scale, const void* ln_bias, void* out, void* s,
                              int N, int H, float eps, unsigned int threshold, float inv_keep,
-                             int dropout_on, unsigned long long seed, void* stream) {
+                             int dropout_on, const void* key, void* stream) {
   if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   EpiArgs e{};
@@ -1487,7 +1494,7 @@ int univl_dense_block_fwd_tc(const void* x, const void* r, const void* wt, const
   dense_fwd_rows_kernel<<<row_blocks(N), kThreads, 0, st>>>(
       static_cast<const bf16*>(r), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<bf16*>(out), static_cast<bf16*>(s), N, eps,
-      Dropout{seed, threshold, inv_keep, dropout_on});
+      univl::dropout_of(key, threshold, inv_keep, dropout_on));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1498,7 +1505,7 @@ int univl_dense_block_fwd_tc(const void* x, const void* r, const void* wt, const
 int univl_dense_block_bwd_tc(const void* s, const void* g, const void* w, const void* ln_scale,
                              void* dx, void* dy, void* dr, void* dscale_p, void* dbias_p, int N,
                              int H, int ln_rows, float eps, unsigned int threshold,
-                             float inv_keep, int dropout_on, unsigned long long seed,
+                             float inv_keep, int dropout_on, const void* key,
                              void* stream) {
   if (bad_shape(N, H, kFc)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1512,7 +1519,7 @@ int univl_dense_block_bwd_tc(const void* s, const void* g, const void* w, const 
       static_cast<const bf16*>(s), static_cast<const bf16*>(g),
       static_cast<const float*>(ln_scale), static_cast<bf16*>(dy), static_cast<bf16*>(dr),
       static_cast<float*>(dscale_p), static_cast<float*>(dbias_p), N, eps,
-      Dropout{seed, threshold, inv_keep, dropout_on});
+      univl::dropout_of(key, threshold, inv_keep, dropout_on));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   EpiArgs e{};
@@ -1568,14 +1575,14 @@ int univl_dense_fwd_part_tc(const void* x, const void* wt, void* part, int N, in
 int univl_split_rows_tc(const void* part, const void* b, const void* res, const void* ln_scale,
                         const void* ln_bias, void* out, void* s, int N, int H, int kind,
                         float eps, unsigned int threshold, float inv_keep, int dropout_on,
-                        unsigned long long seed, int row0, void* stream) {
+                        const void* key, int row0, void* stream) {
   if (N < 1 || H != kH || kind < 3 || kind > 5) return static_cast<int>(cudaErrorInvalidValue);
   const auto rows = kind == 3 ? split_rows_kernel<false> : split_rows_kernel<true>;
   rows<<<row_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), static_cast<const bf16*>(b), static_cast<const bf16*>(res),
       static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
       static_cast<bf16*>(out), static_cast<bf16*>(s), N, eps,
-      Dropout{seed, threshold, inv_keep, dropout_on, row0},
+      univl::dropout_of(key, threshold, inv_keep, dropout_on, row0),
       kind == 5 ? kDenseBlockTag : kFfnBlockTag);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1588,11 +1595,11 @@ int univl_split_rows_tc(const void* part, const void* b, const void* res, const 
 int univl_block_bwd_ln_tc(int kind, const void* s, const void* g, const void* ln_scale,
                           void* dropped, void* dr, void* stats, void* dscale_p, void* dbias_p,
                           int N, int H, int ln_rows, float eps, unsigned int threshold,
-                          float inv_keep, int dropout_on, unsigned long long seed, int row0,
+                          float inv_keep, int dropout_on, const void* key, int row0,
                           void* stream) {
   if (N < 1 || H != kH || (kind != 4 && kind != 5)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed, threshold, inv_keep, dropout_on, row0};
+  const Dropout drop = univl::dropout_of(key, threshold, inv_keep, dropout_on, row0);
   const bf16* sv = static_cast<const bf16*>(s);
   const bf16* gv = static_cast<const bf16*>(g);
   const float* sc = static_cast<const float*>(ln_scale);

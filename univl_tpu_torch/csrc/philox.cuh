@@ -34,13 +34,35 @@ __device__ __forceinline__ uint32_t philox_word(uint4 w, int t) {
 }
 
 struct Dropout {
-  unsigned long long seed;  // the Philox key
-  uint32_t threshold;       // keep where the word is >= threshold
-  float inv_keep;           // 1 / (1 - rate)
-  int on;                   // rate > 0
-  int offset;               // added to the head (#2) or row (#4, #5) counter word: the
-                            // first head or row of a rank's shard under tensor or
-                            // sequence parallelism, so its bits are the whole call's
+  const unsigned long long* key;  // the Philox key, in device memory: a CUDA graph replays
+                                  // the launch with this pointer, and each step's key is
+                                  // written there before the replay
+  uint32_t threshold;             // keep where the word is >= threshold
+  float inv_keep;                 // 1 / (1 - rate)
+  int on;                         // rate > 0
+  int offset;                     // added to the head (#2) or row (#4, #5) counter word: the
+                                  // first head or row of a rank's shard under tensor or
+                                  // sequence parallelism, so its bits are the whole call's
+  unsigned long long seed;        // *key, once load_key has read it
 };
+
+// Two ways to read the key, each where it measured cheapest (PERF.md, section 6):
+// the training attention's kernels load it once at their start (load_key;
+// read at each draw it cost the tensor-core kernels 1.6-2.6%), the FFN
+// kernels at each draw through the read-only cache (key_of; loaded at the
+// start and held in registers it cost the f32 FFN block 1.3%).
+__device__ __forceinline__ void load_key(Dropout& drop) { drop.seed = drop.on ? *drop.key : 0ull; }
+
+__device__ __forceinline__ unsigned long long key_of(const Dropout& drop) {
+  return __ldg(drop.key);
+}
+
+// A launch's dropout from a C entry's arguments: `key` the device address of
+// the 64-bit Philox key (null without dropout, where no kernel reads it).
+inline Dropout dropout_of(const void* key, uint32_t threshold, float inv_keep, int on,
+                          int offset = 0) {
+  return Dropout{static_cast<const unsigned long long*>(key), threshold, inv_keep, on, offset,
+                 0ull};
+}
 
 }  // namespace univl

@@ -227,6 +227,7 @@ train_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const float* __restrict__ key_mask,
                            T* __restrict__ out, float* __restrict__ m_out,
                            float* __restrict__ l_out, Shape sh, Dropout drop) {
+  univl::load_key(drop);
   extern __shared__ float smem[];
   const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk, D = sh.D;
   const int stride = D + 4;
@@ -308,6 +309,7 @@ train_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const float* __restrict__ m_in, const float* __restrict__ l_in,
                            const T* __restrict__ g, T* __restrict__ dq, T* __restrict__ dk,
                            T* __restrict__ dv, Shape sh, Dropout drop) {
+  univl::load_key(drop);
   extern __shared__ float smem[];
   const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk, D = sh.D;
   const int stride = D + 4;
@@ -412,6 +414,7 @@ train_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const float* __restrict__ m_in, const float* __restrict__ l_in,
                               const T* __restrict__ g, T* __restrict__ dq,
                               float* __restrict__ delta, Shape sh, Dropout drop) {
+  univl::load_key(drop);
   extern __shared__ float smem[];
   const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk, D = sh.D;
   const int stride = D + 4;
@@ -530,6 +533,7 @@ train_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
                                 const float* __restrict__ m_in, const float* __restrict__ l_in,
                                 const T* __restrict__ g, const float* __restrict__ delta,
                                 T* __restrict__ dk, T* __restrict__ dv, Shape sh, Dropout drop) {
+  univl::load_key(drop);
   extern __shared__ float smem[];
   const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk, D = sh.D;
   const int stride = D + 4;
@@ -696,6 +700,7 @@ train_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restric
                                const bf16* __restrict__ v, const float* __restrict__ key_mask,
                                bf16* __restrict__ out, float* __restrict__ m_out,
                                float* __restrict__ l_out, Shape sh, Dropout drop) {
+  univl::load_key(drop);
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk;
   const int rows = blockDim.x / 2;  // 16 a warp
@@ -823,6 +828,7 @@ train_attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __rest
                                   const float* __restrict__ m_in, const float* __restrict__ l_in,
                                   const bf16* __restrict__ g, bf16* __restrict__ dq,
                                   float* __restrict__ delta, Shape sh, Dropout drop) {
+  univl::load_key(drop);
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk;
   const int rows = blockDim.x / 2;
@@ -932,6 +938,7 @@ train_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __re
                                     const float* __restrict__ l_in, const bf16* __restrict__ g,
                                     const float* __restrict__ delta, bf16* __restrict__ dk,
                                     bf16* __restrict__ dv, Shape sh, Dropout drop) {
+  univl::load_key(drop);
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int H = sh.H, Lq = sh.Lq, Lk = sh.Lk;
   const int keys = blockDim.x / 2;
@@ -1203,14 +1210,16 @@ long long univl_train_attention_smem_bytes(int Lq, int Lk, int D, int kind) {
 // or bfloat16 (is_bf16); key_mask: contiguous f32 [B, Lk]; out like q;
 // m, l: f32 [B, H, Lq]; head0: the index of local head 0 in the whole call
 // (a tensor-parallel rank's first head; 0 otherwise), added to the dropout
-// counter's head word by every entry point below. Launches on `stream`,
-// returns cudaGetLastError().
+// counter's head word by every entry point below; key: the device address
+// of the 64-bit Philox key (read once by each kernel, so a CUDA graph that
+// captured the launch draws the key written there before each replay; null
+// without dropout). Launches on `stream`, returns cudaGetLastError().
 int univl_train_attention_fwd(const void* q, const void* k, const void* v, const void* key_mask,
                               void* out, void* m, void* l, int is_bf16, int B, int H, int Lq,
                               int Lk, int D, float scale, unsigned int threshold, float inv_keep,
-                              int dropout_on, unsigned long long seed, int head0, void* stream) {
+                              int dropout_on, const void* key, int head0, void* stream) {
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
+  const Dropout drop = univl::dropout_of(key, threshold, inv_keep, dropout_on, head0);
   const float* mask = static_cast<const float*>(key_mask);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
@@ -1227,9 +1236,9 @@ int univl_train_attention_bwd(const void* q, const void* k, const void* v, const
                               const void* m, const void* l, const void* g, void* dq, void* dk,
                               void* dv, int is_bf16, int B, int H, int Lq, int Lk, int D,
                               float scale, unsigned int threshold, float inv_keep, int dropout_on,
-                              unsigned long long seed, int head0, void* stream) {
+                              const void* key, int head0, void* stream) {
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
+  const Dropout drop = univl::dropout_of(key, threshold, inv_keep, dropout_on, head0);
   const float* mask = static_cast<const float*>(key_mask);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
@@ -1248,9 +1257,9 @@ int univl_train_attention_bwd_tiled(const void* q, const void* k, const void* v,
                                     const void* g, void* dq, void* dk, void* dv, void* delta,
                                     int is_bf16, int B, int H, int Lq, int Lk, int D, float scale,
                                     unsigned int threshold, float inv_keep, int dropout_on,
-                                    unsigned long long seed, int head0, void* stream) {
+                                    const void* key, int head0, void* stream) {
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
+  const Dropout drop = univl::dropout_of(key, threshold, inv_keep, dropout_on, head0);
   const float* mask = static_cast<const float*>(key_mask);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
@@ -1269,10 +1278,10 @@ int univl_train_attention_fwd_mma(const void* q, const void* k, const void* v,
                                   const void* key_mask, void* out, void* m, void* l, int is_bf16,
                                   int B, int H, int Lq, int Lk, int D, float scale,
                                   unsigned int threshold, float inv_keep, int dropout_on,
-                                  unsigned long long seed, int head0, void* stream) {
+                                  const void* key, int head0, void* stream) {
   if (!is_bf16 || D != kD || Lk > 16 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
+  const Dropout drop = univl::dropout_of(key, threshold, inv_keep, dropout_on, head0);
   return static_cast<int>(launch_fwd_mma(q, k, v, static_cast<const float*>(key_mask), out,
                                          static_cast<float*>(m), static_cast<float*>(l), B, sh,
                                          drop, static_cast<cudaStream_t>(stream)));
@@ -1285,10 +1294,10 @@ int univl_train_attention_bwd_mma(const void* q, const void* k, const void* v,
                                   const void* g, void* dq, void* dk, void* dv, void* delta,
                                   int is_bf16, int B, int H, int Lq, int Lk, int D, float scale,
                                   unsigned int threshold, float inv_keep, int dropout_on,
-                                  unsigned long long seed, int head0, void* stream) {
+                                  const void* key, int head0, void* stream) {
   if (!is_bf16 || D != kD || Lq > kMaxQueries) return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{H, Lq, Lk, D, scale};
-  const Dropout drop{seed, threshold, inv_keep, dropout_on, head0};
+  const Dropout drop = univl::dropout_of(key, threshold, inv_keep, dropout_on, head0);
   return static_cast<int>(launch_bwd_mma(q, k, v, static_cast<const float*>(key_mask),
                                          static_cast<const float*>(m),
                                          static_cast<const float*>(l), g, dq, dk, dv,

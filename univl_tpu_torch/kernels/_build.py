@@ -130,8 +130,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_vocab_topk_transform.restype = i
     lib.univl_train_attention_smem_bytes.argtypes = [i, i, i, i]
     lib.univl_train_attention_smem_bytes.restype = ll
-    # ... seed, head0, stream
-    shared = [i] * 6 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, i, p]
+    # ... key (the Philox key's device address), head0, stream
+    shared = [i] * 6 + [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, p, i, p]
     lib.univl_train_attention_fwd.argtypes = [p] * 7 + shared
     lib.univl_train_attention_fwd.restype = i
     lib.univl_train_attention_bwd.argtypes = [p] * 10 + shared
@@ -148,7 +148,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_layernorm_fwd.restype = i
     lib.univl_layernorm_bwd.argtypes = [p] * 7 + [i, i, i, ctypes.c_float, i, p]
     lib.univl_layernorm_bwd.restype = i
-    drop = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, p]
+    drop = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, p, p]  # ..., key, stream
     lib.univl_ffn_block_rows.argtypes = []
     lib.univl_ffn_block_rows.restype = i
     lib.univl_ffn_fwd.argtypes = [p] * 10 + [i] * 4 + drop
@@ -167,8 +167,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_dense_block_fwd_tc.restype = i
     lib.univl_dense_block_bwd_tc.argtypes = [p] * 9 + [i] * 3 + drop
     lib.univl_dense_block_bwd_tc.restype = i
-    # the split halves under tensor parallelism; drop_row: ... seed, row0, stream
-    drop_row = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, ctypes.c_ulonglong, i, p]
+    # the split halves under tensor parallelism; drop_row: ... key, row0, stream
+    drop_row = [ctypes.c_float, ctypes.c_uint, ctypes.c_float, i, p, i, p]
     lib.univl_ffn_fwd_part_tc.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.univl_dense_fwd_part_tc.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.univl_split_rows_tc.argtypes = [p] * 7 + [i] * 3 + drop_row

@@ -10,8 +10,10 @@ and return values:
   ``LayerNormTF(dropout(x @ w + b) + r)``, the BertSelfOutput epilogue.
 x, r: ``[N, H]``; w1 ``[H, F]``, w2 ``[F, H]``, w ``[H, H]`` (``x @ w``, the
 JAX layout, not ``nn.Linear``'s); weights and biases in the compute dtype,
-the LayerNorm ``scale`` and ``bias`` f32; ``seed`` a host int (the Philox
-key) and ``rate`` the dropout rate. Each is a ``torch.autograd.Function``.
+the LayerNorm ``scale`` and ``bias`` f32; ``seed`` the Philox key (a host
+int, or a ``DeviceKey``: a slot of a captured step's key table, which the
+kernels read it from) and ``rate`` the dropout rate. Each is a
+``torch.autograd.Function``.
 
 Each kernel computes at the TPU kernel's rounding points: products summed in
 f32 and rounded to the compute dtype before the bias, GELU in f32 on the
@@ -55,7 +57,10 @@ from univl_tpu_torch.kernels import _build
 from univl_tpu_torch.kernels.philox import (
     DENSE_BLOCK_TAG,
     FFN_BLOCK_TAG,
+    Key,
     keep_threshold,
+    key_pointer,
+    key_value,
     row_dropout_keep,
 )
 from univl_tpu_torch.parallel import comm
@@ -231,8 +236,11 @@ def _ptrs(*ts):
     return out
 
 
-def _dropout_args(seed: int, rate: float):
-    return (keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0), seed & 0xFFFFFFFFFFFFFFFF)
+def _dropout_args(seed: Key, rate: float, device):
+    """((threshold, 1/(1-rate), on, the key's address) of a launch, the
+    key's tensor, to hold through the launch)."""
+    key, held = key_pointer(seed, rate, device)
+    return (keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0), key), held
 
 
 def _launch(x: torch.Tensor, fn, what: str, *args) -> None:
@@ -286,13 +294,14 @@ def _partials(x: torch.Tensor, lib) -> torch.Tensor:
 
 
 def _forward(lib, x, w1t, b1, w2t, b2, scale, bias, out, pre, s, block: bool, eps: float,
-             seed: int, rate: float, what: str, wrapper) -> None:
+             seed: Key, rate: float, what: str, wrapper) -> None:
     """Launch #3's or #4's forward on its dtype's route and count the call."""
+    drop, _key = _dropout_args(seed, rate, x.device)
     N, H = x.shape
     F = w1t.shape[0]
     if x.dtype == torch.float32:
         _launch(x, lib.univl_ffn_fwd, what, *_ptrs(x, w1t, b1, w2t, b2, scale, bias, out, pre, s),
-                int(block), N, H, F, eps, *_dropout_args(seed, rate))
+                int(block), N, H, F, eps, *drop)
         wrapper.cuda_core_launches += 1
         return
     plan = ffn_plan(N, F, H, block)
@@ -301,21 +310,22 @@ def _forward(lib, x, w1t, b1, w2t, b2, scale, bias, out, pre, s, block: bool, ep
             if plan["splits"] > 1 else None)
     _launch(x, lib.univl_ffn_fwd_tc, what,
             *_ptrs(x, w1t, b1, w2t, b2, scale, bias, out, pre, s, h, part), int(block), N, H, F,
-            plan["splits"], eps, *_dropout_args(seed, rate))
+            plan["splits"], eps, *drop)
     wrapper.launches += 1
 
 
 def _backward(lib, pre, g, w1, w2, s, scale, dx, dpre, h, dffn, part, block: bool, eps: float,
-              seed: int, rate: float, what: str, wrapper) -> None:
+              seed: Key, rate: float, what: str, wrapper) -> None:
     """Launch #3's or #4's backward on its dtype's route and count the call;
     ``part``: #4's dscale/dbias partials [2, blocks, H]."""
+    drop, _key = _dropout_args(seed, rate, g.device)
     N, H = g.shape
     F = w1.shape[1]
     parts = (None, None) if part is None else (part[0], part[1])
     if g.dtype == torch.float32:
         _launch(g, lib.univl_ffn_bwd, what,
                 *_ptrs(pre, g, w1, w2, s, scale, dx, dpre, h, dffn, *parts), int(block), N, H, F,
-                eps, *_dropout_args(seed, rate))
+                eps, *drop)
         wrapper.cuda_core_launches += 1
         return
     plan = ffn_plan(N, F, H, block)
@@ -325,7 +335,7 @@ def _backward(lib, pre, g, w1, w2, s, scale, dx, dpre, h, dffn, part, block: boo
                          dtype=torch.float32, device=g.device) if block else None)
     _launch(g, lib.univl_ffn_bwd_tc, what,
             *_ptrs(pre, g, w1, w2, s, scale, dx, dpre, h, dffn, *parts, stats, split), int(block),
-            N, H, F, plan["splits"], plan["ln_block_rows"], eps, *_dropout_args(seed, rate))
+            N, H, F, plan["splits"], plan["ln_block_rows"], eps, *drop)
     wrapper.launches += 1
 
 
@@ -362,13 +372,14 @@ def ffn_bwd(pre, g, w1, w2):
     return dx, dpre, h
 
 
-def ffn_block_fwd(x, w1, b1, w2, b2, scale, bias, seed: int, rate: float,
+def ffn_block_fwd(x, w1, b1, w2, b2, scale, bias, seed: Key, rate: float,
                   eps: float = LN_EPS, save: bool = False):
     """#4 forward: (out, pre, s); pre and s are None unless ``save``."""
     _check(x, w1, b1, w2, b2, ln=(scale, bias))
     _check_dropout(rate)
     if x.device.type == "cpu":
-        out, pre, s = ffn_block_reference_fwd(x, w1, b1, w2, b2, scale, bias, seed, rate, eps)
+        out, pre, s = ffn_block_reference_fwd(x, w1, b1, w2, b2, scale, bias,
+                                              key_value(seed), rate, eps)
         return (out, pre, s) if save else (out, None, None)
     lib = _cuda(x, w1.shape[1])
     N, H = x.shape
@@ -383,13 +394,13 @@ def ffn_block_fwd(x, w1, b1, w2, b2, scale, bias, seed: int, rate: float,
     return out, pre, s
 
 
-def ffn_block_bwd(s, g, pre, w1, w2, scale, seed: int, rate: float, eps: float = LN_EPS):
+def ffn_block_bwd(s, g, pre, w1, w2, scale, seed: Key, rate: float, eps: float = LN_EPS):
     """#4 backward: (dx, dpre, h, dffn, dscale, dbias)."""
     g = g.to(s.dtype)
     _check(s, g, pre, w1, w2, ln=(scale,))
     _check_dropout(rate)
     if s.device.type == "cpu":
-        return ffn_block_reference_bwd(s, g, pre, w1, w2, scale, seed, rate, eps)
+        return ffn_block_reference_bwd(s, g, pre, w1, w2, scale, key_value(seed), rate, eps)
     lib = _cuda(s, w1.shape[1])
     s, g, pre, w1, w2, scale = (t.contiguous() for t in (s, g, pre, w1, w2, scale))
     dx, dffn = torch.empty_like(s), torch.empty_like(s)
@@ -401,7 +412,7 @@ def ffn_block_bwd(s, g, pre, w1, w2, scale, seed: int, rate: float, eps: float =
     return dx, dpre, h, dffn, dscale, dbias
 
 
-def dense_block_fwd(x, r, w, b, scale, bias, seed: int, rate: float, eps: float = LN_EPS,
+def dense_block_fwd(x, r, w, b, scale, bias, seed: Key, rate: float, eps: float = LN_EPS,
                     save: bool = False):
     """#5 forward: (out, s); s is None unless ``save``."""
     _check(x, r, w, b, ln=(scale, bias))
@@ -410,7 +421,7 @@ def dense_block_fwd(x, r, w, b, scale, bias, seed: int, rate: float, eps: float 
         raise ValueError(f"r must be like x and w [H, H]: x {tuple(x.shape)}, r "
                          f"{tuple(r.shape)}, w {tuple(w.shape)}")
     if x.device.type == "cpu":
-        out, s = dense_block_reference_fwd(x, r, w, b, scale, bias, seed, rate, eps)
+        out, s = dense_block_reference_fwd(x, r, w, b, scale, bias, key_value(seed), rate, eps)
         return out, (s if save else None)
     lib = _cuda(x)
     N, H = x.shape
@@ -419,41 +430,43 @@ def dense_block_fwd(x, r, w, b, scale, bias, seed: int, rate: float, eps: float 
     out = torch.empty_like(x)
     s = torch.empty_like(x) if save else None
     what = "dense block forward kernel launch"
+    drop, _key = _dropout_args(seed, rate, x.device)
     if x.dtype == torch.float32:
         _launch(x, lib.univl_dense_block_fwd, what, *_ptrs(x, r, wt, b, scale, bias, out, s), N,
-                H, eps, *_dropout_args(seed, rate))
+                H, eps, *drop)
         dense_block_fwd.cuda_core_launches += 1
         return out, s
     _launch(x, lib.univl_dense_block_fwd_tc, what, *_ptrs(x, r, wt, b, scale, bias, out, s), N,
-            H, eps, *_dropout_args(seed, rate))
+            H, eps, *drop)
     dense_block_fwd.launches += 1
     return out, s
 
 
-def dense_block_bwd(s, g, w, scale, seed: int, rate: float, eps: float = LN_EPS):
+def dense_block_bwd(s, g, w, scale, seed: Key, rate: float, eps: float = LN_EPS):
     """#5 backward: (dx, dy, dr, dscale, dbias)."""
     g = g.to(s.dtype)
     _check(s, g, w, ln=(scale,))
     _check_dropout(rate)
     if s.device.type == "cpu":
-        return dense_block_reference_bwd(s, g, w, scale, seed, rate, eps)
+        return dense_block_reference_bwd(s, g, w, scale, key_value(seed), rate, eps)
     lib = _cuda(s)
     N, H = s.shape
     s, g, w, scale = (t.contiguous() for t in (s, g, w, scale))
     dx, dy, dr = torch.empty_like(s), torch.empty_like(s), torch.empty_like(s)
     part = _partials(s, lib)
     what = "dense block backward kernel launch"
+    drop, _key = _dropout_args(seed, rate, s.device)
     if s.dtype == torch.float32:
         _launch(s, lib.univl_dense_block_bwd, what,
                 *_ptrs(s, g, w, scale, dx, dy, dr, part[0], part[1]), N, H, eps,
-                *_dropout_args(seed, rate))
+                *drop)
         dense_block_bwd.cuda_core_launches += 1
     else:
         # dy W^T over the whole depth: a 3-way split at a tower's 1,536 rows
         # (108 tiles, not 36) measured 0.0470 ms a call against 0.0415 (PERF.md)
         _launch(s, lib.univl_dense_block_bwd_tc, what,
                 *_ptrs(s, g, w, scale, dx, dy, dr, part[0], part[1]), N, H,
-                ln_block_rows(N), eps, *_dropout_args(seed, rate))
+                ln_block_rows(N), eps, *drop)
         dense_block_bwd.launches += 1
     dscale, dbias = part.sum(dim=1)
     return dx, dy, dr, dscale, dbias
@@ -568,13 +581,14 @@ def dense_part(x, w):
     return part
 
 
-def split_rows(part, b, res, scale, bias, seed: int, rate: float, eps: float, kind: int,
+def split_rows(part, b, res, scale, bias, seed: Key, rate: float, eps: float, kind: int,
                row0: int = 0):
     """The forward rows after the reduce (``split_rows_reference``) over a
     rank's rows: the row kernel on a CUDA tensor."""
     _check_dropout(rate)
     if part.device.type == "cpu":
-        return split_rows_reference(part, b, res, scale, bias, seed, rate, eps, kind, row0)
+        return split_rows_reference(part, b, res, scale, bias, key_value(seed), rate, eps, kind,
+                                    row0)
     N, H = part.shape
     lib = _split_cuda(b.dtype, part.device, H)
     block = kind != 3
@@ -582,14 +596,15 @@ def split_rows(part, b, res, scale, bias, seed: int, rate: float, eps: float, ki
     res = res.contiguous() if block else None
     out = torch.empty(N, H, dtype=b.dtype, device=b.device)
     s = torch.empty_like(out) if block else None
+    drop, _key = _dropout_args(seed, rate, part.device)
     _launch(part, lib.univl_split_rows_tc, "split rows kernel launch",
             *_ptrs(part, b, res, scale if block else None, bias if block else None, out, s), N, H,
-            kind, eps, *_dropout_args(seed, rate)[:3], seed & 0xFFFFFFFFFFFFFFFF, row0)
+            kind, eps, *drop, row0)
     split_rows.launches += 1
     return out, s
 
 
-def block_bwd_ln(kind: int, s, g, scale, seed: int, rate: float, eps: float, row0: int = 0):
+def block_bwd_ln(kind: int, s, g, scale, seed: Key, rate: float, eps: float, row0: int = 0):
     """The LayerNorm head of #4's or #5's backward over a rank's rows
     (``block_bwd_ln_reference``; on a CUDA tensor the row statistics in
     place of ds)."""
@@ -597,7 +612,7 @@ def block_bwd_ln(kind: int, s, g, scale, seed: int, rate: float, eps: float, row
     _check(s, g, ln=(scale,))
     _check_dropout(rate)
     if s.device.type == "cpu":
-        return block_bwd_ln_reference(kind, s, g, scale, seed, rate, eps, row0)
+        return block_bwd_ln_reference(kind, s, g, scale, key_value(seed), rate, eps, row0)
     N, H = s.shape
     lib = _split_cuda(s.dtype, s.device, H)
     s, g = s.contiguous(), g.contiguous()
@@ -607,9 +622,10 @@ def block_bwd_ln(kind: int, s, g, scale, seed: int, rate: float, eps: float, row
     stats = (torch.empty(-(-N // rows) * rows, 4, dtype=torch.float32, device=s.device)
              if kind == 4 else None)
     part = torch.empty(2, -(-N // ln_block_rows(N)), H, dtype=torch.float32, device=s.device)
+    drop, _key = _dropout_args(seed, rate, s.device)
     _launch(s, lib.univl_block_bwd_ln_tc, "split LayerNorm head kernel launch", kind,
             *_ptrs(s, g, scale, dropped, dr, stats, part[0], part[1]), N, H, ln_block_rows(N),
-            eps, *_dropout_args(seed, rate)[:3], seed & 0xFFFFFFFFFFFFFFFF, row0)
+            eps, *drop, row0)
     block_bwd_ln.launches += 1
     dscale, dbias = part.sum(dim=1)
     return dropped, dr, stats, dscale, dbias
@@ -755,7 +771,7 @@ def fused_ffn(x, w1, b1, w2, b2) -> torch.Tensor:
     return ffn_fwd(x, w1, b1, w2, b2)[0]
 
 
-def fused_ffn_block(x, w1, b1, w2, b2, scale, bias, seed: int, rate: float,
+def fused_ffn_block(x, w1, b1, w2, b2, scale, bias, seed: Key, rate: float,
                     eps: float = LN_EPS) -> torch.Tensor:
     """LayerNormTF(dropout(FFN(x)) + x), differentiable (#4)."""
     if _needs_grad(x, w1, b1, w2, b2, scale, bias):
@@ -763,7 +779,7 @@ def fused_ffn_block(x, w1, b1, w2, b2, scale, bias, seed: int, rate: float,
     return ffn_block_fwd(x, w1, b1, w2, b2, scale, bias, seed, rate, eps)[0]
 
 
-def fused_dense_block(x, r, w, b, scale, bias, seed: int, rate: float,
+def fused_dense_block(x, r, w, b, scale, bias, seed: Key, rate: float,
                       eps: float = LN_EPS) -> torch.Tensor:
     """LayerNormTF(dropout(x @ w + b) + r), differentiable (#5)."""
     if _needs_grad(x, r, w, b, scale, bias):
@@ -862,13 +878,13 @@ def fused_ffn_tp(x, w1, b1, w2, b2, mesh, sp: bool = False) -> torch.Tensor:
     return _FusedFFNTp.apply(x, w1, b1, w2, b2, mesh, sp)
 
 
-def fused_ffn_block_tp(x, w1, b1, w2, b2, scale, bias, seed: int, rate: float, eps: float,
+def fused_ffn_block_tp(x, w1, b1, w2, b2, scale, bias, seed: Key, rate: float, eps: float,
                        mesh, sp: bool = False) -> torch.Tensor:
     """#4 split over the tp ranks (``fused_ffn_tp``'s shares)."""
     return _FusedFFNBlockTp.apply(x, w1, b1, w2, b2, scale, bias, seed, rate, eps, mesh, sp)
 
 
-def fused_dense_block_tp(x, r, w, b, scale, bias, seed: int, rate: float, eps: float, mesh,
+def fused_dense_block_tp(x, r, w, b, scale, bias, seed: Key, rate: float, eps: float, mesh,
                          sp: bool = False) -> torch.Tensor:
     """#5 split over the tp ranks: x [N, K/tp] (the rank's heads), w [K/tp,
     H]; r and the result the rank's rows under ``sp``."""

@@ -19,11 +19,17 @@ Counters, one Philox call per four neighbouring elements of a row:
   are rows [row0, row0 + N) of the whole call (``row_dropout_keep``'s row0);
 each under the call's 64-bit seed as the key. An element is kept where its
 word is at least ``keep_threshold(rate)``.
+
+The kernels read the key from device memory (``key_pointer``): a host int is
+copied there for the call, and a ``DeviceKey`` names a slot that already
+holds it, a training step's key table under a CUDA graph
+(``train/trainer.py:Trainer.train_steps``), whose replays write each step's
+keys there first. The plain versions take the host int (``key_value``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -74,3 +80,45 @@ def row_dropout_keep(seed: int, rows: int, cols: int, tag: int, rate: float,
     const = torch.zeros((), dtype=torch.int64, device=device)
     words = torch.stack(philox4x32(c0, c1, const + tag, const, seed), dim=-1)
     return words.reshape(rows, 4 * quads)[:, :cols] >= keep_threshold(rate)
+
+
+class DeviceKey(NamedTuple):
+    """A Philox key in device memory: ``value``, the host int (the plain
+    versions' key), and ``ref``, a one-element int64 tensor on the card, the
+    slot a kernel reads it from (a captured step's slot holds the key that
+    step's replay wrote, ``value`` the key of the step captured)."""
+
+    value: int
+    ref: torch.Tensor
+
+
+Key = Union[int, DeviceKey]
+
+
+def key_value(seed: Key) -> int:
+    """The host int of a key."""
+    return seed.value if isinstance(seed, DeviceKey) else int(seed)
+
+
+def key_pointer(seed: Key, rate: float, device) -> Tuple[Optional[int], Optional[torch.Tensor]]:
+    """(address, tensor) of the one-element int64 tensor on ``device`` that a
+    dropping kernel reads its key from, to hold through the launch: a
+    ``DeviceKey``'s slot, or a host int copied there (from pinned memory,
+    without a sync). (None, None) at rate 0, where no kernel reads it. A host
+    int under CUDA graph capture is refused: the copy would replay the
+    captured step's key."""
+    if rate <= 0.0:
+        return None, None
+    if isinstance(seed, DeviceKey):
+        t = seed.ref
+        if t.dtype != torch.int64 or t.numel() != 1 or t.device != torch.device(device):
+            raise ValueError(f"a key slot is one int64 on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    else:
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a host-int Philox key under CUDA graph capture would be baked "
+                               "into the graph: pass a DeviceKey")
+        v = int(seed) & 0xFFFFFFFFFFFFFFFF
+        host = torch.tensor([v - (1 << 64) if v >> 63 else v], dtype=torch.int64).pin_memory()
+        t = host.to(device, non_blocking=True)
+    return t.data_ptr(), t

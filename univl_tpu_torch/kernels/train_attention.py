@@ -41,7 +41,7 @@ import math
 import torch
 
 from univl_tpu_torch.kernels import _build
-from univl_tpu_torch.kernels.philox import keep_threshold, philox4x32
+from univl_tpu_torch.kernels.philox import Key, keep_threshold, key_pointer, key_value, philox4x32
 
 MASK_BIAS = -1e9  # in-kernel key bias (univl_tpu/kernels/train_attention.py:93)
 SMEM_LIMIT = 227 * 1024  # Hopper's opt-in shared memory per block
@@ -209,11 +209,12 @@ def _aligned(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def _launch_fwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int,
+def _launch_fwd(kind: int, q, k, v, key_mask, seed: Key, rate: float, heads: int,
                 head0: int = 0):
     """One of the forward kernels (FWD, FWD_MMA) on CUDA tensors, uncounted:
     (out, m, l)."""
     lib, args = _cuda_args(q, k, heads, rate, kind)
+    key, _key = key_pointer(seed, rate, q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = key_mask.to(torch.float32).contiguous()
     B, H, Lq = q.shape[0], heads, q.shape[1]
@@ -224,13 +225,13 @@ def _launch_fwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*_aligned(q, k, v), mask.data_ptr(), *_aligned(out), m.data_ptr(),
-                 l.data_ptr(), *args, seed & 0xFFFFFFFFFFFFFFFF, head0, stream)
+                 l.data_ptr(), *args, key, head0, stream)
     _build.check(lib, err, f"training attention forward kernel launch "
                            f"({TENSOR_CORES if kind == FWD_MMA else CUDA_CORES})")
     return out, m, l
 
 
-def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int,
+def train_attention_fwd(q, k, v, key_mask, seed: Key, rate: float, heads: int,
                         head0: int = 0):
     """(out [B, Lq, heads*D] in q's dtype, m, l [B, heads, Lq] f32): on a
     CUDA tensor the forward kernel of ``cuda_route``, on a CPU one its plain
@@ -238,7 +239,8 @@ def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int,
     tensor-parallel rank's share; its dropout bits are those heads')."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
-        return train_attention_reference_fwd(q, k, v, key_mask, seed, rate, heads, head0)
+        return train_attention_reference_fwd(q, k, v, key_mask, key_value(seed), rate, heads,
+                                             head0)
     if _cuda_route_of(q, k, heads) == TENSOR_CORES:
         out = _launch_fwd(FWD_MMA, q, k, v, key_mask, seed, rate, heads, head0)
         train_attention_fwd.launches += 1
@@ -248,11 +250,12 @@ def train_attention_fwd(q, k, v, key_mask, seed: int, rate: float, heads: int,
     return out
 
 
-def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g,
+def _launch_bwd(kind: int, q, k, v, key_mask, seed: Key, rate: float, heads: int, m, l, g,
                 head0: int = 0):
     """One of the backward kernels (BWD_WHOLE, BWD_TILED, BWD_MMA) on CUDA
     tensors, uncounted: (dq, dk, dv)."""
     lib, args = _cuda_args(q, k, heads, rate, kind)
+    key, _key = key_pointer(seed, rate, q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     g = g.to(q.dtype).contiguous()
     mask = key_mask.to(torch.float32).contiguous()
@@ -266,14 +269,14 @@ def _launch_bwd(kind: int, q, k, v, key_mask, seed: int, rate: float, heads: int
     if kind != BWD_WHOLE:
         ptrs.append(delta.data_ptr())
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, *args, seed & 0xFFFFFFFFFFFFFFFF, head0,
+        err = fn(*ptrs, *args, key, head0,
                  torch.cuda.current_stream(q.device).cuda_stream)
     what = {BWD_WHOLE: "whole-head", BWD_TILED: "tiled", BWD_MMA: "tensor-core"}[kind]
     _build.check(lib, err, f"training attention {what} backward kernel launch")
     return dq, dk, dv
 
 
-def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g,
+def train_attention_bwd(q, k, v, key_mask, seed: Key, rate: float, heads: int, m, l, g,
                         head0: int = 0):
     """(dq, dk, dv), each in q's dtype and layout: on a CUDA tensor the
     backward of ``cuda_route``: the tensor-core kernels, or
@@ -282,8 +285,8 @@ def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m
     ``head0`` as in ``train_attention_fwd``."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
-        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g,
-                                             head0)
+        return train_attention_reference_bwd(q, k, v, key_mask, key_value(seed), rate, heads,
+                                             m, l, g, head0)
     if _cuda_route_of(q, k, heads) == TENSOR_CORES:
         out = _launch_bwd(BWD_MMA, q, k, v, key_mask, seed, rate, heads, m, l, g, head0)
         train_attention_bwd.launches += 1
@@ -295,15 +298,15 @@ def train_attention_bwd(q, k, v, key_mask, seed: int, rate: float, heads: int, m
     return out
 
 
-def train_attention_bwd_tiled(q, k, v, key_mask, seed: int, rate: float, heads: int, m, l, g,
+def train_attention_bwd_tiled(q, k, v, key_mask, seed: Key, rate: float, heads: int, m, l, g,
                               head0: int = 0):
     """(dq, dk, dv) through the CUDA-core tiled backward kernels on a CUDA
     tensor, any Lq and Lk (two launches, counted as one call); the plain
     version (the same function) on a CPU one."""
     _check(q, k, v, key_mask, heads)
     if q.device.type == "cpu":
-        return train_attention_reference_bwd(q, k, v, key_mask, seed, rate, heads, m, l, g,
-                                             head0)
+        return train_attention_reference_bwd(q, k, v, key_mask, key_value(seed), rate, heads,
+                                             m, l, g, head0)
     out = _launch_bwd(BWD_TILED, q, k, v, key_mask, seed, rate, heads, m, l, g, head0)
     train_attention_bwd_tiled.launches += 1
     return out
@@ -335,12 +338,13 @@ class _FusedTrainAttention(torch.autograd.Function):
 
 
 def fused_train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          key_mask: torch.Tensor, seed: int, rate: float,
+                          key_mask: torch.Tensor, seed: Key, rate: float,
                           heads: int, head0: int = 0) -> torch.Tensor:
     """Attention with in-kernel probability dropout, differentiable.
 
     q: [B, Lq, heads*D], k, v: [B, Lk, heads*D], one dtype (f32 or bf16);
-    key_mask: [B, Lk], 1 keep and 0 drop; seed: a host int (the Philox key);
+    key_mask: [B, Lk], 1 keep and 0 drop; seed: the Philox key, a host int
+    or a ``DeviceKey`` (a slot of a captured step's key table);
     rate: the probability dropout rate; head0: the index of the first of the
     ``heads`` heads in the whole call (a tensor-parallel rank's share: heads
     [head0, head0 + heads) of it, bit for bit). Returns [B, Lq, heads*D]."""

@@ -80,6 +80,7 @@ from univl_tpu_torch.kernels.ffn import (
     fused_ffn_tp,
 )
 from univl_tpu_torch.kernels.layernorm import fused_layer_norm
+from univl_tpu_torch.kernels.philox import DeviceKey, Key
 from univl_tpu_torch.kernels.train_attention import fused_train_attention
 from univl_tpu_torch.parallel import comm, sp
 
@@ -140,20 +141,31 @@ class Randomness(NamedTuple):
     of that run a child of its own; a kernel call inside the layer takes
     ``kernel_seed(call)``, its Philox key. A layer recomputed under
     activation checkpointing folds again from its run's key, so it draws the
-    masks of its first pass. Nothing reads PyTorch's global random state."""
+    masks of its first pass. Nothing reads PyTorch's global random state.
+
+    Drawn from a ``StepKeys`` (``keys``), every key folded below is recorded
+    there as its path from the step's root ``root`` (``tags``), and the
+    record decides how the key reaches the device; the key values are the
+    same either way."""
 
     key: int
     device: torch.Generator
     runs: dict  # tag -> runs counted so far in this step
+    keys: Optional["StepKeys"] = None  # the step's record, when a trainer keeps one
+    root: int = 0  # the index of this key's root in ``keys``
+    tags: tuple = ()  # the folds from that root to this key
 
     @classmethod
     def from_key(cls, key: int, device) -> "Randomness":
         return cls(key, torch.Generator(device=torch.device(device)).manual_seed(key), {})
 
     @classmethod
-    def derive(cls, generator: torch.Generator, device) -> "Randomness":
+    def derive(cls, generator, device) -> "Randomness":
         """The step's randomness on ``device``, keyed by the next draw of
-        the step's CPU generator (one draw a forward)."""
+        the step's CPU generator (one draw a forward), or of a ``StepKeys``
+        that records the step."""
+        if isinstance(generator, StepKeys):
+            return generator.draw_root(device)
         return cls.from_key(draw_key(generator), device)
 
     def fold(self, *tags: int) -> "Randomness":
@@ -162,7 +174,9 @@ class Randomness(NamedTuple):
         key = self.key
         for tag in tags:
             key = fold_key(key, tag)
-        return Randomness.from_key(key, self.device.device)
+        if self.keys is None:
+            return Randomness.from_key(key, self.device.device)
+        return self.keys.child(key, self.root, self.tags + tags, self.device.device)
 
     def run(self, tag: int) -> "Randomness":
         """The child of the next run of the stack tagged ``tag`` in this
@@ -172,10 +186,93 @@ class Randomness(NamedTuple):
         self.runs[tag] = n + 1
         return self.fold(tag, n)
 
-    def kernel_seed(self, call: int) -> int:
+    def kernel_seed(self, call: int) -> Key:
         """The Philox key of one training-attention or fused-FFN call,
-        fixed by its call tag (JAX's ``_kernel_dropout_seed``)."""
-        return fold_key(self.key, call)
+        fixed by its call tag (JAX's ``_kernel_dropout_seed``): a host int,
+        or under a captured step its ``DeviceKey`` slot."""
+        key = fold_key(self.key, call)
+        if self.keys is None:
+            return key
+        return self.keys.kernel_key(key, self.root, self.tags + (call,))
+
+
+# the kinds of key a step draws: a device generator's seed (a Randomness
+# child) and a kernel's Philox key
+GENERATOR, KERNEL = "generator", "kernel"
+
+
+class StepKeys:
+    """The keys of one training step in the order it draws them.
+
+    A trainer hands the model one in place of the step's CPU generator:
+    ``Randomness.derive`` draws each training forward's root key from
+    ``generator``, and every key folded from a root is recorded in ``layout``
+    as (kind, root, tags), tags being the folds from root number ``root``.
+    ``layout_keys`` gives the keys of the same
+    layout under another step's roots, so a step captured once as a CUDA
+    graph replays with the keys of each step it stands for.
+
+    Eagerly (``table`` and ``pool`` None) a child gets a new device generator
+    seeded from its key and a kernel its host int, as without a record.
+    Under capture the n-th kernel key is slot n of ``table`` (int64 on the
+    card, written before each replay) and the n-th child's generator is
+    ``pool[n]`` (registered with the graph, seeded before each replay)."""
+
+    def __init__(self, generator: torch.Generator, table: Optional[torch.Tensor] = None,
+                 pool: Optional[list] = None):
+        self.generator = generator
+        self.table, self.pool = table, pool
+        self.roots: list = []
+        self.layout: list = []
+        self._count = {GENERATOR: 0, KERNEL: 0}
+
+    def _record(self, kind: str, root: int, tags: tuple) -> int:
+        """Record an entry; returns its number among its kind's."""
+        n = self._count[kind]
+        self._count[kind] = n + 1
+        self.layout.append((kind, root, tags))
+        return n
+
+    def draw_root(self, device) -> Randomness:
+        """The randomness of the step's next training forward."""
+        key = draw_key(self.generator)
+        self.roots.append(key)
+        return self.child(key, len(self.roots) - 1, (), device)
+
+    def child(self, key: int, root: int, tags: tuple, device) -> Randomness:
+        n = self._record(GENERATOR, root, tags)
+        if self.pool is None:
+            gen = torch.Generator(device=torch.device(device)).manual_seed(key)
+        elif n < len(self.pool):
+            gen = self.pool[n]
+        else:
+            raise RuntimeError(f"the captured step folds more than the {len(self.pool)} "
+                               f"generators its eager step folded")
+        return Randomness(key, gen, {}, self, root, tags)
+
+    def kernel_key(self, key: int, root: int, tags: tuple) -> Key:
+        n = self._record(KERNEL, root, tags)
+        if self.table is None:
+            return key
+        if n >= self.table.numel():
+            raise RuntimeError(f"the captured step draws more than the {self.table.numel()} "
+                               f"kernel keys its eager step drew")
+        return DeviceKey(key, self.table[n:n + 1])
+
+
+def layout_keys(layout: list, roots: list) -> list:
+    """The key of every (kind, root, tags) entry of a step's layout under
+    the roots ``roots``: the keys ``StepKeys`` records for a step drawing
+    those roots."""
+    memo = {}
+
+    def key_of(root: int, tags: tuple) -> int:
+        if (root, tags) not in memo:
+            memo[root, tags] = (roots[root] if not tags
+                                else fold_key(key_of(root, tags[:-1]), tags[-1]))
+        return memo[root, tags]
+
+    return [key_of(root, tags) for _, root, tags in layout]
 
 
 def kernel_dropout(training: bool, rate: float, rng: Optional[Randomness], call: int):

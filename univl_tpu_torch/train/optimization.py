@@ -14,9 +14,12 @@ reference optimizer (modules/optimization.py), which is not Adam:
   - ``state_dtype="bfloat16"``: moments stored rounded, their math in f32.
 
 Everything but the schedule runs on the device in ``torch._foreach_*`` ops,
-with no host sync: the step count lives on the host, so the learning rate is
-a host number. ``state_dict`` carries the step count beside the moments, so
-one ``load_state_dict`` restores the whole optimizer.
+with no host sync: the step count lives on the host, and each step writes
+its groups' learning-rate factors into device scalars that the update reads
+(``lr_factors``), so a CUDA graph that captured a step reads the factor
+written before each replay (``train/trainer.py:Trainer.train_steps``).
+``state_dict`` carries the step count beside the moments, so one
+``load_state_dict`` restores the whole optimizer.
 
 Under tensor parallelism (``set_tensor_parallel``) a rank holds its share of
 the split parameters and their moments: the global norm and the per-tensor
@@ -56,6 +59,15 @@ SCHEDULES = {
 }
 
 
+def copy_from_host(dst: torch.Tensor, src: np.ndarray) -> torch.Tensor:
+    """``dst`` (on any device) overwritten with the host array ``src``; onto
+    the card from pinned memory, without a sync."""
+    host = torch.from_numpy(np.ascontiguousarray(src))
+    if dst.device.type == "cuda":
+        return dst.copy_(host.pin_memory(), non_blocking=True)
+    return dst.copy_(host)
+
+
 def clip_by_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
     """optax ``clip_by_global_norm`` in place, given the global ``norm``: g
     if it is below ``max_norm``, else ``(g / norm) * max_norm``, decided on
@@ -88,6 +100,7 @@ class BertAdam(torch.optim.Optimizer):
         self.max_grad_norm, self.global_clip_norm = max_grad_norm, global_clip_norm
         self.state_dtype = {None: None, "float32": None, "bfloat16": torch.bfloat16}[state_dtype]
         self.steps = 0  # updates taken; the schedule reads it before the increment
+        self._factors = None  # each group's learning-rate factor, f32 on the parameters' device
         self.tp = None  # the tp view, with the ids of the split parameters in ``sharded``
         self.sharded = frozenset()
 
@@ -117,6 +130,26 @@ class BertAdam(torch.optim.Optimizer):
         progress = np.float32(step) / np.float32(self.t_total)
         factor = SCHEDULES[self.schedule](progress, np.float32(self.warmup))
         return float(np.float32(lr) * np.float32(factor))
+
+    def factors_at(self, step: int) -> np.ndarray:
+        """Each group's update factor at ``step``, f32 [groups]: JAX's
+        ``-(lr_t * s)``, s the group's ``lr_scale``."""
+        lr_t = np.float32(self.lr_at(step))
+        return np.array([-(lr_t * np.float32(g["lr_scale"])) for g in self.param_groups],
+                        np.float32)
+
+    def lr_factors(self) -> torch.Tensor:
+        """The device scalars the update reads, f32 [groups], with the
+        factors at ``steps`` written in. Under CUDA graph capture nothing is
+        written: the graph reads what its caller writes there before each
+        replay."""
+        if self._factors is None:
+            device = next(p for g in self.param_groups for p in g["params"]).device
+            self._factors = torch.zeros(len(self.param_groups), dtype=torch.float32,
+                                        device=device)
+        if not (self._factors.is_cuda and torch.cuda.is_current_stream_capturing()):
+            copy_from_host(self._factors, self.factors_at(self.steps))
+        return self._factors
 
     def state_dict(self):
         sd = super().state_dict()
@@ -158,8 +191,8 @@ class BertAdam(torch.optim.Optimizer):
                 gs = list(grads.values())
                 clip_by_norm_(gs, self.full_sq(gs, list(grads)).sum().sqrt(),
                               self.global_clip_norm)
-        lr_t = self.lr_at(self.steps)
-        for group, params in groups:
+        factors = self.lr_factors()
+        for j, (group, params) in enumerate(groups):
             if not params:
                 continue
             g = [grads[p] for p in params]
@@ -169,7 +202,7 @@ class BertAdam(torch.optim.Optimizer):
                     norms = self.full_sq(g, params, norms * norms).sqrt()
                 g = torch._foreach_mul(g, list(self.tensor_clip(norms).unbind()))
             ms, vs = zip(*(self._moments(p) for p in params))
-            self.update_(g, list(ms), list(vs), list(params), group, lr_t)
+            self.update_(g, list(ms), list(vs), list(params), group, factors[j])
         self.steps += 1
 
     def tensor_clip(self, norms: torch.Tensor) -> torch.Tensor:
@@ -178,11 +211,12 @@ class BertAdam(torch.optim.Optimizer):
         return torch.clamp(self.max_grad_norm / (norms + 1e-6), max=1.0)
 
     def update_(self, g: List[torch.Tensor], ms: List[torch.Tensor], vs: List[torch.Tensor],
-                params: List[torch.Tensor], group: Dict, lr_t: float) -> None:
+                params: List[torch.Tensor], group: Dict, factor: torch.Tensor) -> None:
         """One group's moments and update in place, from its clipped
         gradients ``g``: the moments in f32 (stored rounded to
         ``state_dtype``, and the update computed from the stored values), the
-        weight decay read from ``params``, which take the update."""
+        weight decay read from ``params``, which take the update times
+        ``factor`` (a device scalar, the group's of ``lr_factors``)."""
         m32 = [m.float() for m in ms]  # the f32 state itself; copies of bf16 state
         v32 = [v.float() for v in vs]
         torch._foreach_mul_(m32, self.b1)
@@ -198,8 +232,8 @@ class BertAdam(torch.optim.Optimizer):
         upd = torch._foreach_div(m_new, torch._foreach_add(torch._foreach_sqrt(v_new), self.eps))
         if group["weight_decay"] > 0.0:
             torch._foreach_add_(upd, torch._foreach_mul(params, group["weight_decay"]))
-        alpha = np.float32(lr_t) * np.float32(group["lr_scale"])
-        torch._foreach_add_(params, upd, alpha=-float(alpha))
+        torch._foreach_mul_(upd, factor)
+        torch._foreach_add_(params, upd)
 
 
 def univl_param_groups(model: torch.nn.Module, coef_lr: float,

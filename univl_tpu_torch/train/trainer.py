@@ -37,29 +37,73 @@ ZeRO-1 is ``train/zero1_tp.py``'s. Under sequence parallelism the gradients
 of the row-sharded regions' replicated parameters (``parallel/sp.py``) are
 first summed over the tp group.
 
-The JAX package's ``train_steps`` (K steps in one dispatch) works around
-XLA's per-dispatch cost and has no counterpart here.
+``train_steps`` is JAX's K optimizer steps in one dispatch: step i of the
+``[K, accum, B, ...]`` stack is ``train_step`` at ``first_step + i``, and
+afterwards the parameters, moments and step count are what K ``train_step``
+calls leave. On the CPU it is that loop. On the card the steps replay one
+step captured as a CUDA graph (``torch.cuda.CUDAGraph``), so the host issues
+one replay a step in place of the step's thousands of launches. What a graph
+would bake in reaches the device through memory: the kernels' Philox keys
+from a key table (``nn/layers.py:StepKeys``, the step's keys derived on the
+host from ``(seed, global_step)`` as the eager step folds them), the hidden
+dropout from device generators registered with the graph and seeded before
+each replay, and BertAdam's learning rate from device scalars
+(``BertAdam.lr_factors``). The first call for a set of shapes runs its first
+step eagerly (it builds the kernels, creates the moments and settles the
+allocator), records the step's keys, captures the next step and replays
+it; later calls replay every step. Graphs are kept by (shapes, dtypes,
+accum, route). One process on one card only: meshes, ZeRO-1, tensor and
+sequence parallelism and remat are refused (``graph_refusal``), and a
+capture or replay that fails raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from univl_tpu_torch.nn.layers import draw_key
+from univl_tpu_torch.nn.layers import (
+    GENERATOR,
+    KERNEL,
+    LayerNormTF,
+    StepKeys,
+    TransformerStack,
+    draw_key,
+    layout_keys,
+)
 from univl_tpu_torch.parallel import comm
 from univl_tpu_torch.parallel.mesh import DP_AXIS, TP_AXIS, Mesh
 from univl_tpu_torch.parallel.sp import sp_params
+from univl_tpu_torch.train.optimization import BertAdam, copy_from_host
 from univl_tpu_torch.train.zero1 import Zero1BertAdam, flat_offsets
 from univl_tpu_torch.train.zero1_tp import Zero1TpBertAdam
+
+LATER = "comes in a later slice"
 
 
 def step_generator(seed: int, global_step: int) -> torch.Generator:
     """The CPU generator of one step, seeded from (seed, global_step)."""
     state = np.random.SeedSequence([seed, global_step]).generate_state(2, np.uint32)
     return torch.Generator().manual_seed(int(state[0]) | int(state[1]) << 32)
+
+
+class StepGraph(NamedTuple):
+    """One training step captured as a CUDA graph, and what it reads and
+    writes: the batch buffers it reads, its key table (int64 [kernel keys])
+    and device generators (one a generator key of ``layout``), the metrics
+    it writes, the step's key layout and number of roots, and the addresses
+    of the state it updates in place (``Trainer._addresses``)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    batch: Dict[str, torch.Tensor]
+    table: torch.Tensor
+    pool: list
+    metrics: Dict[str, torch.Tensor]
+    layout: list
+    roots: int
+    addresses: tuple
 
 
 class Trainer:
@@ -80,6 +124,7 @@ class Trainer:
         self.zero1 = isinstance(optimizer, (Zero1BertAdam, Zero1TpBertAdam))
         self.sp_params = sp_params(model)
         self._flat = None  # the gradient buffer of a data-parallel or ZeRO-1 step
+        self._graphs: Dict[tuple, StepGraph] = {}  # train_steps' captured steps
 
     def _grad_buffer(self) -> torch.Tensor:
         """The flat f32 gradient buffer, zeroed, each parameter's ``.grad`` a
@@ -107,13 +152,22 @@ class Trainer:
         """One optimizer step on ``batch`` (arrays ``[accum, B, ...]`` on the
         model's device; the rank's rows under data parallelism); returns the
         mean metrics as device tensors (no sync)."""
+        return self._step(batch, self._generator(global_step))
+
+    def _generator(self, global_step: int) -> torch.Generator:
+        """The step's CPU generator, past the keys of the dp ranks before this one."""
+        generator = step_generator(self.seed, global_step)
+        for _ in range(self.dp.rank * self.grad_accum_steps):
+            draw_key(generator)
+        return generator
+
+    def _step(self, batch: Dict[str, torch.Tensor], generator) -> Dict[str, torch.Tensor]:
+        """``train_step`` drawing from ``generator`` (the step's CPU
+        generator, or a ``StepKeys`` over it)."""
         accum = self.grad_accum_steps
         if any(v.shape[0] != accum for v in batch.values()):
             raise ValueError(f"batch arrays must lead with the {accum} micro-batches")
         self.model.train()
-        generator = step_generator(self.seed, global_step)
-        for _ in range(self.dp.rank * accum):  # the keys of the dp ranks before this one
-            draw_key(generator)
         flat = self._grad_buffer() if (self.dp.size > 1 or self.zero1) else None
         sums: Dict[str, torch.Tensor] = {}
         for i in range(accum):
@@ -144,6 +198,142 @@ class Trainer:
                                         self.dp)
             metrics = dict(zip(keys, mean.unbind()))
         return metrics
+
+    def train_steps(self, batches: Dict[str, torch.Tensor],
+                    first_step: int) -> Dict[str, torch.Tensor]:
+        """K optimizer steps (JAX's ``Trainer.train_steps``): ``batches``
+        arrays ``[K, accum, B, ...]`` on the model's device, step i
+        ``train_step({k: v[i]}, first_step + i)``. Returns the metrics stacked
+        ``[K]``, device tensors (no sync). On the card the steps replay a
+        captured CUDA graph (the module docstring); on the CPU they are the loop."""
+        n = {v.shape[0] for v in batches.values()}
+        if len(n) != 1:
+            raise ValueError(f"batch arrays must share their leading K, got {sorted(n)}")
+        k = n.pop()
+        if self._on_card():
+            refusal = self.graph_refusal()
+            if refusal is not None:
+                raise NotImplementedError(f"train_steps on the card refuses {refusal}")
+            metrics = self._graph_steps(batches, first_step, k)
+        else:
+            metrics = [self.train_step({name: v[i] for name, v in batches.items()},
+                                       first_step + i) for i in range(k)]
+        return {name: torch.stack([m[name] for m in metrics]) for name in metrics[0]}
+
+    def _on_card(self) -> bool:
+        return next(self.model.parameters()).device.type == "cuda"
+
+    def graph_refusal(self) -> Optional[str]:
+        """What keeps ``train_steps`` from replaying this trainer's step as a
+        CUDA graph on the card, or None."""
+        if self.mesh.size > 1:
+            return (f"a mesh of {self.mesh.size} ranks (gloo cannot be captured and NCCL "
+                    f"across cards has never run): multi-rank graphs {LATER}")
+        if self.zero1:
+            return f"ZeRO-1 (--zero1): its graph {LATER}"
+        if self.mesh.tp > 1 or self.sp_params or getattr(self.optimizer, "tp", None) is not None:
+            return (f"tensor and sequence parallelism (--tensor_parallel, "
+                    f"--sequence_parallel; the optimizer builds a host tensor each step): "
+                    f"their graphs {LATER}")
+        if any(m.remat for m in self.model.modules() if isinstance(m, TransformerStack)):
+            return (f"--remat (a recomputed layer folds its keys again inside the step): its "
+                    f"graph {LATER}")
+        if not isinstance(self.optimizer, BertAdam):
+            return (f"{type(self.optimizer).__name__} (the graph reads BertAdam's "
+                    f"learning-rate scalars): other optimizers {LATER}")
+        return None
+
+    def _addresses(self) -> tuple:
+        """The device addresses a captured step updates in place: the
+        parameters, BertAdam's moments and learning-rate scalars."""
+        ptrs = [self.optimizer.lr_factors().data_ptr()]
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                st = self.optimizer.state.get(p, {})
+                ptrs += [p.data_ptr()] + [st[k].data_ptr() for k in ("m", "v") if k in st]
+        return tuple(ptrs)
+
+    def _graph_key(self, batches: Dict[str, torch.Tensor]) -> tuple:
+        """A captured step's key: each array's name, per-step shape and
+        dtype, the accumulation and the route (which LayerNorms take #6)."""
+        shapes = tuple(sorted((name, tuple(v.shape[1:]), v.dtype) for name, v in batches.items()))
+        fused = tuple(m.fused for m in self.model.modules() if isinstance(m, LayerNormTF))
+        return shapes, self.grad_accum_steps, fused
+
+    def _graph_steps(self, batches: Dict[str, torch.Tensor], first_step: int, k: int) -> list:
+        """The steps of ``train_steps`` on the card: the first eagerly on a
+        side stream where no graph is kept for these shapes (then one step
+        captured), every other one a replay. Returns each step's metrics."""
+        opt, key = self.optimizer, self._graph_key(batches)
+        entry = self._graphs.get(key)
+        if entry is not None and entry.addresses != self._addresses():
+            entry = None  # the parameters or moments were replaced (a load)
+        metrics, start = [], 0
+        if entry is None:
+            keys = StepKeys(self._generator(first_step))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                metrics.append(self._step({name: v[0] for name, v in batches.items()}, keys))
+            torch.cuda.current_stream().wait_stream(side)
+            start = 1
+            if k == 1:
+                return metrics
+            entry = self._capture(batches, first_step + 1, keys)
+            self._graphs[key] = entry
+        kernel = [i for i, (kind, _, _) in enumerate(entry.layout) if kind == KERNEL]
+        gens = [i for i, (kind, _, _) in enumerate(entry.layout) if kind == GENERATOR]
+        tables, seeds, factors = [], [], []
+        for i in range(start, k):  # every replay's keys and learning rates, on the host
+            generator = self._generator(first_step + i)
+            values = layout_keys(entry.layout, [draw_key(generator)
+                                                for _ in range(entry.roots)])
+            tables.append([values[j] for j in kernel])
+            seeds.append([values[j] for j in gens])
+            factors.append(opt.factors_at(opt.steps + i - start))
+        device = entry.table.device
+        tables = copy_from_host(torch.empty(len(tables), len(kernel), dtype=torch.int64,
+                                            device=device), np.array(tables, np.int64))
+        factors = copy_from_host(torch.empty(len(factors), len(opt.param_groups),
+                                             dtype=torch.float32, device=device),
+                                 np.array(factors, np.float32))
+        lr = opt.lr_factors()
+        for i in range(start, k):
+            for name, buf in entry.batch.items():
+                buf.copy_(batches[name][i])
+            entry.table.copy_(tables[i - start])
+            lr.copy_(factors[i - start])
+            for gen, seed in zip(entry.pool, seeds[i - start]):
+                gen.manual_seed(seed)
+            entry.graph.replay()
+            opt.steps += 1
+            metrics.append({name: v.clone() for name, v in entry.metrics.items()})
+        return metrics
+
+    def _capture(self, batches: Dict[str, torch.Tensor], global_step: int,
+                 recorded: StepKeys) -> StepGraph:
+        """One step captured as a CUDA graph (its state untouched: nothing
+        runs until a replay), drawing the keys of ``recorded``'s layout from
+        a key table and generators of its own."""
+        device = next(self.model.parameters()).device
+        batch = {name: torch.empty_like(v[0]) for name, v in batches.items()}
+        n_kernel = sum(kind == KERNEL for kind, _, _ in recorded.layout)
+        table = torch.zeros(n_kernel, dtype=torch.int64, device=device)
+        pool = [torch.Generator(device=device)
+                for kind, _, _ in recorded.layout if kind == GENERATOR]
+        graph = torch.cuda.CUDAGraph()
+        for gen in pool:
+            graph.register_generator_state(gen)
+        keys = StepKeys(self._generator(global_step), table, pool)
+        steps = self.optimizer.steps
+        with torch.cuda.graph(graph):
+            metrics = self._step(batch, keys)
+        self.optimizer.steps = steps  # the capture took no step
+        if keys.layout != recorded.layout:
+            raise RuntimeError("the captured step drew other keys than its eager step: "
+                               f"{len(keys.layout)} against {len(recorded.layout)} entries")
+        return StepGraph(graph, batch, table, pool, metrics, recorded.layout,
+                         len(recorded.roots), self._addresses())
 
     def _sum_sp_grads(self) -> None:
         """The row-sharded regions' replicated gradients summed over the tp group."""

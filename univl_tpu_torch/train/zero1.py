@@ -93,8 +93,9 @@ class Zero1BertAdam(BertAdam):
         lo, hi = rank * self.shard, (rank + 1) * self.shard
         self._groups: List[tuple] = []
         leaf = 0
-        for group in self.param_groups:
+        for j, group in enumerate(self.param_groups):
             segs = _Segments()
+            segs.group_index = j
             for p in group["params"]:
                 a, b = max(self.offsets[leaf], lo), min(self.offsets[leaf] + p.numel(), hi)
                 if a < b:
@@ -127,7 +128,7 @@ class Zero1BertAdam(BertAdam):
     def step(self, flat_grad: torch.Tensor):
         leaf_sq = self.reduce_grads(flat_grad)
         norm = leaf_sq.sum().sqrt() if self.global_clip_norm is not None else None
-        self.update_shard(leaf_sq, norm, self.lr_at(self.steps))
+        self.update_shard(leaf_sq, norm)
         self.steps += 1
         self.gather_params(flat_grad)
 
@@ -144,21 +145,22 @@ class Zero1BertAdam(BertAdam):
         leaf_sq.index_add_(0, self._leaf_index, norms * norms)
         return comm.all_reduce_sum(leaf_sq, mesh)
 
-    def update_shard(self, leaf_sq: torch.Tensor, norm: Optional[torch.Tensor],
-                     lr_t: float) -> None:
+    def update_shard(self, leaf_sq: torch.Tensor, norm: Optional[torch.Tensor]) -> None:
         """The global clip at ``norm`` (the whole gradient's; None: no clip),
-        the per-tensor clips and BertAdam's update of the shard's master."""
+        the per-tensor clips and BertAdam's update of the shard's master at
+        the learning rate of ``steps``."""
         if norm is not None:
             clip_by_norm_([self.g], norm, self.global_clip_norm)
             factor = torch.where(norm >= self.global_clip_norm,
                                  self.global_clip_norm / norm, 1.0)
             leaf_sq = leaf_sq * (factor * factor)
+        factors = self.lr_factors()
         for group, segs in self._groups:
             gs = segs.g
             if self.max_grad_norm > 0:
                 coef = self.tensor_clip(leaf_sq[segs.leaf_index].sqrt())
                 gs = torch._foreach_mul(gs, list(coef.unbind()))
-            self.update_(gs, segs.m, segs.v, segs.master, group, lr_t)
+            self.update_(gs, segs.m, segs.v, segs.master, group, factors[segs.group_index])
 
     def gather_params(self, flat_grad: torch.Tensor) -> None:
         """The new master shards gathered into ``flat_grad`` and copied into

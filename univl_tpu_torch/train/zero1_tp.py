@@ -74,7 +74,7 @@ class Zero1TpBertAdam(BertAdam):
         grads = [tail[o:o + p.numel()].view_as(p)
                  for p, o in zip(self.split_params, self.split_offsets)]
         split_sq = self.full_sq(grads, self.split_params)
-        lr_t = self.lr_at(self.steps)
+        factors = self.lr_factors()
         norm = None
         if self.global_clip_norm is not None:
             norm = (leaf_sq.sum() + split_sq.sum()).sqrt()
@@ -82,9 +82,9 @@ class Zero1TpBertAdam(BertAdam):
             factor = torch.where(norm >= self.global_clip_norm,
                                  self.global_clip_norm / norm, 1.0)
             split_sq = split_sq * (factor * factor)
-        self.flat.update_shard(leaf_sq, norm, lr_t)
+        self.flat.update_shard(leaf_sq, norm)  # at its own steps, which are these
         at = 0
-        for group, params in self.split_groups:
+        for j, (group, params) in enumerate(self.split_groups):
             if not params:
                 continue
             g = grads[at:at + len(params)]
@@ -92,7 +92,7 @@ class Zero1TpBertAdam(BertAdam):
                 coef = self.tensor_clip(split_sq[at:at + len(params)].sqrt())
                 g = torch._foreach_mul(g, list(coef.unbind()))
             ms, vs = zip(*(self._moments(p) for p in params))
-            self.update_(g, list(ms), list(vs), params, group, lr_t)
+            self.update_(g, list(ms), list(vs), params, group, factors[j])
             at += len(params)
         self.steps += 1
         self.flat.steps = self.steps
