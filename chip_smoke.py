@@ -129,11 +129,13 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      calls (the first runs its first step eagerly and captures; the second
      only replays) bitwise K train_step calls each from the same weights:
      every step's metrics, every parameter, both moments, the step count;
-     the wrappers' counts (the calls captured) times the replays; then
-     K1_PAIRS alternating windows of one train_steps(K) call against K
-     train_step calls (median clips/s of both), a profiled call and K
-     profiled train_step calls (device busy share and kernel launches a
-     step, replayed and eager) and each route's peak device memory;
+     the wrappers' counts (the eager step and the capture); K1_PAIRS
+     alternating pairs of windows of one train_steps(K) call against K
+     train_step calls (median clips/s of both; the first pair the bitwise
+     calls' second call and last K steps), a profiled call and one profiled
+     train_step call (device busy share and kernel launches a step,
+     replayed and eager; #2's, #4's and #5's kernels by name as many a step
+     in both) and each route's peak device memory;
  19. MSRVTT caption eval: univl_tpu_torch.cli.task_caption --do_eval
      --fused_decode --fused_vocab --fused_cls --datatype msrvtt (the eval's
      fused kernels are off unless given) at full width, seeded weights, over 64
@@ -180,12 +182,27 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      rematerialized layer's forward kernels twice); then peak device memory,
      wall clips/s over 3 more steps (cut from 5) and device busy ms a step (torch.profiler
      over 2 more);
+ K2. Trainer.train_steps on the one-card routes K1 left out, from R1's
+     seeded weights and datasets, in deterministic mode: FT-Align
+     --fused_ffn block with --remat and with --remat_policy dots (K = 3),
+     pretraining stage I at P1's 120 clips x 3 pairs and accumulation 2 (K
+     = 3), stage II at P2's 16 clips x 3 and accumulation 4 without and
+     with --remat (K = 2): two calls bitwise 2K train_step calls (metrics,
+     parameters, moments, the step count), the wrappers' counts (the eager
+     step and the capture), a profiled call against one profiled train_step
+     call (busy share, launches; #2's, #4's and #5's kernels by name as
+     many a step in both), clips/s and peak memory of both; stage II's two
+     modes in 2 alternating pairs of windows (the first the bitwise calls'
+     second call and last K steps); then in the default mode FT-Align
+     block (K = 3) and stage II (K = 2), one call against two train_step
+     loops, within the limits stated at K2_CONTROL_FACTOR. Its ZeRO-1 route
+     runs in D3;
  R2. the input pipeline: FT-Joint (phase 10's config) through
      cli.common.make_input_iter: the prefetch and --no_prefetch give bitwise
      equal losses over 10 steps in deterministic mode; --transfer_dtype
      bfloat16 losses within a stated limit of the f32 transfer's; 1
-     pair (cut from 3, then 2 for K1) of 10-step windows (cut from 20 for K1)
-     of each mode under a CUDA-only
+     pair (cut from 3, then 2 for K1) of 5-step windows (cut from 20 for K1,
+     from 10 for K2) of each mode under a CUDA-only
      profiler (clips/s and device busy share, medians); the joint retrieval
      eval of phase 20 (its batches prefetched) against --no_prefetch: the
      same R@1/5/10, MedR and MeanR;
@@ -224,7 +241,10 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
  D3. --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
      through the CLI for 2 steps, then probes/zero1_ab at FT-Align's
      parameters: ZeRO-1 against BertAdam, each update's profiled device ms
-     (2 updates, cut from 3), both optimizers' state bytes.
+     (2 updates, cut from 3), both optimizers' state bytes; then K2's ZeRO-1
+     route: FT-Align block --zero1 in a new one-rank NCCL group, train_steps
+     (K = 3) bitwise 2K train_step calls in deterministic mode, the shard's
+     moments and f32 master included, profiled as K2's other routes.
  G1. GPipe (parallel/pp.py) over the text tower at full width (12 layers),
      batch 32 x 48, pp 2 with 4 microbatches, on two gloo ranks sharing the
      card (one spawn of parallel/pp_replay, deterministic mode, the seeded
@@ -334,6 +354,7 @@ from univl_tpu_torch.serving.captioning import CaptionService
 from univl_tpu_torch.serving.index import RERANK_TILE, VideoRetrievalIndex
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
+from univl_tpu_torch.train.zero1 import Zero1BertAdam, make_univl_zero1_optimizer
 
 # retrieval traffic
 N_CLIPS, N_QUERIES, TOP_K, RERANK, BATCH = 64, 8, 5, 16, 16
@@ -493,7 +514,24 @@ K1_ROUTES = {  # label -> (config flags, K, data)
     "caption (--stage_two --fused_ln)": (dict(stage_two=True, task_type="caption"), 3,
                                          "caption"),
 }
-K1_PAIRS = 5
+K1_PAIRS = 3  # cut from 5 for K2
+# K2, stated before its first run: train_steps on the one-card routes
+# K1 left out, each bitwise 2K train_step calls in deterministic mode (every
+# step's metrics, every parameter, both moments, ZeRO-1's f32 master, the step
+# count): FT-Align --fused_ffn block with --remat and with --remat_policy dots
+# (K2_ALIGN_K), pretraining stage I at P1's micro-step and accumulation
+# (K2_PRE1_K), stage II at P2's without and with --remat (K2_PRE2_K), FT-Align
+# block --zero1 on D3's one-rank NCCL group (K2_ALIGN_K); the wrappers' counts
+# twice a step's (the eager step and the capture), and the kernels of #2, #4
+# and #5 by name as many in a replayed step as in an eager one. In the default
+# mode, FT-Align block (K2_ALIGN_K) and stage II (K2_PRE2_K), one call against
+# two train_step loops: each parameter and moment within the larger of
+# K2_CONTROL_FACTOR times the loops' own difference and K2_NORM_RTOL of its
+# norm, every metric within K2_LOSS_RTOL. Stage II without and with remat in
+# K2_PAIRS alternating pairs of windows.
+K2_ALIGN_K, K2_PRE1_K, K2_PRE2_K, K2_PAIRS = 3, 3, 2, 2
+K2_CONTROL_FACTOR, K2_NORM_RTOL, K2_LOSS_RTOL = 10, 1e-6, 1e-5
+GRAPH_LR = dict(lr=3e-5, t_total=100, warmup_proportion=0.1, coef_lr=0.1)  # K1's and K2's
 # evaluation on MSRVTT-format fixtures at S3D width 1024: retrieval over the
 # JSFusion test split's 1,000 clips (48 words, 48 frames, batch 64; joint, then
 # the device-resident FT-Align rescoring of all 1,000,000 pairs in blocks of 8
@@ -562,9 +600,10 @@ PRE_AGREE_CLIPS = 4
 # windows. R3: as P3's resumed run, bitwise. R4: bitwise.
 REMAT_CHECK_STEPS, REMAT_TIMED_STEPS, REMAT_PROFILE_STEPS = 2, 3, 2  # timed: cut from 5
 REMAT_MODES = (False, True, "dots")
+REMAT_FLAGS = {False: "no remat", True: "--remat", "dots": "--remat --remat_policy dots"}
 # cut for K1: the windows from 20 steps to 10 and the pairs from 2 to 1 (cut
-# from 5, then 3, before)
-INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 10, 1
+# from 5, then 3, before); for K2 the windows to 5 steps
+INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 5, 1
 TRANSFER_BF16_RTOL = 2e-2
 # D1-D3, data parallelism and ZeRO-1, stated before their first run. D1:
 # FT-Align (--fused_ffn block) through the CLI with --n_gpu 2 --dist_backend
@@ -1340,10 +1379,10 @@ def kernel_reorder_rows() -> dict:
     return row
 
 
-def _sdpa_train(q, k, v, keep):
+def _sdpa_train(q, k, v, keep, n_heads: int = TA_HEADS):
     """The yardstick for #2: SDPA on [B, H, L, D] views, boolean key mask, prob dropout."""
     B, _, HD = q.shape
-    heads = [t.view(B, t.shape[1], TA_HEADS, HD // TA_HEADS).transpose(1, 2) for t in (q, k, v)]
+    heads = [t.view(B, t.shape[1], n_heads, HD // n_heads).transpose(1, 2) for t in (q, k, v)]
     return F.scaled_dot_product_attention(*heads, attn_mask=keep[:, None, None, :],
                                           dropout_p=TA_RATE)
 
@@ -2119,6 +2158,15 @@ def _tp_ta_check(dtype) -> dict:
                          q, k, v, mask, TA_SEED, TA_RATE, H)),
                      "unsplit_bwd": cuda_time_ms(lambda: ta.train_attention_bwd(
                          q, k, v, mask, TA_SEED, TA_RATE, H, m, l, grad))}
+            keep = mask.bool().clone()
+            keep[1] = True  # SDPA gives NaN on a row with no valid key
+            leaves = [x.detach().requires_grad_() for x in mine]
+            times["sdpa_fwd"] = cuda_time_ms(lambda: _sdpa_train(*leaves, keep, h), **ref)
+            out4 = _sdpa_train(*leaves, keep, h)
+            g4 = g2.view(B, L, h, D).transpose(1, 2)
+            times["sdpa_bwd"] = cuda_time_ms(lambda: torch.autograd.grad(
+                out4, leaves, g4, retain_graph=True), **ref)
+            del leaves, out4, g4
             es = 2
             qb = B * L * h * D * es
             stats = 2 * B * h * L * 4 + B * L * 4
@@ -2128,8 +2176,9 @@ def _tp_ta_check(dtype) -> dict:
                   f"ms forward {times['fwd'][0]:.5f}, backward {times['bwd'][0]:.5f}; plain "
                   f"{times['plain_fwd'][0]:.5f} / {times['plain_bwd'][0]:.5f}; bound "
                   f"{bf[0]:.5f} ({bf[1]}) / {bb[0]:.5f} ({bb[1]}); the whole call's "
-                  f"{H} heads {times['unsplit_fwd'][0]:.5f} / {times['unsplit_bwd'][0]:.5f}",
-                  flush=True)
+                  f"{H} heads {times['unsplit_fwd'][0]:.5f} / {times['unsplit_bwd'][0]:.5f}; "
+                  f"{SDPA_TRAIN} on the same {h} heads {times['sdpa_fwd'][0]:.5f} / its "
+                  f"autograd backward {times['sdpa_bwd'][0]:.5f}", flush=True)
         del q, k, v, grad, mask, out, m, l, dq, dk, dv, mine, g2, o2, m2, l2, grads
         torch.cuda.empty_cache()
     print(f"TP #2 with head0 at {TP_TA_SHAPES} {dtype_name(dtype)}: forward and backward "
@@ -2380,7 +2429,7 @@ def phase_slice(tmp: str, vocab: str, paths, clips) -> int:
     with np.load(index_path) as z:
         card = z["video_emb"][:8]
     model = UniVL(cfg)
-    model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    model.load_state_dict(seeded_weights(cfg), strict=True)
     cpu_idx = VideoRetrievalIndex(model.eval(), WordPieceTokenizer(vocab), "cpu", batch_size=8)
     cpu_idx.add(clips[:8])
     cos = np.sum(card * cpu_idx.video_emb, axis=1)
@@ -2694,13 +2743,30 @@ def phase_train(tmp: str, vocab: str, files, route: str = "ft_joint") -> dict:
     return counts
 
 
+_SEEDED = {}  # a parameter layout's seed-0 weights, drawn once for every phase that uses it
+
+
+def seeded_weights(cfg) -> dict:
+    """``init_state_dict(cfg, seed=0)``, drawn once for all the configs with
+    the same parameters in the same order and the same initializer ranges
+    (the draw depends on nothing else); callers copy it, never change it."""
+    layout = UniVL(cfg, device="meta").state_dict()
+    key = (tuple((name, tuple(t.shape)) for name, t in layout.items()),
+           tuple(c.initializer_range for c in (cfg.bert, cfg.visual, cfg.cross, cfg.decoder)))
+    if key not in _SEEDED:
+        _SEEDED[key] = init_state_dict(cfg, seed=0)
+    return _SEEDED[key]
+
+
 def _train_batches(ds, n: int, device, batch: int = TRAIN_BATCH) -> list:
+    """The first n batches of the batcher's epochs 0, 1, ..., each [1, batch, ...]."""
     batcher = Batcher(ds, batch, seed=0, num_workers=8)
     out = []
-    for b in batcher.epoch(0):
-        out.append({k: torch.from_numpy(v[None]).to(device) for k, v in b.items()})
-        if len(out) == n:
-            return out
+    for epoch in range(n):
+        for b in batcher.epoch(epoch):
+            out.append({k: torch.from_numpy(v[None]).to(device) for k, v in b.items()})
+            if len(out) == n:
+                return out
     raise RuntimeError(f"fewer than {n} batches")
 
 
@@ -2736,7 +2802,7 @@ def phase_train_profile(ds, tmp: str, route: str = "ft_joint") -> dict:
                            batch_size_per_device=TRAIN_BATCH, train_sim_after_cross=align,
                            use_fused_ffn="block" if route == "ft_align" else False)
     model = UniVL(cfg, device="cuda")
-    model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    model.load_state_dict(seeded_weights(cfg), strict=True)
     return profile_training(model, ds, TRAIN_BATCH,
                             os.path.join(tmp, f"train_trace_{route}.json"), TRAIN_ROUTES[route][0])
 
@@ -2839,7 +2905,7 @@ def phase_train_agreement(ds, route: str = "ft_joint", control=None, f32_launche
                                           "ft_align": "block", "ft_align_pallas": True}[route])
     cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off),
                       cross=cfg.cross.replace(**off))
-    sd = init_state_dict(cfg, seed=0)
+    sd = seeded_weights(cfg)
     host = _train_batches(ds, AGREE_BF16_STEPS, "cpu", batch)
 
     def run(device: str, dtype: str, steps: int):
@@ -3042,12 +3108,16 @@ def _require_fused_cls_steps(counts: dict, what: str) -> None:
             f"{what}: launches {counts}, want #10t once and #9 {DECODER_LAYERS} times a step")
 
 
-def _k1_trainer(cfg, sd, fused_ln: bool) -> Trainer:
+def _graph_trainer(cfg, sd, accum: int = 1, mesh=None, fused_ln: bool = False) -> Trainer:
+    """A trainer of ``cfg`` on the card from the weights of ``sd`` it holds
+    (stage I's are a subset of stage II's): BertAdam, or on ``mesh`` ZeRO-1;
+    ``fused_ln`` routes its LayerNorms to #6."""
     model = UniVL(cfg, device="cuda")
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict({k: sd[k] for k in model.state_dict()}, strict=True)
     set_fused_layer_norm(model, fused_ln)
-    opt = make_univl_optimizer(model, lr=3e-5, t_total=100, warmup_proportion=0.1, coef_lr=0.1)
-    return Trainer(model, opt, seed=0)
+    opt = (make_univl_zero1_optimizer(model, mesh, **GRAPH_LR) if mesh is not None
+           else make_univl_optimizer(model, **GRAPH_LR))
+    return Trainer(model, opt, grad_accum_steps=accum, seed=0, mesh=mesh)
 
 
 def _stacked(batches: list) -> dict:
@@ -3055,7 +3125,7 @@ def _stacked(batches: list) -> dict:
     return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
 
 
-def _k1_bitwise(graph: Trainer, eager: Trainer, got: list, want: list) -> list:
+def _graph_bitwise(graph: Trainer, eager: Trainer, got: list, want: list) -> list:
     """What differs between the two trainers after the same steps: metrics,
     parameters, moments, step counts (empty when all is bitwise equal)."""
     off = [f"metric {k}" for k in want[0]
@@ -3068,10 +3138,13 @@ def _k1_bitwise(graph: Trainer, eager: Trainer, got: list, want: list) -> list:
         sp, sq = graph.optimizer.state.get(p, {}), eager.optimizer.state.get(q, {})
         off += [f"{name} {k}" for k in ("m", "v") if (k in sp) != (k in sq)
                 or (k in sp and not torch.equal(sp[k], sq[k]))]
+    if isinstance(graph.optimizer, Zero1BertAdam):  # the shard's moments and f32 master
+        off += [f"ZeRO-1 {k}" for k in ("m", "v", "master")
+                if not torch.equal(getattr(graph.optimizer, k), getattr(eager.optimizer, k))]
     return off
 
 
-def _k1_window(fn, steps: int, batch: int) -> float:
+def _window(fn, steps: int, batch: int) -> float:
     """clips/s of fn() over ``steps`` steps of ``batch`` clips, synchronized."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3080,12 +3153,90 @@ def _k1_window(fn, steps: int, batch: int) -> float:
     return steps * batch / (time.perf_counter() - t0)
 
 
+# the kernels of #2, #4 and #5 by name (bf16): a replayed step must launch as
+# many of each as an eager step
+TRAIN_KERNEL_NAMES = tuple(sorted({n for k in ("train_attention_fwd", "train_attention_bwd",
+                                               "ffn_block_fwd", "ffn_block_bwd",
+                                               "dense_block_fwd", "dense_block_bwd")
+                                    for n in TRACE_NAMES[k]}))
+
+
+# torch.profiler (CUPTI) loses kernel records at the start of a session:
+# late in the whole script a profile's first run came out 7-67 records short
+# and its second whole, and the records an eager FT-Align --zero1 step lost
+# held one of its 20 #2 forwards in 3 of 3 profiles. A profile runs its steps
+# PROFILE_RUNS times, the card idle PROFILE_GAP_S before, between and after
+# them, tells the runs apart by those gaps and keeps each kernel name's
+# largest count over the runs (a lost record lowers a count, none adds one);
+# a route takes up to PROFILE_ATTEMPTS profiles before its kernels by name
+# must agree
+PROFILE_GAP_S = 0.1
+PROFILE_RUNS = 2
+PROFILE_ATTEMPTS = 3
+
+
+def _device_runs(prof):
+    """A profile's kernel names (copies and fills left out) in PROFILE_RUNS
+    groups, split at its idle gaps of half PROFILE_GAP_S or more; None where
+    there are not PROFILE_RUNS - 1 such gaps (a run idled that long within)."""
+    events = sorted((e.start_ns(), e.end_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA)
+    cuts, end = [], None
+    for i, (start, stop, _) in enumerate(events):
+        if end is not None and start - end >= PROFILE_GAP_S * 5e8:
+            cuts.append(i)
+        end = stop if end is None else max(end, stop)
+    if len(cuts) != PROFILE_RUNS - 1:
+        return None
+    bounds = [0, *cuts, len(events)]
+    return [[name for _, _, name in events[a:b] if not name.startswith(("Memcpy", "Memset"))]
+            for a, b in zip(bounds, bounds[1:])]
+
+
+def _profiled_steps(run, k: int, label: str) -> dict:
+    """``run(j)`` (k steps) for j < PROFILE_RUNS under one CUDA-only profiler,
+    the card idle PROFILE_GAP_S before, between and after them: wall and
+    device busy ms a step, the busy share, kernel launches a step, and the
+    launches of each TRAIN_KERNEL_NAMES kernel in k steps (each count the
+    largest over the runs; ``lost`` the records short of the fullest run;
+    the counts None where the runs cannot be told apart)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for j in range(PROFILE_RUNS):
+            time.sleep(PROFILE_GAP_S)
+            t0 = time.perf_counter()
+            run(j)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        time.sleep(PROFILE_GAP_S)
+    busy = busy_seconds(prof, label)
+    groups = _device_runs(prof)
+    out = {"wall_ms": 1e3 * wall / (k * PROFILE_RUNS),
+           "busy_ms": 1e3 * busy / (k * PROFILE_RUNS),
+           "share": busy / wall, "launches": None, "lost": None, "named": None}
+    if groups is not None:
+        full = max(len(g) for g in groups)
+        out.update(launches=full / k, lost=[full - len(g) for g in groups],
+                   named={n: max(sum(n in name for name in g) for g in groups)
+                          for n in TRAIN_KERNEL_NAMES})
+    return out
+
+
+def _profiled_text(r: dict) -> str:
+    launches = ("launches not counted (runs not told apart)" if r["launches"] is None
+                else f"{r['launches']:.1f} kernel launches a step")
+    return (f"wall {r['wall_ms']:.3f} ms a step, device busy {r['busy_ms']:.3f} ms a step "
+            f"({r['share']:.4f} of wall), {launches}")
+
+
 def phase_train_steps(ds, cap_ds) -> dict:
     """K1: Trainer.train_steps on its CUDA-graph route against the eager
     loop, on FT-Joint, FT-Align's block route and caption fine-tuning with
     --fused_ln; returns each route's launches (the calls captured)."""
-    from torch.profiler import ProfilerActivity, profile
-
     by_path = {}
     with deterministic_mode():
         for label, (flags, k, data) in K1_ROUTES.items():
@@ -3095,91 +3246,15 @@ def phase_train_steps(ds, cap_ds) -> dict:
             cfg = UniVLConfig.base(max_words=words, max_frames=frames, compute_dtype="bfloat16",
                                    batch_size_per_device=batch, **flags)
             require(cfg.bert.hidden_dropout_prob == 0.1, f"K1 {label}: dropout {cfg.bert}")
-            sd = init_state_dict(cfg, seed=0)
-            host = _train_batches(cap_ds if caption else ds, 2 * k, "cuda", batch)
-            stacks = [_stacked(host[:k]), _stacked(host[k:])]
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            graph = _k1_trainer(cfg, sd, caption)
-            got = [graph.train_steps(stacks[0], 0), graph.train_steps(stacks[1], k)]
-            torch.cuda.synchronize()
-            counts = read_launches()
-            peak_graph = torch.cuda.max_memory_allocated() - held
-            held_eager = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            eager = _k1_trainer(cfg, sd, caption)
-            want = [eager.train_step(host[i], i) for i in range(2 * k)]
-            torch.cuda.synchronize()
-            peak_eager = torch.cuda.max_memory_allocated() - held_eager
-            off = _k1_bitwise(graph, eager, got, want)
-            losses = [round(float(x), 6) for g in got for x in g["loss"]]
-            require(not off, f"K1 {label}: train_steps is not bitwise the train_step loop: "
-                             f"{off[:8]} ({len(off)} differ); losses {losses} against "
-                             f"{[round(float(w['loss']), 6) for w in want]}")
-            per_step = (_caption_launches_per_step(graph.model) if caption else
+            per_step = (_caption_launches_per_step(UniVL(cfg, device="meta")) if caption else
                         _launches_per_step("ft_align" if flags else "ft_joint"))
-            # the wrappers ran for the first call's eager step and its capture
-            want_counts = {**{n: 0 for n in KERNELS}, **{n: 2 * c for n, c in per_step.items()}}
-            require(counts == want_counts, f"K1 {label}: launches {counts}, want {want_counts}")
-            replays = 2 * k - 1
-            print(f"K1 train_steps, {label} (bf16, batch {batch}, {words} words, {frames} "
-                  f"frames, K = {k}, dropout 0.1, deterministic mode): two calls bitwise "
-                  f"{2 * k} train_step calls (losses {losses}; every metric, all "
-                  f"{len(list(graph.model.parameters()))} parameters, both moments, steps "
-                  f"{graph.optimizer.steps}); the wrappers counted the eager step and the "
-                  f"capture, {per_step} each, so the card ran the captured calls x "
-                  f"{replays} replays + the eager step's: "
-                  f"{ {n: c * (replays + 1) for n, c in per_step.items()} }; peak device "
-                  f"memory {peak_graph / 2**30:.3f} GiB (train_steps: the eager step, the "
-                  f"capture and the graph's pool) against {peak_eager / 2**30:.3f} GiB "
-                  f"(train_step), parameters and moments included", flush=True)
-            rates = {"train_steps": [], "train_step": []}
-            step_g = step_e = 2 * k
-            for pair in range(K1_PAIRS):
-                for mode in (("train_steps", "train_step") if pair % 2 == 0
-                             else ("train_step", "train_steps")):
-                    if mode == "train_steps":
-                        rates[mode].append(_k1_window(
-                            lambda: graph.train_steps(stacks[pair % 2], step_g), k, batch))
-                        step_g += k
-                    else:
-                        def loop(first=step_e):
-                            for i in range(k):
-                                eager.train_step(host[(pair % 2) * k + i], first + i)
-                        rates[mode].append(_k1_window(loop, k, batch))
-                        step_e += k
-            profiled = {}
-            for mode, run in (
-                    ("train_steps", lambda: graph.train_steps(stacks[0], step_g)),
-                    ("train_step", lambda: [eager.train_step(host[i], step_e + i)
-                                            for i in range(k)])):
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    run()
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                busy = busy_seconds(prof, f"K1 {label} {mode}")
-                kernels = sum(1 for e in prof.profiler.kineto_results.events()
-                              if e.device_type() == torch.autograd.DeviceType.CUDA
-                              and not e.name().startswith(("Memcpy", "Memset")))
-                profiled[mode] = (f"wall {1e3 * wall / k:.3f} ms a step, device busy "
-                                  f"{1e3 * busy / k:.3f} ms a step ({busy / wall:.4f} of "
-                                  f"wall), {kernels / k:.1f} kernel launches a step")
-            med = {m: float(np.median(r)) for m, r in rates.items()}
-            print(f"K1 train_steps, {label}: {K1_PAIRS} alternating pairs of windows of {k} "
-                  f"steps, clips/s train_steps {[round(x, 3) for x in rates['train_steps']]} "
-                  f"median {med['train_steps']:.3f}, train_step "
-                  f"{[round(x, 3) for x in rates['train_step']]} median {med['train_step']:.3f} "
-                  f"({med['train_steps'] / med['train_step']:.3f}x); profiled (CUDA-only "
-                  f"profiler on) over {k} steps: a call of {k} replays "
-                  f"{profiled['train_steps']}; {k} train_step calls "
-                  f"{profiled['train_step']}", flush=True)
-            by_path[f"train_steps_{label.split(' ')[0].lower().replace('-', '_')}"] = counts
-            del graph, eager, host, stacks, got, want
+            r = _graph_route("K1", f"{label}, {words} words, {frames} frames", cfg,
+                             seeded_weights(cfg),
+                             _train_batches(cap_ds if caption else ds, 2 * k, "cuda", batch),
+                             per_step, fused_ln=caption)
+            _graph_windows("K1", label, r, K1_PAIRS)
+            by_path[f"train_steps_{label.split(' ')[0].lower().replace('-', '_')}"] = r["counts"]
+            del r
     return by_path
 
 
@@ -3293,7 +3368,7 @@ def phase_eval_profile(vocab: str, files, tmp: str) -> None:
     cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, train_sim_after_cross=True,
                            compute_dtype="bfloat16")
     model = UniVL(cfg, device="cuda")
-    model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    model.load_state_dict(seeded_weights(cfg), strict=True)
     ev = RetrievalEvaluator(model.eval(), batch_size=EVAL_BATCH)
     ds = MsrvttRetrievalEvalDataset(test_csv, feats, WordPieceTokenizer(vocab),
                                     max_words=MAX_WORDS, max_frames=48, seed=0)
@@ -3326,7 +3401,7 @@ def phase_retrieval_agreement(vocab: str, files) -> None:
     cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, train_sim_after_cross=True,
                            text_num_hidden_layers=2, visual_num_hidden_layers=1,
                            cross_num_hidden_layers=1)
-    sd = init_state_dict(cfg, seed=0)
+    sd = seeded_weights(cfg)
     ds = MsrvttRetrievalEvalDataset(test_csv, feats, WordPieceTokenizer(vocab),
                                     max_words=MAX_WORDS, max_frames=48, seed=0)
     batch = collate([ds[i] for i in range(EVAL_AGREE_CLIPS)])
@@ -3359,7 +3434,7 @@ def phase_caption_profile(ds, tmp: str) -> None:
     """The caption step under torch.profiler at full width in bf16, with every
     LayerNorm on #6 and on PyTorch's ops (the same weights and batches)."""
     cfg = _caption_cfg(compute_dtype="bfloat16", batch_size_per_device=CAP_BATCH)
-    sd = init_state_dict(cfg, seed=0)
+    sd = seeded_weights(cfg)
     res = {}
     for fused in (True, False):
         model = UniVL(cfg, device="cuda")
@@ -3389,7 +3464,7 @@ def phase_caption_agreement(ds, f32_launches: dict) -> None:
                        batch_size_per_device=AGREE_CAP_BATCH)
     cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off),
                       cross=cfg.cross.replace(**off), decoder=cfg.decoder.replace(**off))
-    sd = init_state_dict(cfg, seed=0)
+    sd = seeded_weights(cfg)
     host = _train_batches(ds, AGREE_BF16_STEPS, "cpu", AGREE_CAP_BATCH)
     cpu = _agreement_run(cfg, sd, host, "cpu", "float32", AGREE_BF16_STEPS)
     zero = ("attention.self.key.bias", "att.key.bias")
@@ -3448,7 +3523,7 @@ def phase_agreement(vocab: str, clips) -> None:
     tok = WordPieceTokenizer(vocab)
     base = dict(max_words=MAX_WORDS, max_frames=48, stage_two=True, task_type="caption")
     cfg32 = UniVLConfig.base(**base)
-    sd = init_state_dict(cfg32, seed=0)
+    sd = seeded_weights(cfg32)
     models = {}
     for name, dev, dtype in (("cpu", "cpu", "float32"), ("card_bf16", "cuda", "bfloat16"),
                              ("card_f32", "cuda", "float32")):
@@ -3674,7 +3749,7 @@ def phase_pretrain_profile(files, vocab: str, tmp: str) -> None:
     cfg = _pretrain_cfg(2, compute_dtype="bfloat16", batch_size_per_device=PRE2_CLIPS,
                         use_fused_ffn="block")
     model = UniVL(cfg, device="cuda")
-    model.load_state_dict(init_state_dict(cfg, seed=0), strict=True)
+    model.load_state_dict(seeded_weights(cfg), strict=True)
     profile_training(model, _pretrain_dataset(files, vocab), PRE2_CLIPS,
                      os.path.join(tmp, "pretrain_trace.json"),
                      f"pretraining stage II ({PRE2_CLIPS} clips x {PRE_PAIRS} pairs)")
@@ -3766,7 +3841,7 @@ def phase_pretrain_agreement(files, vocab: str, f32_launches: dict) -> None:
                         batch_size_per_device=PRE_AGREE_CLIPS)
     cfg = cfg.replace(bert=cfg.bert.replace(**off), visual=cfg.visual.replace(**off),
                       cross=cfg.cross.replace(**off), decoder=cfg.decoder.replace(**off))
-    sd = init_state_dict(cfg, seed=0)
+    sd = seeded_weights(cfg)
     host = _train_batches(_pretrain_dataset(files, vocab), AGREE_BF16_STEPS, "cpu",
                           PRE_AGREE_CLIPS)
     cpu = _agreement_run(cfg, sd, host, "cpu", "float32", AGREE_BF16_STEPS)
@@ -3896,10 +3971,11 @@ def _remat_run(label: str, cfg, sd, batches, remat, reference=None) -> dict:
             "differing": differing}
 
 
-def phase_remat(ds, pre_files, vocab: str) -> dict:
+def phase_remat(ds, pre_files, vocab: str) -> tuple:
     """R1: P2's stage-II micro-step and phase 13's FT-Align step without
     remat, with remat=True and with "dots"; returns each run's launches by
-    path."""
+    path and each route's (config, dataset, clips, seeded weights), which K2
+    reuses."""
     configs = {
         "stage II": (_pretrain_cfg(2, compute_dtype="bfloat16", batch_size_per_device=PRE2_CLIPS,
                                    use_fused_ffn="block"), _pretrain_dataset(pre_files, vocab),
@@ -3909,9 +3985,9 @@ def phase_remat(ds, pre_files, vocab: str) -> dict:
                                       train_sim_after_cross=True, use_fused_ffn="block"),
                      ds, TRAIN_BATCH),
     }
-    by_path = {}
+    by_path, inits = {}, {}
     for label, (cfg, data, batch) in configs.items():
-        sd = init_state_dict(cfg, seed=0)
+        sd = seeded_weights(cfg)
         batches = _train_batches(data, REMAT_CHECK_STEPS + REMAT_TIMED_STEPS, "cuda", batch)
         reference = None
         for remat in REMAT_MODES:
@@ -3919,7 +3995,7 @@ def phase_remat(ds, pre_files, vocab: str) -> dict:
             per_step = _remat_launches(cfg, remat)
             want = {**{k: 0 for k in KERNELS},
                     **{k: n * REMAT_CHECK_STEPS for k, n in per_step.items()}}
-            mode = {False: "no remat", True: "--remat", "dots": "--remat --remat_policy dots"}
+            mode = REMAT_FLAGS
             print(f"R1 remat, {label} ({batch} clips a step, bf16, {mode[remat]}): peak device "
                   f"memory {r['peak_gib']:.3f} GiB (parameters, gradients and moments "
                   f"included); wall {r['wall_ms']:.3f} ms a step, {1e3 * batch / r['wall_ms']:.3f} "
@@ -3943,6 +4019,224 @@ def phase_remat(ds, pre_files, vocab: str) -> dict:
             by_path[f"remat_{label.replace(' ', '_').replace('-', '_').lower()}_{remat}"] = \
                 r["counts"]
         del reference
+        inits[label] = (cfg, data, batch, sd)
+    return by_path, inits
+
+
+def _k2_steps(ds, n: int, clips: int, accum: int) -> list:
+    """n step batches of ``accum`` micro-batches of ``clips`` clips, [accum,
+    clips, ...] on the card."""
+    micro = _train_batches(ds, n * accum, "cuda", clips)
+    return [{k: torch.cat([m[k] for m in micro[i:i + accum]]) for k in micro[0]}
+            for i in range(0, len(micro), accum)]
+
+
+def _graph_route(phase: str, label: str, cfg, sd, steps: list, per_step: dict, mesh=None,
+                 fused_ln: bool = False) -> dict:
+    """One route of K1 or K2 (``phase``), in the caller's deterministic
+    mode: two train_steps calls of K = len(steps) / 2 (the first runs the
+    eager step and the capture, the second replays) against 2K train_step
+    calls of another trainer, bitwise; the wrappers' counts twice
+    ``per_step``; PROFILE_RUNS more calls and eager steps profiled (up to
+    PROFILE_ATTEMPTS times), #2's, #4's and #5's kernels as many a step in
+    both. Prints clips/s of the second call and of the last K eager steps
+    (the first pair of windows), peak memory and the profiles; returns both
+    trainers, their batches, those rates and the counts."""
+    k, accum = len(steps) // 2, steps[0]["video"].shape[0]
+    clips = steps[0]["video"].shape[1] * accum
+    stacks = [_stacked(steps[:k]), _stacked(steps[k:])]
+
+    def timed(fn) -> tuple:  # fn's result and the clips/s of its k steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, k * clips / (time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    graph = _graph_trainer(cfg, sd, accum, mesh, fused_ln)
+    got = [graph.train_steps(stacks[0], 0)]
+    second, graph_rate = timed(lambda: graph.train_steps(stacks[1], k))
+    got.append(second)
+    counts = read_launches()
+    peak_graph = torch.cuda.max_memory_allocated() - held
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager = _graph_trainer(cfg, sd, accum, mesh, fused_ln)
+    want = [eager.train_step(steps[i], i) for i in range(k)]
+    last, eager_rate = timed(lambda: [eager.train_step(steps[i], i) for i in range(k, 2 * k)])
+    want += last
+    peak_eager = torch.cuda.max_memory_allocated() - held
+    off = _graph_bitwise(graph, eager, got, want)
+    losses = [round(float(x), 6) for g in got for x in g["loss"]]
+    require(not off, f"{phase} {label}: train_steps is not bitwise the train_step loop: {off[:8]} "
+                     f"({len(off)} differ); losses {losses} against "
+                     f"{[round(float(w['loss']), 6) for w in want]}")
+    want_counts = {**{n: 0 for n in KERNELS}, **{n: 2 * c for n, c in per_step.items()}}
+    require(counts == want_counts, f"{phase} {label}: launches {counts}, want {want_counts}")
+    named = {"replayed": {}, "eager": {}}  # each name's largest count so far
+    for attempt in range(PROFILE_ATTEMPTS):
+        first = 2 * k + attempt * PROFILE_RUNS * k
+        prof = {"replayed": _profiled_steps(lambda j: graph.train_steps(stacks[0], first + j * k),
+                                            k, f"{phase} {label} train_steps"),
+                "eager": _profiled_steps(lambda j: eager.train_step(steps[j], first + j), 1,
+                                         f"{phase} {label} train_step")}
+        for side, r in prof.items():
+            if r["named"] is not None:
+                named[side] = {n: max(c / (k if side == "replayed" else 1), named[side].get(n, 0))
+                               for n, c in r["named"].items()}
+        if named["eager"] and named["replayed"] == named["eager"]:
+            break
+        print(f"{phase} {label}: #2's, #4's and #5's kernels a step, replayed "
+              f"{named['replayed']} against eager {named['eager']} after profile {attempt + 1} "
+              f"(records short of each profile's fullest run: replayed "
+              f"{prof['replayed']['lost']}, eager {prof['eager']['lost']}; None: runs not told "
+              f"apart); profiled again", flush=True)
+    require(named["replayed"] == named["eager"] and all(named["eager"].get(n, 0) > 0 for n in (
+        TRACE_NAMES["train_attention_fwd"] + TRACE_NAMES["train_attention_bwd"])),
+        f"{phase} {label}: #2's, #4's and #5's kernels a step, replayed {named['replayed']} "
+        f"against eager {named['eager']}")
+    state = "both moments" + (", the f32 master" if mesh is not None else "")
+    print(f"{phase} train_steps, {label} (bf16, {clips} clips a step, accumulation {accum}, "
+          f"K = {k}, dropout 0.1, deterministic mode): two calls bitwise {2 * k} train_step "
+          f"calls (losses {losses}; every metric, all {len(list(graph.model.parameters()))} "
+          f"parameters, {state}, steps {2 * k}); the wrappers counted the eager step and the "
+          f"capture, {per_step} each; clips/s of the second call (replays) "
+          f"{graph_rate:.3f} against the last {k} train_step calls {eager_rate:.3f}; peak "
+          f"device memory {peak_graph / 2**30:.3f} GiB (train_steps: the eager step, the "
+          f"capture and the graph's pool) against {peak_eager / 2**30:.3f} GiB (train_step); "
+          f"profiled ({attempt + 1} profiles each, {PROFILE_RUNS} runs a profile; the last): "
+          f"calls of {k} replays {_profiled_text(prof['replayed'])}, records short of the "
+          f"fullest run {prof['replayed']['lost']}; train_step calls "
+          f"{_profiled_text(prof['eager'])}, records short {prof['eager']['lost']}; #2's, #4's "
+          f"and #5's kernels a step the same in both, {named['eager']}", flush=True)
+    return {"graph": graph, "eager": eager, "stacks": stacks, "steps": steps, "k": k,
+            "clips": clips, "counts": counts,
+            "rates": {"train_steps": [graph_rate], "train_step": [eager_rate]}}
+
+
+def _graph_windows(phase: str, label: str, r: dict, pairs: int) -> None:
+    """``pairs`` alternating pairs of windows, one train_steps call of K
+    against K train_step calls: a route's bitwise calls (train_steps first,
+    ``_graph_route``'s rates), then after its profiled steps the others."""
+    graph, eager, k, clips, rates = r["graph"], r["eager"], r["k"], r["clips"], r["rates"]
+    step_g, step_e = graph.optimizer.steps, eager.optimizer.steps
+    for pair in range(1, pairs):
+        for mode in (("train_steps", "train_step") if pair % 2 == 0
+                     else ("train_step", "train_steps")):
+            if mode == "train_steps":
+                rates[mode].append(_window(
+                    lambda: graph.train_steps(r["stacks"][pair % 2], step_g), k, clips))
+                step_g += k
+            else:
+                def loop(first=step_e):
+                    for i in range(k):
+                        eager.train_step(r["steps"][(pair % 2) * k + i], first + i)
+                rates[mode].append(_window(loop, k, clips))
+                step_e += k
+    med = {m: float(np.median(v)) for m, v in rates.items()}
+    print(f"{phase} train_steps, {label}: {pairs} alternating pairs of windows of {k} steps, "
+          f"clips/s train_steps {[round(x, 3) for x in rates['train_steps']]} median "
+          f"{med['train_steps']:.3f}, train_step {[round(x, 3) for x in rates['train_step']]} "
+          f"median {med['train_step']:.3f} ({med['train_steps'] / med['train_step']:.3f}x)",
+          flush=True)
+
+
+@torch.no_grad()
+def _k2_default_diff(graph: Trainer, first: Trainer, second: Trainer) -> tuple:
+    """Over every parameter and moment: the largest norm of the graph's
+    difference from ``first``'s in units of its limit (the larger of
+    K2_CONTROL_FACTOR times ``first``'s from ``second``'s and K2_NORM_RTOL
+    of its norm), with its name; the largest of the loops' own differences
+    relative to the norm; how many are bitwise equal; how many there are."""
+    worst, control, bitwise, total = (0.0, ""), 0.0, 0, 0
+    for (name, p), q, r in zip(graph.model.named_parameters(), first.model.parameters(),
+                               second.model.parameters()):
+        st = [t.optimizer.state[x] for t, x in ((graph, p), (first, q), (second, r))]
+        for what, (a, b, c) in ((name, (p, q, r)),
+                                *((f"{name} {m}", [x[m] for x in st]) for m in ("m", "v"))):
+            diff = float((a.float() - b.float()).norm())
+            own = float((b.float() - c.float()).norm())
+            norm = float(b.float().norm())
+            limit = max(K2_CONTROL_FACTOR * own, K2_NORM_RTOL * norm)
+            total += 1
+            bitwise += torch.equal(a, b)
+            control = max(control, own / max(norm, 1e-30))
+            ratio = diff / limit if limit > 0 else (0.0 if diff == 0 else float("inf"))
+            worst = max(worst, (ratio, what))
+    return worst, control, bitwise, total
+
+
+def _k2_default(label: str, cfg, sd, steps: list) -> None:
+    """The default mode (no deterministic algorithms): one train_steps call
+    of K = len(steps) against two loops of K train_step calls, each from the
+    same weights; each parameter and moment within the larger of
+    K2_CONTROL_FACTOR times the loops' own difference and K2_NORM_RTOL of
+    its norm (norms of the differences), every metric within K2_LOSS_RTOL."""
+    k, accum = len(steps), steps[0]["video"].shape[0]
+    require(not torch.are_deterministic_algorithms_enabled(), "K2's default mode")
+    graph = _graph_trainer(cfg, sd, accum)
+    got = graph.train_steps(_stacked(steps), 0)
+    loops = []
+    for _ in range(2):
+        eager = _graph_trainer(cfg, sd, accum)
+        loops.append((eager, [eager.train_step(steps[i], i) for i in range(k)]))
+    (first, want), (second, _) = loops
+    loss_rel = max(float(((got[n] - torch.stack([w[n] for w in want])).abs()
+                          / torch.stack([w[n] for w in want]).abs()).max()) for n in want[0])
+    worst, control, bitwise, total = _k2_default_diff(graph, first, second)
+    print(f"K2 train_steps, {label} in the default mode (bf16, K = {k}, dropout 0.1): one call "
+          f"against two train_step loops from the same weights: the metrics within "
+          f"{loss_rel:.3e} rel (limit {K2_LOSS_RTOL}); {bitwise} of {total} parameters and "
+          f"moments bitwise the first loop's; the largest difference {worst[0]:.4f} of its "
+          f"limit ({worst[1]}; the limit the larger of {K2_CONTROL_FACTOR}x the loops' own and "
+          f"{K2_NORM_RTOL} of the norm); the loops' own difference at most {control:.3e} of a "
+          f"tensor's norm", flush=True)
+    require(loss_rel <= K2_LOSS_RTOL and worst[0] <= 1.0,
+            f"K2 {label} default mode: metrics {loss_rel:.3e} rel, {worst}")
+
+
+def phase_train_steps_k2(configs: dict, pre_files, vocab: str) -> dict:
+    """K2: train_steps on the routes K1 left out, from R1's seeded weights
+    and datasets: FT-Align block with --remat and with "dots", pretraining
+    stage I (P1's micro-step and accumulation) and stage II (P2's) without
+    and with --remat, bitwise the eager loop in deterministic mode; stage
+    II's windows; FT-Align block and stage II in the default mode. Returns
+    the deterministic routes' launches by path (ZeRO-1 runs in D3)."""
+    align_cfg, ds, align_clips, align_sd = configs["FT-Align"]
+    pre2_cfg, pre2_ds, pre2_clips, pre2_sd = configs["stage II"]
+    align = _k2_steps(ds, 2 * K2_ALIGN_K, align_clips, 1)
+    pre2 = _k2_steps(pre2_ds, 2 * K2_PRE2_K, pre2_clips, PRE2_ACCUM)
+    by_path = {}
+    with deterministic_mode():
+        for remat in (True, "dots"):
+            cfg = align_cfg.replace(remat=remat)
+            r = _graph_route("K2", f"FT-Align (--fused_ffn block {REMAT_FLAGS[remat]})", cfg,
+                             align_sd, align, _remat_launches(cfg, remat))
+            by_path[f"train_steps_ft_align_remat_{remat}"] = r.pop("counts")
+            del r
+        pre1 = _k2_steps(_pretrain_dataset(pre_files, vocab, stage=1), 2 * K2_PRE1_K,
+                         PRE1_CLIPS, PRE1_ACCUM)
+        r = _graph_route("K2", "pretraining stage I", _pretrain_cfg(
+            1, compute_dtype="bfloat16", batch_size_per_device=PRE1_CLIPS), pre2_sd, pre1,
+            _pretrain_launches_per_step(1))
+        by_path["train_steps_pretrain_stage_one"] = r.pop("counts")
+        del r, pre1
+        for remat in (False, True):
+            cfg = pre2_cfg.replace(remat=remat)
+            label = f"pretraining stage II ({REMAT_FLAGS[remat]})"
+            per_step = {n: c * PRE2_ACCUM for n, c in _remat_launches(cfg, remat).items()}
+            r = _graph_route("K2", label, cfg, pre2_sd, pre2, per_step)
+            by_path[f"train_steps_pretrain_stage_two_remat_{remat}"] = r.pop("counts")
+            _graph_windows("K2", label, r, K2_PAIRS)
+            del r
+    _k2_default("FT-Align (--fused_ffn block)", align_cfg, align_sd, align[:K2_ALIGN_K])
+    _k2_default("pretraining stage II", pre2_cfg, pre2_sd, pre2[:K2_PRE2_K])
+    torch.cuda.empty_cache()
     return by_path
 
 
@@ -3979,7 +4273,7 @@ def phase_input_pipeline(ds, vocab: str, ret_files, tmp: str, joint_metrics: dic
     launches."""
     cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
                            batch_size_per_device=TRAIN_BATCH)
-    sd = init_state_dict(cfg, seed=0)
+    sd = seeded_weights(cfg)
     batcher = Batcher(ds, TRAIN_BATCH, seed=0, num_workers=8)
 
     def trainer():
@@ -4247,10 +4541,12 @@ def _dp_pretrain(tmp: str, vocab: str, files, init: str) -> dict:
     return counts
 
 
-def phase_dp_nccl(tmp: str, vocab: str, check, init: str) -> dict:
+def phase_dp_nccl(tmp: str, vocab: str, check, init: str, ds) -> tuple:
     """D3: --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
-    through the CLI (in this process, from the weights in ``init``; returns
-    its launches), then the ZeRO-1 probe at FT-Align's parameters, profiled."""
+    through the CLI (in this process, from the weights in ``init``), then the
+    ZeRO-1 probe at FT-Align's parameters, profiled; then K2's ZeRO-1 route
+    in such a group (``ds``'s batches). Returns the CLI run's launches and
+    the route's."""
     out = os.path.join(tmp, "dp_nccl")
     reset_launches()
     steps, _ = task_retrieval.main(_dp_argv(check, vocab, out, "--n_gpu", "1", "--zero1",
@@ -4283,6 +4579,28 @@ def phase_dp_nccl(tmp: str, vocab: str, check, init: str) -> dict:
     require(rep["backend"] == "nccl"
             and all(x["max_rel_diff"] <= 1e-5 for x in rep["steps"]),
             f"D3: ZeRO-1 strays from BertAdam: {rep['steps']}")
+    return counts, phase_k2_zero1(load_reference_bin(init), ds)
+
+
+def phase_k2_zero1(sd: dict, ds) -> dict:
+    """K2's ZeRO-1 route: FT-Align block --zero1 from the weights ``sd`` in a
+    process group of one rank on NCCL (as --n_gpu 1 --zero1 joins), on
+    ``ds``'s batches, in deterministic mode; returns its launches."""
+    mesh = dp_mesh.init("cuda")
+    try:
+        require(mesh.backend == "nccl" and mesh.size == 1, f"K2's ZeRO-1 group: {mesh}")
+        cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
+                               batch_size_per_device=TRAIN_BATCH, train_sim_after_cross=True,
+                               use_fused_ffn="block")
+        with deterministic_mode():
+            r = _graph_route("K2", "FT-Align (--fused_ffn block --zero1, a one-rank NCCL group)",
+                             cfg, sd, _k2_steps(ds, 2 * K2_ALIGN_K, TRAIN_BATCH, 1),
+                             _launches_per_step("ft_align"), mesh=mesh)
+        counts = r.pop("counts")
+        del r
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4298,8 +4616,8 @@ def write_seeded_bins(tmp: str, vocab: str) -> tuple:
 
     def seeded(**kw):
         cfg = UniVLConfig.base(**kw)
-        return init_state_dict(cfg.replace(bert=cfg.bert.replace(vocab_size=n_vocab),
-                                           decoder=cfg.decoder.replace(vocab_size=n_vocab)), 0)
+        return seeded_weights(cfg.replace(bert=cfg.bert.replace(vocab_size=n_vocab),
+                                          decoder=cfg.decoder.replace(vocab_size=n_vocab)))
 
     paths = tuple(os.path.join(tmp, f"{name}_seed0.bin") for name in ("ft_align", "stage1",
                                                                       "caption"))
@@ -4813,11 +5131,16 @@ def main() -> int:
         stamp("P3 (with R3)")
         phase_pretrain_agreement(pre_files, vocab, f32_runs)
         stamp("pretraining (P1-P4)")
-        by_path.update(phase_remat(ds, pre_files, vocab))
+        remat_paths, remat_inits = phase_remat(ds, pre_files, vocab)
+        by_path.update(remat_paths)
+        stamp("R1")
+        by_path.update(phase_train_steps_k2(remat_inits, pre_files, vocab))
+        del remat_inits
+        stamp("K2")
         by_path["input_pipeline"] = phase_input_pipeline(ds, vocab, ret_files, tmp,
                                                          eval_metrics["joint"])
         phase_converter(tmp)
-        stamp("R1-R4")
+        stamp("R2-R4")
         dp_files, _ = make_train_data(tmp, vocab, n_videos=DP_STEPS * TRAIN_BATCH // TRAIN_CLIPS)
         check, _ = make_train_data(tmp, vocab, n_videos=DP_CHECK_STEPS * TRAIN_BATCH // TRAIN_CLIPS)
         align_bin, stage1_bin, caption_bin = write_seeded_bins(tmp, vocab)
@@ -4830,8 +5153,9 @@ def main() -> int:
         stamp("T2")
         by_path["dp_pretrain_zero1"] = phase_dp_pretrain(tmp, vocab, pre_files, stage1_bin)
         stamp("D2")
-        by_path["dp_zero1_nccl"] = phase_dp_nccl(tmp, vocab, check, align_bin)
-        stamp("D3")
+        by_path["dp_zero1_nccl"], by_path["train_steps_ft_align_zero1"] = phase_dp_nccl(
+            tmp, vocab, check, align_bin, ds)
+        stamp("D3 (with K2's ZeRO-1 route)")
         pp_paths, f32_runs["G1 f32"] = phase_pipeline(tmp, vocab, ret_files, align_bin)
         by_path.update(pp_paths)
         phase_native_tokenizer(vocab, files[1], ret_files[2])

@@ -19,23 +19,26 @@ import torch
 from univl_tpu_torch.parallel import comm
 
 
-def _mil_mask(batch_size: int, n_pair: int) -> np.ndarray:
-    """Block-diagonal positive mask: kron(I_B, ones(n_pair, n_pair))."""
-    return np.kron(np.eye(batch_size), np.ones((n_pair, n_pair))).astype(np.float32)
+def _mil_mask(batch_size: int, n_pair: int, device) -> torch.Tensor:
+    """Block-diagonal positive mask, f32: kron(I_B, ones(n_pair, n_pair)),
+    built on ``device`` (no host copy, so a captured step holds it)."""
+    return torch.kron(torch.eye(batch_size, device=device),
+                      torch.ones(n_pair, n_pair, device=device))
 
 
 def milnce_loss(sim_matrix: torch.Tensor, batch_size: int, n_pair: int) -> torch.Tensor:
     """MIL-NCE over a [B * n_pair, B * n_pair] similarity matrix whose
     positives are the n_pair x n_pair blocks on the diagonal, read at the
     middle row of each block (the reference's ``mark_ind``)."""
-    mm_mask = torch.from_numpy(_mil_mask(batch_size, n_pair)).to(sim_matrix.device)
+    device = sim_matrix.device
+    mm_mask = _mil_mask(batch_size, n_pair, device)
     from_text = sim_matrix + mm_mask * -1e12
     new_sim = torch.cat([sim_matrix.t(), from_text], dim=-1)
     logpt = torch.log_softmax(new_sim, dim=-1)
     mask_logpt = torch.cat([mm_mask, torch.zeros_like(mm_mask)], dim=-1)
     new_logpt = -torch.logsumexp(logpt + (1.0 - mask_logpt) * -1e12, dim=-1)
-    mark_ind = torch.from_numpy(np.arange(batch_size) * n_pair + n_pair // 2)
-    return new_logpt[mark_ind.to(sim_matrix.device)].mean()
+    mark_ind = torch.arange(batch_size, device=device) * n_pair + n_pair // 2
+    return new_logpt[mark_ind].mean()
 
 
 def max_margin_ranking_loss(sim_matrix: torch.Tensor, margin: float = 0.1,

@@ -103,12 +103,13 @@ class BertAdam(torch.optim.Optimizer):
         self._factors = None  # each group's learning-rate factor, f32 on the parameters' device
         self.tp = None  # the tp view, with the ids of the split parameters in ``sharded``
         self.sharded = frozenset()
+        self._split = {}  # full_sq's masks, by the ids of their parameter list
 
     def set_tensor_parallel(self, mesh, sharded) -> None:
         """The parameters whose ids are in ``sharded`` are shares split over
         ``mesh``'s ranks (the tp view): their norms sum over the ranks."""
         if mesh.size > 1:
-            self.tp, self.sharded = mesh, frozenset(sharded)
+            self.tp, self.sharded, self._split = mesh, frozenset(sharded), {}
 
     def full_sq(self, tensors: List[torch.Tensor], params: List[torch.Tensor],
                 sq: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -117,7 +118,11 @@ class BertAdam(torch.optim.Optimizer):
         if sq is None:
             norms = torch.stack(torch._foreach_norm(tensors))
             sq = norms * norms
-        split = torch.tensor([id(p) in self.sharded for p in params], device=sq.device)
+        key = tuple(map(id, params))
+        if key not in self._split:  # built once for each list, not copied from the host each step
+            self._split[key] = torch.tensor([id(p) in self.sharded for p in params],
+                                            device=sq.device)
+        split = self._split[key]
         part = comm.all_reduce_sum(torch.where(split, sq, 0.0), self.tp)
         return torch.where(split, part, sq)
 

@@ -52,9 +52,14 @@ each replay, and BertAdam's learning rate from device scalars
 step eagerly (it builds the kernels, creates the moments and settles the
 allocator), records the step's keys, captures the next step and replays
 it; later calls replay every step. Graphs are kept by (shapes, dtypes,
-accum, route). One process on one card only: meshes, ZeRO-1, tensor and
-sequence parallelism and remat are refused (``graph_refusal``), and a
-capture or replay that fails raises.
+accum, route). A layer recomputed under ``--remat`` (full or "dots") folds
+its keys again inside the captured backward: those entries of the layout
+take table slots and generators of their own, written with the first
+pass's keys. ZeRO-1 on a one-rank NCCL group captures its reduce-scatter
+and all-gather (the eager step has made the communicator). One process on
+one card only: tensor and sequence parallelism, meshes of several ranks,
+gloo groups and optimizers other than BertAdam are refused
+(``graph_refusal``), and a capture or replay that fails raises.
 """
 
 from __future__ import annotations
@@ -69,7 +74,6 @@ from univl_tpu_torch.nn.layers import (
     KERNEL,
     LayerNormTF,
     StepKeys,
-    TransformerStack,
     draw_key,
     layout_keys,
 )
@@ -79,8 +83,6 @@ from univl_tpu_torch.parallel.sp import sp_params
 from univl_tpu_torch.train.optimization import BertAdam, copy_from_host
 from univl_tpu_torch.train.zero1 import Zero1BertAdam, flat_offsets
 from univl_tpu_torch.train.zero1_tp import Zero1TpBertAdam
-
-LATER = "comes in a later slice"
 
 
 def step_generator(seed: int, global_step: int) -> torch.Generator:
@@ -226,30 +228,34 @@ class Trainer:
     def graph_refusal(self) -> Optional[str]:
         """What keeps ``train_steps`` from replaying this trainer's step as a
         CUDA graph on the card, or None."""
+        if (self.mesh.tp > 1 or self.sp_params
+                or getattr(self.optimizer, "tp", None) is not None):
+            return ("tensor and sequence parallelism (--tensor_parallel, "
+                    "--sequence_parallel), which need two or more ranks")
         if self.mesh.size > 1:
-            return (f"a mesh of {self.mesh.size} ranks (gloo cannot be captured and NCCL "
-                    f"across cards has never run): multi-rank graphs {LATER}")
-        if self.zero1:
-            return f"ZeRO-1 (--zero1): its graph {LATER}"
-        if self.mesh.tp > 1 or self.sp_params or getattr(self.optimizer, "tp", None) is not None:
-            return (f"tensor and sequence parallelism (--tensor_parallel, "
-                    f"--sequence_parallel; the optimizer builds a host tensor each step): "
-                    f"their graphs {LATER}")
-        if any(m.remat for m in self.model.modules() if isinstance(m, TransformerStack)):
-            return (f"--remat (a recomputed layer folds its keys again inside the step): its "
-                    f"graph {LATER}")
+            return (f"a mesh of {self.mesh.size} ranks: a graph is one process on one card, "
+                    f"NCCL takes one rank a card and gloo cannot be captured")
+        if self.mesh.backend == "gloo":
+            return ("a gloo process group: gloo stages CUDA tensors through pinned host "
+                    "memory, which a graph cannot hold (NCCL can be captured)")
         if not isinstance(self.optimizer, BertAdam):
-            return (f"{type(self.optimizer).__name__} (the graph reads BertAdam's "
-                    f"learning-rate scalars): other optimizers {LATER}")
+            return (f"{type(self.optimizer).__name__}: the graph reads BertAdam's "
+                    f"learning-rate scalars, and the CLIs build only BertAdam and "
+                    f"Zero1BertAdam")
         return None
 
     def _addresses(self) -> tuple:
         """The device addresses a captured step updates in place: the
-        parameters, BertAdam's moments and learning-rate scalars."""
-        ptrs = [self.optimizer.lr_factors().data_ptr()]
-        for group in self.optimizer.param_groups:
+        learning-rate scalars, the parameters, and BertAdam's moments or
+        ZeRO-1's (its shard's moments, f32 master and gradient, and the flat
+        gradient buffer)."""
+        opt = self.optimizer
+        ptrs = [opt.lr_factors().data_ptr()]
+        if self.zero1:
+            ptrs += [t.data_ptr() for t in (opt.m, opt.v, opt.master, opt.g, self._flat)]
+        for group in opt.param_groups:
             for p in group["params"]:
-                st = self.optimizer.state.get(p, {})
+                st = opt.state.get(p, {})
                 ptrs += [p.data_ptr()] + [st[k].data_ptr() for k in ("m", "v") if k in st]
         return tuple(ptrs)
 
