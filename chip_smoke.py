@@ -323,8 +323,10 @@ from univl_tpu_torch.data import native
 from univl_tpu_torch.data.batching import Batcher, collate
 from univl_tpu_torch.data.howto100m import HowTo100MPretrainDataset
 from univl_tpu_torch.data.msrvtt import MsrvttRetrievalEvalDataset
+from univl_tpu_torch.data.text_encoding import encode_text, pad_video
 from univl_tpu_torch.data.youcook import YoucookCaptionDataset, YoucookRetrievalDataset
 from univl_tpu_torch.evals import beam as beam_search
+from univl_tpu_torch.evals.beam import CaptionGenerator
 from univl_tpu_torch.evals.fast_decoder import FastDecoder, encoder_bias
 from univl_tpu_torch.evals.metrics import compute_retrieval_metrics
 from univl_tpu_torch.evals.retrieval import RetrievalEvaluator
@@ -360,10 +362,10 @@ from univl_tpu_torch.train.zero1 import Zero1BertAdam, make_univl_zero1_optimize
 N_CLIPS, N_QUERIES, TOP_K, RERANK, BATCH = 64, 8, 5, 16, 16
 N_FILES = 512  # distinct clip files; the sustained window cycles through them
 # YouCook2 val's clip count; the searches cut from 200 to 100 for K1
-SUSTAINED_INDEX, SUSTAINED_SEARCHES = 3328, 100
+SUSTAINED_INDEX, SUSTAINED_SEARCHES = 3328, 50  # 200 -> 100 for K1, -> 50 for C1
 # caption traffic: requests of BATCH clips, beam BEAM, max_len = max_words
 BEAM, MAX_WORDS, DECODER_LAYERS = 5, 48, 3
-CAPTION_WINDOW, UNFUSED_WINDOW, CONCURRENT = 10, 5, 16  # windows cut from 20, 10 for K1
+CAPTION_WINDOW, UNFUSED_WINDOW, CONCURRENT = 10, 3, 16  # cut from 20, 10 for K1; 5 -> 3 for C1
 # #1: a tower; the cross tower; the server's rerank; FT-Align eval rescoring
 # (8 texts x 64 videos a block). bf16 takes the tensor-core kernel, f32 the
 # CUDA-core one; the bf16 shape with the most keys that the model launched
@@ -514,7 +516,7 @@ K1_ROUTES = {  # label -> (config flags, K, data)
     "caption (--stage_two --fused_ln)": (dict(stage_two=True, task_type="caption"), 3,
                                          "caption"),
 }
-K1_PAIRS = 3  # cut from 5 for K2
+K1_PAIRS = 2  # cut from 5 for K2, 3 for C1
 # K2, stated before its first run: train_steps on the one-card routes
 # K1 left out, each bitwise 2K train_step calls in deterministic mode (every
 # step's metrics, every parameter, both moments, ZeRO-1's f32 master, the step
@@ -529,7 +531,7 @@ K1_PAIRS = 3  # cut from 5 for K2
 # K2_CONTROL_FACTOR times the loops' own difference and K2_NORM_RTOL of its
 # norm, every metric within K2_LOSS_RTOL. Stage II without and with remat in
 # K2_PAIRS alternating pairs of windows.
-K2_ALIGN_K, K2_PRE1_K, K2_PRE2_K, K2_PAIRS = 3, 3, 2, 2
+K2_ALIGN_K, K2_PRE1_K, K2_PRE2_K, K2_PAIRS = 3, 3, 2, 1  # K2_PAIRS cut from 2 for C1
 K2_CONTROL_FACTOR, K2_NORM_RTOL, K2_LOSS_RTOL = 10, 1e-6, 1e-5
 GRAPH_LR = dict(lr=3e-5, t_total=100, warmup_proportion=0.1, coef_lr=0.1)  # K1's and K2's
 # evaluation on MSRVTT-format fixtures at S3D width 1024: retrieval over the
@@ -931,13 +933,63 @@ def _counter(entry):
     return entry if isinstance(entry, tuple) else (entry, "launches")
 
 
+def _wrapper_counts() -> dict:
+    return {name: getattr(*_counter(entry)) for name, (entry, _, _) in KERNELS.items()}
+
+
+# The caption decode's CUDA graphs (FastBeamDecode.capture, patched by main):
+# a wrapper counts at a capture, where nothing launches, and not at a replay,
+# where its kernel runs. GRAPHED takes each capture's counts off and adds
+# them back at each replay of its graph, so that read_launches gives the
+# launches on the device.
+GRAPHED = {name: 0 for name in KERNELS}
+_GRAPHED_LOCK = threading.Lock()
+_capture = beam_search.FastBeamDecode.capture
+
+
+class _CountedGraph:
+    """A captured graph and the wrappers' counts at its capture, added to
+    GRAPHED at every replay."""
+
+    def __init__(self, graph, counts: dict):
+        self.graph, self.counts = graph, counts
+
+    def replay(self) -> None:
+        self.graph.replay()
+        with _GRAPHED_LOCK:
+            for name, n in self.counts.items():
+                GRAPHED[name] += n
+
+
+def _counted_capture(self, fn):
+    marks = []
+
+    def marked():  # capture runs fn twice: eagerly, then into the graph
+        marks.append(_wrapper_counts())
+        fn()
+        marks.append(_wrapper_counts())
+
+    graph = _capture(self, marked)
+    require(len(marks) == 4, f"a capture ran its steps {len(marks) // 2} times, not twice")
+    counts = {name: marks[3][name] - marks[2][name] for name in KERNELS}
+    with _GRAPHED_LOCK:
+        for name, n in counts.items():
+            GRAPHED[name] -= n
+    return _CountedGraph(graph, counts)
+
+
 def reset_launches() -> None:
     for entry, _, _ in KERNELS.values():
         setattr(*_counter(entry), 0)
+    with _GRAPHED_LOCK:
+        GRAPHED.update({name: 0 for name in KERNELS})
 
 
 def read_launches() -> dict:
-    return {name: getattr(*_counter(entry)) for name, (entry, _, _) in KERNELS.items()}
+    """Each kernel's launches on the device since reset_launches: its
+    wrapper's count with the caption decode's graphs counted by replay."""
+    with _GRAPHED_LOCK:
+        return {name: n + GRAPHED[name] for name, n in _wrapper_counts().items()}
 
 
 def cuda_time_ms(fn, runs: int = 20, repeats: int = 3, reference: bool = False):
@@ -1126,7 +1178,9 @@ def kernel_reorder() -> dict:
 
 def kernel_decode_attention() -> dict:
     """q, k_new, v_new [80, 12, 64] as views of one projection output, caches
-    [80, 12, L, 64] zero beyond t, a permutation that is not the identity."""
+    [80, 12, L, 64] zero beyond t, a permutation that is not the identity; the
+    position a 0-d int32 tensor on the card and the caches written into out=,
+    as the decoder calls it."""
     N, H, D, K = BATCH * BEAM, 12, 64, BEAM
     scale = 1.0 / math.sqrt(D)
     worst, row = 0.0, None
@@ -1141,11 +1195,14 @@ def kernel_decode_attention() -> dict:
             vc[:, :, t:] = 0
             prev_k = torch.randint(0, K, (N,), generator=g, device="cuda")
             prev_k[:K] = torch.tensor([4, 0, 0, 3, 1])
-            args = (q, kn, vn, kc, vc, prev_k, t, K)
-            ctx, ko, vo = dattn.beam_decode_self_attention(*args, scale=scale)
+            pos = torch.tensor(t, dtype=torch.int32, device="cuda")
+            out = (torch.empty_like(kc), torch.empty_like(vc))
+            args = (q, kn, vn, kc, vc, prev_k, pos, K)
+            ctx, ko, vo = dattn.beam_decode_self_attention(*args, scale=scale, out=out)
             ctx_r, ko_r, vo_r = dattn.decode_attention_reference(*args, scale)
             torch.cuda.synchronize()
-            require(torch.equal(ko, ko_r) and torch.equal(vo, vo_r),
+            require(ko is out[0] and vo is out[1] and torch.equal(ko, ko_r)
+                    and torch.equal(vo, vo_r),
                     f"decode attention's caches differ from the plain version's at L={L} t={t}")
             atol, rtol = TOL[dtype_name(dtype)]
             diff = (ctx.float() - ctx_r.float()).abs()
@@ -1154,11 +1211,12 @@ def kernel_decode_attention() -> dict:
             require(float((diff - atol - rtol * ctx_r.float().abs()).max()) <= 0.0,
                     f"decode attention disagrees with its plain version at L={L} t={t} {dtype}: "
                     f"max abs err {err}")
-            ms = cuda_time_ms(lambda: dattn.beam_decode_self_attention(*args, scale=scale))
+            ms = cuda_time_ms(lambda: dattn.beam_decode_self_attention(*args, scale=scale,
+                                                                       out=out))
             plain = cuda_time_ms(lambda: dattn.decode_attention_reference(*args, scale))
             es = kc.element_size()
             n_bytes = (3 * N * H * D * es + 2 * N * H * t * D * es  # q, k_new, v_new; cache < t
-                       + 2 * N * H * L * D * es + N * H * D * es + 8 * N)  # caches, ctx out
+                       + 2 * N * H * L * D * es + N * H * D * es + 8 * N + 4)  # outs; prev_k, t
             bound = bound_ms(n_bytes, 4.0 * N * H * (t + 1) * D, dtype_name(dtype))
             r = report("beam_decode_self_attention", f"{[N, H, L, D]} t={t}", dtype, err, ms,
                        plain, bound)
@@ -2563,12 +2621,64 @@ def check_captions(out: dict, n: int) -> list:
     return caps
 
 
+# the caption decode's kernels by name in a profile: #1's tensor-core kernel,
+# #7, #9, #10's tile kernel (which #10t runs too) and #10t's transform
+DECODE_KERNEL_NAMES = ("eval_attention_mma_kernel", "reorder_groups_kernel",
+                       "decode_attention_kernel", "vocab_tile_mma_kernel",
+                       "cls_dense_gelu_kernel<__nv_bfloat16>")
+# #1 a batch: the text, visual and cross towers' layers of UniVLConfig.base
+ENCODE_ATTENTION = sum(getattr(UniVLConfig.base(), tower).num_hidden_layers
+                       for tower in ("bert", "visual", "cross"))
+
+
+def _decode_kernel_counts(named: dict) -> dict:
+    """A profile's DECODE_KERNEL_NAMES counts as KERNELS' names."""
+    cls = named["cls_dense_gelu_kernel<__nv_bfloat16>"]
+    return {"eval_attention": named["eval_attention_mma_kernel"],
+            "beam_reorder_groups": named["reorder_groups_kernel"],
+            "beam_decode_self_attention": named["decode_attention_kernel"],
+            "vocab_topk": named["vocab_tile_mma_kernel"] - cls, "vocab_topk_transform": cls}
+
+
+def _decode_launches(steps: int, fused: bool, fused_cls: bool, batches: int = 1) -> dict:
+    """The kernels that caption batches of ``steps`` decode steps in all
+    launch on a path: #1 in each batch's encode, and a step's #9 three times
+    (fused) or #7 once, and #10 or #10t once (the unfused path's classifier
+    is PyTorch's)."""
+    return {"eval_attention": ENCODE_ATTENTION * batches,
+            "beam_reorder_groups": 0 if fused else steps,
+            "beam_decode_self_attention": DECODER_LAYERS * steps if fused else 0,
+            "vocab_topk": steps if fused and not fused_cls else 0,
+            "vocab_topk_transform": steps if fused_cls else 0}
+
+
+def _profiled_decode(run, gen, label: str, want) -> dict:
+    """``run(j)``, one caption request of ``gen``'s, profiled PROFILE_RUNS
+    times, up to PROFILE_ATTEMPTS profiles until its kernels by name (as
+    KERNELS' names, each the largest count over the runs) are ``want(steps)``:
+    the request's decode steps, those counts, what the steps imply, the
+    profile's numbers and its text."""
+    for attempt in range(PROFILE_ATTEMPTS):
+        steps0 = gen.steps
+        r = _profiled_steps(run, 1, label, DECODE_KERNEL_NAMES)
+        steps = (gen.steps - steps0) / PROFILE_RUNS
+        require(steps == int(steps), f"{label}: the profiled requests took unequal steps")
+        counts = None if r["named"] is None else _decode_kernel_counts(r["named"])
+        if counts == want(int(steps)):
+            break
+        print(f"{label}: kernels by name {counts} against {want(int(steps))} in profile "
+              f"{attempt + 1} (records short of each run's fullest {r['lost']}; None: runs not "
+              f"told apart); profiled again", flush=True)
+    return {"steps": int(steps), "counts": counts, "want": want(int(steps)), "raw": r,
+            "profile": f"{_profiled_text(r)} (a request as one step), records short of the "
+                       f"fullest run {r['lost']}"}
+
+
 def phase_caption(tmp: str, vocab: str, paths, fused: bool, fused_cls: bool = False) -> dict:
     """The caption server on its default (fused) path, with --fused_cls (the
     classifier transform inside the vocab kernel, #10t), or with
     --no-fused_decode --no-fused_vocab; returns its launch counts, captions
-    and, on the fused paths, one profiled request's device ms and launches
-    a decode step."""
+    and one profiled request's device ms and launches a decode step."""
     label = "fused_cls" if fused_cls else "fused" if fused else "unfused"
     t0 = time.perf_counter()
     server, thread = start_server(
@@ -2585,7 +2695,6 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool, fused_cls: bool = Fa
             f"caption service fused_decode {svc.fused_decode}, fused_vocab {svc.fused_vocab}, "
             f"fused_cls {svc.fused_cls}")
     print(f"caption server ({label}) up in {time.perf_counter() - t0:.1f} s", flush=True)
-    cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, stage_two=True)
     try:
         reset_launches()
         gen.steps = gen.batches = 0
@@ -2596,19 +2705,26 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool, fused_cls: bool = Fa
                                             caption_body(paths, i, transcripts)), BATCH)
             print(f"smoke reading ({label}): caption request of {BATCH} clips, transcripts "
                   f"{transcripts}: {1e3 * (time.perf_counter() - t0):.3f} ms", flush=True)
+        # the launches on the device (the graphs counted by replay): as many as
+        # the batches and their steps imply, and no other kernel
         counts, steps, batches = read_launches(), gen.steps, gen.batches
-        per_batch = (cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
-                     + cfg.cross.num_hidden_layers)
-        expected = {**{k: 0 for k in KERNELS}, "eval_attention": per_batch * batches,
-                    "beam_reorder_groups": 0 if fused else steps,
-                    "beam_decode_self_attention": DECODER_LAYERS * steps if fused else 0,
-                    "vocab_topk": steps if fused and not fused_cls else 0,
-                    "vocab_topk_transform": steps if fused_cls else 0}
-        print(f"caption ({label}): {batches} batches, {steps} decode steps (of at most "
-              f"{batches * (MAX_WORDS - 1)}); launches {counts}, the steps imply {expected}",
-              flush=True)
-        require(counts == expected, f"caption ({label}) launches {counts}, steps imply {expected}")
         require(steps >= batches, f"{steps} decode steps for {batches} batches")
+        path = {**{k: 0 for k in KERNELS}, **_decode_launches(steps, fused, fused_cls, batches)}
+        require(counts == path, f"caption ({label}) launches {counts}: {batches} batches of "
+                                f"{steps} steps in all imply {path}")
+        # a request's kernels by name, replayed: as many as its steps imply
+        named = _profiled_decode(
+            lambda j: check_captions(post(port, "/v1/caption", caption_body(paths, 0, False)),
+                                     BATCH), gen, f"caption ({label})",
+            lambda n: _decode_launches(n, fused, fused_cls))
+        want = named["want"]
+        print(f"caption ({label}): {batches} batches, {steps} decode steps (of at most "
+              f"{batches * (MAX_WORDS - 1)}); launches {({k: v for k, v in counts.items() if v})}"
+              f"; a replayed request of "
+              f"{named['steps']} steps launched {named['counts']}, its steps imply {want} "
+              f"({named['profile']})", flush=True)
+        require(named["counts"] == want,
+                f"caption ({label}) request launches {named['counts']}, steps imply {want}")
 
         window = CAPTION_WINDOW if label == "fused" else UNFUSED_WINDOW
         lat, steps0, per_step = [], gen.steps, None
@@ -2636,20 +2752,222 @@ def phase_caption(tmp: str, vocab: str, paths, fused: bool, fused_cls: bool = Fa
                   f"{1e3 * (time.perf_counter() - t0):.3f} ms, served by "
                   f"{gen.batches - batches0} decode batches", flush=True)
             require(gen.batches - batches0 < CONCURRENT, "the coalescer merged no requests")
-        if fused:
-            steps0 = gen.steps
-            prof = profile_request(port, "/v1/caption", caption_body(paths, 0, False),
-                                   f"caption {BATCH} clips ({label})",
-                                   os.path.join(tmp, "trace.json"))
-            n = gen.steps - steps0
-            per_step = {"busy_ms": prof["busy_ms"] / n, "kernels": prof["kernels"] / n}
-            print(f"profile caption ({label}): {n} decode steps; per decode step device busy "
-                  f"{per_step['busy_ms']:.4f} ms, {per_step['kernels']:.2f} kernel launches "
-                  f"(encoders and cross included, spread over the steps)", flush=True)
+        raw = named["raw"]  # a request as one step
+        per_step = {"busy_ms": raw["busy_ms"] / named["steps"],
+                    "kernels": raw["launches"] / named["steps"]}
+        print(f"profile caption ({label}): {named['steps']} decode steps; per decode step "
+              f"device busy {per_step['busy_ms']:.4f} ms, {per_step['kernels']:.2f} kernel "
+              f"launches (the encode and the cross encoder spread over the steps); a request "
+              f"busy {raw['share']:.4f} of its wall {raw['wall_ms']:.3f} ms (profiler on)",
+              flush=True)
     finally:
         stop_server(server, thread)
     require(not server.caption_coalescer._worker.is_alive(), "the coalescer did not stop")
     return {"launches": counts, "captions": captions, "per_step": per_step}
+
+
+# C1: the caption beam search on its CUDA-graph route against the eager one,
+# at the server's 16-clip request, the eval's batch of 32 and a ragged last
+# batch, one step and C1_UNROLL steps a replay, on the three decode paths
+C1_BATCHES = (BATCH, 32, 7)
+C1_UNROLL = 4
+C1_PAIRS = {"fused": 5, "--fused_cls": 2, "unfused": 2}  # the server's default path timed most
+C1_PATHS = {"fused": dict(fused_decode=True, fused_vocab=True),
+            "--fused_cls": dict(fused_decode=True, fused_vocab=True, fused_cls=True),
+            "unfused": dict(fused_decode=False, fused_vocab=False)}
+C1_EXIT_BIAS = 1e4  # added to [SEP]'s classifier bias: every instance ends at its first step
+
+
+def _caption_batch(tok, clips, n: int, first: int, transcripts: bool) -> dict:
+    """A host batch of n clips from clips[first:] (with QUERIES as their
+    transcripts), built as CaptionService builds one."""
+    feats = np.zeros((n, 48, 1024), np.float32)
+    vmask = np.zeros((n, 48), np.int32)
+    ids = np.zeros((n, MAX_WORDS), np.int32)
+    amask = np.zeros((n, MAX_WORDS), np.int32)
+    for i in range(n):
+        feats[i], vmask[i], _ = pad_video(clips[(first + i) % len(clips)], 48, 1024)
+        text = QUERIES[(first + i) % len(QUERIES)] if transcripts else ""
+        e = encode_text(text, tok, MAX_WORDS)
+        ids[i], amask[i] = e["input_ids"], e["attention_mask"]
+    return {"input_ids": ids, "token_type_ids": np.zeros_like(ids), "attention_mask": amask,
+            "video": feats, "video_mask": vmask}
+
+
+def _scheduled(steps: int, unroll: int) -> int:
+    """The steps a decode of ``unroll`` steps a replay runs where one step a
+    replay runs ``steps``: replays of ``unroll`` while all stay in the cache
+    bucket, then single steps to its end, until the replay that reaches them."""
+    t = 1
+    for bound in beam_search._cache_buckets(MAX_WORDS):
+        for n in ((unroll, 1) if unroll > 1 else (1,)):
+            while t + n - 1 < bound:
+                t += n
+                if t - 1 >= steps:
+                    return t - 1
+    return t - 1
+
+
+def _c1_calls(label: str, eager, graphs: dict, cases: dict, decoded=None) -> list:
+    """Each case decoded eagerly, then twice on each graph route (the first
+    call captures what it has not yet, the second replays): tokens and
+    scores bitwise the eager decode's, the steps its (one step a replay) or
+    its runs' (C1_UNROLL); a second call captures nothing, replays one encode
+    and runs of steps that add up to its steps, and reads one byte a replay.
+    ``decoded``: cases already decoded eagerly. Returns the rows printed."""
+    rows = []
+    for case, batch in cases.items():
+        want_t, want_s, want_n = (decoded or {}).get(case) or eager.decode(batch)
+        if case == "early exit":
+            require(want_n == 1, f"C1 {label} early exit: the eager decode ran {want_n} steps")
+        for u, gen in graphs.items():
+            dec = gen.decoder
+            for call in ("first", "second"):
+                before = (dec.captures, dict(dec.replays), dec.reads, gen.encode_replays)
+                got_t, got_s, n = gen.decode(batch)
+                replays = {k: v - before[1].get(k, 0) for k, v in dec.replays.items()
+                           if v - before[1].get(k, 0)}
+                require(torch.equal(got_t, want_t) and torch.equal(got_s, want_s),
+                        f"C1 {label} {case} U={u} ({call} call): tokens or scores differ from "
+                        f"the eager decode's")
+                require(n == _scheduled(want_n, u),
+                        f"C1 {label} {case} U={u}: {n} steps, the eager decode {want_n}")
+                if call == "second":
+                    require(dec.captures == before[0] and gen.encode_replays == before[3] + 1
+                            and sum(k * v for k, v in replays.items()) == n
+                            and dec.reads - before[2] == sum(replays.values()),
+                            f"C1 {label} {case} U={u}: captures {dec.captures - before[0]}, "
+                            f"encode replays {gen.encode_replays - before[3]}, replays "
+                            f"{replays} for {n} steps, reads {dec.reads - before[2]}")
+            rows.append(f"{case} U={u}: {n} steps (eager {want_n}), replays {replays}")
+    return rows
+
+
+def _c1_new_weights(label: str, model, graphs: dict, batch, before, fresh) -> str:
+    """The tied word table (the embedding and the classifier) negated in
+    place, where the graphs' casts of it are: each reused graph generator
+    decodes ``batch`` bitwise as ``fresh()``, a generator built after the
+    change, and not as ``before`` (the decode before it). The table is
+    restored after."""
+    table = model.bert.embeddings.word_embeddings.weight
+    with torch.no_grad():
+        table.neg_()
+    try:
+        want_t, want_s, _ = fresh().decode(batch)
+        require(not torch.equal(want_s, before[1]),
+                f"C1 {label}: negating the word table left the scores as they were")
+        for u, gen in graphs.items():
+            got_t, got_s, _ = gen.decode(batch)
+            require(torch.equal(got_t, want_t) and torch.equal(got_s, want_s),
+                    f"C1 {label} U={u}: after the word table changed in place, the reused graphs "
+                    f"decode otherwise than a generator built after the change")
+    finally:
+        with torch.no_grad():
+            table.neg_()
+    return f"the word table changed in place: U={sorted(graphs)} as a fresh generator"
+
+
+def _c1_request_ms(gen, batch) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen.generate(batch)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def phase_caption_graphs(vocab: str, clips) -> dict:
+    """C1: CaptionGenerator on its CUDA-graph route (the card's default)
+    against graph=False, the same seeded weights, UniVLConfig.base in bf16
+    with 3 decoder layers, beam 5, max_len 48, on the fused, --fused_cls
+    and unfused paths. In deterministic mode: bitwise (_c1_calls) at
+    batches of 16, 32 and 7 and with every instance ending at its first
+    step, at one and C1_UNROLL steps a replay, and after the word table
+    changed in place as a generator built after it; #1, #7, #9, #10 and #10t by
+    name in a replayed request as many as in an eager one and as its steps
+    imply. In the default mode: C1_PAIRS alternating pairs of a 16-clip
+    request on each route, one step and C1_UNROLL a replay; peak memory.
+    Returns the timings."""
+    tok = WordPieceTokenizer(vocab)
+    cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, stage_two=True,
+                           task_type="caption", compute_dtype="bfloat16",
+                           decoder_num_hidden_layers=DECODER_LAYERS)
+    model = UniVL(cfg, device="cuda")
+    model.load_state_dict(seeded_weights(cfg), strict=True)
+    model.eval()
+    bias = model.decoder.classifier.cls.predictions.bias
+    batches = {f"{n} clips": _caption_batch(tok, clips, n, 11 * i, transcripts=i == 1)
+               for i, n in enumerate(C1_BATCHES)}
+    request = batches[f"{BATCH} clips"]
+    kw = dict(beam_size=BEAM, max_len=MAX_WORDS)
+    unrolled = f"graph U={C1_UNROLL}"
+    out = {}
+    for label, path in C1_PATHS.items():
+        fused, fused_cls = path["fused_decode"], path.get("fused_cls", False)
+        want = lambda n: _decode_launches(n, fused, fused_cls)  # noqa: E731
+        with deterministic_mode():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            peak, gens, first = {}, {}, {}
+            for route, extra in (("eager", dict(graph=False)), ("graph", dict(unroll=1)),
+                                 (unrolled, dict(unroll=C1_UNROLL))):
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                gens[route] = CaptionGenerator(model, tok, "cuda", **kw, **path, **extra)
+                t0 = time.perf_counter()
+                first[route] = gens[route].decode(request)
+                torch.cuda.synchronize()
+                first[route] = (first[route], 1e3 * (time.perf_counter() - t0))
+                peak[route] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            eager = gens["eager"]
+            graphs = {1: gens["graph"], C1_UNROLL: gens[unrolled]}
+            rows = _c1_calls(label, eager, graphs, batches, {f"{BATCH} clips": first["eager"][0]})
+            saved = bias.detach().clone()
+            with torch.no_grad():
+                bias[tok.eos_id] += C1_EXIT_BIAS
+            try:
+                rows += _c1_calls(label, eager, graphs, {"early exit": request})
+            finally:
+                with torch.no_grad():
+                    bias.copy_(saved)
+            rows.append(_c1_new_weights(label, model, graphs, request, first["eager"][0],
+                                        lambda: CaptionGenerator(model, tok, "cuda", **kw, **path,
+                                                                 graph=False)))
+            named = {r: _profiled_decode(lambda j, g=gens[r]: g.generate(request), gens[r],
+                                         f"C1 {label} ({r})", want)
+                     for r in ("graph", "eager")}
+            require(all(v["counts"] == v["want"] for v in named.values()),
+                    f"C1 {label}: kernels by name a request, replayed "
+                    f"{named['graph']['counts']}, eager {named['eager']['counts']}, the steps "
+                    f"imply {named['graph']['want']}")
+        times = {"graph": [], "eager": [], unrolled: []}
+        for pair in range(C1_PAIRS[label]):  # in turns: graph, eager, unrolled, the reverse
+            for route in (("graph", "eager", unrolled), (unrolled, "eager", "graph"))[pair % 2]:
+                times[route].append(_c1_request_ms(gens[route], request))
+        med = {r: float(np.median(v)) for r, v in times.items()}
+        raw = {r: v["raw"] for r, v in named.items()}
+        steps = named["graph"]["steps"]
+        print(f"C1 {label}: bitwise the eager decode in deterministic mode ({'; '.join(rows)}); "
+              f"a {BATCH}-clip request of {steps} steps launched {named['graph']['counts']} "
+              f"replayed and {named['eager']['counts']} eager; replayed "
+              f"{named['graph']['profile']}; eager {named['eager']['profile']}", flush=True)
+        print(f"C1 {label}, {BATCH}-clip request, default mode, {C1_PAIRS[label]} alternating "
+              f"pairs: ms a request, graph {[round(x, 3) for x in times['graph']]} median "
+              f"{med['graph']:.3f}, eager {[round(x, 3) for x in times['eager']]} median "
+              f"{med['eager']:.3f} ({med['eager'] / med['graph']:.3f}x), {unrolled} "
+              f"{[round(x, 3) for x in times[unrolled]]} median {med[unrolled]:.3f}; busy "
+              f"share of a request (deterministic mode's profile) graph "
+              f"{raw['graph']['share']:.4f}, eager "
+              f"{raw['eager']['share']:.4f}; launches a step graph "
+              f"{raw['graph']['launches'] / steps:.2f}, eager "
+              f"{raw['eager']['launches'] / steps:.2f}; the first request (graphs: the eager "
+              f"first uses and the captures, {gens['graph'].decoder.capture_s:.3f} and "
+              f"{gens[unrolled].decoder.capture_s:.3f} s of captures in all) "
+              f"{ {r: round(v[1], 3) for r, v in first.items()} } ms, its peak device memory "
+              f"{ {r: round(v, 3) for r, v in peak.items()} } GiB", flush=True)
+        out[label] = {"ms": med, "peak_gib": peak}
+        del gens, eager, graphs, named
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def make_train_data(tmp: str, vocab: str, n_videos: int = TRAIN_VIDEOS):
@@ -3194,11 +3512,11 @@ def _device_runs(prof):
             for a, b in zip(bounds, bounds[1:])]
 
 
-def _profiled_steps(run, k: int, label: str) -> dict:
+def _profiled_steps(run, k: int, label: str, names=TRAIN_KERNEL_NAMES) -> dict:
     """``run(j)`` (k steps) for j < PROFILE_RUNS under one CUDA-only profiler,
     the card idle PROFILE_GAP_S before, between and after them: wall and
     device busy ms a step, the busy share, kernel launches a step, and the
-    launches of each TRAIN_KERNEL_NAMES kernel in k steps (each count the
+    launches of each kernel of ``names`` in k steps (each count the
     largest over the runs; ``lost`` the records short of the fullest run;
     the counts None where the runs cannot be told apart)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3222,7 +3540,7 @@ def _profiled_steps(run, k: int, label: str) -> dict:
         full = max(len(g) for g in groups)
         out.update(launches=full / k, lost=[full - len(g) for g in groups],
                    named={n: max(sum(n in name for name in g) for g in groups)
-                          for n in TRAIN_KERNEL_NAMES})
+                          for n in names})
     return out
 
 
@@ -5025,6 +5343,7 @@ def main() -> int:
 
     nn_layers.fused_attention_masked = _recorded_attention
     beam_search.classify_topk = _recorded_topk
+    beam_search.FastBeamDecode.capture = _counted_capture
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
@@ -5084,6 +5403,8 @@ def main() -> int:
         phase_agreement(vocab, clips)
         f32_runs["serving agreement"] = read_launches()
         stamp("serving agreement (phase 9)")
+        phase_caption_graphs(vocab, clips)
+        stamp("C1")
         files, ds = make_train_data(tmp, vocab)
         by_path["train"] = phase_train(tmp, vocab, files)
         phase_train_profile(ds, tmp)

@@ -281,7 +281,9 @@ def test_stable_topk_orders_ties_by_index():
 @pytest.mark.parametrize("case", ["shape", "dtype", "t", "group"])
 def test_decode_attention_rejects_bad_inputs(case):
     args = [torch.from_numpy(a) for a in _decode_inputs(2)]
-    t, group, err = 2, K, ValueError
+    # the position as the decoder passes it: a 0-d int32 tensor, read on the
+    # device; an int is checked against the cache length on the host
+    t, group, err = torch.tensor(2, dtype=torch.int32), K, ValueError
     if case == "shape":
         args[0] = args[0][:, :1]
     elif case == "dtype":

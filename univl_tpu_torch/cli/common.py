@@ -5,7 +5,8 @@ The port's own copies of ``univl_tpu/cli/common.py``'s ``MetricsWriter``,
 ``get_logger``, ``base_parser`` (restricted to the flags the ported paths
 read, under the JAX names and defaults, plus ``--fused_ln`` and
 ``--fused_cls``, the counterparts of JAX's ``UNIVL_TPU_FUSED_LN=1`` and
-``UNIVL_TPU_FUSED_CLS=1``), ``add_fused_ffn_arg`` (the
+``UNIVL_TPU_FUSED_CLS=1``, and ``--decode_unroll``, of
+``UNIVL_TPU_DECODE_UNROLL``), ``add_fused_ffn_arg`` (the
 trainers' ``--fused_ffn``), ``finalize_args``, ``build_config`` (with the
 local ``<kind>_config.json`` of ``--bert_model`` and the other three),
 ``load_init_params`` (a reference or port ``.bin``, or a JAX flax params
@@ -128,6 +129,13 @@ def get_logger(output_dir: Optional[str] = None, name: str = "univl_tpu_torch",
     return logger
 
 
+def _decode_unroll(value: str) -> int:
+    u = int(value)
+    if u < 1:
+        raise argparse.ArgumentTypeError(f"{u}: a run takes at least one decode step")
+    return u
+
+
 def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--do_train", action="store_true")
@@ -204,6 +212,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "inside the vocab top-k kernel, in f32 with one rounding; only with "
                         "the fused vocab kernel, ignored with a warning otherwise (off by "
                         "default, as JAX's UNIVL_TPU_FUSED_CLS)")
+    p.add_argument("--decode_unroll", type=_decode_unroll, default=1, metavar="U",
+                   help="beam decode: steps a run between the host's early-exit checks (on "
+                        "the card, one CUDA graph replay), single steps for a cache bucket's "
+                        "tail; the captions are the same at every U (JAX's "
+                        "UNIVL_TPU_DECODE_UNROLL; default 1)")
     p.add_argument("--fused_ln", action="store_true",
                    help="every LayerNorm of the model through the LayerNorm kernel, forward "
                         "and backward (off by default, as JAX's UNIVL_TPU_FUSED_LN)")

@@ -10,7 +10,7 @@ shapes, plus ``--device``. Device work is serialised behind one lock.
 
     python -m univl_tpu_torch.cli.serve --device cuda --mode caption \\
         --vocab_file vocab.txt --output_dir out --port 8080 \\
-        [--no-fused_decode] [--no-fused_vocab] [--fused_cls]
+        [--no-fused_decode] [--no-fused_vocab] [--fused_cls] [--decode_unroll U]
 
 Endpoints:
   GET  /healthz                  -> {"status": "ok", "mode", "indexed"}
@@ -26,7 +26,8 @@ imply ``--stage_two``); concurrent caption requests are merged into shared
 decode batches unless ``--no-coalesce_captions``. ``--fused_ln`` runs every
 LayerNorm through the LayerNorm kernel (#6); ``--fused_cls`` runs the
 classifier transform inside the vocab top-k kernel (#10t), with the fused
-vocab kernel only.
+vocab kernel only. On a CUDA device a caption batch is one CUDA graph replay
+for the encode and one for every ``--decode_unroll`` decode steps.
 """
 
 from __future__ import annotations
@@ -119,7 +120,7 @@ def build_services(args):
         caption = CaptionService(model, tokenizer, device, beam_size=args.beam_size,
                                  batch_size=args.serve_batch_size,
                                  fused_decode=args.fused_decode, fused_vocab=args.fused_vocab,
-                                 fused_cls=args.fused_cls)
+                                 fused_cls=args.fused_cls, decode_unroll=args.decode_unroll)
     return index, caption, cfg
 
 

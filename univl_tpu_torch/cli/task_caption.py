@@ -14,7 +14,8 @@ the highest BLEU-4; ``--do_eval`` alone evaluates the ``--init_model``
 weights. ``--fused_ln`` runs every LayerNorm through the LayerNorm kernel
 (#6), forward and backward; ``--fused_cls`` runs the decoder's classifier
 transform inside the vocab top-k kernel (#10t) when the fused vocab kernel
-runs. ``--datatype msrvtt`` reads the reference's MSRVTT caption files
+runs. On the card the eval decodes through CUDA graphs, ``--decode_unroll``
+steps a replay (``evals/beam.py``). ``--datatype msrvtt`` reads the reference's MSRVTT caption files
 (``--data_path`` the json, ``--features_path`` the features pickle; the
 positional train and test splits of the json's videos), video only, and
 scores each clip against all its references.
@@ -140,18 +141,23 @@ def eval_fused(explicit: Optional[bool]) -> bool:
 def make_eval_fn(args, model, tokenizer, device, val_ds, logger):
     """eval_fn(epoch or None) -> metrics: beam-5 captions of the val split
     in batches of ``min(--batch_size_val, 32)``, their metrics, and the
-    hypotheses and references written to the output dir. Each call builds
-    its generator: the KV-cache decoder takes the weights as they are then."""
+    hypotheses and references written to the output dir. The generator is
+    built at the first call and kept, its CUDA graphs with it: each decode
+    reads the weights as they are then."""
     batcher = Batcher(val_ds, min(args.batch_size_val, 32), shuffle=False, drop_last=False,
                       num_workers=args.num_thread_reader)
+    kept = []
 
     def eval_fn(epoch=None):
         model.eval()
-        gen = CaptionGenerator(model, tokenizer, device, beam_size=BEAM_SIZE,
-                               max_len=args.max_words,
-                               fused_decode=eval_fused(args.fused_decode),
-                               fused_vocab=eval_fused(args.fused_vocab),
-                               fused_cls=args.fused_cls)
+        if not kept:
+            kept.append(CaptionGenerator(model, tokenizer, device, beam_size=BEAM_SIZE,
+                                         max_len=args.max_words,
+                                         fused_decode=eval_fused(args.fused_decode),
+                                         fused_vocab=eval_fused(args.fused_vocab),
+                                         fused_cls=args.fused_cls,
+                                         unroll=getattr(args, "decode_unroll", 1)))
+        gen = kept[0]
         hyps = []
         batches = batcher.epoch(0)
         if not args.no_prefetch:

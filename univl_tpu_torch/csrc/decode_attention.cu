@@ -14,7 +14,11 @@
 //      kernel's -1e9 gives), softmax in f32, the probabilities rounded to
 //      the cache type, and sum_j p_j v_j in f32,
 //
-// and writes the context and the permuted, updated caches.
+// and writes the context and the permuted, updated caches. The position t
+// is read from device memory, once a block (the TPU kernel's scalar-prefetch
+// operand), so a captured CUDA graph replays the same launch at every step
+// while the decode loop advances t on the device; a block whose t lies
+// outside [0, L) writes nothing.
 //
 // What bounds it: bytes. It reads q, k_new, v_new and cache positions < t,
 // and writes both caches whole (~15.7 MB at the caption slice's
@@ -22,13 +26,12 @@
 // element.
 //
 // What the design does about it: every cache byte is read at most once and
-// written once. Positions > t are zero by construction (caches start at
-// zero, each position is written once, a bucket grows with zeros), so the
-// kernel writes zeros there without reading them. The outputs are fresh
-// buffers, not the inputs: the in-place variant would race between the
-// blocks of one group (a row's output is another row's source). This is
-// the TPU kernel's donate=False form; the caller drops the old caches, and
-// PyTorch's caching allocator hands their memory to the next step.
+// written once. Positions >= t are never read: the kernel writes position t
+// from k_new/v_new and zeros past it. The outputs are other buffers than the
+// inputs: the in-place variant would race between the blocks of one group (a
+// row's output is another row's source). This is the TPU kernel's
+// donate=False form; the beam search alternates between two cache sets, each
+// step's output the next step's input.
 //
 // One block owns one (row, head). Its threads split each position's D
 // elements into 16-byte words (D * sizeof(T) / 16 threads a position, so a
@@ -67,8 +70,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         long long v_row, const T* __restrict__ k_cache,
                         const T* __restrict__ v_cache, const int* __restrict__ prev_k,
                         T* __restrict__ ctx, T* __restrict__ k_out, T* __restrict__ v_out,
-                        int H, int L, int D, int t, int group, float scale) {
+                        int H, int L, int D, const int* __restrict__ position, int group,
+                        float scale) {
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte word
+  const int t = *position;  // the same for every thread of the launch
+  if (t < 0 || t >= L) return;
   extern __shared__ float smem[];
   float* probs = smem;         // [L]
   float* partial = smem + L;   // [kWarps][D]
@@ -178,7 +184,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new, long long q_row,
                    long long k_row, long long v_row, const void* k_cache, const void* v_cache,
                    const int* prev_k, void* ctx, void* k_out, void* v_out, int N, int H, int L,
-                   int D, int t, int group, float scale, cudaStream_t stream) {
+                   int D, const int* t, int group, float scale, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(L + kWarps * D) * sizeof(float);
   decode_attention_kernel<T><<<N * H, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
@@ -194,22 +200,24 @@ extern "C" {
 
 // q, k_new, v_new: [N, H, D] with the given row strides (elements; [H, D]
 // contiguous in a row, rows 16-byte aligned); k_cache, v_cache, k_out,
-// v_out: contiguous [N, H, L, D]; ctx: contiguous [N, H, D]; prev_k: device
-// int32 [N], values in [0, group). D * sizeof(T) must be 16 times a power of
-// two no larger than 32, and 0 <= t < L. Launches on `stream` and returns
-// cudaGetLastError().
+// v_out: contiguous [N, H, L, D], the outputs apart from the inputs; ctx:
+// contiguous [N, H, D]; prev_k: device int32 [N], values in [0, group); t: the
+// device address of the int32 position (0 <= t < L, else nothing is
+// written). D * sizeof(T) must be 16 times a power of two no larger than 32.
+// Launches on `stream` and returns cudaGetLastError().
 int univl_decode_attention(const void* q, const void* k_new, const void* v_new,
                            long long q_row, long long k_row, long long v_row,
                            const void* k_cache, const void* v_cache, const void* prev_k,
                            void* ctx, void* k_out, void* v_out, int is_bf16, int N, int H,
-                           int L, int D, int t, int group, float scale, void* stream) {
+                           int L, int D, const void* t, int group, float scale, void* stream) {
   const int* idx = static_cast<const int*>(prev_k);
+  const int* pos = static_cast<const int*>(t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(q, k_new, v_new, q_row, k_row, v_row, k_cache, v_cache,
-                                      idx, ctx, k_out, v_out, N, H, L, D, t, group, scale, s)
+                                      idx, ctx, k_out, v_out, N, H, L, D, pos, group, scale, s)
               : launch<float>(q, k_new, v_new, q_row, k_row, v_row, k_cache, v_cache, idx, ctx,
-                              k_out, v_out, N, H, L, D, t, group, scale, s);
+                              k_out, v_out, N, H, L, D, pos, group, scale, s);
   return static_cast<int>(err);
 }
 

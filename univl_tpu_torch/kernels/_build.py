@@ -119,8 +119,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.univl_reorder_groups.restype = i
     lib.univl_gather_rows.argtypes = [p, p, p, i, p, i, p]
     lib.univl_gather_rows.restype = i
-    lib.univl_decode_attention.argtypes = (
-        [p, p, p, ll, ll, ll, p, p, p, p, p, p] + [i] * 7 + [ctypes.c_float, p]
+    lib.univl_decode_attention.argtypes = (  # ... N, H, L, D, the position's address, group
+        [p, p, p, ll, ll, ll, p, p, p, p, p, p] + [i] * 5 + [p, i, ctypes.c_float, p]
     )
     lib.univl_decode_attention.restype = i
     lib.univl_vocab_topk.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p, p]

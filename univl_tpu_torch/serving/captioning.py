@@ -27,12 +27,14 @@ def resolve_fused(explicit: Optional[bool], device: torch.device) -> bool:
 
 class CaptionService:
     """``batch_size`` is the decode batch: requests are padded (or merged by
-    the coalescer) up to it. ``model`` must already be on ``device``."""
+    the coalescer) up to it. ``model`` must already be on ``device``; on a
+    CUDA device the generator decodes through CUDA graphs (``evals/beam.py``),
+    ``decode_unroll`` steps a replay."""
 
     def __init__(self, model, tokenizer, device, beam_size: int = 5,
                  max_len: Optional[int] = None, batch_size: int = 16,
                  fused_decode: Optional[bool] = None, fused_vocab: Optional[bool] = None,
-                 fused_cls: bool = False):
+                 fused_cls: bool = False, decode_unroll: int = 1):
         cfg = model.cfg
         self.device = torch.device(device)
         self.tokenizer = tokenizer
@@ -47,7 +49,7 @@ class CaptionService:
         self.generator = CaptionGenerator(
             model, tokenizer, self.device, beam_size=beam_size,
             max_len=max_len or cfg.max_words, fused_decode=self.fused_decode,
-            fused_vocab=self.fused_vocab, fused_cls=fused_cls)
+            fused_vocab=self.fused_vocab, fused_cls=fused_cls, unroll=decode_unroll)
 
     def caption(self, videos: Sequence[np.ndarray],
                 transcripts: Optional[Sequence[str]] = None) -> List[str]:
