@@ -26,12 +26,13 @@ from univl_tpu_torch.cli import common, serve, task_caption
 from univl_tpu_torch.config import UniVLConfig
 from univl_tpu_torch.data import fixtures
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
-from univl_tpu_torch.evals.beam import make_fast_beam_decode_fn
+from univl_tpu_torch.evals.beam import CaptionGenerator, make_fast_beam_decode_fn
 from univl_tpu_torch.kernels.decode_attention import (
     beam_decode_self_attention,
     decode_attention_reference,
 )
 from univl_tpu_torch.models.univl import UniVL
+from univl_tpu_torch.parallel.mesh import Mesh
 from univl_tpu_torch.serving.captioning import CaptionService
 
 B, K, BOS, EOS = 3, 4, 2, 3
@@ -237,6 +238,22 @@ def test_reused_decoder_reads_new_weights(carried, fused_decode, fused_vocab):
     assert not torch.equal(before[1], fresh[1])
 
 
+def test_moved_weights_drop_the_graphs_and_their_pool(carried):
+    """A parameter whose storage moved rebuilds the decoder and drops its
+    graphs and their memory pool: a pool none of whose graphs is alive takes
+    no further capture on the card, so the next capture takes a new one."""
+    _, _, model, _ = carried
+    m = copy.deepcopy(model)
+    dec = make_fast_beam_decode_fn(m, K, MAX_LEN, bos_id=BOS, eos_id=EOS)
+    dec.graphs["a graph"] = object()
+    dec.capturer.pool = "a pool"
+    assert not dec.check_weights() and dec.capturer.pool == "a pool"
+    bias = m.decoder.classifier.cls.predictions.bias
+    with torch.no_grad():
+        bias.data = bias.data.clone()
+    assert dec.check_weights() and not dec.graphs and dec.capturer.pool is None
+
+
 @pytest.mark.parametrize("route", ["unfused", "fused", "fused_cls"])
 def test_refresh_covers_every_cast_from_the_start(carried, route):
     """bf16: every cast of the weights that a step reads exists when the
@@ -276,3 +293,18 @@ def test_decode_unroll_flag(tmp_path, carried):
         make_fast_beam_decode_fn(model, K, MAX_LEN, bos_id=BOS, eos_id=EOS, unroll=0)
     with pytest.raises(ValueError):
         make_fast_beam_decode_fn(model, K, MAX_LEN, bos_id=BOS, eos_id=EOS, graph=True)
+
+
+def test_generator_refuses_a_batch_the_ranks_do_not_divide(carried, tmp_path):
+    """``CaptionGenerator(mesh=)`` of 2 ranks: a ``batch_size`` of 3, and a
+    batch of 3 rows at decode, are refused with the reason named (JAX's
+    assert)."""
+    _, _, model, enc = carried
+    tok = WordPieceTokenizer(fixtures.make_vocab(str(tmp_path / "vocab.txt")))
+    two = Mesh(size=2)  # the rank count is all the checks read before a gather
+    with pytest.raises(ValueError, match="batch_size 3 is not a multiple of the mesh's 2 ranks"):
+        CaptionGenerator(model, tok, "cpu", batch_size=3, mesh=two)
+    gen = CaptionGenerator(model, tok, "cpu", batch_size=4, mesh=two)
+    batch = {"video": np.zeros((B, 8, model.cfg.video_dim), np.float32)}
+    with pytest.raises(ValueError, match="batch_size 3 is not a multiple of the mesh's 2 ranks"):
+        gen.decode(batch)

@@ -2,10 +2,12 @@
 tiny widths: the beam decoder with the classifier transform inside the vocab
 top-k kernel (``fused_cls``), the MSRVTT fixtures and readers, the retrieval
 metrics, ``RetrievalEvaluator`` (joint and cross similarity matrices, the
-device-resident rescoring against the host tiles, and its data-parallel
-fan-out on two gloo ranks, spawned once through
-``univl_tpu_torch.parallel.pp_replay``, against JAX's evaluator on a 2-device
-mesh), and the retrieval and caption CLIs' eval runs on MSRVTT-format files.
+device-resident rescoring against the host tiles), the data-parallel
+fan-out (``mesh=``) of the evaluator, the retrieval index and the caption
+generator on two gloo ranks, spawned once through
+``univl_tpu_torch.parallel.pp_replay``, against JAX's classes on a 2-device
+mesh and the port in one process, and the retrieval and caption CLIs' eval
+runs on MSRVTT-format files.
 
 Weights cross over through univl_tpu_torch.checkpoint.convert. On the CPU the
 port's kernels take their plain versions; the JAX package's Pallas kernels
@@ -26,6 +28,7 @@ from univl_tpu.config import UniVLConfig as JaxConfig
 from univl_tpu.data import fixtures as jax_fixtures
 from univl_tpu.data import msrvtt as jax_msrvtt
 from univl_tpu.data.tokenization import WordPieceTokenizer as JaxTokenizer
+from univl_tpu.evals.beam import CaptionGenerator as JaxCaptionGenerator
 from univl_tpu.evals.beam import make_beam_decode_fn as jax_beam
 from univl_tpu.evals.beam import make_fast_beam_decode_fn as jax_fast_beam
 from univl_tpu.evals.caption_metrics import compute_caption_metrics as jax_caption_metrics
@@ -33,12 +36,13 @@ from univl_tpu.evals.metrics import compute_retrieval_metrics as jax_retrieval_m
 from univl_tpu.evals.retrieval import RetrievalEvaluator as JaxEvaluator
 from univl_tpu.models.univl import UniVL as JaxUniVL
 from univl_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from univl_tpu.serving import VideoRetrievalIndex as JaxIndex
 from univl_tpu_torch.checkpoint.convert import init_state_dict, state_dict_from_jax_params
 from univl_tpu_torch.cli import task_caption, task_retrieval
 from univl_tpu_torch.config import UniVLConfig
 from univl_tpu_torch.data import fixtures, msrvtt
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
-from univl_tpu_torch.evals.beam import make_fast_beam_decode_fn
+from univl_tpu_torch.evals.beam import CaptionGenerator, make_fast_beam_decode_fn
 from univl_tpu_torch.evals.metrics import compute_retrieval_metrics
 from univl_tpu_torch.evals.retrieval import RetrievalEvaluator
 from univl_tpu_torch.kernels.attention import fused_attention_masked
@@ -46,6 +50,7 @@ from univl_tpu_torch.kernels.vocab_topk import classify_topk
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.parallel import mesh as dp_mesh
 from univl_tpu_torch.parallel import pp_replay
+from univl_tpu_torch.serving.index import VideoRetrievalIndex
 
 B, MAX_LEN, BOS, EOS = 3, 12, 2, 3
 KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_mask")
@@ -284,17 +289,44 @@ MODES = ("joint", "cross")
 ATOL = {"joint": 1e-5, "cross": 1e-4}
 
 
+INDEX_CLIPS, INDEX_BATCH, INDEX_TOP_K, INDEX_RERANKS = 9, 4, 3, (0, 5)
+INDEX_QUERIES = ["whisk the eggs", "pour into the pan", "chop the garlic"]
+CAPTION_BATCH, CAPTION_OPTIONS = 4, dict(beam_size=3, max_len=8)
+
+
 @pytest.fixture(scope="module")
-def fanout(retrieval, tmp_path_factory):
-    """The evaluator on two gloo ranks (``mesh=`` the ranks' group), both
-    modes, spawned once in the background: ([rank r's results], the ranks'
-    reports)."""
+def fanout_data(retrieval, caption, tmp_path_factory):
+    """What the fan-out's index and caption entries run: a vocab, ragged
+    clips for the index, and a batch of encoder inputs for the captions."""
+    rng = np.random.RandomState(7)
+    cfg = retrieval[2].cfg
+    clips = [rng.randn(rng.randint(1, cfg.max_frames + 3), cfg.video_dim).astype(np.float32)
+             for _ in range(INDEX_CLIPS)]
+    jcfg = JaxConfig.tiny(stage_two=True, task_type="caption")
+    batch = {k: v for k, v in _batch(jcfg, CAPTION_BATCH, rng).items() if k in KEYS}
+    vocab = fixtures.make_vocab(str(tmp_path_factory.mktemp("fanout_vocab") / "vocab.txt"))
+    return vocab, clips, [f"v{i}" for i in range(INDEX_CLIPS)], batch
+
+
+@pytest.fixture(scope="module")
+def fanout(retrieval, caption, fanout_data, tmp_path_factory):
+    """The evaluator (both modes), the retrieval index and the caption
+    generator on two gloo ranks (``mesh=`` the ranks' group), spawned once
+    in the background: ([rank r's results], the ranks' reports)."""
     _, _, model, batches = retrieval
+    vocab, clips, ids, cap_batch = fanout_data
     d = tmp_path_factory.mktemp("fanout")
     torch.save(model.state_dict(), str(d / "weights.bin"))
+    torch.save(caption[2].state_dict(), str(d / "caption.bin"))
     spec = {"evals": [dict(name="fanout", config=model.cfg, weights=str(d / "weights.bin"),
                            batches=batches, modes=MODES, batch_size=EVAL_BATCH,
-                           cross_text_block=TB, cross_video_block=VB)]}
+                           cross_text_block=TB, cross_video_block=VB)],
+            "indexes": [dict(name="fanout", config=model.cfg, weights=str(d / "weights.bin"),
+                             vocab=vocab, batch_size=INDEX_BATCH, videos=clips, ids=ids,
+                             queries=INDEX_QUERIES, top_k=INDEX_TOP_K, reranks=INDEX_RERANKS)],
+            "captions": [dict(name="fanout", config=caption[2].cfg,
+                              weights=str(d / "caption.bin"), vocab=vocab, batches=[cap_batch],
+                              options=dict(batch_size=CAPTION_BATCH, **CAPTION_OPTIONS))]}
     torch.save(spec, str(d / "spec.pt"))
     argv = ["--spec", str(d / "spec.pt"), "--output", str(d / "out"), "--device", "cpu",
             "--n_gpu", str(RANKS)]
@@ -302,7 +334,7 @@ def fanout(retrieval, tmp_path_factory):
     def go():
         pp_replay.main(argv)
         reports = list(dp_mesh.spawn.ranks)
-        return ([torch.load(str(d / "out" / f"rank{r}.pt"), weights_only=False)["evals"]["fanout"]
+        return ([torch.load(str(d / "out" / f"rank{r}.pt"), weights_only=False)
                  for r in range(RANKS)], reports)
 
     with ThreadPoolExecutor(1) as pool:
@@ -328,7 +360,7 @@ def test_fanout_matches_jax_mesh(retrieval, fanout, mode):
     want, want_metrics = _jax_mesh_sims(retrieval)[mode]
     assert np.ptp(want) > 1e-2
     for res in fanout.result()[0]:
-        got = res[mode]
+        got = res["evals"]["fanout"][mode]
         assert got["sim"].shape == (N_CLIPS, N_CLIPS)
         np.testing.assert_allclose(got["sim"], want, rtol=0, atol=ATOL[mode])
         metrics = {k: v for k, v in got["metrics"].items() if k in want_metrics}
@@ -342,10 +374,79 @@ def test_fanout_matches_one_process(retrieval, fanout, mode):
     same matrix."""
     _, ev, batches = _evaluators(retrieval)
     want = ev.evaluate(iter(batches), mode=mode)
-    one, two = fanout.result()[0]
+    one, two = (r["evals"]["fanout"] for r in fanout.result()[0])
     np.testing.assert_allclose(one[mode]["sim"], ev.similarity, rtol=0, atol=ATOL[mode])
     np.testing.assert_array_equal(one[mode]["sim"], two[mode]["sim"])
     assert {k: one[mode]["metrics"][k] for k in want} == want
+
+
+def _index_results(index, reranks=INDEX_RERANKS):
+    return {rerank: index.search(INDEX_QUERIES, top_k=INDEX_TOP_K, rerank=rerank)
+            for rerank in reranks}
+
+
+def _assert_same_search(got, want, atol):
+    assert len(got) == len(want) == len(INDEX_QUERIES)
+    for g, w in zip(got, want):
+        assert [i for i, _ in g] == [i for i, _ in w] and len(g) == INDEX_TOP_K
+        np.testing.assert_allclose([x for _, x in g], [x for _, x in w], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("against", ["jax_mesh", "one_process"])
+def test_index_fanout_matches(retrieval, fanout_data, fanout, against):
+    """``VideoRetrievalIndex(mesh=)`` on two ranks (9 ragged clips in encode
+    batches of 4, each rank encoding 2 rows) against JAX's index on its
+    2-device mesh (``tests/test_serving.py``'s check) and against the port's
+    index in one process: the embeddings and the visual outputs within 1e-5,
+    and each search's ids equal and scores within 1e-5, with and without
+    rerank, on both ranks."""
+    jm, params, model, _ = retrieval
+    vocab, clips, ids, _ = fanout_data
+    if against == "jax_mesh":
+        want = JaxIndex(jm, params, JaxTokenizer(vocab), batch_size=INDEX_BATCH, store_full=True,
+                        mesh=jax_make_mesh(RANKS))
+    else:
+        want = VideoRetrievalIndex(model, WordPieceTokenizer(vocab), "cpu",
+                                   batch_size=INDEX_BATCH, store_full=True)
+    want.add(clips, ids=ids)
+    results = _index_results(want)
+    for res in fanout.result()[0]:
+        got = res["indexes"]["fanout"]
+        np.testing.assert_allclose(got["video_emb"], want.video_emb, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got["vis_full"], want.vis_full, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got["vm_full"], want.vm_full)
+        for rerank in INDEX_RERANKS:
+            _assert_same_search(got["results"][rerank], results[rerank], 1e-5)
+        assert not any(got["launches"].values())  # the CPU: the kernels' plain versions
+
+
+@pytest.mark.parametrize("against", ["jax_mesh", "one_process"])
+def test_caption_fanout_matches(caption, fanout_data, fanout, against):
+    """``CaptionGenerator(mesh=)`` on two ranks (a batch of 4, each rank
+    encoding and decoding 2 rows, beam 3, 8 positions) against JAX's
+    generator on its 2-device mesh (``tests/test_fast_decoder.py``'s check)
+    and against the port's generator in one process: the tokens equal and
+    the scores within 1e-5 on both ranks; a rank's steps are no more than
+    the whole batch's."""
+    jm, params, model, _ = caption
+    vocab, _, _, batch = fanout_data
+    if against == "jax_mesh":
+        gen = JaxCaptionGenerator(jm, params, JaxTokenizer(vocab), batch_size=CAPTION_BATCH,
+                                  mesh=jax_make_mesh(RANKS), **CAPTION_OPTIONS)
+        sharded = {k: jax.device_put(v, gen._sharding) for k, v in batch.items()}
+        seq, vis = gen._encode(params, *(sharded[k] for k in KEYS))
+        tokens, scores = gen._decode(params, seq, vis, sharded["attention_mask"],
+                                     sharded["video_mask"])
+        want = (np.asarray(tokens), np.asarray(scores), None)
+    else:
+        t, sc, n = CaptionGenerator(model, WordPieceTokenizer(vocab), "cpu",
+                                    **CAPTION_OPTIONS).decode(batch)
+        want = (t.numpy(), sc.numpy(), n)
+    for res in fanout.result()[0]:
+        got = res["captions"]["fanout"]
+        np.testing.assert_array_equal(got["tokens"][0].numpy(), want[0])
+        np.testing.assert_allclose(got["scores"][0].numpy(), want[1], rtol=0, atol=1e-5)
+        assert 1 <= got["steps"][0] <= (want[2] or CAPTION_OPTIONS["max_len"] - 1)
 
 
 def test_fanout_children_import_only_the_port(fanout):

@@ -1,7 +1,11 @@
 """The port's retrieval-serving slice against the JAX package, end to end on
-the CPU: the index (dense search and cross-encoder rerank), its .npz format,
-the HTTP server, the port's own copies of the JAX package's configuration,
-tokenizer and text encoding, and the port's independence from JAX."""
+the CPU: the index (dense search and cross-encoder rerank; the device
+functions that its CUDA graphs capture, run eagerly; a reused index after a
+weight change; the fan-out's refusals), its .npz format, the HTTP server,
+the port's own copies of the JAX package's configuration, tokenizer and text
+encoding, and the port's independence from JAX. The index's fan-out over
+ranks runs in ``tests/test_torch_eval.py``'s spawn; on the card
+``chip_smoke.py`` (I1) holds the graph route against the eager one."""
 
 import ast
 import dataclasses
@@ -27,14 +31,15 @@ from univl_tpu.data import tokenization as jax_tokenization
 from univl_tpu.models.univl import UniVL as JaxUniVL
 from univl_tpu.serving import VideoRetrievalIndex as JaxIndex
 from univl_tpu_torch import config
-from univl_tpu_torch.checkpoint.convert import state_dict_from_jax_params
+from univl_tpu_torch.checkpoint.convert import init_state_dict, state_dict_from_jax_params
 from univl_tpu_torch.cli import pretrain, task_caption, task_retrieval
 from univl_tpu_torch.data import text_encoding
 from univl_tpu_torch.data.tokenization import WordPieceTokenizer
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.parallel import mesh, pp_replay, replay
 from univl_tpu_torch.probes import zero1_ab
-from univl_tpu_torch.serving.index import VideoRetrievalIndex
+from univl_tpu_torch.serving.captioning import CaptionService
+from univl_tpu_torch.serving.index import RERANK_TILE, VideoRetrievalIndex
 
 ATOL = 1e-4  # f32 on both sides
 QUERIES = ["stir the soup", "slice the onion", "heat oil in a pan"]
@@ -115,6 +120,89 @@ def test_npz_loads_in_the_other_package(pair, saved_by, tmp_path):
         want = tidx.search(QUERIES, top_k=3, rerank=5)
     assert loaded.ids == tidx.ids
     _assert_same_results(loaded.search(QUERIES, top_k=3, rerank=5), want)
+
+
+HOST_READS = ("__bool__", "item", "tolist", "__int__", "__float__", "__index__", "cpu", "numpy")
+
+
+def test_index_functions_make_no_host_read(pair, monkeypatch):
+    """The three functions that the index's graphs capture (the visual and
+    the text tower with their pooling, the rerank tile's cross encoder), run
+    eagerly on their padded inputs with every way of reading a tensor's
+    value on the host patched to raise."""
+    _, tidx, _, _ = pair
+    rng = np.random.RandomState(3)
+    B, F, L = tidx.batch_size, tidx.max_frames, tidx.max_words
+    video = torch.from_numpy(rng.randn(B, F, tidx.video_dim).astype(np.float32))
+    vmask = torch.from_numpy((np.arange(F) < rng.randint(1, F + 1, (B, 1))).astype(np.int32))
+    ids = torch.from_numpy(rng.randint(1, 50, (B, L)).astype(np.int32))
+    amask = torch.from_numpy((np.arange(L) < rng.randint(2, L + 1, (B, 1))).astype(np.int32))
+    T, M = RERANK_TILE, 5
+    cand = torch.from_numpy(rng.randint(0, len(tidx), (T, M)))
+    vis_t = torch.from_numpy(tidx.vis_full)[cand]
+    vm_t = torch.from_numpy(tidx.vm_full)[cand]
+    with torch.inference_mode(), monkeypatch.context() as m:
+        for name in HOST_READS:
+            m.setattr(torch.Tensor, name, lambda *a, **k: pytest.fail("a host read"))
+        vis, pooled = tidx._video_fn(video, vmask)
+        seq, text = tidx._text_fn(ids, torch.zeros_like(ids), amask)
+        scores = tidx._rerank_fn(seq[:1].expand(T, L, -1), vis_t, amask[:1].expand(T, L), vm_t)
+    assert vis.shape == (B, F, 64) and pooled.shape == text.shape == (B, 64)
+    assert scores.shape == (T, M) and torch.isfinite(scores).all()
+    torch.testing.assert_close(pooled.norm(dim=-1), torch.ones(B))
+
+
+def test_reused_index_reads_new_weights(vocab):
+    """An index reused after its model's weights changed (in place, then
+    each parameter's storage replaced: its graphs and their pool dropped)
+    encodes and searches, with and without rerank, as an index built after
+    the change."""
+    tok = WordPieceTokenizer(vocab)
+    cfg = config.UniVLConfig.tiny(train_sim_after_cross=True,
+                                  bert=config.BertConfig(vocab_size=len(tok), hidden_size=64,
+                                                         num_hidden_layers=1,
+                                                         num_attention_heads=4,
+                                                         intermediate_size=128))
+    model = UniVL(cfg).eval()
+    model.load_state_dict(init_state_dict(cfg, seed=1), strict=True)
+    rng = np.random.RandomState(4)
+    clips = [rng.randn(rng.randint(2, 10), cfg.video_dim).astype(np.float32) for _ in range(9)]
+    reused = VideoRetrievalIndex(model, tok, "cpu", batch_size=4, store_full=True)
+    reused.add(clips[:5])
+    before = reused.search(QUERIES, top_k=3, rerank=5)
+    model.load_state_dict(init_state_dict(cfg, seed=2), strict=True)
+    reused.capturer.pool = "a pool"  # as the card's route leaves it
+    assert not reused.check_weights() and reused.capturer.pool == "a pool"
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.clone()
+    assert reused.check_weights() and not reused.check_weights()
+    assert reused.capturer.pool is None  # a pool whose graphs all went takes no capture
+    fresh = VideoRetrievalIndex(model, tok, "cpu", batch_size=4, store_full=True)
+    fresh.add(clips[5:])
+    reused.add(clips[5:])
+    np.testing.assert_array_equal(reused.video_emb[5:], fresh.video_emb)
+    np.testing.assert_array_equal(reused.vis_full[5:], fresh.vis_full)
+    fresh.ids, fresh.video_emb = reused.ids, reused.video_emb  # one store for both
+    fresh.vis_full, fresh.vm_full = reused.vis_full, reused.vm_full
+    for rerank in (0, 5):
+        assert reused.search(QUERIES, top_k=3, rerank=rerank) == fresh.search(
+            QUERIES, top_k=3, rerank=rerank)
+    assert reused.search(QUERIES, top_k=3, rerank=5) != before
+
+
+def test_index_and_service_refuse_a_batch_the_ranks_do_not_divide(pair):
+    """As JAX's assert, with the reason named: a mesh of 2 ranks and a batch
+    of 5; the eager route refuses graphs on the CPU."""
+    _, _, model, tok = pair
+    two = mesh.Mesh(size=2)  # the rank count is all the check reads
+    with pytest.raises(ValueError, match="batch_size 5 is not a multiple of the mesh's 2 ranks"):
+        VideoRetrievalIndex(model, tok, "cpu", batch_size=5, mesh=two)
+    with pytest.raises(ValueError, match="batch_size 5 is not a multiple of the mesh's 2 ranks"):
+        CaptionService(model, tok, "cpu", batch_size=5, mesh=two)
+    assert VideoRetrievalIndex(model, tok, "cpu", batch_size=4, mesh=two).mesh is two
+    with pytest.raises(ValueError, match="CUDA graphs"):
+        VideoRetrievalIndex(model, tok, "cpu", graph=True)
 
 
 TINY = [

@@ -27,7 +27,10 @@ decode batches unless ``--no-coalesce_captions``. ``--fused_ln`` runs every
 LayerNorm through the LayerNorm kernel (#6); ``--fused_cls`` runs the
 classifier transform inside the vocab top-k kernel (#10t), with the fused
 vocab kernel only. On a CUDA device a caption batch is one CUDA graph replay
-for the encode and one for every ``--decode_unroll`` decode steps.
+for the encode and one for every ``--decode_unroll`` decode steps, and the
+index's encode batches and rerank tiles are one replay each; in ``--mode
+both`` the index and the caption generator keep their graphs in pools of
+their own, and the one lock keeps their captures and replays apart.
 """
 
 from __future__ import annotations
@@ -127,6 +130,7 @@ def build_services(args):
 class Server(ThreadingHTTPServer):
     """The HTTP server; ``server_close`` also stops the caption coalescer."""
 
+    index = None
     caption_service = None
     caption_coalescer = None
 
@@ -203,6 +207,7 @@ def make_server(args) -> Server:
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})
 
     server = Server((args.host, args.port), Handler)
+    server.index = index
     server.caption_service = caption
     server.caption_coalescer = coalescer
     return server

@@ -36,7 +36,6 @@ encoder (``FastBeamDecode``).
 from __future__ import annotations
 
 import collections
-import time
 import warnings
 from typing import Dict, List, Optional
 
@@ -46,6 +45,8 @@ import torch
 from univl_tpu_torch.evals.fast_decoder import FastDecoder, encoder_bias
 from univl_tpu_torch.kernels.reorder import beam_reorder_groups_inplace
 from univl_tpu_torch.kernels.vocab_topk import classify_topk, stable_topk
+from univl_tpu_torch.parallel import comm
+from univl_tpu_torch.utils.graphs import GraphCapture
 
 NEG_INF = -1e18
 
@@ -193,13 +194,10 @@ class FastBeamDecode:
         self.positions = torch.arange(max_len, device=device)
         self.states: Dict[tuple, _BeamState] = {}
         self.graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
-        # the graphs' memory pool, shared (they replay one at a time), and their stream
-        self.pool = self.stream = None
-        # graph replays by the steps they run, captures (with their first eager
-        # runs: seconds), and the host's reads of ``finished``
+        self.capturer = GraphCapture()  # the graphs' pool, stream and capture count
+        # graph replays by the steps they run, and the host's reads of ``finished``
         self.replays = collections.Counter()
-        self.captures = self.reads = 0
-        self.capture_s = 0.0
+        self.reads = 0
         self._params = list(model.parameters())
         self._build()
 
@@ -214,6 +212,7 @@ class FastBeamDecode:
         else:
             self.fd.classifier_f32  # noqa: B018 -- the f32 logits' table, built here
         self.graphs.clear()
+        self.capturer.reset()  # the generator drops its encode graphs with these
         self.addresses = tuple(p.data_ptr() for p in self._params)
 
     def check_weights(self) -> bool:
@@ -302,35 +301,7 @@ class FastBeamDecode:
             graph.replay()
             self.replays[n] += 1
             return
-        self.graphs[key] = self.capture(lambda: self._steps(st, bound, first, n))
-
-    def capture(self, fn) -> "torch.cuda.CUDAGraph":
-        """Run ``fn`` eagerly on a side stream, then capture it (which runs
-        nothing) into a graph of the decoder's pool; returns the graph.
-        ``torch.cuda.graph`` without its ``empty_cache``: the decoder's
-        graphs are many and small, and the cached blocks it would free are
-        what the next eager first use allocates again."""
-        t0 = time.perf_counter()
-        if self.pool is None:  # one stream for the captures that share the pool
-            self.pool, self.stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
-        current, side = torch.cuda.current_stream(), self.stream
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            fn()
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        torch.cuda.synchronize()
-        with torch.cuda.stream(side):
-            # other threads' device work (a prefetch, a server's other service) goes on
-            graph.capture_begin(self.pool, capture_error_mode="thread_local")
-            try:
-                fn()
-            finally:
-                graph.capture_end()
-        current.wait_stream(side)
-        self.captures += 1
-        self.capture_s += time.perf_counter() - t0
-        return graph
+        self.graphs[key] = self.capturer.capture(lambda: self._steps(st, bound, first, n))
 
     def _steps(self, st: _BeamState, bound: int, first: int, n: int) -> None:
         """The step body n times from cache set ``first``, then ``finished``;
@@ -415,14 +386,28 @@ class CaptionGenerator:
     rest of the decode's prologue are one replay, captured per batch shape
     (after that shape's first batch ran eagerly), then the decode replays
     its runs of steps. ``steps`` and ``batches`` count the decode steps run
-    and the batches decoded over all ``generate`` calls."""
+    and the batches decoded over all ``generate`` calls.
+
+    ``mesh`` (a ``parallel/mesh.py`` group of d ranks, each with the model
+    on its device: JAX's 1-D dp mesh) fans a batch out: rank r encodes and
+    decodes its r-th share of the rows (through its own graphs on the
+    card), and the tokens and scores are gathered, so every rank returns the
+    whole batch. A rank stops when its own rows have finished, so its steps
+    may be fewer than the whole batch's; a finished row's tokens and score
+    are frozen, so they are the one-device decode's. ``batch_size`` (the
+    decode batch, as in JAX) and every batch decoded must be a multiple of
+    d."""
 
     def __init__(self, model, tokenizer, device, beam_size: int = 5, max_len: int = 48,
                  fused_decode: bool = False, fused_vocab: bool = False,
-                 fused_cls: bool = False, unroll: int = 1, graph: Optional[bool] = None):
+                 fused_cls: bool = False, unroll: int = 1, graph: Optional[bool] = None,
+                 batch_size: Optional[int] = None, mesh=None):
+        if batch_size is not None:
+            comm.check_batch(batch_size, mesh)
         self.model = model
         self.tokenizer = tokenizer
         self.device = torch.device(device)
+        self.mesh = mesh
         self.decoder = make_fast_beam_decode_fn(
             model, beam_size, max_len, bos_id=tokenizer.bos_id, eos_id=tokenizer.eos_id,
             pad_id=tokenizer.pad_id, fused_decode=fused_decode, fused_vocab=fused_vocab,
@@ -439,7 +424,11 @@ class CaptionGenerator:
     @torch.inference_mode()
     def decode(self, batch: Dict[str, np.ndarray]):
         """A host batch's (tokens [B, max_len - 1] without BOS, scores [B],
-        steps run), the tensors on the device."""
+        steps run), the tensors on the device; with a mesh, the steps are
+        this rank's."""
+        if self.mesh is not None:
+            comm.check_batch(len(batch["video"]), self.mesh)
+            batch = {k: comm.local_rows(v, self.mesh) for k, v in batch.items()}
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         dec = self.decoder
         if dec.graph:
@@ -453,6 +442,9 @@ class CaptionGenerator:
             out = dec(seq, vis, b["attention_mask"], b["video_mask"])
         self.steps += out[2]
         self.batches += 1
+        if self.mesh is not None:
+            out = (comm.gather_rows(out[0], self.mesh), comm.gather_rows(out[1], self.mesh),
+                   out[2])
         return out
 
     def _encode_replay(self, host: Dict[str, torch.Tensor]):
@@ -480,5 +472,5 @@ class CaptionGenerator:
                                          inputs["video_mask"])
             dec.prologue(st, seq, vis, inputs["attention_mask"], inputs["video_mask"])
 
-        self._encodes[key] = (dec.capture(encode), inputs)
+        self._encodes[key] = (dec.capturer.capture(encode), inputs)
         return st

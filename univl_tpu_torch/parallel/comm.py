@@ -177,6 +177,14 @@ def check_rows(rows: int, mesh) -> int:
     return rows // mesh.size
 
 
+def check_batch(batch_size: int, mesh) -> None:
+    """The condition of the data-parallel serving classes (JAX's assert):
+    ``mesh``'s ranks (None: one process) share a batch equally."""
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} is not a multiple of the mesh's {mesh.size} "
+                         f"ranks: each rank encodes an equal share of a batch")
+
+
 def local_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     """The rank's share of the rows of a replicated ``t``."""
     n = check_rows(t.shape[0], mesh)

@@ -1,12 +1,13 @@
-"""Run pipelines (``parallel/pp.py``) and the retrieval evaluator's
-data-parallel fan-out on N ranks, in one process group.
+"""Run pipelines (``parallel/pp.py``) and the data-parallel fan-out of the
+retrieval evaluator, the retrieval index and the caption generator on N
+ranks, in one process group.
 
     python -m univl_tpu_torch.parallel.pp_replay --spec spec.pt --output DIR \\
         --n_gpu N [--pipeline_parallel P] [--dist_backend gloo] [--device cpu]
 
-``spec.pt`` (``torch.save``) is a dict of two lists; every rank runs every
+``spec.pt`` (``torch.save``) is a dict of lists; every rank runs every
 entry, the pipelines on a (N / P, P) grid (``pp.make_mesh_pp``), the
-evaluations over all N ranks. Any collective or point-to-point call that
+others (``mesh=``) over all N ranks. Any collective or point-to-point call that
 waits ``TIMEOUT`` raises, so a deadlock ends the run within two minutes.
 
 ``pipelines``: dicts with ``name``, ``microbatches``, ``x`` (the global
@@ -28,11 +29,26 @@ and sums the stage's gradients over dp.
 (a reference-named state dict file), ``batches`` (numpy dicts), ``modes``,
 ``batch_size``, ``cross_text_block`` and ``cross_video_block``.
 
+``indexes``: dicts with ``name``, ``config``, ``weights``, ``vocab`` (a
+vocab file), ``batch_size``, ``videos`` (numpy clips), ``ids``, ``queries``,
+``top_k`` and ``reranks``: a ``VideoRetrievalIndex(store_full=True)`` adds
+the clips, then searches once for each ``rerank`` of ``reranks``.
+
+``captions``: dicts with ``name``, ``config``, ``weights``, ``vocab``,
+``batches`` (numpy dicts of the five encoder keys) and ``options``
+(``CaptionGenerator``'s keyword arguments): the generator decodes each batch.
+
 Rank r writes ``DIR/rank{r}.pt``: for each pipeline the delivered output,
 its stage's gradients under the stack's parameter names, its layers, its
 parameter bytes, each step's seconds (host clock, synchronized), peak device
 memory, and the kernel launches of all its steps; for each evaluation and mode
-the metrics, the similarity matrix and the launches. Rank 0 returns its own.
+the metrics, the similarity matrix and the launches; for each index the
+store (``video_emb``, ``vis_full``, ``vm_full``), each search's results
+and the launches; for each caption entry each batch's tokens, scores and
+steps (the rank's) and the launches. An index's and a caption entry's
+``launches`` count graph replays as launches and captures as none
+(``utils/graphs.py:LaunchCounts``), ``wrapper_launches`` the wrappers' own
+counts. Rank 0 returns its own.
 """
 
 from __future__ import annotations
@@ -47,12 +63,16 @@ import torch
 from torch import nn
 
 from univl_tpu_torch.checkpoint.convert import load_reference_bin
+from univl_tpu_torch.data.tokenization import WordPieceTokenizer
+from univl_tpu_torch.evals.beam import CaptionGenerator
 from univl_tpu_torch.evals.retrieval import RetrievalEvaluator
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.nn.layers import TOWER_TAGS, Randomness, TransformerStack
 from univl_tpu_torch.parallel import mesh as dp_mesh
 from univl_tpu_torch.parallel import pp
 from univl_tpu_torch.parallel.mesh import DP_AXIS
+from univl_tpu_torch.serving.index import VideoRetrievalIndex
+from univl_tpu_torch.utils.graphs import LaunchCounts
 
 ENTRY = "univl_tpu_torch.parallel.pp_replay:main"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -61,7 +81,7 @@ SEED = 0
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Pipelines and the evaluator's fan-out on N ranks")
+    p = argparse.ArgumentParser(description="Pipelines and the data-parallel fan-outs on N ranks")
     p.add_argument("--spec", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--device", default="cuda")
@@ -162,10 +182,8 @@ def run_pipeline(spec, mesh) -> dict:
                            else None)}
 
 
-def run_eval(spec, mesh) -> dict:
-    model = UniVL(spec["config"], device=mesh.device)
-    model.load_state_dict(load_reference_bin(spec["weights"]), strict=True)
-    ev = RetrievalEvaluator(model.eval(), batch_size=spec["batch_size"],
+def run_eval(spec, mesh, built: list) -> dict:
+    ev = RetrievalEvaluator(_model(spec, mesh, built), batch_size=spec["batch_size"],
                             cross_text_block=spec["cross_text_block"],
                             cross_video_block=spec["cross_video_block"], mesh=mesh)
     out = {}
@@ -178,11 +196,64 @@ def run_eval(spec, mesh) -> dict:
     return out
 
 
+def _model(spec, mesh, built: list) -> UniVL:
+    """The entry's model in eval mode, built once a run for each config and
+    weights file the entries name (``built``: the run's models so far)."""
+    for config, weights, model in built:
+        if config == spec["config"] and weights == spec["weights"]:
+            return model.eval()
+    model = UniVL(spec["config"], device=mesh.device)
+    model.load_state_dict(load_reference_bin(spec["weights"]), strict=True)
+    built.append((spec["config"], spec["weights"], model))
+    return model.eval()
+
+
+def _counted(fn):
+    """(``fn()``, its launches on the device, its wrappers' launches)."""
+    with LaunchCounts() as counts:
+        before, wrappers = counts.launches(), dp_mesh.kernel_launches()
+        out = fn()
+        after = counts.launches()
+    return (out, {k: n - before[k] for k, n in after.items()},
+            {k: n - wrappers[k] for k, n in dp_mesh.kernel_launches().items()})
+
+
+def run_index(spec, mesh, built: list) -> dict:
+    index = VideoRetrievalIndex(_model(spec, mesh, built), WordPieceTokenizer(spec["vocab"]),
+                                mesh.device, batch_size=spec["batch_size"], store_full=True,
+                                mesh=mesh)
+
+    def go():
+        index.add(spec["videos"], ids=spec["ids"])
+        return {rerank: index.search(spec["queries"], top_k=spec["top_k"], rerank=rerank)
+                for rerank in spec["reranks"]}
+
+    results, launches, wrappers = _counted(go)
+    return {"video_emb": index.video_emb, "vis_full": index.vis_full, "vm_full": index.vm_full,
+            "results": results, "launches": launches, "wrapper_launches": wrappers}
+
+
+def run_captions(spec, mesh, built: list) -> dict:
+    gen = CaptionGenerator(_model(spec, mesh, built), WordPieceTokenizer(spec["vocab"]),
+                           mesh.device, mesh=mesh, **spec["options"])
+
+    def go():
+        return [[x.cpu() if torch.is_tensor(x) else x for x in gen.decode(b)]
+                for b in spec["batches"]]
+
+    out, launches, wrappers = _counted(go)
+    return {"tokens": [t for t, _, _ in out], "scores": [s for _, s, _ in out],
+            "steps": [n for _, _, n in out], "launches": launches, "wrapper_launches": wrappers}
+
+
 def run(args, mesh):
     spec = torch.load(args.spec, weights_only=False)
+    built = []
     result = {"rank": mesh.rank,
               "pipelines": {s["name"]: run_pipeline(s, mesh) for s in spec.get("pipelines", [])},
-              "evals": {s["name"]: run_eval(s, mesh) for s in spec.get("evals", [])}}
+              **{kind: {s["name"]: fn(s, mesh, built) for s in spec.get(kind, [])}
+                 for kind, fn in (("evals", run_eval), ("indexes", run_index),
+                                  ("captions", run_captions))}}
     os.makedirs(args.output, exist_ok=True)
     torch.save(result, os.path.join(args.output, f"rank{mesh.rank}.pt"))
     mesh.barrier()

@@ -29,12 +29,13 @@ class CaptionService:
     """``batch_size`` is the decode batch: requests are padded (or merged by
     the coalescer) up to it. ``model`` must already be on ``device``; on a
     CUDA device the generator decodes through CUDA graphs (``evals/beam.py``),
-    ``decode_unroll`` steps a replay."""
+    ``decode_unroll`` steps a replay. ``mesh``: the generator's data-parallel
+    fan-out (``CaptionGenerator``), whose ranks must divide ``batch_size``."""
 
     def __init__(self, model, tokenizer, device, beam_size: int = 5,
                  max_len: Optional[int] = None, batch_size: int = 16,
                  fused_decode: Optional[bool] = None, fused_vocab: Optional[bool] = None,
-                 fused_cls: bool = False, decode_unroll: int = 1):
+                 fused_cls: bool = False, decode_unroll: int = 1, mesh=None):
         cfg = model.cfg
         self.device = torch.device(device)
         self.tokenizer = tokenizer
@@ -49,7 +50,8 @@ class CaptionService:
         self.generator = CaptionGenerator(
             model, tokenizer, self.device, beam_size=beam_size,
             max_len=max_len or cfg.max_words, fused_decode=self.fused_decode,
-            fused_vocab=self.fused_vocab, fused_cls=fused_cls, unroll=decode_unroll)
+            fused_vocab=self.fused_vocab, fused_cls=fused_cls, unroll=decode_unroll,
+            batch_size=batch_size, mesh=mesh)
 
     def caption(self, videos: Sequence[np.ndarray],
                 transcripts: Optional[Sequence[str]] = None) -> List[str]:
