@@ -96,12 +96,13 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      of 64 clips and a search, busy shares, launches, peak memory;
  10. the FT-Joint training slice: univl_tpu_torch.cli.task_retrieval
      --do_train at the full width of UniVLConfig.base (text 12, visual 6
-     layers), bf16, batch 32, 20 steps on YouCook2-format fixtures: the loss
-     at each display point, the steady clips/s, peak device memory, #2's
-     launches (#2's tensor-core kernels, 18 forward and 18 backward a step)
+     layers), bf16, batch 32, 20 steps on YouCook2-format fixtures, on the
+     CLIs' graph route (one train_steps call a step, a replay from the
+     second; step_route "graph" in metrics.jsonl): the loss at each display
+     point, the steady clips/s, peak device memory, #2's launches counted by
+     replay (#2's tensor-core kernels, 18 forward and 18 backward a step)
      and a pytorch_model.bin.0 that loads back;
- 11. torch.profiler over 3 steady training steps: device busy share, kernel
-     time of #2, the GEMMs, the optimizer and the rest, launches per step;
+ 11. (cut: its eager step's profile; L1 profiles both routes)
  12. training agreement with the CPU at full width and text 2 + visual 1
      layers, dropout 0: card f32 (kernels) against CPU f32 (plain versions)
      for the loss, every gradient and the parameters after 2 BertAdam steps;
@@ -111,9 +112,8 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      pairs of 96 tokens through the cross tower a step) on the same fixtures,
      20 steps: losses, steady clips/s, peak memory, launches (#2, #4 and #5
      20 forward and 20 backward a step; #3 and #4 on their wgmma kernels, the
-     CUDA-core ones never) and a pytorch_model.bin.0 that loads back; then
-     torch.profiler over 3 of its steps, and over 3 steps of the unfused
-     route (--fused_ffn xla) beside them;
+     CUDA-core ones never) and a pytorch_model.bin.0 that loads back, on the
+     graph route (its profiles against the unfused route were cut for L1);
  14. a short --fused_ffn pallas run (5 steps): #3 20 + 20 a step;
  15. FT-Align agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 layers, batch 8 (64 pairs), dropout 0, on the block and pallas
@@ -125,10 +125,10 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      steady clips/s, peak memory, launches (#6 in every LayerNorm, #2's
      tensor-core kernels in every attention over keys, 23 forward and 23
      backward a step, the tiled backward never) and a pytorch_model.bin.0
-     that loads back; then --do_eval --fused_decode --fused_vocab of that
+     that loads back, on the graph route; then --do_eval --fused_decode --fused_vocab of that
      file over 32 val clips (beam 5: captions and BLEU, METEOR, ROUGE-L,
      CIDEr), and once more with --fused_cls;
- 17. torch.profiler over 3 caption steps with --fused_ln and 3 without;
+ 17. (cut: its eager profiles; L1 profiles both routes)
  18. caption agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, batch 4, dropout 0: card f32 without
      --fused_ln (the control) and with it, card bf16 over 3 steps, with the
@@ -137,15 +137,13 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      shape's first a replay of one step captured as a CUDA graph) at
      bf16, UniVLConfig.base, seeded weights, dropout 0.1, under
      torch.use_deterministic_algorithms: FT-Joint at bench.py's batch 32,
-     48 words, 48 frames, K = 5; FT-Align --fused_ffn block at phase 13's
-     shape, K = 3; caption --stage_two --fused_ln at phase 16's, K = 3. Two
+     48 words, 48 frames, K = 5 (FT-Align and caption at K = 3, and the
+     windows, cut for L1). Two
      calls (the first runs its first step eagerly and captures; the second
      only replays) bitwise K train_step calls each from the same weights:
      every step's metrics, every parameter, both moments, the step count;
-     the wrappers' counts (the eager step and the capture); K1_PAIRS
-     alternating pairs of windows of one train_steps(K) call against K
-     train_step calls (median clips/s of both; the first pair the bitwise
-     calls' second call and last K steps), a profiled call and one profiled
+     the wrappers' counts by replay; clips/s of the second call against the
+     last K train_step calls, a profiled call and one profiled
      train_step call (device busy share and kernel launches a step,
      replayed and eager; #2's, #4's and #5's kernels by name as many a step
      in both) and each route's peak device memory;
@@ -158,12 +156,20 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      --datatype msrvtt over 1,000 fixture clips (the JSFusion test size), 48
      words, 48 frames, batch 64: joint (encode clips/s, R@1/5/10, MedR,
      MeanR), then --train_sim_after_cross (the device-resident rescoring of
-     all 1,000,000 pairs: pairs/s, #1's launches, peak memory);
+     all 1,000,000 pairs: pairs/s, #1's launches, peak memory), the
+     evaluator on its CUDA graphs (#1 counted by replay);
  21. torch.profiler over the eval's encode of 64 clips and the rescoring of
-     their 4,096 pairs (device busy share, kernel time by group);
+     their 4,096 pairs, replayed (device busy share, kernel time by group);
  22. retrieval eval agreement: card f32 against CPU f32 at full width, text 2
      + visual 1 + cross 1 layers, 32 clips (cut from 64), both modes: the similarity
      matrices within stated limits and the metrics equal;
+ I2. RetrievalEvaluator on its CUDA graphs against graph=False at full
+     width (FT-Align's seeded weights, bf16) over 256 of phase 20's clips, in
+     deterministic mode: the joint matrix, the device-resident rescoring and
+     the host tiles' bitwise, three graphs captured once (the encode of a
+     batch, a stripe against every video block, a tile), #1 counted by
+     replay as graph=False launches it; then 2 alternating pairs of the
+     encode (clips/s) and the rescoring (pairs/s) on both routes;
  P1. HowTo100M pretraining stage I: univl_tpu_torch.cli.pretrain --do_pretrain
      --sampled_use_mil --n_pair 3 at the full width of UniVLConfig.base (text
      12 + visual 6 layers), bf16, 48 words, 64 frames, 120 clips x 3 pairs =
@@ -175,13 +181,15 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      --fused_ffn block; cross 2 + decoder 3 layers more), 16 clips x 3 = 48
      rows a micro-step (2,304 pairs through the cross tower), accumulation
      4, 4 steps: all five losses, clips/s, peak memory, the launches of #2,
-     #4 and #5 derived from the layer counts, a .bin with both heads; then
-     torch.profiler over 3 of its micro-steps;
+     #4 and #5 derived from the layer counts, a .bin with both heads (its
+     eager profile cut: L1 profiles stage II on both routes); P1 and P2 on
+     the graph route;
  P3. resume on the card, under torch.use_deterministic_algorithms: one
      uninterrupted stage-I run (the control) and one run preempted
      (--inject_preempt_after) and resumed (--load_checkpoint) with
      --async_checkpointing (R3): the parameters, moments, BertAdam's step
-     count and losses of the resumed run bitwise the control's;
+     count and losses of the resumed run bitwise the control's; all three
+     on the graph route, each starting with one eager step;
  P4. stage II agreement with the CPU at full width, text 2 + visual 1 +
      cross 1 + decoder 1 layers, 4 clips x 3 pairs, dropout 0: card f32 (the
      unfused route as the control, then --fused_ffn block) and card bf16
@@ -200,26 +208,38 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      --fused_ffn block with --remat and with --remat_policy dots (K = 2),
      pretraining stage I at P1's 120 clips x 3 pairs and accumulation 2 (K
      = 2), stage II at P2's 16 clips x 3 and accumulation 2 (P2's 4 cut
-     for I1 and E1's fan-outs) without and with --remat (K = 2): two calls
+     for I1 and E1's fan-outs) with --remat (K = 2; without it cut for L1):
+     two calls
      bitwise 2K train_step calls (metrics,
      parameters, moments, the step count), the wrappers' counts (the eager
      step and the capture), a profiled call against one profiled train_step
      call (busy share, launches; #2's, #4's and #5's kernels by name as
-     many a step in both), clips/s and peak memory of both; stage II's two
-     modes in 2 alternating pairs of windows (the first the bitwise calls'
-     second call and last K steps); then in the default mode FT-Align
-     block (K = 2) and stage II (K = 2), one call against two train_step
+     many a step in both), clips/s and peak memory of both (stage II's
+     windows cut for L1); then in the default mode FT-Align
+     block (K = 2; stage II's cut for L1), one call against two train_step
      loops, within the limits stated at K2_CONTROL_FACTOR. Its ZeRO-1 route
      runs in D3;
  R2. the input pipeline: FT-Joint (phase 10's config) through
-     cli.common.make_input_iter: the prefetch and --no_prefetch give bitwise
+     cli.common.make_input_iter, a train_steps call of K = 1 a step as the
+     CLIs step (the prefetch feeding the graph's replays): the prefetch and
+     --no_prefetch give bitwise
      equal losses over 10 steps in deterministic mode; --transfer_dtype
-     bfloat16 losses within a stated limit of the f32 transfer's; 1
-     pair (cut from 3, then 2 for K1) of 5-step windows (cut from 20 for K1,
-     from 10 for K2) of each mode under a CUDA-only
-     profiler (clips/s and device busy share, medians); the joint retrieval
+     bfloat16 losses within a stated limit of the f32 transfer's (its timed
+     windows cut for L1); the joint retrieval
      eval of phase 20 (its batches prefetched) against --no_prefetch: the
      same R@1/5/10, MedR and MeanR;
+ L1. (after K2) the CLIs' epoch loop on its graph route against
+     graph=False, in deterministic mode: FT-Joint, FT-Align block (with an
+     eval after its epoch over 32 clips), caption --fused_ln and
+     pretraining stage II (accumulation 2), each one epoch through its CLI,
+     every step displayed, against a graph=False twin of the run's trainer
+     stepping the same batches: displayed metrics, the .bin, parameters,
+     both moments and the step count bitwise, one capture, launches by
+     replay a step's on both, #2's, #4's and #5's kernels by name as many a
+     replayed step as an eager one with both routes' busy share; then
+     alternating pairs of CLI windows (run_train_epochs ended by
+     --inject_crash_after), clips/s of both routes and the host's ms a
+     train_steps call;
  R3. (in P3) the seconds the loop blocked at each epoch-end save,
      synchronous (the control) and async (the resumed run);
  R4. the checkpoint converter without JAX: a full-width reference .bin from
@@ -253,7 +273,8 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      and resumed without --zero1: within 1e-6 of the uninterrupted run (one
      process accumulating the ranks' two micro-batches: one spawn fewer);
  D3. --n_gpu 1 --zero1 in a process group of one rank on NCCL: FT-Align
-     through the CLI for 2 steps, then probes/zero1_ab at FT-Align's
+     through the CLI for 2 steps (the graph route: one rank on NCCL is
+     captured), then probes/zero1_ab at FT-Align's
      parameters: ZeRO-1 against BertAdam, each update's profiled device ms
      (2 updates, cut from 3), both optimizers' state bytes; then K2's ZeRO-1
      route: FT-Align block --zero1 in a new one-rank NCCL group, train_steps
@@ -313,6 +334,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import contextlib
+import copy
 import importlib.util
 import json
 import math
@@ -475,7 +497,6 @@ PALLAS_VIDEOS = 20  # the short --fused_ffn pallas run: 160 pairs, 5 steps
 TRAIN_FLAGS = ["--n_gpu", "1", "--lr", "3e-5", "--warmup_proportion", "0.1", "--coef_lr", "0.1",
                "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--max_words", "48",
                "--max_frames", "48", "--n_display", str(TRAIN_DISPLAY), "--seed", "0"]
-PROFILE_WARMUP, PROFILE_STEPS = 3, 3
 # card vs CPU at full width, text 2 and visual 1 layers, dropout 0, stated
 # before the first run: f32 (kernels, TF32 off) within the plain versions'
 # rounding; bf16 loss over 3 steps (cut from 10, then 5 for the time limit)
@@ -533,16 +554,11 @@ CAP_FLAGS = ["--n_gpu", "1", "--lr", "3e-5", "--warmup_proportion", "0.1", "--co
 AGREE_CAP_BATCH, AGREE_CAP_PARAM_RTOL, AGREE_CAP_FUSED_FACTOR = 4, 1e-4, 3
 # K1, stated before its first run: train_steps at K steps a call bitwise K
 # train_step calls (metrics, parameters, moments, step count) over two calls,
-# the first with the eager step and the capture, the second all replays;
-# K1_PAIRS alternating pairs of windows (one call against K eager steps)
-K1_ROUTES = {  # label -> (config flags, K, data)
-    "FT-Joint": (dict(), 5, "retrieval"),
-    "FT-Align (--fused_ffn block)": (dict(train_sim_after_cross=True, use_fused_ffn="block"), 3,
-                                     "retrieval"),
-    "caption (--stage_two --fused_ln)": (dict(stage_two=True, task_type="caption"), 3,
-                                         "caption"),
-}
-K1_PAIRS = 2  # cut from 5 for K2, 3 for C1
+# the first with the eager step and the capture, the second all replays.
+# on FT-Joint at K1_K. FT-Align and caption (K = 3) and the alternating
+# windows (K1_PAIRS 2) were cut for L1, which holds those routes through the
+# CLI at K = 1
+K1_K = 5
 # K2, stated before its first run: train_steps on the one-card routes
 # K1 left out, each bitwise 2K train_step calls in deterministic mode (every
 # step's metrics, every parameter, both moments, ZeRO-1's f32 master, the step
@@ -551,18 +567,58 @@ K1_PAIRS = 2  # cut from 5 for K2, 3 for C1
 # (K2_PRE1_K), stage II at P2's micro-step and K2_PRE2_ACCUM without and with
 # --remat (K2_PRE2_K), FT-Align
 # block --zero1 on D3's one-rank NCCL group (K2_ALIGN_K); the wrappers' counts
-# twice a step's (the eager step and the capture), and the kernels of #2, #4
+# by replay 2K steps' (the eager step and each replay, the capture counted as
+# nothing), and the kernels of #2, #4
 # and #5 by name as many in a replayed step as in an eager one. In the default
 # mode, FT-Align block (K2_ALIGN_K) and stage II (K2_PRE2_K), one call against
 # two train_step loops: each parameter and moment within the larger of
 # K2_CONTROL_FACTOR times the loops' own difference and K2_NORM_RTOL of its
-# norm, every metric within K2_LOSS_RTOL. Stage II without and with remat in
-# K2_PAIRS alternating pairs of windows.
-# K2_PAIRS cut from 2 for C1; K2_ALIGN_K and K2_PRE1_K from 3 for the time limit
-K2_ALIGN_K, K2_PRE1_K, K2_PRE2_K, K2_PAIRS = 2, 2, 2, 1
+# norm, every metric within K2_LOSS_RTOL. Stage II's windows (K2_PAIRS, cut
+# from 2 for C1 to 1), its route without remat and its default-mode check
+# were cut for L1, which holds and times stage II through the CLI;
+# K2_ALIGN_K and K2_PRE1_K from 3 for the time limit
+K2_ALIGN_K, K2_PRE1_K, K2_PRE2_K = 2, 2, 2
 K2_PRE2_ACCUM = 2  # P2's accumulation, 4, cut for I1 and E1's fan-outs
 K2_CONTROL_FACTOR, K2_NORM_RTOL, K2_LOSS_RTOL = 10, 1e-6, 1e-5
 GRAPH_LR = dict(lr=3e-5, t_total=100, warmup_proportion=0.1, coef_lr=0.1)  # K1's and K2's
+# L1, stated before its first run: the CLIs' epoch loop (cli/common.py:
+# run_train_epochs: one Trainer.train_steps call of K = 1 an update-batch)
+# on its graph route, in deterministic mode, over an epoch of part of phases
+# 10, 13 and 16's fixtures and of P2's stage II (16 clips x 3 pairs a micro-step,
+# accumulation L1_PRE2_ACCUM: P2's 4 cut, as K2's), against a graph=False
+# twin of the run's trainer (cli.common.make_trainer over a copy of its model
+# taken before the first step) stepping the same batches: every displayed
+# metric, the .bin, every parameter, both moments and the step count bitwise;
+# one capture; the wrappers' counts by replay a step's on both routes; #2's,
+# #4's and #5's kernels by name as many in a replayed step as in an eager
+# one, with each route's busy share; FT-Align's run also evaluates after its
+# epoch (--do_eval over L1_VAL_VIDEOS videos: the evaluator's graphs beside
+# the step's), its metrics those of the twin's weights through graph=False.
+# Then alternating pairs of CLI windows (run_train_epochs over a window's
+# steps, ended by --inject_crash_after), the graph route against graph=False:
+# clips/s between the window's display points, medians, and the host's ms a
+# train_steps call on the graph route
+L1_ROUTES = {  # label -> (CLI, extra flags, window steps, display every, pairs)
+    "FT-Joint": ("retrieval", [], 12, 4, 2),
+    "FT-Align (--fused_ffn block)": ("retrieval", ["--train_sim_after_cross", "--fused_ffn",
+                                                   "block"], 9, 3, 1),
+    "caption (--stage_two --fused_ln)": ("caption", [], 9, 3, 1),
+    "pretraining stage II (--fused_ffn block)": ("pretrain", [], 4, 1, 1),
+}
+L1_PRE2_ACCUM, L1_VAL_VIDEOS = 2, 4
+# the bitwise runs' epochs: the first L1_VIDEOS of phase 10's videos (8 steps
+# of 32 clips), the first L1_CAP_VIDEOS of phase 16's (8 of 16); the windows
+# draw from the phases' whole datasets
+L1_VIDEOS, L1_CAP_VIDEOS = 32, 16
+# I2, stated before its first run: RetrievalEvaluator on its graph route
+# against graph=False at full width (FT-Align's seeded weights, bf16) over the
+# first I2_CLIPS of phase 20's clips in batches of EVAL_BATCH, in
+# deterministic mode: the joint matrix, the device-resident rescoring and the
+# host tiles' bitwise; three graphs (the encode, a stripe, a tile), none
+# more at a second evaluation; #1 counted by replay as the eager route
+# launches it; then I2_PAIRS alternating pairs of the encode (clips/s) and the
+# rescoring (pairs/s), in the default mode
+I2_CLIPS, I2_PAIRS = 256, 2
 # evaluation on MSRVTT-format fixtures at S3D width 1024: retrieval over the
 # JSFusion test split's 1,000 clips (48 words, 48 frames, batch 64; joint, then
 # the device-resident FT-Align rescoring of all 1,000,000 pairs in blocks of 8
@@ -628,14 +684,14 @@ PRE_AGREE_CLIPS = 4
 # deterministic mode (the same batches, copied another way), the bf16
 # transfer's losses within TRANSFER_BF16_RTOL of the f32 transfer's (the
 # features rounded to bf16, about 3 significant digits, before the f32 feature
-# LayerNorm of a bf16 model), INPUT_PAIRS alternating pairs of INPUT_WINDOW-step
-# windows. R3: as P3's resumed run, bitwise. R4: bitwise.
+# LayerNorm of a bf16 model); each step one train_steps call of K = 1, as the
+# CLIs step, so the prefetch feeds the graph's replays. Its timed
+# windows (INPUT_PAIRS 1 of INPUT_WINDOW 5 steps, cut from 3 and 20) were cut
+# for L1. R3: as P3's resumed run, bitwise. R4: bitwise.
 REMAT_CHECK_STEPS, REMAT_TIMED_STEPS, REMAT_PROFILE_STEPS = 2, 3, 2  # timed: cut from 5
 REMAT_MODES = (False, True, "dots")
 REMAT_FLAGS = {False: "no remat", True: "--remat", "dots": "--remat --remat_policy dots"}
-# cut for K1: the windows from 20 steps to 10 and the pairs from 2 to 1 (cut
-# from 5, then 3, before); for K2 the windows to 5 steps
-INPUT_CHECK_STEPS, INPUT_WINDOW, INPUT_PAIRS = 10, 5, 1
+INPUT_CHECK_STEPS = 10
 TRANSFER_BF16_RTOL = 2e-2
 # D1-D3, data parallelism and ZeRO-1, stated before their first run. D1:
 # FT-Align (--fused_ffn block) through the CLI with --n_gpu 2 --dist_backend
@@ -967,9 +1023,10 @@ def _counter(entry):
     return entry if isinstance(entry, tuple) else (entry, "launches")
 
 
-# The CUDA graphs of the caption decode and the retrieval index
-# (utils/graphs.py:GraphCapture.capture, patched by main for the whole run
-# through LAUNCHES): a wrapper counts at a capture, where nothing launches,
+# The CUDA graphs of the caption decode, the retrieval index, the retrieval
+# evaluator and the training step (utils/graphs.py:GraphCapture.record,
+# patched by main for the whole run through LAUNCHES): a wrapper counts at a
+# capture, where nothing launches,
 # and not at a replay, where its kernel runs. LAUNCHES takes each capture's
 # counts off and adds them back at each replay of its graph, so that
 # read_launches gives the launches on the device.
@@ -3269,6 +3326,16 @@ def make_train_data(tmp: str, vocab: str, n_videos: int = TRAIN_VIDEOS):
     return files, ds
 
 
+def _step_route(out: str, want: str = "graph") -> str:
+    """The step route a CLI run recorded in its metrics.jsonl, required to
+    start with ``want``."""
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        [mesh] = [r for r in map(json.loads, f) if r["kind"] == "mesh"]
+    require(mesh["step_route"].startswith(want),
+            f"{out}: step_route {mesh['step_route']!r}, not {want!r}")
+    return mesh["step_route"]
+
+
 def _launches_per_step(route: str, dtype: str = "bfloat16") -> dict:
     """What one training step launches on a route: #2 in every layer's
     attention, forward and backward (in bf16 its tensor-core kernels, in f32
@@ -3320,6 +3387,7 @@ def phase_train(tmp: str, vocab: str, files, route: str = "ft_joint") -> dict:
     wall = time.perf_counter() - t0
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
+    loop_route = _step_route(out)
     with open(os.path.join(out, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     shown = [r for r in records if r["kind"] == "train"]
@@ -3334,11 +3402,13 @@ def phase_train(tmp: str, vocab: str, files, route: str = "ft_joint") -> dict:
     towers = (f"text {cfg.bert.num_hidden_layers} + visual {cfg.visual.num_hidden_layers}"
               + (f" + cross {cfg.cross.num_hidden_layers}" if route != "ft_joint" else ""))
     per_step = _launches_per_step(route)
-    print(f"{label} training (CLI, bf16, batch {TRAIN_BATCH}, {towers} layers): {steps} steps "
+    print(f"{label} training (CLI, bf16, batch {TRAIN_BATCH}, {towers} layers, step route "
+          f"{loop_route}: one train_steps call a step, replays from the second): {steps} steps "
           f"in {wall:.3f} s including set-up; steady {rate:.3f} clips/s over steps "
           f"{first['step']}-{last['step']} (host clock between synchronized display points); "
           f"peak device memory {(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} "
-          f"GiB held before the run; launches {counts}, per step {per_step}", flush=True)
+          f"GiB held before the run; launches (counted by replay) {counts}, per step "
+          f"{per_step}", flush=True)
     want = {**{k: 0 for k in KERNELS}, **{k: n * steps for k, n in per_step.items()}}
     require(counts == want, f"{label} launches {counts}, {steps} steps imply {want}")
     model = UniVL(cfg)
@@ -3401,49 +3471,6 @@ PROFILE_GROUPS = {  # label -> kernel-name needles, matched in this order
     "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
     "optimizer (foreach)": ("multi_tensor_apply", "foreach"),
 }
-
-
-def phase_train_profile(ds, tmp: str, route: str = "ft_joint") -> dict:
-    """torch.profiler over PROFILE_STEPS steady steps of the full training
-    step on a route (batches already on the card): device busy share, kernel
-    time by name, launches per step."""
-    align = route != "ft_joint"
-    cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
-                           batch_size_per_device=TRAIN_BATCH, train_sim_after_cross=align,
-                           use_fused_ffn="block" if route == "ft_align" else False)
-    model = UniVL(cfg, device="cuda")
-    model.load_state_dict(seeded_weights(cfg), strict=True)
-    return profile_training(model, ds, TRAIN_BATCH,
-                            os.path.join(tmp, f"train_trace_{route}.json"), TRAIN_ROUTES[route][0])
-
-
-def profile_training(model, ds, batch: int, trace: str, label: str) -> dict:
-    """torch.profiler over PROFILE_STEPS steps after PROFILE_WARMUP; prints
-    and returns the wall and busy ms a step and each group's kernel ms."""
-    from torch.profiler import ProfilerActivity, profile
-
-    opt = make_univl_optimizer(model, lr=3e-5, t_total=40, warmup_proportion=0.1, coef_lr=0.1)
-    trainer = Trainer(model, opt, seed=0)
-    batches = _train_batches(ds, PROFILE_WARMUP + PROFILE_STEPS, "cuda", batch)
-    for i in range(PROFILE_WARMUP):
-        trainer.train_step(batches[i], i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(PROFILE_WARMUP, PROFILE_WARMUP + PROFILE_STEPS):
-            trainer.train_step(batches[i], i)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events, busy_us = device_events(prof, trace, "train")
-    kernels = [e for e in events if e["cat"] == "kernel"]
-    text, groups = kernel_groups(kernels, PROFILE_STEPS)
-    print(f"profile {label} train step (profiler on, {PROFILE_STEPS} steps, "
-          f"batches on the card): wall {wall_ms / PROFILE_STEPS:.3f} ms a step; device busy "
-          f"{busy_us / 1e3 / PROFILE_STEPS:.3f} ms a step ({busy_us / 1e3 / wall_ms:.4f} of "
-          f"wall); {len(kernels) / PROFILE_STEPS:.1f} kernel launches a step; {text}",
-          flush=True)
-    return {"wall_ms": wall_ms / PROFILE_STEPS, "busy_ms": busy_us / 1e3 / PROFILE_STEPS,
-            "groups": groups}
 
 
 def kernel_groups(kernels, n_units: int):
@@ -3639,6 +3666,7 @@ def phase_caption_train(tmp: str, vocab: str, files) -> dict:
     wall = time.perf_counter() - t0
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
+    route = _step_route(out)
     with open(os.path.join(out, "metrics.jsonl")) as f:
         shown = [r for r in map(json.loads, f) if r["kind"] == "train"]
     for r in shown:
@@ -3656,11 +3684,11 @@ def phase_caption_train(tmp: str, vocab: str, files) -> dict:
     print(f"caption training (CLI, --fused_ln, bf16, batch {CAP_BATCH}, {CAP_WORDS} words, "
           f"{CAP_FRAMES} frames, text {cfg.bert.num_hidden_layers} + visual "
           f"{cfg.visual.num_hidden_layers} + cross {cfg.cross.num_hidden_layers} + decoder "
-          f"{cfg.decoder.num_decoder_layers} layers): {steps} steps in {wall:.3f} s including "
-          f"set-up; steady {rate:.3f} clips/s over steps {first['step']}-{last['step']} (host "
+          f"{cfg.decoder.num_decoder_layers} layers, step route {route}): {steps} steps in "
+          f"{wall:.3f} s including set-up; steady {rate:.3f} clips/s over steps {first['step']}-{last['step']} (host "
           f"clock between synchronized display points); peak device memory "
           f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held before the "
-          f"run; launches {counts}, per step {per_step}", flush=True)
+          f"run; launches (counted by replay) {counts}, per step {per_step}", flush=True)
     want = {**{k: 0 for k in KERNELS}, **{k: n * steps for k, n in per_step.items()}}
     require(counts == want, f"caption training launches {counts}, {steps} steps imply {want}")
     print(f"caption pytorch_model.bin.0: {len(sd)} tensors, loads with strict=True, all finite",
@@ -3718,13 +3746,11 @@ def _require_fused_cls_steps(counts: dict, what: str) -> None:
             f"{what}: launches {counts}, want #10t once and #9 {DECODER_LAYERS} times a step")
 
 
-def _graph_trainer(cfg, sd, accum: int = 1, mesh=None, fused_ln: bool = False) -> Trainer:
+def _graph_trainer(cfg, sd, accum: int = 1, mesh=None) -> Trainer:
     """A trainer of ``cfg`` on the card from the weights of ``sd`` it holds
-    (stage I's are a subset of stage II's): BertAdam, or on ``mesh`` ZeRO-1;
-    ``fused_ln`` routes its LayerNorms to #6."""
+    (stage I's are a subset of stage II's): BertAdam, or on ``mesh`` ZeRO-1."""
     model = UniVL(cfg, device="cuda")
     model.load_state_dict({k: sd[k] for k in model.state_dict()}, strict=True)
-    set_fused_layer_norm(model, fused_ln)
     opt = (make_univl_zero1_optimizer(model, mesh, **GRAPH_LR) if mesh is not None
            else make_univl_optimizer(model, **GRAPH_LR))
     return Trainer(model, opt, grad_accum_steps=accum, seed=0, mesh=mesh)
@@ -3740,6 +3766,13 @@ def _graph_bitwise(graph: Trainer, eager: Trainer, got: list, want: list) -> lis
     parameters, moments, step counts (empty when all is bitwise equal)."""
     off = [f"metric {k}" for k in want[0]
            if not torch.equal(torch.cat([g[k] for g in got]), torch.stack([w[k] for w in want]))]
+    return off + _state_differs(graph, eager)
+
+
+def _state_differs(graph: Trainer, eager: Trainer) -> list:
+    """The step counts, parameters and moments that differ between two
+    trainers (empty when all are bitwise equal)."""
+    off = []
     if graph.optimizer.steps != eager.optimizer.steps:
         off.append(f"steps {graph.optimizer.steps} against {eager.optimizer.steps}")
     for (name, p), q in zip(graph.model.named_parameters(), eager.model.parameters()):
@@ -3752,15 +3785,6 @@ def _graph_bitwise(graph: Trainer, eager: Trainer, got: list, want: list) -> lis
         off += [f"ZeRO-1 {k}" for k in ("m", "v", "master")
                 if not torch.equal(getattr(graph.optimizer, k), getattr(eager.optimizer, k))]
     return off
-
-
-def _window(fn, steps: int, batch: int) -> float:
-    """clips/s of fn() over ``steps`` steps of ``batch`` clips, synchronized."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return steps * batch / (time.perf_counter() - t0)
 
 
 # the kernels of #2, #4 and #5 by name (bf16): a replayed step must launch as
@@ -3847,29 +3871,47 @@ def _profiled_text(r: dict) -> str:
             f"({r['share']:.4f} of wall), {launches}")
 
 
-def phase_train_steps(ds, cap_ds) -> dict:
+def _profile_routes(phase: str, label: str, replayed, eager, k: int) -> tuple:
+    """``replayed(j, attempt)`` (k replayed steps) and ``eager(j, attempt)``
+    (one eager step) profiled by ``_profiled_steps``, up to PROFILE_ATTEMPTS
+    times, until #2's, #4's and #5's kernels by name come out as many a step
+    in both (each name's largest count over the profiles), which is
+    required; returns (the last profiles, those counts, the attempt)."""
+    named = {"replayed": {}, "eager": {}}  # each name's largest count so far
+    for attempt in range(PROFILE_ATTEMPTS):
+        prof = {"replayed": _profiled_steps(lambda j: replayed(j, attempt), k,
+                                            f"{phase} {label} replayed"),
+                "eager": _profiled_steps(lambda j: eager(j, attempt), 1,
+                                         f"{phase} {label} eager")}
+        for side, r in prof.items():
+            if r["named"] is not None:
+                named[side] = {n: max(c / (k if side == "replayed" else 1), named[side].get(n, 0))
+                               for n, c in r["named"].items()}
+        if named["eager"] and named["replayed"] == named["eager"]:
+            break
+        print(f"{phase} {label}: #2's, #4's and #5's kernels a step, replayed "
+              f"{named['replayed']} against eager {named['eager']} after profile {attempt + 1} "
+              f"(records short of each profile's fullest run: replayed "
+              f"{prof['replayed']['lost']}, eager {prof['eager']['lost']}; None: runs not told "
+              f"apart); profiled again", flush=True)
+    require(named["replayed"] == named["eager"] and all(named["eager"].get(n, 0) > 0 for n in (
+        TRACE_NAMES["train_attention_fwd"] + TRACE_NAMES["train_attention_bwd"])),
+        f"{phase} {label}: #2's, #4's and #5's kernels a step, replayed {named['replayed']} "
+        f"against eager {named['eager']}")
+    return prof, named, attempt
+
+
+def phase_train_steps(ds) -> dict:
     """K1: Trainer.train_steps on its CUDA-graph route against the eager
-    loop, on FT-Joint, FT-Align's block route and caption fine-tuning with
-    --fused_ln; returns each route's launches (the calls captured)."""
-    by_path = {}
+    loop on FT-Joint at K1_K; returns the launches (counted by replay)."""
+    cfg = UniVLConfig.base(max_words=48, max_frames=48, compute_dtype="bfloat16",
+                           batch_size_per_device=TRAIN_BATCH)
+    require(cfg.bert.hidden_dropout_prob == 0.1, f"K1: dropout {cfg.bert}")
     with deterministic_mode():
-        for label, (flags, k, data) in K1_ROUTES.items():
-            caption = data == "caption"
-            batch = CAP_BATCH if caption else TRAIN_BATCH
-            words, frames = (CAP_WORDS, CAP_FRAMES) if caption else (48, 48)
-            cfg = UniVLConfig.base(max_words=words, max_frames=frames, compute_dtype="bfloat16",
-                                   batch_size_per_device=batch, **flags)
-            require(cfg.bert.hidden_dropout_prob == 0.1, f"K1 {label}: dropout {cfg.bert}")
-            per_step = (_caption_launches_per_step(UniVL(cfg, device="meta")) if caption else
-                        _launches_per_step("ft_align" if flags else "ft_joint"))
-            r = _graph_route("K1", f"{label}, {words} words, {frames} frames", cfg,
-                             seeded_weights(cfg),
-                             _train_batches(cap_ds if caption else ds, 2 * k, "cuda", batch),
-                             per_step, fused_ln=caption)
-            _graph_windows("K1", label, r, K1_PAIRS)
-            by_path[f"train_steps_{label.split(' ')[0].lower().replace('-', '_')}"] = r["counts"]
-            del r
-    return by_path
+        r = _graph_route("K1", "FT-Joint, 48 words, 48 frames", cfg, seeded_weights(cfg),
+                         _train_batches(ds, 2 * K1_K, "cuda", TRAIN_BATCH),
+                         _launches_per_step("ft_joint"))
+    return {"train_steps_ft_joint": r["counts"]}
 
 
 def make_msrvtt_data(tmp: str):
@@ -4042,28 +4084,6 @@ def phase_retrieval_agreement(vocab: str, files) -> None:
                 f"card similarity ({mode}) shape {card.shape}")
         require(err <= limit, f"retrieval agreement ({mode}): max |dsim| {err} > {limit}")
         require(m_card == m_cpu, f"retrieval agreement ({mode}): metrics differ")
-
-
-def phase_caption_profile(ds, tmp: str) -> None:
-    """The caption step under torch.profiler at full width in bf16, with every
-    LayerNorm on #6 and on PyTorch's ops (the same weights and batches)."""
-    cfg = _caption_cfg(compute_dtype="bfloat16", batch_size_per_device=CAP_BATCH)
-    sd = seeded_weights(cfg)
-    res = {}
-    for fused in (True, False):
-        model = UniVL(cfg, device="cuda")
-        model.load_state_dict(sd, strict=True)
-        set_fused_layer_norm(model, fused)
-        label = f"caption ({'--fused_ln' if fused else 'PyTorch LayerNorm'})"
-        res[fused] = profile_training(model, ds, CAP_BATCH,
-                                      os.path.join(tmp, "caption_trace.json"), label)
-        del model
-        torch.cuda.empty_cache()
-    ln = sum(res[True]["groups"].get(g, 0.0) for g in ("#6 forward", "#6 backward"))
-    print(f"caption step with --fused_ln vs without: wall {res[True]['wall_ms']:.3f} vs "
-          f"{res[False]['wall_ms']:.3f} ms, device busy {res[True]['busy_ms']:.3f} vs "
-          f"{res[False]['busy_ms']:.3f} ms a step; #6 {ln:.3f} ms a step "
-          f"({ln / res[True]['busy_ms']:.4f} of the busy time)", flush=True)
 
 
 def phase_caption_agreement(ds, f32_launches: dict) -> None:
@@ -4316,6 +4336,7 @@ def phase_pretrain(tmp: str, vocab: str, files, stage: int, init: str = None):
     wall = time.perf_counter() - t0
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
+    route = _step_route(out)
     shown = _train_losses(out)
     names = [k for k in shown[0] if "loss" in k]
     for r in shown:
@@ -4328,11 +4349,11 @@ def phase_pretrain(tmp: str, vocab: str, files, stage: int, init: str = None):
     # steady rate leaves out the interval over the epoch's end (its saves)
     inside = [(a, b) for a, b in zip(shown, shown[1:]) if a["epoch"] == b["epoch"]]
     rate = len(inside) * clips * accum / sum(b["ts"] - a["ts"] for a, b in inside)
-    print(f"pretraining stage {'I' * stage}: {steps} steps in {wall:.3f} s including set-up and "
-          f"the epoch-end saves; steady {rate:.3f} clips/s ({rate * PRE_PAIRS:.3f} pairs/s) over "
+    print(f"pretraining stage {'I' * stage} (step route {route}): {steps} steps in {wall:.3f} s "
+          f"including set-up and the epoch-end saves; steady {rate:.3f} clips/s ({rate * PRE_PAIRS:.3f} pairs/s) over "
           f"the steps within an epoch (host clock between synchronized display points); peak "
           f"device memory {(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held "
-          f"before the run; launches {counts}", flush=True)
+          f"before the run; launches (counted by replay) {counts}", flush=True)
     want = {**{k: 0 for k in KERNELS}, **{k: n * steps for k, n in per_step.items()}}
     require(counts == want, f"pretraining stage {stage} launches {counts}, {steps} steps imply "
                             f"{want}")
@@ -4355,18 +4376,6 @@ def _pretrain_dataset(files, vocab: str, stage: int = 2) -> HowTo100MPretrainDat
         max_words=PRE_WORDS, max_frames=PRE_FRAMES, min_time=5.0, n_pair=PRE_PAIRS,
         only_sim=stage == 1, sampled_use_mil=True, pretrain_enhance_vmodal=stage == 2,
         video_dim=1024, seed=0)
-
-
-def phase_pretrain_profile(files, vocab: str, tmp: str) -> None:
-    """torch.profiler over PROFILE_STEPS stage-II micro-steps at full width,
-    bf16, --fused_ffn block, batches on the card."""
-    cfg = _pretrain_cfg(2, compute_dtype="bfloat16", batch_size_per_device=PRE2_CLIPS,
-                        use_fused_ffn="block")
-    model = UniVL(cfg, device="cuda")
-    model.load_state_dict(seeded_weights(cfg), strict=True)
-    profile_training(model, _pretrain_dataset(files, vocab), PRE2_CLIPS,
-                     os.path.join(tmp, "pretrain_trace.json"),
-                     f"pretraining stage II ({PRE2_CLIPS} clips x {PRE_PAIRS} pairs)")
 
 
 def _state_diff(a: str, b: str) -> dict:
@@ -4645,17 +4654,17 @@ def _k2_steps(ds, n: int, clips: int, accum: int) -> list:
             for i in range(0, len(micro), accum)]
 
 
-def _graph_route(phase: str, label: str, cfg, sd, steps: list, per_step: dict, mesh=None,
-                 fused_ln: bool = False) -> dict:
+def _graph_route(phase: str, label: str, cfg, sd, steps: list, per_step: dict,
+                 mesh=None) -> dict:
     """One route of K1 or K2 (``phase``), in the caller's deterministic
     mode: two train_steps calls of K = len(steps) / 2 (the first runs the
     eager step and the capture, the second replays) against 2K train_step
-    calls of another trainer, bitwise; the wrappers' counts twice
-    ``per_step``; PROFILE_RUNS more calls and eager steps profiled (up to
-    PROFILE_ATTEMPTS times), #2's, #4's and #5's kernels as many a step in
-    both. Prints clips/s of the second call and of the last K eager steps
-    (the first pair of windows), peak memory and the profiles; returns both
-    trainers, their batches, those rates and the counts."""
+    calls of another trainer, bitwise; the wrappers' counts by replay 2K
+    times ``per_step``; PROFILE_RUNS more calls and eager steps profiled
+    (``_profile_routes``), #2's, #4's and #5's kernels as many a step in
+    both. Prints clips/s of the second call and of the last K eager steps,
+    peak memory and the profiles; returns both trainers, their batches,
+    those rates and the counts."""
     k, accum = len(steps) // 2, steps[0]["video"].shape[0]
     clips = steps[0]["video"].shape[1] * accum
     stacks = [_stacked(steps[:k]), _stacked(steps[k:])]
@@ -4672,7 +4681,7 @@ def _graph_route(phase: str, label: str, cfg, sd, steps: list, per_step: dict, m
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    graph = _graph_trainer(cfg, sd, accum, mesh, fused_ln)
+    graph = _graph_trainer(cfg, sd, accum, mesh)
     got = [graph.train_steps(stacks[0], 0)]
     second, graph_rate = timed(lambda: graph.train_steps(stacks[1], k))
     got.append(second)
@@ -4680,7 +4689,7 @@ def _graph_route(phase: str, label: str, cfg, sd, steps: list, per_step: dict, m
     peak_graph = torch.cuda.max_memory_allocated() - held
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eager = _graph_trainer(cfg, sd, accum, mesh, fused_ln)
+    eager = _graph_trainer(cfg, sd, accum, mesh)
     want = [eager.train_step(steps[i], i) for i in range(k)]
     last, eager_rate = timed(lambda: [eager.train_step(steps[i], i) for i in range(k, 2 * k)])
     want += last
@@ -4690,36 +4699,18 @@ def _graph_route(phase: str, label: str, cfg, sd, steps: list, per_step: dict, m
     require(not off, f"{phase} {label}: train_steps is not bitwise the train_step loop: {off[:8]} "
                      f"({len(off)} differ); losses {losses} against "
                      f"{[round(float(w['loss']), 6) for w in want]}")
-    want_counts = {**{n: 0 for n in KERNELS}, **{n: 2 * c for n, c in per_step.items()}}
+    # counted by replay: the eager step and each replay, never the capture
+    want_counts = {**{n: 0 for n in KERNELS}, **{n: 2 * k * c for n, c in per_step.items()}}
     require(counts == want_counts, f"{phase} {label}: launches {counts}, want {want_counts}")
-    named = {"replayed": {}, "eager": {}}  # each name's largest count so far
-    for attempt in range(PROFILE_ATTEMPTS):
-        first = 2 * k + attempt * PROFILE_RUNS * k
-        prof = {"replayed": _profiled_steps(lambda j: graph.train_steps(stacks[0], first + j * k),
-                                            k, f"{phase} {label} train_steps"),
-                "eager": _profiled_steps(lambda j: eager.train_step(steps[j], first + j), 1,
-                                         f"{phase} {label} train_step")}
-        for side, r in prof.items():
-            if r["named"] is not None:
-                named[side] = {n: max(c / (k if side == "replayed" else 1), named[side].get(n, 0))
-                               for n, c in r["named"].items()}
-        if named["eager"] and named["replayed"] == named["eager"]:
-            break
-        print(f"{phase} {label}: #2's, #4's and #5's kernels a step, replayed "
-              f"{named['replayed']} against eager {named['eager']} after profile {attempt + 1} "
-              f"(records short of each profile's fullest run: replayed "
-              f"{prof['replayed']['lost']}, eager {prof['eager']['lost']}; None: runs not told "
-              f"apart); profiled again", flush=True)
-    require(named["replayed"] == named["eager"] and all(named["eager"].get(n, 0) > 0 for n in (
-        TRACE_NAMES["train_attention_fwd"] + TRACE_NAMES["train_attention_bwd"])),
-        f"{phase} {label}: #2's, #4's and #5's kernels a step, replayed {named['replayed']} "
-        f"against eager {named['eager']}")
+    prof, named, attempt = _profile_routes(
+        phase, label, lambda j, a: graph.train_steps(stacks[0], 2 * k + (a * PROFILE_RUNS + j) * k),
+        lambda j, a: eager.train_step(steps[j], 2 * k + a * PROFILE_RUNS + j), k)
     state = "both moments" + (", the f32 master" if mesh is not None else "")
     print(f"{phase} train_steps, {label} (bf16, {clips} clips a step, accumulation {accum}, "
           f"K = {k}, dropout 0.1, deterministic mode): two calls bitwise {2 * k} train_step "
           f"calls (losses {losses}; every metric, all {len(list(graph.model.parameters()))} "
-          f"parameters, {state}, steps {2 * k}); the wrappers counted the eager step and the "
-          f"capture, {per_step} each; clips/s of the second call (replays) "
+          f"parameters, {state}, steps {2 * k}); the wrappers' counts by replay {per_step} "
+          f"a step; clips/s of the second call (replays) "
           f"{graph_rate:.3f} against the last {k} train_step calls {eager_rate:.3f}; peak "
           f"device memory {peak_graph / 2**30:.3f} GiB (train_steps: the eager step, the "
           f"capture and the graph's pool) against {peak_eager / 2**30:.3f} GiB (train_step); "
@@ -4731,33 +4722,6 @@ def _graph_route(phase: str, label: str, cfg, sd, steps: list, per_step: dict, m
     return {"graph": graph, "eager": eager, "stacks": stacks, "steps": steps, "k": k,
             "clips": clips, "counts": counts,
             "rates": {"train_steps": [graph_rate], "train_step": [eager_rate]}}
-
-
-def _graph_windows(phase: str, label: str, r: dict, pairs: int) -> None:
-    """``pairs`` alternating pairs of windows, one train_steps call of K
-    against K train_step calls: a route's bitwise calls (train_steps first,
-    ``_graph_route``'s rates), then after its profiled steps the others."""
-    graph, eager, k, clips, rates = r["graph"], r["eager"], r["k"], r["clips"], r["rates"]
-    step_g, step_e = graph.optimizer.steps, eager.optimizer.steps
-    for pair in range(1, pairs):
-        for mode in (("train_steps", "train_step") if pair % 2 == 0
-                     else ("train_step", "train_steps")):
-            if mode == "train_steps":
-                rates[mode].append(_window(
-                    lambda: graph.train_steps(r["stacks"][pair % 2], step_g), k, clips))
-                step_g += k
-            else:
-                def loop(first=step_e):
-                    for i in range(k):
-                        eager.train_step(r["steps"][(pair % 2) * k + i], first + i)
-                rates[mode].append(_window(loop, k, clips))
-                step_e += k
-    med = {m: float(np.median(v)) for m, v in rates.items()}
-    print(f"{phase} train_steps, {label}: {pairs} alternating pairs of windows of {k} steps, "
-          f"clips/s train_steps {[round(x, 3) for x in rates['train_steps']]} median "
-          f"{med['train_steps']:.3f}, train_step {[round(x, 3) for x in rates['train_step']]} "
-          f"median {med['train_step']:.3f} ({med['train_steps'] / med['train_step']:.3f}x)",
-          flush=True)
 
 
 @torch.no_grad()
@@ -4817,10 +4781,10 @@ def _k2_default(label: str, cfg, sd, steps: list) -> None:
 def phase_train_steps_k2(configs: dict, pre_files, vocab: str) -> dict:
     """K2: train_steps on the routes K1 left out, from R1's seeded weights
     and datasets: FT-Align block with --remat and with "dots", pretraining
-    stage I (P1's micro-step and accumulation) and stage II (P2's) without
-    and with --remat, bitwise the eager loop in deterministic mode; stage
-    II's windows; FT-Align block and stage II in the default mode. Returns
-    the deterministic routes' launches by path (ZeRO-1 runs in D3)."""
+    stage I (P1's micro-step and accumulation) and stage II (P2's) with
+    --remat, bitwise the eager loop in deterministic mode; FT-Align block
+    in the default mode. Returns the deterministic routes' launches by path
+    (ZeRO-1 runs in D3)."""
     align_cfg, ds, align_clips, align_sd = configs["FT-Align"]
     pre2_cfg, pre2_ds, pre2_clips, pre2_sd = configs["stage II"]
     align = _k2_steps(ds, 2 * K2_ALIGN_K, align_clips, 1)
@@ -4840,18 +4804,363 @@ def phase_train_steps_k2(configs: dict, pre_files, vocab: str) -> dict:
             _pretrain_launches_per_step(1))
         by_path["train_steps_pretrain_stage_one"] = r.pop("counts")
         del r, pre1
-        for remat in (False, True):
-            cfg = pre2_cfg.replace(remat=remat)
-            label = f"pretraining stage II ({REMAT_FLAGS[remat]})"
-            per_step = {n: c * K2_PRE2_ACCUM for n, c in _remat_launches(cfg, remat).items()}
-            r = _graph_route("K2", label, cfg, pre2_sd, pre2, per_step)
-            by_path[f"train_steps_pretrain_stage_two_remat_{remat}"] = r.pop("counts")
-            _graph_windows("K2", label, r, K2_PAIRS)
-            del r
+        cfg = pre2_cfg.replace(remat=True)  # without remat: L1, through the CLI
+        per_step = {n: c * K2_PRE2_ACCUM for n, c in _remat_launches(cfg, True).items()}
+        r = _graph_route("K2", f"pretraining stage II ({REMAT_FLAGS[True]})", cfg, pre2_sd, pre2,
+                         per_step)
+        by_path["train_steps_pretrain_stage_two_remat_True"] = r.pop("counts")
+        del r
     _k2_default("FT-Align (--fused_ffn block)", align_cfg, align_sd, align[:K2_ALIGN_K])
-    _k2_default("pretraining stage II", pre2_cfg, pre2_sd, pre2[:K2_PRE2_K])
     torch.cuda.empty_cache()
     return by_path
+
+
+@contextlib.contextmanager
+def _kept_loop():
+    """cli.common.run_train_epochs patched to keep what a CLI run gives it
+    (args, trainer, batcher, logger) and a graph=False twin of its trainer:
+    cli.common.make_trainer over a copy of the model, taken before the
+    first step."""
+    kept = {}
+    real = cli_common.run_train_epochs
+
+    def keep(args, trainer, batcher, logger, device, **kw):
+        twin = cli_common.make_trainer(args, copy.deepcopy(trainer.model), len(batcher), logger)
+        twin.graph = False
+        kept.update(args=args, trainer=trainer, batcher=batcher, logger=logger, twin=twin)
+        return real(args, trainer, batcher, logger, device, **kw)
+
+    cli_common.run_train_epochs = keep
+    try:
+        yield kept
+    finally:
+        cli_common.run_train_epochs = real
+
+
+def _l1_run(cli: str, extra: list, tmp: str, vocab: str, data: dict, out: str) -> tuple:
+    """A route's CLI run (one epoch, every step displayed, no train state
+    kept but pretraining's): (the CLI's main, its argv, the launches of a
+    step)."""
+    if cli == "retrieval":
+        csv, feats_data, feats = data["retrieval"]
+        argv = ["--do_train", "--device", "cuda", "--datatype", "youcook", "--vocab_file", vocab,
+                "--train_csv", csv, "--data_path", feats_data, "--features_path", feats,
+                "--output_dir", out, *TRAIN_FLAGS, *extra]
+        if "--train_sim_after_cross" in extra:  # an eval after the epoch, beside the graphs
+            argv += ["--do_eval", "--val_csv", data["val"], "--batch_size_val", "16"]
+        per_step = _launches_per_step("ft_align" if extra else "ft_joint")
+        main = task_retrieval.main
+    elif cli == "caption":
+        train_csv, val_csv, feats_data, feats = data["caption"]
+        argv = ["--do_train", "--device", "cuda", "--stage_two", "--datatype", "youcook",
+                "--vocab_file", vocab, "--train_csv", train_csv, "--val_csv", val_csv,
+                "--data_path", feats_data, "--features_path", feats, "--output_dir", out,
+                *CAP_FLAGS, "--fused_ln", *extra]
+        per_step = _caption_launches_per_step(UniVL(_caption_cfg(), device="meta"))
+        main = task_caption.main
+    else:
+        argv = _pretrain_argv(data["pretrain"], vocab, out, 2, "--batch_size",
+                              str(PRE2_CLIPS * L1_PRE2_ACCUM), "--gradient_accumulation_steps",
+                              str(L1_PRE2_ACCUM), "--epochs", "1", *extra)
+        per_step = {n: c * L1_PRE2_ACCUM
+                    for n, c in _remat_launches(_pretrain_cfg(2), False).items()}
+        main = pretrain.main
+    return main, argv + ["--n_display", "1", "--no_preempt_checkpoint"], per_step
+
+
+class _Timed:
+    """``obj`` whose method ``name`` is timed on the host into ``seconds``;
+    its other attributes are ``obj``'s."""
+
+    def __init__(self, obj, name: str, seconds: list):
+        self.obj, self.seconds = obj, seconds
+        setattr(self, name, self._timed(getattr(obj, name)))
+
+    def __getattr__(self, attr):
+        return getattr(self.obj, attr)
+
+    def _timed(self, fn):
+        def timed(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+
+def _l1_window(kept: dict, trainer: Trainer, steps: int, display: int, out: str) -> tuple:
+    """One CLI window: run_train_epochs with the run's args and batcher over
+    ``steps`` update-batches (ended by --inject_crash_after, which saves
+    nothing), displayed every ``display``: (clips/s between the first and
+    the last display point, the host's seconds of each train_steps call)."""
+    args = copy.copy(kept["args"])
+    args.output_dir, args.n_display, args.epochs = out, display, 1
+    args.inject_crash_after, args.inject_preempt_after, args.checkpoint_every_steps = steps, 0, 0
+    args.load_checkpoint, args.no_preempt_checkpoint = False, True
+    host, inner = [], trainer.train_steps
+
+    def timed(batches, first_step):
+        t0 = time.perf_counter()
+        out = inner(batches, first_step)
+        host.append(time.perf_counter() - t0)
+        return out
+
+    trainer.train_steps = timed
+    try:
+        cli_common.run_train_epochs(args, trainer, kept["batcher"], kept["logger"],
+                                    torch.device("cuda"))
+        raise RuntimeError(f"L1: a window of {steps} steps ran to its epoch's end")
+    except RuntimeError as e:
+        require("injected crash" in str(e), f"L1 window: {e}")
+    finally:
+        del trainer.train_steps  # the class's again
+    _step_route(out, "eager: graph=False" if trainer.graph is False else "graph")
+    shown = _train_losses(out)
+    require(len(shown) == steps // display and len(shown) >= 2,
+            f"L1 window: display points {[r['step'] for r in shown]}")
+    clips = args.batch_size * args.gradient_accumulation_steps
+    rate = (shown[-1]["step"] - shown[0]["step"]) * clips / (shown[-1]["ts"] - shown[0]["ts"])
+    return rate, host
+
+
+def _l1_route(label: str, cli: str, extra: list, window: tuple, tmp: str, vocab: str,
+              data: dict) -> dict:
+    """One L1 route (its constants' comment): returns the CLI run's launches."""
+    steps_w, display, pairs = window
+    out = os.path.join(tmp, f"l1_{cli}{'_align' if extra else ''}")
+    main, argv, per_step = _l1_run(cli, extra, tmp, vocab, data, out)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _kept_loop() as kept:
+        result = main(argv)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() - held
+    steps = result[0]
+    trainer, twin, args = kept["trainer"], kept["twin"], kept["args"]
+    route = _step_route(out)
+    shown = _train_losses(out)
+    # the twin: train_step over the batcher's epoch, the batches as the CLI moves them
+    accum = args.gradient_accumulation_steps
+    reset_launches()
+    want, kept_batches = [], []
+    for b in kept["batcher"].epoch(0):
+        batch = {k: torch.from_numpy(v if accum > 1 else v[None]).to("cuda") for k, v in b.items()}
+        want.append({k: float(v) for k, v in twin.train_step(batch, len(want)).items()})
+        if len(kept_batches) < PROFILE_RUNS:
+            kept_batches.append(batch)
+    twin_counts = read_launches()
+    done = trainer.optimizer.steps
+    evaluated, eval_counts = "", {n: 0 for n in KERNELS}
+    if "--do_eval" in argv:  # the per-epoch eval read the weights the replays updated
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            [metrics] = [r for r in map(json.loads, f) if r["kind"] == "eval"]
+        tok = WordPieceTokenizer(vocab, do_lower_case=args.do_lower_case)
+        ds = task_retrieval.build_datasets(args, tok)[1]  # the CLI's eval set
+        reset_launches()
+        eager = RetrievalEvaluator(twin.model, batch_size=args.batch_size_val,
+                                   graph=False).evaluate(
+            task_retrieval.eval_batches(ds, args.batch_size_val))
+        eval_counts = read_launches()
+        keys = ("R1", "R5", "R10", "MR", "MeanR")
+        require(all(metrics[k] == eager[k] for k in keys),
+                f"L1 {label}: the CLI's eval {metrics} against the twin's graph=False {eager}")
+        evaluated = (f"; its eval after the epoch (evaluator graphs beside the step's; "
+                     f"{len(ds)} clips, cross) {[metrics[k] for k in keys]}, the twin's weights "
+                     f"through graph=False the same, its launches by replay those of "
+                     f"graph=False, { {k: v for k, v in eval_counts.items() if v} }")
+    got = [{k: r[k] for k in w} for r, w in zip(shown, want)]
+    saved = torch.load(os.path.join(out, "pytorch_model.bin.0"), weights_only=True)
+    off = [f"pytorch_model.bin.0 {k}" for k, v in twin.model.state_dict().items()
+           if not torch.equal(saved[k], v.cpu())] + _state_differs(trainer, twin)
+    require(steps == len(want) == len(shown) and got == want and not off,
+            f"L1 {label}: the CLI's graph route is not bitwise the graph=False loop: {steps} "
+            f"steps against {len(want)}; displayed {got[:3]} against {want[:3]}; {off[:8]} "
+            f"({len(off)} differ)")
+    step_counts = {**{n: 0 for n in KERNELS}, **{n: steps * c for n, c in per_step.items()}}
+    require(twin_counts == step_counts and trainer.capturer.captures == 1
+            and len(trainer._graphs) == 1
+            and counts == {n: c + eval_counts[n] for n, c in step_counts.items()},
+            f"L1 {label}: launches by replay {counts}, graph=False {twin_counts} (and its eval "
+            f"{eval_counts}), {steps} steps imply {step_counts}; {trainer.capturer.captures} "
+            f"captures")
+    stacks = [{k: v[None] for k, v in b.items()} for b in kept_batches]
+    prof, named, attempt = _profile_routes(
+        "L1", label, lambda j, a: trainer.train_steps(stacks[j], 10_000 + a * PROFILE_RUNS + j),
+        lambda j, a: twin.train_step(kept_batches[j], 10_000 + a * PROFILE_RUNS + j), 1)
+    print(f"L1 {label} (CLI, bf16, {args.batch_size * accum} clips a step, accumulation "
+          f"{accum}, deterministic mode; step route {route}): {steps} steps bitwise a "
+          f"graph=False twin's train_step loop over the same batches (every displayed metric, "
+          f"pytorch_model.bin.0, all {len(list(trainer.model.parameters()))} parameters, both "
+          f"moments, steps {done}); losses "
+          f"{[round(w['loss'], 6) for w in want]}; {trainer.capturer.captures} capture "
+          f"({trainer.capturer.seconds:.3f} s with the eager step); launches by replay "
+          f"{ {k: v for k, v in counts.items() if v} }, {per_step} a step, the twin's the same; "
+          f"peak device memory of the run {peak / 2**30:.3f} GiB above the "
+          f"{held / 2**30:.3f} held before{evaluated}; profiled ({attempt + 1} profiles, the "
+          f"last): a replayed step {_profiled_text(prof['replayed'])}, an eager step "
+          f"{_profiled_text(prof['eager'])}; #2's, #4's and #5's kernels a step the same in both, "
+          f"{named['eager']}", flush=True)
+    # the host's work in a graph window's train_steps calls, by part
+    [key] = trainer._graphs
+    entry, parts = trainer._graphs[key], {"replay": [], "seeds": [], "wait": []}
+    trainer._graphs[key] = entry._replace(
+        graph=_Timed(entry.graph, "replay", parts["replay"]),
+        pool=[_Timed(g, "manual_seed", parts["seeds"]) for g in entry.pool],
+        copied=_Timed(entry.copied, "synchronize", parts["wait"]))
+    windows = data["windows"].get(cli)  # else the run's own epoch
+    if windows is not None:
+        kept["batcher"] = cli_common.make_batcher(args, windows, dp_mesh.Mesh())
+    rates, host = {"graph": [], "graph=False": []}, []
+    try:
+        for pair in range(pairs):
+            for name in (("graph", "graph=False") if pair % 2 == 0 else ("graph=False", "graph")):
+                rate, calls = _l1_window(kept, trainer if name == "graph" else twin, steps_w,
+                                         display, os.path.join(out, f"window{pair}_{name}"))
+                rates[name].append(rate)
+                if name == "graph":
+                    host += calls
+    finally:
+        trainer._graphs[key] = entry
+    per_call = {k: 1e3 * sum(v) / len(host) for k, v in parts.items()}
+    stack = stacks[0]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        trainer._addresses()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        trainer._graph_key(stack)
+    t2 = time.perf_counter()
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    print(f"L1 {label}: {pairs} alternating pair(s) of CLI windows of {steps_w} steps "
+          f"(run_train_epochs, a display point every {display}, deterministic mode), clips/s "
+          f"graph route {[round(x, 3) for x in rates['graph']]} median {med['graph']:.3f}, "
+          f"graph=False {[round(x, 3) for x in rates['graph=False']]} median "
+          f"{med['graph=False']:.3f} ({med['graph'] / med['graph=False']:.3f}x); the host's ms "
+          f"a train_steps call of K = 1 on the graph route: median "
+          f"{1e3 * float(np.median(host)):.3f}, mean {1e3 * float(np.mean(host)):.3f} over "
+          f"{len(host)} calls; of it a call's replay launch {per_call['replay']:.3f}, the "
+          f"generators' seeds {per_call['seeds']:.3f} ({len(entry.pool)} generators), the wait "
+          f"for the last replay's copies out of the pinned staging (the host held to a replay "
+          f"or two ahead) {per_call['wait']:.3f}, the state's addresses "
+          f"{1e3 * (t1 - t0) / 20:.3f}, the graph's key {1e3 * (t2 - t1) / 20:.3f}; the rest "
+          f"the key table's derivation, the batch and staging copies and the metrics' clones",
+          flush=True)
+    shutil.rmtree(out)
+    return counts
+
+
+def _head_csv(csv: str, n: int, path: str) -> str:
+    """A csv of ``csv``'s first ``n`` rows, at ``path``."""
+    with open(csv) as f:
+        header, *rows = f.read().splitlines()
+    with open(path, "w") as f:
+        f.write("\n".join([header, *rows[:n]]) + "\n")
+    return path
+
+
+def phase_cli_graphs(tmp: str, vocab: str, files, ds, cap_files, cap_ds, pre_files) -> dict:
+    """L1 (the comment at L1_ROUTES) over the first videos of phase 10's
+    ``files`` and phase 16's ``cap_files``, its windows over ``ds`` and
+    ``cap_ds``: returns each route's launches by path."""
+    data = {"retrieval": (_head_csv(files[0], L1_VIDEOS, os.path.join(tmp, "l1_train.csv")),
+                          *files[1:]),
+            "val": _head_csv(files[0], L1_VAL_VIDEOS, os.path.join(tmp, "l1_val.csv")),
+            "caption": (_head_csv(cap_files[0], L1_CAP_VIDEOS,
+                                  os.path.join(tmp, "l1_caption.csv")), *cap_files[1:]),
+            "pretrain": pre_files, "windows": {"retrieval": ds, "caption": cap_ds}}
+    by_path = {}
+    with deterministic_mode():
+        for label, (cli, extra, *window) in L1_ROUTES.items():
+            name = label.split(" (")[0].lower().replace("-", "_").replace(" ", "_")
+            by_path[f"cli_graph_{name}"] = _l1_route(label, cli, extra, tuple(window), tmp,
+                                                     vocab, data)
+            torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_eval_graphs(vocab: str, files) -> dict:
+    """I2 (the comment at I2_CLIPS): returns the graph route's launches."""
+    _, test_csv, _, feats = files
+    cfg = UniVLConfig.base(max_words=MAX_WORDS, max_frames=48, train_sim_after_cross=True,
+                           compute_dtype="bfloat16")
+    model = UniVL(cfg, device="cuda")
+    model.load_state_dict(seeded_weights(cfg), strict=True)
+    model.eval()
+    ds = MsrvttRetrievalEvalDataset(test_csv, feats, WordPieceTokenizer(vocab),
+                                    max_words=MAX_WORDS, max_frames=48, seed=0)
+    batches = [collate([ds[i] for i in range(j, min(j + EVAL_BATCH, I2_CLIPS))])
+               for j in range(0, I2_CLIPS, EVAL_BATCH)]
+    evs = {"graph": RetrievalEvaluator(model, batch_size=EVAL_BATCH),
+           "graph=False": RetrievalEvaluator(model, batch_size=EVAL_BATCH, graph=False)}
+    require(evs["graph"].graph and not evs["graph=False"].graph, "I2: the evaluators' routes")
+    layers = cfg.bert.num_hidden_layers + cfg.visual.num_hidden_layers
+    tb, vb = evs["graph"].tb, evs["graph"].vb
+    want = {**{k: 0 for k in KERNELS}, "eval_attention": 2 * len(batches) * layers
+            + -(-I2_CLIPS // tb) * -(-I2_CLIPS // vb) * cfg.cross.num_hidden_layers}
+    out, counts = {}, {}
+    with deterministic_mode():
+        for name, ev in evs.items():
+            reset_launches()
+            joint = ev.joint_sim_matrix(ev.encode_dataset(iter(batches), store_full=False))
+            cross = ev.cross_sim_matrix_device(ev.encode_dataset_device(iter(batches)))
+            counts[name] = read_launches()
+            host = ev.cross_sim_matrix(ev.encode_dataset(iter(batches), store_full=True))
+            out[name] = {"joint": joint, "cross": cross, "host tiles": host}
+        g = evs["graph"]
+        captures, replays = g.capturer.captures, dict(g.replays)
+        reset_launches()
+        again = g.cross_sim_matrix_device(g.encode_dataset_device(iter(batches)))
+        again_counts = read_launches()
+    off = [k for k in out["graph"] if not np.array_equal(out["graph"][k], out["graph=False"][k])]
+    require(not off and np.array_equal(again, out["graph"]["cross"]),
+            f"I2: the graph route is not bitwise graph=False: {off}")
+    tiles = float(np.abs(out["graph"]["host tiles"] - out["graph"]["cross"]).max())
+    require(counts["graph"] == counts["graph=False"] == want and captures == 3
+            and g.capturer.captures == 3 and again_counts["eval_attention"]
+            == want["eval_attention"] - len(batches) * layers,
+            f"I2: #1 by replay {counts['graph']}, graph=False {counts['graph=False']}, the "
+            f"passes imply {want}; {captures} captures, then {g.capturer.captures}; the second "
+            f"evaluation {again_counts}")
+    print(f"I2 RetrievalEvaluator, FT-Align (bf16, {I2_CLIPS} clips, batch {EVAL_BATCH}, "
+          f"stripes of {tb} texts x {I2_CLIPS} videos in blocks of {vb}, deterministic mode): "
+          f"the graph route bitwise graph=False (the joint matrix, the device-resident "
+          f"rescoring, the host tiles' rescoring, {tiles:.3e} at most from the device-resident "
+          f"one); {captures} captures (the "
+          f"encode, a stripe, a tile; {g.capturer.seconds:.3f} s with their eager first runs), "
+          f"replays {replays}; a second evaluation captured nothing and replayed "
+          f"{ {k: v - replays.get(k, 0) for k, v in g.replays.items()} }; #1 by replay "
+          f"{counts['graph']['eval_attention']} for a joint and a cross pass, as graph=False "
+          f"launches it", flush=True)
+    rates = {name: {"encode": [], "rescoring": []} for name in evs}
+    for pair in range(I2_PAIRS):
+        for name in (("graph", "graph=False") if pair % 2 == 0 else ("graph=False", "graph")):
+            ev = evs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = ev.encode_dataset_device(iter(batches))  # ends in a copy to the host
+            t1 = time.perf_counter()
+            ev.cross_sim_matrix_device(enc)
+            t2 = time.perf_counter()
+            rates[name]["encode"].append(I2_CLIPS / (t1 - t0))
+            rates[name]["rescoring"].append(I2_CLIPS ** 2 / (t2 - t1))
+            del enc
+    med = {name: {k: float(np.median(v)) for k, v in r.items()} for name, r in rates.items()}
+    print(f"I2 {I2_PAIRS} alternating pairs (default mode, {I2_CLIPS} clips): encode clips/s "
+          f"graph {[round(x, 1) for x in rates['graph']['encode']]} median "
+          f"{med['graph']['encode']:.1f}, graph=False "
+          f"{[round(x, 1) for x in rates['graph=False']['encode']]} median "
+          f"{med['graph=False']['encode']:.1f}; rescoring pairs/s graph "
+          f"{[round(x) for x in rates['graph']['rescoring']]} median "
+          f"{med['graph']['rescoring']:.0f}, graph=False "
+          f"{[round(x) for x in rates['graph=False']['rescoring']]} median "
+          f"{med['graph=False']['rescoring']:.0f}", flush=True)
+    del evs, model
+    torch.cuda.empty_cache()
+    return counts["graph"]
 
 
 def _input_args(**kw):
@@ -4859,27 +5168,19 @@ def _input_args(**kw):
                               "no_prefetch": False, **kw})
 
 
-def _input_run(trainer, batcher, args, epoch: int, steps: int, profiled: bool = False):
-    """``steps`` training steps of ``batcher``'s epoch through
-    cli.common.make_input_iter: (losses, wall seconds, device busy seconds
-    or None; with ``profiled``)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _input_run(trainer, batcher, args, epoch: int, steps: int) -> list:
+    """The losses of ``steps`` training steps of ``batcher``'s epoch through
+    cli.common.make_input_iter, each one train_steps call of K = 1 as the
+    CLIs' loop steps (on the card a replay from the second)."""
     losses = []
-    torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext()
-    with prof:
-        t0 = time.perf_counter()
-        with contextlib.closing(cli_common.make_input_iter(args, batcher, epoch,
-                                                           torch.device("cuda"))) as batches:
-            for i, batch in enumerate(batches):
-                losses.append(trainer.train_step(batch, epoch * 1000 + i)["loss"])
-                if i + 1 == steps:
-                    break
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = busy_seconds(prof, "R2 window") if profiled else None
-    return [float(x) for x in losses], wall, busy
+    with contextlib.closing(cli_common.make_input_iter(args, batcher, epoch,
+                                                       torch.device("cuda"))) as batches:
+        for i, batch in enumerate(batches):
+            losses.append(trainer.train_steps({k: v[None] for k, v in batch.items()},
+                                              epoch * 1000 + i)["loss"][0])
+            if i + 1 == steps:
+                break
+    return [float(x) for x in losses]
 
 
 def phase_input_pipeline(ds, vocab: str, ret_files, tmp: str, joint_metrics: dict) -> dict:
@@ -4900,7 +5201,7 @@ def phase_input_pipeline(ds, vocab: str, ret_files, tmp: str, joint_metrics: dic
     reset_launches()
     torch.use_deterministic_algorithms(True)
     try:
-        runs = {name: _input_run(trainer(), batcher, _input_args(**kw), 0, INPUT_CHECK_STEPS)[0]
+        runs = {name: _input_run(trainer(), batcher, _input_args(**kw), 0, INPUT_CHECK_STEPS)
                 for name, kw in (("prefetch", {}), ("no_prefetch", {"no_prefetch": True}),
                                  ("bf16", {"transfer_dtype": "bfloat16"}))}
     finally:
@@ -4914,28 +5215,12 @@ def phase_input_pipeline(ds, vocab: str, ret_files, tmp: str, joint_metrics: dic
             "R2: the prefetch's losses are not bitwise --no_prefetch's")
     require(all(math.isfinite(x) for x in runs["bf16"]) and worst <= TRANSFER_BF16_RTOL,
             f"R2: --transfer_dtype bfloat16 losses {worst:.3e} rel from f32's")
-    tr = trainer()
-    rates = {"prefetch": [], "no_prefetch": []}
-    busy = {"prefetch": [], "no_prefetch": []}
-    order = []
-    for k in range(INPUT_PAIRS):
-        order += ["prefetch", "no_prefetch"] if k % 2 == 0 else ["no_prefetch", "prefetch"]
-    for w, mode in enumerate(order):
-        _, wall, dev = _input_run(tr, batcher, _input_args(no_prefetch=mode == "no_prefetch"),
-                                  1 + w % 3, INPUT_WINDOW, profiled=True)
-        rates[mode].append(INPUT_WINDOW * TRAIN_BATCH / wall)
-        busy[mode].append(dev / wall)
     counts = read_launches()
-    steps = 3 * INPUT_CHECK_STEPS + len(order) * INPUT_WINDOW
+    steps = 3 * INPUT_CHECK_STEPS
     want = {**{k: 0 for k in KERNELS},
             **{k: n * steps for k, n in _launches_per_step("ft_joint").items()}}
-    for mode in rates:
-        print(f"R2 input pipeline, FT-Joint, {mode}: {INPUT_PAIRS} windows of {INPUT_WINDOW} "
-              f"steps (alternating pairs, CUDA-only profiler on): clips/s "
-              f"{[round(x, 3) for x in rates[mode]]}, median {np.median(rates[mode]):.3f}; device "
-              f"busy share {[round(x, 4) for x in busy[mode]]}, median "
-              f"{np.median(busy[mode]):.4f}", flush=True)
-    require(counts == want, f"R2 launches {counts}, {steps} steps imply {want}")
+    require(counts == want, f"R2 launches (counted by replay) {counts}, {steps} steps imply "
+                            f"{want}")
     out = os.path.join(tmp, "msrvtt_retrieval_joint_no_prefetch")
     argv = _msrvtt_argv(ret_files, vocab, out) + ["--batch_size_val", str(EVAL_BATCH),
                                                   "--no_prefetch"]
@@ -5078,6 +5363,7 @@ def _dp_train(tmp: str, vocab: str, files, init: str):
                                                 *(["--zero1"] if zero1 else [])))
         wall = time.perf_counter() - t0
         reports = dp_mesh.spawn.ranks
+        _step_route(out, f"eager: a mesh of {DP_RANKS} ranks")  # gloo ranks: train_step
         shown = _train_losses(out)
         require(steps == DP_STEPS and len(shown) == steps
                 and all(math.isfinite(r["loss"]) for r in shown),
@@ -5202,8 +5488,8 @@ def phase_dp_nccl(tmp: str, vocab: str, check, init: str, ds) -> tuple:
     print(f"D3 FT-Align --n_gpu 1 --zero1 (CLI): {steps} steps, losses "
           f"{[round(r['loss'], 6) for r in shown]}; the run's mesh record {mesh}", flush=True)
     require(steps == DP_CHECK_STEPS and all(math.isfinite(r["loss"]) for r in shown)
-            and mesh["backend"] == "nccl" and mesh["ranks"] == 1 and mesh["zero1"],
-            f"D3: the CLI run ({steps} steps, {mesh})")
+            and mesh["backend"] == "nccl" and mesh["ranks"] == 1 and mesh["zero1"]
+            and mesh["step_route"] == "graph", f"D3: the CLI run ({steps} steps, {mesh})")
     require(counts == want, f"D3 launches {counts}, {steps} steps imply {want}")
     shutil.rmtree(out)
     [rep] = zero1_ab.main(["--device", "cuda", "--n_gpu", "1", "--train_sim_after_cross",
@@ -5312,6 +5598,7 @@ def _tp_train(tmp: str, vocab: str, files, init: str, reference) -> dict:
     steps, _ = task_retrieval.main(_dp_argv(files, vocab, out, *TP_FLAGS, "--init_model", init))
     wall = time.perf_counter() - t0
     reports = dp_mesh.spawn.ranks
+    _step_route(out, "eager: tensor and sequence parallelism")
     shown = _train_losses(out)
     require(steps == DP_STEPS and len(shown) == steps
             and all(math.isfinite(r["loss"]) for r in shown),
@@ -5692,10 +5979,12 @@ def _pipeline(tmp: str, vocab: str, ret_files, init: str, caption_bin: str, clip
             e1["eval_attention"] += n["eval_attention"]
     by_path = {"pp_gpipe": {k: counts["bfloat16"][k] + counts["dropout"][k] for k in KERNELS},
                "eval_fanout": e1, **_fanout_agreement(ranks, fan_want)}
+    # the ranks' reports hold the wrappers' counts: the fan-outs' graphs by capture
     total = ranks_launches(reports)
-    wrappers = {k: sum(_rank_counts(res[kind]["e1"]["wrapper_launches"])[k] for res in ranks
-                       for kind in ("indexes", "captions")) for k in KERNELS}
-    require(total == {k: by_path["pp_gpipe"][k] + e1[k] + counts["float32"][k] + wrappers[k]
+    runs = [res[kind]["e1"] for res in ranks for kind in ("indexes", "captions")]
+    runs += [res["evals"]["e1"][mode] for res in ranks for mode in e1_want]
+    wrappers = {k: sum(_rank_counts(run["wrapper_launches"])[k] for run in runs) for k in KERNELS}
+    require(total == {k: by_path["pp_gpipe"][k] + counts["float32"][k] + wrappers[k]
                       for k in KERNELS},
             f"G1 + E1: the ranks' launches {total} are not the runs' sum")
     require(all(not {"jax", "univl_tpu"} & set(r["modules"]) for r in reports),
@@ -5751,7 +6040,7 @@ def main() -> int:
     # the CLIs and servers run in this process draw their seeded weights (168 M
     # numbers with numpy, seconds of CPU) once for each layout: the same draw
     cli_common.init_state_dict = seeded_weights
-    LAUNCHES.__enter__()  # patches GraphCapture.capture until the process ends
+    LAUNCHES.__enter__()  # patches GraphCapture.record until the process ends
     t0 = time.perf_counter()
     bytecode = keep_bytecode()
     lib_path = _build.build()
@@ -5823,15 +6112,9 @@ def main() -> int:
         stamp("I1")
         files, ds = make_train_data(tmp, vocab)
         by_path["train"] = phase_train(tmp, vocab, files)
-        phase_train_profile(ds, tmp)
         phase_train_agreement(ds, f32_launches=f32_runs)
         stamp("FT-Joint (phases 10-12)")
         by_path["train_ft_align"] = phase_train(tmp, vocab, files, "ft_align")
-        fused = phase_train_profile(ds, tmp, "ft_align")
-        unfused = phase_train_profile(ds, tmp, "ft_align_xla")
-        print(f"FT-Align step, --fused_ffn block against xla (one profile each, same batches): "
-              f"device busy {fused['busy_ms']:.3f} against {unfused['busy_ms']:.3f} ms a step, "
-              f"wall {fused['wall_ms']:.3f} against {unfused['wall_ms']:.3f} ms", flush=True)
         small, _ = make_train_data(tmp, vocab, n_videos=PALLAS_VIDEOS)
         by_path["train_ft_align_pallas"] = phase_train(tmp, vocab, small, "ft_align_pallas")
         control = phase_train_agreement(ds, "ft_align_xla")
@@ -5840,10 +6123,9 @@ def main() -> int:
         stamp("retrieval training (phases 10-15)")
         cap_files, cap_ds = make_caption_data(tmp, vocab)
         by_path.update(phase_caption_train(tmp, vocab, cap_files))
-        phase_caption_profile(cap_ds, tmp)
         phase_caption_agreement(cap_ds, f32_runs)
         stamp("caption training (phases 16-18)")
-        by_path.update(phase_train_steps(ds, cap_ds))
+        by_path.update(phase_train_steps(ds))
         stamp("K1")
         ret_files, msrvtt_cap_files = make_msrvtt_data(tmp)
         by_path["caption_eval_msrvtt"] = phase_caption_eval_msrvtt(tmp, vocab, msrvtt_cap_files)
@@ -5856,14 +6138,15 @@ def main() -> int:
         phase_retrieval_agreement(vocab, ret_files)
         f32_runs["retrieval eval agreement"] = read_launches()
         stamp("evaluation (phases 19-22)")
+        by_path["eval_graphs"] = phase_eval_graphs(vocab, ret_files)
+        stamp("I2")
         pre_files = make_pretrain_data(tmp)
         by_path["pretrain_stage_one"], stage1 = phase_pretrain(tmp, vocab, pre_files, 1)
         by_path["pretrain_stage_two"], stage2 = phase_pretrain(
             tmp, vocab, pre_files, 2, init=os.path.join(stage1, "pytorch_model.bin.1"))
         for out in (stage1, stage2):  # a train state is ~1.8 GB at this width
             shutil.rmtree(out)
-        phase_pretrain_profile(pre_files, vocab, tmp)
-        stamp("P1, P2 and its profile")
+        stamp("P1 and P2")
         phase_pretrain_resume(tmp, vocab, pre_files)
         stamp("P3 (with R3)")
         phase_pretrain_agreement(pre_files, vocab, f32_runs)
@@ -5874,6 +6157,8 @@ def main() -> int:
         by_path.update(phase_train_steps_k2(remat_inits, pre_files, vocab))
         del remat_inits
         stamp("K2")
+        by_path.update(phase_cli_graphs(tmp, vocab, files, ds, cap_files, cap_ds, pre_files))
+        stamp("L1")
         by_path["input_pipeline"] = phase_input_pipeline(ds, vocab, ret_files, tmp,
                                                          eval_metrics["joint"])
         phase_converter(tmp)

@@ -1,7 +1,8 @@
 """The port's evaluation slice against the JAX package, on the CPU in f32 at
 tiny widths: the beam decoder with the classifier transform inside the vocab
 top-k kernel (``fused_cls``), the MSRVTT fixtures and readers, the retrieval
-metrics, ``RetrievalEvaluator`` (joint and cross similarity matrices, the
+metrics, ``RetrievalEvaluator`` (joint and cross similarity matrices, its eager
+route (``graph=False``) against the default, the
 device-resident rescoring against the host tiles), the data-parallel
 fan-out (``mesh=``) of the evaluator, the retrieval index and the caption
 generator on two gloo ranks, spawned once through
@@ -281,6 +282,24 @@ def test_evaluate_matches_jax(retrieval, mode):
     model.eval()
     want = jev.evaluate(iter(batches), mode=mode)
     assert got == want and got["mode"] == mode
+
+
+@pytest.mark.parametrize("mode", ["joint", "cross"])
+def test_eager_route_matches_the_default_and_jax(retrieval, mode):
+    """``graph=False``, the eager route that the card's graphs are held
+    against, and the default route (on the card its CUDA graphs): the same
+    similarity matrix, bitwise, and JAX's metrics; the host tiles' path
+    through its cross block too."""
+    jev, ev, batches = _evaluators(retrieval)
+    eager = RetrievalEvaluator(ev.model, batch_size=EVAL_BATCH, cross_text_block=TB,
+                               cross_video_block=VB, graph=False)
+    want = jev.evaluate(iter(batches), mode=mode)
+    assert eager.evaluate(iter(batches), mode=mode) == ev.evaluate(iter(batches), mode=mode) \
+        == want
+    np.testing.assert_array_equal(eager.similarity, ev.similarity)
+    if mode == "cross":
+        host = eager.cross_sim_matrix(eager.encode_dataset(iter(batches), store_full=True))
+        np.testing.assert_array_equal(host, ev.similarity)
 
 
 # --------------------------------------------------------------- fan-out

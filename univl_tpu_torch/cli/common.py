@@ -690,8 +690,17 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
     best epoch's metrics with its ``epoch``, or None without eval or when no
     epoch scored).
 
+    Each update-batch is one ``trainer.train_steps`` call of K = 1 (JAX's
+    one jitted step a batch): on a CUDA model its graph route, each step
+    from the second a replay of the captured step, on the CPU the loop
+    (``Trainer.step_route``). Where ``trainer.graph_refusal()`` names a
+    reason (several ranks, gloo, tensor or sequence parallelism) the loop
+    calls ``train_step``, a route chosen by that rule before any step, never
+    a fallback after a failure. The route is logged once.
+
     metrics.jsonl opens with a ``mesh`` record (ranks, backend, device,
-    zero1). Under data parallelism (the trainer's ``mesh``) rank 0 alone
+    zero1, and ``step_route``: ``graph``, ``eager: <the reason>`` or
+    ``cpu``). Under data parallelism (the trainer's ``mesh``) rank 0 alone
     writes metrics.jsonl, each ``.bin`` and the train state, which every rank
     builds (with ``--zero1`` the moments gathered from their shards); the
     others wait at a barrier on the control group after each save and after
@@ -733,10 +742,19 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
     # writer; both write on a thread with --async_checkpointing
     store = manager if manager is not None else CheckpointWriter(
         getattr(args, "async_checkpointing", False), primary=mesh.primary)
+    stepped = isinstance(trainer, Trainer)  # else a stand-in with train_step alone
+    route = trainer.step_route() if stepped else f"eager: a {type(trainer).__name__}"
+    logger.info("training steps: %s", route)
     mw = MetricsWriter(args.output_dir if mesh.primary else None)
     mw.write("mesh", ranks=mesh.size, backend=mesh.backend, device=str(mesh.device),
              zero1=bool(getattr(trainer, "zero1", False)), tp=mesh.tp,
-             sequence_parallel=mesh.sequence_parallel)
+             sequence_parallel=mesh.sequence_parallel, step_route=route)
+    if stepped and trainer.graph_refusal() is None:
+        def train_step(batch, step):  # one train_steps call of K = 1
+            metrics = trainer.train_steps({k: v[None] for k, v in batch.items()}, step)
+            return {k: v[0] for k, v in metrics.items()}
+    else:
+        train_step = trainer.train_step
 
     def save_train_state(epoch: int, in_epoch_step: int, preempted: bool, **extra):
         meta = {"epoch": epoch - 1 if in_epoch_step else epoch, "global_step": global_step,
@@ -773,7 +791,7 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
             with contextlib.closing(make_input_iter(args, batcher, epoch, device,
                                                     start_batch=offset)) as batches:
                 for batch in batches:
-                    metrics = trainer.train_step(batch, global_step)
+                    metrics = train_step(batch, global_step)
                     global_step += 1
                     n_steps += 1
                     loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]

@@ -45,10 +45,10 @@ memory, and the kernel launches of all its steps; for each evaluation and mode
 the metrics, the similarity matrix and the launches; for each index the
 store (``video_emb``, ``vis_full``, ``vm_full``), each search's results
 and the launches; for each caption entry each batch's tokens, scores and
-steps (the rank's) and the launches. An index's and a caption entry's
-``launches`` count graph replays as launches and captures as none
-(``utils/graphs.py:LaunchCounts``), ``wrapper_launches`` the wrappers' own
-counts. Rank 0 returns its own.
+steps (the rank's) and the launches. An evaluation's, an index's and a
+caption entry's ``launches`` count graph replays as launches and captures
+as none (``utils/graphs.py:LaunchCounts``), their ``wrapper_launches``
+the wrappers' own counts. Rank 0 returns its own.
 """
 
 from __future__ import annotations
@@ -187,12 +187,15 @@ def run_eval(spec, mesh, built: list) -> dict:
                             cross_text_block=spec["cross_text_block"],
                             cross_video_block=spec["cross_video_block"], mesh=mesh)
     out = {}
-    for mode in spec["modes"]:
-        before = dp_mesh.kernel_launches()
-        metrics = ev.evaluate(iter(spec["batches"]), mode=mode)
-        after = dp_mesh.kernel_launches()
-        out[mode] = {"metrics": metrics, "sim": ev.similarity, "seconds": dict(ev.seconds),
-                     "launches": {k: n - before.get(k, 0) for k, n in after.items()}}
+    with LaunchCounts() as counts:  # one for all modes: a graph adds to the one it was captured in
+        for mode in spec["modes"]:
+            before, wrappers = counts.launches(), dp_mesh.kernel_launches()
+            metrics = ev.evaluate(iter(spec["batches"]), mode=mode)
+            after = counts.launches()
+            out[mode] = {"metrics": metrics, "sim": ev.similarity, "seconds": dict(ev.seconds),
+                         "launches": {k: n - before[k] for k, n in after.items()},
+                         "wrapper_launches": {k: n - wrappers[k]
+                                              for k, n in dp_mesh.kernel_launches().items()}}
     return out
 
 

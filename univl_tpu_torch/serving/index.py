@@ -31,9 +31,8 @@ dense stage and the rerank run on every rank, unsharded, as in JAX.
 
 from __future__ import annotations
 
-import collections
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +42,7 @@ from univl_tpu_torch.data.batching import pad_rows
 from univl_tpu_torch.data.text_encoding import encode_text, pad_video
 from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.parallel import comm
-from univl_tpu_torch.utils.graphs import GraphCapture
+from univl_tpu_torch.utils.graphs import GraphCalls
 
 RERANK_TILE = 8  # queries per cross-encoder call
 
@@ -65,34 +64,7 @@ def _top(mat: np.ndarray, k: int) -> np.ndarray:
     return np.take_along_axis(part, inner, axis=1)
 
 
-class _Graph:
-    """One function's graph at one set of input shapes: its static inputs,
-    the pinned host buffers that host arrays reach them through, and the
-    outputs that a replay writes."""
-
-    def __init__(self, args, device):
-        host = [torch.from_numpy(a) if isinstance(a, np.ndarray) else None for a in args]
-        self.inputs = [torch.empty(a.shape, dtype=(a if h is None else h).dtype, device=device)
-                       for a, h in zip(args, host)]
-        self.staging = [None if h is None else torch.empty_like(h, pin_memory=True)
-                        for h in host]
-        self.copied = torch.cuda.Event()  # the last copies out of the staging buffers
-        self.graph = self.outputs = None
-
-    def load(self, args) -> None:
-        self.copied.synchronize()  # the staging buffers are free again
-        for x, a, host in zip(self.inputs, args, self.staging):
-            if host is None:
-                x.copy_(a)
-            else:
-                # numpy's copy, one thread: torch's would start an OpenMP team in
-                # every new thread, and the server serves each request on one
-                np.copyto(host.numpy(), a)
-                x.copy_(host, non_blocking=True)
-        self.copied.record()
-
-
-class VideoRetrievalIndex:
+class VideoRetrievalIndex(GraphCalls):
     def __init__(
         self,
         model: UniVL,
@@ -116,17 +88,13 @@ class VideoRetrievalIndex:
             raise ValueError("rerank (store_full) needs the cross encoder: build the model "
                              "with stage_two or train_sim_after_cross")
         comm.check_batch(batch_size, mesh)
-        self.device = torch.device(device)
-        graph = self.device.type == "cuda" if graph is None else bool(graph)
-        if graph and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs run on a CUDA device, not {self.device}")
+        super().__init__(model.parameters(), device, graph)
         self.model = model
         self.tokenizer = tokenizer
         self.max_words = max_words or cfg.max_words
         self.max_frames = max_frames or cfg.max_frames
         self.batch_size = batch_size
         self.store_full = store_full
-        self.graph = graph
         self.mesh = mesh
         self.video_dim = cfg.video_dim
         hidden = cfg.bert.hidden_size
@@ -134,48 +102,6 @@ class VideoRetrievalIndex:
         self.video_emb = np.zeros((0, hidden), np.float32)
         self.vis_full = np.zeros((0, self.max_frames, hidden), np.float32) if store_full else None
         self.vm_full = np.zeros((0, self.max_frames), np.int32) if store_full else None
-        self.graphs: Dict[tuple, _Graph] = {}  # (function, input shapes) -> its graph
-        self.capturer = GraphCapture()  # the graphs' pool, stream and capture count
-        self.replays = collections.Counter()  # by function
-        self._params = list(model.parameters())
-        self.addresses = tuple(p.data_ptr() for p in self._params)
-
-    def _tensor(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-    def check_weights(self) -> bool:
-        """Drop the graphs where a parameter's storage moved since they were
-        captured (they read the old one); returns whether it did."""
-        addresses = tuple(p.data_ptr() for p in self._params)
-        if addresses == self.addresses:
-            return False
-        self.graphs.clear()
-        self.capturer.reset()
-        self.addresses = addresses
-        return True
-
-    def _call(self, name: str, fn, *args):
-        """``fn`` on ``args`` (host arrays or device tensors). Without graphs,
-        eagerly. With them, the args go into the static inputs of the graph
-        of their shapes, which replays; at the shapes' first call ``fn``
-        runs eagerly (its outputs returned), then the capture. A replay's
-        outputs are the graph's: the next replay overwrites them."""
-        if not self.graph:
-            return fn(*(self._tensor(a) if isinstance(a, np.ndarray) else a for a in args))
-        key = (name, *((tuple(a.shape), str(a.dtype)) for a in args))
-        entry = self.graphs.get(key)
-        if entry is not None:
-            entry.load(args)
-            entry.graph.replay()
-            self.replays[name] += 1
-            return entry.outputs
-        entry = _Graph(args, self.device)
-        entry.load(args)
-        runs = []
-        entry.graph = self.capturer.capture(lambda: runs.append(fn(*entry.inputs)))
-        entry.outputs = runs[-1]
-        self.graphs[key] = entry
-        return runs[0]
 
     def _encode(self, name: str, fn, *batch: np.ndarray):
         """An encode batch's outputs for all its rows: with a mesh, the rank

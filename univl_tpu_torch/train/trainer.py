@@ -50,16 +50,22 @@ dropout from device generators registered with the graph and seeded before
 each replay, and BertAdam's learning rate from device scalars
 (``BertAdam.lr_factors``). The first call for a set of shapes runs its first
 step eagerly (it builds the kernels, creates the moments and settles the
-allocator), records the step's keys, captures the next step and replays
-it; later calls replay every step. Graphs are kept by (shapes, dtypes,
-accum, route). A layer recomputed under ``--remat`` (full or "dots") folds
+allocator), records the step's keys and captures the step (the capture runs
+nothing), so every later step for those shapes, in that call or the next,
+is a replay: a loop of K = 1 calls (``cli/common.py:run_train_epochs``)
+replays from its second step. Graphs are kept by (shapes, dtypes, accum,
+route), in one memory pool (``utils/graphs.py:GraphCapture``); where a load
+replaced the parameters or moments they are all dropped. A layer recomputed under ``--remat`` (full or "dots") folds
 its keys again inside the captured backward: those entries of the layout
 take table slots and generators of their own, written with the first
 pass's keys. ZeRO-1 on a one-rank NCCL group captures its reduce-scatter
 and all-gather (the eager step has made the communicator). One process on
 one card only: tensor and sequence parallelism, meshes of several ranks,
 gloo groups and optimizers other than BertAdam are refused
-(``graph_refusal``), and a capture or replay that fails raises.
+(``graph_refusal``), and a capture or replay that fails raises. ``graph``
+(default: on a CUDA model) turns the graphs off: ``train_steps`` is then
+the loop of ``train_step`` on the card too, the eager route a check compares
+with.
 """
 
 from __future__ import annotations
@@ -80,9 +86,10 @@ from univl_tpu_torch.nn.layers import (
 from univl_tpu_torch.parallel import comm
 from univl_tpu_torch.parallel.mesh import DP_AXIS, TP_AXIS, Mesh
 from univl_tpu_torch.parallel.sp import sp_params
-from univl_tpu_torch.train.optimization import BertAdam, copy_from_host
+from univl_tpu_torch.train.optimization import BertAdam
 from univl_tpu_torch.train.zero1 import Zero1BertAdam, flat_offsets
 from univl_tpu_torch.train.zero1_tp import Zero1TpBertAdam
+from univl_tpu_torch.utils.graphs import GraphCapture
 
 
 def step_generator(seed: int, global_step: int) -> torch.Generator:
@@ -94,18 +101,25 @@ def step_generator(seed: int, global_step: int) -> torch.Generator:
 class StepGraph(NamedTuple):
     """One training step captured as a CUDA graph, and what it reads and
     writes: the batch buffers it reads, its key table (int64 [kernel keys])
-    and device generators (one a generator key of ``layout``), the metrics
-    it writes, the step's key layout and number of roots, and the addresses
-    of the state it updates in place (``Trainer._addresses``)."""
+    and device generators (one a generator key of ``layout``), BertAdam's
+    learning-rate factors, the metrics it writes, the step's key layout and
+    number of roots, the layout's indices of the table's keys and of the
+    generators' seeds, and the pinned host buffers that the table and the
+    factors are copied from before each replay, with the event after those
+    copies."""
 
     graph: "torch.cuda.CUDAGraph"
     batch: Dict[str, torch.Tensor]
     table: torch.Tensor
     pool: list
+    factors: torch.Tensor
     metrics: Dict[str, torch.Tensor]
     layout: list
     roots: int
-    addresses: tuple
+    kernel: list
+    gens: list
+    staging: tuple
+    copied: "torch.cuda.Event"
 
 
 class Trainer:
@@ -113,9 +127,17 @@ class Trainer:
     of scalar losses with key ``"loss"``."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                 grad_accum_steps: int = 1, seed: int = 0, mesh: Optional[Mesh] = None):
+                 grad_accum_steps: int = 1, seed: int = 0, mesh: Optional[Mesh] = None,
+                 graph: Optional[bool] = None):
+        """``graph``: ``train_steps`` replays CUDA graphs on a CUDA model
+        (None, the default, or True; True on another device raises); False
+        is the eager route, ``train_step`` a step."""
         if grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1")
+        device = next(model.parameters()).device
+        if graph and device.type != "cuda":
+            raise ValueError(f"CUDA graphs run on a CUDA model, not on {device}")
+        self.graph = graph
         self.model = model
         self.optimizer = optimizer
         self.grad_accum_steps = grad_accum_steps
@@ -127,6 +149,9 @@ class Trainer:
         self.sp_params = sp_params(model)
         self._flat = None  # the gradient buffer of a data-parallel or ZeRO-1 step
         self._graphs: Dict[tuple, StepGraph] = {}  # train_steps' captured steps
+        self.capturer = GraphCapture()  # their pool, side stream and capture count
+        self._captured_at = None  # the state's addresses when they were captured
+        self._layer_norms = None  # the model's LayerNorms, whose routes key a graph
 
     def _grad_buffer(self) -> torch.Tensor:
         """The flat f32 gradient buffer, zeroed, each parameter's ``.grad`` a
@@ -212,7 +237,7 @@ class Trainer:
         if len(n) != 1:
             raise ValueError(f"batch arrays must share their leading K, got {sorted(n)}")
         k = n.pop()
-        if self._on_card():
+        if self._on_card() and self.graph is not False:
             refusal = self.graph_refusal()
             if refusal is not None:
                 raise NotImplementedError(f"train_steps on the card refuses {refusal}")
@@ -224,6 +249,17 @@ class Trainer:
 
     def _on_card(self) -> bool:
         return next(self.model.parameters()).device.type == "cuda"
+
+    def step_route(self) -> str:
+        """How a training loop steps this trainer: ``graph`` (``train_steps``
+        replays), ``eager: <the reason>`` (``graph_refusal``'s, or
+        ``graph=False``) or ``cpu`` (``train_steps`` is the loop)."""
+        refusal = self.graph_refusal()
+        if refusal is not None:
+            return f"eager: {refusal}"
+        if not self._on_card():
+            return "cpu"
+        return "eager: graph=False" if self.graph is False else "graph"
 
     def graph_refusal(self) -> Optional[str]:
         """What keeps ``train_steps`` from replaying this trainer's step as a
@@ -246,11 +282,10 @@ class Trainer:
 
     def _addresses(self) -> tuple:
         """The device addresses a captured step updates in place: the
-        learning-rate scalars, the parameters, and BertAdam's moments or
-        ZeRO-1's (its shard's moments, f32 master and gradient, and the flat
-        gradient buffer)."""
-        opt = self.optimizer
-        ptrs = [opt.lr_factors().data_ptr()]
+        parameters, and BertAdam's moments or ZeRO-1's (its shard's moments,
+        f32 master and gradient, and the flat gradient buffer). BertAdam's
+        learning-rate scalars are made once and never replaced."""
+        opt, ptrs = self.optimizer, []
         if self.zero1:
             ptrs += [t.data_ptr() for t in (opt.m, opt.v, opt.master, opt.g, self._flat)]
         for group in opt.param_groups:
@@ -263,54 +298,42 @@ class Trainer:
         """A captured step's key: each array's name, per-step shape and
         dtype, the accumulation and the route (which LayerNorms take #6)."""
         shapes = tuple(sorted((name, tuple(v.shape[1:]), v.dtype) for name, v in batches.items()))
-        fused = tuple(m.fused for m in self.model.modules() if isinstance(m, LayerNormTF))
-        return shapes, self.grad_accum_steps, fused
+        if self._layer_norms is None:
+            self._layer_norms = [m for m in self.model.modules() if isinstance(m, LayerNormTF)]
+        return shapes, self.grad_accum_steps, tuple(m.fused for m in self._layer_norms)
 
     def _graph_steps(self, batches: Dict[str, torch.Tensor], first_step: int, k: int) -> list:
-        """The steps of ``train_steps`` on the card: the first eagerly on a
-        side stream where no graph is kept for these shapes (then one step
-        captured), every other one a replay. Returns each step's metrics."""
+        """The steps of ``train_steps`` on the card: where no graph is kept
+        for these shapes, the first eagerly on the capturer's side stream
+        and then the step captured; every other one a replay. Returns each
+        step's metrics."""
         opt, key = self.optimizer, self._graph_key(batches)
+        if self._graphs and self._addresses() != self._captured_at:
+            self._graphs.clear()  # a load replaced the parameters or moments
+            self.capturer.reset()
         entry = self._graphs.get(key)
-        if entry is not None and entry.addresses != self._addresses():
-            entry = None  # the parameters or moments were replaced (a load)
         metrics, start = [], 0
         if entry is None:
             keys = StepKeys(self._generator(first_step))
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                metrics.append(self._step({name: v[0] for name, v in batches.items()}, keys))
-            torch.cuda.current_stream().wait_stream(side)
+            metrics.append(self.capturer.run(
+                lambda: self._step({name: v[0] for name, v in batches.items()}, keys)))
+            entry = self._graphs[key] = self._capture(batches, first_step + 1, keys)
             start = 1
-            if k == 1:
-                return metrics
-            entry = self._capture(batches, first_step + 1, keys)
-            self._graphs[key] = entry
-        kernel = [i for i, (kind, _, _) in enumerate(entry.layout) if kind == KERNEL]
-        gens = [i for i, (kind, _, _) in enumerate(entry.layout) if kind == GENERATOR]
-        tables, seeds, factors = [], [], []
-        for i in range(start, k):  # every replay's keys and learning rates, on the host
+        table, factors = (t.numpy() for t in entry.staging)
+        for i in range(start, k):
             generator = self._generator(first_step + i)
             values = layout_keys(entry.layout, [draw_key(generator)
                                                 for _ in range(entry.roots)])
-            tables.append([values[j] for j in kernel])
-            seeds.append([values[j] for j in gens])
-            factors.append(opt.factors_at(opt.steps + i - start))
-        device = entry.table.device
-        tables = copy_from_host(torch.empty(len(tables), len(kernel), dtype=torch.int64,
-                                            device=device), np.array(tables, np.int64))
-        factors = copy_from_host(torch.empty(len(factors), len(opt.param_groups),
-                                             dtype=torch.float32, device=device),
-                                 np.array(factors, np.float32))
-        lr = opt.lr_factors()
-        for i in range(start, k):
             for name, buf in entry.batch.items():
                 buf.copy_(batches[name][i])
-            entry.table.copy_(tables[i - start])
-            lr.copy_(factors[i - start])
-            for gen, seed in zip(entry.pool, seeds[i - start]):
-                gen.manual_seed(seed)
+            entry.copied.synchronize()  # the last replay's copies out of the staging are done
+            table[:] = [values[j] for j in entry.kernel]
+            factors[:] = opt.factors_at(opt.steps)
+            entry.table.copy_(entry.staging[0], non_blocking=True)
+            entry.factors.copy_(entry.staging[1], non_blocking=True)
+            entry.copied.record()
+            for gen, j in zip(entry.pool, entry.gens):
+                gen.manual_seed(values[j])
             entry.graph.replay()
             opt.steps += 1
             metrics.append({name: v.clone() for name, v in entry.metrics.items()})
@@ -322,24 +345,26 @@ class Trainer:
         runs until a replay), drawing the keys of ``recorded``'s layout from
         a key table and generators of its own."""
         device = next(self.model.parameters()).device
+        layout = recorded.layout
         batch = {name: torch.empty_like(v[0]) for name, v in batches.items()}
-        n_kernel = sum(kind == KERNEL for kind, _, _ in recorded.layout)
-        table = torch.zeros(n_kernel, dtype=torch.int64, device=device)
-        pool = [torch.Generator(device=device)
-                for kind, _, _ in recorded.layout if kind == GENERATOR]
-        graph = torch.cuda.CUDAGraph()
-        for gen in pool:
-            graph.register_generator_state(gen)
+        kernel = [i for i, (kind, _, _) in enumerate(layout) if kind == KERNEL]
+        gens = [i for i, (kind, _, _) in enumerate(layout) if kind == GENERATOR]
+        table = torch.zeros(len(kernel), dtype=torch.int64, device=device)
+        pool = [torch.Generator(device=device) for _ in gens]
+        factors = self.optimizer.lr_factors()  # made by the eager step: the same tensor
+        staging = (torch.empty(table.shape, dtype=table.dtype, pin_memory=True),
+                   torch.empty(factors.shape, dtype=factors.dtype, pin_memory=True))
         keys = StepKeys(self._generator(global_step), table, pool)
-        steps = self.optimizer.steps
-        with torch.cuda.graph(graph):
-            metrics = self._step(batch, keys)
+        steps, metrics = self.optimizer.steps, {}
+        torch.cuda.empty_cache()  # the eager step's cached blocks, free for the graph's pool
+        graph = self.capturer.record(lambda: metrics.update(self._step(batch, keys)), pool)
         self.optimizer.steps = steps  # the capture took no step
-        if keys.layout != recorded.layout:
+        if keys.layout != layout:
             raise RuntimeError("the captured step drew other keys than its eager step: "
-                               f"{len(keys.layout)} against {len(recorded.layout)} entries")
-        return StepGraph(graph, batch, table, pool, metrics, recorded.layout,
-                         len(recorded.roots), self._addresses())
+                               f"{len(keys.layout)} against {len(layout)} entries")
+        self._captured_at = self._addresses()
+        return StepGraph(graph, batch, table, pool, factors, metrics, layout,
+                         len(recorded.roots), kernel, gens, staging, torch.cuda.Event())
 
     def _sum_sp_grads(self) -> None:
         """The row-sharded regions' replicated gradients summed over the tp group."""
