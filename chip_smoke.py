@@ -240,6 +240,14 @@ Phases, each reported on its own lines; any failure raises and exits non-zero:
      alternating pairs of CLI windows (run_train_epochs ended by
      --inject_crash_after), clips/s of both routes and the host's ms a
      train_steps call;
+ X1. task_retrieval --do_train --profile_dir over L1's FT-Joint epoch (8
+     steps, deterministic mode, the graph route): its displayed metrics and
+     .bin bitwise L1's, one Chrome trace (rank0.<ms>.pt.trace.json) with a
+     range for each of global steps 2-6 alone, every kernel launched in
+     them (each event read by its launch's host time), #2's tensor-core
+     kernels 18 + 18 + 18 in each; the file's size, the
+     export's seconds, the steps' wall ms and the device-busy share read
+     from the trace;
  R3. (in P3) the seconds the loop blocked at each epoch-end save,
      synchronous (the control) and async (the resumed run);
  R4. the checkpoint converter without JAX: a full-width reference .bin from
@@ -337,9 +345,11 @@ import contextlib
 import copy
 import importlib.util
 import json
+import logging
 import math
 import pickle
 import py_compile
+import re
 import shutil
 import subprocess
 import sys
@@ -347,6 +357,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -404,6 +415,7 @@ from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
 from univl_tpu_torch.train.zero1 import Zero1BertAdam, make_univl_zero1_optimizer
 from univl_tpu_torch.utils.graphs import LaunchCounts
+from univl_tpu_torch.utils.profiling import STEP_RANGE
 
 # retrieval traffic
 N_CLIPS, N_QUERIES, TOP_K, RERANK, BATCH = 64, 8, 5, 16, 16
@@ -610,6 +622,32 @@ L1_PRE2_ACCUM, L1_VAL_VIDEOS = 2, 4
 # of 32 clips), the first L1_CAP_VIDEOS of phase 16's (8 of 16); the windows
 # draw from the phases' whole datasets
 L1_VIDEOS, L1_CAP_VIDEOS = 32, 16
+# X1, stated before its first run: task_retrieval --do_train --profile_dir over
+# L1's FT-Joint epoch (the first L1_VIDEOS of phase 10's videos: 8 update-batches
+# of 32 clips, 48 words, 48 frames, bf16), in deterministic mode on the graph
+# route: every displayed metric and pytorch_model.bin.0 bitwise L1's run of
+# that epoch (tracing changes nothing); the launches by replay 8 steps'; one
+# trace file, rank0.<ms>.pt.trace.json, that loads as JSON, with one range
+# for each of JAX's traced steps (X1_STEPS) and none for another; every
+# kernel of the trace within those ranges (the warmup step's discarded), each
+# step's kernels by name the same as every other's, and #2's tensor-core
+# kernels by name exactly a step's 18 each in every step (5 x 18 in all):
+# the warmup takes CUPTI's loss at the session's start. Restated after the
+# first run on the card: steps 2-4 held 5 kernels more than steps 5-6, while
+# the input thread still staged the epoch's last batches, so the steps'
+# kernels compared are those on #2's stream; every kernel on another stream
+# within a step must be a fill (FILL in its name), and is reported. Restated
+# after a run that failed the per-step rule: the trace's card timestamps drift
+# from the host's (a step's last kernels showed past its range, although the
+# step synchronizes at its end; read by their launches, no record was
+# lost), so each device event is read into the step whose range
+# holds the host call that launched it (its correlation), not by its own
+# time; a kernel launched outside the ranges must be a fill off #2's stream
+# (the input thread's), and is reported. Printed
+# beside the card: the file's size, the export's seconds, the traced steps'
+# wall ms a step and the device-busy share read from the trace.
+X1_ROUTE, X1_STEPS = "FT-Joint", (2, 3, 4, 5, 6)
+FILL = "FillFunctor"  # PyTorch's fill kernels, the input thread's on its own stream
 # I2, stated before its first run: RetrievalEvaluator on its graph route
 # against graph=False at full width (FT-Align's seeded weights, bf16) over the
 # first I2_CLIPS of phase 20's clips in batches of EVAL_BATCH, in
@@ -1031,6 +1069,7 @@ def _counter(entry):
 # counts off and adds them back at each replay of its graph, so that
 # read_launches gives the launches on the device.
 LAUNCHES = LaunchCounts()
+CARD = []  # nvidia-smi's name and power limit of the card, read first
 
 
 def reset_launches() -> None:
@@ -5049,6 +5088,9 @@ def _l1_route(label: str, cli: str, extra: list, window: tuple, tmp: str, vocab:
           f"{1e3 * (t1 - t0) / 20:.3f}, the graph's key {1e3 * (t2 - t1) / 20:.3f}; the rest "
           f"the key table's derivation, the batch and staging copies and the metrics' clones",
           flush=True)
+    if label == X1_ROUTE:  # X1 holds its traced run of the same epoch against this one
+        data["x1"] = {"argv": argv, "shown": shown, "bin": os.path.join(tmp, "l1_x1.bin")}
+        os.replace(os.path.join(out, "pytorch_model.bin.0"), data["x1"]["bin"])
     shutil.rmtree(out)
     return counts
 
@@ -5062,10 +5104,11 @@ def _head_csv(csv: str, n: int, path: str) -> str:
     return path
 
 
-def phase_cli_graphs(tmp: str, vocab: str, files, ds, cap_files, cap_ds, pre_files) -> dict:
+def phase_cli_graphs(tmp: str, vocab: str, files, ds, cap_files, cap_ds, pre_files) -> tuple:
     """L1 (the comment at L1_ROUTES) over the first videos of phase 10's
     ``files`` and phase 16's ``cap_files``, its windows over ``ds`` and
-    ``cap_ds``: returns each route's launches by path."""
+    ``cap_ds``: returns each route's launches by path, and X1's reference
+    (X1_ROUTE's argv, displayed metrics and .bin)."""
     data = {"retrieval": (_head_csv(files[0], L1_VIDEOS, os.path.join(tmp, "l1_train.csv")),
                           *files[1:]),
             "val": _head_csv(files[0], L1_VAL_VIDEOS, os.path.join(tmp, "l1_val.csv")),
@@ -5079,7 +5122,159 @@ def phase_cli_graphs(tmp: str, vocab: str, files, ds, cap_files, cap_ds, pre_fil
             by_path[f"cli_graph_{name}"] = _l1_route(label, cli, extra, tuple(window), tmp,
                                                      vocab, data)
             torch.cuda.empty_cache()
-    return by_path
+    return by_path, data["x1"]
+
+
+def _shown(records: list) -> list:
+    """Display points without the clock's fields."""
+    return [{k: v for k, v in r.items() if k not in ("ts", "clips_per_sec")} for r in records]
+
+
+def _x1_trace(path: str) -> dict:
+    """X1's reading of a trace file: the step ranges, each one's kernels as
+    (name, stream), the kernels launched in none, the copies and fills
+    launched before the first and after the last, the device busy time over
+    the steps' span (the union of their events' intervals), and how far the
+    card's clock ran past the host's at a step's end. A device event belongs
+    to the step whose range holds the host call that launched it (its
+    ``correlation``; a replay's kernels carry their ``cudaGraphLaunch``'s):
+    the trace puts the card's timestamps on the host's clock only up to a
+    drift, so a step's last kernels can show after its range although the
+    step synchronizes at its end."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    # the host's ranges (the card's projection of each is a gpu_user_annotation)
+    ranges = sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and str(e.get("name", "")).startswith(STEP_RANGE)), key=lambda e: e["ts"])
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda e: e["ts"])
+    start = ranges[0]["ts"] if ranges else float("inf")
+    end = ranges[-1]["ts"] + ranges[-1]["dur"] if ranges else float("-inf")
+    steps, before, after, outside = [[] for _ in ranges], [], [], []
+    for e in device:
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        held = [i for i, r in enumerate(ranges)
+                if ts is not None and r["ts"] <= ts <= r["ts"] + r["dur"]]
+        if held:
+            steps[held[0]].append(e)
+        elif e["cat"] == "kernel":
+            outside.append(e)
+        elif ts is not None and ts < start:
+            before.append(e)
+        else:
+            after.append(e)
+    drift = [max(e["ts"] + e["dur"] for e in step) - (r["ts"] + r["dur"])
+             for r, step in zip(ranges, steps) if step]
+    mine = sorted((e for step in steps for e in step), key=lambda e: e["ts"])
+    busy_us, last = 0.0, start
+    for e in mine:
+        busy_us += max(0.0, e["ts"] + e["dur"] - max(e["ts"], last))
+        last = max(last, e["ts"] + e["dur"])
+    return {"steps": [int(r["name"][len(STEP_RANGE):]) for r in ranges],
+            "wall_us": [r["dur"] for r in ranges], "span_us": max(end, last) - start,
+            "busy_us": busy_us, "drift_us": max(drift, default=0.0),
+            "kernels": [[(e["name"], e.get("args", {}).get("stream")) for e in step
+                         if e["cat"] == "kernel"] for step in steps],
+            "outside": [(e["name"], e.get("args", {}).get("stream")) for e in outside],
+            "copies_before": len(before), "copies_after": len(after)}
+
+
+def _x1_kernels(steps: list, per_kernel: dict) -> tuple:
+    """Each traced step's kernels, (name, stream) pairs, read for X1: the
+    counts of ``per_kernel``'s names a step, the streams they run on, each
+    step's kernel names on those streams and on the others, and each later
+    step's names beyond the first's and short of them."""
+    named = [{n: sum(n in name for name, _ in step) for n in per_kernel} for step in steps]
+    # the step's own kernels: those on #2's stream (the replays'); the input
+    # thread's copies of the batches to come run on a stream of their own
+    streams = {s for step in steps for name, s in step if any(n in name for n in per_kernel)}
+    own = [sorted(name for name, s in step if s in streams) for step in steps]
+    other = [sorted(name for name, s in step if s not in streams) for step in steps]
+    apart = [(dict(Counter(k) - Counter(own[0])), dict(Counter(own[0]) - Counter(k)))
+             for k in own[1:]]
+    return named, streams, own, other, apart
+
+
+def phase_cli_trace(tmp: str, reference: dict) -> dict:
+    """X1 (the comment at X1_STEPS): returns the traced run's launches."""
+    out, prof_dir = os.path.join(tmp, "x1"), os.path.join(tmp, "x1_trace")
+    argv = list(reference["argv"])
+    argv[argv.index("--output_dir") + 1] = out
+    logged = []  # the loop's log, for its "profiler trace written" line
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    logger = logging.getLogger("univl_tpu_torch")
+    logger.addHandler(handler)
+    reset_launches()
+    try:
+        with deterministic_mode():
+            t0 = time.perf_counter()
+            steps = task_retrieval.main(argv + ["--profile_dir", prof_dir])[0]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+    counts = read_launches()
+    per_step = _launches_per_step("ft_joint")
+    want_counts = {**{n: 0 for n in KERNELS}, **{n: steps * c for n, c in per_step.items()}}
+    route = _step_route(out)
+    got, want = _shown(_train_losses(out)), _shown(reference["shown"])
+    require(steps == len(want) and got == want and counts == want_counts,
+            f"X1: {steps} steps, displayed {got[:3]} against L1's {want[:3]}; launches by "
+            f"replay {counts}, {steps} steps imply {want_counts}")
+    traced = torch.load(os.path.join(out, "pytorch_model.bin.0"), weights_only=True)
+    l1 = torch.load(reference["bin"], weights_only=True)
+    off = sorted(set(traced) ^ set(l1)) + [k for k in l1 if k in traced
+                                            and not torch.equal(traced[k], l1[k])]
+    require(not off, f"X1: pytorch_model.bin.0 is not L1's: {off[:8]} ({len(off)} differ)")
+    files = os.listdir(prof_dir)
+    written = [m for m in logged if m.startswith("profiler trace written to ")]
+    export = [re.fullmatch(rf"profiler trace written to {re.escape(prof_dir)} "
+                           rf"\({re.escape(f)}, exported in ([0-9.]+) s\)", m)
+              for m in written for f in files]
+    require(len(files) == 1 and files[0].startswith("rank0.")
+            and files[0].endswith(".pt.trace.json") and len(written) == 1 and export[0],
+            f"X1: trace files {files}, logged {written}")
+    path, export_seconds = os.path.join(prof_dir, files[0]), float(export[0].group(1))
+    t = _x1_trace(path)
+    per_kernel = {n: per_step[k] for k in ("train_attention_fwd", "train_attention_bwd")
+                  for n in TRACE_NAMES[k]}
+    named, streams, own, other, apart = _x1_kernels(t["kernels"], per_kernel)
+    fills = all(FILL in name for k in other for name in k)
+    # a kernel launched between the ranges can only be the input thread's
+    stray = [name for name, s in t["outside"] if s in streams or FILL not in name]
+    require(tuple(t["steps"]) == X1_STEPS and not stray
+            and all(k == own[0] for k in own) and all(n == per_kernel for n in named) and fills,
+            f"X1: ranges for steps {t['steps']} (want {X1_STEPS}); kernels launched outside "
+            f"them {len(t['outside'])}, on #2's stream or no fill {stray[:8]}; kernels a step on "
+            f"#2's stream(s) {streams} {[len(k) for k in own]} (each later step's names beyond "
+            f"the first's and short of them: {apart}), on others {[len(k) for k in other]} "
+            f"({sorted(set(sum(other, [])))[:8]}); #2's by name a step {named}, want {per_kernel}")
+    print(f"X1 {CARD[0]}: task_retrieval --do_train --profile_dir (FT-Joint, {X1_ROUTE} epoch of "
+          f"L1: {steps} steps of {TRAIN_BATCH} clips, bf16, deterministic mode; step route "
+          f"{route}; {seconds:.1f} s the run): every displayed metric and pytorch_model.bin.0 "
+          f"bitwise L1's untraced run, launches by replay {steps} steps'; one trace "
+          f"{os.path.basename(path)}, {os.path.getsize(path) / 2**20:.3f} MiB, exported in "
+          f"{export_seconds:.3f} s, ranges for global steps {t['steps']} and no other; "
+          f"the traced steps' wall {np.mean(t['wall_us']) / 1e3:.3f} ms a step "
+          f"({[round(w / 1e3, 3) for w in t['wall_us']]}), the device busy "
+          f"{t['busy_us'] / t['span_us']:.4f} of the steps' span (the union of the steps' "
+          f"kernels, copies and fills); each event read into the step whose range holds its "
+          f"launch (the card's clock ran up to {t['drift_us']:.1f} us past a range's end on "
+          f"the host's); {len(own[0])} kernels in each step on #2's stream, every step's the "
+          f"same by name, and on other streams {[len(k) for k in other]} a step "
+          f"({sorted(set(sum(other, [])))[:8]}); launched outside the steps {len(t['outside'])} "
+          f"kernels, all fills off #2's stream; #2's tensor-core kernels "
+          f"{ {n: c * len(X1_STEPS) for n, c in per_kernel.items()} } in the trace "
+          f"({per_kernel} a step); the input thread's copies {t['copies_before']} launched "
+          f"before the first step and {t['copies_after']} after the last", flush=True)
+    shutil.rmtree(out)
+    shutil.rmtree(prof_dir)
+    os.remove(reference["bin"])
+    return counts
 
 
 def phase_eval_graphs(vocab: str, files) -> dict:
@@ -6031,7 +6226,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    CARD.append(smi.stdout.strip().splitlines()[0])
+    print(CARD[0], flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
 
@@ -6157,8 +6353,12 @@ def main() -> int:
         by_path.update(phase_train_steps_k2(remat_inits, pre_files, vocab))
         del remat_inits
         stamp("K2")
-        by_path.update(phase_cli_graphs(tmp, vocab, files, ds, cap_files, cap_ds, pre_files))
+        l1_paths, x1_reference = phase_cli_graphs(tmp, vocab, files, ds, cap_files, cap_ds,
+                                                  pre_files)
+        by_path.update(l1_paths)
         stamp("L1")
+        by_path["cli_trace_ft_joint"] = phase_cli_trace(tmp, x1_reference)
+        stamp("X1")
         by_path["input_pipeline"] = phase_input_pipeline(ds, vocab, ret_files, tmp,
                                                          eval_metrics["joint"])
         phase_converter(tmp)

@@ -13,9 +13,20 @@ reads ``cpu``, and ``eager: <the reason>`` for a trainer whose
 ``RetrievalEvaluator``; the functions the evaluator's graphs capture read
 nothing back to the host. The evaluator's eager route against its default
 and against JAX's is in ``tests/test_torch_eval.py``.
+
+``--profile_dir`` traces the steps JAX's loop traces: one Chrome trace a
+process with one range for each of global steps 2-6 (an 8-batch epoch of
+``task_retrieval``, and of ``task_caption --fused_ln``), the run's losses
+and ``.bin`` bitwise the run without it; on a preemption after 4 steps the
+trace of steps 2-3 is on disk before the train state, and the resumed run
+traces from index 2 of its part of the epoch; a raise writes the steps so
+far, and a directory that cannot be written raises; two ranks write a
+trace each; a 2-batch epoch and ``cli.pretrain`` write no trace.
 """
 
+import contextlib
 import copy
+import glob
 import json
 import os
 import types
@@ -34,6 +45,8 @@ from univl_tpu_torch.models.univl import UniVL
 from univl_tpu_torch.parallel.mesh import DP_AXIS, Mesh
 from univl_tpu_torch.train.optimization import make_univl_optimizer
 from univl_tpu_torch.train.trainer import Trainer
+from univl_tpu_torch.utils import profiling
+from univl_tpu_torch.utils.profiling import STEP_RANGE
 
 TINY = ["--max_words", "12", "--video_dim", "16", "--hidden_size", "32",
         "--num_attention_heads", "4", "--intermediate_size", "64",
@@ -264,3 +277,153 @@ def test_evaluator_graph_functions_make_no_host_read(monkeypatch):
     torch.testing.assert_close(text.norm(dim=-1), torch.ones(6))
     assert stripe.shape == (2, 6) and torch.isfinite(stripe).all()
     torch.testing.assert_close(stripe, torch.cat(tiles, dim=1), rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def epoch8(tmp_path_factory):
+    """YouCook2-format fixtures of 8 videos x 4 clips: an epoch of 8
+    update-batches of 4 clips."""
+    d = tmp_path_factory.mktemp("epoch8")
+    return fixtures.make_youcook(str(d), n_videos=8, clips_per_video=4, video_dim=16, seed=9)
+
+
+def _epoch8_argv(kind: str, files, epoch8, out: str, *extra) -> list:
+    vocab, _, howto = files
+    argv = _argv(kind, (vocab, epoch8, howto), out)
+    return argv + ["--epochs", "1", *extra]
+
+
+def _traces(profile_dir: str) -> list:
+    return sorted(glob.glob(os.path.join(profile_dir, "*.pt.trace.json")))
+
+
+def _traced_steps(path: str) -> list:
+    """The global steps of the trace's step ranges, in order."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted(int(e["name"][len(STEP_RANGE):]) for e in events
+                  if e.get("cat") == "user_annotation" and e["name"].startswith(STEP_RANGE))
+
+
+def _run_record(out: str) -> tuple:
+    """The run's displayed metrics (without the clock's) and its .bin."""
+    shown = [{k: v for k, v in r.items() if k not in ("ts", "clips_per_sec")}
+             for r in _records(out, "train")]
+    return shown, torch.load(os.path.join(out, "pytorch_model.bin.0"), weights_only=True)
+
+
+@pytest.mark.parametrize("kind", ["ft_joint", "caption"])
+def test_profile_dir_traces_jax_steps_and_changes_nothing(kind, files, epoch8, tmp_path,
+                                                          caplog):
+    """One epoch of 8 update-batches with ``--profile_dir``: one trace,
+    ``rank0.<ms>.pt.trace.json``, with a range for each of global steps 2-6
+    and none for any other; every displayed metric and the ``.bin``
+    bitwise the run without the flag."""
+    prof = str(tmp_path / "prof")
+    traced, plain = str(tmp_path / "traced"), str(tmp_path / "plain")
+    assert MAINS[kind](_epoch8_argv(kind, files, epoch8, traced, "--profile_dir", prof))[0] == 8
+    MAINS[kind](_epoch8_argv(kind, files, epoch8, plain))
+    [path] = _traces(prof)
+    assert os.path.basename(path).startswith("rank0.")
+    assert _traced_steps(path) == [2, 3, 4, 5, 6]
+    (got, got_bin), (want, want_bin) = _run_record(traced), _run_record(plain)
+    assert len(got) == 8 and got == want
+    _assert_same(got_bin, want_bin, "pytorch_model.bin.0")
+    written = f"profiler trace written to {prof} ({os.path.basename(path)}, exported in "
+    assert sum(m.startswith(written) for m in caplog.messages) == 1
+
+
+def test_profile_dir_traces_every_rank(files, epoch8, tmp_path):
+    """``--n_gpu 2`` (two gloo ranks the CLI spawns, the eager route): each
+    rank writes its own trace of global steps 2-6, named by its rank."""
+    out, prof = str(tmp_path / "run"), str(tmp_path / "prof")
+    argv = _epoch8_argv("ft_joint", files, epoch8, out, "--n_gpu", "2", "--profile_dir", prof)
+    assert task_retrieval.main(argv)[0] == 8
+    traces = _traces(prof)
+    assert [os.path.basename(p).split(".")[0] for p in traces] == ["rank0", "rank1"]
+    assert [_traced_steps(p) for p in traces] == [[2, 3, 4, 5, 6]] * 2
+
+
+def test_profile_dir_on_preemption_writes_before_the_train_state(files, epoch8, tmp_path,
+                                                                 monkeypatch):
+    """``--inject_preempt_after 4``: the trace of steps 2-3 is on disk when
+    the train state is taken; ``--load_checkpoint`` then traces from index 2
+    of the resumed part of the epoch (JAX's ``step``): global steps 6-7."""
+    out, prof = str(tmp_path / "run"), str(tmp_path / "prof")
+    on_disk = []
+    real = common.train_state
+
+    def spied(trainer):
+        on_disk.append([_traced_steps(p) for p in _traces(prof)])
+        return real(trainer)
+
+    monkeypatch.setattr(common, "train_state", spied)
+    argv = _epoch8_argv("ft_joint", files, epoch8, out, "--profile_dir", prof)
+    assert task_retrieval.main(argv + ["--inject_preempt_after", "4"])[0] == 4
+    assert on_disk == [[[2, 3]]]
+    resumed = str(tmp_path / "resumed")
+    assert task_retrieval.main(argv[:-1] + [resumed, "--load_checkpoint"])[0] == 8
+    assert [_traced_steps(p) for p in _traces(resumed)] == [[6, 7]]
+
+
+def _tiny_loop(tmp_path, profile_dir: str, **kw):
+    """``run_train_epochs`` over 8 batches of a tiny FT-Joint trainer."""
+    layers = dict(hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
+                  intermediate_size=64)
+    cfg = config.UniVLConfig.tiny(bert=config.BertConfig(vocab_size=64, **layers),
+                                  visual=config.VisualConfig(vocab_size=32, **layers),
+                                  max_words=8, max_frames=6, video_dim=16)
+    model = UniVL(cfg)
+    model.load_state_dict(init_state_dict(cfg, 0), strict=True)
+    trainer = Trainer(model, make_univl_optimizer(model, lr=1e-3, t_total=10), seed=3)
+    out = str(tmp_path / "run")
+    return common.run_train_epochs(_loop_args(out, **kw), trainer, _tiny_batcher(cfg, 8),
+                                   common.get_logger(out), torch.device("cpu"),
+                                   profile_dir=profile_dir)
+
+
+def test_profile_dir_on_a_raise_writes_the_steps_so_far(tmp_path):
+    """The loop raises after 4 steps (``--inject_crash_after``): its
+    ``finally`` writes the trace of steps 2-3."""
+    prof = str(tmp_path / "prof")
+    with pytest.raises(RuntimeError, match="injected crash"):
+        _tiny_loop(tmp_path, prof, inject_crash_after=4)
+    assert [_traced_steps(p) for p in _traces(prof)] == [[2, 3]]
+
+
+def test_profile_dir_that_cannot_be_written_raises(tmp_path):
+    """A ``--profile_dir`` under a file: the run raises, nothing swallows it."""
+    blocker = tmp_path / "a_file"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        _tiny_loop(tmp_path, str(blocker / "prof"))
+
+
+@pytest.mark.parametrize("kind", ["two_batches", "pretrain"])
+def test_profile_dir_writes_nothing(kind, files, tmp_path):
+    """An epoch of 2 update-batches never reaches index 2, and pretraining
+    traces nothing (JAX's pretraining loop has no trace): no trace file."""
+    out, prof = str(tmp_path / "run"), str(tmp_path / "prof")
+    if kind == "pretrain":
+        argv = _argv("pretrain", files, out) + ["--epochs", "1"]
+    else:  # the module's 12 clips in batches of 6
+        argv = _argv("ft_joint", files, out) + ["--batch_size", "6", "--epochs", "1"]
+    steps = MAINS["pretrain" if kind == "pretrain" else "ft_joint"](
+        argv + ["--profile_dir", prof])[0]
+    assert steps == 2 and not _traces(prof)
+
+
+@pytest.mark.parametrize("raises", [False, True])
+def test_trace_writes_one_file_for_the_rank(raises, tmp_path):
+    """``utils/profiling.py:trace``, JAX's ``trace`` on ``torch.profiler``:
+    one Chrome trace named by the rank, holding the block's ranges, written
+    also when the block raises."""
+    prof = str(tmp_path / "prof")
+    with pytest.raises(ValueError) if raises else contextlib.nullcontext():
+        with profiling.trace(prof, "cpu", rank=3):
+            with torch.profiler.record_function(f"{STEP_RANGE}7"):
+                torch.ones(4) @ torch.ones(4)
+            if raises:
+                raise ValueError("the block raised")
+    [path] = _traces(prof)
+    assert os.path.basename(path).startswith("rank3.") and _traced_steps(path) == [7]

@@ -2,8 +2,11 @@
 retrieval and caption trainers and pretraining), without JAX.
 
 The port's own copies of ``univl_tpu/cli/common.py``'s ``MetricsWriter``,
-``get_logger``, ``base_parser`` (restricted to the flags the ported paths
-read, under the JAX names and defaults, plus ``--fused_ln`` and
+``get_logger``, ``base_parser`` (JAX's flags under their names, types and
+defaults, but ``--scan_layers``, ``--use_pallas``, ``--attention`` and
+``--train_attention``, which are TPU-only; ``--lr_decay``,
+``--fp16_opt_level``, ``--world_size`` and ``--local_rank`` parsed and
+unused, as in JAX; plus ``--fused_ln`` and
 ``--fused_cls``, the counterparts of JAX's ``UNIVL_TPU_FUSED_LN=1`` and
 ``UNIVL_TPU_FUSED_CLS=1``, and ``--decode_unroll``, of
 ``UNIVL_TPU_DECODE_UNROLL``), ``add_fused_ffn_arg`` (the
@@ -14,10 +17,11 @@ local ``<kind>_config.json`` of ``--bert_model`` and the other three),
 (the prefetching input pipeline), ``make_preempt_flag``, ``preempt_hit``
 and ``run_train_epochs`` (per-epoch eval and the best epoch, preemption,
 the train-state checkpoints, synchronous or on a thread, and exact resume),
-and the trainers' data and tensor parallelism: ``add_parallel_args``,
-``check_parallel_args`` and ``run_on_ranks`` (``--n_gpu``, ``--zero1``,
-``--dist_backend``, ``--tensor_parallel``, ``--sequence_parallel``;
-``parallel/mesh.py``, ``parallel/tp.py``).
+and the trainers' data and tensor parallelism: ``base_parser``'s
+``--n_gpu``, ``--zero1``, ``--tensor_parallel`` and ``--sequence_parallel``
+(the server ignores them, as JAX's), ``add_dist_backend_arg``,
+``check_parallel_args`` and ``run_on_ranks`` (``parallel/mesh.py``,
+``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ from univl_tpu_torch.train.trainer import Trainer
 from univl_tpu_torch.train.zero1 import make_univl_zero1_optimizer
 from univl_tpu_torch.train.zero1_tp import make_univl_zero1_tp_optimizer
 from univl_tpu_torch.utils.file_utils import ARCHIVES, cached_path
-from univl_tpu_torch.utils.profiling import StepTimer
+from univl_tpu_torch.utils.profiling import StepTimer, StepTrace
 
 
 class MetricsWriter:
@@ -136,9 +140,22 @@ def _decode_unroll(value: str) -> int:
     return u
 
 
+UNUSED = "parsed and unused, as in JAX"
+
+
 def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
+    p.add_argument("--do_pretrain", action="store_true",
+                   help="pretraining: the mode of univl_tpu_torch.cli.pretrain (implied there); "
+                        "the task CLIs refuse it, the server passes it to the model's config")
     p.add_argument("--do_train", action="store_true")
+    p.add_argument("--do_eval", action="store_true",
+                   help="task_retrieval: R@K, MedianR and MeanR over --val_csv; task_caption: "
+                        "beam-5 captions of --val_csv and their metrics; with --do_train after "
+                        "every epoch. Pretraining and the server ignore it, as in JAX")
+    p.add_argument("--task_type", type=str, default="retrieval",
+                   help="task_retrieval refuses any but retrieval, task_caption sets caption; "
+                        "pretraining and the server take their mode's own, as in JAX")
     p.add_argument("--train_csv", type=str, default="data/youcookii_singlef_train.csv")
     p.add_argument("--val_csv", type=str, default="data/youcookii_singlef_val.csv")
     p.add_argument("--data_path", type=str, default="data/youcookii_caption.pickle")
@@ -164,6 +181,29 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--warmup_proportion", type=float, default=0.1)
     p.add_argument("--coef_lr", type=float, default=0.1)
     p.add_argument("--n_display", type=int, default=100)
+    # the trainers' parallelism (univl_tpu/cli/common.py:133-150, 224-228);
+    # the server ignores it, as JAX's does
+    p.add_argument("--n_gpu", type=int, default=0,
+                   help="trainers: data-parallel ranks, one a card; 0 = every visible card "
+                        "(one rank on the CPU). Above 1 the command starts its ranks itself, "
+                        "unless a launcher (torchrun) started it. The server ignores it")
+    p.add_argument("--zero1", action="store_true",
+                   help="trainers: ZeRO-1, BertAdam's moments and update sharded over the "
+                        "data-parallel ranks (train/zero1.py; with --tensor_parallel above 1 "
+                        "train/zero1_tp.py). The server ignores it")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="trainers: tp axis size of a 2-D (dp, tp) grid of the ranks; weights "
+                        "are Megatron-sharded over tp (parallel/tp.py). Must divide the rank "
+                        "count. The server ignores it")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="trainers, with --tensor_parallel > 1: shard the encoder LN/dropout/"
+                        "residual regions over the rows (Megatron-SP; reduce-scatter + "
+                        "all-gather replace the tp all-reduces, parallel/sp.py). The server "
+                        "ignores it")
+    p.add_argument("--lr_decay", type=float, default=0.9, help=UNUSED)
+    p.add_argument("--fp16_opt_level", type=str, default="O1", help=UNUSED)
+    p.add_argument("--world_size", type=int, default=0, help=UNUSED)
+    p.add_argument("--local_rank", type=int, default=0, help=UNUSED)
     p.add_argument("--adam_state_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage dtype for BertAdam moments; bfloat16 halves optimizer "
@@ -245,31 +285,20 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--cache_dir", type=str, default="",
                    help="where a --*_model archive is extracted (default: UNIVL_TPU_CACHE or "
                         "~/.cache/univl_tpu/artifacts)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="trace five training steps from step 2 of the first epoch with "
+                        "torch.profiler (task_retrieval, task_caption): one Chrome trace per "
+                        "process, rank<r>.<ms>.pt.trace.json, for Perfetto or TensorBoard")
     return p
 
 
-def add_parallel_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The trainers' parallelism flags, under the JAX names and defaults
-    (``univl_tpu/cli/common.py:133-150, 224-228``), and ``--dist_backend``."""
-    p.add_argument("--n_gpu", type=int, default=0,
-                   help="data-parallel ranks, one a card; 0 = every visible card (one rank "
-                        "on the CPU). Above 1 the command starts its ranks itself, unless a "
-                        "launcher (torchrun) started it")
-    p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1: BertAdam's moments and update sharded over the data-parallel "
-                        "ranks (train/zero1.py; with --tensor_parallel above 1 "
-                        "train/zero1_tp.py)")
+def add_dist_backend_arg(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The trainers' ``--dist_backend``, a flag of the port's own: the
+    process group of the ranks that ``base_parser``'s parallelism flags
+    ask for."""
     p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                    help="the ranks' process group: nccl on the card, gloo on the CPU by "
                         "default; gloo given explicitly may put several ranks on one card")
-    p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="tp axis size of a 2-D (dp, tp) grid of the ranks; weights are "
-                        "Megatron-sharded over tp (parallel/tp.py). Must divide the rank "
-                        "count")
-    p.add_argument("--sequence_parallel", action="store_true",
-                   help="with --tensor_parallel > 1: shard the encoder LN/dropout/residual "
-                        "regions over the rows (Megatron-SP; reduce-scatter + all-gather "
-                        "replace the tp all-reduces, parallel/sp.py)")
     return p
 
 
@@ -660,7 +689,8 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                      eval_fn: Optional[Callable[[int], dict]] = None,
                      select_key: Optional[str] = None, select_sign: float = 1.0,
                      manager=None, state_every_epoch: bool = False,
-                     eval_model: Optional[torch.nn.Module] = None):
+                     eval_model: Optional[torch.nn.Module] = None,
+                     profile_dir: Optional[str] = None):
     """The epoch loop of ``univl_tpu.cli.common.run_train_epochs`` (and of
     ``univl_tpu/cli/pretrain.py``'s ``main``): the batches through
     ``make_input_iter``, one optimizer step, the losses summed on the device (read at display points
@@ -710,7 +740,20 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
     broadcasts the score of the selected metric. Under tensor parallelism
     every rank gathers the weights into the tp=1 layout after each epoch
     (``full_state_dict``), which rank 0 writes and loads into ``eval_model``
-    (``make_eval_model``'s whole model) before ``eval_fn`` runs on it."""
+    (``make_eval_model``'s whole model) before ``eval_fn`` runs on it.
+
+    With ``profile_dir`` (``--profile_dir``; the task CLIs pass it, as JAX's
+    do, pretraining does not) every rank traces the steps JAX's loop traces
+    (``univl_tpu/cli/common.py:611-665``) with ``torch.profiler``
+    (``utils/profiling.py:StepTrace``): five update-batches from index 2 of
+    the first epoch, counted from this run's start in it (a resumed epoch 0
+    from its offset), carried into the next epoch if that one ends first;
+    nothing when epoch 0 never reaches index 2 in this run. The session
+    opens at index 1, a replay on the graph route, as its warmup step. The
+    trace, ``<profile_dir>/rank<r>.<ms>.pt.trace.json``, is written after
+    the fifth step, on a preemption before the train state is saved, at the
+    loop's end, and when the loop raises; a trace that cannot be written
+    raises."""
     mesh = getattr(trainer, "mesh", None) or Mesh()
     best, best_score = None, -np.inf
     global_step, start_epoch, start_step_in_epoch = 0, 0, 0
@@ -777,6 +820,18 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
         mw.write("checkpoint", epoch=epoch, step=global_step, preempted=preempted,
                  blocked_seconds=blocked)
 
+    window = None  # the traced steps (profile_dir)
+
+    def close_trace():
+        nonlocal window
+        closing, window = window, None
+        if closing is not None:
+            t0 = time.perf_counter()
+            path = closing.close()
+            if path:
+                logger.info("profiler trace written to %s (%s, exported in %.3f s)", profile_dir,
+                            os.path.basename(path), time.perf_counter() - t0)
+
     try:
         timer = StepTimer()
         accum = args.gradient_accumulation_steps
@@ -790,11 +845,19 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
             offset = start_step_in_epoch if epoch == start_epoch else 0
             with contextlib.closing(make_input_iter(args, batcher, epoch, device,
                                                     start_batch=offset)) as batches:
-                for batch in batches:
-                    metrics = train_step(batch, global_step)
+                for index, batch in enumerate(batches):
+                    if profile_dir and epoch == 0 and index == 1:
+                        window = StepTrace(profile_dir, device, rank=mesh.rank)
+                    # a traced step's range holds all its device work, the loss's sum too
+                    with (window.step(global_step) if window is not None
+                          else contextlib.nullcontext()):
+                        metrics = train_step(batch, global_step)
+                        loss_sum = (metrics["loss"] if loss_sum is None
+                                    else loss_sum + metrics["loss"])
+                    if window is not None and window.done:
+                        close_trace()
                     global_step += 1
                     n_steps += 1
-                    loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
                     timer.tick(items_per_step)
                     if global_step % args.n_display == 0:
                         shown = {k: float(v) for k, v in metrics.items()}
@@ -805,6 +868,7 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                         mw.write("train", epoch=epoch, step=global_step, loss=disp_loss,
                                  clips_per_sec=timer.items_per_sec, **shown)
                     if mesh.any(preempt_hit(args, preempt, global_step - steps_at_start)):
+                        close_trace()  # the trace reaches disk before the train state
                         save_train_state(epoch, offset + n_steps, True)
                         logger.info("preempted at epoch %d step %d: checkpoint saved, exiting",
                                     epoch + 1, global_step)
@@ -815,6 +879,8 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
                         save_train_state(epoch, offset + n_steps, False)
                         logger.info("periodic checkpoint at epoch %d step %d", epoch + 1,
                                     global_step)
+            if window is not None and not window.traced:
+                close_trace()  # epoch 0 ended before index 2: nothing traced, as in JAX
             total_loss = float(loss_sum) if loss_sum is not None else 0.0
             logger.info("Epoch %d done: mean loss %.6f (%.1fs)", epoch + 1,
                         total_loss / max(n_steps, 1), time.time() - t0)
@@ -823,6 +889,7 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
             # a SIGTERM after the epoch's last step saves now, before the eval:
             # a preemption's grace is tens of seconds
             if mesh.any(preempt["hit"]):
+                close_trace()
                 save_train_state(epoch, offset + n_steps, True)
                 logger.info("preempted at epoch %d end: checkpoint saved, exiting", epoch + 1)
                 return global_step, best
@@ -851,12 +918,16 @@ def run_train_epochs(args, trainer: Trainer, batcher, logger, device: torch.devi
             mesh.barrier()
             if state_every_epoch or not args.no_preempt_checkpoint:
                 save_train_state(epoch, 0, False, mean_loss=total_loss / max(n_steps, 1))
+        close_trace()
         if best is not None:
             logger.info("Best: epoch %d by %s, %s: %s", best["epoch"] + 1, select_key, BEST_BIN,
                         best)
             mw.write("best", **best)
         return global_step, best
     finally:
-        store.wait()  # a failed write raises here
-        mw.close()
+        try:
+            close_trace()
+        finally:
+            store.wait()  # a failed write raises here
+            mw.close()
 

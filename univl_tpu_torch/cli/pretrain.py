@@ -41,6 +41,8 @@ batch, and ``--zero1`` shards BertAdam's state over them, as in
 of ranks as there (in stage II the masked-language head's logits and cross
 entropy vocab-parallel too); the train state is written in the tp=1 layout,
 so a run resumes at another tp size or with or without ``--zero1``.
+``--do_eval`` and ``--task_type`` are parsed and ignored, and
+``--profile_dir`` traces nothing, as in JAX's pretraining loop.
 """
 
 from __future__ import annotations
@@ -79,13 +81,17 @@ def add_pretrain_args(p):
     return p
 
 
-def parse_args(argv=None):
-    parser = common.add_parallel_args(add_pretrain_args(common.add_fused_ffn_arg(
+def build_parser():
+    parser = common.add_dist_backend_arg(add_pretrain_args(common.add_fused_ffn_arg(
         common.base_parser("UniVL Pretrain (PyTorch)"))))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu (their "
                              "plain PyTorch versions)")
-    parser.add_argument("--do_pretrain", action="store_true", help="implied")
+    return parser
+
+
+def parse_args(argv=None):
+    parser = build_parser()
     args = parser.parse_args(argv)
     common.check_parallel_args(parser, args)
     if not args.vocab_file:
@@ -128,6 +134,9 @@ def run(args, mesh):
                                             max_to_keep=args.keep_checkpoints,
                                             async_save=args.async_checkpointing,
                                             primary=mesh.primary)
+    if args.profile_dir and mesh.primary:
+        logger.info("--profile_dir %s: pretraining traces no steps, as in JAX; task_retrieval "
+                    "and task_caption do", args.profile_dir)
     steps, _ = common.run_train_epochs(args, trainer, batcher, logger, device, manager=manager,
                                        state_every_epoch=True)
     return steps, trainer

@@ -31,6 +31,13 @@ for the encode and one for every ``--decode_unroll`` decode steps, and the
 index's encode batches and rerank tiles are one replay each; in ``--mode
 both`` the index and the caption generator keep their graphs in pools of
 their own, and the one lock keeps their captures and replays apart.
+
+The server takes every flag of ``common.base_parser``, as JAX's takes its
+``base_parser``'s: ``--fused_ffn`` picks the encoders' FFN route,
+``--do_pretrain`` goes to the model's config (``common.build_config``), and
+the rest of the training flags (``--do_eval``, ``--task_type``, the
+parallelism flags, ``--profile_dir``) are parsed and unused; the mode sets
+the task type.
 """
 
 from __future__ import annotations
@@ -213,11 +220,16 @@ def make_server(args) -> Server:
     return server
 
 
-def main(argv=None, serve_forever: bool = True) -> Server:
-    parser = add_serve_args(common.base_parser("UniVL Serve (PyTorch)"))
+def build_parser():
+    parser = add_serve_args(common.add_fused_ffn_arg(common.base_parser("UniVL Serve (PyTorch)")))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu "
                              "(their plain PyTorch versions)")
+    return parser
+
+
+def main(argv=None, serve_forever: bool = True) -> Server:
+    parser = build_parser()
     args = parser.parse_args(argv)
     logger = common.get_logger(args.output_dir)
     if not args.vocab_file:

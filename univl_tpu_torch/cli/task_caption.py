@@ -34,7 +34,9 @@ state to ``train_state.pt`` after each epoch and on preemption;
 ``--load_checkpoint`` resumes at the exact update-batch. ``--use_mil`` is
 accepted and ignored, as by JAX's driver (stage two has no MIL loss);
 ``--do_pretrain`` is refused: pretraining's entry point is
-``univl_tpu_torch.cli.pretrain``. ``--remat`` (with ``--remat_policy
+``univl_tpu_torch.cli.pretrain``; ``--task_type`` is set to ``caption``
+whatever was given, as by JAX's CLI. ``--profile_dir`` traces five
+training steps as in ``task_retrieval``. ``--remat`` (with ``--remat_policy
 dots``) recomputes the towers' layers in the backward (the decoder's are
 kept, as in JAX); the training batches come through
 ``common.make_input_iter`` and the eval batches through
@@ -71,17 +73,17 @@ EVAL_KEYS = ("input_ids", "token_type_ids", "attention_mask", "video", "video_ma
 BEAM_SIZE = 5
 
 
-def parse_args(argv=None):
-    parser = common.add_parallel_args(common.add_fused_ffn_arg(
+def build_parser():
+    parser = common.add_dist_backend_arg(common.add_fused_ffn_arg(
         common.base_parser("UniVL Caption (PyTorch)")))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu (their "
                              "plain PyTorch versions)")
-    parser.add_argument("--do_eval", action="store_true",
-                        help="beam-5 captions of --val_csv and their metrics; with --do_train "
-                             "after every epoch")
-    for flag in REFUSED:
-        parser.add_argument(f"--{flag}", action="store_true", help="refused here")
+    return parser
+
+
+def parse_args(argv=None):
+    parser = build_parser()
     args = parser.parse_args(argv)
     for flag, why in REFUSED.items():
         if getattr(args, flag):
@@ -96,6 +98,7 @@ def parse_args(argv=None):
     if not args.vocab_file:
         parser.error("--vocab_file required")
     args.stage_two = True  # the caption task is stage two's, as in the JAX driver
+    args.task_type = "caption"  # whatever was given, as JAX's CLI sets it
     return args
 
 
@@ -207,7 +210,8 @@ def run(args, mesh):
     batcher = common.make_batcher(args, train_ds, mesh)
     trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     return common.run_train_epochs(args, trainer, batcher, logger, device, eval_fn=eval_fn,
-                                   select_key="Bleu_4", eval_model=eval_model)
+                                   select_key="Bleu_4", eval_model=eval_model,
+                                   profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

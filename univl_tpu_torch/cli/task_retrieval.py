@@ -37,7 +37,11 @@ best epoch's to ``pytorch_model.bin.best``, and the train state to
 ``train_state.pt`` after each epoch and on preemption (SIGTERM, or
 ``--inject_preempt_after``); ``--load_checkpoint`` resumes at the exact
 update-batch. ``--do_pretrain`` is refused: pretraining's entry point is
-``univl_tpu_torch.cli.pretrain``. ``--remat`` (with ``--remat_policy
+``univl_tpu_torch.cli.pretrain``; so is a ``--task_type`` other than
+``retrieval``, as JAX's CLI asserts. ``--profile_dir DIR`` traces five
+training steps from step 2 of the first epoch with ``torch.profiler``, one
+Chrome trace a rank (``DIR/rank<r>.<ms>.pt.trace.json``;
+``common.run_train_epochs``). ``--remat`` (with ``--remat_policy
 dots``) recomputes the towers' layers in the backward; the training batches
 come through ``common.make_input_iter`` and the eval batches through
 ``prefetch_to_device`` (read and tokenized while the device encodes) unless
@@ -79,21 +83,24 @@ REFUSED = {
 }
 
 
-def parse_args(argv=None):
-    parser = common.add_parallel_args(common.add_fused_ffn_arg(
+def build_parser():
+    parser = common.add_dist_backend_arg(common.add_fused_ffn_arg(
         common.base_parser("UniVL Retrieval (PyTorch)")))
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (the hand-written kernels) or cpu (their "
                              "plain PyTorch versions)")
-    parser.add_argument("--do_eval", action="store_true",
-                        help="R@K, MedianR and MeanR over --val_csv; with --do_train after "
-                             "every epoch")
-    for flag in REFUSED:
-        parser.add_argument(f"--{flag}", action="store_true", help="refused here")
+    return parser
+
+
+def parse_args(argv=None):
+    parser = build_parser()
     args = parser.parse_args(argv)
     for flag, why in REFUSED.items():
         if getattr(args, flag):
             parser.error(f"--{flag}: {why}")
+    if args.task_type != "retrieval":  # JAX asserts it (univl_tpu/cli/task_retrieval.py:71)
+        parser.error(f"--task_type {args.task_type}: this entry point trains and evaluates "
+                     f"retrieval; captioning's is python -m univl_tpu_torch.cli.task_caption")
     common.check_parallel_args(parser, args)
     if not (args.do_train or args.do_eval):
         parser.error("give --do_train, --do_eval or both")
@@ -177,7 +184,8 @@ def run(args, mesh):
     batcher = common.make_batcher(args, train_ds, mesh)
     trainer = common.make_trainer(args, model, len(batcher), logger, mesh)
     return common.run_train_epochs(args, trainer, batcher, logger, device, eval_fn=eval_fn,
-                                   select_key="R1", select_sign=1.0, eval_model=eval_model)
+                                   select_key="R1", select_sign=1.0, eval_model=eval_model,
+                                   profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":
